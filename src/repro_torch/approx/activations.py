@@ -1,0 +1,258 @@
+"""Nonlinearity backend of the port: every elementary function the model
+evaluates runs ``exact`` (PyTorch transcendentals), ``table_ref`` (the
+paper-faithful per-function table, plain PyTorch), ``table_pack`` (ONE packed
+multi-function artifact + one CUDA kernel for the whole network) or
+``table_pack_ref`` (the pack's plain PyTorch version).  Configured per model
+via :class:`ApproxConfig`, whose fields and defaults are the JAX package's.
+
+The JAX package's other modes (``table_pallas``, the quantized, polynomial,
+routed, sharded and folded packs) raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.flow import cached_table
+from repro_torch.device import DeviceLike, resolve_device
+
+from .table_pack import TablePack, build_pack, make_attn_exp_fn, make_pack_fn
+from .torch_table import TorchTable, from_spec, make_table_fn
+
+PACK_MODES = ("table_pack", "table_pack_ref")
+TABLE_MODES = ("table_ref",) + PACK_MODES
+# modes whose runtime is the CUDA kernels (vs the plain PyTorch versions)
+_KERNEL_BACKED = ("table_pack",)
+
+# The JAX package's other modes, with the ROADMAP item (queue 1 unless noted)
+# that brings each to the port.
+NOT_PORTED = {
+    "table_pallas": "ROADMAP queue 2 (_table_kernel)",
+    "quant_pack": "ROADMAP queue 1, item 7 (QuantPack)",
+    "quant_pack_ref": "ROADMAP queue 1, item 7 (QuantPack)",
+    "poly_pack": "ROADMAP queue 1, item 8 (PolyPack)",
+    "poly_pack_ref": "ROADMAP queue 1, item 8 (PolyPack)",
+    "routed_pack": "ROADMAP queue 1, item 9 (routed dispatch)",
+    "routed_pack_ref": "ROADMAP queue 1, item 9 (routed dispatch)",
+    "routed_quant_pack": "ROADMAP queue 1, item 9 (routed dispatch)",
+    "routed_quant_pack_ref": "ROADMAP queue 1, item 9 (routed dispatch)",
+    "routed_poly_pack": "ROADMAP queue 1, item 9 (routed dispatch)",
+    "routed_poly_pack_ref": "ROADMAP queue 1, item 9 (routed dispatch)",
+    "sharded_pack": "ROADMAP queue 1, item 12 (ShardedPack)",
+    "sharded_pack_ref": "ROADMAP queue 1, item 12 (ShardedPack)",
+    "folded_pack": "ROADMAP queue 1, item 10 (RangeFold)",
+    "folded_pack_ref": "ROADMAP queue 1, item 10 (RangeFold)",
+    "folded_routed_pack": "ROADMAP queue 1, item 10 (RangeFold)",
+    "folded_routed_pack_ref": "ROADMAP queue 1, item 10 (RangeFold)",
+}
+
+
+def _check_mode(mode: str) -> None:
+    if mode == "exact" or mode in TABLE_MODES:
+        return
+    if mode in NOT_PORTED:
+        raise NotImplementedError(
+            f"approx mode {mode!r} is not ported yet: {NOT_PORTED[mode]}")
+    raise ValueError(f"unknown approx mode {mode!r}")
+
+
+def odd_extension(fn):
+    """Extend an odd function's negative-half approximator to all reals.
+
+    The paper tables tanh on its Table-2 interval [-8, 0); gates and softcap
+    need both signs.  For odd f, f(x) = s * f(s*x) with s = -sign(x) reuses the
+    same table with zero extra entries.  The mirror factor takes x's dtype (the
+    JAX package's weak-typed scalar does the same), so a bf16 input stays bf16.
+    """
+
+    def extended(x):
+        s = torch.where(x >= 0, -1.0, 1.0).to(x.dtype)
+        return s * fn(s * x)
+
+    return extended
+
+
+# Registry tables spanning only the negative half-domain of an odd function:
+# every table-mode ``unary`` routes them through ``odd_extension``.
+_ODD_HALF_DOMAIN = {"tanh"}
+
+# The function set the model zoo routes through the approx backend (post
+# _TABLE_NAME remap): gelu/silu for MLPs, tanh + sigmoid_sym for gates/softcap,
+# softplus for SSM dt, exp_neg for the softmax exponent.
+DEFAULT_PACK_FUNCTIONS = (
+    "gelu", "silu", "tanh", "sigmoid_sym", "softplus", "exp_neg",
+)
+
+# One pack per distinct (functions, e_a, algorithm, omega, intervals, device):
+# model constructors re-request the same pack for every activation.
+_PACK_CACHE: Dict[tuple, TablePack] = {}
+# one TableFlash exponent closure per distinct attn_table configuration and
+# device — every attention layer shares it
+_ATTN_EXP_CACHE: Dict[tuple, Callable] = {}
+
+_EXACT: Dict[str, Callable] = {
+    "gelu": lambda x: F.gelu(x),
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": F.silu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "sigmoid_sym": torch.sigmoid,
+    "softplus": F.softplus,
+    "exp": torch.exp,
+    "exp_neg": torch.exp,
+    "sin": torch.sin,
+    "cos": torch.cos,
+    "log": torch.log,
+    "erf": torch.erf,
+    "relu": F.relu,  # piecewise-linear already; never table'd
+    "identity": lambda x: x,
+}
+
+# Registry-name remaps for activations whose table spec differs from the exact name.
+_TABLE_NAME = {
+    "gelu_tanh": "gelu",  # tanh-GELU ~ erf-GELU within 1e-3; table targets exact GELU
+    "sigmoid": "sigmoid_sym",
+    "exp": "exp_neg",
+}
+
+_NEVER_TABLED = {"relu", "identity"}
+
+# Activations with linear asymptotes: extend the edge segments linearly instead of
+# saturating.  Flat-asymptote functions (tanh/sigmoid/exp_neg) keep the hardware
+# clamp — it IS their asymptote.
+_EXTRAPOLATE = {"gelu", "gelu_tanh", "silu", "softplus"}
+
+
+@dataclass(frozen=True)
+class ApproxConfig:
+    """How the model evaluates its elementary functions (the JAX package's
+    fields and defaults; see its docstrings for the modes not ported yet).
+
+    ``e_a`` is the paper's maximum absolute approximation error; ``algorithm``
+    / ``omega`` select the interval splitter.  ``softmax_table`` routes the
+    softmax exponent through the exp table; ``attn_table`` (TableFlash) serves
+    flash attention's running-softmax exponent from the pack's exp_neg member.
+    """
+
+    mode: str = "exact"
+    e_a: float = 1e-4
+    algorithm: str = "hierarchical"
+    omega: float = 0.3
+    exact_grad: bool = False
+    softmax_table: bool = False
+    interval_overrides: Dict[str, Tuple[float, float]] = field(default_factory=dict)
+    pack_functions: Tuple[str, ...] = DEFAULT_PACK_FUNCTIONS
+    quant_rho: float = 0.9
+    pack_dtype: str = "auto"
+    pack_budget: Optional[int] = None
+    pack_shards: int = 2
+    rope_table: bool = False
+    attn_table: bool = False
+
+    def table_for(self, name: str, device: DeviceLike = None) -> TorchTable:
+        reg_name = _TABLE_NAME.get(name, name)
+        lo, hi = self.interval_overrides.get(reg_name, (None, None))
+        spec = cached_table(
+            reg_name, self.e_a, lo, hi, algorithm=self.algorithm, omega=self.omega
+        )
+        return from_spec(spec, device)
+
+    def pack(self, device: DeviceLike = None) -> TablePack:
+        """The ONE multi-function pack this config's activations share, on
+        ``device`` (cached per device)."""
+        dev = resolve_device(device)
+        names = tuple(self.pack_functions)
+        overrides = tuple(sorted(
+            (k, v) for k, v in self.interval_overrides.items() if k in names))
+        key = (names, self.e_a, self.algorithm, self.omega, overrides, str(dev))
+        if key not in _PACK_CACHE:
+            _PACK_CACHE[key] = build_pack(
+                names, self.e_a, algorithm=self.algorithm, omega=self.omega,
+                intervals=dict(overrides), device=dev)
+        return _PACK_CACHE[key]
+
+    def unary(self, name: str, device: DeviceLike = None) -> Callable:
+        """The activation callable for this config, its tables on ``device``.
+        Forward only in table modes (see ``torch_table.forward_only``)."""
+        _check_mode(self.mode)
+        if self.mode == "exact" or name in _NEVER_TABLED:
+            return _EXACT[name]
+        reg_name = _TABLE_NAME.get(name, name)
+        extrapolate = name in _EXTRAPOLATE
+        if self.mode in PACK_MODES:
+            pack = self.pack(device)
+            if reg_name not in pack.names:
+                raise KeyError(
+                    f"{reg_name!r} is not in pack_functions={pack.names}; add it "
+                    f"to ApproxConfig.pack_functions to serve it from the pack")
+            f = make_pack_fn(pack, reg_name,
+                             use_kernel=self.mode in _KERNEL_BACKED,
+                             extrapolate=extrapolate)
+        else:
+            f = make_table_fn(self.table_for(name, device), extrapolate=extrapolate)
+        if reg_name in _ODD_HALF_DOMAIN:
+            # the registry table spans [-lo, 0): mirror it so gates/softcap get
+            # the full symmetric domain
+            f = odd_extension(f)
+        return f
+
+    def softmax(self, x: torch.Tensor, axis: int = -1, where=None,
+                device: DeviceLike = None) -> torch.Tensor:
+        """Numerically shifted softmax; exponent optionally via the exp table.
+        ``where`` masks entries out (weight 0), as in ``jax.nn.softmax``."""
+        if not self.softmax_table or self.mode == "exact":
+            if where is None:
+                return torch.softmax(x, dim=axis)
+            e = torch.exp(x - torch.amax(x.masked_fill(~where, float("-inf")),
+                                         dim=axis, keepdim=True))
+            e = torch.where(where, e, 0.0)
+            return e / e.sum(dim=axis, keepdim=True)
+        exp_fn = self.unary("exp", device)
+        masked = x if where is None else x.masked_fill(~where, -1e30)
+        m = torch.clamp(torch.amax(masked, dim=axis, keepdim=True), min=-1e30)
+        # exp_neg table domain is [-16, 0]; the clamp matches the hardware
+        # address saturation
+        e = exp_fn(torch.clamp(x - m, min=-16.0))
+        if where is not None:
+            e = torch.where(where, e, 0.0)
+        return e / e.sum(dim=axis, keepdim=True)
+
+    def rope_sin_cos(self) -> Optional[Callable]:
+        """Table-served rotary trig.  ``None`` (exact sin/cos) unless
+        ``rope_table`` is on in a table mode, which needs the folded trig
+        members of RangeFold (not ported yet)."""
+        if not self.rope_table or self.mode == "exact":
+            return None
+        _check_mode(self.mode)
+        raise NotImplementedError(
+            "rope_table is not ported yet: it serves sin/cos through the "
+            "folded trig members, ROADMAP queue 1, item 10 (RangeFold)")
+
+    def attn_exp(self, device: DeviceLike = None) -> Optional[Callable]:
+        """TableFlash exponent: ``None`` (exact exp in flash attention) unless
+        ``attn_table`` is on in a table mode, else ``f(z) -> exp(z)`` for
+        z <= 0 through the pack's ``exp_neg`` member — underflow-to-zero tail
+        below lo, CUDA kernel or plain version by mode, always served from
+        the SAME f32 pack artifact as the activations."""
+        if not self.attn_table or self.mode == "exact":
+            return None
+        _check_mode(self.mode)
+        names = tuple(self.pack_functions)
+        if "exp_neg" not in names:
+            raise KeyError(
+                f"attn_table needs 'exp_neg' in pack_functions={names}; add "
+                f"it to ApproxConfig.pack_functions to serve TableFlash")
+        dev = resolve_device(device)
+        overrides = tuple(sorted(self.interval_overrides.items()))
+        key = (self.mode, self.e_a, self.algorithm, self.omega, names,
+               overrides, str(dev))
+        if key not in _ATTN_EXP_CACHE:
+            _ATTN_EXP_CACHE[key] = make_attn_exp_fn(
+                self.pack(dev), use_kernel=self.mode in _KERNEL_BACKED)
+        return _ATTN_EXP_CACHE[key]
+

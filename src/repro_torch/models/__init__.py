@@ -1,0 +1,5 @@
+"""repro_torch.models — the ported architectures (dense decoder so far)."""
+
+from .config import ArchConfig
+from .registry import ARCH_IDS, build_model, get_config, reduced
+from .transformer import DecoderLM

@@ -1,0 +1,100 @@
+"""Shared building blocks: initializers, norms, rotary embeddings, projections.
+
+Parameters are plain nested dicts of tensors, in the JAX package's layouts
+(e.g. a linear weight is ``(d_in, *d_out)``), so a JAX parameter tree converts
+one to one (:mod:`repro_torch.convert`) and the functions here are the JAX
+ones written with PyTorch ops.  Initializers draw from an explicit
+``torch.Generator`` on the target device: same distributions as the reference,
+not the same bits.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+Params = Dict[str, Any]
+
+
+def normal_init(gen: torch.Generator, shape, scale: float,
+                dtype=torch.float32) -> torch.Tensor:
+    fan_in = shape[0] if len(shape) >= 1 else 1
+    w = torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
+    return w.mul_(scale / max(1, fan_in) ** 0.5)
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out, *, scale: float = 1.0,
+                dtype=torch.float32) -> Params:
+    """Weight of shape (d_in, *d_out) — d_out may be a tuple for fused heads."""
+    shape = (d_in,) + (d_out if isinstance(d_out, tuple) else (d_out,))
+    return {"w": normal_init(gen, shape, scale, dtype)}
+
+
+def linear(p: Params, x: torch.Tensor, dims: str = "...d,df->...f") -> torch.Tensor:
+    return torch.einsum(dims, x, p["w"].to(x.dtype))
+
+
+def init_rmsnorm(d: int, device, dtype=torch.float32) -> Params:
+    return {"g": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["g"].to(torch.float32)).to(x.dtype)
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d: int,
+                   dtype=torch.float32) -> Params:
+    table = torch.randn((vocab, d), generator=gen, device=gen.device, dtype=dtype)
+    return {"table": table.mul_(0.02)}
+
+
+def embed(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return p["table"][tokens].to(dtype)
+
+
+def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Project to vocab logits in f32 (loss stability)."""
+    return torch.einsum("...d,vd->...v", x.to(torch.float32),
+                        p["table"].to(torch.float32))
+
+
+# ------------------------------- rotary ---------------------------------------
+
+
+def rope_freqs(d_head: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               sin_cos=None) -> torch.Tensor:
+    """x: (..., S, H, D) or (..., S, D); positions: broadcastable to (..., S).
+
+    ``sin_cos`` optionally replaces the exact trig with a table-served
+    ``f(ang) -> (sin, cos)`` (``ApproxConfig.rope_sin_cos()``); ``None`` keeps
+    exact rotations."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)  # (D/2,)
+    ang = positions[..., None].to(torch.float32) * freqs  # (..., S, D/2)
+    if sin_cos is None:
+        cos, sin = torch.cos(ang), torch.sin(ang)
+    else:
+        sin, cos = sin_cos(ang)
+    if x.dim() == ang.dim() + 1:  # head axis present between S and D
+        cos, sin = cos[..., None, :], sin[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float, tanh_fn=None) -> torch.Tensor:
+    """Soft logit cap ``cap * tanh(x / cap)``; ``tanh_fn`` routes the tanh
+    through the approx backend (``cfg.approx.unary("tanh")``)."""
+    if cap <= 0:
+        return x
+    t = torch.tanh if tanh_fn is None else tanh_fn
+    return cap * t(x / cap)
