@@ -10,18 +10,37 @@ Phases, each fatal on failure (exit code 1, no result line):
    printing the build seconds and the ``-Xptxas -v`` register/shared lines;
 3. kernels: each kernel against its plain PyTorch version on the card, BITWISE
    (NaN positions matched), for every pack member, extrapolation on and off,
-   bf16 and f32, at the main path's shapes, a ragged size and edge inputs
-   (every boundary and its neighbours, +-inf, NaN, -2e38, lo, +-0);
-4. main path: full-width, full-depth stablelm-3b (random weights from seed 0)
-   serving the launcher's default traffic (8 requests, batch 4, cache 256,
+   bf16 and f32, at the main paths' shapes, a ragged size and edge inputs
+   (every boundary and its neighbours, +-inf, NaN, -2e38, lo, +-0): the pack
+   kernels (value, TableFlash, value + slope) and the single-table kernels
+   (value, value + slope) over ``ApproxConfig.table_for`` of the six default
+   functions;
+4. serving path: full-width, full-depth stablelm-3b (random weights from seed
+   0) serving the launcher's default traffic (8 requests, batch 4, cache 256,
    16 new tokens) through ContinuousEngine in ``table_pack`` with TableFlash;
    both kernels must have launched, and the same queue served through the
    plain versions (``table_pack_ref``) must give identical tokens;
 5. reference: a reduced stablelm in float32 on the card against the same
    model on the CPU (logits within 1e-4, identical greedy tokens);
-6. times: each kernel, its plain version and the one PyTorch call computing
-   the same function, at the main path's decode shape, by CUDA events around
-   a CUDA graph of repeated calls (device time, no host launch cost).
+6. training path: full-width, full-depth stablelm-3b (2.80 B f32 parameters,
+   random from seed 0) trained 4 steps in ``table_pack`` with TableFlash at
+   the trainer's defaults (batch 8, seq 128, accum 2, AdamW, SyntheticLM
+   batches); ``table_pack_grad`` and ``tableflash_exp`` must have launched,
+   the losses must be finite, the last step's loss must be below the first
+   and the first batch's loss must fall over the 4 steps, and step 0 must
+   equal the plain versions' (``table_pack_ref``) loss bit for bit and grad
+   norm within 1e-3.  (Each step's loss is printed beside the untrained
+   model's loss on the same batch: at vocab 50,304 the batch-to-batch spread
+   of the loss is larger than what 4 steps move a batch the model has not
+   seen, so the first batch before and after the steps is what shows that
+   the trainer learns.)
+7. table_pallas path: full-width stablelm-3b cut to 4 layers, serving the
+   same 8 requests token-identical to ``table_ref`` and training 2 steps with
+   step-0 loss equal to ``table_ref``'s; ``table_lookup`` and
+   ``table_lookup_grad`` must have launched;
+8. times: each kernel, its plain version and a PyTorch yardstick, at its
+   path's shape, by CUDA events around a CUDA graph of repeated calls
+   (device time, no host launch cost).
 
 The line before the last is one JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout of
@@ -41,6 +60,9 @@ REPO = Path(__file__).resolve().parent
 MEM_BPS = 3.35e12  # H100 SXM HBM3, bytes/s
 F32_OPS = 67e12  # H100 SXM f32 outside the tensor cores, op/s
 BATCH, CACHE_LEN, N_REQ, MAX_NEW = 4, 256, 8, 16  # the launcher's defaults
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 8, 128, 2  # the trainer's defaults, accum 2
+TRAIN_STEPS, PALLAS_STEPS, PALLAS_LAYERS = 4, 2, 4
+MICRO = TRAIN_BATCH // TRAIN_ACCUM
 TIMING_REPS = 100
 
 
@@ -114,10 +136,15 @@ def bitwise_diff(a, b):
 
 
 def edge_values(pack, fid):
+    return row_edges(pack.boundaries[fid, : pack.n_intervals[fid] + 1].cpu().numpy())
+
+
+def row_edges(row):
+    """Every boundary of a metadata row and its f32 neighbours, then the
+    specials (+-inf, NaN, -2e38, 2e38, lo, +-0)."""
     import numpy as np
 
-    row = pack.boundaries[fid, : pack.n_intervals[fid] + 1].cpu().numpy()
-    lo, _ = pack.domains[fid]
+    lo = row[0]
     up = np.nextafter(row, np.float32(np.inf))
     down = np.nextafter(row, np.float32(-np.inf))
     special = np.asarray([np.inf, -np.inf, np.nan, -2e38, 2e38, lo, 0.0, -0.0],
@@ -134,6 +161,20 @@ def make_input(shape, lo, hi, edges, dtype, seed):
     k = min(flat.numel(), edges.size)
     flat[:k] = torch.as_tensor(edges[:k], device="cuda")
     return x.to(dtype)
+
+
+def check_pair(tag, got, want, shape, dtype):
+    """Bitwise check of a kernel's outputs (a tensor or a tuple) against its
+    plain version's; returns the largest finite |difference|."""
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        check(g.shape == tuple(shape) and g.dtype == dtype, f"{tag}: shape/dtype")
+        bad, e = bitwise_diff(g, w)
+        check(bad == 0, f"{tag}: {bad} mismatches (max err {e})")
+        err = max(err, e)
+    return err
 
 
 def kernel_phase(pack, s0):
@@ -156,12 +197,9 @@ def kernel_phase(pack, s0):
                     got = K.table_pack_lookup(pack, fid, x, extrapolate=ex)
                     want = K.table_pack_lookup_plain(pack, fid, x, extrapolate=ex)
                     torch.cuda.synchronize()
-                    check(got.shape == x.shape and got.dtype == x.dtype,
-                          f"pack {name} {shape}: shape/dtype")
-                    bad, err = bitwise_diff(got, want)
-                    check(bad == 0, f"table_pack_lookup {name} {dtype} {shape} "
-                          f"extrapolate={ex}: {bad} mismatches (max err {err})")
-                    worst["table_pack_lookup"] = max(worst["table_pack_lookup"], err)
+                    worst["table_pack_lookup"] = max(worst["table_pack_lookup"], check_pair(
+                        f"table_pack_lookup {name} {dtype} {shape} extrapolate={ex}",
+                        got, want, shape, dtype))
                     cases += 1
             if name != "exp_neg":
                 continue
@@ -170,14 +208,68 @@ def kernel_phase(pack, s0):
                 got = K.tableflash_exp(pack, x)
                 want = K.tableflash_exp_plain(pack, x)
                 torch.cuda.synchronize()
-                bad, err = bitwise_diff(got, want)
-                check(bad == 0, f"tableflash_exp {dtype} {shape}: {bad} "
-                      f"mismatches (max err {err})")
+                worst["tableflash_exp"] = max(worst["tableflash_exp"], check_pair(
+                    f"tableflash_exp {dtype} {shape}", got, want, shape, dtype))
                 check(bool((got[x < lo] == 0).all()), "tableflash zero tail")
-                worst["tableflash_exp"] = max(worst["tableflash_exp"], err)
                 cases += 1
     log(f"kernels: {cases} kernel-vs-plain cases bitwise equal "
         f"(members {pack.names}, bf16+f32, extrapolate on/off, edges)")
+    return worst
+
+
+def grad_kernel_phase(pack, approx, s0):
+    """The value + slope pack kernel over every member, and the single-table
+    kernels over the six default functions' tables, bitwise against their
+    plain versions."""
+    import torch
+
+    from repro_torch.kernels import table_grad as TG
+    from repro_torch.kernels import table_lookup as TL
+    from repro_torch.kernels import table_pack_lookup as K
+
+    train_gate = (MICRO, TRAIN_SEQ, 6912)
+    shapes = [train_gate, (BATCH, 1, 6912), (BATCH, s0, 6912), (12345,), (1,)]
+    worst = {"table_pack_grad": 0.0, "table_lookup": 0.0, "table_lookup_grad": 0.0}
+    cases = 0
+    for fid, name in enumerate(pack.names):
+        lo, hi = pack.domains[fid]
+        edges = edge_values(pack, fid)
+        member_shapes = shapes
+        if name == "exp_neg":  # TableFlash's slope: the exponent tensor, f32
+            member_shapes = shapes + [(MICRO, TRAIN_SEQ, 32, 1, TRAIN_SEQ)]
+        for dtype in (torch.bfloat16, torch.float32):
+            for shape in member_shapes:
+                x = make_input(shape, lo, hi, edges, dtype, seed=fid)
+                for ex in (False, True):
+                    got = K.table_pack_grad(pack, fid, x, extrapolate=ex)
+                    want = K.table_pack_grad_plain(pack, fid, x, extrapolate=ex)
+                    torch.cuda.synchronize()
+                    worst["table_pack_grad"] = max(worst["table_pack_grad"], check_pair(
+                        f"table_pack_grad {name} {dtype} {shape} extrapolate={ex}",
+                        got, want, shape, dtype))
+                    cases += 1
+    for name in pack.names:
+        jt = approx.table_for(name, "cuda")
+        lo, hi = float(jt.boundaries[0]), float(jt.boundaries[-1])
+        edges = row_edges(jt.boundaries.cpu().numpy())
+        for dtype in (torch.bfloat16, torch.float32):
+            for shape in shapes:
+                x = make_input(shape, lo, hi, edges, dtype, seed=7)
+                for ex in (False, True):
+                    for kname, kern, plain in (
+                            ("table_lookup", TL.table_lookup, TL.table_lookup_plain),
+                            ("table_lookup_grad", TG.table_lookup_grad,
+                             TG.table_lookup_grad_plain)):
+                        got = kern(jt, x, extrapolate=ex)
+                        want = plain(jt, x, extrapolate=ex)
+                        torch.cuda.synchronize()
+                        worst[kname] = max(worst[kname], check_pair(
+                            f"{kname} {name} {dtype} {shape} extrapolate={ex}",
+                            got, want, shape, dtype))
+                        cases += 1
+    log(f"kernels: {cases} grad/table kernel-vs-plain cases bitwise equal "
+        f"(table_pack_grad over {pack.names}; table_lookup[_grad] over their "
+        f"tables; bf16+f32, extrapolate on/off, edges, training gate {train_gate})")
     return worst
 
 
@@ -223,8 +315,8 @@ def main_path(smi_line):
         f"{engine.prefills} prefills, {engine.batch_steps} rounds "
         f"[{smi_line}]")
     log(f"main: kernel launches {counts}")
-    for k, n in counts.items():
-        check(n > 0, f"kernel {k} was not launched on the main path")
+    for k in ("table_pack_lookup", "tableflash_exp"):
+        check(counts[k] > 0, f"kernel {k} was not launched on the serving path")
     check(all(r.steps == MAX_NEW for r in out), "every request gets its budget")
 
     ref_cfg = cfg.replace(approx=dataclasses.replace(cfg.approx,
@@ -369,7 +461,207 @@ def reference_check():
 
 
 # --------------------------------------------------------------------------------------
-# 6. times
+# 6-7. training path and table_pallas path
+# --------------------------------------------------------------------------------------
+
+
+def _with_mode(cfg, mode, **kw):
+    return cfg.replace(approx=dataclasses.replace(cfg.approx, mode=mode, **kw))
+
+
+def _trainer_data(cfg):
+    from repro_torch.data.pipeline import SyntheticLM, data_config_for
+    from repro_torch.models import ShapeSpec
+
+    return SyntheticLM(data_config_for(cfg, ShapeSpec(
+        "smoke", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train")))
+
+
+def plain_step0(ref_model, params, batch):
+    """The plain versions' step-0 loss and grad norm on ``params`` (no
+    update); no kernel may launch."""
+    from repro_torch.kernels import table_pack_lookup as K
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import accumulated_grads
+
+    K.reset_launches()
+    loss, grads = accumulated_grads(ref_model, params, batch, TRAIN_ACCUM)
+    gn = float(adamw.global_norm(grads))
+    check(all(v == 0 for v in K.launches.values()),
+          f"{ref_model.cfg.approx.mode} launched a kernel: {K.launches}")
+    return float(loss), gn
+
+
+def train_steps(model, params, data, n_steps, smi_line, tag, profile_last=False):
+    """``n_steps`` of make_train_step (AdamW at the launcher's settings for
+    that many steps) from ``params``, updated in place.  Returns per-step
+    rows, the kernel launch counts of the run and the peak memory (GiB).
+    With ``profile_last`` the last step runs under torch.profiler and its
+    device busy time is returned as well."""
+    import torch
+
+    from repro_torch.kernels import table_pack_lookup as K
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import batch_to, make_train_step
+
+    opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=max(1, n_steps // 20),
+                            total_steps=n_steps)
+    state = {"params": params, "opt": adamw.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    step = make_train_step(model, opt, TRAIN_ACCUM)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    rows, busy_ms = [], None
+    for s in range(n_steps):
+        batch = batch_to(data.batch_at(s), "cuda")
+        prof = s == n_steps - 1 and profile_last
+        t0 = time.perf_counter()
+        if prof:
+            state, m, busy_ms = profiled(lambda: step(state, batch))
+        else:
+            state, m = step(state, batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append({"loss": loss, "grad_norm": gn, "ms": ms})
+        log(f"{tag}: step {s} loss {loss:.6f} grad_norm {gn:.6f} lr "
+            f"{float(m['lr']):.3e} {ms:.1f} ms{' (under the profiler)' if prof else ''} "
+            f"[{smi_line}]")
+    counts = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    return rows, counts, peak, busy_ms
+
+
+def profiled(fn):
+    """Run ``fn`` under torch.profiler; returns its result and the device's
+    busy ms (kernel rows only: an operator row repeats its kernels' time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in evs) / 1e3 if evs else None
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} calls  "
+            f"{e.key[:90]}")
+    return (*out, busy)
+
+
+def train_path(smi_line):
+    """Full-width, full-depth stablelm-3b, table_pack + TableFlash, 4 steps."""
+    import math
+
+    import torch
+
+    from repro_torch.models import build_model, get_config
+    from repro_torch.train.loop import batch_to
+
+    cfg = _with_mode(get_config("stablelm-3b"), "table_pack", attn_table=True)
+    model = build_model(cfg, "cuda")
+    ref = build_model(_with_mode(cfg, "table_pack_ref"), "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    data = _trainer_data(cfg)
+    log(f"train: {cfg.name} {cfg.n_layers}L d={cfg.d_model}, "
+        f"{cfg.param_count() / 1e9:.2f}B {cfg.param_dtype} params, remat={cfg.remat}, "
+        f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, accum {TRAIN_ACCUM}, AdamW")
+    batches = [batch_to(data.batch_at(s), "cuda") for s in range(TRAIN_STEPS)]
+    ref_loss, ref_gn = plain_step0(ref, params, batches[0])
+    with torch.no_grad():
+        untrained = [float(model.loss(params, b)) for b in batches]
+    rows, counts, peak, busy_ms = train_steps(model, params, data, TRAIN_STEPS,
+                                              smi_line, "train", profile_last=True)
+    with torch.no_grad():
+        first_after = float(model.loss(params, batches[0]))
+    losses = [r["loss"] for r in rows]
+    log(f"train: kernel launches {counts}; peak memory {peak:.2f} GiB [{smi_line}]")
+    log(f"train: step losses {losses}; the untrained model's loss on the same "
+        f"batches {untrained}; first batch {losses[0]:.4f} at step 0 -> "
+        f"{first_after:.4f} after {TRAIN_STEPS} steps")
+    for k in ("table_pack_grad", "tableflash_exp"):
+        check(counts[k] > 0, f"kernel {k} was not launched on the training path")
+    check(all(math.isfinite(v) for v in losses + [first_after]),
+          f"non-finite losses {losses} {first_after}")
+    check(losses[-1] < losses[0], f"loss did not fall: step losses {losses}")
+    check(first_after < losses[0], f"loss did not fall: first batch {losses[0]} "
+          f"at step 0, {first_after} after {TRAIN_STEPS} steps")
+    check(losses[0] == ref_loss, f"step-0 loss {losses[0]!r} != table_pack_ref's "
+          f"{ref_loss!r}")
+    gn_rel = abs(rows[0]["grad_norm"] - ref_gn) / ref_gn
+    check(gn_rel <= 1e-3, f"step-0 grad norm {rows[0]['grad_norm']} vs "
+          f"table_pack_ref's {ref_gn}: {gn_rel:.2e} > 1e-3")
+    steady = [r["ms"] for r in rows[1:-1]]
+    idle = f"{1 - busy_ms / min(steady):.3f}" if busy_ms and steady else "not measured"
+    log(f"train: step-0 loss equals table_pack_ref's bit for bit ({ref_loss!r}); "
+        f"grad norm {rows[0]['grad_norm']:.6f} vs {ref_gn:.6f} ({gn_rel:.2e} rel); "
+        f"steady step "
+        f"{min(steady):.1f}-{max(steady):.1f} ms; device busy "
+        f"{busy_ms if busy_ms is None else round(busy_ms, 3)} ms in the profiled "
+        f"step, idle share {idle} [{smi_line}]")
+    del params, model, ref
+    torch.cuda.empty_cache()
+    return counts
+
+
+def table_pallas_path(smi_line):
+    """Per-function tables through the single-table kernels: stablelm-3b at
+    full width cut to 4 layers, serving and training against table_ref."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import table_pack_lookup as K
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving.engine import ContinuousEngine
+    from repro_torch.train.loop import batch_to
+
+    cfg = _with_mode(get_config("stablelm-3b").replace(n_layers=PALLAS_LAYERS),
+                     "table_pallas")
+    model = build_model(cfg, "cuda")
+    ref = build_model(_with_mode(cfg, "table_ref"), "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    reqs = make_requests(cfg.vocab, N_REQ, MAX_NEW)
+    K.reset_launches()
+    out = ContinuousEngine(model, params, BATCH, CACHE_LEN).serve(reqs)
+    torch.cuda.synchronize()
+    serve_counts = dict(K.launches)
+    K.reset_launches()
+    ref_out = ContinuousEngine(ref, params, BATCH, CACHE_LEN).serve(reqs)
+    check(all(v == 0 for v in K.launches.values()), "table_ref launched a kernel")
+    for i, (a, b) in enumerate(zip(out, ref_out)):
+        check((a.tokens == b.tokens).all(), f"table_pallas request {i}: tokens "
+              f"{a.tokens.tolist()} != table_ref {b.tokens.tolist()}")
+    check(serve_counts["table_lookup"] > 0, "table_lookup was not launched serving")
+    log(f"pallas: {cfg.n_layers}L d={cfg.d_model} table_pallas served {len(out)} "
+        f"requests token-identical to table_ref; launches {serve_counts}")
+
+    data = _trainer_data(cfg)
+    ref_loss, ref_gn = plain_step0(ref, params, batch_to(data.batch_at(0), "cuda"))
+    rows, train_counts, peak, _ = train_steps(model, params, data, PALLAS_STEPS,
+                                              smi_line, "pallas")
+    check(train_counts["table_lookup_grad"] > 0,
+          "table_lookup_grad was not launched training")
+    check(all(math.isfinite(r["loss"]) for r in rows), "non-finite table_pallas loss")
+    check(rows[0]["loss"] == ref_loss, f"table_pallas step-0 loss "
+          f"{rows[0]['loss']!r} != table_ref's {ref_loss!r}")
+    gn_rel = abs(rows[0]["grad_norm"] - ref_gn) / ref_gn
+    check(gn_rel <= 1e-3, f"table_pallas step-0 grad norm: {gn_rel:.2e} > 1e-3")
+    log(f"pallas: trained {PALLAS_STEPS} steps, step-0 loss equals table_ref's bit "
+        f"for bit ({ref_loss!r}), grad norm {gn_rel:.2e} rel; launches "
+        f"{train_counts}; peak {peak:.2f} GiB")
+    del params, model, ref
+    torch.cuda.empty_cache()
+    return serve_counts, train_counts
+
+
+# --------------------------------------------------------------------------------------
+# 8. times
 # --------------------------------------------------------------------------------------
 
 
@@ -399,49 +691,70 @@ def graph_ms(fn, reps=TIMING_REPS):
     return start.elapsed_time(end) / reps
 
 
-def pack_bytes(pack):
-    return 4 * (pack.boundaries.numel() + pack.inv_delta.numel() + pack.base.numel()
-                + pack.seg_count.numel() + pack.values.numel())
+def table_bytes(t):
+    """f32 bytes of a pack's or a table's metadata planes and values."""
+    return 4 * (t.boundaries.numel() + t.inv_delta.numel() + t.base.numel()
+                + t.seg_count.numel() + t.values.numel())
 
 
-def bound(n, elem_bytes, pack, ops_per_elem):
-    """(bound_ms, bound_by): bytes N*(in+out) + the pack read once at the
-    memory rate, against N*ops f32 operations at the f32 rate."""
-    t_bytes = (n * 2 * elem_bytes + pack_bytes(pack)) / MEM_BPS * 1e3
+def bound(n, elem_bytes, n_out, tbytes, ops_per_elem):
+    """(bound_ms, bound_by): bytes N*(in + n_out*out) + the table read once
+    at the memory rate, against N*ops f32 operations at the f32 rate."""
+    t_bytes = (n * (1 + n_out) * elem_bytes + tbytes) / MEM_BPS * 1e3
     t_ops = n * ops_per_elem / F32_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def timing_phase(pack, smi_line):
+def timing_phase(pack, approx, smi_line):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import table_grad as TG
+    from repro_torch.kernels import table_lookup as TL
     from repro_torch.kernels import table_pack_lookup as K
 
     g = torch.Generator(device="cuda").manual_seed(7)
     silu = pack.fn_id("silu")
-    # per element: n_max compares + ~14 address/lerp operations (+2 for the tail)
+    jt = approx.table_for("silu", "cuda")
+    # per element: n_max compares + ~14 address/lerp operations, +2 for the
+    # TableFlash tail, +2 for the slope (subtract, multiply)
     ops = pack.n_max + 14
+    t_ops = jt.n_intervals + 14
     gate = (torch.randn((BATCH, 1, 6912), generator=g, device="cuda") * 2).to(torch.bfloat16)
+    gate_t = (torch.randn((MICRO, TRAIN_SEQ, 6912), generator=g, device="cuda")
+              * 2).to(torch.bfloat16)
     z = -30.0 * torch.rand((BATCH, 1, 32, 1, CACHE_LEN), generator=g, device="cuda")
     rows = {}
-    for name, x, elem, kern, plain, lib, extra_ops in (
-        ("table_pack_lookup", gate, 2,
+    # (name, x, n_out, table, ops, kernel, plain, yardstick, what the yardstick is)
+    for name, x, n_out, tab, n_ops, kern, plain, lib, lib_what in (
+        ("table_pack_lookup", gate, 1, pack, ops,
          lambda: K.table_pack_lookup(pack, silu, gate, extrapolate=True),
          lambda: K.table_pack_lookup_plain(pack, silu, gate, extrapolate=True),
-         lambda: F.silu(gate), 0),
-        ("tableflash_exp", z, 4,
+         lambda: F.silu(gate), "F.silu"),
+        ("tableflash_exp", z, 1, pack, ops + 2,
          lambda: K.tableflash_exp(pack, z),
          lambda: K.tableflash_exp_plain(pack, z),
-         lambda: torch.exp(z), 2),
+         lambda: torch.exp(z), "torch.exp"),
+        ("table_pack_grad", gate_t, 2, pack, ops + 2,
+         lambda: K.table_pack_grad(pack, silu, gate_t, extrapolate=True),
+         lambda: K.table_pack_grad_plain(pack, silu, gate_t, extrapolate=True),
+         lambda: F.silu(gate_t), "F.silu, value only: no one call gives value + slope"),
+        ("table_lookup", gate, 1, jt, t_ops,
+         lambda: TL.table_lookup(jt, gate, extrapolate=True),
+         lambda: TL.table_lookup_plain(jt, gate, extrapolate=True),
+         lambda: F.silu(gate), "F.silu"),
+        ("table_lookup_grad", gate_t, 2, jt, t_ops + 2,
+         lambda: TG.table_lookup_grad(jt, gate_t, extrapolate=True),
+         lambda: TG.table_lookup_grad_plain(jt, gate_t, extrapolate=True),
+         lambda: F.silu(gate_t), "F.silu, value only: no one call gives value + slope"),
     ):
         ms, plain_ms, lib_ms = graph_ms(kern), graph_ms(plain), graph_ms(lib)
-        b_ms, b_by = bound(x.numel(), elem, pack, ops + extra_ops)
+        b_ms, b_by = bound(x.numel(), x.element_size(), n_out, table_bytes(tab), n_ops)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=b_ms, bound_by=b_by)
         log(f"time: {name} {tuple(x.shape)} {x.dtype}: kernel {ms * 1e3:.2f} us, "
-            f"plain {plain_ms * 1e3:.2f} us, library {lib_ms * 1e3:.2f} us, "
-            f"bound {b_ms * 1e3:.3f} us ({b_by}) [{smi_line}]")
+            f"plain {plain_ms * 1e3:.2f} us, yardstick ({lib_what}) "
+            f"{lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by}) [{smi_line}]")
     return rows
 
 
@@ -478,19 +791,32 @@ def main() -> int:
         s0 = max(len(r.prompt) for r in make_requests(cfg.vocab, N_REQ, MAX_NEW))
         log(f"pack: {pack.names}, {pack.footprint} f32 entries, n_max {pack.n_max}, "
             f"intervals {pack.n_intervals}; main-path prefill width S0={s0}")
+        approx = dataclasses.replace(cfg.approx, mode="table_pallas")
         worst = kernel_phase(pack, s0)
+        worst.update(grad_kernel_phase(pack, approx, s0))
+        # each kernel's launches come from the run of the path it serves,
+        # counted from 0 just before that path and read just after it
         counts = main_path(smi_line)
         reference_check()
-        times = timing_phase(pack, smi_line)
+        counts["table_pack_grad"] = train_path(smi_line)["table_pack_grad"]
+        serve_counts, train_counts = table_pallas_path(smi_line)
+        counts["table_lookup"] = serve_counts["table_lookup"]
+        counts["table_lookup_grad"] = train_counts["table_lookup_grad"]
+        times = timing_phase(pack, approx, smi_line)
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     kernels = []
-    for kname, line in (("table_pack_lookup", 43), ("tableflash_exp", 188)):
+    for kname, replaces in (
+            ("table_pack_lookup", "src/repro/kernels/table_pack_lookup.py:43"),
+            ("tableflash_exp", "src/repro/kernels/table_pack_lookup.py:188"),
+            ("table_pack_grad", "src/repro/kernels/table_pack_lookup.py:66"),
+            ("table_lookup", "src/repro/kernels/table_lookup.py:66"),
+            ("table_lookup_grad", "src/repro/kernels/table_grad.py:28")):
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/csrc/table_pack_lookup.cu",
-            "replaces": f"src/repro/kernels/table_pack_lookup.py:{line}",
+            "replaces": replaces,
             "launches": counts[kname], "max_abs_err": worst[kname],
             **times[kname]})
     log(f"done in {time.perf_counter() - t_start:.1f}s")

@@ -1,38 +1,42 @@
 """Nonlinearity backend of the port: every elementary function the model
 evaluates runs ``exact`` (PyTorch transcendentals), ``table_ref`` (the
-paper-faithful per-function table, plain PyTorch), ``table_pack`` (ONE packed
+paper-faithful per-function table, plain PyTorch), ``table_pallas`` (the same
+tables through the CUDA table kernels), ``table_pack`` (ONE packed
 multi-function artifact + one CUDA kernel for the whole network) or
 ``table_pack_ref`` (the pack's plain PyTorch version).  Configured per model
 via :class:`ApproxConfig`, whose fields and defaults are the JAX package's.
+Every table function is differentiable: its tangent is the table slope, or
+the registry's analytic derivative with ``exact_grad``.
 
-The JAX package's other modes (``table_pallas``, the quantized, polynomial,
-routed, sharded and folded packs) raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+The JAX package's other modes (the quantized, polynomial, routed, sharded and
+folded packs) raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.flow import cached_table
+from repro_torch.core.functions import get as get_function
 from repro_torch.device import DeviceLike, resolve_device
 
 from .table_pack import TablePack, build_pack, make_attn_exp_fn, make_pack_fn
 from .torch_table import TorchTable, from_spec, make_table_fn
 
 PACK_MODES = ("table_pack", "table_pack_ref")
-TABLE_MODES = ("table_ref",) + PACK_MODES
+TABLE_MODES = ("table_ref", "table_pallas") + PACK_MODES
 # modes whose runtime is the CUDA kernels (vs the plain PyTorch versions)
-_KERNEL_BACKED = ("table_pack",)
+_KERNEL_BACKED = ("table_pallas", "table_pack")
 
 # The JAX package's other modes, with the ROADMAP item (queue 1 unless noted)
 # that brings each to the port.
 NOT_PORTED = {
-    "table_pallas": "ROADMAP queue 2 (_table_kernel)",
     "quant_pack": "ROADMAP queue 1, item 7 (QuantPack)",
     "quant_pack_ref": "ROADMAP queue 1, item 7 (QuantPack)",
     "poly_pack": "ROADMAP queue 1, item 8 (PolyPack)",
@@ -178,23 +182,29 @@ class ApproxConfig:
 
     def unary(self, name: str, device: DeviceLike = None) -> Callable:
         """The activation callable for this config, its tables on ``device``.
-        Forward only in table modes (see ``torch_table.forward_only``)."""
+        Differentiable in every mode: table modes through
+        ``torch_table.slope_rule`` (table slope, or the registry's ``d1f``
+        with ``exact_grad``)."""
         _check_mode(self.mode)
         if self.mode == "exact" or name in _NEVER_TABLED:
             return _EXACT[name]
         reg_name = _TABLE_NAME.get(name, name)
         extrapolate = name in _EXTRAPOLATE
+        exact_d1 = None
+        if self.exact_grad:
+            exact_d1 = partial(get_function(reg_name).d1f, xp=torch)
+        use_kernel = self.mode in _KERNEL_BACKED
         if self.mode in PACK_MODES:
             pack = self.pack(device)
             if reg_name not in pack.names:
                 raise KeyError(
                     f"{reg_name!r} is not in pack_functions={pack.names}; add it "
                     f"to ApproxConfig.pack_functions to serve it from the pack")
-            f = make_pack_fn(pack, reg_name,
-                             use_kernel=self.mode in _KERNEL_BACKED,
-                             extrapolate=extrapolate)
+            f = make_pack_fn(pack, reg_name, use_kernel=use_kernel,
+                             exact_d1=exact_d1, extrapolate=extrapolate)
         else:
-            f = make_table_fn(self.table_for(name, device), extrapolate=extrapolate)
+            f = make_table_fn(self.table_for(name, device), use_kernel=use_kernel,
+                              exact_d1=exact_d1, extrapolate=extrapolate)
         if reg_name in _ODD_HALF_DOMAIN:
             # the registry table spans [-lo, 0): mirror it so gates/softcap get
             # the full symmetric domain

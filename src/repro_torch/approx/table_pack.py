@@ -12,10 +12,10 @@ table_pack_lookup` — serves any member through its ``fn_id`` row.
 ``eval_pack_ref`` is the plain PyTorch lookup: bit-identical to the JAX
 package's eager ``eval_pack_ref`` and to the CUDA kernel.
 
-Forward only in this slice: ``make_pack_fn`` / ``make_attn_exp_fn`` raise
-``NotImplementedError`` on a backward pass (the fused value + slope kernel,
-``_pack_grad_kernel``, comes with the training slice, ROADMAP queue 1, item 6).
-Serving runs under ``torch.inference_mode()``.
+``make_pack_fn`` and ``make_attn_exp_fn`` are differentiable through
+:func:`~repro_torch.approx.torch_table.slope_rule`: under a gradient the
+forward runs the fused value + slope kernel (``table_pack_grad``) and the
+backward multiplies the saved slope into the incoming gradient.
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ from repro_torch.core.packing import PackLayout, pack_layout
 from repro_torch.core.table import TableSpec
 from repro_torch.device import DeviceLike, resolve_device
 
-from .torch_table import (EXACT_INT_LIMIT, f32_tensor, forward_only,
-                          lookup_rows, slope_rows)
+from .torch_table import (EXACT_INT_LIMIT, f32_tensor, lookup_rows, slope_rows,
+                          slope_rule)
 
 
 def _member_id(names: Tuple[str, ...], fn) -> int:
@@ -168,22 +168,30 @@ def member_domain(pack: TablePack, fn) -> Tuple[float, float]:
 
 
 def make_pack_fn(pack: TablePack, name: str, *, use_kernel: bool = True,
-                 extrapolate: bool = False):
-    """Unary ``f(x)`` evaluated through the shared pack.
+                 exact_d1=None, extrapolate: bool = False):
+    """Differentiable unary ``f(x)`` evaluated through the shared pack.
 
-    ``use_kernel=True`` routes through the CUDA kernel wrapper
-    (``table_pack`` mode), which runs the plain version only for a tensor on
-    the CPU; ``use_kernel=False`` is the plain version everywhere
-    (``table_pack_ref``).  Forward only.
+    ``use_kernel=True`` routes through the CUDA kernel wrappers
+    (``table_pack`` mode), which run the plain versions only for a tensor on
+    the CPU: ``table_pack_lookup`` without a gradient, the fused value + slope
+    ``table_pack_grad`` under one.  ``use_kernel=False`` is the plain version
+    everywhere (``table_pack_ref``).  Tangent: the table slope, or
+    ``exact_d1(x)`` when given (then the forward is the value path).
     """
     fid = pack.fn_id(name)
     if use_kernel:
-        from repro_torch.kernels.table_pack_lookup import table_pack_lookup
+        from repro_torch.kernels.table_pack_lookup import (table_pack_grad,
+                                                           table_pack_lookup)
 
-        return forward_only(lambda v: table_pack_lookup(
-            pack, fid, v, extrapolate=extrapolate))
-    return forward_only(lambda v: eval_pack_ref(pack, fid, v,
-                                                extrapolate=extrapolate))
+        value = lambda v: table_pack_lookup(pack, fid, v, extrapolate=extrapolate)
+        fused = lambda v: table_pack_grad(pack, fid, v, extrapolate=extrapolate)
+    else:
+        value = lambda v: eval_pack_ref(pack, fid, v, extrapolate=extrapolate)
+        fused = lambda v: (value(v), eval_pack_slope(pack, fid, v,
+                                                     extrapolate=extrapolate))
+    if exact_d1 is not None:
+        fused = lambda v: (value(v), exact_d1(v))
+    return slope_rule(value, fused)
 
 
 def make_attn_exp_fn(pack: TablePack, *, use_kernel: bool = True):
@@ -198,11 +206,23 @@ def make_attn_exp_fn(pack: TablePack, *, use_kernel: bool = True):
     exact and the table path.  The address math still clamps at lo; the zero
     select is on the raw z.  Fused in the CUDA kernel
     (:func:`~repro_torch.kernels.table_pack_lookup.tableflash_exp`), explicit
-    in its plain version.  Forward only.
+    in its plain version.
+
+    Tangent: the member's table slope at the RAW z with extrapolation off
+    (zero outside [lo, 0), so the constant zero tail has slope 0), as the
+    reference's ``eval_pack_slope(pack, fid, z)``.  With ``use_kernel`` it is
+    the slope output of ``table_pack_grad`` (the same function, bit for bit),
+    so no plain version runs on the card's training path.
     """
-    from repro_torch.kernels.table_pack_lookup import (tableflash_exp,
+    from repro_torch.kernels.table_pack_lookup import (table_pack_grad,
+                                                       tableflash_exp,
                                                        tableflash_exp_plain)
 
-    pack.fn_id("exp_neg")  # KeyError now, not at the first attention call
-    impl = tableflash_exp if use_kernel else tableflash_exp_plain
-    return forward_only(lambda v: impl(pack, v))
+    fid = pack.fn_id("exp_neg")  # KeyError now, not at the first attention call
+    if use_kernel:
+        value = lambda v: tableflash_exp(pack, v)
+        slope = lambda v: table_pack_grad(pack, fid, v)[1]
+    else:
+        value = lambda v: tableflash_exp_plain(pack, v)
+        slope = lambda v: eval_pack_slope(pack, fid, v)
+    return slope_rule(value, lambda v: (value(v), slope(v)))

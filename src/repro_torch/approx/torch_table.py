@@ -15,11 +15,13 @@ Every step is its own PyTorch op, so each product and sum rounds to f32 on its
 own: the result is bit-identical to the JAX package's *eager* (unjitted)
 ``eval_table_ref``.  (Under ``jax.jit`` XLA contracts the lerp into an FMA,
 which moves about 7% of points by 1 ULP.)  The CUDA kernels in
-:mod:`repro_torch.kernels.table_pack_lookup` are built with ``-fmad=false`` for
-the same reason: they match this body bit for bit.
+:mod:`repro_torch.kernels` are built with ``-fmad=false`` for the same
+reason: they match this body bit for bit.
 
-Forward only in this slice: the table-slope tangent of ``make_table_fn`` comes
-with the training slice (ROADMAP queue 1, item 6).
+``make_table_fn`` is differentiable through :func:`slope_rule`, the
+``torch.autograd.Function`` counterpart of the reference's ``custom_jvp``:
+the backward pass multiplies the saved table slope (or ``exact_d1(x)``) into
+the incoming gradient.
 """
 
 from __future__ import annotations
@@ -162,34 +164,56 @@ def eval_table_slope(jt: TorchTable, x: torch.Tensor, *,
                       jt.n_intervals, jt.values, x, extrapolate=extrapolate)
 
 
-class _ForwardOnly(torch.autograd.Function):
-    """Forward through ``fwd``; the backward arrives with the training slice."""
+class _SlopeRule(torch.autograd.Function):
+    """``y`` from ``fused(x) -> (y, slope)``; backward ``slope * dy`` (in x's
+    dtype), as the JAX package's custom_jvp returns ``slope * dx``."""
 
     @staticmethod
-    def forward(ctx, x, fwd):
-        return fwd(x)
+    def forward(ctx, x, fused):
+        y, slope = fused(x)
+        ctx.save_for_backward(slope)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        raise NotImplementedError(
-            "table/pack gradients are not ported yet: the table-slope tangent "
-            "and _pack_grad_kernel come with the training slice (ROADMAP "
-            "queue 1, item 6); serve under torch.inference_mode()")
+        (slope,) = ctx.saved_tensors
+        return slope * dy, None
 
 
-def forward_only(fwd):
-    """Wrap ``fwd`` so that a backward pass through it raises
-    ``NotImplementedError`` instead of silently differentiating the lookup."""
+def slope_rule(value, fused):
+    """Differentiable unary ``f(x)``: ``value(x)`` when no gradient is
+    recorded, else ``fused(x) -> (y, slope)`` with the slope saved for the
+    backward pass (the JVP rule of the JAX package's table functions)."""
 
     def f(x):
         if torch.is_grad_enabled() and x.requires_grad:
-            return _ForwardOnly.apply(x, fwd)
-        return fwd(x)
+            return _SlopeRule.apply(x, fused)
+        return value(x)
 
     return f
 
 
-def make_table_fn(jt: TorchTable, *, extrapolate: bool = False):
-    """Unary ``f(x)`` from a table (``table_ref`` mode): the plain lookup,
-    forward only."""
-    return forward_only(lambda x: eval_table_ref(jt, x, extrapolate=extrapolate))
+def make_table_fn(jt: TorchTable, *, use_kernel: bool = False, exact_d1=None,
+                  extrapolate: bool = False):
+    """Differentiable unary ``f(x)`` from a table.
+
+    Tangent rule: the table slope by default (what the hardware computes),
+    ``exact_d1`` (a torch callable) for the analytic derivative.
+    ``use_kernel=True`` (``table_pallas`` mode) routes through the CUDA
+    kernels: the value kernel without a gradient, the fused value + slope
+    kernel under one; ``use_kernel=False`` (``table_ref``) is the plain
+    version.  With ``exact_d1`` the forward is the value path and the slope
+    ``exact_d1(x)``.
+    """
+    if use_kernel:
+        from repro_torch.kernels.table_grad import table_lookup_grad
+        from repro_torch.kernels.table_lookup import table_lookup
+
+        value = lambda x: table_lookup(jt, x, extrapolate=extrapolate)
+        fused = lambda x: table_lookup_grad(jt, x, extrapolate=extrapolate)
+    else:
+        value = lambda x: eval_table_ref(jt, x, extrapolate=extrapolate)
+        fused = lambda x: (value(x), eval_table_slope(jt, x, extrapolate=extrapolate))
+    if exact_d1 is not None:
+        fused = lambda x: (value(x), exact_d1(x))
+    return slope_rule(value, fused)

@@ -7,6 +7,11 @@ of per-layer dicts, and every weight keeps the JAX layout — ``wq`` stays
 (d, H, D) — except ``wo``, which is reshaped to (g_eff, q_per_group, D, d) as
 ``attention_out`` contracts it.  The port and the reference then compute the
 same function, which is what the parity tests compare.
+
+``train_state_from_jax(cfg, state)`` converts a reference train state
+(``{"params", "opt": {"m", "v", "count"}, "step"}``) the same way: the AdamW
+moments share the parameters' layout.  The same mapping carries a tree of
+gradients over (``params_from_jax`` on the grad tree).
 """
 
 from __future__ import annotations
@@ -50,3 +55,16 @@ def params_from_jax(cfg: ArchConfig, tree: Mapping, device: DeviceLike = None) -
                                            geom.d_head, -1)
         out["layers"].append(lp)
     return out
+
+
+def train_state_from_jax(cfg: ArchConfig, state: Mapping,
+                         device: DeviceLike = None) -> dict:
+    """JAX train state (numpy leaves) -> the port's train state."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    scalar = lambda a: torch.tensor(np.array(a), dtype=torch.int32, device=dev)
+    return {"params": params_from_jax(cfg, state["params"], dev),
+            "opt": {"m": params_from_jax(cfg, opt["m"], dev),
+                    "v": params_from_jax(cfg, opt["v"], dev),
+                    "count": scalar(opt["count"])},
+            "step": scalar(state["step"])}

@@ -44,8 +44,15 @@ struct Row {
 TL_HD float clamp_lo(float v, float lo) { return v < lo ? lo : v; }
 TL_HD float clamp_hi(float v, float hi) { return v > hi ? hi : v; }
 
-TL_HD float lookup(float x, const Row& r, const float* values, int m,
-                   bool extrapolate) {
+// Selector, address and pair gather: what the value and the slope share.
+struct Segment {
+  float u;     // (x - p) * invd
+  float i;     // clamped cell index
+  float invd;  // the selected sub-interval's reciprocal step
+  float y0, y1;
+};
+
+TL_HD Segment segment(float x, const Row& r, const float* values, int m) {
   int j = 0;
   for (int k = 1; k <= r.n_max; ++k) j += (x >= r.bounds[k]) ? 1 : 0;
   j = j < r.n_intervals - 1 ? j : r.n_intervals - 1;
@@ -60,12 +67,36 @@ TL_HD float lookup(float x, const Row& r, const float* values, int m,
   const int a = af >= 0.0f ? static_cast<int>(af) : 0;  // NaN -> 0
   const int a0 = a < m - 1 ? a : m - 1;
   const int a1 = a + 1 < m - 1 ? a + 1 : m - 1;
-  const float y0 = values[a0];
-  const float y1 = values[a1];
+  return Segment{u, i, invd, values[a0], values[a1]};
+}
 
-  float t = u - i;
+TL_HD float lerp(const Segment& s, bool extrapolate) {
+  float t = s.u - s.i;
   if (!extrapolate) t = clamp_hi(clamp_lo(t, 0.0f), 1.0f);
-  return y0 + t * (y1 - y0);
+  return s.y0 + t * (s.y1 - s.y0);
+}
+
+TL_HD float lookup(float x, const Row& r, const float* values, int m,
+                   bool extrapolate) {
+  return lerp(segment(x, r, values, m), extrapolate);
+}
+
+// Value and slope from one selector pass (the body of _pack_grad_kernel and
+// _table_grad_kernel).  The slope is (y1 - y0) * invd, zeroed outside
+// [b_0, b_n) unless extrapolating.  The zeroing is a multiply by the 0/1
+// indicator, as in the plain version, so a NaN or inf slope stays NaN there
+// (a select would turn it into 0).
+TL_HD float lookup_grad(float x, const Row& r, const float* values, int m,
+                        bool extrapolate, float* slope) {
+  const Segment s = segment(x, r, values, m);
+  float d = (s.y1 - s.y0) * s.invd;
+  if (!extrapolate) {
+    const float inside =
+        (x >= r.bounds[0] && x < r.bounds[r.n_intervals]) ? 1.0f : 0.0f;
+    d = d * inside;
+  }
+  *slope = d;
+  return lerp(s, extrapolate);
 }
 
 // TableFlash: exp(z) for z <= 0 from the exp_neg member.  The address

@@ -1,0 +1,98 @@
+"""The ctypes binding of ``csrc/table_pack_lookup.cu``, shared by the kernel
+wrappers of :mod:`~repro_torch.kernels.table_pack_lookup`,
+:mod:`~repro_torch.kernels.table_lookup` and :mod:`~repro_torch.kernels.table_grad`.
+
+Every entry point takes ``(x, out[, slope], n, dtype, bounds, invd, base, segs,
+values, <ints>, stream)`` and returns the launch's CUDA error code.
+:func:`launch` flattens x, allocates the outputs, launches on the current
+stream and raises on an error; :data:`launches` counts the launches of each
+kernel, and only a launch adds to it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from . import _build
+
+SOURCE = "table_pack_lookup"
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# launches of each kernel since the last reset_launches()
+launches: Dict[str, int] = {
+    "table_pack_lookup": 0, "tableflash_exp": 0, "table_pack_grad": 0,
+    "table_lookup": 0, "table_lookup_grad": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# entry point -> (outputs, trailing int arguments before the stream)
+_ENTRIES = {
+    "tp_pack_lookup": (1, 5),     # fn_id, n_max, n_intervals, m, extrapolate
+    "tp_tableflash_exp": (1, 4),  # fn_id, n_max, n_intervals, m
+    "tp_pack_grad": (2, 5),       # fn_id, n_max, n_intervals, m, extrapolate
+    "tp_table_lookup": (1, 3),    # n_intervals, m, extrapolate
+    "tp_table_grad": (2, 3),      # n_intervals, m, extrapolate
+}
+_typed: Dict[int, ctypes.CDLL] = {}
+
+
+def _lib() -> ctypes.CDLL:
+    """The built library with every entry point's argtypes/restype declared
+    (pointers and the stream as c_void_p, so ctypes never cuts them to 32
+    bits)."""
+    lib = _build.load(SOURCE)
+    if id(lib) not in _typed:
+        for entry, (n_out, n_int) in _ENTRIES.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = ([_P] * (1 + n_out) + [ctypes.c_longlong, _I]
+                           + [_P] * 5 + [_I] * n_int + [_P])
+            fn.restype = _I
+        lib.tp_error_string.argtypes = [_I]
+        lib.tp_error_string.restype = ctypes.c_char_p
+        _typed[id(lib)] = lib
+    return lib
+
+
+def check(x: torch.Tensor, table_device: torch.device, what: str) -> None:
+    """x must be f32 or bf16 and lie on the device of its ``what`` (pack or
+    table)."""
+    if x.dtype not in DTYPE_CODE:
+        raise TypeError(f"table kernels take float32 or bfloat16, got {x.dtype}")
+    if table_device != x.device:
+        raise ValueError(f"{what} lives on {table_device}, x on {x.device}")
+
+
+def launch(entry: str, x: torch.Tensor, planes: Sequence[torch.Tensor],
+           ints: Sequence[int]) -> Tuple[torch.Tensor, ...]:
+    """Flatten x, allocate the outputs in x's dtype, launch ``entry`` on the
+    current stream over the metadata ``planes`` (bounds, invd, base, segs,
+    values), raise on a launch error.  Returns the outputs in x's shape."""
+    n_out, n_int = _ENTRIES[entry]
+    if len(ints) != n_int:
+        raise ValueError(f"{entry} takes {n_int} int arguments, got {len(ints)}")
+    flat = x.reshape(-1)
+    if not flat.is_contiguous():
+        flat = flat.contiguous()
+    outs = [torch.empty(flat.shape, dtype=x.dtype, device=x.device)
+            for _ in range(n_out)]
+    if flat.numel():
+        lib = _lib()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = getattr(lib, entry)(
+                flat.data_ptr(), *(o.data_ptr() for o in outs), flat.numel(),
+                DTYPE_CODE[x.dtype], *(p.data_ptr() for p in planes), *ints,
+                stream)
+        if err != 0:
+            raise RuntimeError(f"{entry} launch failed: "
+                               f"{lib.tp_error_string(err).decode()} ({err})")
+    return tuple(o.reshape(x.shape) for o in outs)

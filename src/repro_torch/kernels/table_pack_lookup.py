@@ -11,92 +11,40 @@ their wrappers and plain PyTorch versions.
     CUDA kernel ``tp_tableflash_exp``; replaces ``_tableflash_kernel``
     (``src/repro/kernels/table_pack_lookup.py:188``).  Plain version:
     :func:`tableflash_exp_plain`, ``where(z < lo, 0, eval_pack_ref(max(z, lo)))``.
+  * :func:`table_pack_grad` — value and slope of one member from one selector
+    pass (the training path's forward).  CUDA kernel ``tp_pack_grad``;
+    replaces ``_pack_grad_kernel`` (``src/repro/kernels/table_pack_lookup.py:66``).
+    Plain version: :func:`table_pack_grad_plain`, ``(eval_pack_ref,
+    eval_pack_slope)``.
 
 A wrapper checks x's dtype (float32 or bfloat16) and that x and the pack share
 a device, then runs the plain version only because the tensor lies on the
 CPU.  For a CUDA tensor it launches the kernel or raises: there is no
 fallback.  Every launch adds one to :data:`launches`, and nothing else does.
-Both kernels are bounded by bytes (``N * (in_bytes + out_bytes)`` at the card's
-memory rate) and are launch-bound at decode shapes; see the note at the top of
-the CUDA source.
+The kernels are bounded by bytes (``N * (in_bytes + n_out * out_bytes)`` at
+the card's memory rate) and are launch-bound at decode shapes; see the note at
+the top of the CUDA source.
 """
 
 from __future__ import annotations
 
-import ctypes
-from typing import Dict
-
 import torch
 
-from repro_torch.approx.table_pack import TablePack, eval_pack_ref
+from repro_torch.approx.table_pack import TablePack, eval_pack_ref, eval_pack_slope
 
-from . import _build
+from ._lib import check, launch, launches, reset_launches
 
-SOURCE = "table_pack_lookup"
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-# launches of each kernel since the last reset_launches()
-launches: Dict[str, int] = {"table_pack_lookup": 0, "tableflash_exp": 0}
+__all__ = ["launches", "reset_launches", "table_pack_lookup",
+           "table_pack_lookup_plain", "tableflash_exp", "tableflash_exp_plain",
+           "table_pack_grad", "table_pack_grad_plain"]
 
 
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+def _planes(pack: TablePack):
+    return (pack.boundaries, pack.inv_delta, pack.base, pack.seg_count, pack.values)
 
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_ARGS = [_P, _P, ctypes.c_longlong, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I]
-
-
-_typed: Dict[int, ctypes.CDLL] = {}
-
-
-def _lib() -> ctypes.CDLL:
-    """The built library with every entry point's argtypes/restype declared
-    (pointers and the stream as c_void_p, so ctypes never cuts them to 32
-    bits)."""
-    lib = _build.load(SOURCE)
-    if id(lib) not in _typed:
-        lib.tp_pack_lookup.argtypes = _ARGS + [_I, _P]
-        lib.tp_pack_lookup.restype = _I
-        lib.tp_tableflash_exp.argtypes = _ARGS + [_P]
-        lib.tp_tableflash_exp.restype = _I
-        lib.tp_error_string.argtypes = [_I]
-        lib.tp_error_string.restype = ctypes.c_char_p
-        _typed[id(lib)] = lib
-    return lib
-
-
-def _check(pack: TablePack, x: torch.Tensor) -> None:
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"table kernels take float32 or bfloat16, got {x.dtype}")
-    if pack.values.device != x.device:
-        raise ValueError(f"pack lives on {pack.values.device}, x on {x.device}")
-
-
-def _launch(entry: str, pack: TablePack, fid: int, x: torch.Tensor, *extra):
-    """Flatten x, allocate the output, launch ``entry`` on the current stream,
-    raise on a launch error.  Returns the output in x's shape."""
-    flat = x.reshape(-1)
-    if not flat.is_contiguous():
-        flat = flat.contiguous()
-    out = torch.empty(flat.shape, dtype=x.dtype, device=x.device)
-    if flat.numel() == 0:
-        return out.reshape(x.shape)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, entry)(
-            flat.data_ptr(), out.data_ptr(), flat.numel(), _DTYPE_CODE[x.dtype],
-            pack.boundaries.data_ptr(), pack.inv_delta.data_ptr(),
-            pack.base.data_ptr(), pack.seg_count.data_ptr(),
-            pack.values.data_ptr(), fid, pack.n_max, pack.n_intervals[fid],
-            pack.footprint, *extra, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: "
-                           f"{lib.tp_error_string(err).decode()} ({err})")
-    return out.reshape(x.shape)
+def _member(pack: TablePack, fid: int):
+    return (fid, pack.n_max, pack.n_intervals[fid], pack.footprint)
 
 
 def table_pack_lookup_plain(pack: TablePack, fn, x: torch.Tensor, *,
@@ -110,10 +58,11 @@ def table_pack_lookup(pack: TablePack, fn, x: torch.Tensor, *,
                       extrapolate: bool = False) -> torch.Tensor:
     """Evaluate member ``fn`` (name or fn_id) of the pack over a tensor."""
     fid = pack.member_id(fn)
-    _check(pack, x)
+    check(x, pack.device, "pack")
     if x.device.type == "cpu":
         return table_pack_lookup_plain(pack, fid, x, extrapolate=extrapolate)
-    out = _launch("tp_pack_lookup", pack, fid, x, int(extrapolate))
+    (out,) = launch("tp_pack_lookup", x, _planes(pack),
+                    (*_member(pack, fid), int(extrapolate)))
     if x.numel():
         launches["table_pack_lookup"] += 1
     return out
@@ -130,10 +79,34 @@ def tableflash_exp_plain(pack: TablePack, x: torch.Tensor) -> torch.Tensor:
 
 def tableflash_exp(pack: TablePack, x: torch.Tensor) -> torch.Tensor:
     """Fused clamp + exp_neg lookup over flash attention's exponent tensor."""
-    _check(pack, x)
+    check(x, pack.device, "pack")
     if x.device.type == "cpu":
         return tableflash_exp_plain(pack, x)
-    out = _launch("tp_tableflash_exp", pack, pack.member_id("exp_neg"), x)
+    (out,) = launch("tp_tableflash_exp", x, _planes(pack),
+                    _member(pack, pack.member_id("exp_neg")))
     if x.numel():
         launches["tableflash_exp"] += 1
     return out
+
+
+def table_pack_grad_plain(pack: TablePack, fn, x: torch.Tensor, *,
+                          extrapolate: bool = False):
+    """Plain PyTorch version of ``tp_pack_grad``: ``(eval_pack_ref,
+    eval_pack_slope)``, each the torch twin of the JAX package's eager one."""
+    return (eval_pack_ref(pack, fn, x, extrapolate=extrapolate),
+            eval_pack_slope(pack, fn, x, extrapolate=extrapolate))
+
+
+def table_pack_grad(pack: TablePack, fn, x: torch.Tensor, *,
+                    extrapolate: bool = False):
+    """``(y, dy/dx)`` of member ``fn`` over a tensor, both in x's dtype, from
+    one selector pass."""
+    fid = pack.member_id(fn)
+    check(x, pack.device, "pack")
+    if x.device.type == "cpu":
+        return table_pack_grad_plain(pack, fid, x, extrapolate=extrapolate)
+    y, slope = launch("tp_pack_grad", x, _planes(pack),
+                      (*_member(pack, fid), int(extrapolate)))
+    if x.numel():
+        launches["table_pack_grad"] += 1
+    return y, slope

@@ -1,0 +1,113 @@
+"""Training launcher of the port, on the card unless ``--device cpu``.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \\
+      --reduced --device cpu --steps 4 --batch 4 --seq 16 --accum 2 \\
+      --approx-mode table_pack
+
+The flags are the JAX launcher's (``repro.launch.train``) for the ported
+approx modes, plus ``--device``; the mesh, the unported modes and their
+options (``--mesh``, ``--pack-shards``, ``--pack-budget``, ``--rope-table``,
+``--obs``) wait for their ROADMAP items.  Weights are random, drawn from
+seed 0, and the data is the counter-addressed synthetic stream, as in the
+JAX launcher.  The summary line reports the one-time nvcc kernel build in
+place of the reference's compile time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+from repro_torch import obs
+from repro_torch.approx import TABLE_MODES
+from repro_torch.device import resolve_device
+from repro_torch.models import ShapeSpec, build_model, get_config, reduced
+from repro_torch.optim import adamw
+from repro_torch.train.loop import TrainConfig, run
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (default: repro_torch_ckpt in "
+                         "the temporary directory)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--reduced", action="store_true",
+                    help="family-preserving shrink for CPU-scale runs")
+    ap.add_argument("--approx-mode", choices=["exact", *TABLE_MODES], default=None,
+                    help="nonlinearity backend; table_pack = one fused "
+                         "multi-function pack + CUDA kernels for the whole "
+                         "network, table_pallas = per-function tables through "
+                         "the CUDA table kernels, *_ref = their plain PyTorch "
+                         "versions")
+    ap.add_argument("--approx-ea", type=float, default=None,
+                    help="override the config's error budget E_a")
+    ap.add_argument("--attn-table", action="store_true",
+                    help="TableFlash: serve flash attention's softmax exponent"
+                         " from the pack's exp_neg member (any table mode)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome-trace JSON of the run (train.step / "
+                         "train.ckpt spans; open in Perfetto)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; an error without a card) or cpu")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    obs.configure(enabled=True, trace_path=args.trace)
+    obs.reset_tracer()
+    obs.reset_registry()
+
+    cfg = reduced(args.arch) if args.reduced else get_config(args.arch)
+    kw = {}
+    if args.approx_mode is not None:
+        kw["mode"] = args.approx_mode
+    if args.approx_ea is not None:
+        kw["e_a"] = args.approx_ea
+    if args.attn_table:
+        kw["attn_table"] = True
+    if kw:
+        cfg = cfg.replace(approx=dataclasses.replace(cfg.approx, **kw))
+    model = build_model(cfg, device)
+
+    shape = ShapeSpec("cli", seq_len=args.seq, global_batch=args.batch, kind="train")
+    tc = TrainConfig(
+        steps=args.steps, ckpt_every=args.ckpt_every, accum=args.accum,
+        opt=adamw.AdamWConfig(lr=args.lr, warmup_steps=max(1, args.steps // 20),
+                              total_steps=args.steps),
+    )
+    if args.ckpt_dir is not None:
+        tc.ckpt_dir = args.ckpt_dir
+    t0 = time.perf_counter()
+    out = run(model, shape, tc)
+    wall = time.perf_counter() - t0
+    steps_done = len(out["losses"])
+    if steps_done == 0:
+        print(f"done: step={out['final_step']} (nothing to run: the checkpoint "
+              f"in {tc.ckpt_dir} is at or past --steps)")
+        return out
+    steady = max(wall - out["build_time_s"], 1e-9)
+    print(f"done: step={out['final_step']} "
+          f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f} "
+          f"stragglers={out['stragglers']} preempted={out['preempted']}; "
+          f"{steps_done / wall:.2f} step/s wall, {steps_done / steady:.2f} "
+          f"step/s steady after {out['build_time_s']:.2f}s kernel build "
+          f"on {device}")
+    if args.trace:
+        obs.get_tracer().save(args.trace, metadata={
+            "summary": {"steps": steps_done, "wall_s": wall,
+                        "build_time_s": out["build_time_s"],
+                        "device": str(device)},
+            "metrics": obs.get_registry().summary()})
+        print(f"trace written to {args.trace}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

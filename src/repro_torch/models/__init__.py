@@ -1,5 +1,5 @@
 """repro_torch.models — the ported architectures (dense decoder so far)."""
 
-from .config import ArchConfig
+from .config import ArchConfig, ShapeSpec
 from .registry import ARCH_IDS, build_model, get_config, reduced
-from .transformer import DecoderLM
+from .transformer import DecoderLM, cross_entropy

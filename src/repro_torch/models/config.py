@@ -1,5 +1,6 @@
 """Architecture configuration, mirrored as data from the JAX package's
-``models/config.py`` (the dry-run shape cells are not carried over).
+``models/config.py``: ``ArchConfig`` and ``ShapeSpec`` (the dry-run shape
+cells built from it are not carried over).
 
 ``ArchConfig`` is the single source of truth consumed by the model constructors
 and the launcher.  One instance per ported architecture lives in
@@ -221,3 +222,13 @@ class ArchConfig:
     def d_ff_x(self) -> int:
         # xLSTM mLSTM up-projection factor 2 when d_ff is unset in the assignment
         return self.d_ff if self.d_ff > 0 else 2 * self.d_model
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One input shape: the trainer's global batch and sequence length."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"

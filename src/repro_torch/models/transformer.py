@@ -3,15 +3,19 @@
 
     model = build_model(cfg, device=...)          # repro_torch.models.registry
     params = model.init(generator)
+    logits, aux = model.train_logits(params, batch)
+    loss = model.loss(params, batch)
     cache = model.init_cache(batch_size, cache_len)
     logits, cache = model.prefill(params, batch, cache)
     logits, cache = model.decode_step(params, tok, pos, cache)
 
 The stacked-layer ``lax.scan`` becomes a loop over a list of per-layer
 parameter dicts; the cache keeps the reference's stacked (L, B, W, G, D)
-layout.  All nonlinearities route through ``cfg.approx`` (the paper's table
-backend).  MoE and local:global stacks come with ROADMAP queue 1, item 11;
-training (``train_logits`` / ``loss``) with item 6.
+layout.  ``cfg.remat`` (the reference's ``jax.checkpoint`` around the scan
+body) checkpoints each layer of ``train_logits`` with
+``torch.utils.checkpoint``.  All nonlinearities route through ``cfg.approx``
+(the paper's table backend).  MoE and local:global stacks come with ROADMAP
+queue 1, item 11.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -44,6 +49,21 @@ Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+AUX_WEIGHT = 0.01  # MoE load-balance loss weight (0 aux for dense stacks)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean CE over targets >= 0 (-1 = ignore).  logits f32 (B, S, V).
+
+    The gold logit is taken by a masked reduction over the vocab axis (the
+    reference's one-hot form), not a gather."""
+    mask = (targets >= 0).to(torch.float32)
+    tgt = torch.clamp(targets, min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    onehot = torch.arange(logits.shape[-1], device=logits.device) == tgt[..., None]
+    gold = torch.where(onehot, logits, 0.0).sum(dim=-1)
+    return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def _decode_positions(pos: torch.Tensor, pos_buf: torch.Tensor, W: int):
@@ -157,6 +177,27 @@ class DecoderLM:
                             window=cfg.attn.window, exp_fn=self.attn_exp)
         x = x + attention_out(lp["attn"], o, cfg.attn_geom)
         return self._ffn(lp, x), kb, vb
+
+    # ------------------------------- train -----------------------------------------
+
+    def train_logits(self, params, batch):
+        """batch["tokens"]: (B, S) integer tensor.  Returns the (B, S, V) f32
+        logits and the aux loss (0 for a dense stack)."""
+        tokens = batch["tokens"]
+        x = embed(params["embed"], tokens, self.dtype)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        block = lambda lp, h: self._self_block(lp, h, positions)[0]
+        for lp in params["layers"]:
+            if self.cfg.remat:
+                x = checkpoint(block, lp, x, use_reentrant=False)
+            else:
+                x = block(lp, x)
+        return self._logits(params, x), torch.zeros((), dtype=torch.float32,
+                                                    device=x.device)
+
+    def loss(self, params, batch):
+        logits, aux = self.train_logits(params, batch)
+        return cross_entropy(logits, batch["targets"]) + AUX_WEIGHT * aux
 
     # ------------------------------- cache ------------------------------------------
 

@@ -16,6 +16,10 @@ import torch
 
 from repro_torch.approx import ApproxConfig
 from repro_torch.approx.table_pack import build_pack
+from repro_torch.approx.torch_table import TorchTable, from_spec
+from repro_torch.core.flow import cached_table
+from repro_torch.kernels import table_grad as TG
+from repro_torch.kernels import table_lookup as TL
 from repro_torch.kernels import table_pack_lookup as K
 
 pytestmark = pytest.mark.gpu
@@ -103,7 +107,9 @@ def test_wrapper_contract(pack):
     K.table_pack_lookup(pack, "silu", torch.empty(0, device="cuda"))  # no launch
     cpu_pack = build_pack(NAMES, 1e-4, omega=0.2, device="cpu")
     K.table_pack_lookup(cpu_pack, "silu", x.cpu())  # plain version, no launch
-    assert K.launches == {"table_pack_lookup": 1, "tableflash_exp": 1}
+    assert K.launches == {"table_pack_lookup": 1, "tableflash_exp": 1,
+                          "table_pack_grad": 0, "table_lookup": 0,
+                          "table_lookup_grad": 0}
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         K.table_pack_lookup(pack, "silu", x.half())
     for p, t in ((cpu_pack, x), (pack, x.cpu())):
@@ -111,6 +117,131 @@ def test_wrapper_contract(pack):
             K.table_pack_lookup(p, "silu", t)
         with pytest.raises(ValueError, match="pack lives on"):
             K.tableflash_exp(p, t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("extrapolate", [False, True])
+@pytest.mark.parametrize("name", NAMES)
+def test_pack_grad_kernel_bitwise(pack, name, extrapolate, dtype):
+    fid = pack.fn_id(name)
+    x = edge_input(pack, fid, 4093, dtype)
+    y, slope = K.table_pack_grad(pack, fid, x, extrapolate=extrapolate)
+    torch.cuda.synchronize()
+    want_y, want_s = K.table_pack_grad_plain(pack, fid, x, extrapolate=extrapolate)
+    assert_bitwise(y, want_y)
+    assert_bitwise(slope, want_s)
+    assert_bitwise(y, K.table_pack_lookup(pack, fid, x, extrapolate=extrapolate))
+
+
+def _table_edges(jt, n, dtype, seed=0):
+    """Every boundary and its neighbours, specials, and uniform draws."""
+    lo, hi = float(jt.boundaries[0]), float(jt.boundaries[-1])
+    rng = np.random.default_rng(seed)
+    b = jt.boundaries.cpu().numpy()
+    tiny = np.float32(np.finfo(np.float32).smallest_subnormal)
+    x = np.concatenate([
+        b, np.nextafter(b, np.float32(np.inf)), np.nextafter(b, np.float32(-np.inf)),
+        [np.inf, -np.inf, np.nan, -2e38, 2e38, 0.0, -0.0, tiny, -tiny, lo, hi],
+        rng.uniform(lo - 4, hi + 4, n)]).astype(np.float32)
+    return torch.from_numpy(x).to("cuda").to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("extrapolate", [False, True])
+@pytest.mark.parametrize("name", NAMES)
+def test_table_kernels_bitwise(cuda, name, extrapolate, dtype):
+    jt = ApproxConfig(e_a=1e-4, omega=0.2).table_for(name, cuda)
+    x = _table_edges(jt, 4093, dtype)
+    got = TL.table_lookup(jt, x, extrapolate=extrapolate)
+    y, slope = TG.table_lookup_grad(jt, x, extrapolate=extrapolate)
+    torch.cuda.synchronize()
+    want_y, want_s = TG.table_lookup_grad_plain(jt, x, extrapolate=extrapolate)
+    assert_bitwise(got, TL.table_lookup_plain(jt, x, extrapolate=extrapolate))
+    assert_bitwise(y, want_y)
+    assert_bitwise(slope, want_s)
+
+
+def test_grad_kernels_beyond_shared_memory(cuda):
+    """A pack and a table larger than the static shared budget (10,240 f32
+    values) are read from global memory: same bits, value and slope."""
+    big = build_pack(("silu", "exp_neg"), 3e-8, omega=0.2, device=cuda)
+    assert big.footprint > 10240
+    for fid in range(2):
+        x = edge_input(big, fid, 5000, torch.float32, seed=fid)
+        for ex in (False, True):
+            for a, b in zip(K.table_pack_grad(big, fid, x, extrapolate=ex),
+                            K.table_pack_grad_plain(big, fid, x, extrapolate=ex)):
+                assert_bitwise(a, b)
+    jt = from_spec(cached_table("silu", 3e-8, omega=0.2), cuda)
+    assert jt.footprint > 10240
+    x = _table_edges(jt, 5000, torch.float32)
+    assert_bitwise(TL.table_lookup(jt, x, extrapolate=True),
+                   TL.table_lookup_plain(jt, x, extrapolate=True))
+    for a, b in zip(TG.table_lookup_grad(jt, x), TG.table_lookup_grad_plain(jt, x)):
+        assert_bitwise(a, b)
+
+
+def test_grad_wrappers_contract(pack, cuda):
+    K.reset_launches()
+    jt = ApproxConfig(e_a=1e-4, omega=0.2).table_for("silu", cuda)
+    x = torch.randn(3, 5, 7, device="cuda").transpose(0, 2)  # not contiguous
+    for y, s in (K.table_pack_grad(pack, "silu", x), TG.table_lookup_grad(jt, x)):
+        assert y.shape == s.shape == x.shape and y.is_contiguous()
+    TL.table_lookup(jt, x)
+    TL.table_lookup(jt, torch.empty(0, device="cuda"))  # no launch
+    TG.table_lookup_grad(jt, torch.empty(0, device="cuda"))
+    assert K.launches == {"table_pack_lookup": 0, "tableflash_exp": 0,
+                          "table_pack_grad": 1, "table_lookup": 1,
+                          "table_lookup_grad": 1}
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        TG.table_lookup_grad(jt, x.half())
+    with pytest.raises(ValueError, match="table lives on"):
+        TL.table_lookup(jt, x.cpu())
+    with pytest.raises(ValueError, match="pack lives on"):
+        K.table_pack_grad(pack, "silu", x.cpu())
+    n = 65  # one more sub-interval than the kernel stages: refused, not run
+    wide = TorchTable(
+        boundaries=torch.linspace(0, 1, n + 1, device="cuda"),
+        inv_delta=torch.full((n,), float(n), device="cuda"),
+        delta=torch.full((n,), 1.0 / n, device="cuda"),
+        base=torch.arange(n, dtype=torch.float32, device="cuda") * 2,
+        seg_count=torch.ones(n, device="cuda"),
+        values=torch.zeros(2 * n + 1, device="cuda"))
+    for fn in (TL.table_lookup, TG.table_lookup_grad):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fn(wide, x)
+    assert K.launches["table_lookup"] == 1 and K.launches["table_lookup_grad"] == 1
+
+
+def test_reduced_model_trains_card_matches_cpu(cuda):
+    """Reduced stablelm, f32, table_pack with TableFlash, 2 train steps
+    (accum 2): the kernels on the card against the plain versions on the CPU,
+    losses within 1e-4 relative (the card and the CPU sum the matrix
+    products in other orders)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import build_model, reduced
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import batch_to, init_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    cfg = reduced("stablelm-3b").replace(compute_dtype="float32", approx=ApproxConfig(
+        mode="table_pack", e_a=1e-4, omega=0.2, attn_table=True))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, global_batch=4, seq_len=16))
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    cpu_state = init_state(build_model(cfg, "cpu"))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, dev)
+        state = tree_map(lambda t: t.detach().clone().to(dev), cpu_state)
+        step = make_train_step(model, opt, accum=2)
+        K.reset_launches()
+        losses[dev] = []
+        for s in range(2):
+            state, m = step(state, batch_to(data.batch_at(s), dev))
+            losses[dev].append(float(m["loss"]))
+        if dev == "cuda":
+            assert K.launches["table_pack_grad"] > 0 and K.launches["tableflash_exp"] > 0
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
 
 
 def test_reduced_model_card_matches_cpu(cuda):
@@ -137,7 +268,7 @@ def test_reduced_model_card_matches_cpu(cuda):
                     max_new_tokens=6) for n in rng.integers(3, 12, 5)]
     K.reset_launches()
     got = ContinuousEngine(gpu_model, to(params, cuda), 2, 64).serve(reqs)
-    assert all(v > 0 for v in K.launches.values())
+    assert K.launches["table_pack_lookup"] > 0 and K.launches["tableflash_exp"] > 0
     want = ContinuousEngine(cpu_model, params, 2, 64).serve(reqs)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.tokens, b.tokens)

@@ -16,11 +16,21 @@ Contract (tolerances stated with their reason):
 * inputs are normal floats or zero: XLA on the CPU flushes subnormal inputs
   to zero, PyTorch and the CUDA kernels do not (the card tests keep them);
 * the TableFlash zero tail is exactly 0 below lo, and ``member_id`` raises
-  ``KeyError`` for unknown names and out-of-range ids.
+  ``KeyError`` for unknown names and out-of-range ids;
+* slopes (the grad kernels' second output): bitwise equal to the eager
+  ``eval_pack_slope`` / ``eval_table_slope`` on finite inputs (the eager
+  oracle's gathers do not clamp a non-finite address), and within 1 ULP of
+  the slope itself against the Pallas grad kernels in interpret mode;
+* gradients through ``make_pack_fn`` / ``make_table_fn`` /
+  ``make_attn_exp_fn`` / ``ApproxConfig.unary``: exactly ``slope * dy``, and
+  bitwise equal to the reference's VJP of its ``custom_jvp`` (both compute
+  one product per element).
 
 On the CPU the kernel wrappers run their plain versions, so the wrapper is
 held to the same contract.
 """
+
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -32,10 +42,16 @@ from repro.approx import jax_table as jt_ref
 from repro.approx import table_pack as tp_ref
 from repro.core import function_names
 from repro.core.flow import cached_table as j_cached
-from repro.kernels.table_pack_lookup import (table_pack_lookup_pallas,
+from repro.kernels.table_grad import table_lookup_grad_pallas
+from repro.kernels.table_lookup import table_lookup_pallas
+from repro.kernels.table_pack_lookup import (table_pack_grad_pallas,
+                                             table_pack_lookup_pallas,
                                              tableflash_exp_pallas)
 from repro_torch.approx import ApproxConfig, NOT_PORTED, torch_table, table_pack
 from repro_torch.core.flow import cached_table
+from repro_torch.core.functions import get as get_function
+from repro_torch.kernels import table_grad as TG
+from repro_torch.kernels import table_lookup as TL
 from repro_torch.kernels import table_pack_lookup as K
 
 NAMES = ("gelu", "silu", "tanh", "sigmoid_sym", "softplus", "exp_neg")
@@ -157,6 +173,38 @@ class TestPack:
                                          extrapolate=extrapolate)
         assert_bitwise(got, want)
 
+    def test_grad_plain_bitwise_vs_eager_oracle(self, packs, name, extrapolate):
+        """``table_pack_grad_plain`` (and the CPU wrapper) is the eager
+        ``(eval_pack_ref, eval_pack_slope)`` pair, in f32 and bf16."""
+        jp, tp = packs
+        fid = tp.fn_id(name)
+        x = inputs(*tp.domains[fid], tp.boundaries[fid].numpy(), seed=5)
+        x = x[np.isfinite(x)]
+        for dt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+            xj = jnp.asarray(x, jdt)
+            want_y = tp_ref.eval_pack_ref(jp, name, xj, extrapolate=extrapolate)
+            want_s = tp_ref.eval_pack_slope(jp, name, xj, extrapolate=extrapolate)
+            xt = torch.from_numpy(x).to(dt)
+            for y, slope in (K.table_pack_grad_plain(tp, name, xt, extrapolate=extrapolate),
+                             K.table_pack_grad(tp, fid, xt, extrapolate=extrapolate)):
+                assert y.dtype == slope.dtype == dt
+                assert_bitwise(y.float().numpy(), np.asarray(want_y).astype(np.float32))
+                assert_bitwise(slope.float().numpy(),
+                               np.asarray(want_s).astype(np.float32))
+
+    def test_grad_within_one_ulp_of_interpret_kernel(self, packs, name, extrapolate):
+        jp, tp = packs
+        fid = tp.fn_id(name)
+        x = inputs(*tp.domains[fid], tp.boundaries[fid].numpy(), seed=6)
+        y, slope = K.table_pack_grad_plain(tp, name, torch.from_numpy(x),
+                                           extrapolate=extrapolate)
+        ky, ks = table_pack_grad_pallas(jp, name, jnp.asarray(x), extrapolate=extrapolate)
+        scale = lerp_scale(tp.boundaries[fid], tp.inv_delta[fid], tp.base[fid],
+                           tp.seg_count[fid], tp.n_intervals[fid], tp.values, x,
+                           extrapolate)
+        assert_within_ulp(y.numpy(), ky, scale)
+        assert_within_ulp(slope.numpy(), ks, np.zeros_like(x))
+
 
 @pytest.mark.parametrize("extrapolate", [False, True])
 @pytest.mark.parametrize("name", function_names())
@@ -168,6 +216,138 @@ def test_table_bitwise_vs_eager_oracle(name, extrapolate):
     want = jt_ref.eval_table_ref(jt, jnp.asarray(x), extrapolate=extrapolate)
     assert_bitwise(torch_table.eval_table_ref(tt, torch.from_numpy(x),
                                               extrapolate=extrapolate), want)
+
+
+def _table_pair(name):
+    return (jt_ref.from_spec(j_cached(name, 1e-4)),
+            torch_table.from_spec(cached_table(name, 1e-4), device="cpu"))
+
+
+@pytest.mark.parametrize("extrapolate", [False, True])
+@pytest.mark.parametrize("name", function_names())
+def test_table_kernels_plain_bitwise_vs_eager_oracle(name, extrapolate):
+    """``table_lookup[_grad]_plain`` and the CPU wrappers are the eager
+    ``eval_table_ref`` / ``eval_table_slope``."""
+    jt, tt = _table_pair(name)
+    x = inputs(float(tt.boundaries[0]), float(tt.boundaries[-1]),
+               tt.boundaries.numpy(), seed=8)
+    want_y = jt_ref.eval_table_ref(jt, jnp.asarray(x), extrapolate=extrapolate)
+    xt = torch.from_numpy(x)
+    assert_bitwise(TL.table_lookup_plain(tt, xt, extrapolate=extrapolate), want_y)
+    assert_bitwise(TL.table_lookup(tt, xt, extrapolate=extrapolate), want_y)
+    fin = np.isfinite(x)
+    want_s = jt_ref.eval_table_slope(jt, jnp.asarray(x[fin]), extrapolate=extrapolate)
+    for y, slope in (TG.table_lookup_grad_plain(tt, xt[fin], extrapolate=extrapolate),
+                     TG.table_lookup_grad(tt, xt[fin], extrapolate=extrapolate)):
+        assert_bitwise(y, want_y[fin])
+        assert_bitwise(slope, want_s)
+
+
+@pytest.mark.parametrize("extrapolate", [False, True])
+@pytest.mark.parametrize("name", function_names())
+def test_table_kernels_within_one_ulp_of_interpret_kernels(name, extrapolate):
+    jt, tt = _table_pair(name)
+    x = inputs(float(tt.boundaries[0]), float(tt.boundaries[-1]),
+               tt.boundaries.numpy(), seed=9)
+    xt = torch.from_numpy(x)
+    scale = lerp_scale(tt.boundaries, tt.inv_delta, tt.base, tt.seg_count,
+                       tt.n_intervals, tt.values, x, extrapolate)
+    y = TL.table_lookup_plain(tt, xt, extrapolate=extrapolate).numpy()
+    assert_within_ulp(y, table_lookup_pallas(jt, jnp.asarray(x), extrapolate=extrapolate),
+                      scale)
+    gy, gs = TG.table_lookup_grad_plain(tt, xt, extrapolate=extrapolate)
+    ky, ks = table_lookup_grad_pallas(jt, jnp.asarray(x), extrapolate=extrapolate)
+    assert_within_ulp(gy.numpy(), ky, scale)
+    assert_within_ulp(gs.numpy(), ks, np.zeros_like(x))
+
+
+def test_table_wrapper_contract():
+    _, tt = _table_pair("silu")
+    for dt in (torch.float64, torch.float16):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            TL.table_lookup(tt, torch.zeros(4, dtype=dt))
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            TG.table_lookup_grad(tt, torch.zeros(4, dtype=dt))
+    with pytest.raises(ValueError, match="table lives on cpu, x on meta"):
+        TL.table_lookup(tt, torch.zeros(4, device="meta"))
+    before = dict(K.launches)
+    y, s = TG.table_lookup_grad(tt, torch.zeros(3, 0))
+    assert y.shape == s.shape == (3, 0)
+    assert K.launches == before  # the plain version on the CPU is no launch
+
+
+# --------------------------------------------------------------------------------------
+# gradients: backward = slope * dy, and the reference's VJP
+# --------------------------------------------------------------------------------------
+
+
+def _x_dy(lo, hi, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(lo - 2.0, hi + 2.0, 3000).astype(np.float32)
+    dy = rng.normal(0, 1, 3000).astype(np.float32)
+    return torch.from_numpy(x).to(dtype), torch.from_numpy(dy).to(dtype)
+
+
+def _grad(f, x, dy):
+    x = x.clone().requires_grad_(True)
+    y = f(x)
+    y.backward(dy)
+    return y.detach(), x.grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("name", NAMES)
+def test_pack_fn_backward_is_slope_times_dy(packs, name, use_kernel, dtype):
+    _, tp = packs
+    fid = tp.fn_id(name)
+    ex = name in ("gelu", "silu", "softplus")
+    x, dy = _x_dy(*tp.domains[fid], seed=fid, dtype=dtype)
+    f = table_pack.make_pack_fn(tp, name, use_kernel=use_kernel, extrapolate=ex)
+    y, g = _grad(f, x, dy)
+    want_y, slope = K.table_pack_grad_plain(tp, fid, x, extrapolate=ex)
+    assert g.dtype == dtype
+    assert torch.equal(y, want_y) and torch.equal(g, slope * dy)
+    with torch.inference_mode():  # no gradient recorded: the value path
+        assert torch.equal(f(x), want_y)
+    d1 = lambda v: torch.cos(v)  # any analytic derivative
+    fe = table_pack.make_pack_fn(tp, name, use_kernel=use_kernel, exact_d1=d1,
+                                 extrapolate=ex)
+    y, g = _grad(fe, x, dy)
+    assert torch.equal(y, want_y) and torch.equal(g, torch.cos(x) * dy)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("name", ["silu", "tanh", "exp_neg", "gelu"])
+def test_table_fn_backward_is_slope_times_dy(name, use_kernel):
+    _, tt = _table_pair(name)
+    ex = name in ("gelu", "silu")
+    x, dy = _x_dy(float(tt.boundaries[0]), float(tt.boundaries[-1]), seed=11)
+    y, g = _grad(torch_table.make_table_fn(tt, use_kernel=use_kernel, extrapolate=ex),
+                 x, dy)
+    want_y, slope = TG.table_lookup_grad_plain(tt, x, extrapolate=ex)
+    assert torch.equal(y, want_y) and torch.equal(g, slope * dy)
+    d1 = partial(get_function(name).d1f, xp=torch)
+    y, g = _grad(torch_table.make_table_fn(tt, use_kernel=use_kernel, exact_d1=d1,
+                                           extrapolate=ex), x, dy)
+    assert torch.equal(y, want_y) and torch.equal(g, d1(x) * dy)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_attn_exp_backward_is_raw_slope_times_dy(packs, use_kernel):
+    jp, tp = packs
+    z = np.concatenate([np.linspace(-40.0, 0.0, 4001),
+                        [-16.0, np.nextafter(np.float32(-16), -np.inf), -2e38]]
+                       ).astype(np.float32)
+    dy = np.random.default_rng(12).normal(0, 1, z.size).astype(np.float32)
+    y, g = _grad(table_pack.make_attn_exp_fn(tp, use_kernel=use_kernel),
+                 torch.from_numpy(z), torch.from_numpy(dy))
+    slope = table_pack.eval_pack_slope(tp, "exp_neg", torch.from_numpy(z))
+    assert torch.equal(g, slope * torch.from_numpy(dy))
+    assert (g[torch.from_numpy(z) < -16.0] == 0).all()
+    jy, vjp = jax.vjp(tp_ref.make_attn_exp_fn(jp, use_pallas=False), jnp.asarray(z))
+    assert_bitwise(y, jy)
+    assert_bitwise(g, vjp(jnp.asarray(dy))[0])
 
 
 class TestTableFlash:
@@ -245,16 +425,6 @@ class TestContracts:
             with pytest.raises(TypeError, match="float32 or bfloat16"):
                 K.tableflash_exp(tp, torch.zeros(4, dtype=dt))
 
-    def test_backward_raises(self, packs):
-        _, tp = packs
-        f = table_pack.make_pack_fn(tp, "silu", use_kernel=True)
-        x = torch.linspace(-3, 3, 11, requires_grad=True)
-        y = f(x)
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-            y.sum().backward()
-        with torch.inference_mode():
-            assert f(torch.zeros(2)).shape == (2,)
-
     @pytest.mark.parametrize("mode", sorted(NOT_PORTED))
     def test_unported_modes_raise(self, mode):
         with pytest.raises(NotImplementedError, match="ROADMAP queue"):
@@ -296,6 +466,37 @@ def test_unary_matches_reference(mode, name):
         torch.from_numpy(x)).numpy()
     if mode == "exact":
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        assert_bitwise(got, want)
+
+
+@pytest.mark.parametrize("exact_grad", [False, True])
+@pytest.mark.parametrize("mode", ["table_ref", "table_pallas", "table_pack", "table_pack_ref"])
+@pytest.mark.parametrize("name", ["silu", "gelu", "tanh", "sigmoid", "exp"])
+def test_unary_grad_matches_reference(mode, name, exact_grad):
+    """The gradient of ``ApproxConfig.unary`` (odd extension, remaps and
+    ``exact_grad`` included) against the reference's VJP of its custom_jvp:
+    bitwise with the table slope; with the analytic derivative, the
+    derivative within 1e-6 relative plus 1e-6 absolute, i.e. the gradient
+    within ``1e-6 * (|want| + |dy|)``.  The two frameworks' transcendentals
+    differ by an ULP, and the derivatives cancel in the tails: gelu's
+    ``0.5 * (1 + erf(x / sqrt 2))`` and tanh's ``1 - tanh(x)**2``, where one
+    framework rounds erf or tanh to exactly -1 and the other does not."""
+    from repro.approx import ApproxConfig as JApprox
+
+    rng = np.random.default_rng(13)
+    x = np.linspace(-12.0, 12.0, 2001).astype(np.float32)
+    if name == "exp":
+        x = np.minimum(x, 0.0)
+    dy = rng.normal(0, 1, x.size).astype(np.float32)
+    jmode = {"table_pallas": "table_ref", "table_pack": "table_pack_ref"}.get(mode, mode)
+    jf = JApprox(mode=jmode, e_a=1e-4, omega=0.2, exact_grad=exact_grad).unary(name)
+    _, vjp = jax.vjp(jf, jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(dy))[0])
+    f = ApproxConfig(mode=mode, e_a=1e-4, omega=0.2, exact_grad=exact_grad).unary(name, "cpu")
+    _, got = _grad(f, torch.from_numpy(x), torch.from_numpy(dy))
+    if exact_grad:
+        assert (np.abs(got.numpy() - want) <= 1e-6 * (np.abs(want) + np.abs(dy))).all()
     else:
         assert_bitwise(got, want)
 
