@@ -7,7 +7,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. device: the card's name and ``nvidia-smi`` name / power limit;
 2. build: every ``csrc/*.cu`` with nvcc for sm_90a (all started together),
-   printing the build seconds and the ``-Xptxas -v`` register/shared lines;
+   printing the build seconds and the ``-Xptxas -v`` lines of each kernel
+   (its mangled name, registers, stack frame, spills);
 3. kernels: each kernel against its plain PyTorch version on the card, BITWISE
    (NaN positions matched), for every pack member, extrapolation on and off,
    bf16 and f32, at the main paths' shapes, a ragged size and edge inputs
@@ -40,7 +41,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``table_lookup_grad`` must have launched;
 8. times: each kernel, its plain version and a PyTorch yardstick, at its
    path's shape, by CUDA events around a CUDA graph of repeated calls
-   (device time, no host launch cost).
+   (device time, no host launch cost);
+9. QuantPack / PolyPack kernels: the four kernels of the quantized and
+   polynomial packs (value, value + slope) bitwise against their plain
+   versions, NaN positions matched, over every member of stablelm-3b's quant
+   and poly packs (e_a 1e-4), the mixed-degree / mixed-width poly pack
+   (tanh d1 f32, exp_neg d3 int8, gelu d2 int16) and the quant pack at e_a
+   1e-6 (119 to 279 sub-intervals a member), f32 and bf16, extrapolation on
+   and off, at the main paths' shapes, a ragged size and the edge inputs;
+10. QuantPack / PolyPack serving: full-width, full-depth stablelm-3b (the
+   same seed-0 weights) serving the same 8 requests in ``quant_pack`` and in
+   ``poly_pack``, each with TableFlash; ``quant_pack_lookup`` /
+   ``poly_pack_lookup`` and ``tableflash_exp`` must have launched and the
+   tokens must equal the plain versions' (``quant_pack_ref`` /
+   ``poly_pack_ref``);
+11. QuantPack / PolyPack training: full width and depth, 2 steps each in
+   ``quant_pack`` and ``poly_pack`` with TableFlash at the trainer's
+   defaults; ``quant_pack_grad`` / ``poly_pack_grad`` must have launched,
+   step 0's loss must equal the ``_ref`` mode's bit for bit and its grad norm
+   be within 1e-3;
+12. their times, as in phase 8.
 
 The line before the last is one JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout of
@@ -62,6 +82,9 @@ F32_OPS = 67e12  # H100 SXM f32 outside the tensor cores, op/s
 BATCH, CACHE_LEN, N_REQ, MAX_NEW = 4, 256, 8, 16  # the launcher's defaults
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 8, 128, 2  # the trainer's defaults, accum 2
 TRAIN_STEPS, PALLAS_STEPS, PALLAS_LAYERS = 4, 2, 4
+QP_STEPS = 2  # training steps of each of quant_pack and poly_pack
+# the reference's tests/test_poly_pack.py MIXED pack: (member, degree, bits)
+MIXED = (("tanh", 1, 32), ("exp_neg", 3, 8), ("gelu", 2, 16))
 MICRO = TRAIN_BATCH // TRAIN_ACCUM
 TIMING_REPS = 100
 
@@ -109,7 +132,8 @@ def build_kernels():
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for s in sources:
         for line in _build.build_log(s).splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(k in line for k in ("Function properties", "registers", "smem",
+                                       "spill")):
                 log(f"  ptxas[{s}]: {line.strip()}")
 
 
@@ -691,10 +715,30 @@ def graph_ms(fn, reps=TIMING_REPS):
     return start.elapsed_time(end) / reps
 
 
-def table_bytes(t):
-    """f32 bytes of a pack's or a table's metadata planes and values."""
-    return 4 * (t.boundaries.numel() + t.inv_delta.numel() + t.base.numel()
-                + t.seg_count.numel() + t.values.numel())
+def member_bytes(t, fid=0):
+    """Bytes one member's lookup needs of its pack or table: its own n + 1
+    boundaries, its per-interval f32 metadata (invd, base, segs; + scale,
+    zero, ramp for a quant pack; + zero, ramp, scale on each of its degree + 1
+    lanes for a poly pack), and its own values or codes, from base[0] to the
+    end of its last cell, at their element size.  Other members' rows and
+    codes are not counted: the function does not read them."""
+    if hasattr(t, "bounds_offset"):  # quant or poly pack: ragged flat lanes
+        lo, n = t.lane_offset(fid), t.n_intervals[fid]
+        base, segs = t.base[lo: lo + n], t.seg_count[lo: lo + n]
+        codes = t.codes_for(fid)
+        if hasattr(t, "degrees"):
+            lanes = t.degrees[fid] + 1
+            meta, entries = 3 * n + 3 * n * lanes, segs * lanes
+        else:
+            meta, entries = 6 * n, segs + 1
+        elem = codes.element_size()
+    else:  # f32 pack row fid, or a single table
+        row = (lambda a: a[fid]) if t.base.dim() == 2 else (lambda a: a)
+        n = t.n_intervals[fid] if t.base.dim() == 2 else t.n_intervals
+        base, segs = row(t.base)[:n], row(t.seg_count)[:n]
+        meta, entries, elem = 3 * n, segs + 1, 4
+    n_codes = int((base + entries).max().item() - base[0].item())
+    return 4 * (n + 1 + meta) + n_codes * elem
 
 
 def bound(n, elem_bytes, n_out, tbytes, ops_per_elem):
@@ -716,40 +760,237 @@ def timing_phase(pack, approx, smi_line):
     g = torch.Generator(device="cuda").manual_seed(7)
     silu = pack.fn_id("silu")
     jt = approx.table_for("silu", "cuda")
-    # per element: n_max compares + ~14 address/lerp operations, +2 for the
-    # TableFlash tail, +2 for the slope (subtract, multiply)
-    ops = pack.n_max + 14
+    exp_neg = pack.fn_id("exp_neg")
+    # per element: the member's n compares + ~14 address/lerp operations, +2
+    # for the TableFlash tail, +2 for the slope (subtract, multiply)
+    ops = pack.n_intervals[silu] + 14
     t_ops = jt.n_intervals + 14
     gate = (torch.randn((BATCH, 1, 6912), generator=g, device="cuda") * 2).to(torch.bfloat16)
     gate_t = (torch.randn((MICRO, TRAIN_SEQ, 6912), generator=g, device="cuda")
               * 2).to(torch.bfloat16)
     z = -30.0 * torch.rand((BATCH, 1, 32, 1, CACHE_LEN), generator=g, device="cuda")
     rows = {}
-    # (name, x, n_out, table, ops, kernel, plain, yardstick, what the yardstick is)
-    for name, x, n_out, tab, n_ops, kern, plain, lib, lib_what in (
-        ("table_pack_lookup", gate, 1, pack, ops,
+    tb_silu, tb_exp, tb_jt = (member_bytes(pack, silu), member_bytes(pack, exp_neg),
+                              member_bytes(jt))
+    # (name, x, n_out, table bytes, ops, kernel, plain, yardstick, what the yardstick is)
+    for name, x, n_out, tbytes, n_ops, kern, plain, lib, lib_what in (
+        ("table_pack_lookup", gate, 1, tb_silu, ops,
          lambda: K.table_pack_lookup(pack, silu, gate, extrapolate=True),
          lambda: K.table_pack_lookup_plain(pack, silu, gate, extrapolate=True),
          lambda: F.silu(gate), "F.silu"),
-        ("tableflash_exp", z, 1, pack, ops + 2,
+        ("tableflash_exp", z, 1, tb_exp, pack.n_intervals[exp_neg] + 16,
          lambda: K.tableflash_exp(pack, z),
          lambda: K.tableflash_exp_plain(pack, z),
          lambda: torch.exp(z), "torch.exp"),
-        ("table_pack_grad", gate_t, 2, pack, ops + 2,
+        ("table_pack_grad", gate_t, 2, tb_silu, ops + 2,
          lambda: K.table_pack_grad(pack, silu, gate_t, extrapolate=True),
          lambda: K.table_pack_grad_plain(pack, silu, gate_t, extrapolate=True),
          lambda: F.silu(gate_t), "F.silu, value only: no one call gives value + slope"),
-        ("table_lookup", gate, 1, jt, t_ops,
+        ("table_lookup", gate, 1, tb_jt, t_ops,
          lambda: TL.table_lookup(jt, gate, extrapolate=True),
          lambda: TL.table_lookup_plain(jt, gate, extrapolate=True),
          lambda: F.silu(gate), "F.silu"),
-        ("table_lookup_grad", gate_t, 2, jt, t_ops + 2,
+        ("table_lookup_grad", gate_t, 2, tb_jt, t_ops + 2,
          lambda: TG.table_lookup_grad(jt, gate_t, extrapolate=True),
          lambda: TG.table_lookup_grad_plain(jt, gate_t, extrapolate=True),
          lambda: F.silu(gate_t), "F.silu, value only: no one call gives value + slope"),
     ):
         ms, plain_ms, lib_ms = graph_ms(kern), graph_ms(plain), graph_ms(lib)
-        b_ms, b_by = bound(x.numel(), x.element_size(), n_out, table_bytes(tab), n_ops)
+        b_ms, b_by = bound(x.numel(), x.element_size(), n_out, tbytes, n_ops)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+        log(f"time: {name} {tuple(x.shape)} {x.dtype}: kernel {ms * 1e3:.2f} us, "
+            f"plain {plain_ms * 1e3:.2f} us, yardstick ({lib_what}) "
+            f"{lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by}) [{smi_line}]")
+    return rows
+
+
+# --------------------------------------------------------------------------------------
+# 9-12. QuantPack and PolyPack: kernels, serving, training, times
+# --------------------------------------------------------------------------------------
+
+
+def quant_poly_packs(approx):
+    """(kind, tag, pack) of the four packs phase 9 checks: stablelm-3b's own
+    quant and poly packs, the quant pack at e_a 1e-6 and the mixed poly
+    pack."""
+    from repro_torch.approx.table_pack import from_poly_layout
+    from repro_torch.core import design
+    from repro_torch.core.packing import poly_pack_layout
+
+    members = [design.poly_member(n, approx.e_a, degree=d, bits=b) for n, d, b in MIXED]
+    return (("quant", "quant", approx.quant_pack("cuda")),
+            ("quant", "quant e_a 1e-6",
+             dataclasses.replace(approx, e_a=1e-6).quant_pack("cuda")),
+            ("poly", "poly", approx.poly_pack("cuda")),
+            ("poly", "mixed poly", from_poly_layout(poly_pack_layout(members), "cuda")))
+
+
+def ragged_edge_values(pack, fid):
+    bo = pack.bounds_offset(fid)
+    return row_edges(pack.boundaries[bo: bo + pack.n_intervals[fid] + 1].cpu().numpy())
+
+
+def quant_poly_kernel_phase(packs, s0):
+    import torch
+
+    from repro_torch.kernels import table_pack_lookup as K
+
+    kernels = {
+        "quant": (("quant_pack_lookup", K.quant_pack_lookup, K.quant_pack_lookup_plain),
+                  ("quant_pack_grad", K.quant_pack_grad, K.quant_pack_grad_plain)),
+        "poly": (("poly_pack_lookup", K.poly_pack_lookup, K.poly_pack_lookup_plain),
+                 ("poly_pack_grad", K.poly_pack_grad, K.poly_pack_grad_plain))}
+    shapes = [(MICRO, TRAIN_SEQ, 6912), (BATCH, 1, 6912), (BATCH, s0, 6912),
+              (12345,), (1,)]
+    worst = {k: 0.0 for pair in kernels.values() for k, _, _ in pair}
+    cases = 0
+    for kind, tag, pack in packs:
+        for fid, name in enumerate(pack.names):
+            lo, hi = pack.domains[fid]
+            edges = ragged_edge_values(pack, fid)
+            for dtype in (torch.bfloat16, torch.float32):
+                for shape in shapes:
+                    x = make_input(shape, lo, hi, edges, dtype, seed=fid)
+                    for ex in (False, True):
+                        for kname, kern, plain in kernels[kind]:
+                            got = kern(pack, fid, x, extrapolate=ex)
+                            want = plain(pack, fid, x, extrapolate=ex)
+                            torch.cuda.synchronize()
+                            worst[kname] = max(worst[kname], check_pair(
+                                f"{kname} [{tag}] {name} {dtype} {shape} extrapolate={ex}",
+                                got, want, shape, dtype))
+                            cases += 1
+        log(f"kernels: [{tag}] members {pack.names}, intervals {pack.n_intervals}, "
+            f"code bits {pack.entry_bits}"
+            + (f", degrees {pack.degrees}" if hasattr(pack, "degrees") else ""))
+    log(f"kernels: {cases} quant/poly kernel-vs-plain cases bitwise equal "
+        f"(bf16+f32, extrapolate on/off, edges, shapes {shapes})")
+    return worst
+
+
+def quant_poly_serving_path(smi_line):
+    """Full stablelm-3b serving the 8 requests in quant_pack and poly_pack
+    (+ TableFlash), each against its _ref mode."""
+    import torch
+
+    from repro_torch.kernels import table_pack_lookup as K
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving.engine import ContinuousEngine
+
+    base = get_config("stablelm-3b")
+    params = build_model(base, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    reqs = make_requests(base.vocab, N_REQ, MAX_NEW)
+    counts = {}
+    for mode, kname in (("quant_pack", "quant_pack_lookup"),
+                        ("poly_pack", "poly_pack_lookup")):
+        cfg = _with_mode(base, mode, attn_table=True)
+        model = build_model(cfg, "cuda")
+        ref = build_model(_with_mode(cfg, mode + "_ref"), "cuda")
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = ContinuousEngine(model, params, BATCH, CACHE_LEN).serve(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = dict(K.launches)
+        check(c[kname] > 0 and c["tableflash_exp"] > 0,
+              f"{mode}: {kname} / tableflash_exp not launched serving: {c}")
+        check(all(r.steps == MAX_NEW for r in out), "every request gets its budget")
+        K.reset_launches()
+        t1 = time.perf_counter()
+        ref_out = ContinuousEngine(ref, params, BATCH, CACHE_LEN).serve(reqs)
+        torch.cuda.synchronize()
+        ref_dt = time.perf_counter() - t1
+        check(all(v == 0 for v in K.launches.values()), f"{mode}_ref launched a kernel")
+        for i, (a, b) in enumerate(zip(out, ref_out)):
+            check((a.tokens == b.tokens).all(), f"{mode} request {i}: kernel tokens "
+                  f"{a.tokens.tolist()} != plain {b.tokens.tolist()}")
+        tokens = sum(r.steps for r in out)
+        log(f"{mode}: served {len(out)} requests, {tokens} tokens in {dt:.3f}s = "
+            f"{tokens / dt:.1f} tok/s ({mode}_ref: {tokens / ref_dt:.1f} tok/s), "
+            f"token-identical to {mode}_ref; launches {c} [{smi_line}]")
+        counts[kname] = c[kname]
+        del model, ref
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def quant_poly_train_path(smi_line):
+    """Full stablelm-3b, QP_STEPS steps each in quant_pack and poly_pack (+
+    TableFlash), step 0 against the _ref mode."""
+    import math
+
+    import torch
+
+    from repro_torch.models import build_model, get_config
+    from repro_torch.train.loop import batch_to
+
+    counts = {}
+    for mode, kname in (("quant_pack", "quant_pack_grad"), ("poly_pack", "poly_pack_grad")):
+        cfg = _with_mode(get_config("stablelm-3b"), mode, attn_table=True)
+        model = build_model(cfg, "cuda")
+        ref = build_model(_with_mode(cfg, mode + "_ref"), "cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        data = _trainer_data(cfg)
+        ref_loss, ref_gn = plain_step0(ref, params, batch_to(data.batch_at(0), "cuda"))
+        rows, c, peak, _ = train_steps(model, params, data, QP_STEPS, smi_line, mode)
+        check(c[kname] > 0 and c["tableflash_exp"] > 0,
+              f"{mode}: {kname} / tableflash_exp not launched training: {c}")
+        check(all(math.isfinite(r["loss"]) for r in rows), f"non-finite {mode} loss")
+        check(rows[0]["loss"] == ref_loss, f"{mode} step-0 loss {rows[0]['loss']!r} "
+              f"!= {mode}_ref's {ref_loss!r}")
+        gn_rel = abs(rows[0]["grad_norm"] - ref_gn) / ref_gn
+        check(gn_rel <= 1e-3, f"{mode} step-0 grad norm {rows[0]['grad_norm']} vs "
+              f"{ref_gn}: {gn_rel:.2e} > 1e-3")
+        log(f"{mode}: trained {QP_STEPS} steps, step-0 loss equals {mode}_ref's bit "
+            f"for bit ({ref_loss!r}), grad norm {rows[0]['grad_norm']:.6f} vs "
+            f"{ref_gn:.6f} ({gn_rel:.2e} rel); step ms "
+            f"{[round(r['ms'], 1) for r in rows]}; launches {c}; peak {peak:.2f} GiB "
+            f"[{smi_line}]")
+        counts[kname] = c[kname]
+        del params, model, ref
+        torch.cuda.empty_cache()
+    return counts
+
+
+def quant_poly_timing_phase(quant, poly, smi_line):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import table_pack_lookup as K
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    gate = (torch.randn((BATCH, 1, 6912), generator=g, device="cuda") * 2).to(torch.bfloat16)
+    gate_t = (torch.randn((MICRO, TRAIN_SEQ, 6912), generator=g, device="cuda")
+              * 2).to(torch.bfloat16)
+    qs, ps = quant.fn_id("silu"), poly.fn_id("silu")
+    # f32 operations per element: n compares, then ~22 (quant: four address,
+    # seven gathers' use, dequant 6, lerp 4) and, for a degree-d member,
+    # ~10 + 6 (d + 1) + 2 d (+ 3 d for the tangent); +4 for a slope
+    q_ops = quant.n_intervals[qs] + 22
+    d = poly.degrees[ps]
+    p_ops = poly.n_intervals[ps] + 10 + 6 * (d + 1) + 5 * d
+    rows = {}
+    for name, x, n_out, tbytes, n_ops, kern, plain in (
+        ("quant_pack_lookup", gate, 1, member_bytes(quant, qs), q_ops,
+         lambda: K.quant_pack_lookup(quant, qs, gate, extrapolate=True),
+         lambda: K.quant_pack_lookup_plain(quant, qs, gate, extrapolate=True)),
+        ("quant_pack_grad", gate_t, 2, member_bytes(quant, qs), q_ops + 4,
+         lambda: K.quant_pack_grad(quant, qs, gate_t, extrapolate=True),
+         lambda: K.quant_pack_grad_plain(quant, qs, gate_t, extrapolate=True)),
+        ("poly_pack_lookup", gate, 1, member_bytes(poly, ps), p_ops,
+         lambda: K.poly_pack_lookup(poly, ps, gate, extrapolate=True),
+         lambda: K.poly_pack_lookup_plain(poly, ps, gate, extrapolate=True)),
+        ("poly_pack_grad", gate_t, 2, member_bytes(poly, ps), p_ops + 4,
+         lambda: K.poly_pack_grad(poly, ps, gate_t, extrapolate=True),
+         lambda: K.poly_pack_grad_plain(poly, ps, gate_t, extrapolate=True)),
+    ):
+        lib_what = "F.silu" if n_out == 1 else "F.silu, value only: no one call gives value + slope"
+        ms, plain_ms, lib_ms = graph_ms(kern), graph_ms(plain), graph_ms(lambda: F.silu(x))
+        b_ms, b_by = bound(x.numel(), x.element_size(), n_out, tbytes, n_ops)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=b_ms, bound_by=b_by)
         log(f"time: {name} {tuple(x.shape)} {x.dtype}: kernel {ms * 1e3:.2f} us, "
@@ -803,6 +1044,11 @@ def main() -> int:
         counts["table_lookup"] = serve_counts["table_lookup"]
         counts["table_lookup_grad"] = train_counts["table_lookup_grad"]
         times = timing_phase(pack, approx, smi_line)
+        qp_packs = quant_poly_packs(cfg.approx)
+        worst.update(quant_poly_kernel_phase(qp_packs, s0))
+        counts.update(quant_poly_serving_path(smi_line))
+        counts.update(quant_poly_train_path(smi_line))
+        times.update(quant_poly_timing_phase(qp_packs[0][2], qp_packs[2][2], smi_line))
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -812,7 +1058,11 @@ def main() -> int:
             ("tableflash_exp", "src/repro/kernels/table_pack_lookup.py:188"),
             ("table_pack_grad", "src/repro/kernels/table_pack_lookup.py:66"),
             ("table_lookup", "src/repro/kernels/table_lookup.py:66"),
-            ("table_lookup_grad", "src/repro/kernels/table_grad.py:28")):
+            ("table_lookup_grad", "src/repro/kernels/table_grad.py:28"),
+            ("quant_pack_lookup", "src/repro/kernels/table_pack_lookup.py:283"),
+            ("quant_pack_grad", "src/repro/kernels/table_pack_lookup.py:309"),
+            ("poly_pack_lookup", "src/repro/kernels/table_pack_lookup.py:503"),
+            ("poly_pack_grad", "src/repro/kernels/table_pack_lookup.py:524")):
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/csrc/table_pack_lookup.cu",

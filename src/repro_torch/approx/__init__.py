@@ -1,23 +1,38 @@
 """repro_torch.approx — the paper's table approximators as PyTorch runtimes:
-per-function tables, the f32 multi-function pack, and the ``ApproxConfig``
-backend that routes a model's nonlinearities through them."""
+per-function tables, the f32, quantized and polynomial multi-function packs,
+and the ``ApproxConfig`` backend that routes a model's nonlinearities through
+them."""
 
 from .activations import (
     DEFAULT_PACK_FUNCTIONS,
     NOT_PORTED,
     PACK_MODES,
+    POLY_PACK_MODES,
+    QUANT_PACK_MODES,
     TABLE_MODES,
     ApproxConfig,
     odd_extension,
 )
 from .table_pack import (
+    PolyTablePack,
+    QuantTablePack,
     TablePack,
     build_pack,
+    build_poly_pack,
+    build_quant_pack,
     eval_pack_ref,
     eval_pack_slope,
+    eval_poly_pack_ref,
+    eval_poly_pack_slope,
+    eval_quant_pack_ref,
+    eval_quant_pack_slope,
     from_layout,
+    from_poly_layout,
+    from_quant_layout,
     make_attn_exp_fn,
     make_pack_fn,
+    make_poly_pack_fn,
+    make_quant_pack_fn,
     member_domain,
     pack_specs,
 )

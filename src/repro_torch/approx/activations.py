@@ -2,15 +2,17 @@
 evaluates runs ``exact`` (PyTorch transcendentals), ``table_ref`` (the
 paper-faithful per-function table, plain PyTorch), ``table_pallas`` (the same
 tables through the CUDA table kernels), ``table_pack`` (ONE packed
-multi-function artifact + one CUDA kernel for the whole network) or
-``table_pack_ref`` (the pack's plain PyTorch version).  Configured per model
-via :class:`ApproxConfig`, whose fields and defaults are the JAX package's.
-Every table function is differentiable: its tangent is the table slope, or
-the registry's analytic derivative with ``exact_grad``.
+multi-function artifact + one CUDA kernel for the whole network),
+``quant_pack`` (the pack with int8/int16 codes dequantized on read),
+``poly_pack`` (the planner's degree-1..3 coefficient pack, Horner on read), or
+the ``*_ref`` plain PyTorch version of each pack.  Configured per model via
+:class:`ApproxConfig`, whose fields and defaults are the JAX package's.  Every
+table function is differentiable: its tangent is the table slope, or the
+registry's analytic derivative with ``exact_grad``.  TableFlash
+(``attn_table``) always serves the attention exponent from the f32 pack.
 
-The JAX package's other modes (the quantized, polynomial, routed, sharded and
-folded packs) raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+The JAX package's other modes (the routed, sharded and folded packs) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -26,21 +28,22 @@ from repro_torch.core.flow import cached_table
 from repro_torch.core.functions import get as get_function
 from repro_torch.device import DeviceLike, resolve_device
 
-from .table_pack import TablePack, build_pack, make_attn_exp_fn, make_pack_fn
+from .table_pack import (PolyTablePack, QuantTablePack, TablePack, build_pack,
+                         build_poly_pack, build_quant_pack, make_attn_exp_fn,
+                         make_pack_fn, make_poly_pack_fn, make_quant_pack_fn)
 from .torch_table import TorchTable, from_spec, make_table_fn
 
 PACK_MODES = ("table_pack", "table_pack_ref")
-TABLE_MODES = ("table_ref", "table_pallas") + PACK_MODES
+QUANT_PACK_MODES = ("quant_pack", "quant_pack_ref")
+POLY_PACK_MODES = ("poly_pack", "poly_pack_ref")
+TABLE_MODES = (("table_ref", "table_pallas") + PACK_MODES + QUANT_PACK_MODES
+               + POLY_PACK_MODES)
 # modes whose runtime is the CUDA kernels (vs the plain PyTorch versions)
-_KERNEL_BACKED = ("table_pallas", "table_pack")
+_KERNEL_BACKED = ("table_pallas", "table_pack", "quant_pack", "poly_pack")
 
 # The JAX package's other modes, with the ROADMAP item (queue 1 unless noted)
 # that brings each to the port.
 NOT_PORTED = {
-    "quant_pack": "ROADMAP queue 1, item 7 (QuantPack)",
-    "quant_pack_ref": "ROADMAP queue 1, item 7 (QuantPack)",
-    "poly_pack": "ROADMAP queue 1, item 8 (PolyPack)",
-    "poly_pack_ref": "ROADMAP queue 1, item 8 (PolyPack)",
     "routed_pack": "ROADMAP queue 1, item 9 (routed dispatch)",
     "routed_pack_ref": "ROADMAP queue 1, item 9 (routed dispatch)",
     "routed_quant_pack": "ROADMAP queue 1, item 9 (routed dispatch)",
@@ -92,9 +95,12 @@ DEFAULT_PACK_FUNCTIONS = (
     "gelu", "silu", "tanh", "sigmoid_sym", "softplus", "exp_neg",
 )
 
-# One pack per distinct (functions, e_a, algorithm, omega, intervals, device):
-# model constructors re-request the same pack for every activation.
+# One pack per distinct (functions, e_a, algorithm, omega, intervals, device),
+# and for the quantized / polynomial packs their own settings too: model
+# constructors re-request the same pack for every activation.
 _PACK_CACHE: Dict[tuple, TablePack] = {}
+_QUANT_PACK_CACHE: Dict[tuple, QuantTablePack] = {}
+_POLY_PACK_CACHE: Dict[tuple, PolyTablePack] = {}
 # one TableFlash exponent closure per distinct attn_table configuration and
 # device — every attention layer shares it
 _ATTN_EXP_CACHE: Dict[tuple, Callable] = {}
@@ -141,6 +147,10 @@ class ApproxConfig:
     / ``omega`` select the interval splitter.  ``softmax_table`` routes the
     softmax exponent through the exp table; ``attn_table`` (TableFlash) serves
     flash attention's running-softmax exponent from the pack's exp_neg member.
+    ``quant_rho`` splits ``e_a`` between interpolation and code rounding in
+    the quantized and polynomial packs, ``pack_dtype`` narrows their storage
+    widths ('auto' keeps all open), and ``pack_budget`` is the polynomial
+    pack's byte budget (``None``: the cheapest plan).
     """
 
     mode: str = "exact"
@@ -166,19 +176,58 @@ class ApproxConfig:
         )
         return from_spec(spec, device)
 
+    def _pack_key(self, dev: torch.device) -> tuple:
+        """(functions, e_a, algorithm, omega, the functions' interval
+        overrides, device): what every pack of this config is built from."""
+        names = tuple(self.pack_functions)
+        overrides = tuple(sorted(
+            (k, v) for k, v in self.interval_overrides.items() if k in names))
+        return (names, self.e_a, self.algorithm, self.omega, overrides, str(dev))
+
     def pack(self, device: DeviceLike = None) -> TablePack:
         """The ONE multi-function pack this config's activations share, on
         ``device`` (cached per device)."""
         dev = resolve_device(device)
-        names = tuple(self.pack_functions)
-        overrides = tuple(sorted(
-            (k, v) for k, v in self.interval_overrides.items() if k in names))
-        key = (names, self.e_a, self.algorithm, self.omega, overrides, str(dev))
+        key = self._pack_key(dev)
         if key not in _PACK_CACHE:
             _PACK_CACHE[key] = build_pack(
-                names, self.e_a, algorithm=self.algorithm, omega=self.omega,
-                intervals=dict(overrides), device=dev)
+                key[0], self.e_a, algorithm=self.algorithm, omega=self.omega,
+                intervals=dict(key[4]), device=dev)
         return _PACK_CACHE[key]
+
+    def quant_pack(self, device: DeviceLike = None) -> QuantTablePack:
+        """The shared quantized pack (int8/int16 codes, dequantize-on-read),
+        on ``device`` (cached per device)."""
+        dev = resolve_device(device)
+        key = self._pack_key(dev) + (self.quant_rho, self.pack_dtype)
+        if key not in _QUANT_PACK_CACHE:
+            _QUANT_PACK_CACHE[key] = build_quant_pack(
+                key[0], self.e_a, rho=self.quant_rho, dtype=self.pack_dtype,
+                algorithm=self.algorithm, omega=self.omega,
+                intervals=dict(key[4]), device=dev)
+        return _QUANT_PACK_CACHE[key]
+
+    def poly_pack(self, device: DeviceLike = None) -> PolyTablePack:
+        """The shared planner-designed pack (degree-1..3 cells, mixed widths,
+        fitted to ``pack_budget`` when set), on ``device`` (cached per
+        device)."""
+        dev = resolve_device(device)
+        key = self._pack_key(dev) + (self.quant_rho, self.pack_dtype,
+                                     self.pack_budget)
+        if key not in _POLY_PACK_CACHE:
+            _POLY_PACK_CACHE[key] = build_poly_pack(
+                key[0], self.e_a, budget_bytes=self.pack_budget,
+                rho=self.quant_rho, dtype=self.pack_dtype,
+                algorithm=self.algorithm, omega=self.omega,
+                intervals=dict(key[4]), device=dev)
+        return _POLY_PACK_CACHE[key]
+
+    def _pack_for_mode(self, device: DeviceLike = None):
+        if self.mode in POLY_PACK_MODES:
+            return self.poly_pack(device)
+        if self.mode in QUANT_PACK_MODES:
+            return self.quant_pack(device)
+        return self.pack(device)
 
     def unary(self, name: str, device: DeviceLike = None) -> Callable:
         """The activation callable for this config, its tables on ``device``.
@@ -194,14 +243,17 @@ class ApproxConfig:
         if self.exact_grad:
             exact_d1 = partial(get_function(reg_name).d1f, xp=torch)
         use_kernel = self.mode in _KERNEL_BACKED
-        if self.mode in PACK_MODES:
-            pack = self.pack(device)
+        if self.mode in PACK_MODES + QUANT_PACK_MODES + POLY_PACK_MODES:
+            pack = self._pack_for_mode(device)
             if reg_name not in pack.names:
                 raise KeyError(
                     f"{reg_name!r} is not in pack_functions={pack.names}; add it "
                     f"to ApproxConfig.pack_functions to serve it from the pack")
-            f = make_pack_fn(pack, reg_name, use_kernel=use_kernel,
-                             exact_d1=exact_d1, extrapolate=extrapolate)
+            make = (make_poly_pack_fn if self.mode in POLY_PACK_MODES
+                    else make_quant_pack_fn if self.mode in QUANT_PACK_MODES
+                    else make_pack_fn)
+            f = make(pack, reg_name, use_kernel=use_kernel, exact_d1=exact_d1,
+                     extrapolate=extrapolate)
         else:
             f = make_table_fn(self.table_for(name, device), use_kernel=use_kernel,
                               exact_d1=exact_d1, extrapolate=extrapolate)

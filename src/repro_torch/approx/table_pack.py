@@ -1,5 +1,6 @@
 """TablePack — every table a model needs, fused into ONE device artifact (the
-f32 part of the JAX package's ``approx/table_pack.py``).
+f32, quantized and polynomial parts of the JAX package's
+``approx/table_pack.py``).
 
 The paper keeps each function's table resident in BRAM next to its consumer
 (Sec. 7.2); a network evaluates a *set* of nonlinearities, so a
@@ -12,10 +13,18 @@ table_pack_lookup` — serves any member through its ``fn_id`` row.
 ``eval_pack_ref`` is the plain PyTorch lookup: bit-identical to the JAX
 package's eager ``eval_pack_ref`` and to the CUDA kernel.
 
-``make_pack_fn`` and ``make_attn_exp_fn`` are differentiable through
+:class:`QuantTablePack` stores int8/int16 entry codes dequantized on read
+and :class:`PolyTablePack` the planner's degree-1..3 coefficient codes
+evaluated by Horner, both over ragged per-member metadata lanes; their plain
+lookups (``eval_quant_pack_ref``, ``eval_poly_pack_ref`` and the slopes) are
+bit-identical to the JAX package's eager oracles and to the CUDA kernels.
+
+``make_pack_fn``, ``make_quant_pack_fn``, ``make_poly_pack_fn`` and
+``make_attn_exp_fn`` are differentiable through
 :func:`~repro_torch.approx.torch_table.slope_rule`: under a gradient the
-forward runs the fused value + slope kernel (``table_pack_grad``) and the
-backward multiplies the saved slope into the incoming gradient.
+forward runs the fused value + slope kernel (``table_pack_grad``,
+``quant_pack_grad``, ``poly_pack_grad``) and the backward multiplies the
+saved slope into the incoming gradient.
 """
 
 from __future__ import annotations
@@ -23,15 +32,20 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.flow import cached_table
-from repro_torch.core.packing import PackLayout, pack_layout
+from repro_torch.core.packing import (PackLayout, PolyPackLayout, QuantPackLayout,
+                                     pack_layout, poly_pack_layout,
+                                     quant_pack_layout)
+from repro_torch.core.quantize import plan_quant_member
 from repro_torch.core.table import TableSpec
 from repro_torch.device import DeviceLike, resolve_device
 
-from .torch_table import (EXACT_INT_LIMIT, f32_tensor, lookup_rows, slope_rows,
-                          slope_rule)
+from .torch_table import (EXACT_INT_LIMIT, clamp_cell, f32_tensor, lane_address,
+                          lookup_rows, pair_address, select_interval,
+                          slope_rows, slope_rule)
 
 
 def _member_id(names: Tuple[str, ...], fn) -> int:
@@ -167,6 +181,19 @@ def member_domain(pack: TablePack, fn) -> Tuple[float, float]:
     return pack.domains[pack.member_id(fn)]
 
 
+def _make_fn(pack, name: str, lookup, grad, exact_d1, extrapolate: bool):
+    """The autograd wiring the three ``make_*_fn`` share: value path
+    ``lookup(pack, fid, x)``, fused value + slope ``grad(pack, fid, x)``
+    (or the value and ``exact_d1(x)`` when given), joined by ``slope_rule``."""
+    fid = pack.fn_id(name)
+    value = lambda v: lookup(pack, fid, v, extrapolate=extrapolate)
+    if exact_d1 is not None:
+        fused = lambda v: (value(v), exact_d1(v))
+    else:
+        fused = lambda v: grad(pack, fid, v, extrapolate=extrapolate)
+    return slope_rule(value, fused)
+
+
 def make_pack_fn(pack: TablePack, name: str, *, use_kernel: bool = True,
                  exact_d1=None, extrapolate: bool = False):
     """Differentiable unary ``f(x)`` evaluated through the shared pack.
@@ -178,20 +205,11 @@ def make_pack_fn(pack: TablePack, name: str, *, use_kernel: bool = True,
     everywhere (``table_pack_ref``).  Tangent: the table slope, or
     ``exact_d1(x)`` when given (then the forward is the value path).
     """
-    fid = pack.fn_id(name)
-    if use_kernel:
-        from repro_torch.kernels.table_pack_lookup import (table_pack_grad,
-                                                           table_pack_lookup)
+    from repro_torch.kernels import table_pack_lookup as K
 
-        value = lambda v: table_pack_lookup(pack, fid, v, extrapolate=extrapolate)
-        fused = lambda v: table_pack_grad(pack, fid, v, extrapolate=extrapolate)
-    else:
-        value = lambda v: eval_pack_ref(pack, fid, v, extrapolate=extrapolate)
-        fused = lambda v: (value(v), eval_pack_slope(pack, fid, v,
-                                                     extrapolate=extrapolate))
-    if exact_d1 is not None:
-        fused = lambda v: (value(v), exact_d1(v))
-    return slope_rule(value, fused)
+    fns = ((K.table_pack_lookup, K.table_pack_grad) if use_kernel
+           else (K.table_pack_lookup_plain, K.table_pack_grad_plain))
+    return _make_fn(pack, name, *fns, exact_d1, extrapolate)
 
 
 def make_attn_exp_fn(pack: TablePack, *, use_kernel: bool = True):
@@ -226,3 +244,443 @@ def make_attn_exp_fn(pack: TablePack, *, use_kernel: bool = True):
         value = lambda v: tableflash_exp_plain(pack, v)
         slope = lambda v: eval_pack_slope(pack, fid, v)
     return slope_rule(value, lambda v: (value(v), slope(v)))
+
+
+# --------------------------------------------------------------------------------------
+# QuantPack — the pack with int8/int16 entry codes, dequantized on read.
+# --------------------------------------------------------------------------------------
+
+
+def _codes_tensor(codes: np.ndarray, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """A width group's codes on ``device``; an empty group keeps a 1-entry
+    dummy so that the operand stays valid, as in the reference."""
+    if len(codes) == 0:
+        return torch.zeros((1,), dtype=dtype, device=device)
+    np_dtype = {torch.int8: np.int8, torch.int16: np.int16,
+                torch.float32: np.float32}[dtype]
+    return torch.from_numpy(np.asarray(codes).astype(np_dtype)).to(device)
+
+
+def _check_exact(*groups: np.ndarray) -> None:
+    if max(len(g) for g in groups) >= EXACT_INT_LIMIT:
+        raise ValueError("pack footprint exceeds f32 exact-integer range")
+
+
+class _RaggedPack:
+    """What the quantized and polynomial packs share: member lookup, the
+    ragged per-member offsets into the flat metadata lanes, and the width
+    group a member's codes live in."""
+
+    @property
+    def n_functions(self) -> int:
+        return len(self.names)
+
+    @property
+    def device(self) -> torch.device:
+        return self.boundaries.device
+
+    def fn_id(self, name: str) -> int:
+        return _member_id(self.names, name)
+
+    def member_id(self, fn) -> int:
+        """Name or integer fn_id -> validated index (KeyError otherwise)."""
+        return _member_id(self.names, fn)
+
+    def bounds_offset(self, fid: int) -> int:
+        """Start of member ``fid``'s ``n + 1`` boundaries in the flat lane."""
+        return sum(n + 1 for n in self.n_intervals[:fid])
+
+    def lane_offset(self, fid: int) -> int:
+        """Start of member ``fid``'s ``n`` selector/dequant lanes."""
+        return sum(self.n_intervals[:fid])
+
+    def _groups(self):
+        return {8: self.codes8, 16: self.codes16}
+
+    def codes_for(self, fid: int) -> torch.Tensor:
+        return self._groups()[self.entry_bits[fid]]
+
+    @property
+    def footprint(self) -> int:
+        """Stored entries — excludes the 1-entry dummy of an unused width
+        group, so it agrees with the layout's accounting."""
+        return sum(c.shape[0] for bits, c in self._groups().items()
+                   if bits in self.entry_bits)
+
+    @property
+    def footprint_bytes(self) -> int:
+        return sum(c.shape[0] * c.element_size()
+                   for bits, c in self._groups().items() if bits in self.entry_bits)
+
+
+@dataclass(frozen=True)
+class QuantTablePack(_RaggedPack):
+    """Device-ready quantized multi-function pack (the reference's
+    ``QuantTablePack``).
+
+    Entries live as int8/int16 codes in two width-group vectors; the selector
+    metadata plus per-sub-interval dequant params (scale, zero, ramp) are flat
+    RAGGED f32 lanes — member ``fid``'s segment starts at ``bounds_offset`` /
+    ``lane_offset`` (see :class:`repro_torch.core.packing.QuantPackLayout`).
+    Dequantize-on-read: ``v = (zero + ramp*i) + scale*q``.
+    """
+
+    names: Tuple[str, ...]  # member function names (fn_id order)
+    n_intervals: Tuple[int, ...]  # sub-interval count per member
+    entry_bits: Tuple[int, ...]  # 8 | 16 → which codes vector
+    rho: Tuple[float, ...]  # interpolation share of e_a per member
+    boundaries: torch.Tensor  # (sum n_f+1,) f32 flat rows
+    inv_delta: torch.Tensor  # (sum n_f,) f32
+    base: torch.Tensor  # (sum n_f,) f32 — GLOBAL index into the width-group codes
+    seg_count: torch.Tensor  # (sum n_f,) f32
+    scale: torch.Tensor  # (sum n_f,) f32
+    zero: torch.Tensor  # (sum n_f,) f32
+    ramp: torch.Tensor  # (sum n_f,) f32
+    codes8: torch.Tensor  # (max(M8,1),) int8
+    codes16: torch.Tensor  # (max(M16,1),) int16
+    domains: Tuple[Tuple[float, float], ...]  # member [lo, hi) on the host
+
+
+def _domains(layout) -> Tuple[Tuple[float, float], ...]:
+    b = np.asarray(layout.boundaries, np.float64).astype(np.float32)
+    out, off = [], 0
+    for n in layout.n_intervals:
+        out.append((float(b[off]), float(b[off + n])))
+        off += n + 1
+    return tuple(out)
+
+
+def from_quant_layout(layout: QuantPackLayout,
+                      device: DeviceLike = None) -> QuantTablePack:
+    _check_exact(layout.codes8, layout.codes16)
+    dev = resolve_device(device)
+    f32 = lambda a: f32_tensor(a, dev)
+    return QuantTablePack(
+        names=layout.names,
+        n_intervals=layout.n_intervals,
+        entry_bits=layout.entry_bits,
+        rho=tuple(m.rho for m in layout.members),
+        boundaries=f32(layout.boundaries),
+        inv_delta=f32(layout.inv_delta),
+        base=f32(layout.base),
+        seg_count=f32(layout.seg_count),
+        scale=f32(layout.scale),
+        zero=f32(layout.zero),
+        ramp=f32(layout.ramp),
+        codes8=_codes_tensor(layout.codes8, torch.int8, dev),
+        codes16=_codes_tensor(layout.codes16, torch.int16, dev),
+        domains=_domains(layout),
+    )
+
+
+def build_quant_pack(
+    names: Sequence[str],
+    e_a: float,
+    *,
+    rho: float = 0.9,
+    dtype: str = "auto",
+    algorithm: str = "hierarchical",
+    omega: float = 0.3,
+    intervals: Optional[dict] = None,
+    device: DeviceLike = None,
+) -> QuantTablePack:
+    """Error-budgeted quantized pack: interpolation gets ``rho * e_a``, code
+    rounding the rest; int8 vs int16 is chosen per member (``dtype='auto'``)."""
+    intervals = intervals or {}
+    members = []
+    for name in names:
+        lo, hi = intervals.get(name, (None, None))
+        members.append(plan_quant_member(
+            name, e_a, lo, hi, algorithm=algorithm, omega=omega,
+            rho=rho, dtype=dtype))
+    return from_quant_layout(quant_pack_layout(members), device)
+
+
+def _ragged_select(pack, fid: int, xf: torch.Tensor, planes):
+    """Comparator plane over member ``fid``'s boundary row, then one gather
+    per plane of its lane segment."""
+    bo, lo = pack.bounds_offset(fid), pack.lane_offset(fid)
+    n = pack.n_intervals[fid]
+    brow = pack.boundaries[bo: bo + n + 1]
+    j = select_interval(brow, n, xf)
+    return j, brow[j], [plane[lo: lo + n][j] for plane in planes]
+
+
+def _quant_select(pack: QuantTablePack, fid: int, xf: torch.Tensor):
+    """Selector + seven gathers against member ``fid``'s ragged lane segment."""
+    _, p, (invd, base, segs, scale, zero, ramp) = _ragged_select(
+        pack, fid, xf, (pack.inv_delta, pack.base, pack.seg_count, pack.scale,
+                        pack.zero, pack.ramp))
+    return p, invd, base, segs, scale, zero, ramp
+
+
+def _inside(pack, fid: int, xf: torch.Tensor) -> torch.Tensor:
+    """The 0/1 indicator of member ``fid``'s domain [b_0, b_n), in f32."""
+    bo, n = pack.bounds_offset(fid), pack.n_intervals[fid]
+    return ((xf >= pack.boundaries[bo]) & (xf < pack.boundaries[bo + n])).to(
+        torch.float32)
+
+
+def _quant_codes(pack: QuantTablePack, fid: int, base, i):
+    """The cell's endpoint codes, in f32, from the member's width group."""
+    codes = pack.codes_for(fid)
+    a0, a1 = pair_address(base, i, codes.shape[0])
+    return codes[a0].to(torch.float32), codes[a1].to(torch.float32)
+
+
+def eval_quant_pack_ref(pack: QuantTablePack, fn, x: torch.Tensor, *,
+                        extrapolate: bool = False) -> torch.Tensor:
+    """Plain PyTorch dequantize-on-read lookup — bit-identical to the JAX
+    package's eager ``eval_quant_pack_ref`` and to the CUDA kernel."""
+    fid = pack.member_id(fn)
+    dtype = x.dtype
+    xf = x.to(torch.float32)
+    p, invd, base, segs, scale, zero, ramp = _quant_select(pack, fid, xf)
+    u = (xf - p) * invd
+    i = clamp_cell(u, segs)
+    c0, c1 = _quant_codes(pack, fid, base, i)
+    r = zero + ramp * i  # the chord ramp at entry i
+    y0 = r + scale * c0
+    y1 = (r + ramp) + scale * c1
+    t = u - i
+    if not extrapolate:
+        t = torch.clamp(t, 0.0, 1.0)
+    return (y0 + t * (y1 - y0)).to(dtype)
+
+
+def eval_quant_pack_slope(pack: QuantTablePack, fn, x: torch.Tensor, *,
+                          extrapolate: bool = False) -> torch.Tensor:
+    """d/dx of the quantized surrogate: (ramp + scale * (c1 - c0)) / delta,
+    zeroed outside [b_0, b_n) unless extrapolating."""
+    fid = pack.member_id(fn)
+    dtype = x.dtype
+    xf = x.to(torch.float32)
+    p, invd, base, segs, scale, zero, ramp = _quant_select(pack, fid, xf)
+    i = clamp_cell((xf - p) * invd, segs)
+    c0, c1 = _quant_codes(pack, fid, base, i)
+    slope = (ramp + scale * (c1 - c0)) * invd
+    if not extrapolate:
+        slope = slope * _inside(pack, fid, xf)
+    return slope.to(dtype)
+
+
+def make_quant_pack_fn(pack: QuantTablePack, name: str, *,
+                       use_kernel: bool = True, exact_d1=None,
+                       extrapolate: bool = False):
+    """Differentiable unary ``f(x)`` served from the quantized pack.
+
+    Mirrors :func:`make_pack_fn`: ``use_kernel=True`` (``quant_pack``) runs
+    the CUDA kernels — ``quant_pack_lookup`` without a gradient, the fused
+    value + slope ``quant_pack_grad`` under one — and ``use_kernel=False``
+    (``quant_pack_ref``) the plain versions.  Tangent: the quantized table's
+    slope, or ``exact_d1(x)`` when given.
+    """
+    from repro_torch.kernels import table_pack_lookup as K
+
+    fns = ((K.quant_pack_lookup, K.quant_pack_grad) if use_kernel
+           else (K.quant_pack_lookup_plain, K.quant_pack_grad_plain))
+    return _make_fn(pack, name, *fns, exact_d1, extrapolate)
+
+
+# --------------------------------------------------------------------------------------
+# PolyPack — planner-designed degree-d coefficient packs, Horner-evaluated on read.
+# --------------------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PolyTablePack(_RaggedPack):
+    """Device-ready polynomial multi-function pack (the reference's
+    ``PolyTablePack``).
+
+    Member ``fid`` stores ``degree + 1`` coefficient codes per cell in one of
+    THREE width-group vectors — ``codes8``/``codes16`` (integer codes) or
+    ``codes32`` (the f32 members' raw coefficients, carried through the same
+    dequant with ``zero = ramp = 0, scale = 1``, a bit-exact identity).  The
+    per-sub-interval dequant params are lane-padded to ``max_degree + 1``
+    lanes for every member (see :class:`repro_torch.core.packing.
+    PolyPackLayout`); the metadata index of (sub-interval ``j``, lane ``l``)
+    is ``(lane_offset + j) * max_lanes + l``.
+    """
+
+    names: Tuple[str, ...]  # member function names (fn_id order)
+    n_intervals: Tuple[int, ...]  # sub-interval count per member
+    degrees: Tuple[int, ...]  # interpolation degree per member
+    entry_bits: Tuple[int, ...]  # 8 | 16 | 32 → which codes vector
+    max_degree: int  # widest member degree (lane padding target)
+    boundaries: torch.Tensor  # (sum n_f+1,) f32 flat rows
+    inv_delta: torch.Tensor  # (sum n_f,) f32
+    base: torch.Tensor  # (sum n_f,) f32 — GLOBAL index into the width-group codes
+    seg_count: torch.Tensor  # (sum n_f,) f32
+    zero: torch.Tensor  # (sum n_f * (max_degree+1),) f32 lane-padded
+    ramp: torch.Tensor  # (sum n_f * (max_degree+1),) f32 lane-padded
+    scale: torch.Tensor  # (sum n_f * (max_degree+1),) f32 lane-padded
+    codes8: torch.Tensor  # (max(M8,1),) int8
+    codes16: torch.Tensor  # (max(M16,1),) int16
+    codes32: torch.Tensor  # (max(M32,1),) f32 — raw coefficients
+    domains: Tuple[Tuple[float, float], ...]  # member [lo, hi) on the host
+
+    @property
+    def max_lanes(self) -> int:
+        return self.max_degree + 1
+
+    def _groups(self):
+        return {8: self.codes8, 16: self.codes16, 32: self.codes32}
+
+
+def from_poly_layout(layout: PolyPackLayout,
+                     device: DeviceLike = None) -> PolyTablePack:
+    _check_exact(layout.codes8, layout.codes16, layout.codes32)
+    dev = resolve_device(device)
+    f32 = lambda a: f32_tensor(a, dev)
+    return PolyTablePack(
+        names=layout.names,
+        n_intervals=layout.n_intervals,
+        degrees=layout.degrees,
+        entry_bits=layout.entry_bits,
+        max_degree=layout.max_degree,
+        boundaries=f32(layout.boundaries),
+        inv_delta=f32(layout.inv_delta),
+        base=f32(layout.base),
+        seg_count=f32(layout.seg_count),
+        zero=f32(layout.zero),
+        ramp=f32(layout.ramp),
+        scale=f32(layout.scale),
+        codes8=_codes_tensor(layout.codes8, torch.int8, dev),
+        codes16=_codes_tensor(layout.codes16, torch.int16, dev),
+        codes32=_codes_tensor(layout.codes32, torch.float32, dev),
+        domains=_domains(layout),
+    )
+
+
+def build_poly_pack(
+    names: Sequence[str],
+    e_a: float,
+    *,
+    budget_bytes: Optional[int] = None,
+    rho: float = 0.9,
+    dtype: str = "auto",
+    algorithm: str = "hierarchical",
+    omega: float = 0.3,
+    intervals: Optional[dict] = None,
+    device: DeviceLike = None,
+) -> PolyTablePack:
+    """Planner-driven pack: :func:`repro_torch.core.design.plan` picks one
+    (degree, dtype) candidate per function — cheapest when
+    ``budget_bytes=None``, preferred-then-downgraded to fit a byte budget
+    otherwise (an infeasible budget raises ``ValueError``) — and the chosen
+    members fuse into one device artifact.  ``dtype`` narrows the planner's
+    menu ('auto' keeps f32/int16/int8 all open); ``rho`` splits e_a between
+    interpolation and code rounding for the integer candidates."""
+    from repro_torch.core import design
+
+    dtypes = design.POLY_DTYPES if dtype == "auto" else (dtype,)
+    p = design.plan(list(names), e_a, budget_bytes, dtypes=dtypes,
+                    algorithm=algorithm, omega=omega, rho=rho,
+                    intervals=intervals)
+    return from_poly_layout(poly_pack_layout(list(p.members)), device)
+
+
+def _poly_select(pack: PolyTablePack, fid: int, xf: torch.Tensor):
+    """Selector + four gathers against member ``fid``'s ragged lane segment,
+    plus the dequant planes' (zero, ramp, scale) of each of its lanes."""
+    j, p, (invd, base, segs) = _ragged_select(
+        pack, fid, xf, (pack.inv_delta, pack.base, pack.seg_count))
+    lmax = pack.max_lanes
+    m0 = pack.lane_offset(fid) * lmax
+    meta = [[plane[m0 + j * lmax + lane] for plane in (pack.zero, pack.ramp,
+                                                       pack.scale)]
+            for lane in range(pack.degrees[fid] + 1)]
+    return p, invd, base, segs, meta
+
+
+def _poly_coeffs(pack: PolyTablePack, fid: int, base, i, meta):
+    """Gather + dequantize the cell's ``degree + 1`` monomial coefficients.
+
+    Code of cell ``i``, lane ``l`` lives at ``base + i*(degree+1) + l`` in the
+    member's width group; the dequant ``(zero + ramp*i) + scale*q`` is the
+    quant-pack sequence per lane (identity for f32 members).
+    """
+    codes = pack.codes_for(fid)
+    stride = float(pack.degrees[fid] + 1)
+    cs = []
+    for lane, (zero, ramp, scale) in enumerate(meta):
+        a = lane_address(base + i * stride + float(lane), codes.shape[0])
+        q = codes[a].to(torch.float32)
+        cs.append((zero + ramp * i) + scale * q)
+    return cs
+
+
+def poly_horner(cs, t):
+    """p(t) with monomial coefficients ``cs[k]`` (constant term first)."""
+    y = cs[-1]
+    for c in reversed(cs[:-1]):
+        y = y * t + c
+    return y
+
+
+def poly_horner_d1(cs, t):
+    """p'(t) in the derivative Horner form the kernels mirror."""
+    if len(cs) == 1:
+        return torch.zeros_like(t)
+    g = cs[-1] * float(len(cs) - 1)
+    for k in range(len(cs) - 2, 0, -1):
+        g = g * t + cs[k] * float(k)
+    return g
+
+
+def _poly_cell(pack: PolyTablePack, fid: int, xf: torch.Tensor):
+    """(coefficients, t, tc = clip(t, 0, 1), invd) of each element's cell."""
+    p, invd, base, segs, meta = _poly_select(pack, fid, xf)
+    u = (xf - p) * invd
+    i = clamp_cell(u, segs)
+    cs = _poly_coeffs(pack, fid, base, i, meta)
+    t = u - i
+    return cs, t, torch.clamp(t, 0.0, 1.0), invd
+
+
+def eval_poly_pack_ref(pack: PolyTablePack, fn, x: torch.Tensor, *,
+                       extrapolate: bool = False) -> torch.Tensor:
+    """Plain PyTorch dequantize + Horner lookup — bit-identical to the JAX
+    package's eager ``eval_poly_pack_ref`` and to the CUDA kernel.
+    ``extrapolate=True`` continues past the cell grid along the tangent at the
+    clamped coordinate: ``y = p(tc) + p'(tc) * (t - tc)``."""
+    fid = pack.member_id(fn)
+    dtype = x.dtype
+    cs, t, tc, _ = _poly_cell(pack, fid, x.to(torch.float32))
+    y = poly_horner(cs, tc)
+    if extrapolate:
+        y = y + poly_horner_d1(cs, tc) * (t - tc)
+    return y.to(dtype)
+
+
+def eval_poly_pack_slope(pack: PolyTablePack, fn, x: torch.Tensor, *,
+                         extrapolate: bool = False) -> torch.Tensor:
+    """d/dx of the polynomial surrogate: ``p'(tc) / delta`` (the tangent the
+    extrapolating value path continues along), masked outside the domain when
+    not extrapolating."""
+    fid = pack.member_id(fn)
+    dtype = x.dtype
+    xf = x.to(torch.float32)
+    cs, _, tc, invd = _poly_cell(pack, fid, xf)
+    slope = poly_horner_d1(cs, tc) * invd
+    if not extrapolate:
+        slope = slope * _inside(pack, fid, xf)
+    return slope.to(dtype)
+
+
+def make_poly_pack_fn(pack: PolyTablePack, name: str, *,
+                      use_kernel: bool = True, exact_d1=None,
+                      extrapolate: bool = False):
+    """Differentiable unary ``f(x)`` served from the polynomial pack.
+
+    Mirrors :func:`make_quant_pack_fn`: ``use_kernel=True`` (``poly_pack``)
+    runs ``poly_pack_lookup`` / the fused ``poly_pack_grad``, ``False``
+    (``poly_pack_ref``) the plain versions.  Tangent: the Horner slope, or
+    ``exact_d1(x)`` when given.
+    """
+    from repro_torch.kernels import table_pack_lookup as K
+
+    fns = ((K.poly_pack_lookup, K.poly_pack_grad) if use_kernel
+           else (K.poly_pack_lookup_plain, K.poly_pack_grad_plain))
+    return _make_fn(pack, name, *fns, exact_d1, extrapolate)

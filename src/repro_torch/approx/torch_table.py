@@ -96,13 +96,27 @@ def _select_params(brow, invd_row, base_row, segs_row, n_intervals, xf):
     return brow[j], invd_row[j], base_row[j], segs_row[j]
 
 
-def _pair_address(base, i, n_values: int):
-    """(a, a+1) gather addresses, clamped into [0, M-1] like ``mode="clip"``.
-    A NaN input gives a NaN ``i``; its address is 0 (its output is NaN
-    whatever is read), so no NaN reaches the integer conversion."""
-    af = base + i
-    a = torch.where(af >= 0, af, 0.0).to(torch.int64)
+def clamp_cell(u: torch.Tensor, segs: torch.Tensor) -> torch.Tensor:
+    """The cell index ``i = clip(floor(u), 0, segs - 1)`` (NaN stays NaN)."""
+    return torch.minimum(torch.clamp(torch.floor(u), min=0.0), segs - 1.0)
+
+
+def _address(af: torch.Tensor) -> torch.Tensor:
+    """f32 address -> int64; a NaN address (from a NaN input) becomes 0, as
+    XLA's float-to-int conversion makes it, so no NaN reaches the integer
+    conversion."""
+    return torch.where(af >= 0, af, 0.0).to(torch.int64)
+
+
+def pair_address(base, i, n_values: int):
+    """(a, a+1) gather addresses, clamped into [0, M-1] like ``mode="clip"``."""
+    a = _address(base + i)
     return a.clamp(max=n_values - 1), (a + 1).clamp(max=n_values - 1)
+
+
+def lane_address(af: torch.Tensor, n_values: int) -> torch.Tensor:
+    """One gather address from its f32 form, clamped into [0, M-1]."""
+    return _address(af).clamp(max=n_values - 1)
 
 
 def lookup_rows(brow, invd_row, base_row, segs_row, n_intervals: int,
@@ -117,8 +131,8 @@ def lookup_rows(brow, invd_row, base_row, segs_row, n_intervals: int,
     p, invd, base, segs = _select_params(brow, invd_row, base_row, segs_row,
                                          n_intervals, xf)
     u = (xf - p) * invd
-    i = torch.minimum(torch.clamp(torch.floor(u), min=0.0), segs - 1.0)
-    a0, a1 = _pair_address(base, i, values.shape[0])
+    i = clamp_cell(u, segs)
+    a0, a1 = pair_address(base, i, values.shape[0])
     y0 = values[a0]
     y1 = values[a1]
     t = u - i
@@ -146,9 +160,8 @@ def slope_rows(brow, invd_row, base_row, segs_row, n_intervals: int, values,
     xf = x.to(torch.float32)
     p, invd, base, segs = _select_params(brow, invd_row, base_row, segs_row,
                                          n_intervals, xf)
-    i = torch.minimum(torch.clamp(torch.floor((xf - p) * invd), min=0.0),
-                      segs - 1.0)
-    a0, a1 = _pair_address(base, i, values.shape[0])
+    i = clamp_cell((xf - p) * invd, segs)
+    a0, a1 = pair_address(base, i, values.shape[0])
     slope = (values[a1] - values[a0]) * invd
     if not extrapolate:
         inside = (xf >= brow[0]) & (xf < brow[n_intervals])

@@ -1,5 +1,7 @@
 """repro_torch.core — the port's copy of the paper's f64 numpy design flow
-(spacing rule, three splitting algorithms, packed tables, pack layout).
+(spacing rule, three splitting algorithms, packed tables, the f32 /
+quantized / polynomial pack layouts, entry quantization and the design-space
+planner).
 
 The JAX package's ``repro.core`` imports no JAX either, but the port imports
 nothing of that package, so it keeps the modules it needs here.  The tests
@@ -17,12 +19,15 @@ from .splitting import (
 )
 from .table import TableSpec, build_table
 from .flow import cached_table
-from .packing import PackLayout, pack_layout
+from .packing import (PackLayout, PolyPackLayout, QuantPackLayout, pack_layout,
+                      poly_pack_layout, quant_pack_layout)
 
 __all__ = [
     "ALGORITHMS",
     "FunctionSpec",
     "PackLayout",
+    "PolyPackLayout",
+    "QuantPackLayout",
     "SecondDerivMax",
     "SplitResult",
     "TableSpec",
@@ -35,6 +40,8 @@ __all__ = [
     "get_function",
     "hierarchical_split",
     "pack_layout",
+    "poly_pack_layout",
+    "quant_pack_layout",
     "reference_spacing",
     "sequential_split",
     "split",

@@ -1,18 +1,26 @@
 """Multi-function pack layout — all of a model's tables as ONE artifact.
 
-The port's copy of ``repro.core.packing.PackLayout`` / ``pack_layout`` (the f32
-pack only; the quantized, polynomial and sharded layouts come with their
-slices).
+The port's copy of ``repro.core.packing``: the f32 :class:`PackLayout`, the
+QuantPack layout (int8/int16 codes + ragged dequant metadata) and the PolyPack
+layout (degree-d coefficient codes, lane-padded dequant metadata).  The
+sharded layout comes with its slice (ROADMAP queue 1, item 12).  The
+reference's ``vmem()`` reports (TPU VMEM residency over ``core/bram.py``) are
+not carried over (queue 1, item 15): the port's counterpart is the CUDA
+kernels' shared-memory staging.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import TYPE_CHECKING, Sequence, Tuple
 
 import numpy as np
 
+from .quantize import QuantMember
 from .table import TableSpec
+
+if TYPE_CHECKING:  # for the annotations only: design imports this package
+    from .design import PolyMember
 
 
 @dataclass(frozen=True)
@@ -107,4 +115,283 @@ def pack_layout(specs: Sequence[TableSpec]) -> PackLayout:
         seg_count=seg_count,
         value_offset=value_offset,
         values=np.concatenate([s.values for s in specs]),
+    )
+
+
+# --------------------------------------------------------------------------------------
+# QuantPack layout — the pack with int8/int16 entry codes + dequant metadata.
+# --------------------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class QuantPackLayout:
+    """F quantized tables packed into per-width code vectors + flat metadata lanes.
+
+    Unlike :class:`PackLayout`'s (F, n_max)-padded planes, the metadata here is
+    RAGGED — flat lanes concatenated per function — because quantization
+    refinement (``core.quantize.refine_for_quantization``) gives members very
+    different sub-interval counts and padding every plane to the widest member
+    would cost more than the quantization saves.  The kernel reads a member's
+    lane segment from its offsets (``bounds_offset`` / ``lane_offset``), so
+    raggedness is free at run time.
+
+      * ``boundaries``  (sum_f n_f+1,)  per-function rows back to back;
+      * ``inv_delta`` / ``base`` / ``seg_count`` / ``scale`` / ``zero`` /
+        ``ramp``        (sum_f n_f,)    the selector + dequant lanes;
+      * ``codes8``      (M8,) int8-coded entries of every int8 member;
+      * ``codes16``     (M16,) likewise for int16 members.
+
+    ``base`` holds GLOBAL indices into the member's own width-group vector.
+    Dequantize-on-read: ``v = zero_j + ramp_j * i + scale_j * q``.
+    """
+
+    names: Tuple[str, ...]
+    members: Tuple[QuantMember, ...]
+    n_intervals: Tuple[int, ...]
+    entry_bits: Tuple[int, ...]  # 8 or 16 per member (which codes vector)
+    boundaries: np.ndarray  # (sum n_f+1,) f64
+    inv_delta: np.ndarray  # (sum n_f,) f64
+    delta: np.ndarray  # (sum n_f,) f64
+    base: np.ndarray  # (sum n_f,) i64 — global into the width-group codes
+    seg_count: np.ndarray  # (sum n_f,) i64
+    scale: np.ndarray  # (sum n_f,) f64
+    zero: np.ndarray  # (sum n_f,) f64
+    ramp: np.ndarray  # (sum n_f,) f64
+    value_offset: np.ndarray  # (F,) i64 — first codes index within the group
+    codes8: np.ndarray  # (M8,) i64 codes of the int8 members, concatenated
+    codes16: np.ndarray  # (M16,) i64 codes of the int16 members, concatenated
+
+    @property
+    def n_functions(self) -> int:
+        return len(self.names)
+
+    @property
+    def footprint(self) -> int:
+        """Total stored entries (Eq. 13 accounting, width-agnostic)."""
+        return int(len(self.codes8) + len(self.codes16))
+
+    @property
+    def footprint_bytes(self) -> int:
+        """Entry storage bytes — the quantization win vs ``footprint * 4``."""
+        return int(len(self.codes8) + 2 * len(self.codes16))
+
+    @property
+    def meta_bytes(self) -> int:
+        return sum(m.meta_bytes for m in self.members)
+
+    def fn_id(self, name: str) -> int:
+        try:
+            return self.names.index(name)
+        except ValueError:
+            raise KeyError(
+                f"function {name!r} not in pack {self.names}") from None
+
+    def bounds_offset(self, fid: int) -> int:
+        return sum(n + 1 for n in self.n_intervals[:fid])
+
+    def lane_offset(self, fid: int) -> int:
+        return sum(self.n_intervals[:fid])
+
+    def eval(self, fn, x: np.ndarray) -> np.ndarray:
+        """f64 dequantize-on-read oracle for member ``fn`` (name or fn_id)."""
+        fid = self.fn_id(fn) if isinstance(fn, str) else int(fn)
+        return self.members[fid].eval(x)
+
+
+def quant_pack_layout(members: Sequence[QuantMember]) -> QuantPackLayout:
+    """Concatenate per-function :class:`QuantMember` artifacts into one layout."""
+    if not members:
+        raise ValueError("cannot pack zero tables")
+    names = tuple(m.name for m in members)
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate function names in pack: {names}")
+    boundaries, inv_delta, delta, base, seg_count = [], [], [], [], []
+    scale, zero, ramp = [], [], []
+    value_offset = np.zeros((len(members),), dtype=np.int64)
+    group_acc = {8: 0, 16: 0}
+    codes = {8: [], 16: []}
+    for f, m in enumerate(members):
+        s = m.spec
+        boundaries.append(s.boundaries)
+        inv_delta.append(s.inv_delta)
+        delta.append(s.delta)
+        seg_count.append(s.seg_count)
+        scale.append(m.scale)
+        zero.append(m.zero)
+        ramp.append(m.ramp)
+        acc = group_acc[m.bits]
+        base.append(s.base + acc)
+        value_offset[f] = acc
+        codes[m.bits].append(m.codes)
+        group_acc[m.bits] = acc + m.footprint
+    cat = lambda parts: (np.concatenate(parts) if parts
+                         else np.zeros((0,), dtype=np.int64))
+    return QuantPackLayout(
+        names=names,
+        members=tuple(members),
+        n_intervals=tuple(m.spec.n_intervals for m in members),
+        entry_bits=tuple(m.bits for m in members),
+        boundaries=np.concatenate(boundaries),
+        inv_delta=np.concatenate(inv_delta),
+        delta=np.concatenate(delta),
+        base=np.concatenate(base),
+        seg_count=np.concatenate(seg_count),
+        scale=np.concatenate(scale),
+        zero=np.concatenate(zero),
+        ramp=np.concatenate(ramp),
+        value_offset=value_offset,
+        codes8=cat(codes[8]),
+        codes16=cat(codes[16]),
+    )
+
+
+# --------------------------------------------------------------------------------------
+# PolyPack layout — degree-d coefficient packs from the design-space planner.
+# --------------------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PolyPackLayout:
+    """F planner-designed :class:`~repro_torch.core.design.PolyMember` tables packed
+    into per-width code vectors + flat LANE-PADDED metadata.
+
+    The QuantPack raggedness idea carries over (flat per-function metadata
+    lanes, per-member offsets), with two new wrinkles:
+
+      * **Three width groups.**  ``codes8`` / ``codes16`` hold integer codes;
+        ``codes32`` holds the f32 members' RAW coefficients.  An f32 member's
+        dequant params are pinned to ``zero = ramp = 0, scale = 1``, so the
+        one dequant sequence ``(zero + ramp*i) + scale*q`` is a bit-exact
+        identity for it — a single kernel op order serves mixed-width packs.
+
+      * **Lane padding to the pack max degree.**  ``zero``/``ramp``/``scale``
+        are stored per (sub-interval, lane) with ``max_degree + 1`` lanes for
+        EVERY member; a member of lower degree pads the extra lanes with
+        zeros.  A padded lane dequantizes to exactly 0.0 (whatever code the
+        clipped gather returns, ``0 + 0*i + 0*q = 0``), and a leading zero
+        flows through Horner as ``0*t + c_d = c_d`` — so a uniform
+        max-degree Horner (the reference's routed kernel) is bitwise
+        identical to the member's own degree-d evaluation.
+
+    Codes are cell-major with the member's OWN stride ``degree + 1`` (no code
+    padding — storage stays minimal): code of cell ``i``, lane ``l`` of
+    sub-interval ``j`` lives at ``base[j] + i*(degree+1) + l`` within the
+    member's width group.  Metadata index for (sub-interval ``j``, lane ``l``)
+    is ``(lane_offset(fid) + j) * (max_degree+1) + l``.
+    """
+
+    names: Tuple[str, ...]
+    members: Tuple["PolyMember", ...]
+    n_intervals: Tuple[int, ...]
+    degrees: Tuple[int, ...]  # interpolation degree per member
+    entry_bits: Tuple[int, ...]  # 8 / 16 / 32 per member (which codes vector)
+    max_degree: int
+    boundaries: np.ndarray  # (sum n_f+1,) f64
+    inv_delta: np.ndarray  # (sum n_f,) f64
+    delta: np.ndarray  # (sum n_f,) f64
+    base: np.ndarray  # (sum n_f,) i64 — global into the width-group codes
+    seg_count: np.ndarray  # (sum n_f,) i64
+    zero: np.ndarray  # (sum n_f * (max_degree+1),) f64 lane-padded
+    ramp: np.ndarray  # (sum n_f * (max_degree+1),) f64 lane-padded
+    scale: np.ndarray  # (sum n_f * (max_degree+1),) f64 lane-padded
+    value_offset: np.ndarray  # (F,) i64 — first codes index within the group
+    codes8: np.ndarray  # (M8,) i64 codes of the int8 members, concatenated
+    codes16: np.ndarray  # (M16,) i64 codes of the int16 members
+    codes32: np.ndarray  # (M32,) f64 raw coefficients of the f32 members
+
+    @property
+    def n_functions(self) -> int:
+        return len(self.names)
+
+    @property
+    def max_lanes(self) -> int:
+        return self.max_degree + 1
+
+    @property
+    def footprint(self) -> int:
+        """Total stored codes (the planner's entries axis, width-agnostic)."""
+        return int(len(self.codes8) + len(self.codes16) + len(self.codes32))
+
+    @property
+    def footprint_bytes(self) -> int:
+        return int(len(self.codes8) + 2 * len(self.codes16)
+                   + 4 * len(self.codes32))
+
+    @property
+    def meta_bytes(self) -> int:
+        return sum(m.meta_bytes for m in self.members)
+
+    def fn_id(self, name: str) -> int:
+        try:
+            return self.names.index(name)
+        except ValueError:
+            raise KeyError(
+                f"function {name!r} not in pack {self.names}") from None
+
+    def bounds_offset(self, fid: int) -> int:
+        return sum(n + 1 for n in self.n_intervals[:fid])
+
+    def lane_offset(self, fid: int) -> int:
+        return sum(self.n_intervals[:fid])
+
+    def eval(self, fn, x: np.ndarray) -> np.ndarray:
+        """f64 dequantize-on-read Horner oracle for member ``fn``."""
+        fid = self.fn_id(fn) if isinstance(fn, str) else int(fn)
+        return self.members[fid].eval(x)
+
+
+def poly_pack_layout(members: Sequence["PolyMember"]) -> PolyPackLayout:
+    """Concatenate planner-built :class:`PolyMember` artifacts into one layout."""
+    if not members:
+        raise ValueError("cannot pack zero tables")
+    names = tuple(m.name for m in members)
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate function names in pack: {names}")
+    max_degree = max(m.degree for m in members)
+    lmax = max_degree + 1
+    boundaries, inv_delta, delta, base, seg_count = [], [], [], [], []
+    zero, ramp, scale = [], [], []
+    value_offset = np.zeros((len(members),), dtype=np.int64)
+    group_acc = {8: 0, 16: 0, 32: 0}
+    codes = {8: [], 16: [], 32: []}
+    for f, m in enumerate(members):
+        n = m.n_intervals
+        boundaries.append(m.boundaries)
+        inv_delta.append(m.inv_delta)
+        delta.append(m.delta)
+        seg_count.append(m.seg_count)
+        # lane-pad the dequant planes to the pack max degree with zeros
+        for plane, out in ((m.zero, zero), (m.ramp, ramp), (m.scale, scale)):
+            padded = np.zeros((n, lmax), dtype=np.float64)
+            padded[:, : m.lanes] = plane
+            out.append(padded.ravel())
+        acc = group_acc[m.bits]
+        base.append(m.base + acc)
+        value_offset[f] = acc
+        codes[m.bits].append(np.asarray(m.codes, dtype=np.float64)
+                             if m.bits == 32 else m.codes)
+        group_acc[m.bits] = acc + m.entries
+    cat_i = lambda parts: (np.concatenate(parts) if parts
+                           else np.zeros((0,), dtype=np.int64))
+    cat_f = lambda parts: (np.concatenate(parts) if parts
+                           else np.zeros((0,), dtype=np.float64))
+    return PolyPackLayout(
+        names=names,
+        members=tuple(members),
+        n_intervals=tuple(m.n_intervals for m in members),
+        degrees=tuple(m.degree for m in members),
+        entry_bits=tuple(m.bits for m in members),
+        max_degree=max_degree,
+        boundaries=np.concatenate(boundaries),
+        inv_delta=np.concatenate(inv_delta),
+        delta=np.concatenate(delta),
+        base=np.concatenate(base),
+        seg_count=np.concatenate(seg_count),
+        zero=np.concatenate(zero),
+        ramp=np.concatenate(ramp),
+        scale=np.concatenate(scale),
+        value_offset=value_offset,
+        codes8=cat_i(codes[8]),
+        codes16=cat_i(codes[16]),
+        codes32=cat_f(codes[32]),
     )

@@ -1,5 +1,7 @@
-// Per-element body of the table lookup (the paper's Fig. 7 pipeline), shared
-// by every table kernel of the port.
+// Per-element bodies of the table lookups (the paper's Fig. 7 pipeline), shared
+// by every table kernel of the port: the f32 pack and single table (Row,
+// segment, lookup, lookup_grad, tableflash), the quantized pack (QuantRow,
+// quant_lookup) and the polynomial pack (PolyRow, poly_lookup).
 //
 //   interval selector  j = min(#(x >= b_m, m >= 1), n - 1)   (comparator plane)
 //   parameter fetch    p = b_j, invd_j, base_j, segs_j       (four gathers)
@@ -52,22 +54,43 @@ struct Segment {
   float y0, y1;
 };
 
-TL_HD Segment segment(float x, const Row& r, const float* values, int m) {
+// Comparator plane: j = min(#(x >= b_k, 1 <= k <= n_scan), n - 1).  A pack
+// row scans its +inf padding too (n_scan = n_max), which never counts.
+TL_HD int select(float x, const float* bounds, int n_scan, int n) {
   int j = 0;
-  for (int k = 1; k <= r.n_max; ++k) j += (x >= r.bounds[k]) ? 1 : 0;
-  j = j < r.n_intervals - 1 ? j : r.n_intervals - 1;
+  for (int k = 1; k <= n_scan; ++k) j += (x >= bounds[k]) ? 1 : 0;
+  return j < n - 1 ? j : n - 1;
+}
+
+// Cell index i = clip(floor(u), 0, segs - 1); NaN stays NaN.
+TL_HD float clamp_cell(float u, float segs) {
+  return clamp_hi(clamp_lo(floorf(u), 0.0f), segs - 1.0f);
+}
+
+// f32 address -> int, a NaN address (from a NaN input) -> 0, as XLA's
+// float-to-int conversion gives; then clamped to [0, m - 1] like mode="clip".
+TL_HD int address(float af) { return af >= 0.0f ? static_cast<int>(af) : 0; }
+TL_HD int clip_address(int a, int m) { return a < m - 1 ? a : m - 1; }
+
+// The 0/1 indicator of [b_0, b_n), which zeroes a slope outside the domain
+// unless extrapolating.  It multiplies, as in the plain versions, so a NaN or
+// inf slope stays NaN there (a select would turn it into 0).
+TL_HD float inside(float x, const float* bounds, int n) {
+  return (x >= bounds[0] && x < bounds[n]) ? 1.0f : 0.0f;
+}
+
+TL_HD Segment segment(float x, const Row& r, const float* values, int m) {
+  const int j = select(x, r.bounds, r.n_max, r.n_intervals);
   const float p = r.bounds[j];
   const float invd = r.invd[j];
   const float base = r.base[j];
   const float segs = r.segs[j];
 
   const float u = (x - p) * invd;
-  const float i = clamp_hi(clamp_lo(floorf(u), 0.0f), segs - 1.0f);
-  const float af = base + i;
-  const int a = af >= 0.0f ? static_cast<int>(af) : 0;  // NaN -> 0
-  const int a0 = a < m - 1 ? a : m - 1;
-  const int a1 = a + 1 < m - 1 ? a + 1 : m - 1;
-  return Segment{u, i, invd, values[a0], values[a1]};
+  const float i = clamp_cell(u, segs);
+  const int a = address(base + i);
+  return Segment{u, i, invd, values[clip_address(a, m)],
+                 values[clip_address(a + 1, m)]};
 }
 
 TL_HD float lerp(const Segment& s, bool extrapolate) {
@@ -83,18 +106,12 @@ TL_HD float lookup(float x, const Row& r, const float* values, int m,
 
 // Value and slope from one selector pass (the body of _pack_grad_kernel and
 // _table_grad_kernel).  The slope is (y1 - y0) * invd, zeroed outside
-// [b_0, b_n) unless extrapolating.  The zeroing is a multiply by the 0/1
-// indicator, as in the plain version, so a NaN or inf slope stays NaN there
-// (a select would turn it into 0).
+// [b_0, b_n) unless extrapolating.
 TL_HD float lookup_grad(float x, const Row& r, const float* values, int m,
                         bool extrapolate, float* slope) {
   const Segment s = segment(x, r, values, m);
   float d = (s.y1 - s.y0) * s.invd;
-  if (!extrapolate) {
-    const float inside =
-        (x >= r.bounds[0] && x < r.bounds[r.n_intervals]) ? 1.0f : 0.0f;
-    d = d * inside;
-  }
+  if (!extrapolate) d = d * inside(x, r.bounds, r.n_intervals);
   *slope = d;
   return lerp(s, extrapolate);
 }
@@ -105,6 +122,140 @@ TL_HD float tableflash(float z, const Row& r, const float* values, int m) {
   const float lo = r.bounds[0];
   const float y = lookup(clamp_lo(z, lo), r, values, m, false);
   return z < lo ? 0.0f : y;
+}
+
+// ------------------------------------------------------------------------------
+// QuantPack: int8/int16 entry codes, dequantized on read (_quant_kernel).
+//
+//   r  = zero + ramp * i                (the chord ramp at entry i)
+//   y0 = r + scale * c0,  y1 = (r + ramp) + scale * c1
+//   y  = y0 + t * (y1 - y0),  slope = (ramp + scale * (c1 - c0)) * invd
+//
+// One member's ragged row: n + 1 boundaries, n of each other lane; `codes` is
+// the member's whole width group (its base addresses are global into it).
+struct QuantRow {
+  const float* bounds;
+  const float* invd;
+  const float* base;
+  const float* segs;
+  const float* scale;
+  const float* zero;
+  const float* ramp;
+  int n;
+};
+
+// The value; with `slope` non-null also the slope, from the same pass.
+template <typename C>
+TL_HD float quant_lookup(float x, const QuantRow& r, const C* codes, int m,
+                         bool extrapolate, float* slope) {
+  const int j = select(x, r.bounds, r.n, r.n);
+  const float p = r.bounds[j];
+  const float invd = r.invd[j];
+  const float base = r.base[j];
+  const float segs = r.segs[j];
+  const float scale = r.scale[j];
+  const float zero = r.zero[j];
+  const float ramp = r.ramp[j];
+
+  const float u = (x - p) * invd;
+  const float i = clamp_cell(u, segs);
+  const int a = address(base + i);
+  const float c0 = static_cast<float>(codes[clip_address(a, m)]);
+  const float c1 = static_cast<float>(codes[clip_address(a + 1, m)]);
+  const float rr = zero + ramp * i;
+  const float y0 = rr + scale * c0;
+  const float y1 = (rr + ramp) + scale * c1;
+  float t = u - i;
+  if (!extrapolate) t = clamp_hi(clamp_lo(t, 0.0f), 1.0f);
+  if (slope) {
+    float d = (ramp + scale * (c1 - c0)) * invd;
+    if (!extrapolate) d = d * inside(x, r.bounds, r.n);
+    *slope = d;
+  }
+  return y0 + t * (y1 - y0);
+}
+
+// ------------------------------------------------------------------------------
+// PolyPack: degree-d coefficient codes, dequantized per lane, Horner on read
+// (_poly_kernel).  Lane l of cell i sits at base + i * (d + 1) + l in the
+// member's width group (int8, int16 or raw f32); its dequant params at
+// metadata index j * lmax + l:  c_l = (zero + ramp * i) + scale * q.
+// y = p(tc) at tc = clip(t, 0, 1); extrapolating, y + p'(tc) * (t - tc);
+// slope = p'(tc) * invd.
+constexpr int kMaxLanes = 4;  // degree <= 3
+
+struct PolyRow {
+  const float* bounds;
+  const float* invd;
+  const float* base;
+  const float* segs;
+  const float* zero;  // lane-padded: n * lmax
+  const float* ramp;
+  const float* scale;
+  int n;
+  int lmax;
+  int degree;
+};
+
+// p(t) = (...(c_d t + c_{d-1}) t + ...) t + c_0.  The loops run over the
+// fixed kMaxLanes so that a device build keeps cs[] in registers.
+TL_HD float horner(const float* cs, int d, float t) {
+  float y = 0.0f;
+#pragma unroll
+  for (int k = kMaxLanes - 1; k >= 0; --k) {
+    if (k == d) y = cs[k];
+    else if (k < d) y = y * t + cs[k];
+  }
+  return y;
+}
+
+// p'(t) in the derivative Horner form: g = c_d * d, g = g * t + c_k * k.
+TL_HD float horner_d1(const float* cs, int d, float t) {
+  float g = 0.0f;
+#pragma unroll
+  for (int k = kMaxLanes - 1; k >= 1; --k) {
+    if (k == d) g = cs[k] * static_cast<float>(k);
+    else if (k < d) g = g * t + cs[k] * static_cast<float>(k);
+  }
+  return g;
+}
+
+template <typename C>
+TL_HD float poly_lookup(float x, const PolyRow& r, const C* codes, int m,
+                        bool extrapolate, float* slope) {
+  const int j = select(x, r.bounds, r.n, r.n);
+  const float p = r.bounds[j];
+  const float invd = r.invd[j];
+  const float base = r.base[j];
+  const float segs = r.segs[j];
+
+  const float u = (x - p) * invd;
+  const float i = clamp_cell(u, segs);
+  const float stride = static_cast<float>(r.degree + 1);
+  float cs[kMaxLanes];
+#pragma unroll
+  for (int l = 0; l < kMaxLanes; ++l) {
+    cs[l] = 0.0f;
+    if (l <= r.degree) {
+      const int k = j * r.lmax + l;
+      const float af = base + i * stride + static_cast<float>(l);
+      const float q = static_cast<float>(codes[clip_address(address(af), m)]);
+      cs[l] = (r.zero[k] + r.ramp[k] * i) + r.scale[k] * q;
+    }
+  }
+  const float t = u - i;
+  const float tc = clamp_hi(clamp_lo(t, 0.0f), 1.0f);
+  float y = horner(cs, r.degree, tc);
+  if (extrapolate || slope) {
+    const float g = horner_d1(cs, r.degree, tc);
+    if (extrapolate) y = y + g * (t - tc);
+    if (slope) {
+      float d = g * invd;
+      if (!extrapolate) d = d * inside(x, r.bounds, r.n);
+      *slope = d;
+    }
+  }
+  return y;
 }
 
 }  // namespace tl

@@ -1,5 +1,7 @@
-// Hopper kernels over a TablePack (f32 values + (F, n_max) metadata planes)
-// or a single table (one metadata row: the same layout with F = 1).
+// Hopper kernels over the port's packed tables: the f32 TablePack (values +
+// (F, n_max) metadata planes) or a single table (one metadata row, F = 1),
+// the quantized QuantTablePack and the polynomial PolyTablePack (ragged flat
+// metadata lanes + int8 / int16 / f32 code groups).
 //
 //   tp_pack_lookup     replaces the TPU kernel _pack_kernel
 //                      (src/repro/kernels/table_pack_lookup.py:43): one pack
@@ -15,43 +17,56 @@
 //   tp_table_grad      replaces the TPU kernel _table_grad_kernel
 //                      (src/repro/kernels/table_grad.py:28): one table's value
 //                      and slope from one selector pass.
+//   tp_quant_lookup    replaces the TPU kernel _quant_kernel
+//                      (src/repro/kernels/table_pack_lookup.py:283): one
+//                      quantized member, codes dequantized on read.
+//   tp_quant_grad      replaces _quant_grad_kernel (:309): its value and slope.
+//   tp_poly_lookup     replaces _poly_kernel (:503): one polynomial member,
+//                      per-lane dequantization and Horner.
+//   tp_poly_grad       replaces _poly_grad_kernel (:524): its value and slope.
 //
 // What bounds them on the card: bytes.  Each element is read once and its
 // output(s) written once, N * (in_bytes + n_out * out_bytes) at 3.35 TB/s; the
-// ~40 compare/gather/lerp operations per element are far below the card's
-// rate.  At decode shapes they are launch-bound: the GLU silu gate at B=4 is
-// 4 * 6912 = 27,648 bf16 elements, about 110 KB in and out, some 33 ns of
-// memory time against a few microseconds of launch.  The training gate
-// (4, 128, 6912) bf16 is 3.5 M elements, 21 MB through the grad kernel.
+// compare/gather/lerp operations per element (n compares plus ~15-40 others)
+// are far below the card's rate at the packs' interval counts.  At decode
+// shapes they are launch-bound: the GLU silu gate at B=4 is 4 * 6912 = 27,648
+// bf16 elements, about 110 KB in and out, some 33 ns of memory time against a
+// few microseconds of launch.  The training gate (4, 128, 6912) bf16 is 3.5 M
+// elements, 21 MB through a grad kernel.
 //
 // Design.  The TPU kernels tiled x into (rows, 512) blocks and pinned the pack
 // in VMEM.  Here a grid-stride loop walks the flat element count (ragged tail
 // masked by the loop bound, no padding), and each block stages the member's
-// metadata row and the values vector in shared memory — the counterpart of the
-// VMEM/BRAM pinning — so the two data-dependent gathers hit shared memory.  A
-// pack larger than the static shared budget is read from global memory (L2)
-// instead; both paths are in the one kernel.  fn_id, n_intervals, n_max and
-// extrapolate are runtime arguments: one compiled kernel per dtype and mode
-// serves every member and every single table (a table is a pack of one row,
-// n_max = n_intervals).  The grad mode writes the slope to a second output in
-// the same pass.  Input and outputs are f32 or bf16 (the GLU gate arrives in
-// bf16, the flash exponent in f32); the body computes in f32 and stores with
-// round to nearest even.  Built with -fmad=false: bit-identical to the plain
-// PyTorch versions.
+// metadata row and the pack's values (or the member's code group) in dynamic
+// shared memory — the counterpart of the VMEM/BRAM pinning — so the
+// data-dependent gathers hit shared memory.  The launch sizes the staging:
+// metadata and values when both fit kSmemBytes, the metadata alone when only
+// it fits, nothing otherwise; whatever is not staged is read from global
+// memory (L2) by the same kernel.  So no interval count or pack size is
+// refused.  Member offsets, interval counts, code width, degree and
+// extrapolate are runtime arguments: one compiled kernel per (input dtype,
+// code type, mode) serves every member and every single table (a table is a
+// pack of one row, n_max = n_intervals).  The grad mode writes the slope to a
+// second output in the same pass.  Input and outputs are f32 or bf16 (the GLU
+// gate arrives in bf16, the flash exponent in f32); the body computes in f32
+// and stores with round to nearest even.  Built with -fmad=false:
+// bit-identical to the plain PyTorch versions.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "table_lookup.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxIntervals = 64;       // n_max limit of the staged metadata row
-constexpr int kSmemValues = 10240;      // 40 KB of staged values (static budget)
+constexpr int kSmemBytes = 48 * 1024;  // dynamic shared memory without opt-in
 constexpr int kBlocksPerSM = 4;
 
 enum Mode { kValue = 0, kFlash = 1, kGrad = 2 };
+// what a block stages in shared memory (chosen by the launch)
+enum Stage { kStageNone = 0, kStageMeta = 1, kStageAll = 2 };
 
 __device__ __forceinline__ float load_f32(const float* p, long long i) { return p[i]; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p, long long i) {
@@ -62,6 +77,73 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, long long i, float v
   p[i] = __float2bfloat16_rn(v);
 }
 
+// Staging is latency-bound: a block waits one global-memory (L2) round trip
+// for each batch of loads, before the stores that consume them.  So
+// both helpers load a whole batch into registers first and store after, and
+// the metadata row is staged by one loop over all its segments together.
+constexpr int kStageUnroll = 4;  // entries a thread loads per batch
+
+// Copy `count` entries from global `src` into shared `dst` (all threads of the
+// block, kStageUnroll loads in flight per thread); returns dst, or src itself
+// when `stage` is false.
+template <typename E>
+__device__ __forceinline__ const E* stage_copy(E* dst, const E* src, int count,
+                                               bool stage) {
+  if (!stage) return src;
+  for (int k0 = threadIdx.x; k0 < count; k0 += kStageUnroll * blockDim.x) {
+    E v[kStageUnroll];
+#pragma unroll
+    for (int u = 0; u < kStageUnroll; ++u) {
+      const int k = k0 + u * blockDim.x;
+      v[u] = k < count ? src[k] : E();
+    }
+#pragma unroll
+    for (int u = 0; u < kStageUnroll; ++u) {
+      const int k = k0 + u * blockDim.x;
+      if (k < count) dst[k] = v[u];
+    }
+  }
+  return dst;
+}
+
+// Stage the kSeg f32 segments of one member's metadata row back to back at
+// `dst`, one loop over the longest, and point `seg` at the staged copies.
+// Left at their global sources when `stage` is false.
+template <int kSeg>
+__device__ __forceinline__ void stage_row(float* dst, const float* (&seg)[kSeg],
+                                          const int (&count)[kSeg], bool stage) {
+  if (!stage) return;
+  float* to[kSeg];
+  int longest = 0;
+  long long off = 0;
+#pragma unroll
+  for (int q = 0; q < kSeg; ++q) {
+    to[q] = dst + off;
+    off += count[q];
+    longest = count[q] > longest ? count[q] : longest;
+  }
+  for (int k = threadIdx.x; k < longest; k += blockDim.x) {
+    float v[kSeg];
+#pragma unroll
+    for (int q = 0; q < kSeg; ++q) v[q] = k < count[q] ? seg[q][k] : 0.0f;
+#pragma unroll
+    for (int q = 0; q < kSeg; ++q) {
+      if (k < count[q]) to[q][k] = v[q];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kSeg; ++q) seg[q] = to[q];
+}
+
+__device__ __forceinline__ long long first_index() {
+  return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+}
+__device__ __forceinline__ long long grid_stride() {
+  return static_cast<long long>(gridDim.x) * blockDim.x;
+}
+
+// ---- f32 pack / single table ------------------------------------------------
+
 // `slope` is written only in kGrad mode (nullptr otherwise).
 template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
@@ -69,32 +151,19 @@ pack_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
             long long n, const float* __restrict__ bounds,
             const float* __restrict__ invd, const float* __restrict__ base,
             const float* __restrict__ segs, const float* __restrict__ values,
-            int fn_id, int n_max, int n_intervals, int m, int extrapolate) {
-  __shared__ float s_bounds[kMaxIntervals + 1];
-  __shared__ float s_invd[kMaxIntervals];
-  __shared__ float s_base[kMaxIntervals];
-  __shared__ float s_segs[kMaxIntervals];
-  __shared__ float s_values[kSmemValues];
-
-  const float* row_b = bounds + static_cast<long long>(fn_id) * (n_max + 1);
+            int fn_id, int n_max, int n_intervals, int m, int extrapolate,
+            int stage) {
+  extern __shared__ float smem[];
   const long long row = static_cast<long long>(fn_id) * n_max;
-  for (int k = threadIdx.x; k <= n_max; k += blockDim.x) s_bounds[k] = row_b[k];
-  for (int k = threadIdx.x; k < n_max; k += blockDim.x) {
-    s_invd[k] = invd[row + k];
-    s_base[k] = base[row + k];
-    s_segs[k] = segs[row + k];
-  }
-  const bool staged = m <= kSmemValues;
-  if (staged) {
-    for (int k = threadIdx.x; k < m; k += blockDim.x) s_values[k] = values[k];
-  }
+  const float* seg[4] = {bounds + static_cast<long long>(fn_id) * (n_max + 1),
+                         invd + row, base + row, segs + row};
+  const int count[4] = {n_max + 1, n_max, n_max, n_max};
+  stage_row(smem, seg, count, stage >= kStageMeta);
+  const float* vals = stage_copy(smem + 4 * n_max + 1, values, m, stage == kStageAll);
   __syncthreads();
+  const tl::Row r{seg[0], seg[1], seg[2], seg[3], n_max, n_intervals};
 
-  const tl::Row r{s_bounds, s_invd, s_base, s_segs, n_max, n_intervals};
-  const float* vals = staged ? s_values : values;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       idx < n; idx += stride) {
+  for (long long idx = first_index(); idx < n; idx += grid_stride()) {
     const float xv = load_f32(x, idx);
     if (kMode == kGrad) {
       float d;
@@ -109,6 +178,81 @@ pack_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
   }
 }
 
+// ---- quantized pack -----------------------------------------------------------
+
+template <typename T, typename C, int kMode>
+__global__ void __launch_bounds__(kThreads)
+quant_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
+             long long n, const float* __restrict__ bounds,
+             const float* __restrict__ invd, const float* __restrict__ base,
+             const float* __restrict__ segs, const float* __restrict__ scale,
+             const float* __restrict__ zero, const float* __restrict__ ramp,
+             const C* __restrict__ codes, int bo, int lo, int n_intervals, int m,
+             int extrapolate, int stage) {
+  extern __shared__ float smem[];
+  const int nn = n_intervals;
+  const float* seg[7] = {bounds + bo, invd + lo, base + lo, segs + lo,
+                         scale + lo, zero + lo, ramp + lo};
+  const int count[7] = {nn + 1, nn, nn, nn, nn, nn, nn};
+  stage_row(smem, seg, count, stage >= kStageMeta);
+  const C* cd = stage_copy(reinterpret_cast<C*>(smem + 7 * nn + 1), codes, m,
+                           stage == kStageAll);
+  __syncthreads();
+  const tl::QuantRow r{seg[0], seg[1], seg[2], seg[3], seg[4], seg[5], seg[6], nn};
+
+  for (long long idx = first_index(); idx < n; idx += grid_stride()) {
+    const float xv = load_f32(x, idx);
+    if (kMode == kGrad) {
+      float d;
+      store_f32(out, idx, tl::quant_lookup(xv, r, cd, m, extrapolate != 0, &d));
+      store_f32(slope, idx, d);
+    } else {
+      store_f32(out, idx, tl::quant_lookup(xv, r, cd, m, extrapolate != 0,
+                                           static_cast<float*>(nullptr)));
+    }
+  }
+}
+
+// ---- polynomial pack ----------------------------------------------------------
+
+template <typename T, typename C, int kMode>
+__global__ void __launch_bounds__(kThreads)
+poly_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
+            long long n, const float* __restrict__ bounds,
+            const float* __restrict__ invd, const float* __restrict__ base,
+            const float* __restrict__ segs, const float* __restrict__ zero,
+            const float* __restrict__ ramp, const float* __restrict__ scale,
+            const C* __restrict__ codes, int bo, int lo, int n_intervals,
+            int lmax, int degree, int m, int extrapolate, int stage) {
+  extern __shared__ float smem[];
+  const int nn = n_intervals;
+  const int nl = nn * lmax;
+  const long long lane0 = static_cast<long long>(lo) * lmax;
+  const float* seg[7] = {bounds + bo, invd + lo, base + lo, segs + lo,
+                         zero + lane0, ramp + lane0, scale + lane0};
+  const int count[7] = {nn + 1, nn, nn, nn, nl, nl, nl};
+  stage_row(smem, seg, count, stage >= kStageMeta);
+  const C* cd = stage_copy(reinterpret_cast<C*>(smem + 4 * nn + 1 + 3 * nl), codes, m,
+                           stage == kStageAll);
+  __syncthreads();
+  const tl::PolyRow r{seg[0], seg[1], seg[2], seg[3], seg[4], seg[5], seg[6],
+                      nn, lmax, degree};
+
+  for (long long idx = first_index(); idx < n; idx += grid_stride()) {
+    const float xv = load_f32(x, idx);
+    if (kMode == kGrad) {
+      float d;
+      store_f32(out, idx, tl::poly_lookup(xv, r, cd, m, extrapolate != 0, &d));
+      store_f32(slope, idx, d);
+    } else {
+      store_f32(out, idx, tl::poly_lookup(xv, r, cd, m, extrapolate != 0,
+                                          static_cast<float*>(nullptr)));
+    }
+  }
+}
+
+// ---- launches -----------------------------------------------------------------
+
 int grid_for(long long n) {
   static int n_sm = 0;
   if (n_sm == 0) {
@@ -122,33 +266,138 @@ int grid_for(long long n) {
   return static_cast<int>(want < cap ? want : cap);
 }
 
-// Refuses (cudaErrorInvalidValue, no launch) a metadata row longer than the
-// staged one (n_max > 64), an empty or inconsistent row, a values vector of
-// fewer than two entries, and an unknown dtype.
+// The staging of a block and its dynamic shared bytes: the metadata and the
+// values (or codes) if both fit kSmemBytes, else the metadata if it fits,
+// else nothing.
+struct Staging {
+  int stage;
+  size_t bytes;
+};
+
+Staging staging_for(long long meta_floats, long long value_bytes) {
+  const long long meta_bytes = 4 * meta_floats;
+  if (meta_bytes + value_bytes <= kSmemBytes) {
+    return {kStageAll, static_cast<size_t>(meta_bytes + value_bytes)};
+  }
+  if (meta_bytes <= kSmemBytes) return {kStageMeta, static_cast<size_t>(meta_bytes)};
+  return {kStageNone, 0};
+}
+
+// Expand KERNEL(T, ...) with T = float or __nv_bfloat16 by dtype (0 = float32,
+// 1 = bfloat16); an unknown dtype returns cudaErrorInvalidValue.
+#define TP_DISPATCH_DTYPE(dtype, KERNEL, ...)                                          \
+  do {                                                                                 \
+    if ((dtype) == 0) {                                                                \
+      KERNEL(float, __VA_ARGS__);                                                      \
+    } else if ((dtype) == 1) {                                                         \
+      KERNEL(__nv_bfloat16, __VA_ARGS__);                                              \
+    } else {                                                                           \
+      return cudaErrorInvalidValue;                                                    \
+    }                                                                                  \
+  } while (0)
+
+// Refuses (cudaErrorInvalidValue, no launch) an empty or inconsistent row, a
+// values vector of fewer than two entries and an unknown dtype.
 template <int kMode>
-cudaError_t launch(const void* x, void* out, void* slope, long long n, int dtype,
-                   const float* bounds, const float* invd, const float* base,
-                   const float* segs, const float* values, int fn_id, int n_max,
-                   int n_intervals, int m, int extrapolate, cudaStream_t stream) {
-  if (n_max < 1 || n_max > kMaxIntervals || n_intervals < 1 ||
-      n_intervals > n_max || m < 2 || n < 0 || (kMode == kGrad && !slope)) {
+cudaError_t launch_pack(const void* x, void* out, void* slope, long long n, int dtype,
+                        const float* bounds, const float* invd, const float* base,
+                        const float* segs, const float* values, int fn_id, int n_max,
+                        int n_intervals, int m, int extrapolate,
+                        cudaStream_t stream) {
+  if (n_max < 1 || n_intervals < 1 || n_intervals > n_max || fn_id < 0 || m < 2 ||
+      n < 0 || (kMode == kGrad && !slope)) {
     return cudaErrorInvalidValue;
   }
   if (n == 0) return cudaSuccess;
   const int blocks = grid_for(n);
-  if (dtype == 0) {
-    pack_kernel<float, kMode><<<blocks, kThreads, 0, stream>>>(
-        static_cast<const float*>(x), static_cast<float*>(out),
-        static_cast<float*>(slope), n, bounds, invd, base, segs, values, fn_id,
-        n_max, n_intervals, m, extrapolate);
-  } else if (dtype == 1) {
-    pack_kernel<__nv_bfloat16, kMode><<<blocks, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
-        static_cast<__nv_bfloat16*>(slope), n, bounds, invd, base, segs, values,
-        fn_id, n_max, n_intervals, m, extrapolate);
-  } else {
+  const Staging st = staging_for(4LL * n_max + 1, 4LL * m);
+#define TP_PACK(T, ...)                                                                \
+  pack_kernel<T, kMode><<<blocks, kThreads, st.bytes, stream>>>(                       \
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), n,       \
+      bounds, invd, base, segs, values, fn_id, n_max, n_intervals, m, extrapolate,     \
+      st.stage)
+  TP_DISPATCH_DTYPE(dtype, TP_PACK, 0);
+#undef TP_PACK
+  return cudaGetLastError();
+}
+
+template <typename T, typename C, int kMode>
+void quant_go(int blocks, Staging st, cudaStream_t stream, const void* x, void* out,
+              void* slope, long long n, const float* const* p, const void* codes,
+              int bo, int lo, int n_intervals, int m, int extrapolate) {
+  quant_kernel<T, C, kMode><<<blocks, kThreads, st.bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), n, p[0],
+      p[1], p[2], p[3], p[4], p[5], p[6], static_cast<const C*>(codes), bo, lo,
+      n_intervals, m, extrapolate, st.stage);
+}
+
+// code_bits: 8 (int8) or 16 (int16).  Refuses an empty row, negative
+// offsets, an empty code group, another code width and an unknown dtype.
+template <int kMode>
+cudaError_t launch_quant(const void* x, void* out, void* slope, long long n, int dtype,
+                         const float* const* planes, const void* codes, int bo, int lo,
+                         int n_intervals, int m, int code_bits, int extrapolate,
+                         cudaStream_t stream) {
+  if (n_intervals < 1 || bo < 0 || lo < 0 || m < 1 || n < 0 ||
+      (code_bits != 8 && code_bits != 16) || (kMode == kGrad && !slope)) {
     return cudaErrorInvalidValue;
   }
+  if (n == 0) return cudaSuccess;
+  const int blocks = grid_for(n);
+  const Staging st = staging_for(7LL * n_intervals + 1, static_cast<long long>(m) *
+                                                            (code_bits / 8));
+#define TP_QUANT(T, C)                                                                 \
+  quant_go<T, C, kMode>(blocks, st, stream, x, out, slope, n, planes, codes, bo, lo,   \
+                        n_intervals, m, extrapolate)
+  if (code_bits == 8) {
+    TP_DISPATCH_DTYPE(dtype, TP_QUANT, int8_t);
+  } else {
+    TP_DISPATCH_DTYPE(dtype, TP_QUANT, int16_t);
+  }
+#undef TP_QUANT
+  return cudaGetLastError();
+}
+
+template <typename T, typename C, int kMode>
+void poly_go(int blocks, Staging st, cudaStream_t stream, const void* x, void* out,
+             void* slope, long long n, const float* const* p, const void* codes,
+             int bo, int lo, int n_intervals, int lmax, int degree, int m,
+             int extrapolate) {
+  poly_kernel<T, C, kMode><<<blocks, kThreads, st.bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), n, p[0],
+      p[1], p[2], p[3], p[4], p[5], p[6], static_cast<const C*>(codes), bo, lo,
+      n_intervals, lmax, degree, m, extrapolate, st.stage);
+}
+
+// code_bits: 8, 16 or 32 (raw f32 coefficients); degree 1..3 and
+// degree + 1 <= lmax <= 4.  Refuses anything else, as launch_quant does.
+template <int kMode>
+cudaError_t launch_poly(const void* x, void* out, void* slope, long long n, int dtype,
+                        const float* const* planes, const void* codes, int bo, int lo,
+                        int n_intervals, int lmax, int degree, int m, int code_bits,
+                        int extrapolate, cudaStream_t stream) {
+  if (n_intervals < 1 || bo < 0 || lo < 0 || m < 1 || n < 0 || degree < 1 ||
+      degree >= tl::kMaxLanes || lmax < degree + 1 || lmax > tl::kMaxLanes ||
+      (code_bits != 8 && code_bits != 16 && code_bits != 32) ||
+      (kMode == kGrad && !slope)) {
+    return cudaErrorInvalidValue;
+  }
+  if (n == 0) return cudaSuccess;
+  const int blocks = grid_for(n);
+  const Staging st = staging_for(
+      4LL * n_intervals + 1 + 3LL * n_intervals * lmax,
+      static_cast<long long>(m) * (code_bits / 8));
+#define TP_POLY(T, C)                                                                  \
+  poly_go<T, C, kMode>(blocks, st, stream, x, out, slope, n, planes, codes, bo, lo,    \
+                       n_intervals, lmax, degree, m, extrapolate)
+  if (code_bits == 8) {
+    TP_DISPATCH_DTYPE(dtype, TP_POLY, int8_t);
+  } else if (code_bits == 16) {
+    TP_DISPATCH_DTYPE(dtype, TP_POLY, int16_t);
+  } else {
+    TP_DISPATCH_DTYPE(dtype, TP_POLY, float);
+  }
+#undef TP_POLY
   return cudaGetLastError();
 }
 
@@ -158,56 +407,119 @@ cudaError_t launch(const void* x, void* out, void* slope, long long n, int dtype
 // launch is asynchronous on `stream`, allocates nothing, and returns the
 // launch's own error (cudaGetLastError), which the Python wrapper raises on.
 extern "C" cudaError_t tp_pack_lookup(const void* x, void* out, long long n, int dtype,
-                              const float* bounds, const float* invd,
-                              const float* base, const float* segs,
-                              const float* values, int fn_id, int n_max,
-                              int n_intervals, int m, int extrapolate,
-                              void* stream) {
-  return launch<kValue>(x, out, nullptr, n, dtype, bounds, invd, base, segs,
-                        values, fn_id, n_max, n_intervals, m, extrapolate,
-                        static_cast<cudaStream_t>(stream));
+                                      const float* bounds, const float* invd,
+                                      const float* base, const float* segs,
+                                      const float* values, int fn_id, int n_max,
+                                      int n_intervals, int m, int extrapolate,
+                                      void* stream) {
+  return launch_pack<kValue>(x, out, nullptr, n, dtype, bounds, invd, base, segs,
+                             values, fn_id, n_max, n_intervals, m, extrapolate,
+                             static_cast<cudaStream_t>(stream));
 }
 
-extern "C" cudaError_t tp_tableflash_exp(const void* x, void* out, long long n, int dtype,
-                                 const float* bounds, const float* invd,
-                                 const float* base, const float* segs,
-                                 const float* values, int fn_id, int n_max,
-                                 int n_intervals, int m, void* stream) {
-  return launch<kFlash>(x, out, nullptr, n, dtype, bounds, invd, base, segs,
-                        values, fn_id, n_max, n_intervals, m, 0,
-                        static_cast<cudaStream_t>(stream));
+extern "C" cudaError_t tp_tableflash_exp(const void* x, void* out, long long n,
+                                         int dtype, const float* bounds,
+                                         const float* invd, const float* base,
+                                         const float* segs, const float* values,
+                                         int fn_id, int n_max, int n_intervals, int m,
+                                         void* stream) {
+  return launch_pack<kFlash>(x, out, nullptr, n, dtype, bounds, invd, base, segs,
+                             values, fn_id, n_max, n_intervals, m, 0,
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t tp_pack_grad(const void* x, void* y, void* slope, long long n,
-                            int dtype, const float* bounds, const float* invd,
-                            const float* base, const float* segs,
-                            const float* values, int fn_id, int n_max,
-                            int n_intervals, int m, int extrapolate,
-                            void* stream) {
-  return launch<kGrad>(x, y, slope, n, dtype, bounds, invd, base, segs, values,
-                       fn_id, n_max, n_intervals, m, extrapolate,
-                       static_cast<cudaStream_t>(stream));
+                                    int dtype, const float* bounds, const float* invd,
+                                    const float* base, const float* segs,
+                                    const float* values, int fn_id, int n_max,
+                                    int n_intervals, int m, int extrapolate,
+                                    void* stream) {
+  return launch_pack<kGrad>(x, y, slope, n, dtype, bounds, invd, base, segs, values,
+                            fn_id, n_max, n_intervals, m, extrapolate,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // A single table: bounds (n+1,), invd/base/segs (n,), values (m,).
 extern "C" cudaError_t tp_table_lookup(const void* x, void* out, long long n, int dtype,
-                               const float* bounds, const float* invd,
-                               const float* base, const float* segs,
-                               const float* values, int n_intervals, int m,
-                               int extrapolate, void* stream) {
-  return launch<kValue>(x, out, nullptr, n, dtype, bounds, invd, base, segs,
-                        values, 0, n_intervals, n_intervals, m, extrapolate,
-                        static_cast<cudaStream_t>(stream));
+                                       const float* bounds, const float* invd,
+                                       const float* base, const float* segs,
+                                       const float* values, int n_intervals, int m,
+                                       int extrapolate, void* stream) {
+  return launch_pack<kValue>(x, out, nullptr, n, dtype, bounds, invd, base, segs,
+                             values, 0, n_intervals, n_intervals, m, extrapolate,
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t tp_table_grad(const void* x, void* y, void* slope, long long n,
-                             int dtype, const float* bounds, const float* invd,
-                             const float* base, const float* segs,
-                             const float* values, int n_intervals, int m,
-                             int extrapolate, void* stream) {
-  return launch<kGrad>(x, y, slope, n, dtype, bounds, invd, base, segs, values,
-                       0, n_intervals, n_intervals, m, extrapolate,
-                       static_cast<cudaStream_t>(stream));
+                                     int dtype, const float* bounds, const float* invd,
+                                     const float* base, const float* segs,
+                                     const float* values, int n_intervals, int m,
+                                     int extrapolate, void* stream) {
+  return launch_pack<kGrad>(x, y, slope, n, dtype, bounds, invd, base, segs, values,
+                            0, n_intervals, n_intervals, m, extrapolate,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The quantized pack: member fid's boundaries start at bo in the flat
+// boundary lane, its other lanes at lo; `codes` is its width group of m
+// entries (code_bits 8 or 16).  Plane order: bounds, invd, base, segs, scale,
+// zero, ramp.
+extern "C" cudaError_t tp_quant_lookup(const void* x, void* out, long long n, int dtype,
+                                       const float* bounds, const float* invd,
+                                       const float* base, const float* segs,
+                                       const float* scale, const float* zero,
+                                       const float* ramp, const void* codes, int bo,
+                                       int lo, int n_intervals, int m, int code_bits,
+                                       int extrapolate, void* stream) {
+  const float* planes[7] = {bounds, invd, base, segs, scale, zero, ramp};
+  return launch_quant<kValue>(x, out, nullptr, n, dtype, planes, codes, bo, lo,
+                              n_intervals, m, code_bits, extrapolate,
+                              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" cudaError_t tp_quant_grad(const void* x, void* y, void* slope, long long n,
+                                     int dtype, const float* bounds, const float* invd,
+                                     const float* base, const float* segs,
+                                     const float* scale, const float* zero,
+                                     const float* ramp, const void* codes, int bo,
+                                     int lo, int n_intervals, int m, int code_bits,
+                                     int extrapolate, void* stream) {
+  const float* planes[7] = {bounds, invd, base, segs, scale, zero, ramp};
+  return launch_quant<kGrad>(x, y, slope, n, dtype, planes, codes, bo, lo,
+                             n_intervals, m, code_bits, extrapolate,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The polynomial pack: as the quantized one, with lane-padded dequant planes
+// (lmax lanes per sub-interval, lane offset lo * lmax), the member's degree,
+// and code_bits 8, 16 or 32 (raw f32 coefficients).  Plane order: bounds,
+// invd, base, segs, zero, ramp, scale.
+extern "C" cudaError_t tp_poly_lookup(const void* x, void* out, long long n, int dtype,
+                                      const float* bounds, const float* invd,
+                                      const float* base, const float* segs,
+                                      const float* zero, const float* ramp,
+                                      const float* scale, const void* codes, int bo,
+                                      int lo, int n_intervals, int lmax, int degree,
+                                      int m, int code_bits, int extrapolate,
+                                      void* stream) {
+  const float* planes[7] = {bounds, invd, base, segs, zero, ramp, scale};
+  return launch_poly<kValue>(x, out, nullptr, n, dtype, planes, codes, bo, lo,
+                             n_intervals, lmax, degree, m, code_bits, extrapolate,
+                             static_cast<cudaStream_t>(stream));
+}
+
+extern "C" cudaError_t tp_poly_grad(const void* x, void* y, void* slope, long long n,
+                                    int dtype, const float* bounds, const float* invd,
+                                    const float* base, const float* segs,
+                                    const float* zero, const float* ramp,
+                                    const float* scale, const void* codes, int bo,
+                                    int lo, int n_intervals, int lmax, int degree,
+                                    int m, int code_bits, int extrapolate,
+                                    void* stream) {
+  const float* planes[7] = {bounds, invd, base, segs, zero, ramp, scale};
+  return launch_poly<kGrad>(x, y, slope, n, dtype, planes, codes, bo, lo, n_intervals,
+                            lmax, degree, m, code_bits, extrapolate,
+                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* tp_error_string(int err) {

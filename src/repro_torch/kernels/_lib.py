@@ -2,11 +2,15 @@
 wrappers of :mod:`~repro_torch.kernels.table_pack_lookup`,
 :mod:`~repro_torch.kernels.table_lookup` and :mod:`~repro_torch.kernels.table_grad`.
 
-Every entry point takes ``(x, out[, slope], n, dtype, bounds, invd, base, segs,
-values, <ints>, stream)`` and returns the launch's CUDA error code.
+Every entry point takes ``(x, out[, slope], n, dtype, <planes>, <ints>,
+stream)`` and returns the launch's CUDA error code.  The f32 pack and table
+entries take five f32 planes (bounds, invd, base, segs, values); the quantized
+and polynomial ones seven f32 planes (bounds, invd, base, segs and three
+dequant planes) and then the codes pointer of the member's width group.
 :func:`launch` flattens x, allocates the outputs, launches on the current
 stream and raises on an error; :data:`launches` counts the launches of each
-kernel, and only a launch adds to it.
+kernel, and only a launch adds to it.  :func:`run` is the one wrapper
+contract every kernel wrapper goes through.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # launches of each kernel since the last reset_launches()
 launches: Dict[str, int] = {
     "table_pack_lookup": 0, "tableflash_exp": 0, "table_pack_grad": 0,
-    "table_lookup": 0, "table_lookup_grad": 0}
+    "table_lookup": 0, "table_lookup_grad": 0, "quant_pack_lookup": 0,
+    "quant_pack_grad": 0, "poly_pack_lookup": 0, "poly_pack_grad": 0}
 
 
 def reset_launches() -> None:
@@ -34,13 +39,20 @@ def reset_launches() -> None:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# entry point -> (outputs, trailing int arguments before the stream)
+# entry point -> (outputs, pointer planes, trailing int arguments before the
+# stream)
 _ENTRIES = {
-    "tp_pack_lookup": (1, 5),     # fn_id, n_max, n_intervals, m, extrapolate
-    "tp_tableflash_exp": (1, 4),  # fn_id, n_max, n_intervals, m
-    "tp_pack_grad": (2, 5),       # fn_id, n_max, n_intervals, m, extrapolate
-    "tp_table_lookup": (1, 3),    # n_intervals, m, extrapolate
-    "tp_table_grad": (2, 3),      # n_intervals, m, extrapolate
+    "tp_pack_lookup": (1, 5, 5),     # fn_id, n_max, n_intervals, m, extrapolate
+    "tp_tableflash_exp": (1, 5, 4),  # fn_id, n_max, n_intervals, m
+    "tp_pack_grad": (2, 5, 5),       # fn_id, n_max, n_intervals, m, extrapolate
+    "tp_table_lookup": (1, 5, 3),    # n_intervals, m, extrapolate
+    "tp_table_grad": (2, 5, 3),      # n_intervals, m, extrapolate
+    # bo, lo, n_intervals, m, code_bits, extrapolate
+    "tp_quant_lookup": (1, 8, 6),
+    "tp_quant_grad": (2, 8, 6),
+    # bo, lo, n_intervals, lmax, degree, m, code_bits, extrapolate
+    "tp_poly_lookup": (1, 8, 8),
+    "tp_poly_grad": (2, 8, 8),
 }
 _typed: Dict[int, ctypes.CDLL] = {}
 
@@ -51,10 +63,10 @@ def _lib() -> ctypes.CDLL:
     bits)."""
     lib = _build.load(SOURCE)
     if id(lib) not in _typed:
-        for entry, (n_out, n_int) in _ENTRIES.items():
+        for entry, (n_out, n_planes, n_int) in _ENTRIES.items():
             fn = getattr(lib, entry)
             fn.argtypes = ([_P] * (1 + n_out) + [ctypes.c_longlong, _I]
-                           + [_P] * 5 + [_I] * n_int + [_P])
+                           + [_P] * n_planes + [_I] * n_int + [_P])
             fn.restype = _I
         lib.tp_error_string.argtypes = [_I]
         lib.tp_error_string.restype = ctypes.c_char_p
@@ -74,11 +86,12 @@ def check(x: torch.Tensor, table_device: torch.device, what: str) -> None:
 def launch(entry: str, x: torch.Tensor, planes: Sequence[torch.Tensor],
            ints: Sequence[int]) -> Tuple[torch.Tensor, ...]:
     """Flatten x, allocate the outputs in x's dtype, launch ``entry`` on the
-    current stream over the metadata ``planes`` (bounds, invd, base, segs,
-    values), raise on a launch error.  Returns the outputs in x's shape."""
-    n_out, n_int = _ENTRIES[entry]
-    if len(ints) != n_int:
-        raise ValueError(f"{entry} takes {n_int} int arguments, got {len(ints)}")
+    current stream over the pack's ``planes`` (device tensors, in the entry's
+    order), raise on a launch error.  Returns the outputs in x's shape."""
+    n_out, n_planes, n_int = _ENTRIES[entry]
+    if len(planes) != n_planes or len(ints) != n_int:
+        raise ValueError(f"{entry} takes {n_planes} planes and {n_int} int "
+                         f"arguments, got {len(planes)} and {len(ints)}")
     flat = x.reshape(-1)
     if not flat.is_contiguous():
         flat = flat.contiguous()
@@ -96,3 +109,20 @@ def launch(entry: str, x: torch.Tensor, planes: Sequence[torch.Tensor],
             raise RuntimeError(f"{entry} launch failed: "
                                f"{lib.tp_error_string(err).decode()} ({err})")
     return tuple(o.reshape(x.shape) for o in outs)
+
+
+def run(entry: str, count: str, x: torch.Tensor, device: torch.device, what: str,
+        args: Tuple[Sequence[torch.Tensor], Sequence[int]], plain):
+    """The wrapper contract of every kernel: x must be f32 or bf16 and lie on
+    ``device`` (its pack's or table's); a CPU tensor gets ``plain()``, the
+    plain version; a CUDA tensor gets one launch of ``entry`` over ``args =
+    (planes, ints)`` or an error, never the plain version.  A launch over a
+    non-empty x adds one to ``launches[count]``.  One output is returned
+    bare, two as a tuple."""
+    check(x, device, what)
+    if x.device.type == "cpu":
+        return plain()
+    outs = launch(entry, x, *args)
+    if x.numel():
+        launches[count] += 1
+    return outs[0] if len(outs) == 1 else outs

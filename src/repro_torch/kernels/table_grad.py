@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.approx.torch_table import TorchTable, eval_table_ref, eval_table_slope
 
-from ._lib import check, launch, launches
+from ._lib import run
 from .table_lookup import table_planes
 
 
@@ -35,11 +35,6 @@ def table_lookup_grad(jt: TorchTable, x: torch.Tensor, *,
                       extrapolate: bool = False):
     """``(y, dy/dx)`` over a tensor, both in x's dtype, from one selector
     pass."""
-    check(x, jt.values.device, "table")
-    if x.device.type == "cpu":
-        return table_lookup_grad_plain(jt, x, extrapolate=extrapolate)
-    y, slope = launch("tp_table_grad", x, table_planes(jt),
-                      (jt.n_intervals, jt.footprint, int(extrapolate)))
-    if x.numel():
-        launches["table_lookup_grad"] += 1
-    return y, slope
+    return run("tp_table_grad", "table_lookup_grad", x, jt.values.device, "table",
+               (table_planes(jt), (jt.n_intervals, jt.footprint, int(extrapolate))),
+               lambda: table_lookup_grad_plain(jt, x, extrapolate=extrapolate))

@@ -13,8 +13,9 @@ x into (rows, 512) tiles) have no counterpart: the kernel's grid-stride loop
 walks the flat element count and masks the ragged tail itself.  The wrapper
 contract is that of :mod:`~repro_torch.kernels.table_pack_lookup`: dtype and
 device checked, the plain version only for a CPU tensor, a launch or an error
-for a CUDA tensor, one count in :data:`launches` per launch.  A table of more
-than 64 sub-intervals is refused by the launch (``RuntimeError``).
+for a CUDA tensor, one count in :data:`launches` per launch.  A table of any
+interval count runs: the kernel stages its metadata in shared memory when it
+fits and reads it from global memory otherwise.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch.approx.torch_table import TorchTable, eval_table_ref
 
-from ._lib import check, launch, launches
+from ._lib import run
 
 
 def table_planes(jt: TorchTable):
@@ -39,11 +40,6 @@ def table_lookup_plain(jt: TorchTable, x: torch.Tensor, *,
 def table_lookup(jt: TorchTable, x: torch.Tensor, *,
                  extrapolate: bool = False) -> torch.Tensor:
     """Evaluate the table approximator over a tensor."""
-    check(x, jt.values.device, "table")
-    if x.device.type == "cpu":
-        return table_lookup_plain(jt, x, extrapolate=extrapolate)
-    (out,) = launch("tp_table_lookup", x, table_planes(jt),
-                    (jt.n_intervals, jt.footprint, int(extrapolate)))
-    if x.numel():
-        launches["table_lookup"] += 1
-    return out
+    return run("tp_table_lookup", "table_lookup", x, jt.values.device, "table",
+               (table_planes(jt), (jt.n_intervals, jt.footprint, int(extrapolate))),
+               lambda: table_lookup_plain(jt, x, extrapolate=extrapolate))

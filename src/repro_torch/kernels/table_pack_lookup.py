@@ -16,11 +16,25 @@ their wrappers and plain PyTorch versions.
     replaces ``_pack_grad_kernel`` (``src/repro/kernels/table_pack_lookup.py:66``).
     Plain version: :func:`table_pack_grad_plain`, ``(eval_pack_ref,
     eval_pack_slope)``.
+  * :func:`quant_pack_lookup` / :func:`quant_pack_grad` — one member of a
+    :class:`~repro_torch.approx.table_pack.QuantTablePack` (int8/int16 codes
+    dequantized on read), value or value + slope.  CUDA kernels
+    ``tp_quant_lookup`` / ``tp_quant_grad``; replace ``_quant_kernel`` /
+    ``_quant_grad_kernel`` (``src/repro/kernels/table_pack_lookup.py:283``,
+    ``:309``).  Plain versions: ``eval_quant_pack_ref`` and
+    ``eval_quant_pack_slope``.
+  * :func:`poly_pack_lookup` / :func:`poly_pack_grad` — one member of a
+    :class:`~repro_torch.approx.table_pack.PolyTablePack` (degree-d cells,
+    int8/int16/f32 coefficient codes, Horner), value or value + slope.  CUDA
+    kernels ``tp_poly_lookup`` / ``tp_poly_grad``; replace ``_poly_kernel`` /
+    ``_poly_grad_kernel`` (``:503``, ``:524``).  Plain versions:
+    ``eval_poly_pack_ref`` and ``eval_poly_pack_slope``.
 
-A wrapper checks x's dtype (float32 or bfloat16) and that x and the pack share
-a device, then runs the plain version only because the tensor lies on the
-CPU.  For a CUDA tensor it launches the kernel or raises: there is no
-fallback.  Every launch adds one to :data:`launches`, and nothing else does.
+Every wrapper goes through :func:`repro_torch.kernels._lib.run`: it checks
+x's dtype (float32 or bfloat16) and that x and the pack share a device, then
+runs the plain version only because the tensor lies on the CPU.  For a CUDA
+tensor it launches the kernel or raises: there is no fallback.  Every launch
+adds one to :data:`launches`, and nothing else does.
 The kernels are bounded by bytes (``N * (in_bytes + n_out * out_bytes)`` at
 the card's memory rate) and are launch-bound at decode shapes; see the note at
 the top of the CUDA source.
@@ -30,21 +44,26 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.approx.table_pack import TablePack, eval_pack_ref, eval_pack_slope
+from repro_torch.approx.table_pack import (PolyTablePack, QuantTablePack, TablePack,
+                                          eval_pack_ref, eval_pack_slope,
+                                          eval_poly_pack_ref, eval_poly_pack_slope,
+                                          eval_quant_pack_ref,
+                                          eval_quant_pack_slope)
 
-from ._lib import check, launch, launches, reset_launches
+from ._lib import launches, reset_launches, run
 
 __all__ = ["launches", "reset_launches", "table_pack_lookup",
            "table_pack_lookup_plain", "tableflash_exp", "tableflash_exp_plain",
-           "table_pack_grad", "table_pack_grad_plain"]
+           "table_pack_grad", "table_pack_grad_plain", "quant_pack_lookup",
+           "quant_pack_lookup_plain", "quant_pack_grad", "quant_pack_grad_plain",
+           "poly_pack_lookup", "poly_pack_lookup_plain", "poly_pack_grad",
+           "poly_pack_grad_plain"]
 
 
-def _planes(pack: TablePack):
-    return (pack.boundaries, pack.inv_delta, pack.base, pack.seg_count, pack.values)
-
-
-def _member(pack: TablePack, fid: int):
-    return (fid, pack.n_max, pack.n_intervals[fid], pack.footprint)
+def _pack_args(pack: TablePack, fid: int, *flags: int):
+    """(planes, ints) of an f32-pack entry point for member ``fid``."""
+    return ((pack.boundaries, pack.inv_delta, pack.base, pack.seg_count, pack.values),
+            (fid, pack.n_max, pack.n_intervals[fid], pack.footprint, *flags))
 
 
 def table_pack_lookup_plain(pack: TablePack, fn, x: torch.Tensor, *,
@@ -58,14 +77,9 @@ def table_pack_lookup(pack: TablePack, fn, x: torch.Tensor, *,
                       extrapolate: bool = False) -> torch.Tensor:
     """Evaluate member ``fn`` (name or fn_id) of the pack over a tensor."""
     fid = pack.member_id(fn)
-    check(x, pack.device, "pack")
-    if x.device.type == "cpu":
-        return table_pack_lookup_plain(pack, fid, x, extrapolate=extrapolate)
-    (out,) = launch("tp_pack_lookup", x, _planes(pack),
-                    (*_member(pack, fid), int(extrapolate)))
-    if x.numel():
-        launches["table_pack_lookup"] += 1
-    return out
+    return run("tp_pack_lookup", "table_pack_lookup", x, pack.device, "pack",
+               _pack_args(pack, fid, int(extrapolate)),
+               lambda: table_pack_lookup_plain(pack, fid, x, extrapolate=extrapolate))
 
 
 def tableflash_exp_plain(pack: TablePack, x: torch.Tensor) -> torch.Tensor:
@@ -79,14 +93,9 @@ def tableflash_exp_plain(pack: TablePack, x: torch.Tensor) -> torch.Tensor:
 
 def tableflash_exp(pack: TablePack, x: torch.Tensor) -> torch.Tensor:
     """Fused clamp + exp_neg lookup over flash attention's exponent tensor."""
-    check(x, pack.device, "pack")
-    if x.device.type == "cpu":
-        return tableflash_exp_plain(pack, x)
-    (out,) = launch("tp_tableflash_exp", x, _planes(pack),
-                    _member(pack, pack.member_id("exp_neg")))
-    if x.numel():
-        launches["tableflash_exp"] += 1
-    return out
+    return run("tp_tableflash_exp", "tableflash_exp", x, pack.device, "pack",
+               _pack_args(pack, pack.member_id("exp_neg")),
+               lambda: tableflash_exp_plain(pack, x))
 
 
 def table_pack_grad_plain(pack: TablePack, fn, x: torch.Tensor, *,
@@ -102,11 +111,96 @@ def table_pack_grad(pack: TablePack, fn, x: torch.Tensor, *,
     """``(y, dy/dx)`` of member ``fn`` over a tensor, both in x's dtype, from
     one selector pass."""
     fid = pack.member_id(fn)
-    check(x, pack.device, "pack")
-    if x.device.type == "cpu":
-        return table_pack_grad_plain(pack, fid, x, extrapolate=extrapolate)
-    y, slope = launch("tp_pack_grad", x, _planes(pack),
-                      (*_member(pack, fid), int(extrapolate)))
-    if x.numel():
-        launches["table_pack_grad"] += 1
-    return y, slope
+    return run("tp_pack_grad", "table_pack_grad", x, pack.device, "pack",
+               _pack_args(pack, fid, int(extrapolate)),
+               lambda: table_pack_grad_plain(pack, fid, x, extrapolate=extrapolate))
+
+
+# --------------------------------------------------------------------------------------
+# QuantPack and PolyPack
+# --------------------------------------------------------------------------------------
+
+
+def _quant_args(pack: QuantTablePack, fid: int, extrapolate: bool):
+    """(planes, ints) of a quant-pack entry point for member ``fid``."""
+    codes = pack.codes_for(fid)
+    return ((pack.boundaries, pack.inv_delta, pack.base, pack.seg_count,
+             pack.scale, pack.zero, pack.ramp, codes),
+            (pack.bounds_offset(fid), pack.lane_offset(fid), pack.n_intervals[fid],
+             codes.shape[0], pack.entry_bits[fid], int(extrapolate)))
+
+
+def _poly_args(pack: PolyTablePack, fid: int, extrapolate: bool):
+    """(planes, ints) of a poly-pack entry point for member ``fid``."""
+    codes = pack.codes_for(fid)
+    return ((pack.boundaries, pack.inv_delta, pack.base, pack.seg_count,
+             pack.zero, pack.ramp, pack.scale, codes),
+            (pack.bounds_offset(fid), pack.lane_offset(fid), pack.n_intervals[fid],
+             pack.max_lanes, pack.degrees[fid], codes.shape[0], pack.entry_bits[fid],
+             int(extrapolate)))
+
+
+def quant_pack_lookup_plain(pack: QuantTablePack, fn, x: torch.Tensor, *,
+                            extrapolate: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of ``tp_quant_lookup``: ``eval_quant_pack_ref``."""
+    return eval_quant_pack_ref(pack, fn, x, extrapolate=extrapolate)
+
+
+def quant_pack_lookup(pack: QuantTablePack, fn, x: torch.Tensor, *,
+                      extrapolate: bool = False) -> torch.Tensor:
+    """Evaluate member ``fn`` of the quantized pack (dequantize-on-read)."""
+    fid = pack.member_id(fn)
+    return run("tp_quant_lookup", "quant_pack_lookup", x, pack.device, "pack",
+               _quant_args(pack, fid, extrapolate),
+               lambda: quant_pack_lookup_plain(pack, fid, x, extrapolate=extrapolate))
+
+
+def quant_pack_grad_plain(pack: QuantTablePack, fn, x: torch.Tensor, *,
+                          extrapolate: bool = False):
+    """Plain PyTorch version of ``tp_quant_grad``: ``(eval_quant_pack_ref,
+    eval_quant_pack_slope)``."""
+    return (eval_quant_pack_ref(pack, fn, x, extrapolate=extrapolate),
+            eval_quant_pack_slope(pack, fn, x, extrapolate=extrapolate))
+
+
+def quant_pack_grad(pack: QuantTablePack, fn, x: torch.Tensor, *,
+                    extrapolate: bool = False):
+    """``(y, dy/dx)`` of quantized member ``fn``, both in x's dtype, from one
+    selector pass."""
+    fid = pack.member_id(fn)
+    return run("tp_quant_grad", "quant_pack_grad", x, pack.device, "pack",
+               _quant_args(pack, fid, extrapolate),
+               lambda: quant_pack_grad_plain(pack, fid, x, extrapolate=extrapolate))
+
+
+def poly_pack_lookup_plain(pack: PolyTablePack, fn, x: torch.Tensor, *,
+                           extrapolate: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of ``tp_poly_lookup``: ``eval_poly_pack_ref``."""
+    return eval_poly_pack_ref(pack, fn, x, extrapolate=extrapolate)
+
+
+def poly_pack_lookup(pack: PolyTablePack, fn, x: torch.Tensor, *,
+                     extrapolate: bool = False) -> torch.Tensor:
+    """Evaluate member ``fn`` of the polynomial pack (dequantize + Horner)."""
+    fid = pack.member_id(fn)
+    return run("tp_poly_lookup", "poly_pack_lookup", x, pack.device, "pack",
+               _poly_args(pack, fid, extrapolate),
+               lambda: poly_pack_lookup_plain(pack, fid, x, extrapolate=extrapolate))
+
+
+def poly_pack_grad_plain(pack: PolyTablePack, fn, x: torch.Tensor, *,
+                         extrapolate: bool = False):
+    """Plain PyTorch version of ``tp_poly_grad``: ``(eval_poly_pack_ref,
+    eval_poly_pack_slope)``."""
+    return (eval_poly_pack_ref(pack, fn, x, extrapolate=extrapolate),
+            eval_poly_pack_slope(pack, fn, x, extrapolate=extrapolate))
+
+
+def poly_pack_grad(pack: PolyTablePack, fn, x: torch.Tensor, *,
+                   extrapolate: bool = False):
+    """``(y, dy/dx)`` of polynomial member ``fn``, both in x's dtype, from one
+    selector pass."""
+    fid = pack.member_id(fn)
+    return run("tp_poly_grad", "poly_pack_grad", x, pack.device, "pack",
+               _poly_args(pack, fid, extrapolate),
+               lambda: poly_pack_grad_plain(pack, fid, x, extrapolate=extrapolate))

@@ -54,10 +54,19 @@ def main(argv=None):
     ap.add_argument("--approx-mode", choices=["exact", *TABLE_MODES],
                     default=None,
                     help="nonlinearity backend; table_pack = one fused "
-                         "multi-function pack + one CUDA kernel for the whole "
-                         "network, table_pack_ref = its plain PyTorch version")
+                         "multi-function pack + CUDA kernels for the whole "
+                         "network, table_pallas = per-function tables through "
+                         "the CUDA table kernels, quant_pack = the pack with "
+                         "int8/int16 codes dequantized on read, poly_pack = "
+                         "the planner's degree-1..3 pack (see --pack-budget), "
+                         "*_ref = their plain PyTorch versions")
     ap.add_argument("--approx-ea", type=float, default=None,
                     help="override the config's error budget E_a")
+    ap.add_argument("--pack-budget", type=int, default=None,
+                    help="poly_pack modes: total-bytes budget for the design-"
+                         "space planner (greedy member downgrade until the "
+                         "pack fits; an infeasible budget is an error; default "
+                         "takes each function's cheapest candidate)")
     ap.add_argument("--attn-table", action="store_true",
                     help="TableFlash: serve flash attention's softmax exponent"
                          " from the pack's exp_neg member (any table mode)")
@@ -79,6 +88,8 @@ def main(argv=None):
         kw["mode"] = args.approx_mode
     if args.approx_ea is not None:
         kw["e_a"] = args.approx_ea
+    if args.pack_budget is not None:
+        kw["pack_budget"] = args.pack_budget
     if args.attn_table:
         kw["attn_table"] = True
     if kw:

@@ -5,9 +5,9 @@
       --approx-mode table_pack
 
 The flags are the JAX launcher's (``repro.launch.train``) for the ported
-approx modes, plus ``--device``; the mesh, the unported modes and their
-options (``--mesh``, ``--pack-shards``, ``--pack-budget``, ``--rope-table``,
-``--obs``) wait for their ROADMAP items.  Weights are random, drawn from
+approx modes (``--pack-budget`` included), plus ``--device``; the mesh, the
+unported modes and their options (``--mesh``, ``--pack-shards``,
+``--rope-table``, ``--obs``) wait for their ROADMAP items.  Weights are random, drawn from
 seed 0, and the data is the counter-addressed synthetic stream, as in the
 JAX launcher.  The summary line reports the one-time nvcc kernel build in
 place of the reference's compile time.
@@ -45,10 +45,17 @@ def main(argv=None):
                     help="nonlinearity backend; table_pack = one fused "
                          "multi-function pack + CUDA kernels for the whole "
                          "network, table_pallas = per-function tables through "
-                         "the CUDA table kernels, *_ref = their plain PyTorch "
-                         "versions")
+                         "the CUDA table kernels, quant_pack = the pack with "
+                         "int8/int16 codes dequantized on read, poly_pack = "
+                         "the planner's degree-1..3 pack (see --pack-budget), "
+                         "*_ref = their plain PyTorch versions")
     ap.add_argument("--approx-ea", type=float, default=None,
                     help="override the config's error budget E_a")
+    ap.add_argument("--pack-budget", type=int, default=None,
+                    help="poly_pack modes: total-bytes budget for the design-"
+                         "space planner (greedy member downgrade until the "
+                         "pack fits; an infeasible budget is an error; default "
+                         "takes each function's cheapest candidate)")
     ap.add_argument("--attn-table", action="store_true",
                     help="TableFlash: serve flash attention's softmax exponent"
                          " from the pack's exp_neg member (any table mode)")
@@ -70,6 +77,8 @@ def main(argv=None):
         kw["mode"] = args.approx_mode
     if args.approx_ea is not None:
         kw["e_a"] = args.approx_ea
+    if args.pack_budget is not None:
+        kw["pack_budget"] = args.pack_budget
     if args.attn_table:
         kw["attn_table"] = True
     if kw:

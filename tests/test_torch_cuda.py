@@ -10,14 +10,19 @@ Comparisons are bitwise (NaN positions matched): the kernels are built with
 ``-fmad=false`` and round every operation as the plain versions do.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.approx import ApproxConfig
-from repro_torch.approx.table_pack import build_pack
+from repro_torch.approx.table_pack import (build_pack, build_poly_pack,
+                                          build_quant_pack, from_poly_layout)
 from repro_torch.approx.torch_table import TorchTable, from_spec
+from repro_torch.core import design
 from repro_torch.core.flow import cached_table
+from repro_torch.core.packing import poly_pack_layout
 from repro_torch.kernels import table_grad as TG
 from repro_torch.kernels import table_lookup as TL
 from repro_torch.kernels import table_pack_lookup as K
@@ -25,6 +30,9 @@ from repro_torch.kernels import table_pack_lookup as K
 pytestmark = pytest.mark.gpu
 
 NAMES = ("gelu", "silu", "tanh", "sigmoid_sym", "softplus", "exp_neg")
+# one member per degree, each at another code width (the reference's
+# tests/test_poly_pack.py MIXED pack)
+MIXED = (("tanh", 1, 32), ("exp_neg", 3, 8), ("gelu", 2, 16))
 
 
 @pytest.fixture(scope="module")
@@ -41,10 +49,40 @@ def pack(cuda):
     return build_pack(NAMES, 1e-4, omega=0.2, device=cuda)
 
 
+@pytest.fixture(scope="module")
+def quant(cuda):
+    return build_quant_pack(NAMES, 1e-4, omega=0.2, device=cuda)
+
+
+@pytest.fixture(scope="module")
+def poly(cuda):
+    return build_poly_pack(NAMES, 1e-4, omega=0.2, device=cuda)
+
+
+@pytest.fixture(scope="module")
+def mixed(cuda):
+    members = [design.poly_member(n, 1e-4, degree=d, bits=b) for n, d, b in MIXED]
+    return from_poly_layout(poly_pack_layout(members), cuda)
+
+
 def edge_input(pack, fid, n, dtype, seed=0):
     lo, hi = pack.domains[fid]
     rng = np.random.default_rng(seed)
     b = pack.boundaries[fid, : pack.n_intervals[fid] + 1].cpu().numpy()
+    tiny = np.float32(np.finfo(np.float32).smallest_subnormal)
+    x = np.concatenate([
+        b, np.nextafter(b, np.float32(np.inf)), np.nextafter(b, np.float32(-np.inf)),
+        [np.inf, -np.inf, np.nan, -2e38, 2e38, 0.0, -0.0, tiny, -tiny, lo, hi],
+        rng.uniform(lo - 4, hi + 4, n)]).astype(np.float32)
+    return torch.from_numpy(x).to("cuda").to(dtype)
+
+
+def ragged_edge_input(pack, fid, n, dtype, seed=0):
+    """edge_input for a quantized or polynomial pack (flat boundary rows)."""
+    lo, hi = pack.domains[fid]
+    bo = pack.bounds_offset(fid)
+    b = pack.boundaries[bo: bo + pack.n_intervals[fid] + 1].cpu().numpy()
+    rng = np.random.default_rng(seed)
     tiny = np.float32(np.finfo(np.float32).smallest_subnormal)
     x = np.concatenate([
         b, np.nextafter(b, np.float32(np.inf)), np.nextafter(b, np.float32(-np.inf)),
@@ -109,7 +147,9 @@ def test_wrapper_contract(pack):
     K.table_pack_lookup(cpu_pack, "silu", x.cpu())  # plain version, no launch
     assert K.launches == {"table_pack_lookup": 1, "tableflash_exp": 1,
                           "table_pack_grad": 0, "table_lookup": 0,
-                          "table_lookup_grad": 0}
+                          "table_lookup_grad": 0, "quant_pack_lookup": 0,
+                          "quant_pack_grad": 0, "poly_pack_lookup": 0,
+                          "poly_pack_grad": 0}
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         K.table_pack_lookup(pack, "silu", x.half())
     for p, t in ((cpu_pack, x), (pack, x.cpu())):
@@ -192,25 +232,42 @@ def test_grad_wrappers_contract(pack, cuda):
     TG.table_lookup_grad(jt, torch.empty(0, device="cuda"))
     assert K.launches == {"table_pack_lookup": 0, "tableflash_exp": 0,
                           "table_pack_grad": 1, "table_lookup": 1,
-                          "table_lookup_grad": 1}
+                          "table_lookup_grad": 1, "quant_pack_lookup": 0,
+                          "quant_pack_grad": 0, "poly_pack_lookup": 0,
+                          "poly_pack_grad": 0}
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         TG.table_lookup_grad(jt, x.half())
     with pytest.raises(ValueError, match="table lives on"):
         TL.table_lookup(jt, x.cpu())
     with pytest.raises(ValueError, match="pack lives on"):
         K.table_pack_grad(pack, "silu", x.cpu())
-    n = 65  # one more sub-interval than the kernel stages: refused, not run
+    # 65 sub-intervals, one more than the kernels once staged (and refused
+    # beyond): served, bitwise equal to the plain versions
+    n = 65
     wide = TorchTable(
         boundaries=torch.linspace(0, 1, n + 1, device="cuda"),
         inv_delta=torch.full((n,), float(n), device="cuda"),
         delta=torch.full((n,), 1.0 / n, device="cuda"),
         base=torch.arange(n, dtype=torch.float32, device="cuda") * 2,
         seg_count=torch.ones(n, device="cuda"),
-        values=torch.zeros(2 * n + 1, device="cuda"))
-    for fn in (TL.table_lookup, TG.table_lookup_grad):
-        with pytest.raises(RuntimeError, match="launch failed"):
-            fn(wide, x)
-    assert K.launches["table_lookup"] == 1 and K.launches["table_lookup_grad"] == 1
+        values=torch.randn(2 * n + 1, generator=torch.Generator().manual_seed(0)).cuda())
+    xw = _table_edges(wide, 4093, torch.float32)
+    for ex in (False, True):
+        assert_bitwise(TL.table_lookup(wide, xw, extrapolate=ex),
+                       TL.table_lookup_plain(wide, xw, extrapolate=ex))
+        for a, b in zip(TG.table_lookup_grad(wide, xw, extrapolate=ex),
+                        TG.table_lookup_grad_plain(wide, xw, extrapolate=ex)):
+            assert_bitwise(a, b)
+    assert K.launches["table_lookup"] == 3 and K.launches["table_lookup_grad"] == 3
+    # the 279-interval quantized silu member (stablelm's settings at e_a 1e-6)
+    q = build_quant_pack(NAMES, 1e-6, omega=0.2, device=cuda)
+    fid = q.fn_id("silu")
+    assert q.n_intervals[fid] == 279
+    xq = ragged_edge_input(q, fid, 4093, torch.float32)
+    for ex in (False, True):
+        for a, b in zip(K.quant_pack_grad(q, fid, xq, extrapolate=ex),
+                        K.quant_pack_grad_plain(q, fid, xq, extrapolate=ex)):
+            assert_bitwise(a, b)
 
 
 def test_reduced_model_trains_card_matches_cpu(cuda):
@@ -272,3 +329,170 @@ def test_reduced_model_card_matches_cpu(cuda):
     want = ContinuousEngine(cpu_model, params, 2, 64).serve(reqs)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+# --------------------------------------------------------------------------------------
+# QuantPack and PolyPack kernels
+# --------------------------------------------------------------------------------------
+
+
+def _value_and_grad_bitwise(lookup, grad, lookup_plain, grad_plain, pack, fid, x, ex):
+    got = lookup(pack, fid, x, extrapolate=ex)
+    y, slope = grad(pack, fid, x, extrapolate=ex)
+    torch.cuda.synchronize()
+    want_y, want_s = grad_plain(pack, fid, x, extrapolate=ex)
+    assert_bitwise(got, lookup_plain(pack, fid, x, extrapolate=ex))
+    assert_bitwise(y, want_y)
+    assert_bitwise(slope, want_s)
+    assert_bitwise(got, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("extrapolate", [False, True])
+@pytest.mark.parametrize("name", NAMES)
+def test_quant_kernels_bitwise(quant, name, extrapolate, dtype):
+    fid = quant.fn_id(name)
+    _value_and_grad_bitwise(K.quant_pack_lookup, K.quant_pack_grad,
+                            K.quant_pack_lookup_plain, K.quant_pack_grad_plain,
+                            quant, fid, ragged_edge_input(quant, fid, 4093, dtype),
+                            extrapolate)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("extrapolate", [False, True])
+@pytest.mark.parametrize("name", NAMES)
+def test_poly_kernels_bitwise(poly, name, extrapolate, dtype):
+    fid = poly.fn_id(name)
+    _value_and_grad_bitwise(K.poly_pack_lookup, K.poly_pack_grad,
+                            K.poly_pack_lookup_plain, K.poly_pack_grad_plain,
+                            poly, fid, ragged_edge_input(poly, fid, 4093, dtype),
+                            extrapolate)
+
+
+@pytest.mark.parametrize("extrapolate", [False, True])
+def test_mixed_poly_pack_bitwise(mixed, extrapolate):
+    """Degrees 1, 2, 3 at code widths f32, int16, int8 in one pack."""
+    assert mixed.entry_bits == (32, 8, 16) and mixed.max_lanes == 4
+    for fid in range(len(MIXED)):
+        for dtype in (torch.float32, torch.bfloat16):
+            _value_and_grad_bitwise(
+                K.poly_pack_lookup, K.poly_pack_grad, K.poly_pack_lookup_plain,
+                K.poly_pack_grad_plain, mixed, fid,
+                ragged_edge_input(mixed, fid, 4093, dtype, seed=fid), extrapolate)
+
+
+def test_quant_members_beyond_64_intervals(cuda):
+    """The quantized pack at e_a 1e-6: every member has 119 to 279
+    sub-intervals; all served, bitwise, value and slope, both dtypes."""
+    q = build_quant_pack(NAMES, 1e-6, omega=0.2, device=cuda)
+    assert min(q.n_intervals) > 64
+    for fid in range(len(NAMES)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for ex in (False, True):
+                _value_and_grad_bitwise(
+                    K.quant_pack_lookup, K.quant_pack_grad, K.quant_pack_lookup_plain,
+                    K.quant_pack_grad_plain, q, fid,
+                    ragged_edge_input(q, fid, 4093, dtype, seed=fid), ex)
+
+
+def test_global_memory_metadata(cuda):
+    """Metadata rows beyond the kernels' 48 KB of shared staging (a
+    4,000-interval table, a 2,500-interval polynomial member) are read from
+    global memory: same bits."""
+    n = 4000
+    rng = np.random.default_rng(3)
+    wide = TorchTable(
+        boundaries=torch.linspace(-2, 2, n + 1, device="cuda"),
+        inv_delta=torch.full((n,), n / 4.0, device="cuda"),
+        delta=torch.full((n,), 4.0 / n, device="cuda"),
+        base=torch.arange(n, dtype=torch.float32, device="cuda") * 2,
+        seg_count=torch.ones(n, device="cuda"),
+        values=torch.from_numpy(rng.normal(0, 1, 2 * n + 1).astype(np.float32)).cuda())
+    x = _table_edges(wide, 20000, torch.float32)
+    for ex in (False, True):
+        assert_bitwise(TL.table_lookup(wide, x, extrapolate=ex),
+                       TL.table_lookup_plain(wide, x, extrapolate=ex))
+        for a, b in zip(TG.table_lookup_grad(wide, x, extrapolate=ex),
+                        TG.table_lookup_grad_plain(wide, x, extrapolate=ex)):
+            assert_bitwise(a, b)
+    member = design.poly_member("silu", 1e-4, degree=1, bits=32)
+    n = 2500
+    spaced = dataclasses.replace(
+        member, boundaries=np.linspace(member.lo, member.hi, n + 1),
+        inv_delta=np.full(n, 1.0), delta=np.full(n, 1.0),
+        base=np.arange(n) * 2, seg_count=np.ones(n, np.int64),
+        zero=np.zeros((n, 2)), ramp=np.zeros((n, 2)), scale=np.ones((n, 2)),
+        codes=rng.normal(0, 1, 2 * n))
+    pk = from_poly_layout(poly_pack_layout([spaced]), cuda)
+    x = ragged_edge_input(pk, 0, 20000, torch.float32)
+    for ex in (False, True):
+        _value_and_grad_bitwise(K.poly_pack_lookup, K.poly_pack_grad,
+                                K.poly_pack_lookup_plain, K.poly_pack_grad_plain,
+                                pk, 0, x, ex)
+
+
+def test_quant_poly_wrappers_contract(quant, poly, cuda):
+    K.reset_launches()
+    x = torch.randn(3, 5, 7, device="cuda").transpose(0, 2)  # not contiguous
+    for lookup, grad, pk in ((K.quant_pack_lookup, K.quant_pack_grad, quant),
+                             (K.poly_pack_lookup, K.poly_pack_grad, poly)):
+        y = lookup(pk, "silu", x)
+        yg, s = grad(pk, "silu", x)
+        assert y.shape == yg.shape == s.shape == x.shape and y.is_contiguous()
+        lookup(pk, "silu", torch.empty(0, device="cuda"))  # no launch
+        grad(pk, "silu", torch.empty(0, device="cuda"))
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            lookup(pk, "silu", x.half())
+        with pytest.raises(ValueError, match="pack lives on"):
+            grad(pk, "silu", x.cpu())
+        with pytest.raises(KeyError):
+            lookup(pk, 9, x)
+    cpu_q = build_quant_pack(NAMES, 1e-4, omega=0.2, device="cpu")
+    K.quant_pack_lookup(cpu_q, "silu", x.cpu())  # plain version, no launch
+    with pytest.raises(ValueError, match="pack lives on"):
+        K.quant_pack_lookup(cpu_q, "silu", x)
+    assert K.launches == {"table_pack_lookup": 0, "tableflash_exp": 0,
+                          "table_pack_grad": 0, "table_lookup": 0,
+                          "table_lookup_grad": 0, "quant_pack_lookup": 1,
+                          "quant_pack_grad": 1, "poly_pack_lookup": 1,
+                          "poly_pack_grad": 1}
+
+
+@pytest.mark.parametrize("mode", ["quant_pack", "poly_pack"])
+def test_reduced_quant_poly_card_matches_cpu(cuda, mode):
+    """Reduced stablelm, f32, in ``mode`` with TableFlash: serving on the card
+    (the quant/poly kernels and tableflash_exp) token-identical to the plain
+    versions on the CPU, and 2 train steps with losses within 1e-4 relative
+    (the card and the CPU sum the matrix products in other orders)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import build_model, reduced
+    from repro_torch.optim import adamw
+    from repro_torch.serving.engine import ContinuousEngine, Request
+    from repro_torch.train.loop import batch_to, init_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    cfg = reduced("stablelm-3b").replace(compute_dtype="float32", approx=ApproxConfig(
+        mode=mode, e_a=1e-4, omega=0.2, attn_table=True))
+    rng = np.random.default_rng(2)
+    reqs = [Request(prompt=rng.integers(0, 128, (int(n),)).astype(np.int32),
+                    max_new_tokens=6) for n in rng.integers(3, 12, 5)]
+    cpu_state = init_state(build_model(cfg, "cpu"))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, global_batch=4, seq_len=16))
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    served, losses = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, dev)
+        state = tree_map(lambda t: t.detach().clone().to(dev), cpu_state)
+        K.reset_launches()
+        served[dev] = ContinuousEngine(model, state["params"], 2, 64).serve(reqs)
+        step = make_train_step(model, opt, accum=2)
+        losses[dev] = []
+        for s in range(2):
+            state, m = step(state, batch_to(data.batch_at(s), dev))
+            losses[dev].append(float(m["loss"]))
+        if dev == "cuda":
+            assert K.launches[f"{mode}_lookup"] > 0 and K.launches[f"{mode}_grad"] > 0
+            assert K.launches["tableflash_exp"] > 0
+    for a, b in zip(served["cuda"], served["cpu"]):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

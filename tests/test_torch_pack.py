@@ -102,7 +102,7 @@ def lerp_scale(brow, invd_row, base_row, segs_row, n, values, x, extrapolate):
                                                      segs_row, n, xf)
     u = (xf - p) * invd
     i = torch.minimum(torch.clamp(torch.floor(u), min=0.0), segs - 1.0)
-    a0, a1 = torch_table._pair_address(base, i, values.shape[0])
+    a0, a1 = torch_table.pair_address(base, i, values.shape[0])
     y0, y1 = values[a0], values[a1]
     t = u - i if extrapolate else torch.clamp(u - i, 0.0, 1.0)
     return torch.maximum(torch.maximum(y0.abs(), y1.abs()),
