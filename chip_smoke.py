@@ -60,7 +60,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    defaults; ``quant_pack_grad`` / ``poly_pack_grad`` must have launched,
    step 0's loss must equal the ``_ref`` mode's bit for bit and its grad norm
    be within 1e-3;
-12. their times, as in phase 8.
+12. their times, as in phase 8;
+13. routed kernels: the four routed kernels (f32 pack and quantized pack,
+   value and value + slope) bitwise against their plain versions AND, row by
+   row, against the static kernel of the row's member, NaN positions
+   matched, over every member of stablelm-3b's f32 and quant packs, the
+   reference's mixed int8/int16 pack and the quant pack at e_a 1e-6, f32 and
+   bf16, extrapolation off, on and per member, at the unary shapes of the
+   paths (one id, the tensor one row), a routed_fn batch of 512 x 6912 rows
+   cycling over the members, a ragged (70000, 3) (more rows than a grid's y
+   or z extent) and the edge inputs; then a routed call captured in a CUDA
+   graph whose ids tensor is rewritten in place between replays must follow
+   the new routing;
+14. routed serving: full stablelm-3b serving the 8 requests in
+   ``routed_pack`` and ``routed_quant_pack`` (+ TableFlash); the routed value
+   kernel and ``tableflash_exp`` must have launched, and the tokens must
+   equal the ``_ref`` mode's and the static mode's (``table_pack`` /
+   ``quant_pack``, served in phases 4 and 10);
+15. routed training: 2 steps each in ``routed_pack`` and
+   ``routed_quant_pack`` (+ TableFlash) at the trainer's defaults, as phase 11;
+16. their times, as in phase 8, beside the static kernel of the same member
+   at the same shape (the cost of dynamic dispatch), and the 512 x 6912 mixed
+   batch against the six static launches it replaces.
 
 The line before the last is one JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout of
@@ -82,11 +103,20 @@ F32_OPS = 67e12  # H100 SXM f32 outside the tensor cores, op/s
 BATCH, CACHE_LEN, N_REQ, MAX_NEW = 4, 256, 8, 16  # the launcher's defaults
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 8, 128, 2  # the trainer's defaults, accum 2
 TRAIN_STEPS, PALLAS_STEPS, PALLAS_LAYERS = 4, 2, 4
-QP_STEPS = 2  # training steps of each of quant_pack and poly_pack
+QP_STEPS = 2  # training steps of each of quant_pack, poly_pack and the routed modes
 # the reference's tests/test_poly_pack.py MIXED pack: (member, degree, bits)
 MIXED = (("tanh", 1, 32), ("exp_neg", 3, 8), ("gelu", 2, 16))
+# the reference's tests/test_routed_pack.py mixed_width_pack: (member, code width)
+MIXED_WIDTHS = (("gelu", "int8"), ("tanh", "int16"), ("log", "int16"),
+                ("sigmoid", "int8"))
+ROUTED_ROWS, ROUTED_COLS = 512, 6912  # a routed_fn batch: B*S rows of d_ff
+RAGGED = (70_000, 3)  # more rows than a CUDA grid's y or z extent (65,535)
 MICRO = TRAIN_BATCH // TRAIN_ACCUM
 TIMING_REPS = 100
+# each mode's served tokens (phases 4, 10, 14): a routed mode must serve its
+# static mode's tokens
+SERVED = {}
+ROUTED_STATIC = {"routed_pack": "table_pack", "routed_quant_pack": "quant_pack"}
 
 
 class SmokeError(RuntimeError):
@@ -352,6 +382,7 @@ def main_path(smi_line):
     for i, (a, b) in enumerate(zip(out, ref_out)):
         check((a.tokens == b.tokens).all(), f"request {i}: kernel tokens "
               f"{a.tokens.tolist()} != plain {b.tokens.tolist()}")
+    SERVED["table_pack"] = [r.tokens for r in out]
 
     s0 = max(len(r.prompt) for r in reqs)
     rows = torch.zeros((BATCH, s0), dtype=torch.int64, device="cuda")
@@ -869,9 +900,10 @@ def quant_poly_kernel_phase(packs, s0):
     return worst
 
 
-def quant_poly_serving_path(smi_line):
-    """Full stablelm-3b serving the 8 requests in quant_pack and poly_pack
-    (+ TableFlash), each against its _ref mode."""
+def pack_serving_paths(smi_line, modes):
+    """Full stablelm-3b serving the 8 requests in each ``(mode, value
+    kernel)`` of ``modes`` (+ TableFlash), each against its _ref mode and a
+    routed mode also against its static mode's tokens (``SERVED``)."""
     import torch
 
     from repro_torch.kernels import table_pack_lookup as K
@@ -883,8 +915,7 @@ def quant_poly_serving_path(smi_line):
     params = build_model(base, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
     reqs = make_requests(base.vocab, N_REQ, MAX_NEW)
     counts = {}
-    for mode, kname in (("quant_pack", "quant_pack_lookup"),
-                        ("poly_pack", "poly_pack_lookup")):
+    for mode, kname in modes:
         cfg = _with_mode(base, mode, attn_table=True)
         model = build_model(cfg, "cuda")
         ref = build_model(_with_mode(cfg, mode + "_ref"), "cuda")
@@ -907,10 +938,18 @@ def quant_poly_serving_path(smi_line):
         for i, (a, b) in enumerate(zip(out, ref_out)):
             check((a.tokens == b.tokens).all(), f"{mode} request {i}: kernel tokens "
                   f"{a.tokens.tolist()} != plain {b.tokens.tolist()}")
+        SERVED[mode] = [r.tokens for r in out]
+        same = f"{mode}_ref"
+        if mode in ROUTED_STATIC:
+            static = ROUTED_STATIC[mode]
+            for i, (a, b) in enumerate(zip(out, SERVED[static])):
+                check((a.tokens == b).all(), f"{mode} request {i}: tokens "
+                      f"{a.tokens.tolist()} != {static}'s {b.tolist()}")
+            same += f" and to {static}"
         tokens = sum(r.steps for r in out)
         log(f"{mode}: served {len(out)} requests, {tokens} tokens in {dt:.3f}s = "
             f"{tokens / dt:.1f} tok/s ({mode}_ref: {tokens / ref_dt:.1f} tok/s), "
-            f"token-identical to {mode}_ref; launches {c} [{smi_line}]")
+            f"token-identical to {same}; launches {c} [{smi_line}]")
         counts[kname] = c[kname]
         del model, ref
     del params
@@ -918,9 +957,9 @@ def quant_poly_serving_path(smi_line):
     return counts
 
 
-def quant_poly_train_path(smi_line):
-    """Full stablelm-3b, QP_STEPS steps each in quant_pack and poly_pack (+
-    TableFlash), step 0 against the _ref mode."""
+def pack_train_paths(smi_line, modes):
+    """Full stablelm-3b, QP_STEPS steps in each ``(mode, grad kernel)`` of
+    ``modes`` (+ TableFlash), step 0 against the _ref mode."""
     import math
 
     import torch
@@ -929,7 +968,7 @@ def quant_poly_train_path(smi_line):
     from repro_torch.train.loop import batch_to
 
     counts = {}
-    for mode, kname in (("quant_pack", "quant_pack_grad"), ("poly_pack", "poly_pack_grad")):
+    for mode, kname in modes:
         cfg = _with_mode(get_config("stablelm-3b"), mode, attn_table=True)
         model = build_model(cfg, "cuda")
         ref = build_model(_with_mode(cfg, mode + "_ref"), "cuda")
@@ -1000,6 +1039,240 @@ def quant_poly_timing_phase(quant, poly, smi_line):
 
 
 # --------------------------------------------------------------------------------------
+# 13-16. routed dispatch: kernels, serving, training, times
+# --------------------------------------------------------------------------------------
+
+
+def mixed_width_pack(approx):
+    """The reference's mixed int8/int16 quant pack (e_a 1e-4, default omega)."""
+    from repro_torch.approx.table_pack import from_quant_layout
+    from repro_torch.core.packing import quant_pack_layout
+    from repro_torch.core.quantize import plan_quant_member
+
+    return from_quant_layout(quant_pack_layout(
+        [plan_quant_member(n, approx.e_a, dtype=d) for n, d in MIXED_WIDTHS]), "cuda")
+
+
+def routed_fns(pack):
+    """((name, routed kernel, plain version, static kernel), ...) of the value
+    and the value + slope kernels of the pack's family."""
+    from repro_torch.kernels import routed_pack_lookup as R
+    from repro_torch.kernels import table_pack_lookup as K
+
+    if hasattr(pack, "n_max"):
+        return (("routed_pack_lookup", R.routed_pack_lookup,
+                 R.routed_pack_lookup_plain, K.table_pack_lookup),
+                ("routed_pack_grad", R.routed_pack_grad, R.routed_pack_grad_plain,
+                 K.table_pack_grad))
+    return (("routed_quant_pack_lookup", R.routed_quant_pack_lookup,
+             R.routed_quant_pack_lookup_plain, K.quant_pack_lookup),
+            ("routed_quant_pack_grad", R.routed_quant_pack_grad,
+             R.routed_quant_pack_grad_plain, K.quant_pack_grad))
+
+
+def member_edges(pack, fid):
+    return edge_values(pack, fid) if hasattr(pack, "n_max") else \
+        ragged_edge_values(pack, fid)
+
+
+def routed_input(pack, ids, cols, dtype, seed):
+    """(len(ids), cols) input whose row r spans member ids[r]'s domain +- 4,
+    with that member's edge inputs at the row's start."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((len(ids), cols), generator=g, device="cuda")
+    lo = torch.tensor([pack.domains[f][0] for f in ids], device="cuda")[:, None]
+    hi = torch.tensor([pack.domains[f][1] for f in ids], device="cuda")[:, None]
+    x = x * (hi - lo + 8.0) + (lo - 4.0)
+    for f, rows in member_rows(pack, ids).items():
+        e = torch.as_tensor(member_edges(pack, f), device="cuda")
+        k = min(cols, e.numel())
+        x[rows, :k] = e[:k]
+    return x.to(dtype)
+
+
+def member_rows(pack, ids):
+    """{member: the rows routed to it} (host ids, clamped as the kernels do)."""
+    import torch
+
+    host = ids.tolist() if isinstance(ids, torch.Tensor) else list(ids)
+    out = {}
+    for r, f in enumerate(host):
+        out.setdefault(min(max(int(f), 0), pack.n_functions - 1), []).append(r)
+    return {f: torch.tensor(rows, device="cuda") for f, rows in out.items()}
+
+
+def check_routed(tag, fns, pack, ids, x, ex, worst):
+    """Each routed kernel bitwise against its plain version and, member by
+    member, its rows against the static kernel of that member."""
+    import torch
+
+    from repro_torch.approx.table_pack import routed_extr_flags
+
+    flags = routed_extr_flags(pack, ex)
+    groups = member_rows(pack, ids)
+    for kname, kern, plain, static in fns:
+        got = kern(pack, ids, x, extrapolate=ex)
+        want = plain(pack, ids, x, extrapolate=ex)
+        torch.cuda.synchronize()
+        worst[kname] = max(worst[kname], check_pair(
+            f"{kname} [{tag}] vs plain", got, want, x.shape, x.dtype))
+        for f, rows in groups.items():
+            xs = x[rows]
+            s = static(pack, f, xs, extrapolate=bool(flags[f]))
+            g = tuple(t[rows] for t in got) if isinstance(got, tuple) else got[rows]
+            check_pair(f"{kname} [{tag}] rows of {pack.names[f]} vs the static kernel",
+                       g, s, xs.shape, x.dtype)
+
+
+def routed_kernel_phase(packs, s0):
+    """Phase 13: every member, f32 and bf16, extrapolation off / on / per
+    member, at the unary shapes, the routed_fn batch, the ragged shape and
+    the edge inputs; then the CUDA-graph re-route check."""
+    import torch
+
+    unary = [(1, BATCH * 6912), (1, BATCH * s0 * 6912), (1, MICRO * TRAIN_SEQ * 6912)]
+    worst = {k: 0.0 for k in ("routed_pack_lookup", "routed_pack_grad",
+                              "routed_quant_pack_lookup", "routed_quant_pack_grad")}
+    cases = 0
+    for tag, pack in packs:
+        fns = routed_fns(pack)
+        F = pack.n_functions
+        cyc = [r % F for r in range(ROUTED_ROWS)]
+        for dtype in (torch.bfloat16, torch.float32):
+            for which in ("off", "on", "per member"):
+                ex = (tuple(f % 2 == 0 for f in range(F)) if which == "per member"
+                      else which == "on")
+                t = f"{tag}, {dtype}, extrapolate {which}"
+                for fid in range(F):  # the unary path: one id, one row
+                    lo, hi = pack.domains[fid]
+                    ids = torch.full((1,), fid, dtype=torch.int32, device="cuda")
+                    for shape in unary:
+                        x = make_input(shape, lo, hi, member_edges(pack, fid), dtype,
+                                       seed=fid)
+                        check_routed(f"{t}, {pack.names[fid]} {shape}", fns, pack,
+                                     ids, x, ex, worst)
+                        cases += 2
+                x = routed_input(pack, cyc, ROUTED_COLS, dtype, seed=1)
+                check_routed(f"{t}, mixed {x.shape}", fns, pack, cyc, x, ex, worst)
+                # the same rows routed by a device tensor with ids out of range
+                dev_ids = torch.tensor([-3, 10_000] + cyc[2:], device="cuda")
+                check_routed(f"{t}, mixed, device ids", fns, pack, dev_ids, x, ex, worst)
+                rag = [r % F for r in range(RAGGED[0])]
+                x = routed_input(pack, rag, RAGGED[1], dtype, seed=2)
+                check_routed(f"{t}, ragged {RAGGED}", fns, pack, rag, x, ex, worst)
+                edges = list(range(F))
+                width = max(member_edges(pack, f).size for f in edges)
+                x = routed_input(pack, edges, width, dtype, seed=3)
+                check_routed(f"{t}, edge rows", fns, pack, edges, x, ex, worst)
+                cases += 8
+        log(f"routed: [{tag}] members {pack.names}, intervals {pack.n_intervals}"
+            + (f", code bits {pack.entry_bits}" if hasattr(pack, "entry_bits") else ""))
+    log(f"routed: {cases} routed kernel cases bitwise equal to the plain versions "
+        f"and, row by row, to the static kernels (bf16+f32, extrapolate off/on/"
+        f"per member, unary shapes {unary}, mixed ({ROUTED_ROWS}, {ROUTED_COLS}), "
+        f"ragged {RAGGED}, edge rows)")
+    reroute_check(packs[0][1], packs[1][1])
+    return worst
+
+
+def reroute_check(pack, quant):
+    """A routed call captured in a CUDA graph reads its ids at replay: the
+    ids tensor rewritten in place re-routes the replay."""
+    import torch
+
+    for pk in (pack, quant):
+        F = pk.n_functions
+        ids = torch.arange(ROUTED_ROWS, device="cuda", dtype=torch.int32) % F
+        x = routed_input(pk, [r % F for r in range(ROUTED_ROWS)], ROUTED_COLS,
+                         torch.bfloat16, seed=4)
+        fns = routed_fns(pk)
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            for _, kern, _, _ in fns:
+                kern(pk, ids, x, extrapolate=True)
+        torch.cuda.current_stream().wait_stream(s)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [kern(pk, ids, x, extrapolate=True) for _, kern, _, _ in fns]
+        g = torch.Generator(device="cuda").manual_seed(5)
+        for new in (torch.randint(0, F, (ROUTED_ROWS,), generator=g, device="cuda"),
+                    torch.full((ROUTED_ROWS,), F - 1, device="cuda"),
+                    torch.randint(-3, F + 3, (ROUTED_ROWS,), generator=g, device="cuda")):
+            ids.copy_(new)
+            graph.replay()
+            torch.cuda.synchronize()
+            for (kname, _, plain, _), got in zip(fns, outs):
+                check_pair(f"{kname} graph replay after re-routing", got,
+                           plain(pk, ids, x, extrapolate=True), x.shape, x.dtype)
+        log(f"routed: {[f[0] for f in fns]} captured in a CUDA graph, ids rewritten "
+            f"in place 3 times, each replay bitwise equal to the plain version of "
+            f"the new routing")
+
+
+def routed_bytes(pack, fid, rows):
+    """member_bytes plus the routing vectors: the ids (one a row) and the
+    per-member interval counts, extrapolate flags and (quant) offsets and
+    code widths."""
+    return member_bytes(pack, fid) + 4 * rows + 4 * pack.n_functions * (
+        1 + len(pack.routing_scalars()))
+
+
+def routed_timing_phase(pack, quant, smi_line):
+    """Phase 16: each routed kernel, its plain version, F.silu and the static
+    kernel of the same member at the path's shape; then the mixed 512 x 6912
+    batch against the six static launches it replaces."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.approx.table_pack import routed_extr_flags
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    gate = (torch.randn((1, BATCH * 6912), generator=g, device="cuda") * 2).to(
+        torch.bfloat16)
+    gate_t = (torch.randn((1, MICRO * TRAIN_SEQ * 6912), generator=g, device="cuda")
+              * 2).to(torch.bfloat16)
+    rows = {}
+    for pk, ops0 in ((pack, 14), (quant, 22)):  # per-element ops, as phases 8, 12
+        fid = pk.fn_id("silu")
+        ids = torch.full((1,), fid, dtype=torch.int32, device="cuda")
+        ops = pk.n_intervals[fid] + ops0
+        for (kname, kern, plain, static), x, n_out in zip(
+                routed_fns(pk), (gate, gate_t), (1, 2)):
+            ms = graph_ms(lambda: kern(pk, ids, x, extrapolate=True))
+            plain_ms = graph_ms(lambda: plain(pk, ids, x, extrapolate=True))
+            static_ms = graph_ms(lambda: static(pk, fid, x, extrapolate=True))
+            lib_ms = graph_ms(lambda: F.silu(x))
+            b_ms, b_by = bound(x.numel(), x.element_size(), n_out,
+                               routed_bytes(pk, fid, 1), ops + 2 * (n_out - 1))
+            rows[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=b_ms, bound_by=b_by)
+            log(f"time: {kname} {tuple(x.shape)} {x.dtype}: kernel {ms * 1e3:.2f} us, "
+                f"static kernel of the same member {static_ms * 1e3:.2f} us, plain "
+                f"{plain_ms * 1e3:.2f} us, yardstick (F.silu"
+                f"{'' if n_out == 1 else ', value only'}) {lib_ms * 1e3:.2f} us, bound "
+                f"{b_ms * 1e3:.3f} us ({b_by}) [{smi_line}]")
+        # the mixed batch: one routed launch against one static launch a member
+        cyc = [r % pk.n_functions for r in range(ROUTED_ROWS)]
+        cyc_ids = torch.tensor(cyc, dtype=torch.int32, device="cuda")  # no copy per call
+        xb = routed_input(pk, cyc, ROUTED_COLS, torch.bfloat16, seed=6)
+        ex = tuple(n in ("gelu", "silu", "softplus") for n in pk.names)
+        flags = routed_extr_flags(pk, ex)
+        parts = {f: xb[r].contiguous() for f, r in member_rows(pk, cyc).items()}
+        for kname, kern, _, static in routed_fns(pk):
+            ms = graph_ms(lambda: kern(pk, cyc_ids, xb, extrapolate=ex))
+            six = graph_ms(lambda: [static(pk, f, p, extrapolate=bool(flags[f]))
+                                    for f, p in parts.items()])
+            log(f"time: {kname} mixed batch {tuple(xb.shape)} bf16 over "
+                f"{pk.n_functions} members: one routed launch {ms * 1e3:.2f} us, "
+                f"{len(parts)} static launches on the members' rows "
+                f"{six * 1e3:.2f} us [{smi_line}]")
+    return rows
+
+
+# --------------------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1046,9 +1319,22 @@ def main() -> int:
         times = timing_phase(pack, approx, smi_line)
         qp_packs = quant_poly_packs(cfg.approx)
         worst.update(quant_poly_kernel_phase(qp_packs, s0))
-        counts.update(quant_poly_serving_path(smi_line))
-        counts.update(quant_poly_train_path(smi_line))
+        counts.update(pack_serving_paths(smi_line, (("quant_pack", "quant_pack_lookup"),
+                                                    ("poly_pack", "poly_pack_lookup"))))
+        counts.update(pack_train_paths(smi_line, (("quant_pack", "quant_pack_grad"),
+                                                  ("poly_pack", "poly_pack_grad"))))
         times.update(quant_poly_timing_phase(qp_packs[0][2], qp_packs[2][2], smi_line))
+        r_packs = (("f32", pack), ("quant", qp_packs[0][2]),
+                   ("mixed widths", mixed_width_pack(cfg.approx)),
+                   ("quant e_a 1e-6", qp_packs[1][2]))
+        worst.update(routed_kernel_phase(r_packs, s0))
+        counts.update(pack_serving_paths(smi_line, (
+            ("routed_pack", "routed_pack_lookup"),
+            ("routed_quant_pack", "routed_quant_pack_lookup"))))
+        counts.update(pack_train_paths(smi_line, (
+            ("routed_pack", "routed_pack_grad"),
+            ("routed_quant_pack", "routed_quant_pack_grad"))))
+        times.update(routed_timing_phase(pack, qp_packs[0][2], smi_line))
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1062,7 +1348,11 @@ def main() -> int:
             ("quant_pack_lookup", "src/repro/kernels/table_pack_lookup.py:283"),
             ("quant_pack_grad", "src/repro/kernels/table_pack_lookup.py:309"),
             ("poly_pack_lookup", "src/repro/kernels/table_pack_lookup.py:503"),
-            ("poly_pack_grad", "src/repro/kernels/table_pack_lookup.py:524")):
+            ("poly_pack_grad", "src/repro/kernels/table_pack_lookup.py:524"),
+            ("routed_pack_lookup", "src/repro/kernels/routed_pack_lookup.py:101"),
+            ("routed_pack_grad", "src/repro/kernels/routed_pack_lookup.py:126"),
+            ("routed_quant_pack_lookup", "src/repro/kernels/routed_pack_lookup.py:300"),
+            ("routed_quant_pack_grad", "src/repro/kernels/routed_pack_lookup.py:329")):
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/csrc/table_pack_lookup.cu",

@@ -1,7 +1,7 @@
 """repro_torch.approx — the paper's table approximators as PyTorch runtimes:
-per-function tables, the f32, quantized and polynomial multi-function packs,
-and the ``ApproxConfig`` backend that routes a model's nonlinearities through
-them."""
+per-function tables, the f32, quantized and polynomial multi-function packs
+(the first two also per-row routed), and the ``ApproxConfig`` backend that
+routes a model's nonlinearities through them."""
 
 from .activations import (
     DEFAULT_PACK_FUNCTIONS,
@@ -9,6 +9,7 @@ from .activations import (
     PACK_MODES,
     POLY_PACK_MODES,
     QUANT_PACK_MODES,
+    ROUTED_MODES,
     TABLE_MODES,
     ApproxConfig,
     odd_extension,
@@ -26,6 +27,10 @@ from .table_pack import (
     eval_poly_pack_slope,
     eval_quant_pack_ref,
     eval_quant_pack_slope,
+    eval_routed_quant_ref,
+    eval_routed_quant_slope,
+    eval_routed_ref,
+    eval_routed_slope,
     from_layout,
     from_poly_layout,
     from_quant_layout,
@@ -33,8 +38,12 @@ from .table_pack import (
     make_pack_fn,
     make_poly_pack_fn,
     make_quant_pack_fn,
+    make_routed_fn,
+    make_routed_unary_fn,
     member_domain,
     pack_specs,
+    resolve_fn_ids,
+    routed_extr_flags,
 )
 from .torch_table import (
     TorchTable,

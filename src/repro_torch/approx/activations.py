@@ -4,15 +4,19 @@ paper-faithful per-function table, plain PyTorch), ``table_pallas`` (the same
 tables through the CUDA table kernels), ``table_pack`` (ONE packed
 multi-function artifact + one CUDA kernel for the whole network),
 ``quant_pack`` (the pack with int8/int16 codes dequantized on read),
-``poly_pack`` (the planner's degree-1..3 coefficient pack, Horner on read), or
-the ``*_ref`` plain PyTorch version of each pack.  Configured per model via
+``poly_pack`` (the planner's degree-1..3 coefficient pack, Horner on read),
+the ``routed_pack`` / ``routed_quant_pack`` variants, which serve the f32 and
+quantized packs through per-row DYNAMIC fn_id dispatch (the member is a
+device operand of one kernel, so mixed-function batches — see
+:meth:`ApproxConfig.routed_fn` — and every member's unary share it), or the
+``*_ref`` plain PyTorch version of each.  Configured per model via
 :class:`ApproxConfig`, whose fields and defaults are the JAX package's.  Every
 table function is differentiable: its tangent is the table slope, or the
 registry's analytic derivative with ``exact_grad``.  TableFlash
 (``attn_table``) always serves the attention exponent from the f32 pack.
 
-The JAX package's other modes (the routed, sharded and folded packs) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The JAX package's other modes (the routed polynomial, sharded and folded
+packs) raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from dataclasses import dataclass, field
 from functools import partial
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -30,26 +35,30 @@ from repro_torch.device import DeviceLike, resolve_device
 
 from .table_pack import (PolyTablePack, QuantTablePack, TablePack, build_pack,
                          build_poly_pack, build_quant_pack, make_attn_exp_fn,
-                         make_pack_fn, make_poly_pack_fn, make_quant_pack_fn)
+                         make_pack_fn, make_poly_pack_fn, make_quant_pack_fn,
+                         make_routed_fn, make_routed_unary_fn)
 from .torch_table import TorchTable, from_spec, make_table_fn
 
 PACK_MODES = ("table_pack", "table_pack_ref")
 QUANT_PACK_MODES = ("quant_pack", "quant_pack_ref")
 POLY_PACK_MODES = ("poly_pack", "poly_pack_ref")
+ROUTED_MODES = ("routed_pack", "routed_pack_ref", "routed_quant_pack",
+                "routed_quant_pack_ref")
 TABLE_MODES = (("table_ref", "table_pallas") + PACK_MODES + QUANT_PACK_MODES
-               + POLY_PACK_MODES)
+               + POLY_PACK_MODES + ROUTED_MODES)
+# modes whose pack artifact is the quantized one (vs the f32 pack)
+_QUANT_BACKED = QUANT_PACK_MODES + ("routed_quant_pack", "routed_quant_pack_ref")
 # modes whose runtime is the CUDA kernels (vs the plain PyTorch versions)
-_KERNEL_BACKED = ("table_pallas", "table_pack", "quant_pack", "poly_pack")
+_KERNEL_BACKED = ("table_pallas", "table_pack", "quant_pack", "poly_pack",
+                  "routed_pack", "routed_quant_pack")
 
 # The JAX package's other modes, with the ROADMAP item (queue 1 unless noted)
 # that brings each to the port.
 NOT_PORTED = {
-    "routed_pack": "ROADMAP queue 1, item 9 (routed dispatch)",
-    "routed_pack_ref": "ROADMAP queue 1, item 9 (routed dispatch)",
-    "routed_quant_pack": "ROADMAP queue 1, item 9 (routed dispatch)",
-    "routed_quant_pack_ref": "ROADMAP queue 1, item 9 (routed dispatch)",
-    "routed_poly_pack": "ROADMAP queue 1, item 9 (routed dispatch)",
-    "routed_poly_pack_ref": "ROADMAP queue 1, item 9 (routed dispatch)",
+    "routed_poly_pack": "ROADMAP queue 1, item 9 (routed dispatch: the "
+                        "routed_poly kernels come with the next slice)",
+    "routed_poly_pack_ref": "ROADMAP queue 1, item 9 (routed dispatch: the "
+                            "routed_poly kernels come with the next slice)",
     "sharded_pack": "ROADMAP queue 1, item 12 (ShardedPack)",
     "sharded_pack_ref": "ROADMAP queue 1, item 12 (ShardedPack)",
     "folded_pack": "ROADMAP queue 1, item 10 (RangeFold)",
@@ -136,6 +145,26 @@ _NEVER_TABLED = {"relu", "identity"}
 # saturating.  Flat-asymptote functions (tanh/sigmoid/exp_neg) keep the hardware
 # clamp — it IS their asymptote.
 _EXTRAPOLATE = {"gelu", "gelu_tanh", "silu", "softplus"}
+
+
+def _routed_exact(names):
+    """Exact-mode routed fallback: row-select over the exact activations."""
+    for n in names:
+        if not isinstance(n, str) or n not in _EXACT:
+            raise KeyError(f"exact-mode routing needs activation names, "
+                           f"got {n!r}")
+    uniq = tuple(dict.fromkeys(names))
+
+    def f(x):
+        sel = (len(names),) + (1,) * (x.dim() - 1)
+        y = None
+        for u in uniq:
+            yu = _EXACT[u](x)
+            mask = torch.tensor([n == u for n in names], device=x.device).reshape(sel)
+            y = yu if y is None else torch.where(mask, yu, y)
+        return y
+
+    return f
 
 
 @dataclass(frozen=True)
@@ -225,7 +254,7 @@ class ApproxConfig:
     def _pack_for_mode(self, device: DeviceLike = None):
         if self.mode in POLY_PACK_MODES:
             return self.poly_pack(device)
-        if self.mode in QUANT_PACK_MODES:
+        if self.mode in _QUANT_BACKED:
             return self.quant_pack(device)
         return self.pack(device)
 
@@ -243,15 +272,21 @@ class ApproxConfig:
         if self.exact_grad:
             exact_d1 = partial(get_function(reg_name).d1f, xp=torch)
         use_kernel = self.mode in _KERNEL_BACKED
-        if self.mode in PACK_MODES + QUANT_PACK_MODES + POLY_PACK_MODES:
+        if self.mode in (PACK_MODES + QUANT_PACK_MODES + POLY_PACK_MODES
+                         + ROUTED_MODES):
             pack = self._pack_for_mode(device)
             if reg_name not in pack.names:
                 raise KeyError(
                     f"{reg_name!r} is not in pack_functions={pack.names}; add it "
                     f"to ApproxConfig.pack_functions to serve it from the pack")
-            make = (make_poly_pack_fn if self.mode in POLY_PACK_MODES
-                    else make_quant_pack_fn if self.mode in QUANT_PACK_MODES
-                    else make_pack_fn)
+            if self.mode in ROUTED_MODES:
+                # dynamic dispatch with one id: the member is a device
+                # operand, so every unary shares one kernel
+                make = make_routed_unary_fn
+            else:
+                make = (make_poly_pack_fn if self.mode in POLY_PACK_MODES
+                        else make_quant_pack_fn if self.mode in QUANT_PACK_MODES
+                        else make_pack_fn)
             f = make(pack, reg_name, use_kernel=use_kernel, exact_d1=exact_d1,
                      extrapolate=extrapolate)
         else:
@@ -262,6 +297,54 @@ class ApproxConfig:
             # the full symmetric domain
             f = odd_extension(f)
         return f
+
+    def routed_fn(self, fns, device: DeviceLike = None, *,
+                  extrapolate=None) -> Callable:
+        """Per-row dynamic dispatch: ``f(x)`` applies ``fns[i]`` to row i of
+        ``x`` (leading axis) in ONE call — MoE-style routed activations —
+        with the tables on ``device``.
+
+        In table modes this is served by the routed kernels of this mode's
+        pack (their plain versions in the ``*_ref`` modes and ``table_ref``),
+        one launch whatever the routing; ``exact`` mode falls back to a
+        row-select over the exact transcendentals.  ``fns`` are activation
+        names (remapped like :meth:`unary`: ``sigmoid`` -> ``sigmoid_sym``,
+        ``exp`` -> ``exp_neg``) or member ids; half-domain odd members (tanh)
+        are mirrored per row, so every row sees its full symmetric domain.
+        ``extrapolate`` defaults to each member's own edge rule.  The
+        polynomial pack's modes raise ``NotImplementedError`` (its routed
+        kernels are not ported yet).
+        """
+        names = tuple(_TABLE_NAME.get(f, f) if isinstance(f, str) else f
+                      for f in fns)
+        if self.mode == "exact":
+            return _routed_exact(names)
+        _check_mode(self.mode)
+        pack = self._pack_for_mode(device)
+        for n in names:
+            if isinstance(n, str) and n not in pack.names:
+                raise KeyError(
+                    f"{n!r} is not in pack_functions={pack.names}; add it to "
+                    f"ApproxConfig.pack_functions to route to it")
+        if extrapolate is None:
+            extrapolate = tuple(n in _EXTRAPOLATE for n in pack.names)
+        f = make_routed_fn(pack, names, use_kernel=self.mode in _KERNEL_BACKED,
+                           extrapolate=extrapolate)
+        odd = np.asarray([isinstance(n, str) and n in _ODD_HALF_DOMAIN
+                          for n in names])
+        if not odd.any():
+            return f
+        odd_rows = torch.from_numpy(odd).to(pack.device)  # once, at build
+
+        def routed_odd(x):
+            # per-row odd_extension: mirror only the half-domain rows (s is
+            # +-1 and piecewise constant, so the gradient flows through f's
+            # slope rule untouched)
+            m = odd_rows.reshape((len(names),) + (1,) * (x.dim() - 1))
+            s = torch.where(m & (x >= 0), -1.0, 1.0).to(x.dtype)
+            return s * f(s * x)
+
+        return routed_odd
 
     def softmax(self, x: torch.Tensor, axis: int = -1, where=None,
                 device: DeviceLike = None) -> torch.Tensor:

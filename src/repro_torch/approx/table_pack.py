@@ -29,8 +29,8 @@ saved slope into the incoming gradient.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +83,19 @@ class TablePack:
     # member domains [lo, hi) on the host, read once at build time (the
     # TableFlash zero tail needs lo as a plain number, not a device read)
     domains: Tuple[Tuple[float, float], ...]
+    # routed dispatch's per-member int32 operands on the pack's device, built
+    # once with the pack: (n_arr,), see routing_scalars()
+    routing: Tuple[torch.Tensor, ...]
+    # per-member extrapolate flag vectors on the device, one per distinct
+    # flag tuple (routed_extr_operand)
+    _extr_operands: Dict[bytes, torch.Tensor] = field(
+        default_factory=dict, compare=False, repr=False)
+
+    def routing_scalars(self) -> Tuple[torch.Tensor, ...]:
+        """The routed kernels' per-member operands, gathered by fn_id on the
+        device: ``(n_arr,)`` with ``n_arr[f]`` member f's real sub-interval
+        count (int32, on the pack's device)."""
+        return self.routing
 
     @property
     def n_functions(self) -> int:
@@ -108,6 +121,10 @@ class TablePack:
         return _member_id(self.names, fn)
 
 
+def _int32_tensor(values, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(values, dtype=np.int32)).to(device)
+
+
 def from_layout(layout: PackLayout, device: DeviceLike = None) -> TablePack:
     if layout.footprint >= EXACT_INT_LIMIT:
         raise ValueError("pack footprint exceeds f32 exact-integer range")
@@ -126,6 +143,7 @@ def from_layout(layout: PackLayout, device: DeviceLike = None) -> TablePack:
         seg_count=f32_tensor(layout.seg_count, dev),
         values=f32_tensor(layout.values, dev),
         domains=domains,
+        routing=(_int32_tensor(layout.n_intervals, dev),),
     )
 
 
@@ -340,6 +358,18 @@ class QuantTablePack(_RaggedPack):
     codes8: torch.Tensor  # (max(M8,1),) int8
     codes16: torch.Tensor  # (max(M16,1),) int16
     domains: Tuple[Tuple[float, float], ...]  # member [lo, hi) on the host
+    # routed dispatch's per-member int32 operands on the pack's device, built
+    # once with the pack: see routing_scalars()
+    routing: Tuple[torch.Tensor, ...]
+    _extr_operands: Dict[bytes, torch.Tensor] = field(
+        default_factory=dict, compare=False, repr=False)
+
+    def routing_scalars(self) -> Tuple[torch.Tensor, ...]:
+        """The routed kernels' per-member operands, gathered by fn_id on the
+        device: ``(n_arr, bounds_offsets, lane_offsets, entry_bits)``, int32
+        vectors on the pack's device (the reference's ragged offsets and
+        width-group choice)."""
+        return self.routing
 
 
 def _domains(layout) -> Tuple[Tuple[float, float], ...]:
@@ -371,6 +401,9 @@ def from_quant_layout(layout: QuantPackLayout,
         codes8=_codes_tensor(layout.codes8, torch.int8, dev),
         codes16=_codes_tensor(layout.codes16, torch.int16, dev),
         domains=_domains(layout),
+        routing=tuple(_int32_tensor(v, dev) for v in (
+            layout.n_intervals, layout.bounds_offsets, layout.lane_offsets,
+            layout.entry_bits)),
     )
 
 
@@ -684,3 +717,217 @@ def make_poly_pack_fn(pack: PolyTablePack, name: str, *,
     fns = ((K.poly_pack_lookup, K.poly_pack_grad) if use_kernel
            else (K.poly_pack_lookup_plain, K.poly_pack_grad_plain))
     return _make_fn(pack, name, *fns, exact_d1, extrapolate)
+
+
+# --------------------------------------------------------------------------------------
+# Routed dispatch — per-row fn_id as a RUNTIME operand (mixed-function batches).
+# --------------------------------------------------------------------------------------
+#
+# The static closures above bake the member into the launch.  The routed path
+# takes a per-row ``fn_ids`` vector instead: the kernels of
+# :mod:`repro_torch.kernels.routed_pack_lookup` read it on the device, so
+# one compiled kernel serves every routing and a new routing is a new operand,
+# never a host read.  The oracles define the contract: row i of the output is
+# bit-identical to the static dispatch of member ``fn_ids[i]`` (the
+# where-select picks the static per-member evaluations).
+
+
+def _fn_id_operand(pack, fn_ids, rows: int) -> torch.Tensor:
+    """``(rows,)`` int32 ids on the pack's device, as the routed kernels take
+    them.  A name or int is broadcast to every row and a sequence or numpy
+    array is validated id by id (``KeyError`` listing the members); a
+    ``torch.Tensor`` (a router's output) is taken as it is, never read on the
+    host: the kernels clamp it to ``[0, F-1]`` themselves."""
+    if isinstance(fn_ids, torch.Tensor):
+        if fn_ids.device != pack.device:
+            raise ValueError(f"fn_ids live on {fn_ids.device}, the pack on "
+                             f"{pack.device}")
+        ids = fn_ids.to(torch.int32)
+    elif isinstance(fn_ids, (str, int, np.integer)):
+        ids = torch.full((rows,), pack.member_id(fn_ids), dtype=torch.int32,
+                         device=pack.device)
+    else:  # a concrete sequence or array of names or ints: validate every id
+        seq = fn_ids if isinstance(fn_ids, (list, tuple)) else np.asarray(fn_ids)
+        ids = torch.tensor([pack.member_id(f) for f in seq], dtype=torch.int32,
+                           device=pack.device)
+    if tuple(ids.shape) != (rows,):
+        raise ValueError(
+            f"fn_ids shape {tuple(ids.shape)} does not match the {rows} leading "
+            f"rows of x (one function id per row)")
+    return ids
+
+
+def resolve_fn_ids(pack, fn_ids, rows: int) -> torch.Tensor:
+    """Normalize per-row routing ids to a clamped ``(rows,)`` int32 vector on
+    the pack's device.
+
+    Accepts a single name/int (broadcast to every row), a sequence of
+    names/ints or a numpy array (each validated against the pack —
+    ``KeyError`` on unknowns), or a ``torch.Tensor`` of ids (e.g. a router
+    output on the card), which is clamped to the member range with
+    ``torch.clamp`` and never read on the host, matching the kernels' clamped
+    metadata reads (the reference's traced-id case).
+    """
+    ids = _fn_id_operand(pack, fn_ids, rows)
+    if isinstance(fn_ids, torch.Tensor):
+        ids = torch.clamp(ids, 0, pack.n_functions - 1)
+    return ids
+
+
+def routed_extr_flags(pack, extrapolate) -> np.ndarray:
+    """Per-member edge-handling flags as int32 (the operand the routed kernels
+    gather by fn_id): a single bool applies to every member, a sequence gives
+    one flag per member (linear-asymptote members extrapolate, flat ones keep
+    the hardware clamp)."""
+    if isinstance(extrapolate, (bool, np.bool_, int)):
+        flags = (bool(extrapolate),) * pack.n_functions
+    else:
+        flags = tuple(bool(e) for e in extrapolate)
+        if len(flags) != pack.n_functions:
+            raise ValueError(
+                f"extrapolate needs one flag per member ({pack.n_functions}), "
+                f"got {len(flags)}")
+    return np.asarray(flags, dtype=np.int32)
+
+
+def routed_extr_operand(pack, extrapolate) -> torch.Tensor:
+    """:func:`routed_extr_flags` as an int32 vector on the pack's device,
+    built once per pack and flag tuple (a later call with the same flags
+    makes no host-to-device copy)."""
+    flags = routed_extr_flags(pack, extrapolate)
+    key = flags.tobytes()
+    if key not in pack._extr_operands:
+        pack._extr_operands[key] = torch.from_numpy(flags).to(pack.device)
+    return pack._extr_operands[key]
+
+
+def _routed_where(pack, fn_ids, x: torch.Tensor, member_eval, extrapolate):
+    """Row-select over the static per-member evaluations (the routed oracle)."""
+    if x.dim() < 1:
+        raise ValueError("routed dispatch needs a leading row axis (one "
+                         "function id per row); got a 0-d input")
+    ids = resolve_fn_ids(pack, fn_ids, x.shape[0])
+    extr = routed_extr_flags(pack, extrapolate)
+    ids = ids.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+    y = None
+    for f in range(pack.n_functions):
+        yf = member_eval(f, bool(extr[f]))
+        y = yf if y is None else torch.where(ids == f, yf, y)
+    return y
+
+
+def eval_routed_ref(pack: TablePack, fn_ids, x: torch.Tensor, *,
+                    extrapolate=False) -> torch.Tensor:
+    """Plain routed lookup: row i of ``x`` through member ``fn_ids[i]`` —
+    bit-identical to the static dispatches and to the reference's eager
+    ``eval_routed_ref``."""
+    return _routed_where(
+        pack, fn_ids, x,
+        lambda f, e: eval_pack_ref(pack, f, x, extrapolate=e), extrapolate)
+
+
+def eval_routed_slope(pack: TablePack, fn_ids, x: torch.Tensor, *,
+                      extrapolate=False) -> torch.Tensor:
+    """d/dx of the routed surrogate (per-row static table slopes)."""
+    return _routed_where(
+        pack, fn_ids, x,
+        lambda f, e: eval_pack_slope(pack, f, x, extrapolate=e), extrapolate)
+
+
+def eval_routed_quant_ref(pack: QuantTablePack, fn_ids, x: torch.Tensor, *,
+                          extrapolate=False) -> torch.Tensor:
+    """Plain routed dequantize-on-read lookup over the quantized pack."""
+    return _routed_where(
+        pack, fn_ids, x,
+        lambda f, e: eval_quant_pack_ref(pack, f, x, extrapolate=e), extrapolate)
+
+
+def eval_routed_quant_slope(pack: QuantTablePack, fn_ids, x: torch.Tensor, *,
+                            extrapolate=False) -> torch.Tensor:
+    """d/dx of the routed quantized surrogate."""
+    return _routed_where(
+        pack, fn_ids, x,
+        lambda f, e: eval_quant_pack_slope(pack, f, x, extrapolate=e),
+        extrapolate)
+
+
+def _routed_family(pack) -> bool:
+    """True for a quantized pack, False for the f32 one; the other pack
+    kinds are not ported to routed dispatch yet."""
+    if isinstance(pack, PolyTablePack):
+        raise NotImplementedError(
+            "routed dispatch over a PolyTablePack is not ported yet: ROADMAP "
+            "queue 1, item 9 (its routed_poly kernels come with the next slice)")
+    if not isinstance(pack, (TablePack, QuantTablePack)):
+        raise NotImplementedError(
+            f"routed dispatch over a {type(pack).__name__} is not ported: the "
+            f"sharded pack comes with ROADMAP queue 1, item 12 (ShardedPack)")
+    return isinstance(pack, QuantTablePack)
+
+
+def make_routed_fn(pack, fn_ids, *, use_kernel: bool = True, extrapolate=False):
+    """Differentiable per-row routed ``f(x)``: row i of ``x`` (leading axis)
+    is served by member ``fn_ids[i]`` of the pack — f32 (:class:`TablePack`)
+    or quantized (:class:`QuantTablePack`).
+
+    ``fn_ids`` may be names/ints (validated here and copied to the pack's
+    device once) or a ``torch.Tensor`` of ids on the pack's device (a
+    router's output, read only by the kernel).  ``extrapolate`` is one flag
+    or a per-member sequence.  ``use_kernel=True`` runs the routed CUDA
+    kernels (``routed_pack`` / ``routed_quant_pack``): the value kernel
+    without a gradient, the fused value + slope kernel under one;
+    ``use_kernel=False`` the plain versions.  Tangent: the per-row table
+    slope.
+    """
+    from repro_torch.kernels import routed_pack_lookup as R
+
+    quant = _routed_family(pack)
+    if use_kernel:
+        lookup, grad = ((R.routed_quant_pack_lookup, R.routed_quant_pack_grad)
+                        if quant else (R.routed_pack_lookup, R.routed_pack_grad))
+    else:
+        lookup, grad = ((R.routed_quant_pack_lookup_plain,
+                         R.routed_quant_pack_grad_plain) if quant else
+                        (R.routed_pack_lookup_plain, R.routed_pack_grad_plain))
+    if not isinstance(fn_ids, (str, int, np.integer, torch.Tensor)):
+        fn_ids = resolve_fn_ids(pack, fn_ids, len(fn_ids))
+    flags = tuple(bool(e) for e in routed_extr_flags(pack, extrapolate))
+    routed_extr_operand(pack, flags)  # the device flag vector, built now
+    return slope_rule(lambda v: lookup(pack, fn_ids, v, extrapolate=flags),
+                      lambda v: grad(pack, fn_ids, v, extrapolate=flags))
+
+
+def make_routed_unary_fn(pack, name, *, use_kernel: bool = True, exact_d1=None,
+                         extrapolate: bool = False):
+    """Shape-agnostic unary ``f(x)`` served through the ROUTED dispatch path
+    with one id for the whole tensor — what ``ApproxConfig(mode=
+    "routed_pack").unary`` builds.  The member is a runtime operand: x is
+    viewed as one row, and its one-element id vector is built here, once, on
+    the pack's device (no host-to-device copy per call).  ``use_kernel=False``
+    (``routed_*_ref``) is the static plain version, bit-identical to the
+    routed kernel by the dispatch contract.  Tangent: the table slope, or
+    ``exact_d1(x)`` when given.
+    """
+    from repro_torch.kernels import routed_pack_lookup as R
+    from repro_torch.kernels import table_pack_lookup as K
+
+    quant = _routed_family(pack)
+    fid = pack.member_id(name)
+    if use_kernel:
+        lookup, grad = ((R.routed_quant_pack_lookup, R.routed_quant_pack_grad)
+                        if quant else (R.routed_pack_lookup, R.routed_pack_grad))
+        ids = torch.full((1,), fid, dtype=torch.int32, device=pack.device)
+        routed_extr_operand(pack, extrapolate)
+        value = lambda v: lookup(pack, ids, v.reshape(1, -1),
+                                 extrapolate=extrapolate).reshape(v.shape)
+        fused = lambda v: tuple(r.reshape(v.shape) for r in grad(
+            pack, ids, v.reshape(1, -1), extrapolate=extrapolate))
+    else:
+        static, static_grad = ((K.quant_pack_lookup_plain, K.quant_pack_grad_plain)
+                               if quant else
+                               (K.table_pack_lookup_plain, K.table_pack_grad_plain))
+        value = lambda v: static(pack, fid, v, extrapolate=extrapolate)
+        fused = lambda v: static_grad(pack, fid, v, extrapolate=extrapolate)
+    if exact_d1 is not None:
+        fused = lambda v: (value(v), exact_d1(v))
+    return slope_rule(value, fused)

@@ -192,6 +192,21 @@ class QuantPackLayout:
     def lane_offset(self, fid: int) -> int:
         return sum(self.n_intervals[:fid])
 
+    # Routed (dynamic fn_id) dispatch: the per-member offsets above as int32
+    # vectors, which the routed kernels gather by fn_id on the device.
+
+    @property
+    def bounds_offsets(self) -> np.ndarray:
+        """(F,) int32 — per-member start into the flat ``boundaries`` lane."""
+        return np.asarray([self.bounds_offset(f) for f in range(self.n_functions)],
+                          dtype=np.int32)
+
+    @property
+    def lane_offsets(self) -> np.ndarray:
+        """(F,) int32 — per-member start into the selector/dequant lanes."""
+        return np.asarray([self.lane_offset(f) for f in range(self.n_functions)],
+                          dtype=np.int32)
+
     def eval(self, fn, x: np.ndarray) -> np.ndarray:
         """f64 dequantize-on-read oracle for member ``fn`` (name or fn_id)."""
         fid = self.fn_id(fn) if isinstance(fn, str) else int(fn)

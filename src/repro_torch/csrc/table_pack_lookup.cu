@@ -24,6 +24,14 @@
 //   tp_poly_lookup     replaces _poly_kernel (:503): one polynomial member,
 //                      per-lane dequantization and Horner.
 //   tp_poly_grad       replaces _poly_grad_kernel (:524): its value and slope.
+//   tp_routed_lookup   replaces the TPU kernel _routed_kernel
+//                      (src/repro/kernels/routed_pack_lookup.py:101): row i of x
+//                      through f32-pack member fn_ids[i], the ids a device
+//                      operand.
+//   tp_routed_grad     replaces _routed_grad_kernel (:126): its value and slope.
+//   tp_routed_quant_lookup  replaces _routed_quant_kernel (:300): the same over
+//                      the quantized pack (ragged offsets, code width per row).
+//   tp_routed_quant_grad    replaces _routed_quant_grad_kernel (:329).
 //
 // What bounds them on the card: bytes.  Each element is read once and its
 // output(s) written once, N * (in_bytes + n_out * out_bytes) at 3.35 TB/s; the
@@ -51,6 +59,21 @@
 // gate arrives in bf16, the flash exponent in f32); the body computes in f32
 // and stores with round to nearest even.  Built with -fmad=false:
 // bit-identical to the plain PyTorch versions.
+//
+// Routed dispatch.  The TPU kernels scalar-prefetched the per-row fn_ids and
+// let them steer each grid row's metadata DMA.  Here the ids, the members'
+// interval counts and extrapolate flags (and, for the quantized pack, their
+// ragged offsets and code widths) are int32 device vectors: a block reads its
+// row's id, clamps it to [0, F-1] and gathers that member's scalars, so the
+// routing is never read on the host and one compiled kernel serves every
+// routing.  The work is (row, column tile) items, each block walking one
+// contiguous run of them; a block restages the member's metadata row only
+// where its run enters a row of another member.  Staging is sized for the
+// largest member (the f32 pack's rows are all n_max long; the quant pack's
+// widest member plus its larger width group) and falls back to global memory
+// past kSmemBytes like the static kernels.  The per-element bodies are the
+// static kernels' own (table_lookup.cuh) with the member's values read at run
+// time, so row i is bit-identical to the static launch of member fn_ids[i].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -251,9 +274,179 @@ poly_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
   }
 }
 
+// ---- routed dispatch ----------------------------------------------------------
+
+constexpr int kRoutedTile = kThreads;  // columns of one work item
+
+// A block's share of the (row, column tile) work items.
+struct RoutedWork {
+  long long cols;   // columns of a row (x's trailing axes, flattened)
+  long long tiles;  // column tiles of a row
+  long long per;    // work items of one block (a contiguous run)
+  long long items;  // rows * tiles
+};
+
+__device__ __forceinline__ int routed_fid(const int* ids, long long r, int n_fn) {
+  const int f = ids[r];
+  return f < 0 ? 0 : (f > n_fn - 1 ? n_fn - 1 : f);
+}
+
+// Walk this block's run of work items row by row: `restage(fid)` runs between
+// two barriers where the run enters a row of another member (the id is read
+// by every thread of the block, so the branch is uniform), `body(r, c0, c1)`
+// over the run's columns [c0, c1) of row r.  One division a block and one id
+// load a row: the per-element loop carries no dispatch work.
+template <typename Restage, typename Body>
+__device__ __forceinline__ void routed_walk(const RoutedWork& w, const int* ids,
+                                            int n_fn, Restage restage, Body body) {
+  const long long w0 = static_cast<long long>(blockIdx.x) * w.per;
+  long long left = w0 + w.per < w.items ? w.per : w.items - w0;  // tiles to do
+  long long r = w0 / w.tiles;
+  long long t = w0 - r * w.tiles;  // first tile within row r
+  int staged = -1;
+  while (left > 0) {
+    const int fid = routed_fid(ids, r, n_fn);
+    if (fid != staged) {
+      __syncthreads();  // every thread is done with the previous member's row
+      restage(fid);
+      __syncthreads();
+      staged = fid;
+    }
+    const long long n = w.tiles - t < left ? w.tiles - t : left;
+    const long long c0 = t * kRoutedTile;
+    const long long c1 = c0 + n * kRoutedTile;
+    body(r, c0, c1 < w.cols ? c1 : w.cols);
+    left -= n;
+    ++r;
+    t = 0;
+  }
+}
+
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kThreads)
+routed_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
+              RoutedWork w, const int* __restrict__ ids,
+              const int* __restrict__ n_arr, const int* __restrict__ extr,
+              const float* __restrict__ bounds, const float* __restrict__ invd,
+              const float* __restrict__ base, const float* __restrict__ segs,
+              const float* __restrict__ values, int n_fn, int n_max, int m,
+              int stage) {
+  extern __shared__ float smem[];
+  // the values vector is every member's: staged once (the first restage's
+  // barrier publishes it)
+  const float* vals = stage_copy(smem + 4 * n_max + 1, values, m, stage == kStageAll);
+  const float* seg[4];
+  const int count[4] = {n_max + 1, n_max, n_max, n_max};
+  int nf = 0;  // the member's interval count and extrapolate flag, loaded
+  bool ex = false;  // in the same round trip as its metadata row
+  auto restage = [&](int fid) {
+    nf = n_arr[fid];
+    ex = extr[fid] != 0;
+    const long long row = static_cast<long long>(fid) * n_max;
+    seg[0] = bounds + static_cast<long long>(fid) * (n_max + 1);
+    seg[1] = invd + row;
+    seg[2] = base + row;
+    seg[3] = segs + row;
+    stage_row(smem, seg, count, stage >= kStageMeta);
+  };
+  auto body = [&](long long r, long long c0, long long c1) {
+    const tl::Row rw{seg[0], seg[1], seg[2], seg[3], n_max, nf};
+    for (long long c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
+      const long long idx = r * w.cols + c;
+      const float xv = load_f32(x, idx);
+      if (kMode == kGrad) {
+        float d;
+        store_f32(out, idx, tl::lookup_grad(xv, rw, vals, m, ex, &d));
+        store_f32(slope, idx, d);
+      } else {
+        store_f32(out, idx, tl::lookup(xv, rw, vals, m, ex));
+      }
+    }
+  };
+  routed_walk(w, ids, n_fn, restage, body);
+}
+
+template <typename T, typename C, int kMode>
+__device__ __forceinline__ void routed_quant_cols(const T* x, T* out, T* slope,
+                                                  long long row0, long long c0,
+                                                  long long c1, const tl::QuantRow& qr,
+                                                  const C* cd, int m, bool ex) {
+  for (long long c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
+    const long long idx = row0 + c;
+    const float xv = load_f32(x, idx);
+    if (kMode == kGrad) {
+      float d;
+      store_f32(out, idx, tl::quant_lookup(xv, qr, cd, m, ex, &d));
+      store_f32(slope, idx, d);
+    } else {
+      store_f32(out, idx, tl::quant_lookup(xv, qr, cd, m, ex,
+                                           static_cast<float*>(nullptr)));
+    }
+  }
+}
+
+// `codes8` / `codes16` are the two width groups (m8 / m16 entries); a row
+// reads only its member's group (bits_arr[fid] = 8 or 16), never the other.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kThreads)
+routed_quant_kernel(const T* __restrict__ x, T* __restrict__ out,
+                    T* __restrict__ slope, RoutedWork w, const int* __restrict__ ids,
+                    const int* __restrict__ n_arr, const int* __restrict__ extr,
+                    const int* __restrict__ bo_arr, const int* __restrict__ lo_arr,
+                    const int* __restrict__ bits_arr, const float* __restrict__ bounds,
+                    const float* __restrict__ invd, const float* __restrict__ base,
+                    const float* __restrict__ segs, const float* __restrict__ scale,
+                    const float* __restrict__ zero, const float* __restrict__ ramp,
+                    const int8_t* __restrict__ codes8,
+                    const int16_t* __restrict__ codes16, int n_fn, int max_n, int m8,
+                    int m16, int stage) {
+  extern __shared__ float smem[];
+  float* code_smem = smem + 7 * max_n + 1;
+  const float* seg[7];
+  int nn = 0, bits = 0;
+  bool ex = false;
+  const void* cd = nullptr;
+  auto restage = [&](int fid) {
+    nn = n_arr[fid];
+    ex = extr[fid] != 0;
+    const int bo = bo_arr[fid], lo = lo_arr[fid];
+    seg[0] = bounds + bo;
+    seg[1] = invd + lo;
+    seg[2] = base + lo;
+    seg[3] = segs + lo;
+    seg[4] = scale + lo;
+    seg[5] = zero + lo;
+    seg[6] = ramp + lo;
+    const int count[7] = {nn + 1, nn, nn, nn, nn, nn, nn};
+    stage_row(smem, seg, count, stage >= kStageMeta);
+    const int b = bits_arr[fid] == 8 ? 8 : 16;
+    if (b != bits) {  // another width group: stage it in place of the last
+      bits = b;
+      if (b == 8) {
+        cd = stage_copy(reinterpret_cast<int8_t*>(code_smem), codes8, m8,
+                        stage == kStageAll);
+      } else {
+        cd = stage_copy(reinterpret_cast<int16_t*>(code_smem), codes16, m16,
+                        stage == kStageAll);
+      }
+    }
+  };
+  auto body = [&](long long r, long long c0, long long c1) {
+    const tl::QuantRow qr{seg[0], seg[1], seg[2], seg[3], seg[4], seg[5], seg[6], nn};
+    if (bits == 8) {
+      routed_quant_cols<T, int8_t, kMode>(x, out, slope, r * w.cols, c0, c1, qr,
+                                          static_cast<const int8_t*>(cd), m8, ex);
+    } else {
+      routed_quant_cols<T, int16_t, kMode>(x, out, slope, r * w.cols, c0, c1, qr,
+                                           static_cast<const int16_t*>(cd), m16, ex);
+    }
+  };
+  routed_walk(w, ids, n_fn, restage, body);
+}
+
 // ---- launches -----------------------------------------------------------------
 
-int grid_for(long long n) {
+int sm_count() {
   static int n_sm = 0;
   if (n_sm == 0) {
     int dev = 0;
@@ -261,9 +454,27 @@ int grid_for(long long n) {
     cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (n_sm <= 0) n_sm = 1;
   }
+  return n_sm;
+}
+
+int grid_for(long long n) {
   const long long want = (n + kThreads - 1) / kThreads;
-  const long long cap = static_cast<long long>(n_sm) * kBlocksPerSM;
+  const long long cap = static_cast<long long>(sm_count()) * kBlocksPerSM;
   return static_cast<int>(want < cap ? want : cap);
+}
+
+// The work items of `rows` rows of n / rows columns, and the blocks that
+// walk them: at most kBlocksPerSM a multiprocessor, each one contiguous run.
+RoutedWork routed_work(long long n, int rows, int* blocks) {
+  RoutedWork w;
+  w.cols = n / rows;
+  w.tiles = (w.cols + kRoutedTile - 1) / kRoutedTile;
+  w.items = w.tiles * rows;
+  const long long cap = static_cast<long long>(sm_count()) * kBlocksPerSM;
+  const long long b = w.items < cap ? w.items : cap;
+  w.per = (w.items + b - 1) / b;
+  *blocks = static_cast<int>((w.items + w.per - 1) / w.per);
+  return w;
 }
 
 // The staging of a block and its dynamic shared bytes: the metadata and the
@@ -401,6 +612,62 @@ cudaError_t launch_poly(const void* x, void* out, void* slope, long long n, int 
   return cudaGetLastError();
 }
 
+// Refuses (cudaErrorInvalidValue, no launch) an empty pack, a values vector
+// of fewer than two entries, a row count that does not divide n and an
+// unknown dtype.
+template <int kMode>
+cudaError_t launch_routed(const void* x, void* out, void* slope, long long n, int dtype,
+                          const int* ids, const int* n_arr, const int* extr,
+                          const float* bounds, const float* invd, const float* base,
+                          const float* segs, const float* values, int n_fn, int n_max,
+                          int m, int rows, cudaStream_t stream) {
+  if (n_fn < 1 || n_max < 1 || m < 2 || rows < 1 || n < 0 || n % rows != 0 ||
+      (kMode == kGrad && !slope)) {
+    return cudaErrorInvalidValue;
+  }
+  if (n == 0) return cudaSuccess;
+  int blocks = 0;
+  const RoutedWork w = routed_work(n, rows, &blocks);
+  const Staging st = staging_for(4LL * n_max + 1, 4LL * m);
+#define TP_ROUTED(T, ...)                                                              \
+  routed_kernel<T, kMode><<<blocks, kThreads, st.bytes, stream>>>(                     \
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), w, ids,  \
+      n_arr, extr, bounds, invd, base, segs, values, n_fn, n_max, m, st.stage)
+  TP_DISPATCH_DTYPE(dtype, TP_ROUTED, 0);
+#undef TP_ROUTED
+  return cudaGetLastError();
+}
+
+// max_n: the widest member's interval count; m8 / m16: the two code groups'
+// sizes.  The staging holds the widest member's seven lanes and the larger
+// group.  Refuses what launch_routed refuses and an empty code group.
+template <int kMode>
+cudaError_t launch_routed_quant(const void* x, void* out, void* slope, long long n,
+                                int dtype, const int* const* routing,
+                                const float* const* planes, const void* codes8,
+                                const void* codes16, int n_fn, int max_n, int m8,
+                                int m16, int rows, cudaStream_t stream) {
+  if (n_fn < 1 || max_n < 1 || m8 < 1 || m16 < 1 || rows < 1 || n < 0 ||
+      n % rows != 0 || (kMode == kGrad && !slope)) {
+    return cudaErrorInvalidValue;
+  }
+  if (n == 0) return cudaSuccess;
+  int blocks = 0;
+  const RoutedWork w = routed_work(n, rows, &blocks);
+  const long long code_bytes = m8 > 2LL * m16 ? m8 : 2LL * m16;
+  const Staging st = staging_for(7LL * max_n + 1, code_bytes);
+#define TP_ROUTED_QUANT(T, ...)                                                        \
+  routed_quant_kernel<T, kMode><<<blocks, kThreads, st.bytes, stream>>>(               \
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), w,       \
+      routing[0], routing[1], routing[2], routing[3], routing[4], routing[5],          \
+      planes[0], planes[1], planes[2], planes[3], planes[4], planes[5], planes[6],     \
+      static_cast<const int8_t*>(codes8), static_cast<const int16_t*>(codes16), n_fn,  \
+      max_n, m8, m16, st.stage)
+  TP_DISPATCH_DTYPE(dtype, TP_ROUTED_QUANT, 0);
+#undef TP_ROUTED_QUANT
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  All pointers are device pointers; the
@@ -520,6 +787,66 @@ extern "C" cudaError_t tp_poly_grad(const void* x, void* y, void* slope, long lo
   return launch_poly<kGrad>(x, y, slope, n, dtype, planes, codes, bo, lo, n_intervals,
                             lmax, degree, m, code_bits, extrapolate,
                             static_cast<cudaStream_t>(stream));
+}
+
+// Routed f32 pack: x holds `rows` rows of n / rows columns; row r goes
+// through member ids[r] (clamped to [0, n_fn - 1]).  ids, n_arr (interval
+// counts) and extr (extrapolate flags) are int32 device vectors, ids of
+// `rows` entries, the others of n_fn.
+extern "C" cudaError_t tp_routed_lookup(const void* x, void* out, long long n,
+                                        int dtype, const int* ids, const int* n_arr,
+                                        const int* extr, const float* bounds,
+                                        const float* invd, const float* base,
+                                        const float* segs, const float* values,
+                                        int n_fn, int n_max, int m, int rows,
+                                        void* stream) {
+  return launch_routed<kValue>(x, out, nullptr, n, dtype, ids, n_arr, extr, bounds,
+                               invd, base, segs, values, n_fn, n_max, m, rows,
+                               static_cast<cudaStream_t>(stream));
+}
+
+extern "C" cudaError_t tp_routed_grad(const void* x, void* y, void* slope, long long n,
+                                      int dtype, const int* ids, const int* n_arr,
+                                      const int* extr, const float* bounds,
+                                      const float* invd, const float* base,
+                                      const float* segs, const float* values,
+                                      int n_fn, int n_max, int m, int rows,
+                                      void* stream) {
+  return launch_routed<kGrad>(x, y, slope, n, dtype, ids, n_arr, extr, bounds, invd,
+                              base, segs, values, n_fn, n_max, m, rows,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Routed quantized pack: as tp_routed_lookup, with bo / lo (each member's
+// boundary and lane offsets) and bits (its code width, 8 or 16) gathered by
+// fn_id too, and both width groups passed (codes8 of m8 entries, codes16 of
+// m16).  Plane order: bounds, invd, base, segs, scale, zero, ramp.
+extern "C" cudaError_t tp_routed_quant_lookup(
+    const void* x, void* out, long long n, int dtype, const int* ids,
+    const int* n_arr, const int* extr, const int* bo, const int* lo, const int* bits,
+    const float* bounds, const float* invd, const float* base, const float* segs,
+    const float* scale, const float* zero, const float* ramp, const void* codes8,
+    const void* codes16, int n_fn, int max_n, int m8, int m16, int rows,
+    void* stream) {
+  const int* routing[6] = {ids, n_arr, extr, bo, lo, bits};
+  const float* planes[7] = {bounds, invd, base, segs, scale, zero, ramp};
+  return launch_routed_quant<kValue>(x, out, nullptr, n, dtype, routing, planes,
+                                     codes8, codes16, n_fn, max_n, m8, m16, rows,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" cudaError_t tp_routed_quant_grad(
+    const void* x, void* y, void* slope, long long n, int dtype, const int* ids,
+    const int* n_arr, const int* extr, const int* bo, const int* lo, const int* bits,
+    const float* bounds, const float* invd, const float* base, const float* segs,
+    const float* scale, const float* zero, const float* ramp, const void* codes8,
+    const void* codes16, int n_fn, int max_n, int m8, int m16, int rows,
+    void* stream) {
+  const int* routing[6] = {ids, n_arr, extr, bo, lo, bits};
+  const float* planes[7] = {bounds, invd, base, segs, scale, zero, ramp};
+  return launch_routed_quant<kGrad>(x, y, slope, n, dtype, routing, planes, codes8,
+                                    codes16, n_fn, max_n, m8, m16, rows,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* tp_error_string(int err) {

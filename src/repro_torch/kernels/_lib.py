@@ -1,12 +1,17 @@
 """The ctypes binding of ``csrc/table_pack_lookup.cu``, shared by the kernel
 wrappers of :mod:`~repro_torch.kernels.table_pack_lookup`,
+:mod:`~repro_torch.kernels.routed_pack_lookup`,
 :mod:`~repro_torch.kernels.table_lookup` and :mod:`~repro_torch.kernels.table_grad`.
 
 Every entry point takes ``(x, out[, slope], n, dtype, <planes>, <ints>,
 stream)`` and returns the launch's CUDA error code.  The f32 pack and table
 entries take five f32 planes (bounds, invd, base, segs, values); the quantized
 and polynomial ones seven f32 planes (bounds, invd, base, segs and three
-dequant planes) and then the codes pointer of the member's width group.
+dequant planes) and then the codes pointer of the member's width group.  The
+routed entries take the int32 routing vectors first (ids, per-member interval
+counts, extrapolate flags; for the quantized pack also boundary offsets, lane
+offsets and code widths), then the pack's planes (the quantized pack's both
+code groups), then the row count.
 :func:`launch` flattens x, allocates the outputs, launches on the current
 stream and raises on an error; :data:`launches` counts the launches of each
 kernel, and only a launch adds to it.  :func:`run` is the one wrapper
@@ -29,7 +34,9 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 launches: Dict[str, int] = {
     "table_pack_lookup": 0, "tableflash_exp": 0, "table_pack_grad": 0,
     "table_lookup": 0, "table_lookup_grad": 0, "quant_pack_lookup": 0,
-    "quant_pack_grad": 0, "poly_pack_lookup": 0, "poly_pack_grad": 0}
+    "quant_pack_grad": 0, "poly_pack_lookup": 0, "poly_pack_grad": 0,
+    "routed_pack_lookup": 0, "routed_pack_grad": 0, "routed_quant_pack_lookup": 0,
+    "routed_quant_pack_grad": 0}
 
 
 def reset_launches() -> None:
@@ -53,6 +60,13 @@ _ENTRIES = {
     # bo, lo, n_intervals, lmax, degree, m, code_bits, extrapolate
     "tp_poly_lookup": (1, 8, 8),
     "tp_poly_grad": (2, 8, 8),
+    # ids, n_arr, extr + 5 f32 planes; n_fn, n_max, m, rows
+    "tp_routed_lookup": (1, 8, 4),
+    "tp_routed_grad": (2, 8, 4),
+    # ids, n_arr, extr, bo, lo, bits + 7 f32 planes + codes8, codes16;
+    # n_fn, max_n, m8, m16, rows
+    "tp_routed_quant_lookup": (1, 15, 5),
+    "tp_routed_quant_grad": (2, 15, 5),
 }
 _typed: Dict[int, ctypes.CDLL] = {}
 

@@ -1,0 +1,144 @@
+"""Routed Hopper kernels: per-row fn_id dispatch over a
+:class:`~repro_torch.approx.table_pack.TablePack` or a
+:class:`~repro_torch.approx.table_pack.QuantTablePack`, with their wrappers
+and plain PyTorch versions.
+
+Row i of x (its leading axis; the trailing axes are the row's columns) goes
+through member ``fn_ids[i]``.  The ids, and the per-member interval counts,
+extrapolate flags and (quantized pack) ragged offsets and code widths, are
+int32 vectors on the card that the kernel gathers by fn_id, so one compiled
+kernel serves every routing and the wrappers never read the routing on the
+host: a new routing is a new operand, and a routed call can be captured in a
+CUDA graph whose ids tensor is rewritten in place between replays.
+
+  * :func:`routed_pack_lookup` / :func:`routed_pack_grad` — the f32 pack,
+    value or value + slope.  CUDA kernels ``tp_routed_lookup`` /
+    ``tp_routed_grad`` in ``csrc/table_pack_lookup.cu``; replace the TPU
+    kernels ``_routed_kernel`` / ``_routed_grad_kernel``
+    (``src/repro/kernels/routed_pack_lookup.py:101``, ``:126``).  Plain
+    versions: ``eval_routed_ref`` and ``eval_routed_slope``.
+  * :func:`routed_quant_pack_lookup` / :func:`routed_quant_pack_grad` — the
+    quantized pack.  CUDA kernels ``tp_routed_quant_lookup`` /
+    ``tp_routed_quant_grad``; replace ``_routed_quant_kernel`` /
+    ``_routed_quant_grad_kernel`` (``:300``, ``:329``).  Plain versions:
+    ``eval_routed_quant_ref`` and ``eval_routed_quant_slope``.
+
+``fn_ids`` is a name or int (every row), a sequence of names/ints (validated,
+``KeyError`` on an unknown member) or a ``torch.Tensor`` of ids on the pack's
+device (clamped to ``[0, F-1]``: by ``torch.clamp`` in the plain versions, by
+the kernel on the card).  ``extrapolate`` is one flag or one per member.
+Every wrapper goes through :func:`repro_torch.kernels._lib.run`: a CPU tensor
+gets the plain version, a CUDA tensor one launch or an error.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.approx.table_pack import (QuantTablePack, TablePack,
+                                          _fn_id_operand, eval_routed_quant_ref,
+                                          eval_routed_quant_slope, eval_routed_ref,
+                                          eval_routed_slope, routed_extr_operand)
+
+from ._lib import launches, reset_launches, run
+
+__all__ = ["launches", "reset_launches", "routed_pack_lookup",
+           "routed_pack_lookup_plain", "routed_pack_grad", "routed_pack_grad_plain",
+           "routed_quant_pack_lookup", "routed_quant_pack_lookup_plain",
+           "routed_quant_pack_grad", "routed_quant_pack_grad_plain"]
+
+
+def _rows(x: torch.Tensor) -> int:
+    if x.dim() < 1:
+        raise ValueError("routed dispatch needs a leading row axis (one "
+                         "function id per row); got a 0-d input")
+    return x.shape[0]
+
+
+def _routed_args(pack: TablePack, fn_ids, x: torch.Tensor, extrapolate):
+    """(planes, ints) of an f32-pack routed entry point."""
+    rows = _rows(x)
+    (n_arr,) = pack.routing_scalars()
+    return ((_fn_id_operand(pack, fn_ids, rows).contiguous(), n_arr,
+             routed_extr_operand(pack, extrapolate), pack.boundaries,
+             pack.inv_delta, pack.base, pack.seg_count, pack.values),
+            (pack.n_functions, pack.n_max, pack.footprint, rows))
+
+
+def _routed_quant_args(pack: QuantTablePack, fn_ids, x: torch.Tensor, extrapolate):
+    """(planes, ints) of a quant-pack routed entry point."""
+    rows = _rows(x)
+    n_arr, bo, lo, bits = pack.routing_scalars()
+    return ((_fn_id_operand(pack, fn_ids, rows).contiguous(), n_arr,
+             routed_extr_operand(pack, extrapolate), bo, lo, bits, pack.boundaries,
+             pack.inv_delta, pack.base, pack.seg_count, pack.scale, pack.zero,
+             pack.ramp, pack.codes8, pack.codes16),
+            (pack.n_functions, max(pack.n_intervals), pack.codes8.shape[0],
+             pack.codes16.shape[0], rows))
+
+
+def routed_pack_lookup_plain(pack: TablePack, fn_ids, x: torch.Tensor, *,
+                             extrapolate=False) -> torch.Tensor:
+    """Plain PyTorch version of ``tp_routed_lookup``: ``eval_routed_ref``."""
+    return eval_routed_ref(pack, fn_ids, x, extrapolate=extrapolate)
+
+
+def routed_pack_lookup(pack: TablePack, fn_ids, x: torch.Tensor, *,
+                       extrapolate=False) -> torch.Tensor:
+    """Row i of ``x`` through member ``fn_ids[i]`` of the f32 pack."""
+    return run("tp_routed_lookup", "routed_pack_lookup", x, pack.device, "pack",
+               _routed_args(pack, fn_ids, x, extrapolate),
+               lambda: routed_pack_lookup_plain(pack, fn_ids, x,
+                                                extrapolate=extrapolate))
+
+
+def routed_pack_grad_plain(pack: TablePack, fn_ids, x: torch.Tensor, *,
+                           extrapolate=False):
+    """Plain PyTorch version of ``tp_routed_grad``: ``(eval_routed_ref,
+    eval_routed_slope)``."""
+    return (eval_routed_ref(pack, fn_ids, x, extrapolate=extrapolate),
+            eval_routed_slope(pack, fn_ids, x, extrapolate=extrapolate))
+
+
+def routed_pack_grad(pack: TablePack, fn_ids, x: torch.Tensor, *,
+                     extrapolate=False):
+    """Routed ``(y, dy/dx)``, both in x's dtype, from one selector pass."""
+    return run("tp_routed_grad", "routed_pack_grad", x, pack.device, "pack",
+               _routed_args(pack, fn_ids, x, extrapolate),
+               lambda: routed_pack_grad_plain(pack, fn_ids, x,
+                                              extrapolate=extrapolate))
+
+
+def routed_quant_pack_lookup_plain(pack: QuantTablePack, fn_ids, x: torch.Tensor,
+                                   *, extrapolate=False) -> torch.Tensor:
+    """Plain PyTorch version of ``tp_routed_quant_lookup``:
+    ``eval_routed_quant_ref``."""
+    return eval_routed_quant_ref(pack, fn_ids, x, extrapolate=extrapolate)
+
+
+def routed_quant_pack_lookup(pack: QuantTablePack, fn_ids, x: torch.Tensor, *,
+                             extrapolate=False) -> torch.Tensor:
+    """Row i of ``x`` through quantized member ``fn_ids[i]``
+    (dequantize-on-read)."""
+    return run("tp_routed_quant_lookup", "routed_quant_pack_lookup", x,
+               pack.device, "pack", _routed_quant_args(pack, fn_ids, x, extrapolate),
+               lambda: routed_quant_pack_lookup_plain(pack, fn_ids, x,
+                                                      extrapolate=extrapolate))
+
+
+def routed_quant_pack_grad_plain(pack: QuantTablePack, fn_ids, x: torch.Tensor, *,
+                                 extrapolate=False):
+    """Plain PyTorch version of ``tp_routed_quant_grad``:
+    ``(eval_routed_quant_ref, eval_routed_quant_slope)``."""
+    return (eval_routed_quant_ref(pack, fn_ids, x, extrapolate=extrapolate),
+            eval_routed_quant_slope(pack, fn_ids, x, extrapolate=extrapolate))
+
+
+def routed_quant_pack_grad(pack: QuantTablePack, fn_ids, x: torch.Tensor, *,
+                           extrapolate=False):
+    """Routed quantized ``(y, dy/dx)``, both in x's dtype, from one selector
+    pass."""
+    return run("tp_routed_quant_grad", "routed_quant_pack_grad", x, pack.device,
+               "pack", _routed_quant_args(pack, fn_ids, x, extrapolate),
+               lambda: routed_quant_pack_grad_plain(pack, fn_ids, x,
+                                                    extrapolate=extrapolate))

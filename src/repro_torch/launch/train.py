@@ -48,6 +48,8 @@ def main(argv=None):
                          "the CUDA table kernels, quant_pack = the pack with "
                          "int8/int16 codes dequantized on read, poly_pack = "
                          "the planner's degree-1..3 pack (see --pack-budget), "
+                         "routed_* = the same packs with dynamic per-row "
+                         "fn_id dispatch (one kernel for every member), "
                          "*_ref = their plain PyTorch versions")
     ap.add_argument("--approx-ea", type=float, default=None,
                     help="override the config's error budget E_a")

@@ -98,3 +98,16 @@ def softcap(x: torch.Tensor, cap: float, tanh_fn=None) -> torch.Tensor:
         return x
     t = torch.tanh if tanh_fn is None else tanh_fn
     return cap * t(x / cap)
+
+
+def routed_activation(approx, names, device=None) -> Any:
+    """MoE-style slot-routed activations: ``f(x)`` applies ``names[i]`` to
+    row i of a slot-major tensor ``(n_slots, ...)`` in ONE call.
+
+    ``approx`` is the model's :class:`repro_torch.approx.ApproxConfig` and
+    ``device`` where its tables live.  In table modes the dispatch runs
+    through the routed kernels: the slot->function assignment is a device
+    operand, so one kernel serves every routing; exact mode falls back to a
+    row-select over the exact activations.
+    """
+    return approx.routed_fn(tuple(names), device)

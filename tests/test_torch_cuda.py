@@ -18,11 +18,15 @@ import torch
 
 from repro_torch.approx import ApproxConfig
 from repro_torch.approx.table_pack import (build_pack, build_poly_pack,
-                                          build_quant_pack, from_poly_layout)
+                                          build_quant_pack, from_poly_layout,
+                                          from_quant_layout, make_routed_unary_fn,
+                                          routed_extr_flags)
 from repro_torch.approx.torch_table import TorchTable, from_spec
 from repro_torch.core import design
 from repro_torch.core.flow import cached_table
-from repro_torch.core.packing import poly_pack_layout
+from repro_torch.core.packing import poly_pack_layout, quant_pack_layout
+from repro_torch.core.quantize import plan_quant_member
+from repro_torch.kernels import routed_pack_lookup as R
 from repro_torch.kernels import table_grad as TG
 from repro_torch.kernels import table_lookup as TL
 from repro_torch.kernels import table_pack_lookup as K
@@ -149,7 +153,9 @@ def test_wrapper_contract(pack):
                           "table_pack_grad": 0, "table_lookup": 0,
                           "table_lookup_grad": 0, "quant_pack_lookup": 0,
                           "quant_pack_grad": 0, "poly_pack_lookup": 0,
-                          "poly_pack_grad": 0}
+                          "poly_pack_grad": 0,
+                          "routed_pack_lookup": 0, "routed_pack_grad": 0,
+                          "routed_quant_pack_lookup": 0, "routed_quant_pack_grad": 0}
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         K.table_pack_lookup(pack, "silu", x.half())
     for p, t in ((cpu_pack, x), (pack, x.cpu())):
@@ -234,7 +240,9 @@ def test_grad_wrappers_contract(pack, cuda):
                           "table_pack_grad": 1, "table_lookup": 1,
                           "table_lookup_grad": 1, "quant_pack_lookup": 0,
                           "quant_pack_grad": 0, "poly_pack_lookup": 0,
-                          "poly_pack_grad": 0}
+                          "poly_pack_grad": 0,
+                          "routed_pack_lookup": 0, "routed_pack_grad": 0,
+                          "routed_quant_pack_lookup": 0, "routed_quant_pack_grad": 0}
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         TG.table_lookup_grad(jt, x.half())
     with pytest.raises(ValueError, match="table lives on"):
@@ -455,13 +463,217 @@ def test_quant_poly_wrappers_contract(quant, poly, cuda):
                           "table_pack_grad": 0, "table_lookup": 0,
                           "table_lookup_grad": 0, "quant_pack_lookup": 1,
                           "quant_pack_grad": 1, "poly_pack_lookup": 1,
-                          "poly_pack_grad": 1}
+                          "poly_pack_grad": 1,
+                          "routed_pack_lookup": 0, "routed_pack_grad": 0,
+                          "routed_quant_pack_lookup": 0, "routed_quant_pack_grad": 0}
 
 
 @pytest.mark.parametrize("mode", ["quant_pack", "poly_pack"])
 def test_reduced_quant_poly_card_matches_cpu(cuda, mode):
     """Reduced stablelm, f32, in ``mode`` with TableFlash: serving on the card
     (the quant/poly kernels and tableflash_exp) token-identical to the plain
+    versions on the CPU, and 2 train steps with losses within 1e-4 relative
+    (the card and the CPU sum the matrix products in other orders)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import build_model, reduced
+    from repro_torch.optim import adamw
+    from repro_torch.serving.engine import ContinuousEngine, Request
+    from repro_torch.train.loop import batch_to, init_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    cfg = reduced("stablelm-3b").replace(compute_dtype="float32", approx=ApproxConfig(
+        mode=mode, e_a=1e-4, omega=0.2, attn_table=True))
+    rng = np.random.default_rng(2)
+    reqs = [Request(prompt=rng.integers(0, 128, (int(n),)).astype(np.int32),
+                    max_new_tokens=6) for n in rng.integers(3, 12, 5)]
+    cpu_state = init_state(build_model(cfg, "cpu"))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, global_batch=4, seq_len=16))
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    served, losses = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, dev)
+        state = tree_map(lambda t: t.detach().clone().to(dev), cpu_state)
+        K.reset_launches()
+        served[dev] = ContinuousEngine(model, state["params"], 2, 64).serve(reqs)
+        step = make_train_step(model, opt, accum=2)
+        losses[dev] = []
+        for s in range(2):
+            state, m = step(state, batch_to(data.batch_at(s), dev))
+            losses[dev].append(float(m["loss"]))
+        if dev == "cuda":
+            assert K.launches[f"{mode}_lookup"] > 0 and K.launches[f"{mode}_grad"] > 0
+            assert K.launches["tableflash_exp"] > 0
+    for a, b in zip(served["cuda"], served["cpu"]):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# --------------------------------------------------------------------------------------
+# routed dispatch
+# --------------------------------------------------------------------------------------
+
+# the reference's tests/test_routed_pack.py mixed_width_pack
+MIXED_WIDTHS = (("gelu", "int8"), ("tanh", "int16"), ("log", "int16"),
+                ("sigmoid", "int8"))
+
+
+@pytest.fixture(scope="module")
+def routed_packs(cuda, pack, quant):
+    mixed_w = from_quant_layout(quant_pack_layout(
+        [plan_quant_member(n, 1e-4, dtype=d) for n, d in MIXED_WIDTHS]), cuda)
+    fine = build_quant_pack(NAMES, 1e-6, omega=0.2, device=cuda)
+    return {"f32": pack, "quant": quant, "mixed": mixed_w, "quant_1e-6": fine}
+
+
+def _routed_fns(pack):
+    """(routed value, routed grad, their plain versions, static value, static
+    grad) of a pack's family."""
+    if hasattr(pack, "n_max"):
+        return (R.routed_pack_lookup, R.routed_pack_grad, R.routed_pack_lookup_plain,
+                R.routed_pack_grad_plain, K.table_pack_lookup, K.table_pack_grad)
+    return (R.routed_quant_pack_lookup, R.routed_quant_pack_grad,
+            R.routed_quant_pack_lookup_plain, R.routed_quant_pack_grad_plain,
+            K.quant_pack_lookup, K.quant_pack_grad)
+
+
+def _member_edges(pack, fid, n, dtype, seed):
+    if hasattr(pack, "n_max"):
+        return edge_input(pack, fid, n, dtype, seed)
+    return ragged_edge_input(pack, fid, n, dtype, seed)
+
+
+def _routed_check(pack, ids, x, ex):
+    """Both routed kernels bitwise against their plain versions and, row by
+    row, against the static kernels of the row's member."""
+    val, grad, val_plain, grad_plain, static, static_grad = _routed_fns(pack)
+    got = val(pack, ids, x, extrapolate=ex)
+    y, s = grad(pack, ids, x, extrapolate=ex)
+    torch.cuda.synchronize()
+    want_y, want_s = grad_plain(pack, ids, x, extrapolate=ex)
+    assert_bitwise(got, val_plain(pack, ids, x, extrapolate=ex))
+    assert_bitwise(y, want_y)
+    assert_bitwise(s, want_s)
+    flags = [bool(f) for f in routed_extr_flags(pack, ex)]
+    ids_host = torch.as_tensor(
+        ids.tolist() if torch.is_tensor(ids) else [pack.member_id(i) for i in ids])
+    ids_host = ids_host.clamp(0, pack.n_functions - 1)
+    for f in range(pack.n_functions):  # the rows of member f, one static launch
+        rows = torch.nonzero(ids_host == f).flatten().to("cuda")
+        if not rows.numel():
+            continue
+        xs = x[rows]
+        assert_bitwise(got[rows], static(pack, f, xs, extrapolate=flags[f]))
+        sy, ss = static_grad(pack, f, xs, extrapolate=flags[f])
+        assert_bitwise(y[rows], sy)
+        assert_bitwise(s[rows], ss)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("flags", ["off", "on", "per_member"])
+@pytest.mark.parametrize("kind", ["f32", "quant", "mixed", "quant_1e-6"])
+def test_routed_kernels_bitwise(routed_packs, kind, flags, dtype):
+    pk = routed_packs[kind]
+    F = pk.n_functions
+    ex = (tuple(f % 2 == 0 for f in range(F)) if flags == "per_member"
+          else flags == "on")
+    ids = [(3 * r + 1) % F for r in range(2 * F + 1)]
+    x = torch.stack([_member_edges(pk, f, 4000, dtype, seed=r)[:4000]
+                     for r, f in enumerate(ids)])
+    _routed_check(pk, ids, x, ex)
+    # the same rows as a device tensor of ids, out-of-range ones clamped
+    raw = torch.tensor([ids[0], -5, 10_000] + ids[3:], device="cuda")
+    _routed_check(pk, raw, x, ex)
+
+
+@pytest.mark.parametrize("kind", ["f32", "quant"])
+def test_routed_rows_beyond_grid_limit(routed_packs, kind):
+    """70,000 rows of 3 (more rows than a CUDA grid's y or z extent holds)."""
+    pk = routed_packs[kind]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((70_000, 3), generator=g, device="cuda") * 6
+    ids = torch.arange(70_000, device="cuda") % pk.n_functions
+    for ex in (False, True):
+        _routed_check(pk, ids, x, ex)
+
+
+@pytest.mark.parametrize("kind", ["f32", "quant"])
+def test_routed_cuda_graph_reroute(routed_packs, kind):
+    """A routed call captured in a CUDA graph reads the ids tensor at replay:
+    rewriting it in place re-routes the replay, with no capture anew."""
+    pk = routed_packs[kind]
+    val, grad, val_plain, grad_plain, _, _ = _routed_fns(pk)
+    F = pk.n_functions
+    ids = torch.arange(8, device="cuda", dtype=torch.int32) % F
+    x = torch.randn((8, 3000), device="cuda") * 5
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):  # warm up: builds and loads the kernels
+        val(pk, ids, x)
+        grad(pk, ids, x, extrapolate=True)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = val(pk, ids, x)
+        y, d = grad(pk, ids, x, extrapolate=True)
+    for new in ([F - 1 - (r % F) for r in range(8)], [2] * 8, [0, 99, -1, 3, 1, 1, 0, 4]):
+        ids.copy_(torch.tensor(new, device="cuda", dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert_bitwise(out, val_plain(pk, ids, x))
+        want_y, want_d = grad_plain(pk, ids, x, extrapolate=True)
+        assert_bitwise(y, want_y)
+        assert_bitwise(d, want_d)
+
+
+def test_routed_device_ids_make_no_host_sync(routed_packs):
+    """With the ids on the card, a routed call never synchronizes with the
+    host (torch's sync debug mode turns any sync into an error)."""
+    for kind in ("f32", "quant"):
+        pk = routed_packs[kind]
+        val, grad, *_ = _routed_fns(pk)
+        ids = torch.arange(6, device="cuda") % pk.n_functions
+        x = torch.randn((6, 512), device="cuda")
+        val(pk, ids, x)
+        grad(pk, ids, x)  # warm: kernels loaded, flag vector built
+        unary = make_routed_unary_fn(pk, "silu", extrapolate=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            val(pk, ids, x)
+            grad(pk, ids, x)
+            unary(x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+def test_routed_wrappers_contract(routed_packs):
+    K.reset_launches()
+    pk, q = routed_packs["f32"], routed_packs["quant"]
+    x = torch.randn(6, 5, 7, device="cuda").transpose(1, 2)  # not contiguous
+    for val, grad, p in ((R.routed_pack_lookup, R.routed_pack_grad, pk),
+                         (R.routed_quant_pack_lookup, R.routed_quant_pack_grad, q)):
+        y = val(p, list(range(6)), x)
+        yg, s = grad(p, "silu", x)
+        assert y.shape == yg.shape == s.shape == x.shape and y.is_contiguous()
+        val(p, [], torch.empty(0, 4, device="cuda"))  # no launch
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            val(p, "silu", x.half())
+        with pytest.raises(ValueError, match="pack lives on"):
+            grad(p, "silu", x.cpu())
+        with pytest.raises(ValueError, match="fn_ids live on"):
+            val(p, torch.zeros(6, dtype=torch.int32), x)
+        with pytest.raises(KeyError):
+            val(p, [0, 1, 2, 3, 4, 9], x)
+    assert {k: v for k, v in K.launches.items() if v} == {
+        "routed_pack_lookup": 1, "routed_pack_grad": 1,
+        "routed_quant_pack_lookup": 1, "routed_quant_pack_grad": 1}
+
+
+@pytest.mark.parametrize("mode", ["routed_pack", "routed_quant_pack"])
+def test_reduced_routed_card_matches_cpu(cuda, mode):
+    """Reduced stablelm, f32, in ``mode`` with TableFlash: serving on the card
+    (the routed kernels and tableflash_exp) token-identical to the plain
     versions on the CPU, and 2 train steps with losses within 1e-4 relative
     (the card and the CPU sum the matrix products in other orders)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM

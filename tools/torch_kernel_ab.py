@@ -10,9 +10,9 @@ change, change, parent, ...); each run is a fresh process that builds that
 checkout's ``src/repro_torch/csrc`` with its own ``kernels/_build.py`` and
 times every kernel the checkout's package has.  The timing is not this
 tool's own: each run calls the timing phases of the ``chip_smoke.py`` beside
-this tool (``timing_phase`` and, where the checkout has the quantized and
-polynomial kernels, ``quant_poly_timing_phase``) with the checkout's package
-on ``sys.path``, so every checkout is timed by one method, at the main path's
+this tool (``timing_phase`` and, where the checkout has them, the quantized
+and polynomial kernels' ``quant_poly_timing_phase`` and the routed kernels'
+``routed_timing_phase``) with the checkout's package on ``sys.path``, so every checkout is timed by one method, at the main path's
 shapes, over stablelm-3b's packs.  The card's name and power limit are printed
 with the table of per-run kernel times and medians (us).  Needs a card; exits
 non-zero without one.
@@ -32,7 +32,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Runs with one checkout's package on sys.path; argv: this repository's root,
 # the nvidia-smi line.  Prints one JSON line of kernel us.
 _TIMER = r"""
-import dataclasses, json, sys
+import dataclasses, importlib.util, json, sys
 sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
 from repro_torch.kernels import _build
@@ -46,6 +46,8 @@ rows = cs.timing_phase(pack, dataclasses.replace(approx, mode="table_pallas"), s
 if hasattr(K, "quant_pack_lookup"):
     rows.update(cs.quant_poly_timing_phase(approx.quant_pack("cuda"),
                                            approx.poly_pack("cuda"), sys.argv[2]))
+if importlib.util.find_spec("repro_torch.kernels.routed_pack_lookup"):
+    rows.update(cs.routed_timing_phase(pack, approx.quant_pack("cuda"), sys.argv[2]))
 print(json.dumps({k: r["ms"] * 1e3 for k, r in rows.items()}))
 """
 
