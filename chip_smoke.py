@@ -81,7 +81,34 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``routed_quant_pack`` (+ TableFlash) at the trainer's defaults, as phase 11;
 16. their times, as in phase 8, beside the static kernel of the same member
    at the same shape (the cost of dynamic dispatch), and the 512 x 6912 mixed
-   batch against the six static launches it replaces.
+   batch against the six static launches it replaces;
+17. RangeFold and routed PolyPack kernels: the folded kernels (value, value +
+   slope) bitwise against their plain versions, NaN positions matched, for
+   sin, cos, exp and log, f32 and bf16, at the rotary angle shapes and two
+   ragged sizes, over the full-range samples of tests/harness/fullrange.py
+   (every decade, both signs, near-multiples of pi/2 in both reduction
+   regimes, powers of two, subnormals, +-0, +-inf, NaN) and 200,000 draws
+   with |x| >= 2048 (Payne-Hanek); the routed poly kernels as phase 13 does
+   the other routed kernels, over stablelm-3b's poly pack and the mixed
+   poly pack, re-routed inside a CUDA graph too;
+18. table-served RoPE and routed PolyPack serving: full stablelm-3b serving
+   the 8 requests (+ TableFlash) with ``rope_table`` in ``table_pack``,
+   ``folded_pack`` and ``folded_routed_pack`` (tokens equal to the ``_ref``
+   mode's and to ``table_pack``'s with ``rope_table``), and in
+   ``routed_poly_pack`` (tokens equal to ``routed_poly_pack_ref``'s and to
+   phase 10's ``poly_pack``); ``folded_pack_lookup`` and
+   ``routed_poly_pack_lookup`` must have launched;
+19. their training: 2 steps each at the trainer's defaults in ``table_pack``
+   with ``rope_table`` and in ``routed_poly_pack`` (+ TableFlash), step 0 as
+   in phase 11 and ``routed_poly_pack``'s step-0 loss equal to
+   ``poly_pack``'s of phase 11; then ``ApproxConfig(mode="folded_pack")
+   .unary(name)`` under autograd for each of sin, cos, exp and log (the
+   rotary angles carry no gradient, so the model's step does not reach the
+   folded grad kernel): ``folded_pack_grad`` must launch and the gradient be
+   bitwise the plain slope times dy;
+20. their times, as in phase 16 (the folded kernels beside ``torch.sin`` /
+   ``cos`` / ``exp`` / ``log``; the routed poly kernels beside the static poly
+   kernel of the same member).
 
 The line before the last is one JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout of
@@ -113,10 +140,20 @@ ROUTED_ROWS, ROUTED_COLS = 512, 6912  # a routed_fn batch: B*S rows of d_ff
 RAGGED = (70_000, 3)  # more rows than a CUDA grid's y or z extent (65,535)
 MICRO = TRAIN_BATCH // TRAIN_ACCUM
 TIMING_REPS = 100
-# each mode's served tokens (phases 4, 10, 14): a routed mode must serve its
-# static mode's tokens
+# each mode's served tokens (phases 4, 10, 14, 18; "+rope" marks rope_table): a
+# routed or folded mode must serve its static mode's tokens
 SERVED = {}
-ROUTED_STATIC = {"routed_pack": "table_pack", "routed_quant_pack": "quant_pack"}
+ROUTED_STATIC = {"routed_pack": "table_pack", "routed_quant_pack": "quant_pack",
+                 "routed_poly_pack": "poly_pack",
+                 "folded_pack+rope": "table_pack+rope",
+                 "folded_routed_pack+rope": "table_pack+rope"}
+# each training mode's step-0 loss (phases 11, 15, 19): a routed mode whose
+# static mode trained before must match it
+STEP0 = {}
+FOLDED = ("sin", "cos", "exp", "log")
+# stablelm-3b's rotary angles (d_head 80 -> 40 frequencies): decode, prefill
+# (the queue's longest prompt, 27), training micro-batch
+ROPE_SHAPES = ((BATCH, 1, 40), (BATCH, 27, 40), (MICRO, TRAIN_SEQ, 40))
 
 
 class SmokeError(RuntimeError):
@@ -901,9 +938,10 @@ def quant_poly_kernel_phase(packs, s0):
 
 
 def pack_serving_paths(smi_line, modes):
-    """Full stablelm-3b serving the 8 requests in each ``(mode, value
-    kernel)`` of ``modes`` (+ TableFlash), each against its _ref mode and a
-    routed mode also against its static mode's tokens (``SERVED``)."""
+    """Full stablelm-3b serving the 8 requests in each ``(mode, kernels)`` of
+    ``modes`` (+ TableFlash; a mode ending in "+rope" with ``rope_table``),
+    each against its _ref mode and a routed or folded mode also against its
+    static mode's tokens (``SERVED``).  Every kernel named must launch."""
     import torch
 
     from repro_torch.kernels import table_pack_lookup as K
@@ -915,8 +953,9 @@ def pack_serving_paths(smi_line, modes):
     params = build_model(base, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
     reqs = make_requests(base.vocab, N_REQ, MAX_NEW)
     counts = {}
-    for mode, kname in modes:
-        cfg = _with_mode(base, mode, attn_table=True)
+    for key, knames in modes:
+        mode, rope = key.split("+")[0], key.endswith("+rope")
+        cfg = _with_mode(base, mode, attn_table=True, rope_table=rope)
         model = build_model(cfg, "cuda")
         ref = build_model(_with_mode(cfg, mode + "_ref"), "cuda")
         torch.cuda.synchronize()
@@ -926,8 +965,8 @@ def pack_serving_paths(smi_line, modes):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         c = dict(K.launches)
-        check(c[kname] > 0 and c["tableflash_exp"] > 0,
-              f"{mode}: {kname} / tableflash_exp not launched serving: {c}")
+        check(all(c[k] > 0 for k in knames + ("tableflash_exp",)),
+              f"{key}: {knames} / tableflash_exp not launched serving: {c}")
         check(all(r.steps == MAX_NEW for r in out), "every request gets its budget")
         K.reset_launches()
         t1 = time.perf_counter()
@@ -938,19 +977,20 @@ def pack_serving_paths(smi_line, modes):
         for i, (a, b) in enumerate(zip(out, ref_out)):
             check((a.tokens == b.tokens).all(), f"{mode} request {i}: kernel tokens "
                   f"{a.tokens.tolist()} != plain {b.tokens.tolist()}")
-        SERVED[mode] = [r.tokens for r in out]
+        SERVED[key] = [r.tokens for r in out]
         same = f"{mode}_ref"
-        if mode in ROUTED_STATIC:
-            static = ROUTED_STATIC[mode]
+        if key in ROUTED_STATIC:
+            static = ROUTED_STATIC[key]
             for i, (a, b) in enumerate(zip(out, SERVED[static])):
-                check((a.tokens == b).all(), f"{mode} request {i}: tokens "
+                check((a.tokens == b).all(), f"{key} request {i}: tokens "
                       f"{a.tokens.tolist()} != {static}'s {b.tolist()}")
             same += f" and to {static}"
         tokens = sum(r.steps for r in out)
-        log(f"{mode}: served {len(out)} requests, {tokens} tokens in {dt:.3f}s = "
+        log(f"{key}: served {len(out)} requests, {tokens} tokens in {dt:.3f}s = "
             f"{tokens / dt:.1f} tok/s ({mode}_ref: {tokens / ref_dt:.1f} tok/s), "
             f"token-identical to {same}; launches {c} [{smi_line}]")
-        counts[kname] = c[kname]
+        for k in knames:
+            counts[k] = counts.get(k, 0) + c[k]
         del model, ref
     del params
     torch.cuda.empty_cache()
@@ -958,8 +998,10 @@ def pack_serving_paths(smi_line, modes):
 
 
 def pack_train_paths(smi_line, modes):
-    """Full stablelm-3b, QP_STEPS steps in each ``(mode, grad kernel)`` of
-    ``modes`` (+ TableFlash), step 0 against the _ref mode."""
+    """Full stablelm-3b, QP_STEPS steps in each ``(mode, kernels)`` of
+    ``modes`` (+ TableFlash; "+rope" as in pack_serving_paths), step 0
+    against the _ref mode and a routed mode's against its static mode's
+    (``STEP0``).  Every kernel named must launch."""
     import math
 
     import torch
@@ -968,28 +1010,38 @@ def pack_train_paths(smi_line, modes):
     from repro_torch.train.loop import batch_to
 
     counts = {}
-    for mode, kname in modes:
-        cfg = _with_mode(get_config("stablelm-3b"), mode, attn_table=True)
+    for key, knames in modes:
+        mode, rope = key.split("+")[0], key.endswith("+rope")
+        cfg = _with_mode(get_config("stablelm-3b"), mode, attn_table=True,
+                         rope_table=rope)
         model = build_model(cfg, "cuda")
         ref = build_model(_with_mode(cfg, mode + "_ref"), "cuda")
         params = model.init(torch.Generator(device="cuda").manual_seed(0))
         data = _trainer_data(cfg)
         ref_loss, ref_gn = plain_step0(ref, params, batch_to(data.batch_at(0), "cuda"))
-        rows, c, peak, _ = train_steps(model, params, data, QP_STEPS, smi_line, mode)
-        check(c[kname] > 0 and c["tableflash_exp"] > 0,
-              f"{mode}: {kname} / tableflash_exp not launched training: {c}")
+        rows, c, peak, _ = train_steps(model, params, data, QP_STEPS, smi_line, key)
+        check(all(c[k] > 0 for k in knames + ("tableflash_exp",)),
+              f"{key}: {knames} / tableflash_exp not launched training: {c}")
         check(all(math.isfinite(r["loss"]) for r in rows), f"non-finite {mode} loss")
         check(rows[0]["loss"] == ref_loss, f"{mode} step-0 loss {rows[0]['loss']!r} "
               f"!= {mode}_ref's {ref_loss!r}")
         gn_rel = abs(rows[0]["grad_norm"] - ref_gn) / ref_gn
         check(gn_rel <= 1e-3, f"{mode} step-0 grad norm {rows[0]['grad_norm']} vs "
               f"{ref_gn}: {gn_rel:.2e} > 1e-3")
-        log(f"{mode}: trained {QP_STEPS} steps, step-0 loss equals {mode}_ref's bit "
+        STEP0[key] = rows[0]["loss"]
+        same = f"{mode}_ref's"
+        static = ROUTED_STATIC.get(key)
+        if static in STEP0:
+            check(rows[0]["loss"] == STEP0[static], f"{key} step-0 loss "
+                  f"{rows[0]['loss']!r} != {static}'s {STEP0[static]!r}")
+            same += f" and {static}'s"
+        log(f"{key}: trained {QP_STEPS} steps, step-0 loss equals {same} bit "
             f"for bit ({ref_loss!r}), grad norm {rows[0]['grad_norm']:.6f} vs "
             f"{ref_gn:.6f} ({gn_rel:.2e} rel); step ms "
             f"{[round(r['ms'], 1) for r in rows]}; launches {c}; peak {peak:.2f} GiB "
             f"[{smi_line}]")
-        counts[kname] = c[kname]
+        for k in knames:
+            counts[k] = counts.get(k, 0) + c[k]
         del params, model, ref
         torch.cuda.empty_cache()
     return counts
@@ -1064,6 +1116,11 @@ def routed_fns(pack):
                  R.routed_pack_lookup_plain, K.table_pack_lookup),
                 ("routed_pack_grad", R.routed_pack_grad, R.routed_pack_grad_plain,
                  K.table_pack_grad))
+    if hasattr(pack, "degrees"):
+        return (("routed_poly_pack_lookup", R.routed_poly_pack_lookup,
+                 R.routed_poly_pack_lookup_plain, K.poly_pack_lookup),
+                ("routed_poly_pack_grad", R.routed_poly_pack_grad,
+                 R.routed_poly_pack_grad_plain, K.poly_pack_grad))
     return (("routed_quant_pack_lookup", R.routed_quant_pack_lookup,
              R.routed_quant_pack_lookup_plain, K.quant_pack_lookup),
             ("routed_quant_pack_grad", R.routed_quant_pack_grad,
@@ -1133,8 +1190,7 @@ def routed_kernel_phase(packs, s0):
     import torch
 
     unary = [(1, BATCH * 6912), (1, BATCH * s0 * 6912), (1, MICRO * TRAIN_SEQ * 6912)]
-    worst = {k: 0.0 for k in ("routed_pack_lookup", "routed_pack_grad",
-                              "routed_quant_pack_lookup", "routed_quant_pack_grad")}
+    worst = {k: 0.0 for _, pack in packs for k, *_ in routed_fns(pack)}
     cases = 0
     for tag, pack in packs:
         fns = routed_fns(pack)
@@ -1177,12 +1233,12 @@ def routed_kernel_phase(packs, s0):
     return worst
 
 
-def reroute_check(pack, quant):
+def reroute_check(*packs):
     """A routed call captured in a CUDA graph reads its ids at replay: the
     ids tensor rewritten in place re-routes the replay."""
     import torch
 
-    for pk in (pack, quant):
+    for pk in packs:
         F = pk.n_functions
         ids = torch.arange(ROUTED_ROWS, device="cuda", dtype=torch.int32) % F
         x = routed_input(pk, [r % F for r in range(ROUTED_ROWS)], ROUTED_COLS,
@@ -1220,10 +1276,12 @@ def routed_bytes(pack, fid, rows):
         1 + len(pack.routing_scalars()))
 
 
-def routed_timing_phase(pack, quant, smi_line):
-    """Phase 16: each routed kernel, its plain version, F.silu and the static
-    kernel of the same member at the path's shape; then the mixed 512 x 6912
-    batch against the six static launches it replaces."""
+def routed_timing_phase(packs_ops, smi_line):
+    """Phases 16 and 20: for each ``(pack, f32 operations per element beyond
+    the member's compares)`` of ``packs_ops``, each routed kernel, its plain
+    version, F.silu and the static kernel of the same member at the path's
+    shape; then the mixed 512 x 6912 batch against the six static launches
+    it replaces."""
     import torch
     import torch.nn.functional as F
 
@@ -1235,7 +1293,7 @@ def routed_timing_phase(pack, quant, smi_line):
     gate_t = (torch.randn((1, MICRO * TRAIN_SEQ * 6912), generator=g, device="cuda")
               * 2).to(torch.bfloat16)
     rows = {}
-    for pk, ops0 in ((pack, 14), (quant, 22)):  # per-element ops, as phases 8, 12
+    for pk, ops0 in packs_ops:
         fid = pk.fn_id("silu")
         ids = torch.full((1,), fid, dtype=torch.int32, device="cuda")
         ops = pk.n_intervals[fid] + ops0
@@ -1269,6 +1327,151 @@ def routed_timing_phase(pack, quant, smi_line):
                 f"{pk.n_functions} members: one routed launch {ms * 1e3:.2f} us, "
                 f"{len(parts)} static launches on the members' rows "
                 f"{six * 1e3:.2f} us [{smi_line}]")
+    return rows
+
+
+# --------------------------------------------------------------------------------------
+# 17-20. RangeFold and routed PolyPack: kernels, serving, training, times
+# --------------------------------------------------------------------------------------
+
+
+def fullrange_input(shape, dtype, seed):
+    """The full-range samples of tests/harness/fullrange.py (dense tier:
+    every decade of both signs, subnormals, near-multiples of pi/2 in both
+    reduction regimes, powers of two, +-0), with +-inf and NaN first, tiled
+    to ``shape``."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    # loaded by path: the harness is numpy only, and a "tests" package of
+    # another distribution may shadow the repository's directory
+    spec = importlib.util.spec_from_file_location(
+        "fullrange", REPO / "tests" / "harness" / "fullrange.py")
+    fullrange = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fullrange)
+    x = np.concatenate([np.float32([np.inf, -np.inf, np.nan, 0.0, -0.0]),
+                        fullrange.fullrange_samples(fast=False, seed=seed)])
+    x = np.resize(x, int(np.prod(shape))).reshape(shape).astype(np.float32)
+    return torch.from_numpy(x).to("cuda").to(dtype)
+
+
+def folded_kernel_phase(pack):
+    """Phase 17, first half: the folded value and value + slope kernels
+    bitwise against their plain versions over the full f32 range."""
+    import torch
+
+    from repro_torch.kernels import table_pack_lookup as K
+
+    shapes = list(ROPE_SHAPES) + [(12345,), (71_000,)]
+    g = torch.Generator(device="cuda").manual_seed(17)
+    big = torch.exp(torch.rand(200_000, generator=g, device="cuda") * 80 + 7.63)
+    big = torch.where(torch.rand(200_000, generator=g, device="cuda") < 0.5, -big, big)
+    worst = {"folded_pack_lookup": 0.0, "folded_pack_grad": 0.0}
+    cases = 0
+    for name in FOLDED:
+        for dtype in (torch.bfloat16, torch.float32):
+            inputs = [(shape, fullrange_input(shape, dtype, seed=i))
+                      for i, shape in enumerate(shapes)]
+            inputs.append(((200_000,), big.to(dtype)))
+            for shape, x in inputs:
+                got = K.folded_pack_lookup(pack, name, x)
+                got_g = K.folded_pack_grad(pack, name, x)
+                torch.cuda.synchronize()
+                tag = f"{name} {dtype} {shape}"
+                worst["folded_pack_lookup"] = max(worst["folded_pack_lookup"], check_pair(
+                    f"folded_pack_lookup {tag}", got,
+                    K.folded_pack_lookup_plain(pack, name, x), shape, dtype))
+                worst["folded_pack_grad"] = max(worst["folded_pack_grad"], check_pair(
+                    f"folded_pack_grad {tag}", got_g,
+                    K.folded_pack_grad_plain(pack, name, x), shape, dtype))
+                cases += 2
+    log(f"folded: {cases} folded kernel cases bitwise equal to the plain versions "
+        f"(sin, cos, exp, log; bf16+f32; shapes {shapes} of the full-range samples "
+        f"and 200,000 draws with |x| >= 2048; members {pack.names})")
+    return worst
+
+
+def folded_autograd_check(smi_line):
+    """Phase 19, second half: ApproxConfig(mode="folded_pack").unary(name)
+    under autograd launches folded_pack_grad; the gradient is bitwise the
+    plain slope times dy.  Returns the folded_pack_grad launches."""
+    import torch
+
+    from repro_torch.kernels import table_pack_lookup as K
+    from repro_torch.models import get_config
+
+    approx = dataclasses.replace(get_config("stablelm-3b").approx, mode="folded_pack")
+    pack = approx.pack("cuda")
+    fs = {name: approx.unary(name, "cuda") for name in FOLDED}
+    g = torch.Generator(device="cuda").manual_seed(19)
+    x0 = fullrange_input(ROPE_SHAPES[-1], torch.float32, seed=19)
+    x0 = torch.where(torch.isfinite(x0), x0, 1.0)
+    dy = torch.randn(x0.shape, generator=g, device="cuda")
+    K.reset_launches()
+    grads = {}
+    for name, f in fs.items():
+        x = x0.clone().requires_grad_(True)
+        y = f(x)
+        y.backward(dy)
+        grads[name] = (y.detach(), x.grad)
+    torch.cuda.synchronize()
+    launches = K.launches["folded_pack_grad"]
+    check(launches == len(FOLDED), f"folded_pack_grad launches {launches} != "
+          f"{len(FOLDED)} (one a unary under autograd): {dict(K.launches)}")
+    for name, (y, gx) in grads.items():
+        want_y, want_s = K.folded_pack_grad_plain(pack, name, x0)
+        check_pair(f"folded unary {name} value", y, want_y, x0.shape, x0.dtype)
+        check_pair(f"folded unary {name} gradient", gx, want_s * dy, x0.shape, x0.dtype)
+    log(f"folded: ApproxConfig(mode='folded_pack').unary(name) under autograd for "
+        f"{FOLDED} launched folded_pack_grad {launches} times; values and gradients "
+        f"bitwise the plain versions' [{smi_line}]")
+    return launches
+
+
+def folded_timing_phase(pack, smi_line):
+    """Phase 20, first half: the folded kernels, their plain versions and
+    torch.sin / cos / exp / log at the training micro-batch's rotary angles
+    (4, 128, 40) f32; the JSON row is sin's (the rotary path's two trig
+    kinds are one kernel)."""
+    import torch
+
+    from repro_torch.kernels import table_pack_lookup as K
+
+    g = torch.Generator(device="cuda").manual_seed(20)
+    shape = ROPE_SHAPES[-1]
+    ang = torch.rand(shape, generator=g, device="cuda") * CACHE_LEN  # |x| < 2048
+    rows = {}
+    for name in FOLDED:
+        x = ang + 0.5 if name == "log" else (ang / 40.0 - 3.0 if name == "exp" else ang)
+        cores = [pack.fn_id(c) for c in
+                 (("sin_core", "cos_core") if name in ("sin", "cos") else (f"{name}_core",))]
+        tbytes = sum(member_bytes(pack, c) for c in cores)
+        # f32 operations per element: each core lookup's compares + ~14, the
+        # fold (~12 trig Cody-Waite, ~8 exp, ~12 log) and the reconstruction
+        # and edges (~6); the grad kernel adds ~4 a core and ~4 for the chain
+        ops = sum(pack.n_intervals[c] + 14 for c in cores) + 18
+        lib = getattr(torch, name)
+        for kname, kern, plain, n_out in (
+                ("folded_pack_lookup", K.folded_pack_lookup, K.folded_pack_lookup_plain, 1),
+                ("folded_pack_grad", K.folded_pack_grad, K.folded_pack_grad_plain, 2)):
+            ms = graph_ms(lambda: kern(pack, name, x))
+            plain_ms = graph_ms(lambda: plain(pack, name, x))
+            lib_ms = graph_ms(lambda: lib(x))
+            b_ms, b_by = bound(x.numel(), 4, n_out, tbytes,
+                               ops + (4 * len(cores) + 4) * (n_out - 1))
+            if name == "sin":
+                rows[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                   bound_ms=b_ms, bound_by=b_by)
+            log(f"time: {kname} {name} {shape} f32: kernel {ms * 1e3:.2f} us, plain "
+                f"{plain_ms * 1e3:.2f} us, yardstick (torch.{name}"
+                f"{'' if n_out == 1 else ', value only'}) {lib_ms * 1e3:.2f} us, bound "
+                f"{b_ms * 1e3:.3f} us ({b_by}) [{smi_line}]")
+    xd = ang[:, :1].contiguous()  # a decode step's angles, (4, 1, 40)
+    log(f"time: folded_pack_lookup sin {tuple(xd.shape)} f32 (decode): kernel "
+        f"{graph_ms(lambda: K.folded_pack_lookup(pack, 'sin', xd)) * 1e3:.2f} us, "
+        f"torch.sin {graph_ms(lambda: torch.sin(xd)) * 1e3:.2f} us [{smi_line}]")
     return rows
 
 
@@ -1319,22 +1522,46 @@ def main() -> int:
         times = timing_phase(pack, approx, smi_line)
         qp_packs = quant_poly_packs(cfg.approx)
         worst.update(quant_poly_kernel_phase(qp_packs, s0))
-        counts.update(pack_serving_paths(smi_line, (("quant_pack", "quant_pack_lookup"),
-                                                    ("poly_pack", "poly_pack_lookup"))))
-        counts.update(pack_train_paths(smi_line, (("quant_pack", "quant_pack_grad"),
-                                                  ("poly_pack", "poly_pack_grad"))))
+        counts.update(pack_serving_paths(smi_line, (
+            ("quant_pack", ("quant_pack_lookup",)), ("poly_pack", ("poly_pack_lookup",)))))
+        counts.update(pack_train_paths(smi_line, (
+            ("quant_pack", ("quant_pack_grad",)), ("poly_pack", ("poly_pack_grad",)))))
         times.update(quant_poly_timing_phase(qp_packs[0][2], qp_packs[2][2], smi_line))
         r_packs = (("f32", pack), ("quant", qp_packs[0][2]),
                    ("mixed widths", mixed_width_pack(cfg.approx)),
                    ("quant e_a 1e-6", qp_packs[1][2]))
         worst.update(routed_kernel_phase(r_packs, s0))
         counts.update(pack_serving_paths(smi_line, (
-            ("routed_pack", "routed_pack_lookup"),
-            ("routed_quant_pack", "routed_quant_pack_lookup"))))
+            ("routed_pack", ("routed_pack_lookup",)),
+            ("routed_quant_pack", ("routed_quant_pack_lookup",)))))
         counts.update(pack_train_paths(smi_line, (
-            ("routed_pack", "routed_pack_grad"),
-            ("routed_quant_pack", "routed_quant_pack_grad"))))
-        times.update(routed_timing_phase(pack, qp_packs[0][2], smi_line))
+            ("routed_pack", ("routed_pack_grad",)),
+            ("routed_quant_pack", ("routed_quant_pack_grad",)))))
+        # per-element f32 operations beyond the compares, as phases 8 and 12
+        times.update(routed_timing_phase(((pack, 14), (qp_packs[0][2], 22)), smi_line))
+        # 17-20: RangeFold (table-served RoPE) and routed PolyPack
+        fold_pack = dataclasses.replace(cfg.approx, mode="folded_pack").pack("cuda")
+        log(f"fold pack: {fold_pack.names}, intervals {fold_pack.n_intervals}")
+        worst.update(folded_kernel_phase(fold_pack))
+        worst.update(routed_kernel_phase((("poly", qp_packs[2][2]),
+                                          ("mixed poly", qp_packs[3][2])), s0))
+        # each mode's launches, counted from 0 before it serves or trains
+        serve18 = pack_serving_paths(smi_line, (
+            ("table_pack+rope", ("folded_pack_lookup", "table_pack_lookup")),
+            ("folded_pack+rope", ("folded_pack_lookup", "table_pack_lookup")),
+            ("folded_routed_pack+rope", ("folded_pack_lookup", "routed_pack_lookup")),
+            ("routed_poly_pack", ("routed_poly_pack_lookup",))))
+        counts["folded_pack_lookup"] = serve18["folded_pack_lookup"]
+        counts["routed_poly_pack_lookup"] = serve18["routed_poly_pack_lookup"]
+        train19 = pack_train_paths(smi_line, (
+            ("table_pack+rope", ("folded_pack_lookup", "table_pack_grad")),
+            ("routed_poly_pack", ("routed_poly_pack_grad",))))
+        counts["routed_poly_pack_grad"] = train19["routed_poly_pack_grad"]
+        counts["folded_pack_grad"] = folded_autograd_check(smi_line)
+        times.update(folded_timing_phase(fold_pack, smi_line))
+        poly = qp_packs[2][2]
+        d = poly.degrees[poly.fn_id("silu")]
+        times.update(routed_timing_phase(((poly, 10 + 6 * (d + 1) + 5 * d),), smi_line))
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1352,7 +1579,11 @@ def main() -> int:
             ("routed_pack_lookup", "src/repro/kernels/routed_pack_lookup.py:101"),
             ("routed_pack_grad", "src/repro/kernels/routed_pack_lookup.py:126"),
             ("routed_quant_pack_lookup", "src/repro/kernels/routed_pack_lookup.py:300"),
-            ("routed_quant_pack_grad", "src/repro/kernels/routed_pack_lookup.py:329")):
+            ("routed_quant_pack_grad", "src/repro/kernels/routed_pack_lookup.py:329"),
+            ("folded_pack_lookup", "src/repro/kernels/table_pack_lookup.py:943"),
+            ("folded_pack_grad", "src/repro/kernels/table_pack_lookup.py:953"),
+            ("routed_poly_pack_lookup", "src/repro/kernels/routed_pack_lookup.py:641"),
+            ("routed_poly_pack_grad", "src/repro/kernels/routed_pack_lookup.py:670")):
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/csrc/table_pack_lookup.cu",

@@ -1,7 +1,8 @@
 """repro_torch.approx — the paper's table approximators as PyTorch runtimes:
 per-function tables, the f32, quantized and polynomial multi-function packs
-(the first two also per-row routed), and the ``ApproxConfig`` backend that
-routes a model's nonlinearities through them."""
+(each also per-row routed), RangeFold's full-range sin/cos/exp/log over the
+f32 pack, and the ``ApproxConfig`` backend that routes a model's
+nonlinearities through them."""
 
 from .activations import (
     DEFAULT_PACK_FUNCTIONS,
@@ -13,6 +14,16 @@ from .activations import (
     TABLE_MODES,
     ApproxConfig,
     odd_extension,
+)
+from .range_fold import (
+    FOLDABLE,
+    FOLDED_CORE_MEMBERS,
+    FOLDED_MODES,
+    eval_folded_ref,
+    eval_folded_routed,
+    eval_folded_slope,
+    make_folded_fn,
+    make_folded_routed_unary_fn,
 )
 from .table_pack import (
     PolyTablePack,
@@ -27,6 +38,8 @@ from .table_pack import (
     eval_poly_pack_slope,
     eval_quant_pack_ref,
     eval_quant_pack_slope,
+    eval_routed_poly_ref,
+    eval_routed_poly_slope,
     eval_routed_quant_ref,
     eval_routed_quant_slope,
     eval_routed_ref,

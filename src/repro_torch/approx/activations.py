@@ -5,18 +5,23 @@ tables through the CUDA table kernels), ``table_pack`` (ONE packed
 multi-function artifact + one CUDA kernel for the whole network),
 ``quant_pack`` (the pack with int8/int16 codes dequantized on read),
 ``poly_pack`` (the planner's degree-1..3 coefficient pack, Horner on read),
-the ``routed_pack`` / ``routed_quant_pack`` variants, which serve the f32 and
-quantized packs through per-row DYNAMIC fn_id dispatch (the member is a
-device operand of one kernel, so mixed-function batches — see
-:meth:`ApproxConfig.routed_fn` — and every member's unary share it), or the
-``*_ref`` plain PyTorch version of each.  Configured per model via
-:class:`ApproxConfig`, whose fields and defaults are the JAX package's.  Every
-table function is differentiable: its tangent is the table slope, or the
-registry's analytic derivative with ``exact_grad``.  TableFlash
-(``attn_table``) always serves the attention exponent from the f32 pack.
+the ``routed_pack`` / ``routed_quant_pack`` / ``routed_poly_pack`` variants,
+which serve the f32, quantized and polynomial packs through per-row DYNAMIC
+fn_id dispatch (the member is a device operand of one kernel, so
+mixed-function batches — see :meth:`ApproxConfig.routed_fn` — and every
+member's unary share it), the ``folded_pack`` / ``folded_routed_pack``
+variants (RangeFold, :mod:`repro_torch.approx.range_fold`), which put a range
+reduction in front of the f32 pack so ``sin`` / ``cos`` / ``exp`` / ``log``
+are served over the whole finite f32 domain from small canonical-interval
+core members, or the ``*_ref`` plain PyTorch version of each.  Configured per
+model via :class:`ApproxConfig`, whose fields and defaults are the JAX
+package's.  Every table function is differentiable: its tangent is the table
+slope, or the registry's analytic derivative with ``exact_grad``.  TableFlash
+(``attn_table``) always serves the attention exponent, and ``rope_table`` the
+rotary sin/cos (through the folded trig members), from the f32 pack.
 
-The JAX package's other modes (the routed polynomial, sharded and folded
-packs) raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+The JAX package's sharded modes raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from repro_torch.core.flow import cached_table
 from repro_torch.core.functions import get as get_function
 from repro_torch.device import DeviceLike, resolve_device
 
+from .range_fold import (FOLDABLE, FOLDED_CORE_MEMBERS, FOLDED_MODES,
+                         make_folded_fn, make_folded_routed_unary_fn)
 from .table_pack import (PolyTablePack, QuantTablePack, TablePack, build_pack,
                          build_poly_pack, build_quant_pack, make_attn_exp_fn,
                          make_pack_fn, make_poly_pack_fn, make_quant_pack_fn,
@@ -43,28 +50,24 @@ PACK_MODES = ("table_pack", "table_pack_ref")
 QUANT_PACK_MODES = ("quant_pack", "quant_pack_ref")
 POLY_PACK_MODES = ("poly_pack", "poly_pack_ref")
 ROUTED_MODES = ("routed_pack", "routed_pack_ref", "routed_quant_pack",
-                "routed_quant_pack_ref")
+                "routed_quant_pack_ref", "routed_poly_pack",
+                "routed_poly_pack_ref")
 TABLE_MODES = (("table_ref", "table_pallas") + PACK_MODES + QUANT_PACK_MODES
-               + POLY_PACK_MODES + ROUTED_MODES)
+               + POLY_PACK_MODES + ROUTED_MODES + FOLDED_MODES)
 # modes whose pack artifact is the quantized one (vs the f32 pack)
 _QUANT_BACKED = QUANT_PACK_MODES + ("routed_quant_pack", "routed_quant_pack_ref")
+# modes whose pack artifact is the planner's polynomial one
+_POLY_BACKED = POLY_PACK_MODES + ("routed_poly_pack", "routed_poly_pack_ref")
 # modes whose runtime is the CUDA kernels (vs the plain PyTorch versions)
 _KERNEL_BACKED = ("table_pallas", "table_pack", "quant_pack", "poly_pack",
-                  "routed_pack", "routed_quant_pack")
+                  "routed_pack", "routed_quant_pack", "routed_poly_pack",
+                  "folded_pack", "folded_routed_pack")
 
-# The JAX package's other modes, with the ROADMAP item (queue 1 unless noted)
-# that brings each to the port.
+# The JAX package's other modes, with the ROADMAP item (queue 1) that brings
+# each to the port.
 NOT_PORTED = {
-    "routed_poly_pack": "ROADMAP queue 1, item 9 (routed dispatch: the "
-                        "routed_poly kernels come with the next slice)",
-    "routed_poly_pack_ref": "ROADMAP queue 1, item 9 (routed dispatch: the "
-                            "routed_poly kernels come with the next slice)",
     "sharded_pack": "ROADMAP queue 1, item 12 (ShardedPack)",
     "sharded_pack_ref": "ROADMAP queue 1, item 12 (ShardedPack)",
-    "folded_pack": "ROADMAP queue 1, item 10 (RangeFold)",
-    "folded_pack_ref": "ROADMAP queue 1, item 10 (RangeFold)",
-    "folded_routed_pack": "ROADMAP queue 1, item 10 (RangeFold)",
-    "folded_routed_pack_ref": "ROADMAP queue 1, item 10 (RangeFold)",
 }
 
 
@@ -110,6 +113,9 @@ DEFAULT_PACK_FUNCTIONS = (
 _PACK_CACHE: Dict[tuple, TablePack] = {}
 _QUANT_PACK_CACHE: Dict[tuple, QuantTablePack] = {}
 _POLY_PACK_CACHE: Dict[tuple, PolyTablePack] = {}
+# one (sin, cos) closure pair per distinct rope_table configuration and
+# device — every layer's rotary shares it
+_ROPE_SIN_COS_CACHE: Dict[tuple, Callable] = {}
 # one TableFlash exponent closure per distinct attn_table configuration and
 # device — every attention layer shares it
 _ATTN_EXP_CACHE: Dict[tuple, Callable] = {}
@@ -205,19 +211,25 @@ class ApproxConfig:
         )
         return from_spec(spec, device)
 
-    def _pack_key(self, dev: torch.device) -> tuple:
+    def _pack_key(self, dev: torch.device, names=None) -> tuple:
         """(functions, e_a, algorithm, omega, the functions' interval
-        overrides, device): what every pack of this config is built from."""
-        names = tuple(self.pack_functions)
+        overrides, device): what every pack of this config is built from
+        (``names`` defaults to ``pack_functions``)."""
+        names = tuple(self.pack_functions) if names is None else names
         overrides = tuple(sorted(
             (k, v) for k, v in self.interval_overrides.items() if k in names))
         return (names, self.e_a, self.algorithm, self.omega, overrides, str(dev))
 
     def pack(self, device: DeviceLike = None) -> TablePack:
         """The ONE multi-function pack this config's activations share, on
-        ``device`` (cached per device)."""
+        ``device`` (cached per device).  Folded modes (and ``rope_table``)
+        extend ``pack_functions`` with the canonical-interval core members
+        the range reductions look up (``FOLDED_CORE_MEMBERS``)."""
         dev = resolve_device(device)
-        key = self._pack_key(dev)
+        names = tuple(self.pack_functions)
+        if self.mode in FOLDED_MODES or self.rope_table:
+            names += tuple(c for c in FOLDED_CORE_MEMBERS if c not in names)
+        key = self._pack_key(dev, names)
         if key not in _PACK_CACHE:
             _PACK_CACHE[key] = build_pack(
                 key[0], self.e_a, algorithm=self.algorithm, omega=self.omega,
@@ -252,7 +264,7 @@ class ApproxConfig:
         return _POLY_PACK_CACHE[key]
 
     def _pack_for_mode(self, device: DeviceLike = None):
-        if self.mode in POLY_PACK_MODES:
+        if self.mode in _POLY_BACKED:
             return self.poly_pack(device)
         if self.mode in _QUANT_BACKED:
             return self.quant_pack(device)
@@ -267,19 +279,31 @@ class ApproxConfig:
         if self.mode == "exact" or name in _NEVER_TABLED:
             return _EXACT[name]
         reg_name = _TABLE_NAME.get(name, name)
+        if self.mode in FOLDED_MODES and name in FOLDABLE:
+            # foldable names keep their full-range identity: "exp" stays exp
+            # (the 2^k split covers all of f32, no exp_neg remap)
+            reg_name = name
         extrapolate = name in _EXTRAPOLATE
         exact_d1 = None
         if self.exact_grad:
             exact_d1 = partial(get_function(reg_name).d1f, xp=torch)
         use_kernel = self.mode in _KERNEL_BACKED
         if self.mode in (PACK_MODES + QUANT_PACK_MODES + POLY_PACK_MODES
-                         + ROUTED_MODES):
+                         + ROUTED_MODES + FOLDED_MODES):
             pack = self._pack_for_mode(device)
-            if reg_name not in pack.names:
+            foldable = self.mode in FOLDED_MODES and reg_name in FOLDABLE
+            if reg_name not in pack.names and not foldable:
+                # a foldable member needs only its core members in the pack
+                # (pack() appends them)
                 raise KeyError(
                     f"{reg_name!r} is not in pack_functions={pack.names}; add it "
                     f"to ApproxConfig.pack_functions to serve it from the pack")
-            if self.mode in ROUTED_MODES:
+            if self.mode in FOLDED_MODES:
+                # full-f32-range sin/cos/exp/log; the other members fall
+                # through to the plain pack paths inside make_folded_*
+                make = (make_folded_routed_unary_fn
+                        if self.mode.startswith("folded_routed") else make_folded_fn)
+            elif self.mode in ROUTED_MODES:
                 # dynamic dispatch with one id: the member is a device
                 # operand, so every unary shares one kernel
                 make = make_routed_unary_fn
@@ -311,9 +335,7 @@ class ApproxConfig:
         names (remapped like :meth:`unary`: ``sigmoid`` -> ``sigmoid_sym``,
         ``exp`` -> ``exp_neg``) or member ids; half-domain odd members (tanh)
         are mirrored per row, so every row sees its full symmetric domain.
-        ``extrapolate`` defaults to each member's own edge rule.  The
-        polynomial pack's modes raise ``NotImplementedError`` (its routed
-        kernels are not ported yet).
+        ``extrapolate`` defaults to each member's own edge rule.
         """
         names = tuple(_TABLE_NAME.get(f, f) if isinstance(f, str) else f
                       for f in fns)
@@ -360,23 +382,40 @@ class ApproxConfig:
         exp_fn = self.unary("exp", device)
         masked = x if where is None else x.masked_fill(~where, -1e30)
         m = torch.clamp(torch.amax(masked, dim=axis, keepdim=True), min=-1e30)
-        # exp_neg table domain is [-16, 0]; the clamp matches the hardware
-        # address saturation
-        e = exp_fn(torch.clamp(x - m, min=-16.0))
+        z = x - m.detach()  # the reference's stop_gradient on the shift
+        if self.mode in FOLDED_MODES:
+            # folded exp serves the whole f32 domain: no address clamp
+            e = exp_fn(z)
+        else:
+            # exp_neg table domain is [-16, 0]; the clamp matches the
+            # hardware address saturation
+            e = exp_fn(torch.clamp(z, min=-16.0))
         if where is not None:
             e = torch.where(where, e, 0.0)
         return e / e.sum(dim=axis, keepdim=True)
 
-    def rope_sin_cos(self) -> Optional[Callable]:
-        """Table-served rotary trig.  ``None`` (exact sin/cos) unless
-        ``rope_table`` is on in a table mode, which needs the folded trig
-        members of RangeFold (not ported yet)."""
+    def rope_sin_cos(self, device: DeviceLike = None) -> Optional[Callable]:
+        """Table-served rotary trig: ``None`` (exact sin/cos) unless
+        ``rope_table`` is on in a table mode, else ``f(ang) -> (sin, cos)``
+        through the folded trig members on ``device`` — the full position
+        range by Cody-Waite / Payne-Hanek reduction, served from the SAME f32
+        pack as the activations (``pack()`` appends the trig cores), by the
+        folded kernels in the kernel modes and their plain versions in the
+        others.  ``models.common.apply_rope`` threads it as ``sin_cos``."""
         if not self.rope_table or self.mode == "exact":
             return None
         _check_mode(self.mode)
-        raise NotImplementedError(
-            "rope_table is not ported yet: it serves sin/cos through the "
-            "folded trig members, ROADMAP queue 1, item 10 (RangeFold)")
+        dev = resolve_device(device)
+        overrides = tuple(sorted(self.interval_overrides.items()))
+        key = (self.mode, self.e_a, self.algorithm, self.omega,
+               tuple(self.pack_functions), overrides, str(dev))
+        if key not in _ROPE_SIN_COS_CACHE:
+            pack = self.pack(dev)  # the f32 pack, with the trig cores
+            use_kernel = self.mode in _KERNEL_BACKED
+            sin_fn = make_folded_fn(pack, "sin", use_kernel=use_kernel)
+            cos_fn = make_folded_fn(pack, "cos", use_kernel=use_kernel)
+            _ROPE_SIN_COS_CACHE[key] = lambda ang: (sin_fn(ang), cos_fn(ang))
+        return _ROPE_SIN_COS_CACHE[key]
 
     def attn_exp(self, device: DeviceLike = None) -> Optional[Callable]:
         """TableFlash exponent: ``None`` (exact exp in flash attention) unless

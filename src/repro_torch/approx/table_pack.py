@@ -552,10 +552,22 @@ class PolyTablePack(_RaggedPack):
     codes16: torch.Tensor  # (max(M16,1),) int16
     codes32: torch.Tensor  # (max(M32,1),) f32 — raw coefficients
     domains: Tuple[Tuple[float, float], ...]  # member [lo, hi) on the host
+    # routed dispatch's per-member int32 operands on the pack's device, built
+    # once with the pack: see routing_scalars()
+    routing: Tuple[torch.Tensor, ...]
+    _extr_operands: Dict[bytes, torch.Tensor] = field(
+        default_factory=dict, compare=False, repr=False)
 
     @property
     def max_lanes(self) -> int:
         return self.max_degree + 1
+
+    def routing_scalars(self) -> Tuple[torch.Tensor, ...]:
+        """The routed kernels' per-member operands, gathered by fn_id on the
+        device: the quantized pack's tuple plus each member's coefficient
+        stride ``degree + 1``: ``(n_arr, bounds_offsets, lane_offsets,
+        entry_bits, strides)``, int32 vectors on the pack's device."""
+        return self.routing
 
     def _groups(self):
         return {8: self.codes8, 16: self.codes16, 32: self.codes32}
@@ -583,6 +595,9 @@ def from_poly_layout(layout: PolyPackLayout,
         codes16=_codes_tensor(layout.codes16, torch.int16, dev),
         codes32=_codes_tensor(layout.codes32, torch.float32, dev),
         domains=_domains(layout),
+        routing=tuple(_int32_tensor(v, dev) for v in (
+            layout.n_intervals, layout.bounds_offsets, layout.lane_offsets,
+            layout.entry_bits, [d + 1 for d in layout.degrees])),
     )
 
 
@@ -851,44 +866,63 @@ def eval_routed_quant_slope(pack: QuantTablePack, fn_ids, x: torch.Tensor, *,
         extrapolate)
 
 
-def _routed_family(pack) -> bool:
-    """True for a quantized pack, False for the f32 one; the other pack
-    kinds are not ported to routed dispatch yet."""
+def eval_routed_poly_ref(pack: PolyTablePack, fn_ids, x: torch.Tensor, *,
+                         extrapolate=False) -> torch.Tensor:
+    """Plain routed dequantize + Horner lookup over the polynomial pack."""
+    return _routed_where(
+        pack, fn_ids, x,
+        lambda f, e: eval_poly_pack_ref(pack, f, x, extrapolate=e), extrapolate)
+
+
+def eval_routed_poly_slope(pack: PolyTablePack, fn_ids, x: torch.Tensor, *,
+                           extrapolate=False) -> torch.Tensor:
+    """d/dx of the routed polynomial surrogate."""
+    return _routed_where(
+        pack, fn_ids, x,
+        lambda f, e: eval_poly_pack_slope(pack, f, x, extrapolate=e),
+        extrapolate)
+
+
+def _routed_family(pack) -> str:
+    """``"f32"``, ``"quant"`` or ``"poly"``: the pack family the routed
+    kernels serve; the sharded pack is not ported to routed dispatch yet."""
     if isinstance(pack, PolyTablePack):
-        raise NotImplementedError(
-            "routed dispatch over a PolyTablePack is not ported yet: ROADMAP "
-            "queue 1, item 9 (its routed_poly kernels come with the next slice)")
-    if not isinstance(pack, (TablePack, QuantTablePack)):
-        raise NotImplementedError(
-            f"routed dispatch over a {type(pack).__name__} is not ported: the "
-            f"sharded pack comes with ROADMAP queue 1, item 12 (ShardedPack)")
-    return isinstance(pack, QuantTablePack)
+        return "poly"
+    if isinstance(pack, QuantTablePack):
+        return "quant"
+    if isinstance(pack, TablePack):
+        return "f32"
+    raise NotImplementedError(
+        f"routed dispatch over a {type(pack).__name__} is not ported: the "
+        f"sharded pack comes with ROADMAP queue 1, item 12 (ShardedPack)")
+
+
+def _routed_kernels(family: str, use_kernel: bool):
+    """(value, value + slope) routed wrappers of a pack family: the kernels
+    or, with ``use_kernel=False``, their plain versions."""
+    from repro_torch.kernels import routed_pack_lookup as R
+
+    name = {"f32": "routed_pack", "quant": "routed_quant_pack",
+            "poly": "routed_poly_pack"}[family]
+    suffix = "" if use_kernel else "_plain"
+    return (getattr(R, f"{name}_lookup{suffix}"), getattr(R, f"{name}_grad{suffix}"))
 
 
 def make_routed_fn(pack, fn_ids, *, use_kernel: bool = True, extrapolate=False):
     """Differentiable per-row routed ``f(x)``: row i of ``x`` (leading axis)
-    is served by member ``fn_ids[i]`` of the pack — f32 (:class:`TablePack`)
-    or quantized (:class:`QuantTablePack`).
+    is served by member ``fn_ids[i]`` of the pack — f32 (:class:`TablePack`),
+    quantized (:class:`QuantTablePack`) or polynomial (:class:`PolyTablePack`).
 
     ``fn_ids`` may be names/ints (validated here and copied to the pack's
     device once) or a ``torch.Tensor`` of ids on the pack's device (a
     router's output, read only by the kernel).  ``extrapolate`` is one flag
     or a per-member sequence.  ``use_kernel=True`` runs the routed CUDA
-    kernels (``routed_pack`` / ``routed_quant_pack``): the value kernel
-    without a gradient, the fused value + slope kernel under one;
-    ``use_kernel=False`` the plain versions.  Tangent: the per-row table
+    kernels (``routed_pack`` / ``routed_quant_pack`` / ``routed_poly_pack``):
+    the value kernel without a gradient, the fused value + slope kernel under
+    one; ``use_kernel=False`` the plain versions.  Tangent: the per-row table
     slope.
     """
-    from repro_torch.kernels import routed_pack_lookup as R
-
-    quant = _routed_family(pack)
-    if use_kernel:
-        lookup, grad = ((R.routed_quant_pack_lookup, R.routed_quant_pack_grad)
-                        if quant else (R.routed_pack_lookup, R.routed_pack_grad))
-    else:
-        lookup, grad = ((R.routed_quant_pack_lookup_plain,
-                         R.routed_quant_pack_grad_plain) if quant else
-                        (R.routed_pack_lookup_plain, R.routed_pack_grad_plain))
+    lookup, grad = _routed_kernels(_routed_family(pack), use_kernel)
     if not isinstance(fn_ids, (str, int, np.integer, torch.Tensor)):
         fn_ids = resolve_fn_ids(pack, fn_ids, len(fn_ids))
     flags = tuple(bool(e) for e in routed_extr_flags(pack, extrapolate))
@@ -901,21 +935,20 @@ def make_routed_unary_fn(pack, name, *, use_kernel: bool = True, exact_d1=None,
                          extrapolate: bool = False):
     """Shape-agnostic unary ``f(x)`` served through the ROUTED dispatch path
     with one id for the whole tensor — what ``ApproxConfig(mode=
-    "routed_pack").unary`` builds.  The member is a runtime operand: x is
-    viewed as one row, and its one-element id vector is built here, once, on
-    the pack's device (no host-to-device copy per call).  ``use_kernel=False``
+    "routed_pack").unary`` (and its quantized and polynomial variants)
+    builds.  The member is a runtime operand: x is viewed as one row, and its
+    one-element id vector is built here, once, on the pack's device (no
+    host-to-device copy per call).  ``use_kernel=False``
     (``routed_*_ref``) is the static plain version, bit-identical to the
     routed kernel by the dispatch contract.  Tangent: the table slope, or
     ``exact_d1(x)`` when given.
     """
-    from repro_torch.kernels import routed_pack_lookup as R
     from repro_torch.kernels import table_pack_lookup as K
 
-    quant = _routed_family(pack)
+    family = _routed_family(pack)
     fid = pack.member_id(name)
     if use_kernel:
-        lookup, grad = ((R.routed_quant_pack_lookup, R.routed_quant_pack_grad)
-                        if quant else (R.routed_pack_lookup, R.routed_pack_grad))
+        lookup, grad = _routed_kernels(family, True)
         ids = torch.full((1,), fid, dtype=torch.int32, device=pack.device)
         routed_extr_operand(pack, extrapolate)
         value = lambda v: lookup(pack, ids, v.reshape(1, -1),
@@ -923,9 +956,10 @@ def make_routed_unary_fn(pack, name, *, use_kernel: bool = True, exact_d1=None,
         fused = lambda v: tuple(r.reshape(v.shape) for r in grad(
             pack, ids, v.reshape(1, -1), extrapolate=extrapolate))
     else:
-        static, static_grad = ((K.quant_pack_lookup_plain, K.quant_pack_grad_plain)
-                               if quant else
-                               (K.table_pack_lookup_plain, K.table_pack_grad_plain))
+        static, static_grad = {
+            "f32": (K.table_pack_lookup_plain, K.table_pack_grad_plain),
+            "quant": (K.quant_pack_lookup_plain, K.quant_pack_grad_plain),
+            "poly": (K.poly_pack_lookup_plain, K.poly_pack_grad_plain)}[family]
         value = lambda v: static(pack, fid, v, extrapolate=extrapolate)
         fused = lambda v: static_grad(pack, fid, v, extrapolate=extrapolate)
     if exact_d1 is not None:

@@ -349,6 +349,18 @@ class PolyPackLayout:
     def lane_offset(self, fid: int) -> int:
         return sum(self.n_intervals[:fid])
 
+    @property
+    def bounds_offsets(self) -> np.ndarray:
+        """(F,) int32 — per-member start into the flat ``boundaries`` lane."""
+        return np.asarray([self.bounds_offset(f) for f in range(self.n_functions)],
+                          dtype=np.int32)
+
+    @property
+    def lane_offsets(self) -> np.ndarray:
+        """(F,) int32 — per-member start into the selector lanes."""
+        return np.asarray([self.lane_offset(f) for f in range(self.n_functions)],
+                          dtype=np.int32)
+
     def eval(self, fn, x: np.ndarray) -> np.ndarray:
         """f64 dequantize-on-read Horner oracle for member ``fn``."""
         fid = self.fn_id(fn) if isinstance(fn, str) else int(fn)

@@ -32,6 +32,16 @@
 //   tp_routed_quant_lookup  replaces _routed_quant_kernel (:300): the same over
 //                      the quantized pack (ragged offsets, code width per row).
 //   tp_routed_quant_grad    replaces _routed_quant_grad_kernel (:329).
+//   tp_routed_poly_lookup   replaces _routed_poly_kernel (:641): the same over
+//                      the polynomial pack (code width and stride per row).
+//   tp_routed_poly_grad     replaces _routed_poly_grad_kernel (:670).
+//   tp_folded_lookup   replaces the TPU kernel _folded_kernel
+//                      (src/repro/kernels/table_pack_lookup.py:943): full-f32-range
+//                      sin / cos / exp / log (RangeFold): the fold prologue, one
+//                      or two core-member lookups (never extrapolating), the
+//                      reconstruction and edge epilogue (range_reduce.cuh).
+//   tp_folded_grad     replaces _folded_grad_kernel (:953): its value and the
+//                      chain-ruled slope from the same selector passes.
 //
 // What bounds them on the card: bytes.  Each element is read once and its
 // output(s) written once, N * (in_bytes + n_out * out_bytes) at 3.35 TB/s; the
@@ -74,11 +84,27 @@
 // past kSmemBytes like the static kernels.  The per-element bodies are the
 // static kernels' own (table_lookup.cuh) with the member's values read at run
 // time, so row i is bit-identical to the static launch of member fn_ids[i].
+// The polynomial pack stages its widest member's lanes and its largest code
+// group (int8, int16 or f32), restaging the codes where the width changes;
+// each row runs the static poly kernel's Horner body at its member's own
+// degree (the reference's uniform lmax-lane Horner gives the same bits: a
+// padded lane dequantizes to exactly 0.0).
+//
+// RangeFold.  The folded kernels are the static pack body (tl::lookup /
+// lookup_grad, extrapolation off) between the fold prologue and the
+// reconstruction epilogue of range_reduce.cuh, over the flat element count.
+// Trig reads two core rows (sin_core, cos_core): both metadata rows and the
+// shared values are staged once a block.  The fold adds ~40 integer and
+// float operations an element for Payne-Hanek (|x| >= 2048) and ~10 for the
+// other folds; at the rotary shapes (4 * 27 * 40 angles) the kernels are
+// launch-bound.  The kind (sin, cos, exp, log) is a launch argument, uniform
+// over the grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "range_reduce.cuh"
 #include "table_lookup.cuh"
 
 namespace {
@@ -444,6 +470,141 @@ routed_quant_kernel(const T* __restrict__ x, T* __restrict__ out,
   routed_walk(w, ids, n_fn, restage, body);
 }
 
+template <typename T, typename C, int kMode>
+__device__ __forceinline__ void routed_poly_cols(const T* x, T* out, T* slope,
+                                                 long long row0, long long c0,
+                                                 long long c1, const tl::PolyRow& pr,
+                                                 const C* cd, int m, bool ex) {
+  for (long long c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
+    const long long idx = row0 + c;
+    const float xv = load_f32(x, idx);
+    if (kMode == kGrad) {
+      float d;
+      store_f32(out, idx, tl::poly_lookup(xv, pr, cd, m, ex, &d));
+      store_f32(slope, idx, d);
+    } else {
+      store_f32(out, idx, tl::poly_lookup(xv, pr, cd, m, ex,
+                                          static_cast<float*>(nullptr)));
+    }
+  }
+}
+
+// `codes8` / `codes16` / `codes32` are the three width groups (m8 / m16 / m32
+// entries); a row reads only its member's group (bits_arr[fid] = 8, 16 or 32)
+// at its member's stride (stride_arr[fid] = degree + 1).
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kThreads)
+routed_poly_kernel(const T* __restrict__ x, T* __restrict__ out,
+                   T* __restrict__ slope, RoutedWork w, const int* __restrict__ ids,
+                   const int* __restrict__ n_arr, const int* __restrict__ extr,
+                   const int* __restrict__ bo_arr, const int* __restrict__ lo_arr,
+                   const int* __restrict__ bits_arr, const int* __restrict__ stride_arr,
+                   const float* __restrict__ bounds, const float* __restrict__ invd,
+                   const float* __restrict__ base, const float* __restrict__ segs,
+                   const float* __restrict__ zero, const float* __restrict__ ramp,
+                   const float* __restrict__ scale, const int8_t* __restrict__ codes8,
+                   const int16_t* __restrict__ codes16,
+                   const float* __restrict__ codes32, int n_fn, int max_n, int lmax,
+                   int m8, int m16, int m32, int stage) {
+  extern __shared__ float smem[];
+  float* code_smem = smem + 4 * max_n + 1 + 3 * max_n * lmax;
+  const float* seg[7];
+  int nn = 0, bits = 0, degree = 1;
+  bool ex = false;
+  const void* cd = nullptr;
+  auto restage = [&](int fid) {
+    nn = n_arr[fid];
+    ex = extr[fid] != 0;
+    degree = stride_arr[fid] - 1;
+    const int bo = bo_arr[fid], lo = lo_arr[fid];
+    const long long lane0 = static_cast<long long>(lo) * lmax;
+    seg[0] = bounds + bo;
+    seg[1] = invd + lo;
+    seg[2] = base + lo;
+    seg[3] = segs + lo;
+    seg[4] = zero + lane0;
+    seg[5] = ramp + lane0;
+    seg[6] = scale + lane0;
+    const int nl = nn * lmax;
+    const int count[7] = {nn + 1, nn, nn, nn, nl, nl, nl};
+    stage_row(smem, seg, count, stage >= kStageMeta);
+    const int b = bits_arr[fid] == 8 ? 8 : (bits_arr[fid] == 16 ? 16 : 32);
+    if (b != bits) {  // another width group: stage it in place of the last
+      bits = b;
+      if (b == 8) {
+        cd = stage_copy(reinterpret_cast<int8_t*>(code_smem), codes8, m8,
+                        stage == kStageAll);
+      } else if (b == 16) {
+        cd = stage_copy(reinterpret_cast<int16_t*>(code_smem), codes16, m16,
+                        stage == kStageAll);
+      } else {
+        cd = stage_copy(code_smem, codes32, m32, stage == kStageAll);
+      }
+    }
+  };
+  auto body = [&](long long r, long long c0, long long c1) {
+    const tl::PolyRow pr{seg[0], seg[1], seg[2], seg[3], seg[4], seg[5], seg[6],
+                         nn, lmax, degree};
+    if (bits == 8) {
+      routed_poly_cols<T, int8_t, kMode>(x, out, slope, r * w.cols, c0, c1, pr,
+                                         static_cast<const int8_t*>(cd), m8, ex);
+    } else if (bits == 16) {
+      routed_poly_cols<T, int16_t, kMode>(x, out, slope, r * w.cols, c0, c1, pr,
+                                          static_cast<const int16_t*>(cd), m16, ex);
+    } else {
+      routed_poly_cols<T, float, kMode>(x, out, slope, r * w.cols, c0, c1, pr,
+                                        static_cast<const float*>(cd), m32, ex);
+    }
+  };
+  routed_walk(w, ids, n_fn, restage, body);
+}
+
+// ---- RangeFold ----------------------------------------------------------------
+
+// The f32 pack's core rows fid_a and fid_b (equal for exp and log) are staged
+// back to back, then the values.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kThreads)
+folded_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
+              long long n, const float* __restrict__ bounds,
+              const float* __restrict__ invd, const float* __restrict__ base,
+              const float* __restrict__ segs, const float* __restrict__ values,
+              int fid_a, int fid_b, int n_max, int n_a, int n_b, int m, int kind,
+              int stage) {
+  extern __shared__ float smem[];
+  const int row_floats = 4 * n_max + 1;
+  const int count[4] = {n_max + 1, n_max, n_max, n_max};
+  const long long ra = static_cast<long long>(fid_a) * n_max;
+  const long long rb = static_cast<long long>(fid_b) * n_max;
+  const float* sa[4] = {bounds + static_cast<long long>(fid_a) * (n_max + 1),
+                        invd + ra, base + ra, segs + ra};
+  const float* sb[4] = {bounds + static_cast<long long>(fid_b) * (n_max + 1),
+                        invd + rb, base + rb, segs + rb};
+  stage_row(smem, sa, count, stage >= kStageMeta);
+  if (fid_b != fid_a) {
+    stage_row(smem + row_floats, sb, count, stage >= kStageMeta);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) sb[q] = sa[q];
+  }
+  const float* vals = stage_copy(smem + 2 * row_floats, values, m, stage == kStageAll);
+  __syncthreads();
+  const tl::Row a{sa[0], sa[1], sa[2], sa[3], n_max, n_a};
+  const tl::Row b{sb[0], sb[1], sb[2], sb[3], n_max, n_b};
+
+  for (long long idx = first_index(); idx < n; idx += grid_stride()) {
+    const float xv = load_f32(x, idx);
+    if (kMode == kGrad) {
+      float d;
+      store_f32(out, idx, rr::folded(kind, xv, a, b, vals, m, &d));
+      store_f32(slope, idx, d);
+    } else {
+      store_f32(out, idx, rr::folded(kind, xv, a, b, vals, m,
+                                     static_cast<float*>(nullptr)));
+    }
+  }
+}
+
 // ---- launches -----------------------------------------------------------------
 
 int sm_count() {
@@ -668,6 +829,68 @@ cudaError_t launch_routed_quant(const void* x, void* out, void* slope, long long
   return cudaGetLastError();
 }
 
+// lmax: the pack's lanes (max degree + 1); max_n: the widest member's interval
+// count; m8 / m16 / m32: the three code groups' sizes.  The staging holds the
+// widest member's seven lanes and the largest group.  Refuses what
+// launch_routed refuses, an empty code group and lmax outside [1, 4].
+template <int kMode>
+cudaError_t launch_routed_poly(const void* x, void* out, void* slope, long long n,
+                               int dtype, const int* const* routing,
+                               const float* const* planes, const void* codes8,
+                               const void* codes16, const void* codes32, int n_fn,
+                               int max_n, int lmax, int m8, int m16, int m32,
+                               int rows, cudaStream_t stream) {
+  if (n_fn < 1 || max_n < 1 || lmax < 1 || lmax > tl::kMaxLanes || m8 < 1 ||
+      m16 < 1 || m32 < 1 || rows < 1 || n < 0 || n % rows != 0 ||
+      (kMode == kGrad && !slope)) {
+    return cudaErrorInvalidValue;
+  }
+  if (n == 0) return cudaSuccess;
+  int blocks = 0;
+  const RoutedWork w = routed_work(n, rows, &blocks);
+  long long code_bytes = m8 > 2LL * m16 ? m8 : 2LL * m16;
+  code_bytes = code_bytes > 4LL * m32 ? code_bytes : 4LL * m32;
+  const Staging st = staging_for(4LL * max_n + 1 + 3LL * max_n * lmax, code_bytes);
+#define TP_ROUTED_POLY(T, ...)                                                         \
+  routed_poly_kernel<T, kMode><<<blocks, kThreads, st.bytes, stream>>>(                \
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), w,       \
+      routing[0], routing[1], routing[2], routing[3], routing[4], routing[5],          \
+      routing[6], planes[0], planes[1], planes[2], planes[3], planes[4], planes[5],    \
+      planes[6], static_cast<const int8_t*>(codes8),                                   \
+      static_cast<const int16_t*>(codes16), static_cast<const float*>(codes32), n_fn,  \
+      max_n, lmax, m8, m16, m32, st.stage)
+  TP_DISPATCH_DTYPE(dtype, TP_ROUTED_POLY, 0);
+#undef TP_ROUTED_POLY
+  return cudaGetLastError();
+}
+
+// kind: rr::Kind (0 sin, 1 cos, 2 exp, 3 log).  Refuses an empty or
+// inconsistent core row, a values vector of fewer than two entries, an
+// unknown kind and an unknown dtype.
+template <int kMode>
+cudaError_t launch_folded(const void* x, void* out, void* slope, long long n,
+                          int dtype, const float* bounds, const float* invd,
+                          const float* base, const float* segs, const float* values,
+                          int fid_a, int fid_b, int n_max, int n_a, int n_b, int m,
+                          int kind, cudaStream_t stream) {
+  if (n_max < 1 || n_a < 1 || n_a > n_max || n_b < 1 || n_b > n_max || fid_a < 0 ||
+      fid_b < 0 || m < 2 || kind < rr::kSin || kind > rr::kLog || n < 0 ||
+      (kMode == kGrad && !slope)) {
+    return cudaErrorInvalidValue;
+  }
+  if (n == 0) return cudaSuccess;
+  const int blocks = grid_for(n);
+  const Staging st = staging_for(2LL * (4LL * n_max + 1), 4LL * m);
+#define TP_FOLDED(T, ...)                                                              \
+  folded_kernel<T, kMode><<<blocks, kThreads, st.bytes, stream>>>(                     \
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), n,       \
+      bounds, invd, base, segs, values, fid_a, fid_b, n_max, n_a, n_b, m, kind,        \
+      st.stage)
+  TP_DISPATCH_DTYPE(dtype, TP_FOLDED, 0);
+#undef TP_FOLDED
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  All pointers are device pointers; the
@@ -847,6 +1070,65 @@ extern "C" cudaError_t tp_routed_quant_grad(
   return launch_routed_quant<kGrad>(x, y, slope, n, dtype, routing, planes, codes8,
                                     codes16, n_fn, max_n, m8, m16, rows,
                                     static_cast<cudaStream_t>(stream));
+}
+
+// Routed polynomial pack: as tp_routed_quant_lookup, with strides (each
+// member's degree + 1) gathered by fn_id too, bits 8, 16 or 32, and the three
+// width groups passed (codes8 of m8 entries, codes16 of m16, codes32 of m32
+// raw f32 coefficients); lmax is the pack's lane count.  Plane order: bounds,
+// invd, base, segs, zero, ramp, scale (the dequant planes lane-padded).
+extern "C" cudaError_t tp_routed_poly_lookup(
+    const void* x, void* out, long long n, int dtype, const int* ids,
+    const int* n_arr, const int* extr, const int* bo, const int* lo, const int* bits,
+    const int* strides, const float* bounds, const float* invd, const float* base,
+    const float* segs, const float* zero, const float* ramp, const float* scale,
+    const void* codes8, const void* codes16, const void* codes32, int n_fn,
+    int max_n, int lmax, int m8, int m16, int m32, int rows, void* stream) {
+  const int* routing[7] = {ids, n_arr, extr, bo, lo, bits, strides};
+  const float* planes[7] = {bounds, invd, base, segs, zero, ramp, scale};
+  return launch_routed_poly<kValue>(x, out, nullptr, n, dtype, routing, planes,
+                                    codes8, codes16, codes32, n_fn, max_n, lmax, m8,
+                                    m16, m32, rows, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" cudaError_t tp_routed_poly_grad(
+    const void* x, void* y, void* slope, long long n, int dtype, const int* ids,
+    const int* n_arr, const int* extr, const int* bo, const int* lo, const int* bits,
+    const int* strides, const float* bounds, const float* invd, const float* base,
+    const float* segs, const float* zero, const float* ramp, const float* scale,
+    const void* codes8, const void* codes16, const void* codes32, int n_fn,
+    int max_n, int lmax, int m8, int m16, int m32, int rows, void* stream) {
+  const int* routing[7] = {ids, n_arr, extr, bo, lo, bits, strides};
+  const float* planes[7] = {bounds, invd, base, segs, zero, ramp, scale};
+  return launch_routed_poly<kGrad>(x, y, slope, n, dtype, routing, planes, codes8,
+                                   codes16, codes32, n_fn, max_n, lmax, m8, m16, m32,
+                                   rows, static_cast<cudaStream_t>(stream));
+}
+
+// RangeFold over the f32 pack: member rows fid_a / fid_b are the core members
+// (sin_core and cos_core for kind sin or cos; fid_b = fid_a = exp_core or
+// log_core for exp or log) with n_a / n_b real sub-intervals; values has m
+// entries.
+extern "C" cudaError_t tp_folded_lookup(const void* x, void* out, long long n,
+                                        int dtype, const float* bounds,
+                                        const float* invd, const float* base,
+                                        const float* segs, const float* values,
+                                        int fid_a, int fid_b, int n_max, int n_a,
+                                        int n_b, int m, int kind, void* stream) {
+  return launch_folded<kValue>(x, out, nullptr, n, dtype, bounds, invd, base, segs,
+                               values, fid_a, fid_b, n_max, n_a, n_b, m, kind,
+                               static_cast<cudaStream_t>(stream));
+}
+
+extern "C" cudaError_t tp_folded_grad(const void* x, void* y, void* slope, long long n,
+                                      int dtype, const float* bounds, const float* invd,
+                                      const float* base, const float* segs,
+                                      const float* values, int fid_a, int fid_b,
+                                      int n_max, int n_a, int n_b, int m, int kind,
+                                      void* stream) {
+  return launch_folded<kGrad>(x, y, slope, n, dtype, bounds, invd, base, segs, values,
+                              fid_a, fid_b, n_max, n_a, n_b, m, kind,
+                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* tp_error_string(int err) {

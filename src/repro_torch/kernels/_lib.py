@@ -9,9 +9,12 @@ entries take five f32 planes (bounds, invd, base, segs, values); the quantized
 and polynomial ones seven f32 planes (bounds, invd, base, segs and three
 dequant planes) and then the codes pointer of the member's width group.  The
 routed entries take the int32 routing vectors first (ids, per-member interval
-counts, extrapolate flags; for the quantized pack also boundary offsets, lane
-offsets and code widths), then the pack's planes (the quantized pack's both
-code groups), then the row count.
+counts, extrapolate flags; for the quantized and polynomial packs also
+boundary offsets, lane offsets and code widths, and the polynomial pack's
+coefficient strides), then the pack's planes (every code group of the
+quantized or polynomial pack), then the row count.  The folded entries take
+the f32 pack's five planes and the core members' ids and interval counts and
+the fold's kind.
 :func:`launch` flattens x, allocates the outputs, launches on the current
 stream and raises on an error; :data:`launches` counts the launches of each
 kernel, and only a launch adds to it.  :func:`run` is the one wrapper
@@ -36,7 +39,8 @@ launches: Dict[str, int] = {
     "table_lookup": 0, "table_lookup_grad": 0, "quant_pack_lookup": 0,
     "quant_pack_grad": 0, "poly_pack_lookup": 0, "poly_pack_grad": 0,
     "routed_pack_lookup": 0, "routed_pack_grad": 0, "routed_quant_pack_lookup": 0,
-    "routed_quant_pack_grad": 0}
+    "routed_quant_pack_grad": 0, "folded_pack_lookup": 0, "folded_pack_grad": 0,
+    "routed_poly_pack_lookup": 0, "routed_poly_pack_grad": 0}
 
 
 def reset_launches() -> None:
@@ -67,6 +71,13 @@ _ENTRIES = {
     # n_fn, max_n, m8, m16, rows
     "tp_routed_quant_lookup": (1, 15, 5),
     "tp_routed_quant_grad": (2, 15, 5),
+    # fid_a, fid_b, n_max, n_a, n_b, m, kind (0 sin, 1 cos, 2 exp, 3 log)
+    "tp_folded_lookup": (1, 5, 7),
+    "tp_folded_grad": (2, 5, 7),
+    # ids, n_arr, extr, bo, lo, bits, strides + 7 f32 planes + codes8, codes16,
+    # codes32; n_fn, max_n, lmax, m8, m16, m32, rows
+    "tp_routed_poly_lookup": (1, 17, 7),
+    "tp_routed_poly_grad": (2, 17, 7),
 }
 _typed: Dict[int, ctypes.CDLL] = {}
 

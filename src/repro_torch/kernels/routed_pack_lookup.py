@@ -1,12 +1,14 @@
 """Routed Hopper kernels: per-row fn_id dispatch over a
-:class:`~repro_torch.approx.table_pack.TablePack` or a
-:class:`~repro_torch.approx.table_pack.QuantTablePack`, with their wrappers
+:class:`~repro_torch.approx.table_pack.TablePack`, a
+:class:`~repro_torch.approx.table_pack.QuantTablePack` or a
+:class:`~repro_torch.approx.table_pack.PolyTablePack`, with their wrappers
 and plain PyTorch versions.
 
 Row i of x (its leading axis; the trailing axes are the row's columns) goes
 through member ``fn_ids[i]``.  The ids, and the per-member interval counts,
 extrapolate flags and (quantized pack) ragged offsets and code widths, are
-int32 vectors on the card that the kernel gathers by fn_id, so one compiled
+int32 vectors on the card that the kernel gathers by fn_id (the polynomial
+pack adds each member's coefficient stride), so one compiled
 kernel serves every routing and the wrappers never read the routing on the
 host: a new routing is a new operand, and a routed call can be captured in a
 CUDA graph whose ids tensor is rewritten in place between replays.
@@ -22,6 +24,12 @@ CUDA graph whose ids tensor is rewritten in place between replays.
     ``tp_routed_quant_grad``; replace ``_routed_quant_kernel`` /
     ``_routed_quant_grad_kernel`` (``:300``, ``:329``).  Plain versions:
     ``eval_routed_quant_ref`` and ``eval_routed_quant_slope``.
+  * :func:`routed_poly_pack_lookup` / :func:`routed_poly_pack_grad` — the
+    polynomial pack (three code widths, degree-1..3 Horner cells).  CUDA
+    kernels ``tp_routed_poly_lookup`` / ``tp_routed_poly_grad``; replace
+    ``_routed_poly_kernel`` / ``_routed_poly_grad_kernel`` (``:641``,
+    ``:670``).  Plain versions: ``eval_routed_poly_ref`` and
+    ``eval_routed_poly_slope``.
 
 ``fn_ids`` is a name or int (every row), a sequence of names/ints (validated,
 ``KeyError`` on an unknown member) or a ``torch.Tensor`` of ids on the pack's
@@ -35,8 +43,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.approx.table_pack import (QuantTablePack, TablePack,
-                                          _fn_id_operand, eval_routed_quant_ref,
+from repro_torch.approx.table_pack import (PolyTablePack, QuantTablePack, TablePack,
+                                          _fn_id_operand, eval_routed_poly_ref,
+                                          eval_routed_poly_slope,
+                                          eval_routed_quant_ref,
                                           eval_routed_quant_slope, eval_routed_ref,
                                           eval_routed_slope, routed_extr_operand)
 
@@ -45,7 +55,9 @@ from ._lib import launches, reset_launches, run
 __all__ = ["launches", "reset_launches", "routed_pack_lookup",
            "routed_pack_lookup_plain", "routed_pack_grad", "routed_pack_grad_plain",
            "routed_quant_pack_lookup", "routed_quant_pack_lookup_plain",
-           "routed_quant_pack_grad", "routed_quant_pack_grad_plain"]
+           "routed_quant_pack_grad", "routed_quant_pack_grad_plain",
+           "routed_poly_pack_lookup", "routed_poly_pack_lookup_plain",
+           "routed_poly_pack_grad", "routed_poly_pack_grad_plain"]
 
 
 def _rows(x: torch.Tensor) -> int:
@@ -75,6 +87,19 @@ def _routed_quant_args(pack: QuantTablePack, fn_ids, x: torch.Tensor, extrapolat
              pack.ramp, pack.codes8, pack.codes16),
             (pack.n_functions, max(pack.n_intervals), pack.codes8.shape[0],
              pack.codes16.shape[0], rows))
+
+
+def _routed_poly_args(pack: PolyTablePack, fn_ids, x: torch.Tensor, extrapolate):
+    """(planes, ints) of a poly-pack routed entry point."""
+    rows = _rows(x)
+    n_arr, bo, lo, bits, strides = pack.routing_scalars()
+    return ((_fn_id_operand(pack, fn_ids, rows).contiguous(), n_arr,
+             routed_extr_operand(pack, extrapolate), bo, lo, bits, strides,
+             pack.boundaries, pack.inv_delta, pack.base, pack.seg_count, pack.zero,
+             pack.ramp, pack.scale, pack.codes8, pack.codes16, pack.codes32),
+            (pack.n_functions, max(pack.n_intervals), pack.max_lanes,
+             pack.codes8.shape[0], pack.codes16.shape[0], pack.codes32.shape[0],
+             rows))
 
 
 def routed_pack_lookup_plain(pack: TablePack, fn_ids, x: torch.Tensor, *,
@@ -142,3 +167,38 @@ def routed_quant_pack_grad(pack: QuantTablePack, fn_ids, x: torch.Tensor, *,
                "pack", _routed_quant_args(pack, fn_ids, x, extrapolate),
                lambda: routed_quant_pack_grad_plain(pack, fn_ids, x,
                                                     extrapolate=extrapolate))
+
+
+def routed_poly_pack_lookup_plain(pack: PolyTablePack, fn_ids, x: torch.Tensor, *,
+                                  extrapolate=False) -> torch.Tensor:
+    """Plain PyTorch version of ``tp_routed_poly_lookup``:
+    ``eval_routed_poly_ref``."""
+    return eval_routed_poly_ref(pack, fn_ids, x, extrapolate=extrapolate)
+
+
+def routed_poly_pack_lookup(pack: PolyTablePack, fn_ids, x: torch.Tensor, *,
+                            extrapolate=False) -> torch.Tensor:
+    """Row i of ``x`` through polynomial member ``fn_ids[i]`` (dequantize +
+    Horner)."""
+    return run("tp_routed_poly_lookup", "routed_poly_pack_lookup", x, pack.device,
+               "pack", _routed_poly_args(pack, fn_ids, x, extrapolate),
+               lambda: routed_poly_pack_lookup_plain(pack, fn_ids, x,
+                                                     extrapolate=extrapolate))
+
+
+def routed_poly_pack_grad_plain(pack: PolyTablePack, fn_ids, x: torch.Tensor, *,
+                                extrapolate=False):
+    """Plain PyTorch version of ``tp_routed_poly_grad``:
+    ``(eval_routed_poly_ref, eval_routed_poly_slope)``."""
+    return (eval_routed_poly_ref(pack, fn_ids, x, extrapolate=extrapolate),
+            eval_routed_poly_slope(pack, fn_ids, x, extrapolate=extrapolate))
+
+
+def routed_poly_pack_grad(pack: PolyTablePack, fn_ids, x: torch.Tensor, *,
+                          extrapolate=False):
+    """Routed polynomial ``(y, dy/dx)``, both in x's dtype, from one selector
+    and Horner pass."""
+    return run("tp_routed_poly_grad", "routed_poly_pack_grad", x, pack.device,
+               "pack", _routed_poly_args(pack, fn_ids, x, extrapolate),
+               lambda: routed_poly_pack_grad_plain(pack, fn_ids, x,
+                                                   extrapolate=extrapolate))

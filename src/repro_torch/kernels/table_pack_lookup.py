@@ -29,6 +29,14 @@ their wrappers and plain PyTorch versions.
     kernels ``tp_poly_lookup`` / ``tp_poly_grad``; replace ``_poly_kernel`` /
     ``_poly_grad_kernel`` (``:503``, ``:524``).  Plain versions:
     ``eval_poly_pack_ref`` and ``eval_poly_pack_slope``.
+  * :func:`folded_pack_lookup` / :func:`folded_pack_grad` — full-f32-range
+    ``sin`` / ``cos`` / ``exp`` / ``log`` over the f32 pack's core members
+    (RangeFold): the fold prologue, one or two core lookups that never
+    extrapolate, the reconstruction and edge epilogue, value or value +
+    chain-ruled slope, in one launch.  CUDA kernels ``tp_folded_lookup`` /
+    ``tp_folded_grad``; replace ``_folded_kernel`` / ``_folded_grad_kernel``
+    (``:943``, ``:953``).  Plain versions: ``eval_folded_ref`` and
+    ``eval_folded_slope`` (``approx/range_fold.py``), in x's dtype.
 
 Every wrapper goes through :func:`repro_torch.kernels._lib.run`: it checks
 x's dtype (float32 or bfloat16) and that x and the pack share a device, then
@@ -50,6 +58,9 @@ from repro_torch.approx.table_pack import (PolyTablePack, QuantTablePack, TableP
                                           eval_quant_pack_ref,
                                           eval_quant_pack_slope)
 
+from repro_torch.approx.range_fold import (FOLDABLE, eval_folded_ref,
+                                          eval_folded_slope)
+
 from ._lib import launches, reset_launches, run
 
 __all__ = ["launches", "reset_launches", "table_pack_lookup",
@@ -57,7 +68,8 @@ __all__ = ["launches", "reset_launches", "table_pack_lookup",
            "table_pack_grad", "table_pack_grad_plain", "quant_pack_lookup",
            "quant_pack_lookup_plain", "quant_pack_grad", "quant_pack_grad_plain",
            "poly_pack_lookup", "poly_pack_lookup_plain", "poly_pack_grad",
-           "poly_pack_grad_plain"]
+           "poly_pack_grad_plain", "folded_pack_lookup", "folded_pack_lookup_plain",
+           "folded_pack_grad", "folded_pack_grad_plain"]
 
 
 def _pack_args(pack: TablePack, fid: int, *flags: int):
@@ -204,3 +216,55 @@ def poly_pack_grad(pack: PolyTablePack, fn, x: torch.Tensor, *,
     return run("tp_poly_grad", "poly_pack_grad", x, pack.device, "pack",
                _poly_args(pack, fid, extrapolate),
                lambda: poly_pack_grad_plain(pack, fid, x, extrapolate=extrapolate))
+
+
+# --------------------------------------------------------------------------------------
+# RangeFold: fold + core lookup(s) + reconstruction, fused
+# --------------------------------------------------------------------------------------
+
+# the kind argument of the folded entry points (csrc/range_reduce.cuh rr::Kind)
+FOLD_KIND = {"sin": 0, "cos": 1, "exp": 2, "log": 3}
+
+
+def _folded_args(pack: TablePack, name: str):
+    """(planes, ints) of a folded entry point: the core members' fn_ids
+    (``fid_b = fid_a`` for exp and log) and interval counts, resolved as the
+    reference's ``_folded_prep`` does; a non-foldable name raises its
+    ``KeyError``."""
+    if name not in FOLDABLE:
+        raise KeyError(f"folded kernel serves {sorted(FOLDABLE)}, got {name!r}; "
+                       f"use table_pack_lookup for plain members")
+    cores = FOLDABLE[name]
+    fid_a = pack.member_id(cores[0])
+    fid_b = pack.member_id(cores[1]) if len(cores) > 1 else fid_a
+    return ((pack.boundaries, pack.inv_delta, pack.base, pack.seg_count, pack.values),
+            (fid_a, fid_b, pack.n_max, pack.n_intervals[fid_a],
+             pack.n_intervals[fid_b], pack.footprint, FOLD_KIND[name]))
+
+
+def folded_pack_lookup_plain(pack: TablePack, name: str,
+                             x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``tp_folded_lookup``: ``eval_folded_ref`` in
+    x's dtype (the kernel computes in f32 and stores in x's dtype)."""
+    return eval_folded_ref(pack, name, x).to(x.dtype)
+
+
+def folded_pack_lookup(pack: TablePack, name: str, x: torch.Tensor) -> torch.Tensor:
+    """Full-f32-range ``sin`` / ``cos`` / ``exp`` / ``log`` over a tensor:
+    fold + core lookup(s) + reconstruction in one launch."""
+    return run("tp_folded_lookup", "folded_pack_lookup", x, pack.device, "pack",
+               _folded_args(pack, name), lambda: folded_pack_lookup_plain(pack, name, x))
+
+
+def folded_pack_grad_plain(pack: TablePack, name: str, x: torch.Tensor):
+    """Plain PyTorch version of ``tp_folded_grad``: ``(eval_folded_ref,
+    eval_folded_slope)`` in x's dtype."""
+    return (eval_folded_ref(pack, name, x).to(x.dtype),
+            eval_folded_slope(pack, name, x).to(x.dtype))
+
+
+def folded_pack_grad(pack: TablePack, name: str, x: torch.Tensor):
+    """``(y, dy/dx)`` of the folded surrogate, both in x's dtype, from one
+    pass (the core slopes chain-ruled through the reconstruction)."""
+    return run("tp_folded_grad", "folded_pack_grad", x, pack.device, "pack",
+               _folded_args(pack, name), lambda: folded_pack_grad_plain(pack, name, x))

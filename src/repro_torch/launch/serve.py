@@ -4,8 +4,8 @@ request queue, on the card unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
       --reduced --device cpu --approx-mode table_pack --attn-table
 
-The flags are the JAX launcher's (``repro.launch.serve``) minus the approx
-modes and options not ported yet, plus ``--device``.  ``--scheduler
+The flags are the JAX launcher's (``repro.launch.serve``) minus the sharded
+modes and the options not ported yet, plus ``--device``.  ``--scheduler
 continuous`` (default) serves through the ContinuousEngine; ``--scheduler
 static`` keeps the fixed-group baseline.  ``--trace PATH`` writes a
 Perfetto-loadable Chrome trace of the run.  Throughput is reported wall-clock
@@ -61,6 +61,8 @@ def main(argv=None):
                          "the planner's degree-1..3 pack (see --pack-budget), "
                          "routed_* = the same packs with dynamic per-row "
                          "fn_id dispatch (one kernel for every member), "
+                         "folded_* = full-range sin/cos/exp/log by range "
+                         "reduction over the f32 pack, "
                          "*_ref = their plain PyTorch versions")
     ap.add_argument("--approx-ea", type=float, default=None,
                     help="override the config's error budget E_a")
@@ -69,6 +71,9 @@ def main(argv=None):
                          "space planner (greedy member downgrade until the "
                          "pack fits; an infeasible budget is an error; default "
                          "takes each function's cheapest candidate)")
+    ap.add_argument("--rope-table", action="store_true",
+                    help="serve RoPE's sin/cos from the pack's folded trig "
+                         "members (any table mode)")
     ap.add_argument("--attn-table", action="store_true",
                     help="TableFlash: serve flash attention's softmax exponent"
                          " from the pack's exp_neg member (any table mode)")
@@ -92,6 +97,8 @@ def main(argv=None):
         kw["e_a"] = args.approx_ea
     if args.pack_budget is not None:
         kw["pack_budget"] = args.pack_budget
+    if args.rope_table:
+        kw["rope_table"] = True
     if args.attn_table:
         kw["attn_table"] = True
     if kw:

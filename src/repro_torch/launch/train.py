@@ -5,9 +5,9 @@
       --approx-mode table_pack
 
 The flags are the JAX launcher's (``repro.launch.train``) for the ported
-approx modes (``--pack-budget`` included), plus ``--device``; the mesh, the
-unported modes and their options (``--mesh``, ``--pack-shards``,
-``--rope-table``, ``--obs``) wait for their ROADMAP items.  Weights are random, drawn from
+approx modes (``--pack-budget`` and ``--rope-table`` included), plus
+``--device``; the mesh, the sharded modes and their options (``--mesh``,
+``--pack-shards``, ``--obs``) wait for their ROADMAP items.  Weights are random, drawn from
 seed 0, and the data is the counter-addressed synthetic stream, as in the
 JAX launcher.  The summary line reports the one-time nvcc kernel build in
 place of the reference's compile time.
@@ -50,6 +50,8 @@ def main(argv=None):
                          "the planner's degree-1..3 pack (see --pack-budget), "
                          "routed_* = the same packs with dynamic per-row "
                          "fn_id dispatch (one kernel for every member), "
+                         "folded_* = full-range sin/cos/exp/log by range "
+                         "reduction over the f32 pack, "
                          "*_ref = their plain PyTorch versions")
     ap.add_argument("--approx-ea", type=float, default=None,
                     help="override the config's error budget E_a")
@@ -58,6 +60,9 @@ def main(argv=None):
                          "space planner (greedy member downgrade until the "
                          "pack fits; an infeasible budget is an error; default "
                          "takes each function's cheapest candidate)")
+    ap.add_argument("--rope-table", action="store_true",
+                    help="serve RoPE's sin/cos from the pack's folded trig "
+                         "members (any table mode)")
     ap.add_argument("--attn-table", action="store_true",
                     help="TableFlash: serve flash attention's softmax exponent"
                          " from the pack's exp_neg member (any table mode)")
@@ -81,6 +86,8 @@ def main(argv=None):
         kw["e_a"] = args.approx_ea
     if args.pack_budget is not None:
         kw["pack_budget"] = args.pack_budget
+    if args.rope_table:
+        kw["rope_table"] = True
     if args.attn_table:
         kw["attn_table"] = True
     if kw:

@@ -99,7 +99,7 @@ class DecoderLM:
         self._cap_tanh = None
         if cfg.attn.logit_softcap > 0:
             self._cap_tanh = cfg.approx.unary("tanh", self.device)
-        self.rope_sin_cos = cfg.approx.rope_sin_cos()
+        self.rope_sin_cos = cfg.approx.rope_sin_cos(self.device)
         # TableFlash: flash attention's softmax exponent through the pack's
         # exp_neg member when attn_table is on (None = exact exp)
         self.attn_exp = cfg.approx.attn_exp(self.device)

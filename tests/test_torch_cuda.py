@@ -155,7 +155,9 @@ def test_wrapper_contract(pack):
                           "quant_pack_grad": 0, "poly_pack_lookup": 0,
                           "poly_pack_grad": 0,
                           "routed_pack_lookup": 0, "routed_pack_grad": 0,
-                          "routed_quant_pack_lookup": 0, "routed_quant_pack_grad": 0}
+                          "routed_quant_pack_lookup": 0, "routed_quant_pack_grad": 0,
+                          "folded_pack_lookup": 0, "folded_pack_grad": 0,
+                          "routed_poly_pack_lookup": 0, "routed_poly_pack_grad": 0}
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         K.table_pack_lookup(pack, "silu", x.half())
     for p, t in ((cpu_pack, x), (pack, x.cpu())):
@@ -242,7 +244,9 @@ def test_grad_wrappers_contract(pack, cuda):
                           "quant_pack_grad": 0, "poly_pack_lookup": 0,
                           "poly_pack_grad": 0,
                           "routed_pack_lookup": 0, "routed_pack_grad": 0,
-                          "routed_quant_pack_lookup": 0, "routed_quant_pack_grad": 0}
+                          "routed_quant_pack_lookup": 0, "routed_quant_pack_grad": 0,
+                          "folded_pack_lookup": 0, "folded_pack_grad": 0,
+                          "routed_poly_pack_lookup": 0, "routed_poly_pack_grad": 0}
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         TG.table_lookup_grad(jt, x.half())
     with pytest.raises(ValueError, match="table lives on"):
@@ -465,7 +469,9 @@ def test_quant_poly_wrappers_contract(quant, poly, cuda):
                           "quant_pack_grad": 1, "poly_pack_lookup": 1,
                           "poly_pack_grad": 1,
                           "routed_pack_lookup": 0, "routed_pack_grad": 0,
-                          "routed_quant_pack_lookup": 0, "routed_quant_pack_grad": 0}
+                          "routed_quant_pack_lookup": 0, "routed_quant_pack_grad": 0,
+                          "folded_pack_lookup": 0, "folded_pack_grad": 0,
+                          "routed_poly_pack_lookup": 0, "routed_poly_pack_grad": 0}
 
 
 @pytest.mark.parametrize("mode", ["quant_pack", "poly_pack"])
@@ -518,11 +524,12 @@ MIXED_WIDTHS = (("gelu", "int8"), ("tanh", "int16"), ("log", "int16"),
 
 
 @pytest.fixture(scope="module")
-def routed_packs(cuda, pack, quant):
+def routed_packs(cuda, pack, quant, poly, mixed):
     mixed_w = from_quant_layout(quant_pack_layout(
         [plan_quant_member(n, 1e-4, dtype=d) for n, d in MIXED_WIDTHS]), cuda)
     fine = build_quant_pack(NAMES, 1e-6, omega=0.2, device=cuda)
-    return {"f32": pack, "quant": quant, "mixed": mixed_w, "quant_1e-6": fine}
+    return {"f32": pack, "quant": quant, "mixed": mixed_w, "quant_1e-6": fine,
+            "poly": poly, "mixed_poly": mixed}
 
 
 def _routed_fns(pack):
@@ -531,6 +538,10 @@ def _routed_fns(pack):
     if hasattr(pack, "n_max"):
         return (R.routed_pack_lookup, R.routed_pack_grad, R.routed_pack_lookup_plain,
                 R.routed_pack_grad_plain, K.table_pack_lookup, K.table_pack_grad)
+    if hasattr(pack, "degrees"):
+        return (R.routed_poly_pack_lookup, R.routed_poly_pack_grad,
+                R.routed_poly_pack_lookup_plain, R.routed_poly_pack_grad_plain,
+                K.poly_pack_lookup, K.poly_pack_grad)
     return (R.routed_quant_pack_lookup, R.routed_quant_pack_grad,
             R.routed_quant_pack_lookup_plain, R.routed_quant_pack_grad_plain,
             K.quant_pack_lookup, K.quant_pack_grad)
@@ -570,7 +581,8 @@ def _routed_check(pack, ids, x, ex):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("flags", ["off", "on", "per_member"])
-@pytest.mark.parametrize("kind", ["f32", "quant", "mixed", "quant_1e-6"])
+@pytest.mark.parametrize("kind", ["f32", "quant", "mixed", "quant_1e-6", "poly",
+                                  "mixed_poly"])
 def test_routed_kernels_bitwise(routed_packs, kind, flags, dtype):
     pk = routed_packs[kind]
     F = pk.n_functions
@@ -585,7 +597,7 @@ def test_routed_kernels_bitwise(routed_packs, kind, flags, dtype):
     _routed_check(pk, raw, x, ex)
 
 
-@pytest.mark.parametrize("kind", ["f32", "quant"])
+@pytest.mark.parametrize("kind", ["f32", "quant", "poly"])
 def test_routed_rows_beyond_grid_limit(routed_packs, kind):
     """70,000 rows of 3 (more rows than a CUDA grid's y or z extent holds)."""
     pk = routed_packs[kind]
@@ -596,7 +608,7 @@ def test_routed_rows_beyond_grid_limit(routed_packs, kind):
         _routed_check(pk, ids, x, ex)
 
 
-@pytest.mark.parametrize("kind", ["f32", "quant"])
+@pytest.mark.parametrize("kind", ["f32", "quant", "poly", "mixed_poly"])
 def test_routed_cuda_graph_reroute(routed_packs, kind):
     """A routed call captured in a CUDA graph reads the ids tensor at replay:
     rewriting it in place re-routes the replay, with no capture anew."""
@@ -670,7 +682,8 @@ def test_routed_wrappers_contract(routed_packs):
         "routed_quant_pack_lookup": 1, "routed_quant_pack_grad": 1}
 
 
-@pytest.mark.parametrize("mode", ["routed_pack", "routed_quant_pack"])
+@pytest.mark.parametrize("mode", ["routed_pack", "routed_quant_pack",
+                                  "routed_poly_pack"])
 def test_reduced_routed_card_matches_cpu(cuda, mode):
     """Reduced stablelm, f32, in ``mode`` with TableFlash: serving on the card
     (the routed kernels and tableflash_exp) token-identical to the plain
@@ -708,3 +721,125 @@ def test_reduced_routed_card_matches_cpu(cuda, mode):
     for a, b in zip(served["cuda"], served["cpu"]):
         np.testing.assert_array_equal(a.tokens, b.tokens)
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# --------------------------------------------------------------------------------------
+# RangeFold: the folded kernels
+# --------------------------------------------------------------------------------------
+
+FOLDED = ("sin", "cos", "exp", "log")
+# the rotary angles of stablelm-3b (d_head 80): decode, prefill, training
+# micro-batch; and a ragged size
+ROPE_SHAPES = [(4, 1, 40), (4, 27, 40), (4, 128, 40), (12345,)]
+
+
+@pytest.fixture(scope="module")
+def fold_pack(cuda):
+    return ApproxConfig(mode="folded_pack", e_a=1e-4, omega=0.2).pack(cuda)
+
+
+def fullrange_input(shape, dtype, seed=0):
+    """The full-range samples of tests/harness/fullrange.py (every decade,
+    both signs, near-multiples of pi/2 in both reduction regimes, powers of
+    two, subnormals, +-0), then inf, -inf and NaN, tiled to ``shape``."""
+    from harness.fullrange import fullrange_samples
+
+    x = np.concatenate([np.float32([np.inf, -np.inf, np.nan, 0.0, -0.0]),
+                        fullrange_samples(fast=True, seed=seed)])
+    n = int(np.prod(shape))
+    x = np.resize(x, n).reshape(shape).astype(np.float32)
+    return torch.from_numpy(x).to("cuda").to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", FOLDED)
+def test_folded_kernels_bitwise(fold_pack, name, dtype):
+    """Value and value + slope kernels bitwise against their plain versions
+    over the full f32 range (Payne-Hanek lanes and subnormals included), at
+    the rotary shapes and a ragged size."""
+    for i, shape in enumerate(ROPE_SHAPES + [(70_000,)]):
+        x = fullrange_input(shape, dtype, seed=i)
+        got = K.folded_pack_lookup(fold_pack, name, x)
+        y, s = K.folded_pack_grad(fold_pack, name, x)
+        torch.cuda.synchronize()
+        want_y, want_s = K.folded_pack_grad_plain(fold_pack, name, x)
+        assert_bitwise(got, K.folded_pack_lookup_plain(fold_pack, name, x))
+        assert_bitwise(y, want_y)
+        assert_bitwise(s, want_s)
+    # the Payne-Hanek regime, dense: |x| in [2048, 3e38)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    big = torch.exp(torch.rand(200_000, generator=g, device="cuda") * 80 + 7.63)
+    big = torch.where(torch.rand(200_000, generator=g, device="cuda") < 0.5, -big, big)
+    y, s = K.folded_pack_grad(fold_pack, name, big)
+    torch.cuda.synchronize()
+    want_y, want_s = K.folded_pack_grad_plain(fold_pack, name, big)
+    assert_bitwise(y, want_y)
+    assert_bitwise(s, want_s)
+
+
+def test_folded_wrappers_contract(fold_pack):
+    K.reset_launches()
+    x = torch.randn(6, 5, 7, device="cuda").transpose(1, 2) * 100  # not contiguous
+    y = K.folded_pack_lookup(fold_pack, "sin", x)
+    yg, s = K.folded_pack_grad(fold_pack, "log", x.abs())
+    assert y.shape == yg.shape == s.shape == x.shape and y.is_contiguous()
+    K.folded_pack_lookup(fold_pack, "cos", torch.empty(0, device="cuda"))  # no launch
+    with pytest.raises(KeyError, match="folded kernel serves"):
+        K.folded_pack_lookup(fold_pack, "gelu", x)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.folded_pack_lookup(fold_pack, "exp", x.half())
+    with pytest.raises(ValueError, match="pack lives on"):
+        K.folded_pack_grad(fold_pack, "exp", x.cpu())
+    plain = ApproxConfig(mode="table_pack", e_a=1e-4, omega=0.2).pack("cuda")
+    with pytest.raises(KeyError, match="sin_core"):  # a pack without the cores
+        K.folded_pack_lookup(plain, "sin", x)
+    assert {k: v for k, v in K.launches.items() if v} == {
+        "folded_pack_lookup": 1, "folded_pack_grad": 1}
+
+
+@pytest.mark.parametrize("name", FOLDED)
+def test_folded_unary_gradient_through_kernel(cuda, name):
+    """ApproxConfig(mode="folded_pack").unary(name) under autograd runs the
+    fused grad kernel, and its gradient is the plain slope times dy."""
+    a = ApproxConfig(mode="folded_pack", e_a=1e-4, omega=0.2)
+    f = a.unary(name, cuda)
+    x = fullrange_input((4, 27, 40), torch.float32, seed=9)
+    x = torch.where(torch.isfinite(x), x, 1.0).requires_grad_(True)
+    dy = torch.randn(x.shape, device="cuda")
+    K.reset_launches()
+    y = f(x)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert K.launches["folded_pack_grad"] == 1
+    pack = a.pack(cuda)
+    want_y, want_s = K.folded_pack_grad_plain(pack, name, x.detach())
+    assert_bitwise(y.detach(), want_y)
+    assert_bitwise(x.grad, want_s * dy)
+
+
+@pytest.mark.parametrize("mode", ["folded_pack", "folded_routed_pack", "table_pack"])
+def test_reduced_rope_table_card_matches_cpu(cuda, mode):
+    """Reduced stablelm, f32, ``rope_table`` in ``mode``: serving on the card
+    (the folded kernels for the rotary sin / cos) token-identical to the plain
+    versions on the CPU."""
+    from repro_torch.models import build_model, reduced
+    from repro_torch.serving.engine import ContinuousEngine, Request
+    from repro_torch.train.loop import init_state
+    from repro_torch.tree import tree_map
+
+    cfg = reduced("stablelm-3b").replace(compute_dtype="float32", approx=ApproxConfig(
+        mode=mode, e_a=1e-4, omega=0.2, rope_table=True, attn_table=True))
+    rng = np.random.default_rng(4)
+    reqs = [Request(prompt=rng.integers(0, 128, (int(n),)).astype(np.int32),
+                    max_new_tokens=6) for n in rng.integers(3, 12, 5)]
+    cpu_params = init_state(build_model(cfg, "cpu"))["params"]
+    served = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, dev)
+        params = tree_map(lambda t: t.detach().clone().to(dev), cpu_params)
+        K.reset_launches()
+        served[dev] = ContinuousEngine(model, params, 2, 64).serve(reqs)
+        if dev == "cuda":
+            assert K.launches["folded_pack_lookup"] > 0
+    for a, b in zip(served["cuda"], served["cpu"]):
+        np.testing.assert_array_equal(a.tokens, b.tokens)

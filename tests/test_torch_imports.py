@@ -30,7 +30,9 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
-    assert "repro_torch.kernels.table_pack_lookup" in mods
+    for m in ("repro_torch.kernels.table_pack_lookup", "repro_torch.core.range_reduce",
+              "repro_torch.approx.range_fold", "repro_torch.kernels.routed_pack_lookup"):
+        assert m in mods, m
     code = (
         "import importlib, json, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"

@@ -433,8 +433,15 @@ class TestContracts:
     def test_unknown_mode_and_rope_table(self):
         with pytest.raises(ValueError, match="unknown approx mode"):
             ApproxConfig(mode="bogus").unary("silu", "cpu")
-        with pytest.raises(NotImplementedError, match="RangeFold"):
-            ApproxConfig(mode="table_pack", rope_table=True).rope_sin_cos()
+        with pytest.raises(ValueError, match="unknown approx mode"):
+            ApproxConfig(mode="bogus", rope_table=True).rope_sin_cos("cpu")
+        # rope_table serves the rotary sin/cos through the folded trig
+        # members (tests/test_torch_fold.py holds them to the reference)
+        sin_cos = ApproxConfig(mode="table_pack", rope_table=True).rope_sin_cos("cpu")
+        ang = torch.linspace(0.0, 300.0, 1001)
+        s, c = sin_cos(ang)
+        assert float((s - torch.sin(ang)).abs().max()) < 1e-3
+        assert float((c - torch.cos(ang)).abs().max()) < 1e-3
         assert ApproxConfig(mode="exact", rope_table=True).rope_sin_cos() is None
 
     def test_no_cuda_is_an_error(self):

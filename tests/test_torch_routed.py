@@ -419,9 +419,11 @@ def test_unported_packs_raise(f32):
     poly = table_pack.from_poly_layout(packing.poly_pack_layout(
         [design.poly_member("gelu", EA, degree=1, bits=32)]), "cpu")
     sharded = tp_ref.build_sharded_pack(("gelu", "tanh"), EA, 2)
+    x = torch.linspace(-4, 4, 33).reshape(1, -1)
     for make in (table_pack.make_routed_fn, table_pack.make_routed_unary_fn):
-        with pytest.raises(NotImplementedError, match="item 9.*next slice"):
-            make(poly, "gelu")
+        # the polynomial pack is routed now (tests/test_torch_routed_poly.py)
+        assert torch.equal(make(poly, "gelu")(x), table_pack.eval_poly_pack_ref(
+            poly, "gelu", x))
         with pytest.raises(NotImplementedError, match="item 12"):
             make(sharded, "gelu")
 
@@ -433,11 +435,12 @@ def test_unported_packs_raise(f32):
 
 def test_routed_modes_are_ported():
     assert ROUTED_MODES == ("routed_pack", "routed_pack_ref", "routed_quant_pack",
-                            "routed_quant_pack_ref")
+                            "routed_quant_pack_ref", "routed_poly_pack",
+                            "routed_poly_pack_ref")
     for mode in ROUTED_MODES:
         assert mode not in NOT_PORTED
-    for mode in ("routed_poly_pack", "routed_poly_pack_ref"):
-        assert "next slice" in NOT_PORTED[mode]
+    for mode in ("sharded_pack", "sharded_pack_ref"):
+        assert "item 12" in NOT_PORTED[mode]
         with pytest.raises(NotImplementedError, match="not ported yet"):
             ApproxConfig(mode=mode).unary("silu", "cpu")
         with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -453,7 +456,9 @@ def test_routed_unary_bitwise_equal_static(mode, f32, quant):
     reference's (eager ``_ref``) unary, remaps and odd extension included."""
     static_mode = {"routed_pack": "table_pack", "routed_pack_ref": "table_pack_ref",
                    "routed_quant_pack": "quant_pack",
-                   "routed_quant_pack_ref": "quant_pack_ref"}[mode]
+                   "routed_quant_pack_ref": "quant_pack_ref",
+                   "routed_poly_pack": "poly_pack",
+                   "routed_poly_pack_ref": "poly_pack_ref"}[mode]
     rng = np.random.default_rng(41)
     x = np.concatenate([np.linspace(-12, 12, 1001),
                         rng.normal(0, 4, 600)]).astype(np.float32)
@@ -493,8 +498,8 @@ def test_routed_fn_matches_per_slot_unary(mode, f32, quant):
     assert torch.isfinite(g).all()
     if mode == "exact":
         return
-    quantized = "quant" in mode
-    jmode = ("routed_quant_pack_ref" if quantized else "routed_pack_ref")
+    jmode = ("routed_quant_pack_ref" if "quant" in mode else
+             "routed_poly_pack_ref" if "poly" in mode else "routed_pack_ref")
     jf = JApprox(mode=jmode, e_a=EA, omega=OMEGA).routed_fn(SLOTS)
     jy, vjp = jax.vjp(jf, jnp.asarray(x))
     assert_bitwise(y, jy)
@@ -509,9 +514,12 @@ def test_routed_fn_errors_and_exact_mode():
         ApproxConfig().routed_fn(("gelu", 3))
     with pytest.raises(KeyError, match="exact-mode routing"):
         ApproxConfig().routed_fn(("nope",))
-    with pytest.raises(NotImplementedError, match="PolyTablePack"):
-        ApproxConfig(mode="poly_pack", e_a=EA, omega=OMEGA,
-                     pack_functions=("gelu",)).routed_fn(("gelu",), "cpu")
+    # the polynomial pack's modes route through its own routed kernels
+    poly_cfg = ApproxConfig(mode="poly_pack", e_a=EA, omega=OMEGA,
+                            pack_functions=("gelu",))
+    xg = torch.linspace(-4, 4, 40).reshape(2, 20)
+    assert torch.equal(poly_cfg.routed_fn(("gelu", "gelu"), "cpu")(xg),
+                       poly_cfg.unary("gelu", "cpu")(xg))
     # exact mode: a row-select over the exact activations
     x = torch.randn(2, 5, 8, generator=torch.Generator().manual_seed(0))
     y = ApproxConfig().routed_fn(("sigmoid", "tanh"))(x)

@@ -11,8 +11,8 @@ checkout's ``src/repro_torch/csrc`` with its own ``kernels/_build.py`` and
 times every kernel the checkout's package has.  The timing is not this
 tool's own: each run calls the timing phases of the ``chip_smoke.py`` beside
 this tool (``timing_phase`` and, where the checkout has them, the quantized
-and polynomial kernels' ``quant_poly_timing_phase`` and the routed kernels'
-``routed_timing_phase``) with the checkout's package on ``sys.path``, so every checkout is timed by one method, at the main path's
+and polynomial kernels' ``quant_poly_timing_phase``, the routed kernels'
+``routed_timing_phase`` and the folded kernels' ``folded_timing_phase``) with the checkout's package on ``sys.path``, so every checkout is timed by one method, at the main path's
 shapes, over stablelm-3b's packs.  The card's name and power limit are printed
 with the table of per-run kernel times and medians (us).  Needs a card; exits
 non-zero without one.
@@ -47,7 +47,17 @@ if hasattr(K, "quant_pack_lookup"):
     rows.update(cs.quant_poly_timing_phase(approx.quant_pack("cuda"),
                                            approx.poly_pack("cuda"), sys.argv[2]))
 if importlib.util.find_spec("repro_torch.kernels.routed_pack_lookup"):
-    rows.update(cs.routed_timing_phase(pack, approx.quant_pack("cuda"), sys.argv[2]))
+    rows.update(cs.routed_timing_phase(((pack, 14), (approx.quant_pack("cuda"), 22)),
+                                       sys.argv[2]))
+    from repro_torch.kernels import routed_pack_lookup as R
+    if hasattr(R, "routed_poly_pack_lookup"):
+        poly = approx.poly_pack("cuda")
+        d = poly.degrees[poly.fn_id("silu")]
+        rows.update(cs.routed_timing_phase(((poly, 10 + 6 * (d + 1) + 5 * d),),
+                                           sys.argv[2]))
+if hasattr(K, "folded_pack_lookup"):
+    rows.update(cs.folded_timing_phase(
+        dataclasses.replace(approx, mode="folded_pack").pack("cuda"), sys.argv[2]))
 print(json.dumps({k: r["ms"] * 1e3 for k, r in rows.items()}))
 """
 
