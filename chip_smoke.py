@@ -108,7 +108,35 @@ Phases, each fatal on failure (exit code 1, no result line):
    bitwise the plain slope times dy;
 20. their times, as in phase 16 (the folded kernels beside ``torch.sin`` /
    ``cos`` / ``exp`` / ``log``; the routed poly kernels beside the static poly
-   kernel of the same member).
+   kernel of the same member);
+21. ShardedPack kernels: the static sharded kernels (value, its slope mode,
+   value + slope) and each shard's single contribution bitwise against their
+   plain versions, NaN positions matched, over every member of stablelm-3b's
+   pack cut into 1, 2, 3, 4 and 8 shards and of ``("silu", "exp_neg")`` at
+   e_a 1e-8 in 2 shards (a slice past the kernels' 10,240-value shared
+   budget, read from global memory), f32 and bf16, extrapolation on and off,
+   at the gate shapes of the paths, a ragged size and the edge inputs; the
+   sum of the shards equal to the replicated kernel (``table_pack_lookup`` /
+   ``table_pack_grad``) as values (a sum turns an owner's -0.0 into +0.0;
+   at a NaN x the meaningless extrapolated slope reads another entry); the
+   routed sharded kernels as phase 13 does the routed kernels (the static
+   sharded kernels row by row, the replicated routed kernels as values, the
+   512 x 6912 ``routed_fn`` batch), re-routed inside a CUDA graph too;
+22. ShardedPack serving: full stablelm-3b serving the 8 requests in
+   ``sharded_pack`` at ``pack_shards=4`` (+ TableFlash), tokens equal to
+   ``sharded_pack_ref``'s and to phase 4's ``table_pack``, 4 sharded launches
+   for each gate call of phase 4, and the decode step ms of ``table_pack``,
+   ``sharded_pack`` and ``sharded_pack_ref`` in alternating rounds; then
+   ``routed_activation`` of ``sharded_pack`` over the 512 x 6912 batch, value
+   and gradient (the routed sharded kernels, 4 launches each), bitwise the
+   plain mode's;
+23. ShardedPack training: 2 steps at the trainer's defaults at
+   ``pack_shards=4``, step-0 loss equal to ``sharded_pack_ref``'s and to
+   phase 6's ``table_pack`` bit for bit, and a third step under the
+   profiler (device busy time and its kernels, as phase 6's);
+24. their times: each sharded call (4 launches and 3 adds) at the decode
+   and the training gate, one shard's launch, the replicated static and
+   routed kernels of the same member, the plain versions and ``F.silu``.
 
 The line before the last is one JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout of
@@ -146,10 +174,14 @@ SERVED = {}
 ROUTED_STATIC = {"routed_pack": "table_pack", "routed_quant_pack": "quant_pack",
                  "routed_poly_pack": "poly_pack",
                  "folded_pack+rope": "table_pack+rope",
-                 "folded_routed_pack+rope": "table_pack+rope"}
-# each training mode's step-0 loss (phases 11, 15, 19): a routed mode whose
-# static mode trained before must match it
+                 "folded_routed_pack+rope": "table_pack+rope",
+                 "sharded_pack": "table_pack"}
+# each training mode's step-0 loss (phases 6, 11, 15, 19, 23): a routed or
+# sharded mode whose static mode trained before must match it
 STEP0 = {}
+PACK_SHARDS = 4  # the sharded paths' shard count: silu, the gate, is split
+SHARD_COUNTS = (1, 2, 3, 4, 8)  # the kernel checks'
+SHARDED = ("sharded_pack", "sharded_pack_ref")
 FOLDED = ("sin", "cos", "exp", "log")
 # stablelm-3b's rotary angles (d_head 80 -> 40 frequencies): decode, prefill
 # (the queue's longest prompt, 27), training micro-batch
@@ -561,6 +593,10 @@ def _with_mode(cfg, mode, **kw):
     return cfg.replace(approx=dataclasses.replace(cfg.approx, mode=mode, **kw))
 
 
+def _shard_kw(mode):
+    return {"pack_shards": PACK_SHARDS} if mode in SHARDED else {}
+
+
 def _trainer_data(cfg):
     from repro_torch.data.pipeline import SyntheticLM, data_config_for
     from repro_torch.models import ShapeSpec
@@ -687,6 +723,7 @@ def train_path(smi_line):
     gn_rel = abs(rows[0]["grad_norm"] - ref_gn) / ref_gn
     check(gn_rel <= 1e-3, f"step-0 grad norm {rows[0]['grad_norm']} vs "
           f"table_pack_ref's {ref_gn}: {gn_rel:.2e} > 1e-3")
+    STEP0["table_pack"] = losses[0]
     steady = [r["ms"] for r in rows[1:-1]]
     idle = f"{1 - busy_ms / min(steady):.3f}" if busy_ms and steady else "not measured"
     log(f"train: step-0 loss equals table_pack_ref's bit for bit ({ref_loss!r}); "
@@ -955,7 +992,8 @@ def pack_serving_paths(smi_line, modes):
     counts = {}
     for key, knames in modes:
         mode, rope = key.split("+")[0], key.endswith("+rope")
-        cfg = _with_mode(base, mode, attn_table=True, rope_table=rope)
+        cfg = _with_mode(base, mode, attn_table=True, rope_table=rope,
+                         **_shard_kw(mode))
         model = build_model(cfg, "cuda")
         ref = build_model(_with_mode(cfg, mode + "_ref"), "cuda")
         torch.cuda.synchronize()
@@ -997,11 +1035,13 @@ def pack_serving_paths(smi_line, modes):
     return counts
 
 
-def pack_train_paths(smi_line, modes):
+def pack_train_paths(smi_line, modes, profile=False):
     """Full stablelm-3b, QP_STEPS steps in each ``(mode, kernels)`` of
     ``modes`` (+ TableFlash; "+rope" as in pack_serving_paths), step 0
     against the _ref mode and a routed mode's against its static mode's
-    (``STEP0``).  Every kernel named must launch."""
+    (``STEP0``).  Every kernel named must launch.  With ``profile`` one more
+    step runs under torch.profiler: its device busy time against the
+    unprofiled steady step gives the idle share."""
     import math
 
     import torch
@@ -1013,13 +1053,15 @@ def pack_train_paths(smi_line, modes):
     for key, knames in modes:
         mode, rope = key.split("+")[0], key.endswith("+rope")
         cfg = _with_mode(get_config("stablelm-3b"), mode, attn_table=True,
-                         rope_table=rope)
+                         rope_table=rope, **_shard_kw(mode))
         model = build_model(cfg, "cuda")
         ref = build_model(_with_mode(cfg, mode + "_ref"), "cuda")
         params = model.init(torch.Generator(device="cuda").manual_seed(0))
         data = _trainer_data(cfg)
         ref_loss, ref_gn = plain_step0(ref, params, batch_to(data.batch_at(0), "cuda"))
-        rows, c, peak, _ = train_steps(model, params, data, QP_STEPS, smi_line, key)
+        rows, c, peak, busy_ms = train_steps(model, params, data,
+                                             QP_STEPS + int(profile), smi_line, key,
+                                             profile_last=profile)
         check(all(c[k] > 0 for k in knames + ("tableflash_exp",)),
               f"{key}: {knames} / tableflash_exp not launched training: {c}")
         check(all(math.isfinite(r["loss"]) for r in rows), f"non-finite {mode} loss")
@@ -1035,11 +1077,17 @@ def pack_train_paths(smi_line, modes):
             check(rows[0]["loss"] == STEP0[static], f"{key} step-0 loss "
                   f"{rows[0]['loss']!r} != {static}'s {STEP0[static]!r}")
             same += f" and {static}'s"
-        log(f"{key}: trained {QP_STEPS} steps, step-0 loss equals {same} bit "
+        log(f"{key}: trained {len(rows)} steps, step-0 loss equals {same} bit "
             f"for bit ({ref_loss!r}), grad norm {rows[0]['grad_norm']:.6f} vs "
             f"{ref_gn:.6f} ({gn_rel:.2e} rel); step ms "
             f"{[round(r['ms'], 1) for r in rows]}; launches {c}; peak {peak:.2f} GiB "
             f"[{smi_line}]")
+        if profile:
+            steady = rows[QP_STEPS - 1]["ms"]
+            idle = f"{1 - busy_ms / steady:.3f}" if busy_ms else "not measured"
+            log(f"{key}: device busy {busy_ms if busy_ms is None else round(busy_ms, 3)} "
+                f"ms in the profiled step, idle share {idle} of the unprofiled "
+                f"{steady:.1f} ms step {QP_STEPS - 1} [{smi_line}]")
         for k in knames:
             counts[k] = counts.get(k, 0) + c[k]
         del params, model, ref
@@ -1111,6 +1159,11 @@ def routed_fns(pack):
     from repro_torch.kernels import routed_pack_lookup as R
     from repro_torch.kernels import table_pack_lookup as K
 
+    if hasattr(pack, "owned"):
+        return (("sharded_routed_pack_lookup", R.sharded_routed_pack_lookup,
+                 R.sharded_routed_pack_lookup_plain, K.sharded_pack_lookup),
+                ("sharded_routed_pack_grad", R.sharded_routed_pack_grad,
+                 R.sharded_routed_pack_grad_plain, K.sharded_pack_grad))
     if hasattr(pack, "n_max"):
         return (("routed_pack_lookup", R.routed_pack_lookup,
                  R.routed_pack_lookup_plain, K.table_pack_lookup),
@@ -1183,13 +1236,16 @@ def check_routed(tag, fns, pack, ids, x, ex, worst):
                        g, s, xs.shape, x.dtype)
 
 
-def routed_kernel_phase(packs, s0):
+def routed_kernel_phase(packs, s0, unary=None, reroute=True):
     """Phase 13: every member, f32 and bf16, extrapolation off / on / per
     member, at the unary shapes, the routed_fn batch, the ragged shape and
-    the edge inputs; then the CUDA-graph re-route check."""
+    the edge inputs; then (``reroute``) the CUDA-graph re-route check of the
+    first two packs."""
     import torch
 
-    unary = [(1, BATCH * 6912), (1, BATCH * s0 * 6912), (1, MICRO * TRAIN_SEQ * 6912)]
+    if unary is None:
+        unary = [(1, BATCH * 6912), (1, BATCH * s0 * 6912),
+                 (1, MICRO * TRAIN_SEQ * 6912)]
     worst = {k: 0.0 for _, pack in packs for k, *_ in routed_fns(pack)}
     cases = 0
     for tag, pack in packs:
@@ -1229,7 +1285,8 @@ def routed_kernel_phase(packs, s0):
         f"and, row by row, to the static kernels (bf16+f32, extrapolate off/on/"
         f"per member, unary shapes {unary}, mixed ({ROUTED_ROWS}, {ROUTED_COLS}), "
         f"ragged {RAGGED}, edge rows)")
-    reroute_check(packs[0][1], packs[1][1])
+    if reroute:
+        reroute_check(packs[0][1], packs[1][1])
     return worst
 
 
@@ -1476,6 +1533,311 @@ def folded_timing_phase(pack, smi_line):
 
 
 # --------------------------------------------------------------------------------------
+# 21-24. ShardedPack: kernels, serving, training, times
+# --------------------------------------------------------------------------------------
+
+
+def sharded_packs(approx):
+    """(tag, sharded pack, the replicated pack it cuts) of phase 21:
+    stablelm-3b's pack in each of SHARD_COUNTS shards, and ("silu",
+    "exp_neg") at e_a 1e-8 in 2 shards, whose slices exceed the kernels'
+    static shared budget of 10,240 f32 values."""
+    from repro_torch.approx.table_pack import build_pack, build_sharded_pack
+
+    rep = dataclasses.replace(approx, mode="table_pack").pack("cuda")
+    out = [(f"S={n}", dataclasses.replace(approx, mode="sharded_pack",
+                                          pack_shards=n).sharded_pack("cuda"), rep)
+           for n in SHARD_COUNTS]
+    names = ("silu", "exp_neg")
+    big = build_sharded_pack(names, 1e-8, 2, omega=approx.omega, device="cuda")
+    check(big.footprint_per_shard > 10240, f"the e_a 1e-8 slice holds "
+          f"{big.footprint_per_shard} values, not past the shared budget")
+    out.append(("silu+exp_neg e_a 1e-8 S=2", big,
+                build_pack(names, 1e-8, omega=approx.omega, device="cuda")))
+    return out
+
+
+def equal_values(tag, got, want, x):
+    """A shard sum against the replicated kernel: equal as values, NaN
+    positions matched, where x is not NaN (see phase 21)."""
+    import torch
+
+    keep = ~torch.isnan(x)
+    g, w = got[keep].float(), want[keep].float()
+    bad = ~((g == w) | (torch.isnan(g) & torch.isnan(w)))
+    check(not bool(bad.any()), f"{tag}: {int(bad.sum())} values differ from the "
+          f"replicated kernel")
+
+
+def sharded_kernel_phase(packs, s0):
+    """Phase 21, static half: every member of each sharded pack, f32 and
+    bf16, extrapolation off and on, at the gate shapes (the training gate at
+    2 and 4 shards and past the shared budget), a ragged size and the edge
+    inputs."""
+    import torch
+
+    from repro_torch.kernels import table_pack_lookup as K
+
+    worst = {"sharded_pack_lookup": 0.0, "sharded_pack_grad": 0.0}
+    cases = 0
+    for tag, sp, rp in packs:
+        shapes = [(BATCH, 1, 6912), (BATCH, s0, 6912), (12345,), (1,)]
+        if sp.n_shards in (2, 4):
+            shapes.insert(0, (MICRO, TRAIN_SEQ, 6912))
+        for fid, name in enumerate(sp.names):
+            lo, hi = sp.domains[fid]
+            edges = edge_values(sp, fid)
+            for dtype in (torch.bfloat16, torch.float32):
+                for shape in shapes:
+                    x = make_input(shape, lo, hi, edges, dtype, seed=fid)
+                    for ex in (False, True):
+                        t = f"[{tag}] {name} {dtype} {shape} extrapolate={ex}"
+                        y = K.sharded_pack_lookup(sp, fid, x, extrapolate=ex)
+                        d = K.sharded_pack_slope(sp, fid, x, extrapolate=ex)
+                        g = K.sharded_pack_grad(sp, fid, x, extrapolate=ex)
+                        cs = [K.sharded_shard_contrib(sp, fid, k, x, extrapolate=ex)
+                              for k in range(sp.n_shards)]
+                        torch.cuda.synchronize()
+                        want = K.sharded_pack_grad_plain(sp, fid, x, extrapolate=ex)
+                        worst["sharded_pack_lookup"] = max(
+                            worst["sharded_pack_lookup"],
+                            check_pair(f"sharded_pack_lookup {t}", y, want[0], shape, dtype),
+                            check_pair(f"sharded_pack_slope {t}", d, want[1], shape, dtype))
+                        worst["sharded_pack_grad"] = max(
+                            worst["sharded_pack_grad"],
+                            check_pair(f"sharded_pack_grad {t}", g, want, shape, dtype))
+                        for k, c in enumerate(cs):
+                            check_pair(f"shard {k} contribution {t}", c,
+                                       K.sharded_shard_contrib_plain(
+                                           sp, fid, k, x, extrapolate=ex), shape, dtype)
+                        ry, rd = K.table_pack_grad(rp, fid, x, extrapolate=ex)
+                        equal_values(f"sharded sum {t}", y, ry, x)
+                        equal_values(f"sharded slope sum {t}", d, rd, x)
+                        cases += 1
+        log(f"sharded: [{tag}] members {sp.names}, {sp.n_shards} shards of "
+            f"{sp.footprint_per_shard} values, shapes {shapes}")
+    log(f"sharded: {cases} cases, each the value, slope and value + slope kernels "
+        f"and every shard's contribution bitwise equal to the plain versions, the "
+        f"shard sums equal to the replicated kernels (bf16+f32, extrapolate on/off, "
+        f"edges)")
+    return worst
+
+
+def sharded_routed_kernel_phase(packs, s0):
+    """Phase 21, routed half: phase 13's checks over each sharded pack (the
+    unary shapes at 2 and 4 shards), then each routed sharded call against
+    the replicated routed kernel as values."""
+    import torch
+
+    from repro_torch.kernels import routed_pack_lookup as R
+
+    worst = {"sharded_routed_pack_lookup": 0.0, "sharded_routed_pack_grad": 0.0}
+    by_shards = {sp.n_shards: sp for _, sp, _ in packs[:len(SHARD_COUNTS)]}
+    for tag, sp, _ in packs:
+        unary = ([(1, BATCH * 6912), (1, BATCH * s0 * 6912)] if sp.n_shards in (2, 4)
+                 and "e_a" not in tag else [(1, 12345)])
+        w = routed_kernel_phase(((f"sharded {tag}", sp),), s0, unary=unary,
+                                reroute=False)
+        for k in worst:
+            worst[k] = max(worst[k], w[k])
+    # the sum of the shards against the replicated routed kernels
+    for tag, sp, rp in packs:
+        F = sp.n_functions
+        cyc = [r % F for r in range(ROUTED_ROWS)]
+        x = routed_input(sp, cyc, ROUTED_COLS, torch.bfloat16, seed=8)
+        for ex in (False, True, tuple(f % 2 == 0 for f in range(F))):
+            y = R.sharded_routed_pack_lookup(sp, cyc, x, extrapolate=ex)
+            g = R.sharded_routed_pack_grad(sp, cyc, x, extrapolate=ex)
+            ry, rd = R.routed_pack_grad(rp, cyc, x, extrapolate=ex)
+            equal_values(f"sharded routed sum [{tag}] extrapolate={ex}", y, ry, x)
+            equal_values(f"sharded routed grad sum [{tag}]", g[0], ry, x)
+            equal_values(f"sharded routed slope sum [{tag}]", g[1], rd, x)
+    log(f"sharded: the routed sharded sums equal the replicated routed kernels "
+        f"({ROUTED_ROWS} x {ROUTED_COLS} bf16, extrapolate off/on/per member)")
+    reroute_check(by_shards[PACK_SHARDS], by_shards[8])
+    return worst
+
+
+def sharded_serving_path(smi_line, gate_calls):
+    """Phase 22: serving in sharded_pack at PACK_SHARDS shards, its decode
+    step beside table_pack's, and routed_activation over the mixed batch.
+    ``gate_calls`` is phase 4's table_pack_lookup count (one a gate call)."""
+    import torch
+
+    from repro_torch.kernels import table_pack_lookup as K
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models.common import routed_activation
+
+    counts = pack_serving_paths(smi_line, (("sharded_pack", ("sharded_pack_lookup",)),))
+    check(counts["sharded_pack_lookup"] == PACK_SHARDS * gate_calls,
+          f"sharded_pack_lookup launches {counts['sharded_pack_lookup']} != "
+          f"{PACK_SHARDS} x the {gate_calls} gate calls of table_pack")
+    log(f"sharded_pack: {PACK_SHARDS} launches for each of the {gate_calls} gate "
+        f"calls ({counts['sharded_pack_lookup']})")
+    base = get_config("stablelm-3b")
+    params = build_model(base, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    models = {m: build_model(_with_mode(base, m, attn_table=True, **_shard_kw(m)), "cuda")
+              for m in ("table_pack",) + SHARDED}
+    rows = torch.randint(0, base.vocab, (BATCH, 27), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    pos = torch.full((BATCH,), rows.shape[1], dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        _, cache = models["table_pack"].prefill(
+            params, {"tokens": rows}, models["table_pack"].init_cache(BATCH, CACHE_LEN))
+        for rnd in range(2):
+            order = list(models.items()) if rnd == 0 else list(models.items())[::-1]
+            for mode, m in order:
+                _mean_ms(lambda: m.decode_step(params, rows[:, -1:], pos, cache), 2)
+                dec = _mean_ms(lambda: m.decode_step(params, rows[:, -1:], pos, cache), 10)
+                log(f"step: round {rnd} {mode}: decode {dec:.3f} ms (B={BATCH}, cache "
+                    f"{CACHE_LEN}, pack_shards {PACK_SHARDS}) [{smi_line}]")
+    del params, models
+    torch.cuda.empty_cache()
+
+    # routed_activation over the MoE-style batch: the routed sharded kernels
+    approx = dataclasses.replace(base.approx, pack_shards=PACK_SHARDS)
+    names = ("silu", "gelu", "tanh", "sigmoid", "softplus", "exp")
+    kern = routed_activation(dataclasses.replace(approx, mode="sharded_pack"),
+                             names * (ROUTED_ROWS // len(names)) + names[:ROUTED_ROWS % 6],
+                             "cuda")
+    plain = routed_activation(dataclasses.replace(approx, mode="sharded_pack_ref"),
+                              names * (ROUTED_ROWS // len(names)) + names[:ROUTED_ROWS % 6],
+                              "cuda")
+    g = torch.Generator(device="cuda").manual_seed(22)
+    x0 = (torch.randn((ROUTED_ROWS, ROUTED_COLS), generator=g, device="cuda") * 4)
+    dy = torch.randn(x0.shape, generator=g, device="cuda")
+    out = {}
+    K.reset_launches()
+    for tag, f in (("kernel", kern), ("plain", plain)):
+        x = x0.clone().requires_grad_(True)
+        y = f(x)
+        y.backward(dy)
+        with torch.no_grad():
+            out[tag] = (y.detach(), x.grad, f(x0))
+        if tag == "kernel":
+            torch.cuda.synchronize()
+            routed = {k: K.launches[k] for k in ("sharded_routed_pack_lookup",
+                                                 "sharded_routed_pack_grad")}
+    check(routed == {"sharded_routed_pack_lookup": PACK_SHARDS,
+                     "sharded_routed_pack_grad": PACK_SHARDS},
+          f"routed_activation(sharded_pack) launches {routed}")
+    for a, b, what in zip(out["kernel"], out["plain"], ("value under autograd",
+                                                        "gradient", "value")):
+        check_pair(f"routed_activation(sharded_pack) {what}", a, b, x0.shape, x0.dtype)
+    log(f"sharded_pack: routed_activation over ({ROUTED_ROWS}, {ROUTED_COLS}) f32, "
+        f"value and gradient bitwise the plain mode's; launches {routed} "
+        f"[{smi_line}]")
+    counts.update(routed)
+    return counts
+
+
+def sharded_bytes(sp, fid, routed_rows=0):
+    """Bytes one sharded call of member ``fid`` needs of its pack, each read
+    once: the member's replicated rows (n + 1 boundaries, invd, segs), its
+    rebased-base and ownership rows in every shard, and its values (from its
+    first entry to the end of its last cell, across the slices); routed, the
+    ids and the per-member interval counts and extrapolate flags too."""
+    n = sp.n_intervals[fid]
+    entries = int((sp.seg_count[fid, :n] + 1).sum().item())
+    return (4 * (3 * n + 1) + 4 * 2 * n * sp.n_shards + 4 * entries
+            + (4 * routed_rows + 4 * 2 * sp.n_functions if routed_rows else 0))
+
+
+def sharded_timing_phase(approx, smi_line):
+    """Phase 24: each sharded call at PACK_SHARDS shards (S launches and S-1
+    adds), one launch over the 1-shard pack, the replicated static and
+    routed kernels of the same member, the plain version and F.silu, at the
+    decode gate (4, 1, 6912) and the training gate (4, 128, 6912) bf16 (the
+    routed calls view them as one row); then the 512 x 6912 mixed batch as
+    one routed sharded call against the six static sharded calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.approx.table_pack import routed_extr_flags
+    from repro_torch.kernels import routed_pack_lookup as R
+    from repro_torch.kernels import table_pack_lookup as K
+
+    rp = dataclasses.replace(approx, mode="table_pack").pack("cuda")
+    sp = dataclasses.replace(approx, mode="sharded_pack",
+                             pack_shards=PACK_SHARDS).sharded_pack("cuda")
+    one = dataclasses.replace(approx, mode="sharded_pack", pack_shards=1).sharded_pack("cuda")
+    fid = sp.fn_id("silu")
+    ids = torch.full((1,), fid, dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    gate = (torch.randn((BATCH, 1, 6912), generator=g, device="cuda") * 2).to(torch.bfloat16)
+    gate_t = (torch.randn((MICRO, TRAIN_SEQ, 6912), generator=g, device="cuda")
+              * 2).to(torch.bfloat16)
+    row, row_t = gate.reshape(1, -1), gate_t.reshape(1, -1)
+    # f32 operations per element: the member's compares + ~15 (address, lerp,
+    # the ownership select) a shard; +2 for the slope
+    ops = sp.n_intervals[fid] + 15
+    rows = {}
+    S = sp.n_shards
+    for name, x, n_out, kern, single, plain, others in (
+        ("sharded_pack_lookup", gate, 1,
+         lambda: K.sharded_pack_lookup(sp, fid, gate, extrapolate=True),
+         lambda: K.sharded_pack_lookup(one, fid, gate, extrapolate=True),
+         lambda: K.sharded_pack_lookup_plain(sp, fid, gate, extrapolate=True),
+         (("table_pack_lookup", lambda: K.table_pack_lookup(rp, fid, gate,
+                                                            extrapolate=True)),)),
+        ("sharded_pack_grad", gate_t, 2,
+         lambda: K.sharded_pack_grad(sp, fid, gate_t, extrapolate=True),
+         lambda: K.sharded_pack_grad(one, fid, gate_t, extrapolate=True),
+         lambda: K.sharded_pack_grad_plain(sp, fid, gate_t, extrapolate=True),
+         (("table_pack_grad", lambda: K.table_pack_grad(rp, fid, gate_t,
+                                                        extrapolate=True)),
+          ("routed_pack_grad", lambda: R.routed_pack_grad(rp, ids, row_t,
+                                                          extrapolate=True)))),
+        ("sharded_routed_pack_lookup", row, 1,
+         lambda: R.sharded_routed_pack_lookup(sp, ids, row, extrapolate=True),
+         lambda: R.sharded_routed_pack_lookup(one, ids, row, extrapolate=True),
+         lambda: R.sharded_routed_pack_lookup_plain(sp, ids, row, extrapolate=True),
+         (("routed_pack_lookup", lambda: R.routed_pack_lookup(rp, ids, row,
+                                                              extrapolate=True)),
+          ("sharded_pack_lookup", lambda: K.sharded_pack_lookup(sp, fid, row,
+                                                                extrapolate=True)))),
+        ("sharded_routed_pack_grad", row_t, 2,
+         lambda: R.sharded_routed_pack_grad(sp, ids, row_t, extrapolate=True),
+         lambda: R.sharded_routed_pack_grad(one, ids, row_t, extrapolate=True),
+         lambda: R.sharded_routed_pack_grad_plain(sp, ids, row_t, extrapolate=True),
+         (("routed_pack_grad", lambda: R.routed_pack_grad(rp, ids, row_t,
+                                                          extrapolate=True)),
+          ("table_pack_grad", lambda: K.table_pack_grad(rp, fid, gate_t,
+                                                        extrapolate=True)))),
+    ):
+        ms, single_ms = graph_ms(kern), graph_ms(single)
+        plain_ms, lib_ms = graph_ms(plain), graph_ms(lambda: F.silu(x))
+        other = {k: graph_ms(f) for k, f in others}
+        routed = 1 if name.startswith("sharded_routed") else 0
+        b_ms, b_by = bound(x.numel(), x.element_size(), n_out,
+                           sharded_bytes(sp, fid, routed), ops + 2 * (n_out - 1))
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+        beside = ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in other.items())
+        log(f"time: {name} {tuple(x.shape)} {x.dtype}: {S} shards ({S} launches + "
+            f"{S - 1} adds) {ms * 1e3:.2f} us, one launch (1 shard) "
+            f"{single_ms * 1e3:.2f} us, replicated: {beside}, plain "
+            f"{plain_ms * 1e3:.2f} us, yardstick (F.silu"
+            f"{'' if n_out == 1 else ', value only'}) {lib_ms * 1e3:.2f} us, bound "
+            f"{b_ms * 1e3:.3f} us ({b_by}) [{smi_line}]")
+    cyc = [r % sp.n_functions for r in range(ROUTED_ROWS)]
+    cyc_ids = torch.tensor(cyc, dtype=torch.int32, device="cuda")
+    xb = routed_input(sp, cyc, ROUTED_COLS, torch.bfloat16, seed=6)
+    ex = tuple(n in ("gelu", "silu", "softplus") for n in sp.names)
+    flags = routed_extr_flags(sp, ex)
+    parts = {f: xb[r].contiguous() for f, r in member_rows(sp, cyc).items()}
+    for kname, kern, _, static in routed_fns(sp):
+        ms = graph_ms(lambda: kern(sp, cyc_ids, xb, extrapolate=ex))
+        six = graph_ms(lambda: [static(sp, f, q, extrapolate=bool(flags[f]))
+                                for f, q in parts.items()])
+        log(f"time: {kname} mixed batch {tuple(xb.shape)} bf16 over "
+            f"{sp.n_functions} members, {S} shards: one routed call {ms * 1e3:.2f} us, "
+            f"{len(parts)} static sharded calls on the members' rows "
+            f"{six * 1e3:.2f} us [{smi_line}]")
+    return rows
+
+
+# --------------------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1562,6 +1924,21 @@ def main() -> int:
         poly = qp_packs[2][2]
         d = poly.degrees[poly.fn_id("silu")]
         times.update(routed_timing_phase(((poly, 10 + 6 * (d + 1) + 5 * d),), smi_line))
+        # 21-24: ShardedPack
+        t21 = time.perf_counter()
+        s_packs = sharded_packs(cfg.approx)
+        worst.update(sharded_kernel_phase(s_packs, s0))
+        worst.update(sharded_routed_kernel_phase(s_packs, s0))
+        log(f"sharded: phase 21 in {time.perf_counter() - t21:.1f}s")
+        del s_packs
+        counts.update(sharded_serving_path(smi_line, counts["table_pack_lookup"]))
+        train23 = pack_train_paths(smi_line, (("sharded_pack", ("sharded_pack_grad",)),),
+                                   profile=True)
+        check(train23["sharded_pack_grad"] % PACK_SHARDS == 0,
+              f"sharded_pack_grad launches {train23['sharded_pack_grad']} are not "
+              f"{PACK_SHARDS} a gate call")
+        counts["sharded_pack_grad"] = train23["sharded_pack_grad"]
+        times.update(sharded_timing_phase(cfg.approx, smi_line))
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1583,7 +1960,11 @@ def main() -> int:
             ("folded_pack_lookup", "src/repro/kernels/table_pack_lookup.py:943"),
             ("folded_pack_grad", "src/repro/kernels/table_pack_lookup.py:953"),
             ("routed_poly_pack_lookup", "src/repro/kernels/routed_pack_lookup.py:641"),
-            ("routed_poly_pack_grad", "src/repro/kernels/routed_pack_lookup.py:670")):
+            ("routed_poly_pack_grad", "src/repro/kernels/routed_pack_lookup.py:670"),
+            ("sharded_pack_lookup", "src/repro/kernels/table_pack_lookup.py:663"),
+            ("sharded_pack_grad", "src/repro/kernels/table_pack_lookup.py:697"),
+            ("sharded_routed_pack_lookup", "src/repro/kernels/routed_pack_lookup.py:451"),
+            ("sharded_routed_pack_grad", "src/repro/kernels/routed_pack_lookup.py:480")):
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/csrc/table_pack_lookup.cu",

@@ -9,7 +9,9 @@ the ``routed_pack`` / ``routed_quant_pack`` / ``routed_poly_pack`` variants,
 which serve the f32, quantized and polynomial packs through per-row DYNAMIC
 fn_id dispatch (the member is a device operand of one kernel, so
 mixed-function batches — see :meth:`ApproxConfig.routed_fn` — and every
-member's unary share it), the ``folded_pack`` / ``folded_routed_pack``
+member's unary share it), ``sharded_pack`` (the f32 pack's values cut into
+``pack_shards`` slices, each shard's masked contribution summed on one
+device), the ``folded_pack`` / ``folded_routed_pack``
 variants (RangeFold, :mod:`repro_torch.approx.range_fold`), which put a range
 reduction in front of the f32 pack so ``sin`` / ``cos`` / ``exp`` / ``log``
 are served over the whole finite f32 domain from small canonical-interval
@@ -18,10 +20,9 @@ model via :class:`ApproxConfig`, whose fields and defaults are the JAX
 package's.  Every table function is differentiable: its tangent is the table
 slope, or the registry's analytic derivative with ``exact_grad``.  TableFlash
 (``attn_table``) always serves the attention exponent, and ``rope_table`` the
-rotary sin/cos (through the folded trig members), from the f32 pack.
-
-The JAX package's sharded modes raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+rotary sin/cos (through the folded trig members), from the f32 pack, in the
+sharded modes too.  The mesh placement of the sharded pack
+(``place_packs``) waits for ROADMAP queue 1, item 12b.
 """
 
 from __future__ import annotations
@@ -40,10 +41,11 @@ from repro_torch.device import DeviceLike, resolve_device
 
 from .range_fold import (FOLDABLE, FOLDED_CORE_MEMBERS, FOLDED_MODES,
                          make_folded_fn, make_folded_routed_unary_fn)
-from .table_pack import (PolyTablePack, QuantTablePack, TablePack, build_pack,
-                         build_poly_pack, build_quant_pack, make_attn_exp_fn,
-                         make_pack_fn, make_poly_pack_fn, make_quant_pack_fn,
-                         make_routed_fn, make_routed_unary_fn)
+from .table_pack import (PolyTablePack, QuantTablePack, ShardedTablePack,
+                         TablePack, build_pack, build_poly_pack, build_quant_pack,
+                         build_sharded_pack, make_attn_exp_fn, make_pack_fn,
+                         make_poly_pack_fn, make_quant_pack_fn, make_routed_fn,
+                         make_routed_unary_fn, make_sharded_pack_fn)
 from .torch_table import TorchTable, from_spec, make_table_fn
 
 PACK_MODES = ("table_pack", "table_pack_ref")
@@ -52,8 +54,9 @@ POLY_PACK_MODES = ("poly_pack", "poly_pack_ref")
 ROUTED_MODES = ("routed_pack", "routed_pack_ref", "routed_quant_pack",
                 "routed_quant_pack_ref", "routed_poly_pack",
                 "routed_poly_pack_ref")
+SHARDED_MODES = ("sharded_pack", "sharded_pack_ref")
 TABLE_MODES = (("table_ref", "table_pallas") + PACK_MODES + QUANT_PACK_MODES
-               + POLY_PACK_MODES + ROUTED_MODES + FOLDED_MODES)
+               + POLY_PACK_MODES + ROUTED_MODES + SHARDED_MODES + FOLDED_MODES)
 # modes whose pack artifact is the quantized one (vs the f32 pack)
 _QUANT_BACKED = QUANT_PACK_MODES + ("routed_quant_pack", "routed_quant_pack_ref")
 # modes whose pack artifact is the planner's polynomial one
@@ -61,23 +64,12 @@ _POLY_BACKED = POLY_PACK_MODES + ("routed_poly_pack", "routed_poly_pack_ref")
 # modes whose runtime is the CUDA kernels (vs the plain PyTorch versions)
 _KERNEL_BACKED = ("table_pallas", "table_pack", "quant_pack", "poly_pack",
                   "routed_pack", "routed_quant_pack", "routed_poly_pack",
-                  "folded_pack", "folded_routed_pack")
-
-# The JAX package's other modes, with the ROADMAP item (queue 1) that brings
-# each to the port.
-NOT_PORTED = {
-    "sharded_pack": "ROADMAP queue 1, item 12 (ShardedPack)",
-    "sharded_pack_ref": "ROADMAP queue 1, item 12 (ShardedPack)",
-}
+                  "sharded_pack", "folded_pack", "folded_routed_pack")
 
 
 def _check_mode(mode: str) -> None:
-    if mode == "exact" or mode in TABLE_MODES:
-        return
-    if mode in NOT_PORTED:
-        raise NotImplementedError(
-            f"approx mode {mode!r} is not ported yet: {NOT_PORTED[mode]}")
-    raise ValueError(f"unknown approx mode {mode!r}")
+    if mode != "exact" and mode not in TABLE_MODES:
+        raise ValueError(f"unknown approx mode {mode!r}")
 
 
 def odd_extension(fn):
@@ -113,6 +105,7 @@ DEFAULT_PACK_FUNCTIONS = (
 _PACK_CACHE: Dict[tuple, TablePack] = {}
 _QUANT_PACK_CACHE: Dict[tuple, QuantTablePack] = {}
 _POLY_PACK_CACHE: Dict[tuple, PolyTablePack] = {}
+_SHARDED_PACK_CACHE: Dict[tuple, ShardedTablePack] = {}
 # one (sin, cos) closure pair per distinct rope_table configuration and
 # device — every layer's rotary shares it
 _ROPE_SIN_COS_CACHE: Dict[tuple, Callable] = {}
@@ -176,7 +169,7 @@ def _routed_exact(names):
 @dataclass(frozen=True)
 class ApproxConfig:
     """How the model evaluates its elementary functions (the JAX package's
-    fields and defaults; see its docstrings for the modes not ported yet).
+    fields and defaults).
 
     ``e_a`` is the paper's maximum absolute approximation error; ``algorithm``
     / ``omega`` select the interval splitter.  ``softmax_table`` routes the
@@ -184,8 +177,9 @@ class ApproxConfig:
     flash attention's running-softmax exponent from the pack's exp_neg member.
     ``quant_rho`` splits ``e_a`` between interpolation and code rounding in
     the quantized and polynomial packs, ``pack_dtype`` narrows their storage
-    widths ('auto' keeps all open), and ``pack_budget`` is the polynomial
-    pack's byte budget (``None``: the cheapest plan).
+    widths ('auto' keeps all open), ``pack_budget`` is the polynomial
+    pack's byte budget (``None``: the cheapest plan), and ``pack_shards`` how
+    many slices the sharded modes cut the f32 pack's values into.
     """
 
     mode: str = "exact"
@@ -263,11 +257,28 @@ class ApproxConfig:
                 intervals=dict(key[4]), device=dev)
         return _POLY_PACK_CACHE[key]
 
+    def _sharded_key(self, dev: torch.device) -> tuple:
+        return self._pack_key(dev) + (self.pack_shards,)
+
+    def sharded_pack(self, device: DeviceLike = None) -> ShardedTablePack:
+        """The shared pack with its values cut ``pack_shards`` ways, on
+        ``device`` (cached per device).  Off the mesh: every shard lives on
+        ``device`` and the contributions are summed there."""
+        dev = resolve_device(device)
+        key = self._sharded_key(dev)
+        if key not in _SHARDED_PACK_CACHE:
+            _SHARDED_PACK_CACHE[key] = build_sharded_pack(
+                key[0], self.e_a, self.pack_shards, algorithm=self.algorithm,
+                omega=self.omega, intervals=dict(key[4]), device=dev)
+        return _SHARDED_PACK_CACHE[key]
+
     def _pack_for_mode(self, device: DeviceLike = None):
         if self.mode in _POLY_BACKED:
             return self.poly_pack(device)
         if self.mode in _QUANT_BACKED:
             return self.quant_pack(device)
+        if self.mode in SHARDED_MODES:
+            return self.sharded_pack(device)
         return self.pack(device)
 
     def unary(self, name: str, device: DeviceLike = None) -> Callable:
@@ -289,7 +300,7 @@ class ApproxConfig:
             exact_d1 = partial(get_function(reg_name).d1f, xp=torch)
         use_kernel = self.mode in _KERNEL_BACKED
         if self.mode in (PACK_MODES + QUANT_PACK_MODES + POLY_PACK_MODES
-                         + ROUTED_MODES + FOLDED_MODES):
+                         + ROUTED_MODES + SHARDED_MODES + FOLDED_MODES):
             pack = self._pack_for_mode(device)
             foldable = self.mode in FOLDED_MODES and reg_name in FOLDABLE
             if reg_name not in pack.names and not foldable:
@@ -307,6 +318,9 @@ class ApproxConfig:
                 # dynamic dispatch with one id: the member is a device
                 # operand, so every unary shares one kernel
                 make = make_routed_unary_fn
+            elif self.mode in SHARDED_MODES:
+                # S launches a call, the shards' contributions summed
+                make = make_sharded_pack_fn
             else:
                 make = (make_poly_pack_fn if self.mode in POLY_PACK_MODES
                         else make_quant_pack_fn if self.mode in QUANT_PACK_MODES

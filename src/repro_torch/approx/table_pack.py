@@ -1,6 +1,6 @@
 """TablePack — every table a model needs, fused into ONE device artifact (the
-f32, quantized and polynomial parts of the JAX package's
-``approx/table_pack.py``).
+f32, quantized, polynomial and sharded parts of the JAX package's
+``approx/table_pack.py``; the sharded pack off the mesh).
 
 The paper keeps each function's table resident in BRAM next to its consumer
 (Sec. 7.2); a network evaluates a *set* of nonlinearities, so a
@@ -18,13 +18,16 @@ and :class:`PolyTablePack` the planner's degree-1..3 coefficient codes
 evaluated by Horner, both over ragged per-member metadata lanes; their plain
 lookups (``eval_quant_pack_ref``, ``eval_poly_pack_ref`` and the slopes) are
 bit-identical to the JAX package's eager oracles and to the CUDA kernels.
+:class:`ShardedTablePack` cuts the f32 values vector into per-shard slices;
+each shard's masked contribution (``shard_contrib_ref``) is summed in shard
+order on one device (``eval_sharded_ref``, ``eval_sharded_slope``).
 
-``make_pack_fn``, ``make_quant_pack_fn``, ``make_poly_pack_fn`` and
-``make_attn_exp_fn`` are differentiable through
+``make_pack_fn``, ``make_quant_pack_fn``, ``make_poly_pack_fn``,
+``make_sharded_pack_fn`` and ``make_attn_exp_fn`` are differentiable through
 :func:`~repro_torch.approx.torch_table.slope_rule`: under a gradient the
 forward runs the fused value + slope kernel (``table_pack_grad``,
-``quant_pack_grad``, ``poly_pack_grad``) and the backward multiplies the
-saved slope into the incoming gradient.
+``quant_pack_grad``, ``poly_pack_grad``, ``sharded_pack_grad``) and the
+backward multiplies the saved slope into the incoming gradient.
 """
 
 from __future__ import annotations
@@ -37,8 +40,9 @@ import torch
 
 from repro_torch.core.flow import cached_table
 from repro_torch.core.packing import (PackLayout, PolyPackLayout, QuantPackLayout,
-                                     pack_layout, poly_pack_layout,
-                                     quant_pack_layout)
+                                     ShardedPackLayout, pack_layout,
+                                     poly_pack_layout, quant_pack_layout,
+                                     shard_pack_layout)
 from repro_torch.core.quantize import plan_quant_member
 from repro_torch.core.table import TableSpec
 from repro_torch.device import DeviceLike, resolve_device
@@ -125,24 +129,27 @@ def _int32_tensor(values, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(values, dtype=np.int32)).to(device)
 
 
+def _row_domains(layout: PackLayout) -> Tuple[Tuple[float, float], ...]:
+    """Each member's [lo, hi) as host floats of its f32 boundary row."""
+    b = np.asarray(layout.boundaries, np.float64).astype(np.float32)
+    return tuple((float(b[f, 0]), float(b[f, n]))
+                 for f, n in enumerate(layout.n_intervals))
+
+
 def from_layout(layout: PackLayout, device: DeviceLike = None) -> TablePack:
     if layout.footprint >= EXACT_INT_LIMIT:
         raise ValueError("pack footprint exceeds f32 exact-integer range")
     dev = resolve_device(device)
-    boundaries = f32_tensor(layout.boundaries, dev)
-    host_b = boundaries.cpu()
-    domains = tuple((float(host_b[f, 0]), float(host_b[f, n]))
-                    for f, n in enumerate(layout.n_intervals))
     return TablePack(
         names=layout.names,
         n_intervals=layout.n_intervals,
-        boundaries=boundaries,
+        boundaries=f32_tensor(layout.boundaries, dev),
         inv_delta=f32_tensor(layout.inv_delta, dev),
         delta=f32_tensor(layout.delta, dev),
         base=f32_tensor(layout.base, dev),
         seg_count=f32_tensor(layout.seg_count, dev),
         values=f32_tensor(layout.values, dev),
-        domains=domains,
+        domains=_row_domains(layout),
         routing=(_int32_tensor(layout.n_intervals, dev),),
     )
 
@@ -735,6 +742,222 @@ def make_poly_pack_fn(pack: PolyTablePack, name: str, *,
 
 
 # --------------------------------------------------------------------------------------
+# ShardedPack — the f32 pack's values vector cut into per-shard slices.
+# --------------------------------------------------------------------------------------
+#
+# The packs above are replicated: one values vector.  The sharded pack
+# partitions it at sub-interval granularity (core.packing.shard_pack_layout);
+# each shard answers ONLY the elements whose selected sub-interval it owns:
+# it runs the whole (replicated, small) comparator plane, gathers from its
+# LOCAL slice at the rebased address and masks unowned elements to zero.
+# The contributions are summed in shard order, off the mesh on one device (the
+# reference's stacked-shard-axis path).  Exactly one shard owns any selected
+# sub-interval, so the sum adds one real value and S-1 zeros: the result
+# equals the replicated pack's (an owner's -0.0 comes out +0.0 when S > 1).
+
+
+@dataclass(frozen=True)
+class ShardedTablePack:
+    """Device-ready sharded multi-function pack (the reference's
+    ``ShardedTablePack``; all planes f32 on one device, contiguous).
+
+    ``values`` holds one PADDED slice per shard; ``local_base`` / ``owned``
+    are the per-shard planes (rebased addresses, ownership mask); the
+    selector metadata stays replicated.  See
+    :class:`repro_torch.core.packing.ShardedPackLayout`.
+    """
+
+    names: Tuple[str, ...]  # member function names (fn_id order)
+    n_intervals: Tuple[int, ...]  # real sub-interval count per member
+    n_shards: int
+    boundaries: torch.Tensor  # (F, n_max+1) f32, right-padded +inf  [replicated]
+    inv_delta: torch.Tensor  # (F, n_max)   f32                      [replicated]
+    seg_count: torch.Tensor  # (F, n_max)   f32                      [replicated]
+    local_base: torch.Tensor  # (S, F, n_max) f32 — SHARD-LOCAL values index
+    owned: torch.Tensor  # (S, F, n_max) f32 — 1.0 where shard s owns (f, j)
+    values: torch.Tensor  # (S, m_max)   f32 — per-shard padded slices
+    domains: Tuple[Tuple[float, float], ...]  # member domains [lo, hi), host
+    # routed dispatch's per-member int32 operands, built once with the pack
+    routing: Tuple[torch.Tensor, ...]
+    _extr_operands: Dict[bytes, torch.Tensor] = field(
+        default_factory=dict, compare=False, repr=False)
+
+    @property
+    def n_functions(self) -> int:
+        return len(self.names)
+
+    @property
+    def n_max(self) -> int:
+        return self.inv_delta.shape[1]
+
+    @property
+    def footprint_per_shard(self) -> int:
+        """Padded per-shard entry count (every shard's slice has it)."""
+        return self.values.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    def fn_id(self, name: str) -> int:
+        return _member_id(self.names, name)
+
+    def member_id(self, fn) -> int:
+        """Name or integer fn_id -> validated index (KeyError otherwise)."""
+        return _member_id(self.names, fn)
+
+    def routing_scalars(self) -> Tuple[torch.Tensor, ...]:
+        """``(n_arr,)``, as :meth:`TablePack.routing_scalars`."""
+        return self.routing
+
+
+def from_sharded_layout(slayout: ShardedPackLayout,
+                        device: DeviceLike = None) -> ShardedTablePack:
+    if slayout.max_shard_entries >= EXACT_INT_LIMIT:
+        raise ValueError("shard slice exceeds f32 exact-integer range")
+    lay = slayout.layout
+    S, m_max = slayout.n_shards, slayout.max_shard_entries
+    dev = resolve_device(device)
+    vals = np.zeros((S, m_max), dtype=np.float64)
+    lb = np.zeros((S,) + slayout.owner.shape, dtype=np.float64)
+    own = np.zeros((S,) + slayout.owner.shape, dtype=np.float64)
+    for s in range(S):
+        sv = slayout.shard_values(s)
+        vals[s, : len(sv)] = sv
+        mask = slayout.owner == s
+        lb[s][mask] = slayout.local_base[mask]
+        own[s][mask] = 1.0
+    return ShardedTablePack(
+        names=lay.names,
+        n_intervals=lay.n_intervals,
+        n_shards=S,
+        boundaries=f32_tensor(lay.boundaries, dev),
+        inv_delta=f32_tensor(lay.inv_delta, dev),
+        seg_count=f32_tensor(lay.seg_count, dev),
+        local_base=f32_tensor(lb, dev),
+        owned=f32_tensor(own, dev),
+        values=f32_tensor(vals, dev),
+        domains=_row_domains(lay),
+        routing=(_int32_tensor(lay.n_intervals, dev),),
+    )
+
+
+def shard_pack(pack_or_specs, n_shards: int,
+               device: DeviceLike = None) -> ShardedTablePack:
+    """Shard already-built TableSpecs (or a PackLayout) into a device pack."""
+    layout = (pack_or_specs if isinstance(pack_or_specs, PackLayout)
+              else pack_layout(list(pack_or_specs)))
+    return from_sharded_layout(shard_pack_layout(layout, n_shards), device)
+
+
+def build_sharded_pack(
+    names: Sequence[str],
+    e_a: float,
+    n_shards: int,
+    *,
+    algorithm: str = "hierarchical",
+    omega: float = 0.3,
+    intervals: Optional[dict] = None,
+    device: DeviceLike = None,
+) -> ShardedTablePack:
+    """Design flow for every name, fused into one pack, sharded ``n_shards``
+    ways."""
+    intervals = intervals or {}
+    specs = []
+    for name in names:
+        lo, hi = intervals.get(name, (None, None))
+        specs.append(cached_table(name, e_a, lo, hi, algorithm=algorithm,
+                                  omega=omega))
+    return shard_pack(specs, n_shards, device)
+
+
+def shard_contrib_ref(values_s, lbase_row, own_row, brow, invd_row, segs_row,
+                      n: int, xf: torch.Tensor, *, extrapolate: bool,
+                      slope: bool = False) -> torch.Tensor:
+    """ONE shard's masked contribution (f32) — the sharded-lookup contract.
+
+    The replicated comparator plane, the gathers at the selected
+    sub-interval j (with the shard's rebased base and its ownership flag),
+    the pair gather from the LOCAL slice (clamped like ``mode="clip"``:
+    unowned elements may address past it), the lerp or the slope, and a
+    SELECT of the owned elements: an unowned NaN or inf becomes 0, as
+    ``jnp.where`` makes it.  The owner runs the replicated pack's op
+    sequence on the same f32 numbers, so the S contributions sum to
+    ``eval_pack_ref`` / ``eval_pack_slope``.
+    """
+    j = select_interval(brow, n, xf)
+    p, invd, base, segs, own = (brow[j], invd_row[j], lbase_row[j],
+                                segs_row[j], own_row[j])
+    u = (xf - p) * invd
+    i = clamp_cell(u, segs)
+    a0, a1 = pair_address(base, i, values_s.shape[0])
+    y0, y1 = values_s[a0], values_s[a1]
+    if slope:
+        out = (y1 - y0) * invd
+        if not extrapolate:
+            inside = (xf >= brow[0]) & (xf < brow[n])
+            out = out * inside.to(torch.float32)
+    else:
+        t = u - i
+        if not extrapolate:
+            t = torch.clamp(t, 0.0, 1.0)
+        out = y0 + t * (y1 - y0)
+    return torch.where(own > 0, out, 0.0)
+
+
+def shard_contrib(pack: ShardedTablePack, fid: int, s: int, xf: torch.Tensor, *,
+                  extrapolate: bool, slope: bool = False) -> torch.Tensor:
+    """Shard ``s``'s contribution of member ``fid`` (f32)."""
+    return shard_contrib_ref(
+        pack.values[s], pack.local_base[s, fid], pack.owned[s, fid],
+        pack.boundaries[fid], pack.inv_delta[fid], pack.seg_count[fid],
+        pack.n_intervals[fid], xf, extrapolate=extrapolate, slope=slope)
+
+
+def _sharded_sum_ref(pack: ShardedTablePack, fn, x: torch.Tensor,
+                     extrapolate: bool, slope: bool) -> torch.Tensor:
+    fid = pack.member_id(fn)
+    xf = x.to(torch.float32)
+    out = None
+    for s in range(pack.n_shards):
+        c = shard_contrib(pack, fid, s, xf, extrapolate=extrapolate, slope=slope)
+        out = c if out is None else out + c
+    return out.to(x.dtype)
+
+
+def eval_sharded_ref(pack: ShardedTablePack, fn, x: torch.Tensor, *,
+                     extrapolate: bool = False) -> torch.Tensor:
+    """Plain sharded lookup (the shards' f32 contributions summed in shard
+    order, then cast): bitwise the reference's eager ``eval_sharded_ref``,
+    and equal to the replicated ``eval_pack_ref``."""
+    return _sharded_sum_ref(pack, fn, x, extrapolate, slope=False)
+
+
+def eval_sharded_slope(pack: ShardedTablePack, fn, x: torch.Tensor, *,
+                       extrapolate: bool = False) -> torch.Tensor:
+    """d/dx of the sharded surrogate, summed like :func:`eval_sharded_ref`."""
+    return _sharded_sum_ref(pack, fn, x, extrapolate, slope=True)
+
+
+def make_sharded_pack_fn(pack: ShardedTablePack, name: str, *,
+                         use_kernel: bool = True, exact_d1=None,
+                         extrapolate: bool = False):
+    """Differentiable unary ``f(x)`` served from the SHARDED pack, on one
+    device (the reference's off-mesh branch).
+
+    ``use_kernel=True`` (``sharded_pack``) runs ``sharded_pack_lookup``
+    without a gradient and the fused value + slope ``sharded_pack_grad``
+    under one, S launches each; ``False`` (``sharded_pack_ref``) the plain
+    versions.  Tangent: the table slope, or ``exact_d1(x)`` when given.
+    """
+    from repro_torch.kernels import table_pack_lookup as K
+
+    fns = ((K.sharded_pack_lookup, K.sharded_pack_grad) if use_kernel
+           else (K.sharded_pack_lookup_plain, K.sharded_pack_grad_plain))
+    return _make_fn(pack, name, *fns, exact_d1, extrapolate)
+
+
+# --------------------------------------------------------------------------------------
 # Routed dispatch — per-row fn_id as a RUNTIME operand (mixed-function batches).
 # --------------------------------------------------------------------------------------
 #
@@ -883,18 +1106,33 @@ def eval_routed_poly_slope(pack: PolyTablePack, fn_ids, x: torch.Tensor, *,
         extrapolate)
 
 
+def eval_routed_sharded_ref(pack: ShardedTablePack, fn_ids, x: torch.Tensor, *,
+                            extrapolate=False) -> torch.Tensor:
+    """Plain routed lookup over the SHARDED pack: row i through member
+    ``fn_ids[i]``, each member's value summed from its shard contributions."""
+    return _routed_where(
+        pack, fn_ids, x,
+        lambda f, e: eval_sharded_ref(pack, f, x, extrapolate=e), extrapolate)
+
+
+def eval_routed_sharded_slope(pack: ShardedTablePack, fn_ids, x: torch.Tensor, *,
+                              extrapolate=False) -> torch.Tensor:
+    """d/dx of the routed sharded surrogate."""
+    return _routed_where(
+        pack, fn_ids, x,
+        lambda f, e: eval_sharded_slope(pack, f, x, extrapolate=e), extrapolate)
+
+
 def _routed_family(pack) -> str:
-    """``"f32"``, ``"quant"`` or ``"poly"``: the pack family the routed
-    kernels serve; the sharded pack is not ported to routed dispatch yet."""
-    if isinstance(pack, PolyTablePack):
-        return "poly"
-    if isinstance(pack, QuantTablePack):
-        return "quant"
-    if isinstance(pack, TablePack):
-        return "f32"
-    raise NotImplementedError(
-        f"routed dispatch over a {type(pack).__name__} is not ported: the "
-        f"sharded pack comes with ROADMAP queue 1, item 12 (ShardedPack)")
+    """``"f32"``, ``"quant"``, ``"poly"`` or ``"sharded"``: the pack family
+    the routed kernels serve."""
+    for cls, family in ((PolyTablePack, "poly"), (QuantTablePack, "quant"),
+                        (TablePack, "f32"), (ShardedTablePack, "sharded")):
+        if isinstance(pack, cls):
+            return family
+    raise TypeError(f"routed dispatch serves a TablePack, QuantTablePack, "
+                    f"PolyTablePack or ShardedTablePack, not a "
+                    f"{type(pack).__name__}")
 
 
 def _routed_kernels(family: str, use_kernel: bool):
@@ -903,7 +1141,7 @@ def _routed_kernels(family: str, use_kernel: bool):
     from repro_torch.kernels import routed_pack_lookup as R
 
     name = {"f32": "routed_pack", "quant": "routed_quant_pack",
-            "poly": "routed_poly_pack"}[family]
+            "poly": "routed_poly_pack", "sharded": "sharded_routed_pack"}[family]
     suffix = "" if use_kernel else "_plain"
     return (getattr(R, f"{name}_lookup{suffix}"), getattr(R, f"{name}_grad{suffix}"))
 
@@ -911,13 +1149,15 @@ def _routed_kernels(family: str, use_kernel: bool):
 def make_routed_fn(pack, fn_ids, *, use_kernel: bool = True, extrapolate=False):
     """Differentiable per-row routed ``f(x)``: row i of ``x`` (leading axis)
     is served by member ``fn_ids[i]`` of the pack — f32 (:class:`TablePack`),
-    quantized (:class:`QuantTablePack`) or polynomial (:class:`PolyTablePack`).
+    quantized (:class:`QuantTablePack`), polynomial (:class:`PolyTablePack`)
+    or sharded (:class:`ShardedTablePack`, S launches a call).
 
     ``fn_ids`` may be names/ints (validated here and copied to the pack's
     device once) or a ``torch.Tensor`` of ids on the pack's device (a
     router's output, read only by the kernel).  ``extrapolate`` is one flag
     or a per-member sequence.  ``use_kernel=True`` runs the routed CUDA
-    kernels (``routed_pack`` / ``routed_quant_pack`` / ``routed_poly_pack``):
+    kernels (``routed_pack`` / ``routed_quant_pack`` / ``routed_poly_pack`` /
+    ``sharded_pack``):
     the value kernel without a gradient, the fused value + slope kernel under
     one; ``use_kernel=False`` the plain versions.  Tangent: the per-row table
     slope.
@@ -959,7 +1199,9 @@ def make_routed_unary_fn(pack, name, *, use_kernel: bool = True, exact_d1=None,
         static, static_grad = {
             "f32": (K.table_pack_lookup_plain, K.table_pack_grad_plain),
             "quant": (K.quant_pack_lookup_plain, K.quant_pack_grad_plain),
-            "poly": (K.poly_pack_lookup_plain, K.poly_pack_grad_plain)}[family]
+            "poly": (K.poly_pack_lookup_plain, K.poly_pack_grad_plain),
+            "sharded": (K.sharded_pack_lookup_plain,
+                        K.sharded_pack_grad_plain)}[family]
         value = lambda v: static(pack, fid, v, extrapolate=extrapolate)
         fused = lambda v: static_grad(pack, fid, v, extrapolate=extrapolate)
     if exact_d1 is not None:

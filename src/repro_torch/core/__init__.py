@@ -1,7 +1,7 @@
 """repro_torch.core — the port's copy of the paper's f64 numpy design flow
 (spacing rule, three splitting algorithms, packed tables, the f32 /
-quantized / polynomial pack layouts, entry quantization and the design-space
-planner).
+quantized / polynomial / sharded pack layouts, entry quantization and the
+design-space planner).
 
 The JAX package's ``repro.core`` imports no JAX either, but the port imports
 nothing of that package, so it keeps the modules it needs here.  The tests
@@ -19,8 +19,9 @@ from .splitting import (
 )
 from .table import TableSpec, build_table
 from .flow import cached_table
-from .packing import (PackLayout, PolyPackLayout, QuantPackLayout, pack_layout,
-                      poly_pack_layout, quant_pack_layout)
+from .packing import (PackLayout, PolyPackLayout, QuantPackLayout,
+                      ShardedPackLayout, pack_layout, poly_pack_layout,
+                      quant_pack_layout, shard_pack_layout)
 
 __all__ = [
     "ALGORITHMS",
@@ -29,6 +30,7 @@ __all__ = [
     "PolyPackLayout",
     "QuantPackLayout",
     "SecondDerivMax",
+    "ShardedPackLayout",
     "SplitResult",
     "TableSpec",
     "binary_split",
@@ -44,5 +46,6 @@ __all__ = [
     "quant_pack_layout",
     "reference_spacing",
     "sequential_split",
+    "shard_pack_layout",
     "split",
 ]

@@ -1,9 +1,9 @@
 """Multi-function pack layout — all of a model's tables as ONE artifact.
 
 The port's copy of ``repro.core.packing``: the f32 :class:`PackLayout`, the
-QuantPack layout (int8/int16 codes + ragged dequant metadata) and the PolyPack
-layout (degree-d coefficient codes, lane-padded dequant metadata).  The
-sharded layout comes with its slice (ROADMAP queue 1, item 12).  The
+QuantPack layout (int8/int16 codes + ragged dequant metadata), the PolyPack
+layout (degree-d coefficient codes, lane-padded dequant metadata) and the
+ShardedPack layout (the f32 values vector cut into per-shard slices).  The
 reference's ``vmem()`` reports (TPU VMEM residency over ``core/bram.py``) are
 not carried over (queue 1, item 15): the port's counterpart is the CUDA
 kernels' shared-memory staging.
@@ -115,6 +115,100 @@ def pack_layout(specs: Sequence[TableSpec]) -> PackLayout:
         seg_count=seg_count,
         value_offset=value_offset,
         values=np.concatenate([s.values for s in specs]),
+    )
+
+
+# --------------------------------------------------------------------------------------
+# ShardedPack layout — the pack's values vector cut into per-shard slices.
+# --------------------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShardedPackLayout:
+    """A :class:`PackLayout` whose ``values`` vector is partitioned over
+    ``n_shards`` shards at SUB-INTERVAL granularity.
+
+    Each sub-interval ``(f, j)`` owns a contiguous ``seg_count + 1``-entry run
+    of ``values`` (runs never share endpoint entries), so a shard that owns
+    whole sub-intervals owns a contiguous slice, and every adjacent-pair
+    gather ``(a, a+1)`` stays inside it.
+
+      * ``owner``       (F, n_max)  which shard answers sub-interval (f, j);
+        padding columns are owned by no shard (-1);
+      * ``local_base``  (F, n_max)  the GLOBAL ``base`` rebased into the
+        owner's slice, ``base - shard_offsets[owner]`` (0 where unowned);
+      * ``shard_offsets`` (S,)      first global values index of each shard;
+      * ``shard_sizes``   (S,)      real (unpadded) entries per shard.
+
+    The selector metadata (boundaries / inv_delta / seg_count) stays
+    replicated: every shard runs the whole comparator plane to learn whether
+    it owns the selected sub-interval.  Only the values are partitioned.
+    """
+
+    layout: PackLayout
+    n_shards: int
+    owner: np.ndarray  # (F, n_max) i64, -1 on padding columns
+    local_base: np.ndarray  # (F, n_max) i64 — rebased into the owner's slice
+    shard_offsets: np.ndarray  # (S,) i64
+    shard_sizes: np.ndarray  # (S,) i64
+
+    @property
+    def names(self) -> Tuple[str, ...]:
+        return self.layout.names
+
+    @property
+    def n_intervals(self) -> Tuple[int, ...]:
+        return self.layout.n_intervals
+
+    @property
+    def footprint(self) -> int:
+        return self.layout.footprint
+
+    @property
+    def max_shard_entries(self) -> int:
+        """Per-shard values high-water: every slice is padded to it, so the
+        slices stack into one (S, m_max) operand."""
+        return max(1, int(self.shard_sizes.max()))
+
+    def shard_values(self, s: int) -> np.ndarray:
+        """Shard ``s``'s slice of the packed values (unpadded)."""
+        o = int(self.shard_offsets[s])
+        return self.layout.values[o: o + int(self.shard_sizes[s])]
+
+
+def shard_pack_layout(layout: PackLayout, n_shards: int) -> ShardedPackLayout:
+    """Partition a pack's values vector into ``n_shards`` contiguous slices.
+
+    Sub-intervals go to shards in pack order by their starting entry: shard
+    ``min(S - 1, start * S // footprint)``, so no sub-interval's run is split
+    and the slices partition ``values`` exactly; ``base`` is rebased per
+    shard so that each slice addresses itself from zero.
+    """
+    if n_shards < 1:
+        raise ValueError("n_shards must be >= 1")
+    if n_shards > layout.footprint:
+        raise ValueError(
+            f"cannot split {layout.footprint} entries into {n_shards} shards")
+    F, n_max = layout.n_functions, layout.n_max
+    total = layout.footprint
+    owner = np.full((F, n_max), -1, dtype=np.int64)
+    sizes = np.zeros((n_shards,), dtype=np.int64)
+    for f in range(F):
+        for j in range(layout.n_intervals[f]):
+            start = int(layout.base[f, j])
+            s = min(n_shards - 1, start * n_shards // total)
+            owner[f, j] = s
+            sizes[s] += int(layout.seg_count[f, j]) + 1
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    local_base = np.where(owner >= 0,
+                          layout.base - offsets[np.maximum(owner, 0)], 0)
+    return ShardedPackLayout(
+        layout=layout,
+        n_shards=n_shards,
+        owner=owner,
+        local_base=local_base.astype(np.int64),
+        shard_offsets=offsets,
+        shard_sizes=sizes,
     )
 
 

@@ -1,7 +1,8 @@
 // Per-element bodies of the table lookups (the paper's Fig. 7 pipeline), shared
 // by every table kernel of the port: the f32 pack and single table (Row,
-// segment, lookup, lookup_grad, tableflash), the quantized pack (QuantRow,
-// quant_lookup) and the polynomial pack (PolyRow, poly_lookup).
+// segment, lookup, lookup_grad, tableflash), one shard of the sharded pack
+// (shard_lookup), the quantized pack (QuantRow, quant_lookup) and the
+// polynomial pack (PolyRow, poly_lookup).
 //
 //   interval selector  j = min(#(x >= b_m, m >= 1), n - 1)   (comparator plane)
 //   parameter fetch    p = b_j, invd_j, base_j, segs_j       (four gathers)
@@ -79,8 +80,12 @@ TL_HD float inside(float x, const float* bounds, int n) {
   return (x >= bounds[0] && x < bounds[n]) ? 1.0f : 0.0f;
 }
 
-TL_HD Segment segment(float x, const Row& r, const float* values, int m) {
+// `jsel`, when given, receives the selected sub-interval j (the sharded pack
+// reads its ownership flag there); the arithmetic does not depend on it.
+TL_HD Segment segment(float x, const Row& r, const float* values, int m,
+                      int* jsel = nullptr) {
   const int j = select(x, r.bounds, r.n_max, r.n_intervals);
+  if (jsel) *jsel = j;
   const float p = r.bounds[j];
   const float invd = r.invd[j];
   const float base = r.base[j];
@@ -114,6 +119,28 @@ TL_HD float lookup_grad(float x, const Row& r, const float* values, int m,
   if (!extrapolate) d = d * inside(x, r.bounds, r.n_intervals);
   *slope = d;
   return lerp(s, extrapolate);
+}
+
+// ShardedPack: ONE shard's masked contribution (_spack_kernel,
+// _spack_grad_kernel, _sharded_routed_kernel).  `r.base` holds the shard's
+// rebased bases, `owned` its ownership row (1.0 where the shard owns
+// sub-interval j) and `values` its padded slice of m entries; an unowned
+// element may address past the slice, where clip_address clamps it.  The
+// value (and, with `slope` non-null, the slope) is the replicated body's
+// for owned elements and 0 for the others: a SELECT, not a product, so an
+// unowned NaN or inf becomes 0 as jnp.where makes it.
+TL_HD float shard_lookup(float x, const Row& r, const float* owned,
+                         const float* values, int m, bool extrapolate,
+                         float* slope) {
+  int j = 0;
+  const Segment s = segment(x, r, values, m, &j);
+  const bool own = owned[j] > 0.0f;
+  if (slope) {
+    float d = (s.y1 - s.y0) * s.invd;
+    if (!extrapolate) d = d * inside(x, r.bounds, r.n_intervals);
+    *slope = own ? d : 0.0f;
+  }
+  return own ? lerp(s, extrapolate) : 0.0f;
 }
 
 // TableFlash: exp(z) for z <= 0 from the exp_neg member.  The address

@@ -1,7 +1,9 @@
 // Hopper kernels over the port's packed tables: the f32 TablePack (values +
 // (F, n_max) metadata planes) or a single table (one metadata row, F = 1),
-// the quantized QuantTablePack and the polynomial PolyTablePack (ragged flat
-// metadata lanes + int8 / int16 / f32 code groups).
+// one shard of the ShardedTablePack (the f32 planes with a rebased base, an
+// ownership plane and the shard's values slice), the quantized QuantTablePack
+// and the polynomial PolyTablePack (ragged flat metadata lanes + int8 / int16
+// / f32 code groups).
 //
 //   tp_pack_lookup     replaces the TPU kernel _pack_kernel
 //                      (src/repro/kernels/table_pack_lookup.py:43): one pack
@@ -42,6 +44,16 @@
 //                      reconstruction and edge epilogue (range_reduce.cuh).
 //   tp_folded_grad     replaces _folded_grad_kernel (:953): its value and the
 //                      chain-ruled slope from the same selector passes.
+//   tp_spack_lookup    replaces the TPU kernel _spack_kernel
+//                      (src/repro/kernels/table_pack_lookup.py:663): one shard's
+//                      masked lerp (or, in its slope mode, masked slope) of a
+//                      sharded-pack member.
+//   tp_spack_grad      replaces _spack_grad_kernel (:697): one shard's masked
+//                      value and slope from one selector pass.
+//   tp_sharded_routed_lookup  replaces _sharded_routed_kernel
+//                      (src/repro/kernels/routed_pack_lookup.py:451): the routed
+//                      f32 kernel over one shard, masked.
+//   tp_sharded_routed_grad    replaces _sharded_routed_grad_kernel (:480).
 //
 // What bounds them on the card: bytes.  Each element is read once and its
 // output(s) written once, N * (in_bytes + n_out * out_bytes) at 3.35 TB/s; the
@@ -99,6 +111,16 @@
 // other folds; at the rotary shapes (4 * 27 * 40 angles) the kernels are
 // launch-bound.  The kind (sin, cos, exp, log) is a launch argument, uniform
 // over the grid.
+//
+// ShardedPack.  One launch serves one shard: the static (spack_kernel) or
+// routed (routed_kernel<..., true>) f32 body over the replicated bounds /
+// invd / segs rows, the shard's rebased base row and its ownership row (a
+// fifth staged segment), gathering from the shard's padded values slice, and
+// a select of the owned elements (tl::shard_lookup).  The wrappers launch
+// the S shards in turn and add their outputs in shard order, in x's dtype,
+// as the reference sums its per-shard kernels outside them.  The bound is
+// the replicated kernel's bytes S times over (each shard reads x and writes
+// its outputs), plus S - 1 adds of the outputs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,7 +135,7 @@ constexpr int kThreads = 256;
 constexpr int kSmemBytes = 48 * 1024;  // dynamic shared memory without opt-in
 constexpr int kBlocksPerSM = 4;
 
-enum Mode { kValue = 0, kFlash = 1, kGrad = 2 };
+enum Mode { kValue = 0, kFlash = 1, kGrad = 2, kSlope = 3 };
 // what a block stages in shared memory (chosen by the launch)
 enum Stage { kStageNone = 0, kStageMeta = 1, kStageAll = 2 };
 
@@ -223,6 +245,48 @@ pack_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
       const float y = kMode == kFlash ? tl::tableflash(xv, r, vals, m)
                                       : tl::lookup(xv, r, vals, m, extrapolate != 0);
       store_f32(out, idx, y);
+    }
+  }
+}
+
+// ---- sharded pack: one shard ------------------------------------------------
+
+// One shard's masked contribution of member fn_id: the replicated bounds /
+// invd / segs rows, the shard's rebased base and ownership rows, and its
+// padded values slice (m entries).  kValue writes the lerp, kSlope the slope
+// (the value kernel's slope mode), kGrad both.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kThreads)
+spack_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
+             long long n, const float* __restrict__ bounds,
+             const float* __restrict__ invd, const float* __restrict__ lbase,
+             const float* __restrict__ segs, const float* __restrict__ owned,
+             const float* __restrict__ values, int fn_id, int n_max, int n_intervals,
+             int m, int extrapolate, int stage) {
+  extern __shared__ float smem[];
+  const long long row = static_cast<long long>(fn_id) * n_max;
+  const float* seg[5] = {bounds + static_cast<long long>(fn_id) * (n_max + 1),
+                         invd + row, lbase + row, segs + row, owned + row};
+  const int count[5] = {n_max + 1, n_max, n_max, n_max, n_max};
+  stage_row(smem, seg, count, stage >= kStageMeta);
+  const float* vals = stage_copy(smem + 5 * n_max + 1, values, m, stage == kStageAll);
+  __syncthreads();
+  const tl::Row r{seg[0], seg[1], seg[2], seg[3], n_max, n_intervals};
+  const bool ex = extrapolate != 0;
+
+  for (long long idx = first_index(); idx < n; idx += grid_stride()) {
+    const float xv = load_f32(x, idx);
+    if (kMode == kValue) {
+      store_f32(out, idx, tl::shard_lookup(xv, r, seg[4], vals, m, ex, nullptr));
+    } else {
+      float d;
+      const float y = tl::shard_lookup(xv, r, seg[4], vals, m, ex, &d);
+      if (kMode == kGrad) {
+        store_f32(out, idx, y);
+        store_f32(slope, idx, d);
+      } else {
+        store_f32(out, idx, d);
+      }
     }
   }
 }
@@ -348,21 +412,29 @@ __device__ __forceinline__ void routed_walk(const RoutedWork& w, const int* ids,
   }
 }
 
-template <typename T, int kMode>
+// kSharded: one shard of the sharded pack.  `base` is then the shard's
+// rebased base plane, `owned` its ownership plane (a fifth metadata segment,
+// restaged with the member's row) and `values` its padded slice; the body is
+// the masked shard_lookup.  Otherwise `owned` is unused (nullptr).
+template <typename T, int kMode, bool kSharded>
 __global__ void __launch_bounds__(kThreads)
 routed_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
               RoutedWork w, const int* __restrict__ ids,
               const int* __restrict__ n_arr, const int* __restrict__ extr,
               const float* __restrict__ bounds, const float* __restrict__ invd,
               const float* __restrict__ base, const float* __restrict__ segs,
-              const float* __restrict__ values, int n_fn, int n_max, int m,
-              int stage) {
+              const float* __restrict__ values, const float* __restrict__ owned,
+              int n_fn, int n_max, int m, int stage) {
+  constexpr int kSeg = kSharded ? 5 : 4;
   extern __shared__ float smem[];
   // the values vector is every member's: staged once (the first restage's
   // barrier publishes it)
-  const float* vals = stage_copy(smem + 4 * n_max + 1, values, m, stage == kStageAll);
-  const float* seg[4];
-  const int count[4] = {n_max + 1, n_max, n_max, n_max};
+  const float* vals = stage_copy(smem + kSeg * n_max + 1, values, m,
+                                 stage == kStageAll);
+  const float* seg[kSeg];
+  int count[kSeg];
+#pragma unroll
+  for (int q = 0; q < kSeg; ++q) count[q] = q == 0 ? n_max + 1 : n_max;
   int nf = 0;  // the member's interval count and extrapolate flag, loaded
   bool ex = false;  // in the same round trip as its metadata row
   auto restage = [&](int fid) {
@@ -373,6 +445,7 @@ routed_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slop
     seg[1] = invd + row;
     seg[2] = base + row;
     seg[3] = segs + row;
+    if constexpr (kSharded) seg[4] = owned + row;
     stage_row(smem, seg, count, stage >= kStageMeta);
   };
   auto body = [&](long long r, long long c0, long long c1) {
@@ -380,7 +453,16 @@ routed_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slop
     for (long long c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
       const long long idx = r * w.cols + c;
       const float xv = load_f32(x, idx);
-      if (kMode == kGrad) {
+      if constexpr (kSharded) {
+        if (kMode == kGrad) {
+          float d;
+          store_f32(out, idx, tl::shard_lookup(xv, rw, seg[kSeg - 1], vals, m, ex, &d));
+          store_f32(slope, idx, d);
+        } else {
+          store_f32(out, idx,
+                    tl::shard_lookup(xv, rw, seg[kSeg - 1], vals, m, ex, nullptr));
+        }
+      } else if (kMode == kGrad) {
         float d;
         store_f32(out, idx, tl::lookup_grad(xv, rw, vals, m, ex, &d));
         store_f32(slope, idx, d);
@@ -693,6 +775,30 @@ cudaError_t launch_pack(const void* x, void* out, void* slope, long long n, int 
   return cudaGetLastError();
 }
 
+// One shard of the sharded pack; refuses what launch_pack refuses.
+template <int kMode>
+cudaError_t launch_spack(const void* x, void* out, void* slope, long long n, int dtype,
+                         const float* bounds, const float* invd, const float* lbase,
+                         const float* segs, const float* owned, const float* values,
+                         int fn_id, int n_max, int n_intervals, int m, int extrapolate,
+                         cudaStream_t stream) {
+  if (n_max < 1 || n_intervals < 1 || n_intervals > n_max || fn_id < 0 || m < 2 ||
+      n < 0 || (kMode == kGrad && !slope)) {
+    return cudaErrorInvalidValue;
+  }
+  if (n == 0) return cudaSuccess;
+  const int blocks = grid_for(n);
+  const Staging st = staging_for(5LL * n_max + 1, 4LL * m);
+#define TP_SPACK(T, ...)                                                               \
+  spack_kernel<T, kMode><<<blocks, kThreads, st.bytes, stream>>>(                      \
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), n,       \
+      bounds, invd, lbase, segs, owned, values, fn_id, n_max, n_intervals, m,          \
+      extrapolate, st.stage)
+  TP_DISPATCH_DTYPE(dtype, TP_SPACK, 0);
+#undef TP_SPACK
+  return cudaGetLastError();
+}
+
 template <typename T, typename C, int kMode>
 void quant_go(int blocks, Staging st, cudaStream_t stream, const void* x, void* out,
               void* slope, long long n, const float* const* p, const void* codes,
@@ -776,24 +882,26 @@ cudaError_t launch_poly(const void* x, void* out, void* slope, long long n, int 
 // Refuses (cudaErrorInvalidValue, no launch) an empty pack, a values vector
 // of fewer than two entries, a row count that does not divide n and an
 // unknown dtype.
-template <int kMode>
+// kSharded: `base` is one shard's rebased base plane, `owned` its ownership
+// plane (non-null) and `values` its padded slice of m entries.
+template <int kMode, bool kSharded>
 cudaError_t launch_routed(const void* x, void* out, void* slope, long long n, int dtype,
                           const int* ids, const int* n_arr, const int* extr,
                           const float* bounds, const float* invd, const float* base,
-                          const float* segs, const float* values, int n_fn, int n_max,
-                          int m, int rows, cudaStream_t stream) {
+                          const float* segs, const float* values, const float* owned,
+                          int n_fn, int n_max, int m, int rows, cudaStream_t stream) {
   if (n_fn < 1 || n_max < 1 || m < 2 || rows < 1 || n < 0 || n % rows != 0 ||
-      (kMode == kGrad && !slope)) {
+      (kMode == kGrad && !slope) || (kSharded && !owned)) {
     return cudaErrorInvalidValue;
   }
   if (n == 0) return cudaSuccess;
   int blocks = 0;
   const RoutedWork w = routed_work(n, rows, &blocks);
-  const Staging st = staging_for(4LL * n_max + 1, 4LL * m);
+  const Staging st = staging_for((kSharded ? 5LL : 4LL) * n_max + 1, 4LL * m);
 #define TP_ROUTED(T, ...)                                                              \
-  routed_kernel<T, kMode><<<blocks, kThreads, st.bytes, stream>>>(                     \
+  routed_kernel<T, kMode, kSharded><<<blocks, kThreads, st.bytes, stream>>>(           \
       static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), w, ids,  \
-      n_arr, extr, bounds, invd, base, segs, values, n_fn, n_max, m, st.stage)
+      n_arr, extr, bounds, invd, base, segs, values, owned, n_fn, n_max, m, st.stage)
   TP_DISPATCH_DTYPE(dtype, TP_ROUTED, 0);
 #undef TP_ROUTED
   return cudaGetLastError();
@@ -1023,9 +1131,9 @@ extern "C" cudaError_t tp_routed_lookup(const void* x, void* out, long long n,
                                         const float* segs, const float* values,
                                         int n_fn, int n_max, int m, int rows,
                                         void* stream) {
-  return launch_routed<kValue>(x, out, nullptr, n, dtype, ids, n_arr, extr, bounds,
-                               invd, base, segs, values, n_fn, n_max, m, rows,
-                               static_cast<cudaStream_t>(stream));
+  return launch_routed<kValue, false>(x, out, nullptr, n, dtype, ids, n_arr, extr,
+                                      bounds, invd, base, segs, values, nullptr, n_fn,
+                                      n_max, m, rows, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t tp_routed_grad(const void* x, void* y, void* slope, long long n,
@@ -1035,9 +1143,9 @@ extern "C" cudaError_t tp_routed_grad(const void* x, void* y, void* slope, long 
                                       const float* segs, const float* values,
                                       int n_fn, int n_max, int m, int rows,
                                       void* stream) {
-  return launch_routed<kGrad>(x, y, slope, n, dtype, ids, n_arr, extr, bounds, invd,
-                              base, segs, values, n_fn, n_max, m, rows,
-                              static_cast<cudaStream_t>(stream));
+  return launch_routed<kGrad, false>(x, y, slope, n, dtype, ids, n_arr, extr, bounds,
+                                     invd, base, segs, values, nullptr, n_fn, n_max, m,
+                                     rows, static_cast<cudaStream_t>(stream));
 }
 
 // Routed quantized pack: as tp_routed_lookup, with bo / lo (each member's
@@ -1129,6 +1237,61 @@ extern "C" cudaError_t tp_folded_grad(const void* x, void* y, void* slope, long 
   return launch_folded<kGrad>(x, y, slope, n, dtype, bounds, invd, base, segs, values,
                               fid_a, fid_b, n_max, n_a, n_b, m, kind,
                               static_cast<cudaStream_t>(stream));
+}
+
+// One shard of the sharded pack, member fn_id: bounds / invd / segs are the
+// replicated (F, n_max[+1]) planes, lbase / owned the shard's (F, n_max)
+// rebased-base and ownership planes, values its padded slice of m entries.
+// slope = 0: the masked lerp; 1: the masked slope (the value kernel's slope
+// mode).
+extern "C" cudaError_t tp_spack_lookup(const void* x, void* out, long long n, int dtype,
+                                       const float* bounds, const float* invd,
+                                       const float* lbase, const float* segs,
+                                       const float* owned, const float* values,
+                                       int fn_id, int n_max, int n_intervals, int m,
+                                       int extrapolate, int slope, void* stream) {
+  if (slope) {
+    return launch_spack<kSlope>(x, out, nullptr, n, dtype, bounds, invd, lbase, segs,
+                                owned, values, fn_id, n_max, n_intervals, m,
+                                extrapolate, static_cast<cudaStream_t>(stream));
+  }
+  return launch_spack<kValue>(x, out, nullptr, n, dtype, bounds, invd, lbase, segs,
+                              owned, values, fn_id, n_max, n_intervals, m, extrapolate,
+                              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" cudaError_t tp_spack_grad(const void* x, void* y, void* slope, long long n,
+                                     int dtype, const float* bounds, const float* invd,
+                                     const float* lbase, const float* segs,
+                                     const float* owned, const float* values,
+                                     int fn_id, int n_max, int n_intervals, int m,
+                                     int extrapolate, void* stream) {
+  return launch_spack<kGrad>(x, y, slope, n, dtype, bounds, invd, lbase, segs, owned,
+                             values, fn_id, n_max, n_intervals, m, extrapolate,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// Routed, one shard of the sharded pack: as tp_routed_lookup, with the
+// shard's rebased base plane in place of base, its ownership plane and its
+// padded values slice of m entries.
+extern "C" cudaError_t tp_sharded_routed_lookup(
+    const void* x, void* out, long long n, int dtype, const int* ids,
+    const int* n_arr, const int* extr, const float* bounds, const float* invd,
+    const float* lbase, const float* segs, const float* owned, const float* values,
+    int n_fn, int n_max, int m, int rows, void* stream) {
+  return launch_routed<kValue, true>(x, out, nullptr, n, dtype, ids, n_arr, extr,
+                                     bounds, invd, lbase, segs, values, owned, n_fn,
+                                     n_max, m, rows, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" cudaError_t tp_sharded_routed_grad(
+    const void* x, void* y, void* slope, long long n, int dtype, const int* ids,
+    const int* n_arr, const int* extr, const float* bounds, const float* invd,
+    const float* lbase, const float* segs, const float* owned, const float* values,
+    int n_fn, int n_max, int m, int rows, void* stream) {
+  return launch_routed<kGrad, true>(x, y, slope, n, dtype, ids, n_arr, extr, bounds,
+                                    invd, lbase, segs, values, owned, n_fn, n_max, m,
+                                    rows, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* tp_error_string(int err) {

@@ -14,7 +14,9 @@ boundary offsets, lane offsets and code widths, and the polynomial pack's
 coefficient strides), then the pack's planes (every code group of the
 quantized or polynomial pack), then the row count.  The folded entries take
 the f32 pack's five planes and the core members' ids and interval counts and
-the fold's kind.
+the fold's kind.  The sharded entries take one shard's planes: bounds, invd,
+the shard's rebased base, segs, the shard's ownership plane and its padded
+values slice (the routed ones after the three routing vectors).
 :func:`launch` flattens x, allocates the outputs, launches on the current
 stream and raises on an error; :data:`launches` counts the launches of each
 kernel, and only a launch adds to it.  :func:`run` is the one wrapper
@@ -40,7 +42,9 @@ launches: Dict[str, int] = {
     "quant_pack_grad": 0, "poly_pack_lookup": 0, "poly_pack_grad": 0,
     "routed_pack_lookup": 0, "routed_pack_grad": 0, "routed_quant_pack_lookup": 0,
     "routed_quant_pack_grad": 0, "folded_pack_lookup": 0, "folded_pack_grad": 0,
-    "routed_poly_pack_lookup": 0, "routed_poly_pack_grad": 0}
+    "routed_poly_pack_lookup": 0, "routed_poly_pack_grad": 0,
+    "sharded_pack_lookup": 0, "sharded_pack_grad": 0,
+    "sharded_routed_pack_lookup": 0, "sharded_routed_pack_grad": 0}
 
 
 def reset_launches() -> None:
@@ -78,6 +82,13 @@ _ENTRIES = {
     # codes32; n_fn, max_n, lmax, m8, m16, m32, rows
     "tp_routed_poly_lookup": (1, 17, 7),
     "tp_routed_poly_grad": (2, 17, 7),
+    # bounds, invd, lbase, segs, owned, values (one shard's);
+    # fn_id, n_max, n_intervals, m_max, extrapolate (+ slope for the value)
+    "tp_spack_lookup": (1, 6, 6),
+    "tp_spack_grad": (2, 6, 5),
+    # ids, n_arr, extr + one shard's 6 planes; n_fn, n_max, m_max, rows
+    "tp_sharded_routed_lookup": (1, 9, 4),
+    "tp_sharded_routed_grad": (2, 9, 4),
 }
 _typed: Dict[int, ctypes.CDLL] = {}
 

@@ -30,34 +30,48 @@ CUDA graph whose ids tensor is rewritten in place between replays.
     ``_routed_poly_kernel`` / ``_routed_poly_grad_kernel`` (``:641``,
     ``:670``).  Plain versions: ``eval_routed_poly_ref`` and
     ``eval_routed_poly_slope``.
+  * :func:`sharded_routed_pack_lookup` / :func:`sharded_routed_pack_grad` —
+    the sharded pack: one launch a shard over its values slice, rows of
+    elements the shard does not own masked to zero, the outputs summed in
+    shard order in x's dtype.  CUDA kernels ``tp_sharded_routed_lookup`` /
+    ``tp_sharded_routed_grad``; replace ``_sharded_routed_kernel`` /
+    ``_sharded_routed_grad_kernel`` (``:451``, ``:480``).  Plain versions:
+    ``eval_routed_sharded_ref`` and ``eval_routed_sharded_slope``.
 
 ``fn_ids`` is a name or int (every row), a sequence of names/ints (validated,
 ``KeyError`` on an unknown member) or a ``torch.Tensor`` of ids on the pack's
 device (clamped to ``[0, F-1]``: by ``torch.clamp`` in the plain versions, by
 the kernel on the card).  ``extrapolate`` is one flag or one per member.
 Every wrapper goes through :func:`repro_torch.kernels._lib.run`: a CPU tensor
-gets the plain version, a CUDA tensor one launch or an error.
+gets the plain version, a CUDA tensor one launch (a sharded call S) or an
+error.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.approx.table_pack import (PolyTablePack, QuantTablePack, TablePack,
+from repro_torch.approx.table_pack import (PolyTablePack, QuantTablePack,
+                                          ShardedTablePack, TablePack,
                                           _fn_id_operand, eval_routed_poly_ref,
                                           eval_routed_poly_slope,
                                           eval_routed_quant_ref,
                                           eval_routed_quant_slope, eval_routed_ref,
+                                          eval_routed_sharded_ref,
+                                          eval_routed_sharded_slope,
                                           eval_routed_slope, routed_extr_operand)
 
 from ._lib import launches, reset_launches, run
+from .table_pack_lookup import sharded_sum
 
 __all__ = ["launches", "reset_launches", "routed_pack_lookup",
            "routed_pack_lookup_plain", "routed_pack_grad", "routed_pack_grad_plain",
            "routed_quant_pack_lookup", "routed_quant_pack_lookup_plain",
            "routed_quant_pack_grad", "routed_quant_pack_grad_plain",
            "routed_poly_pack_lookup", "routed_poly_pack_lookup_plain",
-           "routed_poly_pack_grad", "routed_poly_pack_grad_plain"]
+           "routed_poly_pack_grad", "routed_poly_pack_grad_plain",
+           "sharded_routed_pack_lookup", "sharded_routed_pack_lookup_plain",
+           "sharded_routed_pack_grad", "sharded_routed_pack_grad_plain"]
 
 
 def _rows(x: torch.Tensor) -> int:
@@ -202,3 +216,62 @@ def routed_poly_pack_grad(pack: PolyTablePack, fn_ids, x: torch.Tensor, *,
                "pack", _routed_poly_args(pack, fn_ids, x, extrapolate),
                lambda: routed_poly_pack_grad_plain(pack, fn_ids, x,
                                                    extrapolate=extrapolate))
+
+
+def _sharded_routed_run(pack: ShardedTablePack, fn_ids, x: torch.Tensor,
+                        extrapolate, entry: str, count: str, plain):
+    """S launches of a sharded routed entry point (the ids and flag operands
+    built once for all of them), summed in shard order."""
+
+    def contrib(s):
+        return run(entry, count, x, pack.device, "pack",
+                   ((ids, n_arr, extr, pack.boundaries, pack.inv_delta,
+                     pack.local_base[s], pack.seg_count, pack.owned[s],
+                     pack.values[s]),
+                    (pack.n_functions, pack.n_max, pack.footprint_per_shard, rows)),
+                   plain)
+
+    if x.device.type != "cpu":
+        rows = _rows(x)
+        ids = _fn_id_operand(pack, fn_ids, rows).contiguous()
+        (n_arr,) = pack.routing_scalars()
+        extr = routed_extr_operand(pack, extrapolate)
+    return sharded_sum(pack, x, contrib, plain)
+
+
+def sharded_routed_pack_lookup_plain(pack: ShardedTablePack, fn_ids,
+                                     x: torch.Tensor, *,
+                                     extrapolate=False) -> torch.Tensor:
+    """Plain PyTorch version of ``tp_sharded_routed_lookup`` summed over the
+    shards: ``eval_routed_sharded_ref``."""
+    return eval_routed_sharded_ref(pack, fn_ids, x, extrapolate=extrapolate)
+
+
+def sharded_routed_pack_lookup(pack: ShardedTablePack, fn_ids, x: torch.Tensor, *,
+                               extrapolate=False) -> torch.Tensor:
+    """Row i of ``x`` through member ``fn_ids[i]`` of the sharded pack: one
+    routed launch a shard, summed."""
+    return _sharded_routed_run(
+        pack, fn_ids, x, extrapolate, "tp_sharded_routed_lookup",
+        "sharded_routed_pack_lookup",
+        lambda: sharded_routed_pack_lookup_plain(pack, fn_ids, x,
+                                                 extrapolate=extrapolate))
+
+
+def sharded_routed_pack_grad_plain(pack: ShardedTablePack, fn_ids, x: torch.Tensor,
+                                   *, extrapolate=False):
+    """Plain PyTorch version of :func:`sharded_routed_pack_grad`:
+    ``(eval_routed_sharded_ref, eval_routed_sharded_slope)``."""
+    return (eval_routed_sharded_ref(pack, fn_ids, x, extrapolate=extrapolate),
+            eval_routed_sharded_slope(pack, fn_ids, x, extrapolate=extrapolate))
+
+
+def sharded_routed_pack_grad(pack: ShardedTablePack, fn_ids, x: torch.Tensor, *,
+                             extrapolate=False):
+    """Routed sharded ``(y, dy/dx)``, both in x's dtype: one fused pass a
+    shard, each output summed over the shards."""
+    return _sharded_routed_run(
+        pack, fn_ids, x, extrapolate, "tp_sharded_routed_grad",
+        "sharded_routed_pack_grad",
+        lambda: sharded_routed_pack_grad_plain(pack, fn_ids, x,
+                                               extrapolate=extrapolate))

@@ -37,12 +37,23 @@ their wrappers and plain PyTorch versions.
     ``tp_folded_grad``; replace ``_folded_kernel`` / ``_folded_grad_kernel``
     (``:943``, ``:953``).  Plain versions: ``eval_folded_ref`` and
     ``eval_folded_slope`` (``approx/range_fold.py``), in x's dtype.
+  * :func:`sharded_shard_contrib` — ONE shard's masked contribution of a
+    member of a :class:`~repro_torch.approx.table_pack.ShardedTablePack`
+    (value or slope), and over it :func:`sharded_pack_lookup` /
+    :func:`sharded_pack_slope` (one launch a shard, summed in shard order in
+    x's dtype).  CUDA kernel ``tp_spack_lookup``; replaces ``_spack_kernel``
+    (``:663``).  Plain versions: ``eval_sharded_ref`` /
+    ``eval_sharded_slope``.
+  * :func:`sharded_pack_grad` — value and slope of each shard in one
+    selector pass, summed the same way.  CUDA kernel ``tp_spack_grad``;
+    replaces ``_spack_grad_kernel`` (``:697``).  Plain version:
+    ``(eval_sharded_ref, eval_sharded_slope)``.
 
 Every wrapper goes through :func:`repro_torch.kernels._lib.run`: it checks
 x's dtype (float32 or bfloat16) and that x and the pack share a device, then
 runs the plain version only because the tensor lies on the CPU.  For a CUDA
 tensor it launches the kernel or raises: there is no fallback.  Every launch
-adds one to :data:`launches`, and nothing else does.
+adds one to :data:`launches`, and nothing else does (a sharded call adds S).
 The kernels are bounded by bytes (``N * (in_bytes + n_out * out_bytes)`` at
 the card's memory rate) and are launch-bound at decode shapes; see the note at
 the top of the CUDA source.
@@ -52,16 +63,18 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.approx.table_pack import (PolyTablePack, QuantTablePack, TablePack,
+from repro_torch.approx.table_pack import (PolyTablePack, QuantTablePack,
+                                          ShardedTablePack, TablePack,
                                           eval_pack_ref, eval_pack_slope,
                                           eval_poly_pack_ref, eval_poly_pack_slope,
                                           eval_quant_pack_ref,
-                                          eval_quant_pack_slope)
+                                          eval_quant_pack_slope, eval_sharded_ref,
+                                          eval_sharded_slope, shard_contrib)
 
 from repro_torch.approx.range_fold import (FOLDABLE, eval_folded_ref,
                                           eval_folded_slope)
 
-from ._lib import launches, reset_launches, run
+from ._lib import check, launches, reset_launches, run
 
 __all__ = ["launches", "reset_launches", "table_pack_lookup",
            "table_pack_lookup_plain", "tableflash_exp", "tableflash_exp_plain",
@@ -69,7 +82,11 @@ __all__ = ["launches", "reset_launches", "table_pack_lookup",
            "quant_pack_lookup_plain", "quant_pack_grad", "quant_pack_grad_plain",
            "poly_pack_lookup", "poly_pack_lookup_plain", "poly_pack_grad",
            "poly_pack_grad_plain", "folded_pack_lookup", "folded_pack_lookup_plain",
-           "folded_pack_grad", "folded_pack_grad_plain"]
+           "folded_pack_grad", "folded_pack_grad_plain", "sharded_shard_contrib",
+           "sharded_shard_contrib_plain", "sharded_pack_lookup",
+           "sharded_pack_lookup_plain", "sharded_pack_slope",
+           "sharded_pack_slope_plain", "sharded_pack_grad", "sharded_pack_grad_plain",
+           "sharded_sum"]
 
 
 def _pack_args(pack: TablePack, fid: int, *flags: int):
@@ -268,3 +285,121 @@ def folded_pack_grad(pack: TablePack, name: str, x: torch.Tensor):
     pass (the core slopes chain-ruled through the reconstruction)."""
     return run("tp_folded_grad", "folded_pack_grad", x, pack.device, "pack",
                _folded_args(pack, name), lambda: folded_pack_grad_plain(pack, name, x))
+
+
+# --------------------------------------------------------------------------------------
+# ShardedPack: one launch a shard, the contributions summed in shard order
+# --------------------------------------------------------------------------------------
+
+
+def _sharded_args(pack: ShardedTablePack, fid: int, s: int, *flags: int):
+    """(planes, ints) of a sharded entry point for member ``fid``, shard
+    ``s``: the replicated planes, the shard's rebased base and ownership
+    planes and its padded values slice."""
+    return ((pack.boundaries, pack.inv_delta, pack.local_base[s], pack.seg_count,
+             pack.owned[s], pack.values[s]),
+            (fid, pack.n_max, pack.n_intervals[fid], pack.footprint_per_shard,
+             *flags))
+
+
+def sharded_sum(pack: ShardedTablePack, x: torch.Tensor, contrib, plain):
+    """The off-mesh shard sum every sharded wrapper shares: ``plain()`` for a
+    tensor on the CPU; on the card ``contrib(s)`` (one launch) for each shard,
+    added in shard order in x's dtype (a pair of outputs pairwise), as the
+    reference's ``_sharded_sum_pallas`` adds its per-shard kernel outputs."""
+    check(x, pack.device, "pack")
+    if x.device.type == "cpu":
+        return plain()
+    out = None
+    for s in range(pack.n_shards):
+        c = contrib(s)
+        if out is None:
+            out = c
+        elif isinstance(c, tuple):
+            out = tuple(a + b for a, b in zip(out, c))
+        else:
+            out = out + c
+    return out
+
+
+def sharded_shard_contrib_plain(pack: ShardedTablePack, fn, shard: int,
+                                x: torch.Tensor, *, extrapolate: bool = False,
+                                slope: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of one ``tp_spack_lookup`` launch:
+    ``shard_contrib_ref`` of shard ``shard``, in x's dtype."""
+    fid = pack.member_id(fn)
+    return shard_contrib(pack, fid, shard, x.to(torch.float32),
+                         extrapolate=extrapolate, slope=slope).to(x.dtype)
+
+
+def sharded_shard_contrib(pack: ShardedTablePack, fn, shard: int, x: torch.Tensor,
+                          *, extrapolate: bool = False,
+                          slope: bool = False) -> torch.Tensor:
+    """Shard ``shard``'s masked contribution of member ``fn`` (its lerp, or
+    with ``slope`` its segment slope), in x's dtype: one launch."""
+    fid = pack.member_id(fn)
+    if not 0 <= shard < pack.n_shards:
+        raise IndexError(f"shard {shard} out of range for {pack.n_shards} shards")
+    return run("tp_spack_lookup", "sharded_pack_lookup", x, pack.device, "pack",
+               _sharded_args(pack, fid, shard, int(extrapolate), int(slope)),
+               lambda: sharded_shard_contrib_plain(pack, fid, shard, x,
+                                                   extrapolate=extrapolate,
+                                                   slope=slope))
+
+
+def sharded_pack_lookup_plain(pack: ShardedTablePack, fn, x: torch.Tensor, *,
+                              extrapolate: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sharded_pack_lookup`:
+    ``eval_sharded_ref``."""
+    return eval_sharded_ref(pack, fn, x, extrapolate=extrapolate)
+
+
+def sharded_pack_lookup(pack: ShardedTablePack, fn, x: torch.Tensor, *,
+                        extrapolate: bool = False) -> torch.Tensor:
+    """Evaluate member ``fn`` of the sharded pack: S launches, summed."""
+    fid = pack.member_id(fn)
+    return sharded_sum(
+        pack, x,
+        lambda s: sharded_shard_contrib(pack, fid, s, x, extrapolate=extrapolate),
+        lambda: sharded_pack_lookup_plain(pack, fid, x, extrapolate=extrapolate))
+
+
+def sharded_pack_slope_plain(pack: ShardedTablePack, fn, x: torch.Tensor, *,
+                             extrapolate: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sharded_pack_slope`:
+    ``eval_sharded_slope``."""
+    return eval_sharded_slope(pack, fn, x, extrapolate=extrapolate)
+
+
+def sharded_pack_slope(pack: ShardedTablePack, fn, x: torch.Tensor, *,
+                       extrapolate: bool = False) -> torch.Tensor:
+    """The slope alone (no value pass): S launches of the value kernel in
+    its slope mode, summed."""
+    fid = pack.member_id(fn)
+    return sharded_sum(
+        pack, x,
+        lambda s: sharded_shard_contrib(pack, fid, s, x, extrapolate=extrapolate,
+                                        slope=True),
+        lambda: sharded_pack_slope_plain(pack, fid, x, extrapolate=extrapolate))
+
+
+def sharded_pack_grad_plain(pack: ShardedTablePack, fn, x: torch.Tensor, *,
+                            extrapolate: bool = False):
+    """Plain PyTorch version of :func:`sharded_pack_grad`:
+    ``(eval_sharded_ref, eval_sharded_slope)``."""
+    return (eval_sharded_ref(pack, fn, x, extrapolate=extrapolate),
+            eval_sharded_slope(pack, fn, x, extrapolate=extrapolate))
+
+
+def sharded_pack_grad(pack: ShardedTablePack, fn, x: torch.Tensor, *,
+                      extrapolate: bool = False):
+    """``(y, dy/dx)`` of sharded member ``fn``, both in x's dtype: one fused
+    selector pass a shard (S launches), each output summed over the
+    shards."""
+    fid = pack.member_id(fn)
+    return sharded_sum(
+        pack, x,
+        lambda s: run("tp_spack_grad", "sharded_pack_grad", x, pack.device, "pack",
+                      _sharded_args(pack, fid, s, int(extrapolate)),
+                      lambda: None),  # x is on the card here: never called
+        lambda: sharded_pack_grad_plain(pack, fid, x, extrapolate=extrapolate))

@@ -4,8 +4,9 @@ request queue, on the card unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
       --reduced --device cpu --approx-mode table_pack --attn-table
 
-The flags are the JAX launcher's (``repro.launch.serve``) minus the sharded
-modes and the options not ported yet, plus ``--device``.  ``--scheduler
+The flags are the JAX launcher's (``repro.launch.serve``), ``--pack-shards``
+and the sharded modes included (off the mesh: the shards are summed on one
+device), minus ``--obs`` (ROADMAP queue 1, item 13), plus ``--device``.  ``--scheduler
 continuous`` (default) serves through the ContinuousEngine; ``--scheduler
 static`` keeps the fixed-group baseline.  ``--trace PATH`` writes a
 Perfetto-loadable Chrome trace of the run.  Throughput is reported wall-clock
@@ -61,11 +62,18 @@ def main(argv=None):
                          "the planner's degree-1..3 pack (see --pack-budget), "
                          "routed_* = the same packs with dynamic per-row "
                          "fn_id dispatch (one kernel for every member), "
+                         "sharded_pack = the f32 pack's values cut into "
+                         "--pack-shards slices, each shard's masked "
+                         "contribution summed on one device, "
                          "folded_* = full-range sin/cos/exp/log by range "
                          "reduction over the f32 pack, "
                          "*_ref = their plain PyTorch versions")
     ap.add_argument("--approx-ea", type=float, default=None,
                     help="override the config's error budget E_a")
+    ap.add_argument("--pack-shards", type=int, default=None,
+                    help="sharded_pack modes: split the pack values this many "
+                         "ways (sub-interval granularity, per-shard base "
+                         "rebasing; the shards are summed on one device)")
     ap.add_argument("--pack-budget", type=int, default=None,
                     help="poly_pack modes: total-bytes budget for the design-"
                          "space planner (greedy member downgrade until the "
@@ -95,6 +103,8 @@ def main(argv=None):
         kw["mode"] = args.approx_mode
     if args.approx_ea is not None:
         kw["e_a"] = args.approx_ea
+    if args.pack_shards is not None:
+        kw["pack_shards"] = args.pack_shards
     if args.pack_budget is not None:
         kw["pack_budget"] = args.pack_budget
     if args.rope_table:

@@ -4,10 +4,10 @@
       --reduced --device cpu --steps 4 --batch 4 --seq 16 --accum 2 \\
       --approx-mode table_pack
 
-The flags are the JAX launcher's (``repro.launch.train``) for the ported
-approx modes (``--pack-budget`` and ``--rope-table`` included), plus
-``--device``; the mesh, the sharded modes and their options (``--mesh``,
-``--pack-shards``, ``--obs``) wait for their ROADMAP items.  Weights are random, drawn from
+The flags are the JAX launcher's (``repro.launch.train``) for every approx
+mode (``--pack-budget``, ``--pack-shards`` and ``--rope-table`` included; the
+sharded modes off the mesh), plus ``--device``; ``--mesh`` waits for ROADMAP
+queue 1, item 12b and ``--obs`` for item 13.  Weights are random, drawn from
 seed 0, and the data is the counter-addressed synthetic stream, as in the
 JAX launcher.  The summary line reports the one-time nvcc kernel build in
 place of the reference's compile time.
@@ -50,11 +50,18 @@ def main(argv=None):
                          "the planner's degree-1..3 pack (see --pack-budget), "
                          "routed_* = the same packs with dynamic per-row "
                          "fn_id dispatch (one kernel for every member), "
+                         "sharded_pack = the f32 pack's values cut into "
+                         "--pack-shards slices, each shard's masked "
+                         "contribution summed on one device, "
                          "folded_* = full-range sin/cos/exp/log by range "
                          "reduction over the f32 pack, "
                          "*_ref = their plain PyTorch versions")
     ap.add_argument("--approx-ea", type=float, default=None,
                     help="override the config's error budget E_a")
+    ap.add_argument("--pack-shards", type=int, default=None,
+                    help="sharded_pack modes: split the pack values this many "
+                         "ways (sub-interval granularity, per-shard base "
+                         "rebasing; the shards are summed on one device)")
     ap.add_argument("--pack-budget", type=int, default=None,
                     help="poly_pack modes: total-bytes budget for the design-"
                          "space planner (greedy member downgrade until the "
@@ -84,6 +91,8 @@ def main(argv=None):
         kw["mode"] = args.approx_mode
     if args.approx_ea is not None:
         kw["e_a"] = args.approx_ea
+    if args.pack_shards is not None:
+        kw["pack_shards"] = args.pack_shards
     if args.pack_budget is not None:
         kw["pack_budget"] = args.pack_budget
     if args.rope_table:

@@ -94,7 +94,6 @@ class DecoderLM:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.compute_dtype]
-        self.param_dtype = _DTYPES[cfg.param_dtype]
         self.act = cfg.approx.unary(cfg.act, self.device)
         self._cap_tanh = None
         if cfg.attn.logit_softcap > 0:
@@ -107,7 +106,7 @@ class DecoderLM:
     # ------------------------------- init ----------------------------------------
 
     def _init_layer(self, gen: torch.Generator) -> Params:
-        cfg, dt = self.cfg, self.param_dtype
+        cfg, dt = self.cfg, torch.float32
         p = {
             "ln1": init_rmsnorm(cfg.d_model, self.device, dt),
             "attn": init_attention(gen, cfg.d_model, cfg.attn_geom,
@@ -122,18 +121,20 @@ class DecoderLM:
 
     def init(self, gen: torch.Generator) -> Params:
         """Random parameters drawn from ``gen`` (a generator on the model's
-        device), in ``param_dtype``."""
+        device), every leaf f32 whatever ``cfg.param_dtype`` says: the
+        reference's ``init`` never reads that field, and the trainer scales
+        and sums the grads in the leaves' dtype."""
         if gen.device.type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on {self.device}")
         cfg = self.cfg
         params: Params = {
-            "embed": init_embedding(gen, cfg.vocab_pad, cfg.d_model, self.param_dtype),
-            "final_norm": init_rmsnorm(cfg.d_model, self.device, self.param_dtype),
+            "embed": init_embedding(gen, cfg.vocab_pad, cfg.d_model, torch.float32),
+            "final_norm": init_rmsnorm(cfg.d_model, self.device, torch.float32),
             "layers": [self._init_layer(gen) for _ in range(cfg.n_layers)],
         }
         if not cfg.tie_embeddings:
             params["unembed"] = init_embedding(gen, cfg.vocab_pad, cfg.d_model,
-                                               self.param_dtype)
+                                               torch.float32)
         return params
 
     # ------------------------------ blocks -----------------------------------------

@@ -13,7 +13,7 @@ Layout per step:  <dir>/step_<N>/manifest.json + one .npy per leaf.
     given.  Restore checks every leaf's shape.
 Leaves are keyed by their path in the tree (dict keys, list indices), in the
 reference's ``jax.tree`` order.  One process writes (the port trains on one
-card; the multi-host guard comes with the mesh, ROADMAP queue 1, item 12).
+card; the multi-host guard comes with the mesh, ROADMAP queue 1, item 12b).
 """
 
 from __future__ import annotations

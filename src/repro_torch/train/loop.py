@@ -17,7 +17,7 @@ PyTorch runs eagerly: there is no jit, and the step updates the state in
 place (:func:`repro_torch.optim.adamw.update`).  An exception inside that
 update leaves the state partly updated, and the emergency checkpoint then
 holds it as it is.  The mesh, weight-update sharding and ZeRO-1 wait for the
-sharded port (ROADMAP queue 1, item 12): ``run(mesh=...)`` raises.
+mesh path (ROADMAP queue 1, item 12b): ``run(mesh=...)`` raises.
 """
 
 from __future__ import annotations
@@ -149,7 +149,7 @@ def run(model, shape, cfg: TrainConfig, mesh=None,
     if mesh is not None:
         raise NotImplementedError(
             "training over a mesh (weight-update sharding, ZeRO-1) is not "
-            "ported yet: ROADMAP queue 1, item 12")
+            "ported yet: ROADMAP queue 1, item 12b (the mesh path)")
     data = SyntheticLM(data_config_for(model.cfg, shape))
     ckpt = CheckpointManager(cfg.ckpt_dir, keep=cfg.ckpt_keep)
     train_step = make_train_step(model, cfg.opt, cfg.accum)

@@ -18,9 +18,9 @@ import torch
 
 from repro_torch.approx import ApproxConfig
 from repro_torch.approx.table_pack import (build_pack, build_poly_pack,
-                                          build_quant_pack, from_poly_layout,
-                                          from_quant_layout, make_routed_unary_fn,
-                                          routed_extr_flags)
+                                          build_quant_pack, build_sharded_pack,
+                                          from_poly_layout, from_quant_layout,
+                                          make_routed_unary_fn, routed_extr_flags)
 from repro_torch.approx.torch_table import TorchTable, from_spec
 from repro_torch.core import design
 from repro_torch.core.flow import cached_table
@@ -157,7 +157,10 @@ def test_wrapper_contract(pack):
                           "routed_pack_lookup": 0, "routed_pack_grad": 0,
                           "routed_quant_pack_lookup": 0, "routed_quant_pack_grad": 0,
                           "folded_pack_lookup": 0, "folded_pack_grad": 0,
-                          "routed_poly_pack_lookup": 0, "routed_poly_pack_grad": 0}
+                          "routed_poly_pack_lookup": 0, "routed_poly_pack_grad": 0,
+                          "sharded_pack_lookup": 0, "sharded_pack_grad": 0,
+                          "sharded_routed_pack_lookup": 0,
+                          "sharded_routed_pack_grad": 0}
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         K.table_pack_lookup(pack, "silu", x.half())
     for p, t in ((cpu_pack, x), (pack, x.cpu())):
@@ -246,7 +249,10 @@ def test_grad_wrappers_contract(pack, cuda):
                           "routed_pack_lookup": 0, "routed_pack_grad": 0,
                           "routed_quant_pack_lookup": 0, "routed_quant_pack_grad": 0,
                           "folded_pack_lookup": 0, "folded_pack_grad": 0,
-                          "routed_poly_pack_lookup": 0, "routed_poly_pack_grad": 0}
+                          "routed_poly_pack_lookup": 0, "routed_poly_pack_grad": 0,
+                          "sharded_pack_lookup": 0, "sharded_pack_grad": 0,
+                          "sharded_routed_pack_lookup": 0,
+                          "sharded_routed_pack_grad": 0}
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         TG.table_lookup_grad(jt, x.half())
     with pytest.raises(ValueError, match="table lives on"):
@@ -471,7 +477,10 @@ def test_quant_poly_wrappers_contract(quant, poly, cuda):
                           "routed_pack_lookup": 0, "routed_pack_grad": 0,
                           "routed_quant_pack_lookup": 0, "routed_quant_pack_grad": 0,
                           "folded_pack_lookup": 0, "folded_pack_grad": 0,
-                          "routed_poly_pack_lookup": 0, "routed_poly_pack_grad": 0}
+                          "routed_poly_pack_lookup": 0, "routed_poly_pack_grad": 0,
+                          "sharded_pack_lookup": 0, "sharded_pack_grad": 0,
+                          "sharded_routed_pack_lookup": 0,
+                          "sharded_routed_pack_grad": 0}
 
 
 @pytest.mark.parametrize("mode", ["quant_pack", "poly_pack"])
@@ -535,6 +544,10 @@ def routed_packs(cuda, pack, quant, poly, mixed):
 def _routed_fns(pack):
     """(routed value, routed grad, their plain versions, static value, static
     grad) of a pack's family."""
+    if hasattr(pack, "owned"):
+        return (R.sharded_routed_pack_lookup, R.sharded_routed_pack_grad,
+                R.sharded_routed_pack_lookup_plain, R.sharded_routed_pack_grad_plain,
+                K.sharded_pack_lookup, K.sharded_pack_grad)
     if hasattr(pack, "n_max"):
         return (R.routed_pack_lookup, R.routed_pack_grad, R.routed_pack_lookup_plain,
                 R.routed_pack_grad_plain, K.table_pack_lookup, K.table_pack_grad)
@@ -718,6 +731,180 @@ def test_reduced_routed_card_matches_cpu(cuda, mode):
         if dev == "cuda":
             assert K.launches[f"{mode}_lookup"] > 0 and K.launches[f"{mode}_grad"] > 0
             assert K.launches["tableflash_exp"] > 0
+    for a, b in zip(served["cuda"], served["cpu"]):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# --------------------------------------------------------------------------------------
+# ShardedPack: one launch a shard, summed
+# --------------------------------------------------------------------------------------
+
+SHARDS = (1, 2, 3, 4, 8)
+
+
+@pytest.fixture(scope="module")
+def spacks(cuda):
+    return {s: build_sharded_pack(NAMES, 1e-4, s, omega=0.2, device=cuda)
+            for s in SHARDS}
+
+
+def assert_equal_values(got, want, x):
+    """The shard sum against the replicated kernel: equal as values (a sum
+    turns an owner's -0.0 into +0.0), NaN positions matched, except where
+    x is NaN (the address is then 0: another entry in a slice than in the
+    whole pack, so the meaningless extrapolated slope differs)."""
+    keep = ~torch.isnan(x)
+    g, w = got[keep].float(), want[keep].float()
+    assert bool(((g == w) | (torch.isnan(g) & torch.isnan(w))).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("n_shards", SHARDS)
+def test_sharded_kernels_bitwise(spacks, pack, n_shards, name, dtype):
+    sp = spacks[n_shards]
+    fid = sp.fn_id(name)
+    x = edge_input(sp, fid, 4093, dtype, seed=n_shards)
+    for ex in (False, True):
+        K.reset_launches()
+        y = K.sharded_pack_lookup(sp, fid, x, extrapolate=ex)
+        d = K.sharded_pack_slope(sp, fid, x, extrapolate=ex)
+        gy, gd = K.sharded_pack_grad(sp, fid, x, extrapolate=ex)
+        cs = [K.sharded_shard_contrib(sp, fid, s, x, extrapolate=ex)
+              for s in range(n_shards)]
+        torch.cuda.synchronize()
+        assert K.launches["sharded_pack_lookup"] == 3 * n_shards
+        assert K.launches["sharded_pack_grad"] == n_shards
+        wy, wd = K.sharded_pack_grad_plain(sp, fid, x, extrapolate=ex)
+        for got, want in ((y, wy), (gy, wy), (d, wd), (gd, wd)):
+            assert_bitwise(got, want)
+        for s, c in enumerate(cs):
+            assert_bitwise(c, K.sharded_shard_contrib_plain(sp, fid, s, x,
+                                                            extrapolate=ex))
+        ry, rd = K.table_pack_grad(pack, fid, x, extrapolate=ex)
+        assert_equal_values(y, ry, x)
+        assert_equal_values(d, rd, x)
+
+
+def test_sharded_values_beyond_shared_memory(cuda):
+    """A shard slice larger than the kernels' static shared budget (10,240
+    f32 values) is read from global memory: same bits."""
+    big = build_sharded_pack(("silu", "exp_neg"), 1e-8, 2, omega=0.2, device=cuda)
+    assert big.footprint_per_shard > 10240
+    for fid in range(2):
+        x = edge_input(big, fid, 5000, torch.float32, seed=fid)
+        assert_bitwise(K.sharded_pack_lookup(big, fid, x, extrapolate=True),
+                       K.sharded_pack_lookup_plain(big, fid, x, extrapolate=True))
+        for got, want in zip(K.sharded_pack_grad(big, fid, x, extrapolate=True),
+                             K.sharded_pack_grad_plain(big, fid, x, extrapolate=True)):
+            assert_bitwise(got, want)
+    _routed_check(big, [0, 1, 1, 0], torch.randn((4, 3000), device="cuda") * 8, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("flags", ["off", "on", "per_member"])
+@pytest.mark.parametrize("n_shards", SHARDS)
+def test_sharded_routed_kernels_bitwise(spacks, n_shards, flags, dtype):
+    """Against the plain versions and, row by row, the static sharded
+    kernels of the row's member."""
+    sp = spacks[n_shards]
+    F = sp.n_functions
+    ex = (tuple(f % 2 == 0 for f in range(F)) if flags == "per_member"
+          else flags == "on")
+    ids = [(3 * r + 1) % F for r in range(2 * F + 1)]
+    x = torch.stack([_member_edges(sp, f, 4000, dtype, seed=r)[:4000]
+                     for r, f in enumerate(ids)])
+    _routed_check(sp, ids, x, ex)
+    raw = torch.tensor([ids[0], -5, 10_000] + ids[3:], device="cuda")
+    _routed_check(sp, raw, x, ex)
+
+
+def test_sharded_routed_cuda_graph_reroute(spacks):
+    """The S routed launches of a sharded call captured in one CUDA graph
+    follow an ids tensor rewritten in place."""
+    pk = spacks[4]
+    F = pk.n_functions
+    ids = torch.arange(8, device="cuda", dtype=torch.int32) % F
+    x = torch.randn((8, 3000), device="cuda") * 5
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        R.sharded_routed_pack_lookup(pk, ids, x)
+        R.sharded_routed_pack_grad(pk, ids, x, extrapolate=True)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = R.sharded_routed_pack_lookup(pk, ids, x)
+        y, d = R.sharded_routed_pack_grad(pk, ids, x, extrapolate=True)
+    for new in ([F - 1 - (r % F) for r in range(8)], [1] * 8, [0, 99, -1, 3, 1, 1, 0, 4]):
+        ids.copy_(torch.tensor(new, device="cuda", dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert_bitwise(out, R.sharded_routed_pack_lookup_plain(pk, ids, x))
+        want_y, want_d = R.sharded_routed_pack_grad_plain(pk, ids, x, extrapolate=True)
+        assert_bitwise(y, want_y)
+        assert_bitwise(d, want_d)
+
+
+def test_sharded_wrappers_contract(spacks):
+    sp = spacks[4]
+    x = torch.randn(6, 5, 7, device="cuda").transpose(1, 2)  # not contiguous
+    K.reset_launches()
+    y = K.sharded_pack_lookup(sp, "silu", x)
+    yg, s = K.sharded_pack_grad(sp, "silu", x)
+    ry = R.sharded_routed_pack_lookup(sp, list(range(6)), x)
+    rg, rs = R.sharded_routed_pack_grad(sp, "silu", x)
+    assert all(t.shape == x.shape and t.is_contiguous() for t in (y, yg, s, ry, rg, rs))
+    K.sharded_pack_lookup(sp, "silu", torch.empty(0, device="cuda"))  # no launch
+    assert {k: v for k, v in K.launches.items() if v} == {
+        "sharded_pack_lookup": 4, "sharded_pack_grad": 4,
+        "sharded_routed_pack_lookup": 4, "sharded_routed_pack_grad": 4}
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.sharded_pack_lookup(sp, "silu", x.half())
+    with pytest.raises(ValueError, match="pack lives on"):
+        K.sharded_pack_grad(sp, "silu", x.cpu())
+    with pytest.raises(ValueError, match="fn_ids live on"):
+        R.sharded_routed_pack_lookup(sp, torch.zeros(6, dtype=torch.int32), x)
+    with pytest.raises(IndexError):
+        K.sharded_shard_contrib(sp, "silu", 4, x)
+
+
+def test_reduced_sharded_card_matches_cpu(cuda):
+    """Reduced stablelm, f32, in ``sharded_pack`` at 4 shards with
+    TableFlash: serving on the card token-identical to the plain versions on
+    the CPU, 2 train steps within 1e-4 relative (as the routed test)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import build_model, reduced
+    from repro_torch.optim import adamw
+    from repro_torch.serving.engine import ContinuousEngine, Request
+    from repro_torch.train.loop import batch_to, init_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    cfg = reduced("stablelm-3b").replace(compute_dtype="float32", approx=ApproxConfig(
+        mode="sharded_pack", e_a=1e-4, omega=0.2, attn_table=True, pack_shards=4))
+    rng = np.random.default_rng(2)
+    reqs = [Request(prompt=rng.integers(0, 128, (int(n),)).astype(np.int32),
+                    max_new_tokens=6) for n in rng.integers(3, 12, 5)]
+    cpu_state = init_state(build_model(cfg, "cpu"))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, global_batch=4, seq_len=16))
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    served, losses = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, dev)
+        state = tree_map(lambda t: t.detach().clone().to(dev), cpu_state)
+        K.reset_launches()
+        served[dev] = ContinuousEngine(model, state["params"], 2, 64).serve(reqs)
+        lookups = K.launches["sharded_pack_lookup"]
+        step = make_train_step(model, opt, accum=2)
+        losses[dev] = []
+        for s in range(2):
+            state, m = step(state, batch_to(data.batch_at(s), dev))
+            losses[dev].append(float(m["loss"]))
+        if dev == "cuda":  # 4 launches a gate call
+            assert lookups > 0 and lookups % 4 == 0
+            assert K.launches["sharded_pack_grad"] > 0
+            assert K.launches["sharded_pack_grad"] % 4 == 0
     for a, b in zip(served["cuda"], served["cpu"]):
         np.testing.assert_array_equal(a.tokens, b.tokens)
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

@@ -55,7 +55,8 @@ from repro.approx import range_fold as rf_ref
 from repro.core import range_reduce as rr_ref
 from repro.kernels.table_pack_lookup import (folded_pack_grad_pallas,
                                              folded_pack_lookup_pallas)
-from repro_torch.approx import (FOLDED_CORE_MEMBERS, FOLDED_MODES, NOT_PORTED,
+from repro_torch import approx as port_approx
+from repro_torch.approx import (FOLDED_CORE_MEMBERS, FOLDED_MODES, SHARDED_MODES,
                                 TABLE_MODES, ApproxConfig, range_fold)
 from repro_torch.core import range_reduce as rr
 from repro_torch.kernels import _lib
@@ -425,9 +426,11 @@ def test_non_foldable_names_fall_through(packs):
 def test_folded_modes_are_ported():
     assert FOLDED_MODES == ("folded_pack", "folded_pack_ref", "folded_routed_pack",
                             "folded_routed_pack_ref")
-    for mode in FOLDED_MODES:
-        assert mode in TABLE_MODES and mode not in NOT_PORTED
-    assert sorted(NOT_PORTED) == ["sharded_pack", "sharded_pack_ref"]
+    for mode in FOLDED_MODES + SHARDED_MODES:
+        assert mode in TABLE_MODES
+    # the sharded modes were the last ones left to port: no refusal table
+    assert SHARDED_MODES == ("sharded_pack", "sharded_pack_ref")
+    assert not hasattr(port_approx, "NOT_PORTED")
     for mode in FOLDED_MODES + ("table_pack",):
         names = ApproxConfig(mode=mode, e_a=EA, omega=OMEGA,
                              rope_table=mode == "table_pack").pack("cpu").names

@@ -47,7 +47,7 @@ from repro.kernels.table_lookup import table_lookup_pallas
 from repro.kernels.table_pack_lookup import (table_pack_grad_pallas,
                                              table_pack_lookup_pallas,
                                              tableflash_exp_pallas)
-from repro_torch.approx import ApproxConfig, NOT_PORTED, torch_table, table_pack
+from repro_torch.approx import ApproxConfig, SHARDED_MODES, torch_table, table_pack
 from repro_torch.core.flow import cached_table
 from repro_torch.core.functions import get as get_function
 from repro_torch.kernels import table_grad as TG
@@ -425,10 +425,18 @@ class TestContracts:
             with pytest.raises(TypeError, match="float32 or bfloat16"):
                 K.tableflash_exp(tp, torch.zeros(4, dtype=dt))
 
-    @pytest.mark.parametrize("mode", sorted(NOT_PORTED))
-    def test_unported_modes_raise(self, mode):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue"):
-            ApproxConfig(mode=mode).unary("silu", "cpu")
+    @pytest.mark.parametrize("mode", SHARDED_MODES)
+    def test_unported_modes_raise(self, mode, packs):
+        """The two modes this test once found refused (the sharded ones) are
+        ported: each serves, equal to the replicated pack it shards (held to
+        the reference in tests/test_torch_sharded.py)."""
+        _, tp = packs
+        x = torch.from_numpy(inputs(-12.0, 12.0, [], seed=5))
+        f = ApproxConfig(mode=mode, e_a=1e-4, omega=0.2, pack_shards=3).unary("silu", "cpu")
+        # equal as values (NaN positions matched): a shard sum turns an
+        # owner's -0.0 into +0.0
+        np.testing.assert_array_equal(
+            f(x).numpy(), table_pack.eval_pack_ref(tp, "silu", x, extrapolate=True).numpy())
 
     def test_unknown_mode_and_rope_table(self):
         with pytest.raises(ValueError, match="unknown approx mode"):

@@ -57,7 +57,8 @@ from repro.kernels.table_pack_lookup import (poly_pack_grad_pallas,
                                              poly_pack_lookup_pallas,
                                              quant_pack_grad_pallas,
                                              quant_pack_lookup_pallas)
-from repro_torch.approx import NOT_PORTED, ApproxConfig, table_pack
+from repro_torch import approx as port_approx
+from repro_torch.approx import TABLE_MODES, ApproxConfig, table_pack
 from repro_torch.core import design, packing, quantize
 from repro_torch.core.functions import get as get_function
 from repro_torch.kernels import table_pack_lookup as K
@@ -514,9 +515,10 @@ UNARY_MODES = ("quant_pack", "quant_pack_ref", "poly_pack", "poly_pack_ref")
 
 def test_modes_are_ported():
     for mode in UNARY_MODES:
-        assert mode not in NOT_PORTED
+        assert mode in TABLE_MODES
         ApproxConfig(mode=mode, e_a=EA, omega=OMEGA).unary("silu", "cpu")
-    assert all(v.startswith("ROADMAP queue 1, item") for v in NOT_PORTED.values())
+    # every mode of the reference is ported: the refusal table is gone
+    assert not hasattr(port_approx, "NOT_PORTED")
 
 
 @pytest.mark.parametrize("mode", UNARY_MODES)

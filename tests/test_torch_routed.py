@@ -51,7 +51,8 @@ from repro.kernels.routed_pack_lookup import (routed_pack_grad_pallas,
                                               routed_pack_lookup_pallas,
                                               routed_quant_pack_grad_pallas,
                                               routed_quant_pack_lookup_pallas)
-from repro_torch.approx import NOT_PORTED, ROUTED_MODES, ApproxConfig, table_pack
+from repro_torch.approx import (ROUTED_MODES, SHARDED_MODES, TABLE_MODES, ApproxConfig,
+                                table_pack)
 from repro_torch.core import packing, quantize
 from repro_torch.kernels import _lib
 from repro_torch.kernels import routed_pack_lookup as R
@@ -414,18 +415,23 @@ def test_make_routed_unary_fn_values_and_grads(kind, use_kernel, request):
 
 
 def test_unported_packs_raise(f32):
+    """The two pack kinds once refused by routed dispatch, polynomial and
+    sharded, are routed now (tests/test_torch_routed_poly.py and
+    tests/test_torch_sharded.py hold them to the reference); a non-pack
+    still raises."""
     from repro_torch.core import design
 
     poly = table_pack.from_poly_layout(packing.poly_pack_layout(
         [design.poly_member("gelu", EA, degree=1, bits=32)]), "cpu")
-    sharded = tp_ref.build_sharded_pack(("gelu", "tanh"), EA, 2)
+    sharded = table_pack.build_sharded_pack(("gelu", "tanh"), EA, 2, device="cpu")
     x = torch.linspace(-4, 4, 33).reshape(1, -1)
     for make in (table_pack.make_routed_fn, table_pack.make_routed_unary_fn):
-        # the polynomial pack is routed now (tests/test_torch_routed_poly.py)
         assert torch.equal(make(poly, "gelu")(x), table_pack.eval_poly_pack_ref(
             poly, "gelu", x))
-        with pytest.raises(NotImplementedError, match="item 12"):
-            make(sharded, "gelu")
+        assert torch.equal(make(sharded, "gelu")(x), table_pack.eval_routed_sharded_ref(
+            sharded, ["gelu"], x))
+        with pytest.raises(TypeError, match="ShardedTablePack"):
+            make(tp_ref.build_sharded_pack(("gelu", "tanh"), EA, 2), "gelu")
 
 
 # --------------------------------------------------------------------------------------
@@ -437,14 +443,18 @@ def test_routed_modes_are_ported():
     assert ROUTED_MODES == ("routed_pack", "routed_pack_ref", "routed_quant_pack",
                             "routed_quant_pack_ref", "routed_poly_pack",
                             "routed_poly_pack_ref")
-    for mode in ROUTED_MODES:
-        assert mode not in NOT_PORTED
-    for mode in ("sharded_pack", "sharded_pack_ref"):
-        assert "item 12" in NOT_PORTED[mode]
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            ApproxConfig(mode=mode).unary("silu", "cpu")
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            ApproxConfig(mode=mode).routed_fn(("silu",), "cpu")
+    for mode in ROUTED_MODES + SHARDED_MODES:
+        assert mode in TABLE_MODES
+    x = torch.linspace(-6, 6, 64).reshape(2, 32)
+    for mode in SHARDED_MODES:  # once refused, served now
+        a = ApproxConfig(mode=mode, e_a=EA, omega=OMEGA)
+        sp = a._pack_for_mode("cpu")
+        assert sp is a.sharded_pack("cpu") and sp.n_shards == a.pack_shards == 2
+        assert torch.equal(a.unary("silu", "cpu")(x), table_pack.eval_sharded_ref(
+            sp, "silu", x, extrapolate=True))
+        assert torch.equal(a.routed_fn(("silu", "gelu"), "cpu")(x),
+                           table_pack.eval_routed_sharded_ref(
+                               sp, ("silu", "gelu"), x, extrapolate=True))
     a = ApproxConfig(mode="routed_quant_pack", e_a=EA, omega=OMEGA)
     assert a._pack_for_mode("cpu") is a.quant_pack("cpu")
     assert dataclasses.replace(a, mode="routed_pack")._pack_for_mode("cpu") is a.pack("cpu")

@@ -254,6 +254,27 @@ def test_exact_grad_matches_reference(name):
     assert_grads_close(tm.cfg, jg, tg)
 
 
+def test_param_dtype_leaves_are_f32_as_in_reference():
+    """The reference's ``init`` never reads ``param_dtype``: with
+    ``"bfloat16"`` every leaf is still f32 on both sides, and the port's
+    accumulated grads (scaled and summed in the leaves' dtype) are f32."""
+    from repro_torch.train.loop import accumulated_grads
+
+    jm = j_build_model(j_reduced("stablelm-3b").replace(param_dtype="bfloat16"))
+    tm = build_model(reduced("stablelm-3b").replace(param_dtype="bfloat16"),
+                     device="cpu")
+    jp = jm.init(jax.random.key(0))
+    tp = tm.init(torch.Generator().manual_seed(0))
+    assert {np.asarray(a).dtype for a in jax.tree.leaves(jp)} == {np.dtype("float32")}
+    assert {t.dtype for t in leaves(tp)} == {torch.float32}
+    conv = params_from_jax(tm.cfg, jax.tree.map(np.asarray, jp), "cpu")
+    assert [k for k, _ in leaves_with_path(tp)] == [k for k, _ in leaves_with_path(conv)]
+    tp = conv
+    loss, grads = accumulated_grads(tm, tp, batch_to(np_batch(tm.cfg.vocab), "cpu"), 2)
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
+    assert {g.dtype for g in leaves(grads)} == {torch.float32}
+
+
 def test_remat_equals_no_remat():
     _, _, tm, tp = pair("table_pack_attn")
     rm = build_model(tm.cfg.replace(remat=True), device="cpu")

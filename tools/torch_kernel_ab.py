@@ -12,7 +12,8 @@ times every kernel the checkout's package has.  The timing is not this
 tool's own: each run calls the timing phases of the ``chip_smoke.py`` beside
 this tool (``timing_phase`` and, where the checkout has them, the quantized
 and polynomial kernels' ``quant_poly_timing_phase``, the routed kernels'
-``routed_timing_phase`` and the folded kernels' ``folded_timing_phase``) with the checkout's package on ``sys.path``, so every checkout is timed by one method, at the main path's
+``routed_timing_phase``, the folded kernels' ``folded_timing_phase`` and
+the sharded kernels' ``sharded_timing_phase``) with the checkout's package on ``sys.path``, so every checkout is timed by one method, at the main path's
 shapes, over stablelm-3b's packs.  The card's name and power limit are printed
 with the table of per-run kernel times and medians (us).  Needs a card; exits
 non-zero without one.
@@ -58,6 +59,8 @@ if importlib.util.find_spec("repro_torch.kernels.routed_pack_lookup"):
 if hasattr(K, "folded_pack_lookup"):
     rows.update(cs.folded_timing_phase(
         dataclasses.replace(approx, mode="folded_pack").pack("cuda"), sys.argv[2]))
+if hasattr(K, "sharded_pack_lookup"):
+    rows.update(cs.sharded_timing_phase(approx, sys.argv[2]))
 print(json.dumps({k: r["ms"] * 1e3 for k, r in rows.items()}))
 """
 
