@@ -109,34 +109,43 @@ Phases, each fatal on failure (exit code 1, no result line):
 20. their times, as in phase 16 (the folded kernels beside ``torch.sin`` /
    ``cos`` / ``exp`` / ``log``; the routed poly kernels beside the static poly
    kernel of the same member);
-21. ShardedPack kernels: the static sharded kernels (value, its slope mode,
-   value + slope) and each shard's single contribution bitwise against their
-   plain versions, NaN positions matched, over every member of stablelm-3b's
-   pack cut into 1, 2, 3, 4 and 8 shards and of ``("silu", "exp_neg")`` at
-   e_a 1e-8 in 2 shards (a slice past the kernels' 10,240-value shared
-   budget, read from global memory), f32 and bf16, extrapolation on and off,
-   at the gate shapes of the paths, a ragged size and the edge inputs; the
-   sum of the shards equal to the replicated kernel (``table_pack_lookup`` /
-   ``table_pack_grad``) as values (a sum turns an owner's -0.0 into +0.0;
-   at a NaN x the meaningless extrapolated slope reads another entry); the
-   routed sharded kernels as phase 13 does the routed kernels (the static
-   sharded kernels row by row, the replicated routed kernels as values, the
-   512 x 6912 ``routed_fn`` batch), re-routed inside a CUDA graph too;
+21. ShardedPack kernels: the static sharded kernels (value and its slope
+   mode, one launch over all the shards; value + slope, one launch a shard)
+   and each shard's single contribution bitwise against their plain
+   versions, NaN positions matched, and the one-launch value and slope
+   bitwise equal to the S single-shard launches added in shard order in x's
+   dtype (the S-launch path they replace), over every member of
+   stablelm-3b's pack cut into 1, 2, 3, 4 and 8 shards and of ``("silu",
+   "exp_neg")`` at e_a 1e-8 in 2 shards (slices past the kernels' 48 KB
+   shared budget, read from global memory), f32 and bf16, extrapolation on
+   and off, at the gate shapes of the paths, a ragged size and the edge
+   inputs; the sum of the shards equal to the replicated kernel
+   (``table_pack_lookup`` / ``table_pack_grad``) as values (a sum turns an
+   owner's -0.0 into +0.0; at a NaN x the meaningless extrapolated slope
+   reads another entry); the routed sharded kernels as phase 13 does the
+   routed kernels (the static sharded kernels row by row, the one-launch
+   value also against the S one-shard routed launches added, the
+   replicated routed kernels as values, the 512 x 6912 ``routed_fn``
+   batch), re-routed inside a CUDA graph too;
 22. ShardedPack serving: full stablelm-3b serving the 8 requests in
    ``sharded_pack`` at ``pack_shards=4`` (+ TableFlash), tokens equal to
-   ``sharded_pack_ref``'s and to phase 4's ``table_pack``, 4 sharded launches
+   ``sharded_pack_ref``'s and to phase 4's ``table_pack``, 1 sharded launch
    for each gate call of phase 4, and the decode step ms of ``table_pack``,
    ``sharded_pack`` and ``sharded_pack_ref`` in alternating rounds; then
    ``routed_activation`` of ``sharded_pack`` over the 512 x 6912 batch, value
-   and gradient (the routed sharded kernels, 4 launches each), bitwise the
-   plain mode's;
+   and gradient (the routed sharded kernels: 1 value launch, 4 grad
+   launches), bitwise the plain mode's;
 23. ShardedPack training: 2 steps at the trainer's defaults at
    ``pack_shards=4``, step-0 loss equal to ``sharded_pack_ref``'s and to
    phase 6's ``table_pack`` bit for bit, and a third step under the
    profiler (device busy time and its kernels, as phase 6's);
-24. their times: each sharded call (4 launches and 3 adds) at the decode
-   and the training gate, one shard's launch, the replicated static and
-   routed kernels of the same member, the plain versions and ``F.silu``.
+24. their times: each sharded call at the decode and the training gate (the
+   value one launch over 4 shards, beside the 4 single-shard launches and 3
+   adds it replaces; the grad 4 launches and 3 adds), a launch over the
+   1-shard pack, the replicated static and routed kernels of the same
+   member, the plain versions and ``F.silu``; the 512 x 6912 mixed batch as
+   one routed sharded call against the six static sharded calls and the
+   replicated routed kernel.
 
 The line before the last is one JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout of
@@ -147,6 +156,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -1219,6 +1229,7 @@ def check_routed(tag, fns, pack, ids, x, ex, worst):
     import torch
 
     from repro_torch.approx.table_pack import routed_extr_flags
+    from repro_torch.kernels import routed_pack_lookup as R
 
     flags = routed_extr_flags(pack, ex)
     groups = member_rows(pack, ids)
@@ -1228,6 +1239,12 @@ def check_routed(tag, fns, pack, ids, x, ex, worst):
         torch.cuda.synchronize()
         worst[kname] = max(worst[kname], check_pair(
             f"{kname} [{tag}] vs plain", got, want, x.shape, x.dtype))
+        if kname == "sharded_routed_pack_lookup":
+            check_pair(f"{kname} [{tag}] vs the {pack.n_shards} one-shard launches "
+                       f"added", got, shard_launches_summed(
+                           lambda s: R.sharded_routed_shard_contrib(
+                               pack, ids, s, x, extrapolate=ex), pack.n_shards),
+                       x.shape, x.dtype)
         for f, rows in groups.items():
             xs = x[rows]
             s = static(pack, f, xs, extrapolate=bool(flags[f]))
@@ -1569,11 +1586,21 @@ def equal_values(tag, got, want, x):
           f"replicated kernel")
 
 
+def shard_launches_summed(contrib, n_shards):
+    """``contrib(s)`` (one single-shard launch) for each shard, added in shard
+    order in x's dtype: the S-launch path a one-launch sharded call
+    replaces."""
+    out = None
+    for s in range(n_shards):
+        c = contrib(s)
+        out = c if out is None else out + c
+    return out
+
+
 def sharded_kernel_phase(packs, s0):
     """Phase 21, static half: every member of each sharded pack, f32 and
     bf16, extrapolation off and on, at the gate shapes (the training gate at
-    2 and 4 shards and past the shared budget), a ragged size and the edge
-    inputs."""
+    2 and 4 shards), a ragged size and the edge inputs."""
     import torch
 
     from repro_torch.kernels import table_pack_lookup as K
@@ -1597,6 +1624,10 @@ def sharded_kernel_phase(packs, s0):
                         g = K.sharded_pack_grad(sp, fid, x, extrapolate=ex)
                         cs = [K.sharded_shard_contrib(sp, fid, k, x, extrapolate=ex)
                               for k in range(sp.n_shards)]
+                        sy = shard_launches_summed(lambda k: cs[k], sp.n_shards)
+                        sd = shard_launches_summed(
+                            lambda k: K.sharded_shard_contrib(
+                                sp, fid, k, x, extrapolate=ex, slope=True), sp.n_shards)
                         torch.cuda.synchronize()
                         want = K.sharded_pack_grad_plain(sp, fid, x, extrapolate=ex)
                         worst["sharded_pack_lookup"] = max(
@@ -1610,6 +1641,10 @@ def sharded_kernel_phase(packs, s0):
                             check_pair(f"shard {k} contribution {t}", c,
                                        K.sharded_shard_contrib_plain(
                                            sp, fid, k, x, extrapolate=ex), shape, dtype)
+                        check_pair(f"sharded_pack_lookup vs {sp.n_shards} launches "
+                                   f"added {t}", y, sy, shape, dtype)
+                        check_pair(f"sharded_pack_slope vs {sp.n_shards} launches "
+                                   f"added {t}", d, sd, shape, dtype)
                         ry, rd = K.table_pack_grad(rp, fid, x, extrapolate=ex)
                         equal_values(f"sharded sum {t}", y, ry, x)
                         equal_values(f"sharded slope sum {t}", d, rd, x)
@@ -1618,8 +1653,9 @@ def sharded_kernel_phase(packs, s0):
             f"{sp.footprint_per_shard} values, shapes {shapes}")
     log(f"sharded: {cases} cases, each the value, slope and value + slope kernels "
         f"and every shard's contribution bitwise equal to the plain versions, the "
-        f"shard sums equal to the replicated kernels (bf16+f32, extrapolate on/off, "
-        f"edges)")
+        f"one-launch value and slope bitwise equal to the single-shard launches "
+        f"added in shard order, the shard sums equal to the replicated kernels "
+        f"(bf16+f32, extrapolate on/off, edges)")
     return worst
 
 
@@ -1669,11 +1705,11 @@ def sharded_serving_path(smi_line, gate_calls):
     from repro_torch.models.common import routed_activation
 
     counts = pack_serving_paths(smi_line, (("sharded_pack", ("sharded_pack_lookup",)),))
-    check(counts["sharded_pack_lookup"] == PACK_SHARDS * gate_calls,
-          f"sharded_pack_lookup launches {counts['sharded_pack_lookup']} != "
-          f"{PACK_SHARDS} x the {gate_calls} gate calls of table_pack")
-    log(f"sharded_pack: {PACK_SHARDS} launches for each of the {gate_calls} gate "
-        f"calls ({counts['sharded_pack_lookup']})")
+    check(counts["sharded_pack_lookup"] == gate_calls,
+          f"sharded_pack_lookup launches {counts['sharded_pack_lookup']} != the "
+          f"{gate_calls} gate calls of table_pack (one launch a call)")
+    log(f"sharded_pack: 1 launch over {PACK_SHARDS} shards for each of the "
+        f"{gate_calls} gate calls ({counts['sharded_pack_lookup']})")
     base = get_config("stablelm-3b")
     params = build_model(base, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
     models = {m: build_model(_with_mode(base, m, attn_table=True, **_shard_kw(m)), "cuda")
@@ -1681,16 +1717,19 @@ def sharded_serving_path(smi_line, gate_calls):
     rows = torch.randint(0, base.vocab, (BATCH, 27), device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(1))
     pos = torch.full((BATCH,), rows.shape[1], dtype=torch.int32, device="cuda")
+    dec_ms = {m: [] for m in models}
     with torch.inference_mode():
         _, cache = models["table_pack"].prefill(
             params, {"tokens": rows}, models["table_pack"].init_cache(BATCH, CACHE_LEN))
-        for rnd in range(2):
-            order = list(models.items()) if rnd == 0 else list(models.items())[::-1]
+        for rnd in range(4):
+            order = list(models.items()) if rnd % 2 == 0 else list(models.items())[::-1]
             for mode, m in order:
                 _mean_ms(lambda: m.decode_step(params, rows[:, -1:], pos, cache), 2)
                 dec = _mean_ms(lambda: m.decode_step(params, rows[:, -1:], pos, cache), 10)
+                dec_ms[mode].append(dec)
                 log(f"step: round {rnd} {mode}: decode {dec:.3f} ms (B={BATCH}, cache "
                     f"{CACHE_LEN}, pack_shards {PACK_SHARDS}) [{smi_line}]")
+        decode_host_costs(models, params, rows[:, -1:], pos, cache, dec_ms, smi_line)
     del params, models
     torch.cuda.empty_cache()
 
@@ -1718,7 +1757,7 @@ def sharded_serving_path(smi_line, gate_calls):
             torch.cuda.synchronize()
             routed = {k: K.launches[k] for k in ("sharded_routed_pack_lookup",
                                                  "sharded_routed_pack_grad")}
-    check(routed == {"sharded_routed_pack_lookup": PACK_SHARDS,
+    check(routed == {"sharded_routed_pack_lookup": 1,
                      "sharded_routed_pack_grad": PACK_SHARDS},
           f"routed_activation(sharded_pack) launches {routed}")
     for a, b, what in zip(out["kernel"], out["plain"], ("value under autograd",
@@ -1731,25 +1770,82 @@ def sharded_serving_path(smi_line, gate_calls):
     return counts
 
 
+def _host_cost(fn, reps):
+    """Host us a call of ``fn`` takes to enqueue its work (no sync inside the
+    loop: where the card keeps up this is the host's time a call), and the
+    host operator events of one call under torch.profiler (CPU only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    return host_us, len(prof.events())
+
+
+def decode_host_costs(models, params, tok, pos, cache, dec_ms, smi_line):
+    """Where sharded_pack's decode step differs from table_pack's: the
+    rounds' spread of each mode's step, the host time and operator events of
+    one step, and of one gate call (silu at the decode gate, through the
+    mode's own closure) times the gate calls a step."""
+    import torch
+
+    from repro_torch.kernels import table_pack_lookup as K
+
+    K.reset_launches()
+    models["table_pack"].decode_step(params, tok, pos, cache)
+    torch.cuda.synchronize()
+    calls = K.launches["table_pack_lookup"]  # one a gate call
+    gate = (torch.randn((BATCH, 1, 6912), device="cuda") * 2).to(torch.bfloat16)
+    cost = {}
+    for mode in ("table_pack", "sharded_pack"):
+        m = models[mode]
+        act = m.act  # the model's own gate closure (silu)
+        step_us, step_ops = _host_cost(lambda: m.decode_step(params, tok, pos, cache), 5)
+        gate_us, gate_ops = _host_cost(lambda: act(gate), 200)
+        cost[mode] = (step_us, step_ops, gate_us, gate_ops)
+        d = dec_ms[mode]
+        log(f"host: {mode} decode step {statistics.mean(d):.3f} ms over {len(d)} rounds "
+            f"(min {min(d):.3f}, max {max(d):.3f}); one step: {step_us / 1e3:.3f} ms "
+            f"host, {step_ops} host op events; one gate call: {gate_us:.2f} us host, "
+            f"{gate_ops} op events [{smi_line}]")
+    t, sh = cost["table_pack"], cost["sharded_pack"]
+    log(f"host: sharded_pack - table_pack: decode step "
+        f"{statistics.mean(dec_ms['sharded_pack']) - statistics.mean(dec_ms['table_pack']):+.3f}"
+        f" ms (round means), one step's host {(sh[0] - t[0]) / 1e3:+.3f} ms and "
+        f"{sh[1] - t[1]:+d} op events; {calls} gate calls x {sh[2] - t[2]:+.2f} us = "
+        f"{calls * (sh[2] - t[2]) / 1e3:+.3f} ms, {calls * (sh[3] - t[3]):+d} op events")
+
+
 def sharded_bytes(sp, fid, routed_rows=0):
     """Bytes one sharded call of member ``fid`` needs of its pack, each read
     once: the member's replicated rows (n + 1 boundaries, invd, segs), its
-    rebased-base and ownership rows in every shard, and its values (from its
-    first entry to the end of its last cell, across the slices); routed, the
-    ids and the per-member interval counts and extrapolate flags too."""
+    owner and owner-rebased-base rows, and its values (from its first entry
+    to the end of its last cell, across the slices); routed, the ids and the
+    per-member interval counts and extrapolate flags too."""
     n = sp.n_intervals[fid]
     entries = int((sp.seg_count[fid, :n] + 1).sum().item())
-    return (4 * (3 * n + 1) + 4 * 2 * n * sp.n_shards + 4 * entries
+    return (4 * (5 * n + 1) + 4 * entries
             + (4 * routed_rows + 4 * 2 * sp.n_functions if routed_rows else 0))
 
 
 def sharded_timing_phase(approx, smi_line):
-    """Phase 24: each sharded call at PACK_SHARDS shards (S launches and S-1
-    adds), one launch over the 1-shard pack, the replicated static and
-    routed kernels of the same member, the plain version and F.silu, at the
-    decode gate (4, 1, 6912) and the training gate (4, 128, 6912) bf16 (the
-    routed calls view them as one row); then the 512 x 6912 mixed batch as
-    one routed sharded call against the six static sharded calls."""
+    """Phase 24: each sharded call at PACK_SHARDS shards, a launch over the
+    1-shard pack, the replicated static and routed kernels of the same
+    member, the plain version and F.silu, at the decode gate (4, 1, 6912)
+    and the training gate (4, 128, 6912) bf16 (the routed calls view them as
+    one row); beside each value call the PACK_SHARDS single-shard launches
+    added in shard order that it replaces (where the checkout has them);
+    then the 512 x 6912 mixed batch as one routed sharded call against the
+    six static sharded calls and the replicated routed kernel.  The rows
+    ``*@train`` are the value calls at the training gate."""
     import torch
     import torch.nn.functional as F
 
@@ -1769,17 +1865,37 @@ def sharded_timing_phase(approx, smi_line):
               * 2).to(torch.bfloat16)
     row, row_t = gate.reshape(1, -1), gate_t.reshape(1, -1)
     # f32 operations per element: the member's compares + ~15 (address, lerp,
-    # the ownership select) a shard; +2 for the slope
+    # the owner test and select); +2 for the slope
     ops = sp.n_intervals[fid] + 15
     rows = {}
     S = sp.n_shards
-    for name, x, n_out, kern, single, plain, others in (
-        ("sharded_pack_lookup", gate, 1,
-         lambda: K.sharded_pack_lookup(sp, fid, gate, extrapolate=True),
-         lambda: K.sharded_pack_lookup(one, fid, gate, extrapolate=True),
-         lambda: K.sharded_pack_lookup_plain(sp, fid, gate, extrapolate=True),
-         (("table_pack_lookup", lambda: K.table_pack_lookup(rp, fid, gate,
-                                                            extrapolate=True)),)),
+    routed_contrib = getattr(R, "sharded_routed_shard_contrib", None)
+
+    def static_value(name, x):
+        return (name, x, 1,
+                lambda: K.sharded_pack_lookup(sp, fid, x, extrapolate=True),
+                lambda: K.sharded_pack_lookup(one, fid, x, extrapolate=True),
+                lambda: K.sharded_pack_lookup_plain(sp, fid, x, extrapolate=True),
+                (("table_pack_lookup", lambda: K.table_pack_lookup(rp, fid, x,
+                                                                   extrapolate=True)),),
+                lambda: shard_launches_summed(lambda s: K.sharded_shard_contrib(
+                    sp, fid, s, x, extrapolate=True), S))
+
+    def routed_value(name, x):
+        return (name, x, 1,
+                lambda: R.sharded_routed_pack_lookup(sp, ids, x, extrapolate=True),
+                lambda: R.sharded_routed_pack_lookup(one, ids, x, extrapolate=True),
+                lambda: R.sharded_routed_pack_lookup_plain(sp, ids, x, extrapolate=True),
+                (("routed_pack_lookup", lambda: R.routed_pack_lookup(rp, ids, x,
+                                                                     extrapolate=True)),
+                 ("sharded_pack_lookup", lambda: K.sharded_pack_lookup(sp, fid, x,
+                                                                       extrapolate=True))),
+                routed_contrib and (lambda: shard_launches_summed(
+                    lambda s: routed_contrib(sp, ids, s, x, extrapolate=True), S)))
+
+    for name, x, n_out, kern, single, plain, others, summed in (
+        static_value("sharded_pack_lookup", gate),
+        static_value("sharded_pack_lookup@train", gate_t),
         ("sharded_pack_grad", gate_t, 2,
          lambda: K.sharded_pack_grad(sp, fid, gate_t, extrapolate=True),
          lambda: K.sharded_pack_grad(one, fid, gate_t, extrapolate=True),
@@ -1787,15 +1903,9 @@ def sharded_timing_phase(approx, smi_line):
          (("table_pack_grad", lambda: K.table_pack_grad(rp, fid, gate_t,
                                                         extrapolate=True)),
           ("routed_pack_grad", lambda: R.routed_pack_grad(rp, ids, row_t,
-                                                          extrapolate=True)))),
-        ("sharded_routed_pack_lookup", row, 1,
-         lambda: R.sharded_routed_pack_lookup(sp, ids, row, extrapolate=True),
-         lambda: R.sharded_routed_pack_lookup(one, ids, row, extrapolate=True),
-         lambda: R.sharded_routed_pack_lookup_plain(sp, ids, row, extrapolate=True),
-         (("routed_pack_lookup", lambda: R.routed_pack_lookup(rp, ids, row,
-                                                              extrapolate=True)),
-          ("sharded_pack_lookup", lambda: K.sharded_pack_lookup(sp, fid, row,
-                                                                extrapolate=True)))),
+                                                          extrapolate=True))), None),
+        routed_value("sharded_routed_pack_lookup", row),
+        routed_value("sharded_routed_pack_lookup@train", row_t),
         ("sharded_routed_pack_grad", row_t, 2,
          lambda: R.sharded_routed_pack_grad(sp, ids, row_t, extrapolate=True),
          lambda: R.sharded_routed_pack_grad(one, ids, row_t, extrapolate=True),
@@ -1803,7 +1913,7 @@ def sharded_timing_phase(approx, smi_line):
          (("routed_pack_grad", lambda: R.routed_pack_grad(rp, ids, row_t,
                                                           extrapolate=True)),
           ("table_pack_grad", lambda: K.table_pack_grad(rp, fid, gate_t,
-                                                        extrapolate=True)))),
+                                                        extrapolate=True))), None),
     ):
         ms, single_ms = graph_ms(kern), graph_ms(single)
         plain_ms, lib_ms = graph_ms(plain), graph_ms(lambda: F.silu(x))
@@ -1813,10 +1923,15 @@ def sharded_timing_phase(approx, smi_line):
                            sharded_bytes(sp, fid, routed), ops + 2 * (n_out - 1))
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=b_ms, bound_by=b_by)
+        how = (f"{S} shards in one launch" if n_out == 1
+               else f"{S} shards ({S} launches + {S - 1} adds)")
+        if summed:
+            rows[f"{name} ({S} launches + {S - 1} adds)"] = dict(ms=graph_ms(summed))
+            how += (f" (the {S} single-shard launches + {S - 1} adds: "
+                    f"{rows[f'{name} ({S} launches + {S - 1} adds)']['ms'] * 1e3:.2f} us)")
         beside = ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in other.items())
-        log(f"time: {name} {tuple(x.shape)} {x.dtype}: {S} shards ({S} launches + "
-            f"{S - 1} adds) {ms * 1e3:.2f} us, one launch (1 shard) "
-            f"{single_ms * 1e3:.2f} us, replicated: {beside}, plain "
+        log(f"time: {name} {tuple(x.shape)} {x.dtype}: {how} {ms * 1e3:.2f} us, one "
+            f"launch (1 shard) {single_ms * 1e3:.2f} us, replicated: {beside}, plain "
             f"{plain_ms * 1e3:.2f} us, yardstick (F.silu"
             f"{'' if n_out == 1 else ', value only'}) {lib_ms * 1e3:.2f} us, bound "
             f"{b_ms * 1e3:.3f} us ({b_by}) [{smi_line}]")
@@ -1826,14 +1941,18 @@ def sharded_timing_phase(approx, smi_line):
     ex = tuple(n in ("gelu", "silu", "softplus") for n in sp.names)
     flags = routed_extr_flags(sp, ex)
     parts = {f: xb[r].contiguous() for f, r in member_rows(sp, cyc).items()}
-    for kname, kern, _, static in routed_fns(sp):
+    for (kname, kern, _, static), (_, replicated, _, _) in zip(routed_fns(sp),
+                                                               routed_fns(rp)):
         ms = graph_ms(lambda: kern(sp, cyc_ids, xb, extrapolate=ex))
         six = graph_ms(lambda: [static(sp, f, q, extrapolate=bool(flags[f]))
                                 for f, q in parts.items()])
+        rep_ms = graph_ms(lambda: replicated(rp, cyc_ids, xb, extrapolate=ex))
+        rows[f"{kname} mixed"] = dict(ms=ms)
         log(f"time: {kname} mixed batch {tuple(xb.shape)} bf16 over "
             f"{sp.n_functions} members, {S} shards: one routed call {ms * 1e3:.2f} us, "
             f"{len(parts)} static sharded calls on the members' rows "
-            f"{six * 1e3:.2f} us [{smi_line}]")
+            f"{six * 1e3:.2f} us, the replicated routed kernel {rep_ms * 1e3:.2f} us "
+            f"[{smi_line}]")
     return rows
 
 

@@ -319,7 +319,8 @@ class ApproxConfig:
                 # operand, so every unary shares one kernel
                 make = make_routed_unary_fn
             elif self.mode in SHARDED_MODES:
-                # S launches a call, the shards' contributions summed
+                # one launch a call over the S shards, their contributions
+                # summed on the card (the grad: one launch a shard)
                 make = make_sharded_pack_fn
             else:
                 make = (make_poly_pack_fn if self.mode in POLY_PACK_MODES

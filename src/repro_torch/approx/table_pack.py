@@ -763,7 +763,10 @@ class ShardedTablePack:
 
     ``values`` holds one PADDED slice per shard; ``local_base`` / ``owned``
     are the per-shard planes (rebased addresses, ownership mask); the
-    selector metadata stays replicated.  See
+    selector metadata stays replicated.  ``owner`` / ``owner_base`` hold the
+    same in one plane each, as the layout has them (the shard that owns each
+    sub-interval and its base rebased into that shard's slice): what the
+    card's kernels read.  See
     :class:`repro_torch.core.packing.ShardedPackLayout`.
     """
 
@@ -776,6 +779,8 @@ class ShardedTablePack:
     local_base: torch.Tensor  # (S, F, n_max) f32 — SHARD-LOCAL values index
     owned: torch.Tensor  # (S, F, n_max) f32 — 1.0 where shard s owns (f, j)
     values: torch.Tensor  # (S, m_max)   f32 — per-shard padded slices
+    owner: torch.Tensor  # (F, n_max) f32 — the shard owning (f, j), -1 on padding
+    owner_base: torch.Tensor  # (F, n_max) f32 — local_base of that shard (0 on padding)
     domains: Tuple[Tuple[float, float], ...]  # member domains [lo, hi), host
     # routed dispatch's per-member int32 operands, built once with the pack
     routing: Tuple[torch.Tensor, ...]
@@ -837,6 +842,8 @@ def from_sharded_layout(slayout: ShardedPackLayout,
         local_base=f32_tensor(lb, dev),
         owned=f32_tensor(own, dev),
         values=f32_tensor(vals, dev),
+        owner=f32_tensor(slayout.owner, dev),
+        owner_base=f32_tensor(slayout.local_base, dev),
         domains=_row_domains(lay),
         routing=(_int32_tensor(lay.n_intervals, dev),),
     )
@@ -946,9 +953,9 @@ def make_sharded_pack_fn(pack: ShardedTablePack, name: str, *,
     device (the reference's off-mesh branch).
 
     ``use_kernel=True`` (``sharded_pack``) runs ``sharded_pack_lookup``
-    without a gradient and the fused value + slope ``sharded_pack_grad``
-    under one, S launches each; ``False`` (``sharded_pack_ref``) the plain
-    versions.  Tangent: the table slope, or ``exact_d1(x)`` when given.
+    without a gradient (one launch a call over the S shards) and the fused
+    value + slope ``sharded_pack_grad`` under one (S launches);
+    ``False`` (``sharded_pack_ref``) the plain versions.  Tangent: the table slope, or ``exact_d1(x)`` when given.
     """
     from repro_torch.kernels import table_pack_lookup as K
 
@@ -1150,7 +1157,8 @@ def make_routed_fn(pack, fn_ids, *, use_kernel: bool = True, extrapolate=False):
     """Differentiable per-row routed ``f(x)``: row i of ``x`` (leading axis)
     is served by member ``fn_ids[i]`` of the pack — f32 (:class:`TablePack`),
     quantized (:class:`QuantTablePack`), polynomial (:class:`PolyTablePack`)
-    or sharded (:class:`ShardedTablePack`, S launches a call).
+    or sharded (:class:`ShardedTablePack`: the value one launch a call over
+    the S shards, the value + slope S launches).
 
     ``fn_ids`` may be names/ints (validated here and copied to the pack's
     device once) or a ``torch.Tensor`` of ids on the pack's device (a

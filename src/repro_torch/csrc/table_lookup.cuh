@@ -1,8 +1,8 @@
 // Per-element bodies of the table lookups (the paper's Fig. 7 pipeline), shared
 // by every table kernel of the port: the f32 pack and single table (Row,
-// segment, lookup, lookup_grad, tableflash), one shard of the sharded pack
-// (shard_lookup), the quantized pack (QuantRow, quant_lookup) and the
-// polynomial pack (PolyRow, poly_lookup).
+// segment, lookup, lookup_grad, tableflash), a range of shards of the sharded
+// pack summed in one pass (ShardRows, sharded_sum), the quantized pack
+// (QuantRow, quant_lookup) and the polynomial pack (PolyRow, poly_lookup).
 //
 //   interval selector  j = min(#(x >= b_m, m >= 1), n - 1)   (comparator plane)
 //   parameter fetch    p = b_j, invd_j, base_j, segs_j       (four gathers)
@@ -80,21 +80,27 @@ TL_HD float inside(float x, const float* bounds, int n) {
   return (x >= bounds[0] && x < bounds[n]) ? 1.0f : 0.0f;
 }
 
-// `jsel`, when given, receives the selected sub-interval j (the sharded pack
-// reads its ownership flag there); the arithmetic does not depend on it.
-TL_HD Segment segment(float x, const Row& r, const float* values, int m,
-                      int* jsel = nullptr) {
+// Selector and address, before any values gather: the sub-interval j, u,
+// the clamped cell index i and j's reciprocal step.
+struct Cell {
+  int j;
+  float u;
+  float i;
+  float invd;
+};
+
+TL_HD Cell cell(float x, const Row& r) {
   const int j = select(x, r.bounds, r.n_max, r.n_intervals);
-  if (jsel) *jsel = j;
   const float p = r.bounds[j];
   const float invd = r.invd[j];
-  const float base = r.base[j];
-  const float segs = r.segs[j];
-
   const float u = (x - p) * invd;
-  const float i = clamp_cell(u, segs);
-  const int a = address(base + i);
-  return Segment{u, i, invd, values[clip_address(a, m)],
+  return Cell{j, u, clamp_cell(u, r.segs[j]), invd};
+}
+
+TL_HD Segment segment(float x, const Row& r, const float* values, int m) {
+  const Cell c = cell(x, r);
+  const int a = address(r.base[c.j] + c.i);
+  return Segment{c.u, c.i, c.invd, values[clip_address(a, m)],
                  values[clip_address(a + 1, m)]};
 }
 
@@ -121,26 +127,66 @@ TL_HD float lookup_grad(float x, const Row& r, const float* values, int m,
   return lerp(s, extrapolate);
 }
 
-// ShardedPack: ONE shard's masked contribution (_spack_kernel,
-// _spack_grad_kernel, _sharded_routed_kernel).  `r.base` holds the shard's
-// rebased bases, `owned` its ownership row (1.0 where the shard owns
-// sub-interval j) and `values` its padded slice of m entries; an unowned
-// element may address past the slice, where clip_address clamps it.  The
-// value (and, with `slope` non-null, the slope) is the replicated body's
-// for owned elements and 0 for the others: a SELECT, not a product, so an
-// unowned NaN or inf becomes 0 as jnp.where makes it.
-TL_HD float shard_lookup(float x, const Row& r, const float* owned,
-                         const float* values, int m, bool extrapolate,
-                         float* slope) {
-  int j = 0;
-  const Segment s = segment(x, r, values, m, &j);
-  const bool own = owned[j] > 0.0f;
+// ShardedPack: shards [s_begin, s_end) of one member summed in ONE pass
+// (_spack_kernel, _spack_grad_kernel and _sharded_routed_kernel with the
+// reference's shard sum fused).  `r` holds the replicated bounds / invd /
+// segs rows and, as its base, each sub-interval's base rebased into its
+// owner's slice; `sh.owner` the shard that owns each sub-interval (-1 on
+// padding), both built once with the pack; `sh.values` the range's padded
+// slices of m entries back to back, s_begin's first.  The comparator plane,
+// u, i and t run once.  The owner o of j answers if it lies in the range: it
+// gathers its pair from its slice (an address past the slice clamped by
+// clip_address) and lerps, or takes the slope.  Otherwise the range
+// contributes 0: a SELECT, not a product, so an unowned NaN or inf becomes 0
+// as jnp.where makes it (the pair is then read from the first slice and
+// dropped).
+//
+// One shard owns each sub-interval, so the reference's sum over the range
+// (each shard's contribution rounded to the output dtype, added in shard
+// order in that dtype) has a closed form: the shards before o add +0.0 to
+// +0.0, o's rounded contribution y lands on +0.0 (y itself, or +0.0 for a
+// -0.0 unless o comes first), the shards after o add +0.0.  So the sum is y
+// for a range of one shard (left to the store's rounding), round(y) + 0.0 (a
+// -0.0 turned +0.0, every other value kept) for a longer range, and +0.0
+// where no shard of the range owns j.  kSum: the range is longer than one
+// shard (a template flag, so that a range of one carries no rounding);
+// `round` rounds to the output dtype.  With `slope` non-null the slope is
+// summed the same way.
+struct ShardRows {
+  const float* owner;
+  const float* values;
+  int s_begin;
+  int n_shards;  // s_end - s_begin
+  int m;
+};
+
+template <bool kSum, typename Round>
+TL_HD float sharded_sum(float x, const Row& r, const ShardRows& sh, bool extrapolate,
+                        Round round, float* slope) {
+  const Cell c = cell(x, r);
+  const float ow = sh.owner[c.j];
+  bool own;
+  const float* v = sh.values;
+  if constexpr (kSum) {
+    const int o = static_cast<int>(ow) - sh.s_begin;
+    own = o >= 0 && o < sh.n_shards;
+    v += (own ? o : 0) * sh.m;
+  } else {  // one shard: a float compare, its own slice
+    own = ow == static_cast<float>(sh.s_begin);
+  }
+  const int a = address(r.base[c.j] + c.i);
+  const Segment s{c.u, c.i, c.invd, v[clip_address(a, sh.m)],
+                  v[clip_address(a + 1, sh.m)]};
   if (slope) {
     float d = (s.y1 - s.y0) * s.invd;
     if (!extrapolate) d = d * inside(x, r.bounds, r.n_intervals);
-    *slope = own ? d : 0.0f;
+    d = own ? d : 0.0f;
+    if constexpr (kSum) d = round(d) + 0.0f;
+    *slope = d;
   }
-  return own ? lerp(s, extrapolate) : 0.0f;
+  const float y = own ? lerp(s, extrapolate) : 0.0f;
+  if constexpr (kSum) return round(y) + 0.0f;
+  return y;
 }
 
 // TableFlash: exp(z) for z <= 0 from the exp_neg member.  The address

@@ -1,7 +1,8 @@
 // Hopper kernels over the port's packed tables: the f32 TablePack (values +
 // (F, n_max) metadata planes) or a single table (one metadata row, F = 1),
-// one shard of the ShardedTablePack (the f32 planes with a rebased base, an
-// ownership plane and the shard's values slice), the quantized QuantTablePack
+// the ShardedTablePack (the replicated f32 planes, the owner and
+// owner-rebased-base planes and the shards' values slices), the quantized
+// QuantTablePack
 // and the polynomial PolyTablePack (ragged flat metadata lanes + int8 / int16
 // / f32 code groups).
 //
@@ -45,15 +46,19 @@
 //   tp_folded_grad     replaces _folded_grad_kernel (:953): its value and the
 //                      chain-ruled slope from the same selector passes.
 //   tp_spack_lookup    replaces the TPU kernel _spack_kernel
-//                      (src/repro/kernels/table_pack_lookup.py:663): one shard's
-//                      masked lerp (or, in its slope mode, masked slope) of a
-//                      sharded-pack member.
+//                      (src/repro/kernels/table_pack_lookup.py:663) and the sum
+//                      over its per-shard outputs (_sharded_sum_pallas, :803):
+//                      a sharded-pack member's masked lerps (or, in its slope
+//                      mode, masked slopes) over a range of shards, summed in
+//                      shard order, in one launch.
 //   tp_spack_grad      replaces _spack_grad_kernel (:697): one shard's masked
 //                      value and slope from one selector pass.
 //   tp_sharded_routed_lookup  replaces _sharded_routed_kernel
-//                      (src/repro/kernels/routed_pack_lookup.py:451): the routed
-//                      f32 kernel over one shard, masked.
-//   tp_sharded_routed_grad    replaces _sharded_routed_grad_kernel (:480).
+//                      (src/repro/kernels/routed_pack_lookup.py:451) and its
+//                      shard sum (_sharded_routed_sum, :529): the routed f32
+//                      kernel over a range of shards, masked and summed.
+//   tp_sharded_routed_grad    replaces _sharded_routed_grad_kernel (:480): one
+//                      shard.
 //
 // What bounds them on the card: bytes.  Each element is read once and its
 // output(s) written once, N * (in_bytes + n_out * out_bytes) at 3.35 TB/s; the
@@ -112,15 +117,36 @@
 // launch-bound.  The kind (sin, cos, exp, log) is a launch argument, uniform
 // over the grid.
 //
-// ShardedPack.  One launch serves one shard: the static (spack_kernel) or
-// routed (routed_kernel<..., true>) f32 body over the replicated bounds /
-// invd / segs rows, the shard's rebased base row and its ownership row (a
-// fifth staged segment), gathering from the shard's padded values slice, and
-// a select of the owned elements (tl::shard_lookup).  The wrappers launch
-// the S shards in turn and add their outputs in shard order, in x's dtype,
-// as the reference sums its per-shard kernels outside them.  The bound is
-// the replicated kernel's bytes S times over (each shard reads x and writes
-// its outputs), plus S - 1 adds of the outputs.
+// ShardedPack.  The reference runs one Pallas kernel a shard (on the mesh a
+// shard is a device) and sums the outputs outside its kernels.  On one card
+// the shards are slices of one buffer, so the kernels (spack_kernel,
+// routed_kernel<..., true>) take a RANGE of shards and sum inside.  The pack
+// carries, besides the reference's per-shard planes, an owner plane (the one
+// shard that owns each sub-interval, -1 on padding) and each sub-interval's
+// base rebased into its owner's slice, (F, n_max) each.  A block stages the
+// member's bounds / invd / rebased-base / segs / owner rows (five rows, as
+// many as one shard's launch staged before) and the range's values slices
+// (one contiguous slab) when they fit kSmemBytes.  Each element runs the
+// comparator plane and the cell index once, gathers o = owner[j] and its
+// base, and, if o lies in the range, o's pair from o's slice and the lerp:
+// since one shard owns j, the S contributions rounded to x's dtype and added
+// in shard order in x's dtype have a closed form (tl::sharded_sum), bit for
+// bit the S single-shard outputs added.
+//
+// Bound: bytes, as the replicated kernel's (x read once, the output written
+// once, the member's rows and the range's slices), and at the decode gate the
+// launch: one launch a call replaces S launches and S - 1 elementwise adds,
+// and j is computed once instead of S times.  Two Hopper steps, each kept
+// where tools/torch_kernel_ab.py timed it faster: on an uncapped grid (the
+// decode gate) the values slab is staged by one 1-D TMA bulk copy
+// (cp.async.bulk, completion on an mbarrier) where its address and size are
+// 16-byte multiples, instead of the register-batched loop, whose round trips
+// bound the staging (on a capped grid the loop was faster); once the grid is
+// capped (the training gate, prefill) x and the outputs move in 16-byte
+// vectors (8 bf16 or 4 f32 a thread), a scalar tail after.  The grad kernels
+// (spack_kernel<kGrad>, routed_kernel<kGrad, true>) run the same body over a
+// range of one shard: their wrappers launch the S shards in turn and add the
+// outputs in shard order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -249,45 +275,180 @@ pack_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
   }
 }
 
-// ---- sharded pack: one shard ------------------------------------------------
+// ---- sharded pack: a range of shards, summed -------------------------------
 
-// One shard's masked contribution of member fn_id: the replicated bounds /
-// invd / segs rows, the shard's rebased base and ownership rows, and its
-// padded values slice (m entries).  kValue writes the lerp, kSlope the slope
-// (the value kernel's slope mode), kGrad both.
-template <typename T, int kMode>
+// Rounds an f32 to the output dtype T and back (the sum's rounding after every
+// add, tl::sharded_sum).
+template <typename T>
+struct RoundTo {
+  __host__ __device__ float operator()(float v) const { return v; }
+};
+template <>
+struct RoundTo<__nv_bfloat16> {
+  __host__ __device__ float operator()(float v) const {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+};
+
+// Floats of a member's staged sharded rows: bounds (n_max + 1), invd, the
+// owner-rebased base, segs and the owner row (n_max each), rounded up to a
+// 16-byte multiple so that the values slab behind them is 16-byte aligned.
+__host__ __device__ __forceinline__ long long shard_meta_floats(int n_max) {
+  return (5LL * n_max + 1 + 3) / 4 * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Stage the S values slices, one contiguous slab of `count` f32, at `dst`:
+// with `allow_bulk`, thread 0 starts ONE 1-D TMA bulk copy (cp.async.bulk
+// into shared memory, completion counted in bytes on the mbarrier `bar`) when
+// the source, the destination and the byte count are 16-byte multiples;
+// otherwise the block runs stage_copy's register-batched loop.  Returns
+// whether a bulk copy is in flight (the same answer in every thread): the
+// block must then pass a __syncthreads (which publishes the barrier's init)
+// and slab_wait before it reads the slab.
+__device__ __forceinline__ bool slab_start(float* dst, const float* src, int count,
+                                           bool allow_bulk, uint64_t* bar) {
+  const uint32_t bytes = 4u * static_cast<uint32_t>(count);
+  const bool bulk = allow_bulk && reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+                    bytes % 16 == 0 && smem_addr(dst) % 16 == 0;
+  if (!bulk) {
+    stage_copy(dst, src, count, true);
+    return false;
+  }
+  if (threadIdx.x == 0) {
+    const uint32_t b = smem_addr(bar);
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+                 "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(b)
+        : "memory");
+  }
+  return true;
+}
+
+// Wait for phase 0 of `bar`: the bulk copy's bytes have all landed.
+__device__ __forceinline__ void slab_wait(uint64_t* bar) {
+  const uint32_t b = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b)
+        : "memory");
+  } while (!done);
+}
+
+// 16 bytes of x or an output as four 32-bit words: element k (of 4 f32 or 8
+// bf16) as f32, and its store with round to nearest even.
+__device__ __forceinline__ uint32_t word(const uint4& w, int i) {
+  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+}
+__device__ __forceinline__ void set_word(uint4& w, int i, uint32_t v) {
+  if (i == 0) w.x = v;
+  else if (i == 1) w.y = v;
+  else if (i == 2) w.z = v;
+  else w.w = v;
+}
+template <typename T>
+__device__ __forceinline__ float vec_get(const uint4& w, int k) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(word(w, k));
+  } else {
+    const uint32_t u = word(w, k / 2);
+    return __uint_as_float(k % 2 ? u & 0xffff0000u : u << 16);
+  }
+}
+template <typename T>
+__device__ __forceinline__ void vec_put(uint4& w, int k, float v) {
+  if constexpr (sizeof(T) == 4) {
+    set_word(w, k, __float_as_uint(v));
+  } else {
+    const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+    const uint32_t u = word(w, k / 2);
+    set_word(w, k / 2, k % 2 ? (u & 0xffffu) | (h << 16) : (u & 0xffff0000u) | h);
+  }
+}
+
+// Replaces _spack_kernel and _spack_grad_kernel
+// (src/repro/kernels/table_pack_lookup.py:663, :697) and the sum over their
+// per-shard outputs (_sharded_sum_pallas, :803).  Bound: bytes, and the
+// launch at the decode gate; one launch sums the range (see ShardedPack
+// above).
+// Shards [s_begin, s_begin + n_shards) of member fn_id: `obase` / `owner`
+// are the pack's (F, n_max) owner-rebased-base and owner planes, `values`
+// points at shard s_begin's padded slice of m entries, the next shard's m
+// on.  kValue writes the summed lerp, kSlope the summed slope (the value
+// kernel's slope mode), kGrad both (launched over one shard).  `vec`: x and
+// the outputs are 16-byte aligned and move in 16-byte vectors; `bulk`: the
+// values slab may be staged by a TMA bulk copy.  kSum: the range is longer
+// than one shard (chosen by the launch, so a range of one carries no
+// rounding).
+template <typename T, int kMode, bool kSum>
 __global__ void __launch_bounds__(kThreads)
 spack_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
              long long n, const float* __restrict__ bounds,
-             const float* __restrict__ invd, const float* __restrict__ lbase,
-             const float* __restrict__ segs, const float* __restrict__ owned,
+             const float* __restrict__ invd, const float* __restrict__ obase,
+             const float* __restrict__ segs, const float* __restrict__ owner,
              const float* __restrict__ values, int fn_id, int n_max, int n_intervals,
-             int m, int extrapolate, int stage) {
-  extern __shared__ float smem[];
+             int m, int s_begin, int n_shards, int extrapolate, int stage, int vec,
+             int bulk) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t bar;
   const long long row = static_cast<long long>(fn_id) * n_max;
+  const long long meta = shard_meta_floats(n_max);
+  const bool in_flight = stage == kStageAll &&
+                         slab_start(smem + meta, values, n_shards * m, bulk, &bar);
   const float* seg[5] = {bounds + static_cast<long long>(fn_id) * (n_max + 1),
-                         invd + row, lbase + row, segs + row, owned + row};
+                         invd + row, obase + row, segs + row, owner + row};
   const int count[5] = {n_max + 1, n_max, n_max, n_max, n_max};
   stage_row(smem, seg, count, stage >= kStageMeta);
-  const float* vals = stage_copy(smem + 5 * n_max + 1, values, m, stage == kStageAll);
   __syncthreads();
+  if (in_flight) slab_wait(&bar);
   const tl::Row r{seg[0], seg[1], seg[2], seg[3], n_max, n_intervals};
+  const tl::ShardRows sh{seg[4], stage == kStageAll ? smem + meta : values, s_begin,
+                         n_shards, m};
   const bool ex = extrapolate != 0;
+  const RoundTo<T> round;
 
-  for (long long idx = first_index(); idx < n; idx += grid_stride()) {
-    const float xv = load_f32(x, idx);
-    if (kMode == kValue) {
-      store_f32(out, idx, tl::shard_lookup(xv, r, seg[4], vals, m, ex, nullptr));
-    } else {
-      float d;
-      const float y = tl::shard_lookup(xv, r, seg[4], vals, m, ex, &d);
-      if (kMode == kGrad) {
-        store_f32(out, idx, y);
-        store_f32(slope, idx, d);
-      } else {
-        store_f32(out, idx, d);
+  // one element's summed value (kValue, kGrad) or slope (kSlope); kGrad's
+  // slope into *d
+  auto eval = [&](float xv, float* d) {
+    if (kMode == kValue) return tl::sharded_sum<kSum>(xv, r, sh, ex, round, nullptr);
+    const float y = tl::sharded_sum<kSum>(xv, r, sh, ex, round, d);
+    return kMode == kGrad ? y : *d;
+  };
+  long long first = 0;
+  if (vec) {
+    constexpr int kVec = 16 / sizeof(T);
+    const long long nv = n / kVec;
+    for (long long q = first_index(); q < nv; q += grid_stride()) {
+      const uint4 xw = reinterpret_cast<const uint4*>(x)[q];
+      uint4 yw = make_uint4(0, 0, 0, 0), dw = make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        float d = 0.0f;
+        vec_put<T>(yw, k, eval(vec_get<T>(xw, k), &d));
+        if (kMode == kGrad) vec_put<T>(dw, k, d);
       }
+      reinterpret_cast<uint4*>(out)[q] = yw;
+      if (kMode == kGrad) reinterpret_cast<uint4*>(slope)[q] = dw;
     }
+    first = nv * kVec;
+  }
+  for (long long idx = first + first_index(); idx < n; idx += grid_stride()) {
+    float d = 0.0f;
+    store_f32(out, idx, eval(load_f32(x, idx), &d));
+    if (kMode == kGrad) store_f32(slope, idx, d);
   }
 }
 
@@ -412,25 +573,46 @@ __device__ __forceinline__ void routed_walk(const RoutedWork& w, const int* ids,
   }
 }
 
-// kSharded: one shard of the sharded pack.  `base` is then the shard's
-// rebased base plane, `owned` its ownership plane (a fifth metadata segment,
-// restaged with the member's row) and `values` its padded slice; the body is
-// the masked shard_lookup.  Otherwise `owned` is unused (nullptr).
-template <typename T, int kMode, bool kSharded>
+// Replaces _routed_kernel / _routed_grad_kernel
+// (src/repro/kernels/routed_pack_lookup.py:101, :126) and, kSharded,
+// _sharded_routed_kernel / _sharded_routed_grad_kernel (:451, :480) with the
+// sum over their per-shard outputs (_sharded_routed_sum, :529).  Bound:
+// bytes, and the launch at the decode gate.
+// kSharded: shards [s_begin, s_begin + n_shards) of the sharded pack,
+// summed.  `base` is then the owner-rebased-base plane, `owner` the owner
+// plane (a fifth metadata row, restaged with the member's) and `values`
+// points at shard s_begin's padded slice of m entries, the next shard's m
+// on; the range's slices are staged once a block and the body is
+// tl::sharded_sum, kSum telling a range longer than one shard (chosen by the
+// launch).  Otherwise `owner` is unused (nullptr), s_begin is 0 and
+// n_shards 1.
+template <typename T, int kMode, bool kSharded, bool kSum = false>
 __global__ void __launch_bounds__(kThreads)
 routed_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
               RoutedWork w, const int* __restrict__ ids,
               const int* __restrict__ n_arr, const int* __restrict__ extr,
               const float* __restrict__ bounds, const float* __restrict__ invd,
               const float* __restrict__ base, const float* __restrict__ segs,
-              const float* __restrict__ values, const float* __restrict__ owned,
-              int n_fn, int n_max, int m, int stage) {
+              const float* __restrict__ values, const float* __restrict__ owner,
+              int n_fn, int n_max, int m, int s_begin, int n_shards, int stage,
+              int bulk) {
   constexpr int kSeg = kSharded ? 5 : 4;
-  extern __shared__ float smem[];
-  // the values vector is every member's: staged once (the first restage's
-  // barrier publishes it)
-  const float* vals = stage_copy(smem + kSeg * n_max + 1, values, m,
-                                 stage == kStageAll);
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t bar;
+  const long long meta = kSharded ? shard_meta_floats(n_max) : 4LL * n_max + 1;
+  // the values are every member's: staged once (the sharded slab by a bulk
+  // copy where it can, awaited in the first restage, behind the metadata;
+  // otherwise the first restage's barrier publishes them)
+  const float* vals = values;
+  bool in_flight = false;
+  if constexpr (kSharded) {
+    if (stage == kStageAll) {
+      vals = smem + meta;
+      in_flight = slab_start(smem + meta, values, n_shards * m, bulk, &bar);
+    }
+  } else {
+    vals = stage_copy(smem + meta, values, m, stage == kStageAll);
+  }
   const float* seg[kSeg];
   int count[kSeg];
 #pragma unroll
@@ -445,23 +627,25 @@ routed_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slop
     seg[1] = invd + row;
     seg[2] = base + row;
     seg[3] = segs + row;
-    if constexpr (kSharded) seg[4] = owned + row;
+    if constexpr (kSharded) seg[4] = owner + row;
     stage_row(smem, seg, count, stage >= kStageMeta);
+    if (in_flight) {  // the first restage: the barrier before it published the init
+      slab_wait(&bar);
+      in_flight = false;
+    }
   };
+  const RoundTo<T> round;
   auto body = [&](long long r, long long c0, long long c1) {
     const tl::Row rw{seg[0], seg[1], seg[2], seg[3], n_max, nf};
     for (long long c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
       const long long idx = r * w.cols + c;
       const float xv = load_f32(x, idx);
       if constexpr (kSharded) {
-        if (kMode == kGrad) {
-          float d;
-          store_f32(out, idx, tl::shard_lookup(xv, rw, seg[kSeg - 1], vals, m, ex, &d));
-          store_f32(slope, idx, d);
-        } else {
-          store_f32(out, idx,
-                    tl::shard_lookup(xv, rw, seg[kSeg - 1], vals, m, ex, nullptr));
-        }
+        const tl::ShardRows sh{seg[kSeg - 1], vals, s_begin, n_shards, m};
+        float d;
+        store_f32(out, idx, tl::sharded_sum<kSum>(xv, rw, sh, ex, round,
+                                                  kMode == kGrad ? &d : nullptr));
+        if (kMode == kGrad) store_f32(slope, idx, d);
       } else if (kMode == kGrad) {
         float d;
         store_f32(out, idx, tl::lookup_grad(xv, rw, vals, m, ex, &d));
@@ -775,26 +959,47 @@ cudaError_t launch_pack(const void* x, void* out, void* slope, long long n, int 
   return cudaGetLastError();
 }
 
-// One shard of the sharded pack; refuses what launch_pack refuses.
+// Shards [s_begin, s_end) of the S-shard pack, summed (see spack_kernel);
+// refuses what launch_pack refuses and a shard range that is empty or leaves
+// [0, S).  Where the scalar grid would be capped (the card already full: the
+// training gate, prefill) x and the outputs move in 16-byte vectors (if
+// 16-byte aligned); where it is not (the decode gate) the values slab may be
+// staged by a TMA bulk copy.  Each was kept where tools/torch_kernel_ab.py
+// timed it faster.
 template <int kMode>
 cudaError_t launch_spack(const void* x, void* out, void* slope, long long n, int dtype,
-                         const float* bounds, const float* invd, const float* lbase,
-                         const float* segs, const float* owned, const float* values,
-                         int fn_id, int n_max, int n_intervals, int m, int extrapolate,
-                         cudaStream_t stream) {
+                         const float* bounds, const float* invd, const float* obase,
+                         const float* segs, const float* owner, const float* values,
+                         int fn_id, int n_max, int n_intervals, int m, int n_shards,
+                         int s_begin, int s_end, int extrapolate, cudaStream_t stream) {
   if (n_max < 1 || n_intervals < 1 || n_intervals > n_max || fn_id < 0 || m < 2 ||
-      n < 0 || (kMode == kGrad && !slope)) {
+      s_begin < 0 || s_end <= s_begin || s_end > n_shards || n < 0 ||
+      (kMode == kGrad && !slope)) {
     return cudaErrorInvalidValue;
   }
   if (n == 0) return cudaSuccess;
-  const int blocks = grid_for(n);
-  const Staging st = staging_for(5LL * n_max + 1, 4LL * m);
-#define TP_SPACK(T, ...)                                                               \
-  spack_kernel<T, kMode><<<blocks, kThreads, st.bytes, stream>>>(                      \
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const long long cap = static_cast<long long>(sm_count()) * kBlocksPerSM;
+  const bool capped = (n + kThreads - 1) / kThreads > cap;
+  const int vec =
+      capped && aligned(x) && aligned(out) && (kMode != kGrad || aligned(slope));
+  const int elem = dtype == 1 ? 2 : 4;
+  const int blocks = grid_for(vec ? (n * elem + 15) / 16 : n);
+  const int range = s_end - s_begin;
+  const Staging st = staging_for(shard_meta_floats(n_max), 4LL * m * range);
+#define TP_SPACK(T, SUM)                                                               \
+  spack_kernel<T, kMode, SUM><<<blocks, kThreads, st.bytes, stream>>>(                 \
       static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), n,       \
-      bounds, invd, lbase, segs, owned, values, fn_id, n_max, n_intervals, m,          \
-      extrapolate, st.stage)
-  TP_DISPATCH_DTYPE(dtype, TP_SPACK, 0);
+      bounds, invd, obase, segs, owner, values + static_cast<long long>(s_begin) * m,  \
+      fn_id, n_max, n_intervals, m, s_begin, range, extrapolate, st.stage, vec,        \
+      !capped)
+  if (range > 1) {
+    TP_DISPATCH_DTYPE(dtype, TP_SPACK, true);
+  } else {
+    TP_DISPATCH_DTYPE(dtype, TP_SPACK, false);
+  }
 #undef TP_SPACK
   return cudaGetLastError();
 }
@@ -882,27 +1087,41 @@ cudaError_t launch_poly(const void* x, void* out, void* slope, long long n, int 
 // Refuses (cudaErrorInvalidValue, no launch) an empty pack, a values vector
 // of fewer than two entries, a row count that does not divide n and an
 // unknown dtype.
-// kSharded: `base` is one shard's rebased base plane, `owned` its ownership
-// plane (non-null) and `values` its padded slice of m entries.
+// kSharded: shards [s_begin, s_end) of the S-shard pack summed; `base` is
+// the owner-rebased-base plane, `owner` (non-null) the owner plane, `values`
+// the (S, m) padded slices; the range's slab may be staged by a TMA bulk copy
+// where the work items do not outnumber the grid's cap (the decode gate).
+// Also refuses a shard range that is empty or leaves [0, S).  Otherwise the
+// range is [0, 1) of 1.
 template <int kMode, bool kSharded>
 cudaError_t launch_routed(const void* x, void* out, void* slope, long long n, int dtype,
                           const int* ids, const int* n_arr, const int* extr,
                           const float* bounds, const float* invd, const float* base,
-                          const float* segs, const float* values, const float* owned,
-                          int n_fn, int n_max, int m, int rows, cudaStream_t stream) {
+                          const float* segs, const float* values, const float* owner,
+                          int n_fn, int n_max, int m, int n_shards, int s_begin,
+                          int s_end, int rows, cudaStream_t stream) {
   if (n_fn < 1 || n_max < 1 || m < 2 || rows < 1 || n < 0 || n % rows != 0 ||
-      (kMode == kGrad && !slope) || (kSharded && !owned)) {
+      s_begin < 0 || s_end <= s_begin || s_end > n_shards ||
+      (kMode == kGrad && !slope) || (kSharded && !owner)) {
     return cudaErrorInvalidValue;
   }
   if (n == 0) return cudaSuccess;
   int blocks = 0;
   const RoutedWork w = routed_work(n, rows, &blocks);
-  const Staging st = staging_for((kSharded ? 5LL : 4LL) * n_max + 1, 4LL * m);
-#define TP_ROUTED(T, ...)                                                              \
-  routed_kernel<T, kMode, kSharded><<<blocks, kThreads, st.bytes, stream>>>(           \
+  const int range = s_end - s_begin;
+  const Staging st = kSharded ? staging_for(shard_meta_floats(n_max), 4LL * m * range)
+                              : staging_for(4LL * n_max + 1, 4LL * m);
+#define TP_ROUTED(T, SUM)                                                              \
+  routed_kernel<T, kMode, kSharded, SUM><<<blocks, kThreads, st.bytes, stream>>>(      \
       static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), w, ids,  \
-      n_arr, extr, bounds, invd, base, segs, values, owned, n_fn, n_max, m, st.stage)
-  TP_DISPATCH_DTYPE(dtype, TP_ROUTED, 0);
+      n_arr, extr, bounds, invd, base, segs,                                           \
+      values + static_cast<long long>(s_begin) * m, owner, n_fn, n_max, m, s_begin,    \
+      range, st.stage, w.items <= static_cast<long long>(sm_count()) * kBlocksPerSM)
+  if (kSharded && range > 1) {
+    TP_DISPATCH_DTYPE(dtype, TP_ROUTED, kSharded);
+  } else {
+    TP_DISPATCH_DTYPE(dtype, TP_ROUTED, false);
+  }
 #undef TP_ROUTED
   return cudaGetLastError();
 }
@@ -1133,7 +1352,8 @@ extern "C" cudaError_t tp_routed_lookup(const void* x, void* out, long long n,
                                         void* stream) {
   return launch_routed<kValue, false>(x, out, nullptr, n, dtype, ids, n_arr, extr,
                                       bounds, invd, base, segs, values, nullptr, n_fn,
-                                      n_max, m, rows, static_cast<cudaStream_t>(stream));
+                                      n_max, m, 1, 0, 1, rows,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t tp_routed_grad(const void* x, void* y, void* slope, long long n,
@@ -1145,7 +1365,7 @@ extern "C" cudaError_t tp_routed_grad(const void* x, void* y, void* slope, long 
                                       void* stream) {
   return launch_routed<kGrad, false>(x, y, slope, n, dtype, ids, n_arr, extr, bounds,
                                      invd, base, segs, values, nullptr, n_fn, n_max, m,
-                                     rows, static_cast<cudaStream_t>(stream));
+                                     1, 0, 1, rows, static_cast<cudaStream_t>(stream));
 }
 
 // Routed quantized pack: as tp_routed_lookup, with bo / lo (each member's
@@ -1239,59 +1459,71 @@ extern "C" cudaError_t tp_folded_grad(const void* x, void* y, void* slope, long 
                               static_cast<cudaStream_t>(stream));
 }
 
-// One shard of the sharded pack, member fn_id: bounds / invd / segs are the
-// replicated (F, n_max[+1]) planes, lbase / owned the shard's (F, n_max)
-// rebased-base and ownership planes, values its padded slice of m entries.
-// slope = 0: the masked lerp; 1: the masked slope (the value kernel's slope
-// mode).
+// The sharded pack of S = n_shards shards, member fn_id, shards [s_begin,
+// s_end) summed in shard order: bounds / invd / segs are the replicated
+// (F, n_max[+1]) planes, obase / owner the (F, n_max) owner-rebased-base and
+// owner planes, values the (S, m) padded slices.  slope = 0: the masked
+// lerps; 1: the masked slopes (the value kernel's slope mode).
 extern "C" cudaError_t tp_spack_lookup(const void* x, void* out, long long n, int dtype,
                                        const float* bounds, const float* invd,
-                                       const float* lbase, const float* segs,
-                                       const float* owned, const float* values,
+                                       const float* obase, const float* segs,
+                                       const float* owner, const float* values,
                                        int fn_id, int n_max, int n_intervals, int m,
+                                       int n_shards, int s_begin, int s_end,
                                        int extrapolate, int slope, void* stream) {
   if (slope) {
-    return launch_spack<kSlope>(x, out, nullptr, n, dtype, bounds, invd, lbase, segs,
-                                owned, values, fn_id, n_max, n_intervals, m,
-                                extrapolate, static_cast<cudaStream_t>(stream));
+    return launch_spack<kSlope>(x, out, nullptr, n, dtype, bounds, invd, obase, segs,
+                                owner, values, fn_id, n_max, n_intervals, m, n_shards,
+                                s_begin, s_end, extrapolate,
+                                static_cast<cudaStream_t>(stream));
   }
-  return launch_spack<kValue>(x, out, nullptr, n, dtype, bounds, invd, lbase, segs,
-                              owned, values, fn_id, n_max, n_intervals, m, extrapolate,
+  return launch_spack<kValue>(x, out, nullptr, n, dtype, bounds, invd, obase, segs,
+                              owner, values, fn_id, n_max, n_intervals, m, n_shards,
+                              s_begin, s_end, extrapolate,
                               static_cast<cudaStream_t>(stream));
 }
 
+// Value and slope of shards [s_begin, s_end), planes as tp_spack_lookup's
+// (the wrapper passes one shard).
 extern "C" cudaError_t tp_spack_grad(const void* x, void* y, void* slope, long long n,
                                      int dtype, const float* bounds, const float* invd,
-                                     const float* lbase, const float* segs,
-                                     const float* owned, const float* values,
+                                     const float* obase, const float* segs,
+                                     const float* owner, const float* values,
                                      int fn_id, int n_max, int n_intervals, int m,
+                                     int n_shards, int s_begin, int s_end,
                                      int extrapolate, void* stream) {
-  return launch_spack<kGrad>(x, y, slope, n, dtype, bounds, invd, lbase, segs, owned,
-                             values, fn_id, n_max, n_intervals, m, extrapolate,
-                             static_cast<cudaStream_t>(stream));
+  return launch_spack<kGrad>(x, y, slope, n, dtype, bounds, invd, obase, segs, owner,
+                             values, fn_id, n_max, n_intervals, m, n_shards, s_begin,
+                             s_end, extrapolate, static_cast<cudaStream_t>(stream));
 }
 
-// Routed, one shard of the sharded pack: as tp_routed_lookup, with the
-// shard's rebased base plane in place of base, its ownership plane and its
-// padded values slice of m entries.
+// Routed over the S-shard pack, shards [s_begin, s_end) summed: as
+// tp_routed_lookup, with the owner-rebased-base plane in place of base, the
+// owner plane and the (S, m) padded values slices.
 extern "C" cudaError_t tp_sharded_routed_lookup(
     const void* x, void* out, long long n, int dtype, const int* ids,
     const int* n_arr, const int* extr, const float* bounds, const float* invd,
-    const float* lbase, const float* segs, const float* owned, const float* values,
-    int n_fn, int n_max, int m, int rows, void* stream) {
+    const float* obase, const float* segs, const float* owner, const float* values,
+    int n_fn, int n_max, int m, int n_shards, int s_begin, int s_end, int rows,
+    void* stream) {
   return launch_routed<kValue, true>(x, out, nullptr, n, dtype, ids, n_arr, extr,
-                                     bounds, invd, lbase, segs, values, owned, n_fn,
-                                     n_max, m, rows, static_cast<cudaStream_t>(stream));
+                                     bounds, invd, obase, segs, values, owner, n_fn,
+                                     n_max, m, n_shards, s_begin, s_end, rows,
+                                     static_cast<cudaStream_t>(stream));
 }
 
+// Value and slope, planes as tp_sharded_routed_lookup's (the wrapper passes
+// one shard).
 extern "C" cudaError_t tp_sharded_routed_grad(
     const void* x, void* y, void* slope, long long n, int dtype, const int* ids,
     const int* n_arr, const int* extr, const float* bounds, const float* invd,
-    const float* lbase, const float* segs, const float* owned, const float* values,
-    int n_fn, int n_max, int m, int rows, void* stream) {
+    const float* obase, const float* segs, const float* owner, const float* values,
+    int n_fn, int n_max, int m, int n_shards, int s_begin, int s_end, int rows,
+    void* stream) {
   return launch_routed<kGrad, true>(x, y, slope, n, dtype, ids, n_arr, extr, bounds,
-                                    invd, lbase, segs, values, owned, n_fn, n_max, m,
-                                    rows, static_cast<cudaStream_t>(stream));
+                                    invd, obase, segs, values, owner, n_fn, n_max, m,
+                                    n_shards, s_begin, s_end, rows,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* tp_error_string(int err) {

@@ -14,9 +14,10 @@ boundary offsets, lane offsets and code widths, and the polynomial pack's
 coefficient strides), then the pack's planes (every code group of the
 quantized or polynomial pack), then the row count.  The folded entries take
 the f32 pack's five planes and the core members' ids and interval counts and
-the fold's kind.  The sharded entries take one shard's planes: bounds, invd,
-the shard's rebased base, segs, the shard's ownership plane and its padded
-values slice (the routed ones after the three routing vectors).
+the fold's kind.  The sharded entries take bounds, invd, the
+owner-rebased base, segs, the owner plane and every shard's padded values
+slice (the routed ones after the three routing vectors), the shard count and
+a shard range ``[s_begin, s_end)`` that one launch sums.
 :func:`launch` flattens x, allocates the outputs, launches on the current
 stream and raises on an error; :data:`launches` counts the launches of each
 kernel, and only a launch adds to it.  :func:`run` is the one wrapper
@@ -82,13 +83,16 @@ _ENTRIES = {
     # codes32; n_fn, max_n, lmax, m8, m16, m32, rows
     "tp_routed_poly_lookup": (1, 17, 7),
     "tp_routed_poly_grad": (2, 17, 7),
-    # bounds, invd, lbase, segs, owned, values (one shard's);
-    # fn_id, n_max, n_intervals, m_max, extrapolate (+ slope for the value)
-    "tp_spack_lookup": (1, 6, 6),
-    "tp_spack_grad": (2, 6, 5),
-    # ids, n_arr, extr + one shard's 6 planes; n_fn, n_max, m_max, rows
-    "tp_sharded_routed_lookup": (1, 9, 4),
-    "tp_sharded_routed_grad": (2, 9, 4),
+    # bounds, invd, obase, segs, owner, values (the owner-rebased-base and
+    # owner planes, every shard's slice); fn_id, n_max, n_intervals, m_max,
+    # n_shards, s_begin, s_end, extrapolate (+ slope for the value): one
+    # launch sums shards [s_begin, s_end) (the grad's wrapper: one shard)
+    "tp_spack_lookup": (1, 6, 9),
+    "tp_spack_grad": (2, 6, 8),
+    # ids, n_arr, extr + the same 6 planes; n_fn, n_max, m_max, n_shards,
+    # s_begin, s_end, rows
+    "tp_sharded_routed_lookup": (1, 9, 7),
+    "tp_sharded_routed_grad": (2, 9, 7),
 }
 _typed: Dict[int, ctypes.CDLL] = {}
 

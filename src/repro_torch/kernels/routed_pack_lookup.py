@@ -31,20 +31,25 @@ CUDA graph whose ids tensor is rewritten in place between replays.
     ``:670``).  Plain versions: ``eval_routed_poly_ref`` and
     ``eval_routed_poly_slope``.
   * :func:`sharded_routed_pack_lookup` / :func:`sharded_routed_pack_grad` —
-    the sharded pack: one launch a shard over its values slice, rows of
-    elements the shard does not own masked to zero, the outputs summed in
-    shard order in x's dtype.  CUDA kernels ``tp_sharded_routed_lookup`` /
-    ``tp_sharded_routed_grad``; replace ``_sharded_routed_kernel`` /
-    ``_sharded_routed_grad_kernel`` (``:451``, ``:480``).  Plain versions:
+    the sharded pack: each shard gathers from its values slice, elements the
+    shard does not own masked to zero, the contributions summed in shard
+    order in x's dtype.  The value is one launch a call over all S shards,
+    summed on the card; the value + slope one launch a shard, the outputs
+    added.  CUDA kernels ``tp_sharded_routed_lookup`` /
+    ``tp_sharded_routed_grad``; replace ``_sharded_routed_kernel`` (and its
+    sum, ``_sharded_routed_sum``) / ``_sharded_routed_grad_kernel``
+    (``:451``, ``:529``, ``:480``).  Plain versions:
     ``eval_routed_sharded_ref`` and ``eval_routed_sharded_slope``.
+    :func:`sharded_routed_shard_contrib` is one shard's routed contribution
+    (the value kernel over a range of one shard).
 
 ``fn_ids`` is a name or int (every row), a sequence of names/ints (validated,
 ``KeyError`` on an unknown member) or a ``torch.Tensor`` of ids on the pack's
 device (clamped to ``[0, F-1]``: by ``torch.clamp`` in the plain versions, by
 the kernel on the card).  ``extrapolate`` is one flag or one per member.
 Every wrapper goes through :func:`repro_torch.kernels._lib.run`: a CPU tensor
-gets the plain version, a CUDA tensor one launch (a sharded call S) or an
-error.
+gets the plain version, a CUDA tensor one launch (a sharded grad call S) or
+an error.
 """
 
 from __future__ import annotations
@@ -53,13 +58,15 @@ import torch
 
 from repro_torch.approx.table_pack import (PolyTablePack, QuantTablePack,
                                           ShardedTablePack, TablePack,
-                                          _fn_id_operand, eval_routed_poly_ref,
+                                          _fn_id_operand, _routed_where,
+                                          eval_routed_poly_ref,
                                           eval_routed_poly_slope,
                                           eval_routed_quant_ref,
                                           eval_routed_quant_slope, eval_routed_ref,
                                           eval_routed_sharded_ref,
                                           eval_routed_sharded_slope,
-                                          eval_routed_slope, routed_extr_operand)
+                                          eval_routed_slope, routed_extr_operand,
+                                          shard_contrib)
 
 from ._lib import launches, reset_launches, run
 from .table_pack_lookup import sharded_sum
@@ -71,7 +78,8 @@ __all__ = ["launches", "reset_launches", "routed_pack_lookup",
            "routed_poly_pack_lookup", "routed_poly_pack_lookup_plain",
            "routed_poly_pack_grad", "routed_poly_pack_grad_plain",
            "sharded_routed_pack_lookup", "sharded_routed_pack_lookup_plain",
-           "sharded_routed_pack_grad", "sharded_routed_pack_grad_plain"]
+           "sharded_routed_pack_grad", "sharded_routed_pack_grad_plain",
+           "sharded_routed_shard_contrib", "sharded_routed_shard_contrib_plain"]
 
 
 def _rows(x: torch.Tensor) -> int:
@@ -218,31 +226,53 @@ def routed_poly_pack_grad(pack: PolyTablePack, fn_ids, x: torch.Tensor, *,
                                                    extrapolate=extrapolate))
 
 
-def _sharded_routed_run(pack: ShardedTablePack, fn_ids, x: torch.Tensor,
-                        extrapolate, entry: str, count: str, plain):
-    """S launches of a sharded routed entry point (the ids and flag operands
-    built once for all of them), summed in shard order."""
+def _sharded_routed_args(pack: ShardedTablePack, fn_ids, x: torch.Tensor,
+                         extrapolate, s_begin: int, s_end: int):
+    """(planes, ints) of ``tp_sharded_routed_lookup`` / ``_grad``: the
+    routing operands, the replicated planes, the owner-rebased-base and
+    owner planes, every shard's padded values slice, the shard count and the
+    shard range ``[s_begin, s_end)`` that the launch sums."""
+    rows = _rows(x)
+    (n_arr,) = pack.routing_scalars()
+    return ((_fn_id_operand(pack, fn_ids, rows).contiguous(), n_arr,
+             routed_extr_operand(pack, extrapolate), pack.boundaries,
+             pack.inv_delta, pack.owner_base, pack.seg_count, pack.owner,
+             pack.values),
+            (pack.n_functions, pack.n_max, pack.footprint_per_shard, pack.n_shards,
+             s_begin, s_end, rows))
 
-    def contrib(s):
-        return run(entry, count, x, pack.device, "pack",
-                   ((ids, n_arr, extr, pack.boundaries, pack.inv_delta,
-                     pack.local_base[s], pack.seg_count, pack.owned[s],
-                     pack.values[s]),
-                    (pack.n_functions, pack.n_max, pack.footprint_per_shard, rows)),
-                   plain)
 
-    if x.device.type != "cpu":
-        rows = _rows(x)
-        ids = _fn_id_operand(pack, fn_ids, rows).contiguous()
-        (n_arr,) = pack.routing_scalars()
-        extr = routed_extr_operand(pack, extrapolate)
-    return sharded_sum(pack, x, contrib, plain)
+def sharded_routed_shard_contrib_plain(pack: ShardedTablePack, fn_ids, shard: int,
+                                       x: torch.Tensor, *,
+                                       extrapolate=False) -> torch.Tensor:
+    """Plain PyTorch version of ``tp_sharded_routed_lookup`` over one shard:
+    row i gets ``shard_contrib`` of member ``fn_ids[i]``, shard ``shard``,
+    in x's dtype."""
+    xf = x.to(torch.float32)
+    return _routed_where(
+        pack, fn_ids, x,
+        lambda f, e: shard_contrib(pack, f, shard, xf, extrapolate=e).to(x.dtype),
+        extrapolate)
+
+
+def sharded_routed_shard_contrib(pack: ShardedTablePack, fn_ids, shard: int,
+                                 x: torch.Tensor, *, extrapolate=False) -> torch.Tensor:
+    """Shard ``shard``'s routed contribution: row i of ``x`` through member
+    ``fn_ids[i]`` of that shard alone, masked, in x's dtype (one launch over
+    the shard range ``[shard, shard + 1)``)."""
+    if not 0 <= shard < pack.n_shards:
+        raise IndexError(f"shard {shard} out of range for {pack.n_shards} shards")
+    return run("tp_sharded_routed_lookup", "sharded_routed_pack_lookup", x,
+               pack.device, "pack",
+               _sharded_routed_args(pack, fn_ids, x, extrapolate, shard, shard + 1),
+               lambda: sharded_routed_shard_contrib_plain(pack, fn_ids, shard, x,
+                                                          extrapolate=extrapolate))
 
 
 def sharded_routed_pack_lookup_plain(pack: ShardedTablePack, fn_ids,
                                      x: torch.Tensor, *,
                                      extrapolate=False) -> torch.Tensor:
-    """Plain PyTorch version of ``tp_sharded_routed_lookup`` summed over the
+    """Plain PyTorch version of ``tp_sharded_routed_lookup`` over all the
     shards: ``eval_routed_sharded_ref``."""
     return eval_routed_sharded_ref(pack, fn_ids, x, extrapolate=extrapolate)
 
@@ -250,12 +280,12 @@ def sharded_routed_pack_lookup_plain(pack: ShardedTablePack, fn_ids,
 def sharded_routed_pack_lookup(pack: ShardedTablePack, fn_ids, x: torch.Tensor, *,
                                extrapolate=False) -> torch.Tensor:
     """Row i of ``x`` through member ``fn_ids[i]`` of the sharded pack: one
-    routed launch a shard, summed."""
-    return _sharded_routed_run(
-        pack, fn_ids, x, extrapolate, "tp_sharded_routed_lookup",
-        "sharded_routed_pack_lookup",
-        lambda: sharded_routed_pack_lookup_plain(pack, fn_ids, x,
-                                                 extrapolate=extrapolate))
+    routed launch over the S shards, summed on the card."""
+    return run("tp_sharded_routed_lookup", "sharded_routed_pack_lookup", x,
+               pack.device, "pack",
+               _sharded_routed_args(pack, fn_ids, x, extrapolate, 0, pack.n_shards),
+               lambda: sharded_routed_pack_lookup_plain(pack, fn_ids, x,
+                                                        extrapolate=extrapolate))
 
 
 def sharded_routed_pack_grad_plain(pack: ShardedTablePack, fn_ids, x: torch.Tensor,
@@ -269,9 +299,17 @@ def sharded_routed_pack_grad_plain(pack: ShardedTablePack, fn_ids, x: torch.Tens
 def sharded_routed_pack_grad(pack: ShardedTablePack, fn_ids, x: torch.Tensor, *,
                              extrapolate=False):
     """Routed sharded ``(y, dy/dx)``, both in x's dtype: one fused pass a
-    shard, each output summed over the shards."""
-    return _sharded_routed_run(
-        pack, fn_ids, x, extrapolate, "tp_sharded_routed_grad",
-        "sharded_routed_pack_grad",
-        lambda: sharded_routed_pack_grad_plain(pack, fn_ids, x,
-                                               extrapolate=extrapolate))
+    shard (S launches, the ids and flag operands built once for all of
+    them), each output summed over the shards in shard order."""
+
+    def plain():
+        return sharded_routed_pack_grad_plain(pack, fn_ids, x, extrapolate=extrapolate)
+
+    def contrib(s):
+        return run("tp_sharded_routed_grad", "sharded_routed_pack_grad", x,
+                   pack.device, "pack", (planes, ints[:4] + (s, s + 1) + ints[6:]),
+                   plain)
+
+    if x.device.type != "cpu":  # the operands built once, the range set per shard
+        planes, ints = _sharded_routed_args(pack, fn_ids, x, extrapolate, 0, 1)
+    return sharded_sum(pack, x, contrib, plain)

@@ -37,23 +37,27 @@ their wrappers and plain PyTorch versions.
     ``tp_folded_grad``; replace ``_folded_kernel`` / ``_folded_grad_kernel``
     (``:943``, ``:953``).  Plain versions: ``eval_folded_ref`` and
     ``eval_folded_slope`` (``approx/range_fold.py``), in x's dtype.
-  * :func:`sharded_shard_contrib` — ONE shard's masked contribution of a
-    member of a :class:`~repro_torch.approx.table_pack.ShardedTablePack`
-    (value or slope), and over it :func:`sharded_pack_lookup` /
-    :func:`sharded_pack_slope` (one launch a shard, summed in shard order in
-    x's dtype).  CUDA kernel ``tp_spack_lookup``; replaces ``_spack_kernel``
-    (``:663``).  Plain versions: ``eval_sharded_ref`` /
-    ``eval_sharded_slope``.
+  * :func:`sharded_pack_lookup` / :func:`sharded_pack_slope` — a member of
+    a :class:`~repro_torch.approx.table_pack.ShardedTablePack` (value or
+    slope): one launch a call over all S shards, the masked contributions
+    summed in shard order in x's dtype on the card; and
+    :func:`sharded_shard_contrib`, ONE shard's contribution (the same kernel
+    over a range of one shard).  CUDA kernel ``tp_spack_lookup``; replaces
+    ``_spack_kernel`` (``:663``) and the sum over its outputs
+    (``_sharded_sum_pallas``, ``:803``).  Plain versions:
+    ``eval_sharded_ref`` / ``eval_sharded_slope`` and ``shard_contrib``.
   * :func:`sharded_pack_grad` — value and slope of each shard in one
-    selector pass, summed the same way.  CUDA kernel ``tp_spack_grad``;
-    replaces ``_spack_grad_kernel`` (``:697``).  Plain version:
+    selector pass: S launches a call, the outputs added in shard order in
+    x's dtype.  CUDA kernel ``tp_spack_grad``; replaces
+    ``_spack_grad_kernel`` (``:697``).  Plain version:
     ``(eval_sharded_ref, eval_sharded_slope)``.
 
 Every wrapper goes through :func:`repro_torch.kernels._lib.run`: it checks
 x's dtype (float32 or bfloat16) and that x and the pack share a device, then
 runs the plain version only because the tensor lies on the CPU.  For a CUDA
 tensor it launches the kernel or raises: there is no fallback.  Every launch
-adds one to :data:`launches`, and nothing else does (a sharded call adds S).
+adds one to :data:`launches`, and nothing else does (a sharded grad call
+adds S).
 The kernels are bounded by bytes (``N * (in_bytes + n_out * out_bytes)`` at
 the card's memory rate) and are launch-bound at decode shapes; see the note at
 the top of the CUDA source.
@@ -288,44 +292,41 @@ def folded_pack_grad(pack: TablePack, name: str, x: torch.Tensor):
 
 
 # --------------------------------------------------------------------------------------
-# ShardedPack: one launch a shard, the contributions summed in shard order
+# ShardedPack: one launch a call over the shards (the grad: one launch a shard)
 # --------------------------------------------------------------------------------------
 
 
-def _sharded_args(pack: ShardedTablePack, fid: int, s: int, *flags: int):
-    """(planes, ints) of a sharded entry point for member ``fid``, shard
-    ``s``: the replicated planes, the shard's rebased base and ownership
-    planes and its padded values slice."""
-    return ((pack.boundaries, pack.inv_delta, pack.local_base[s], pack.seg_count,
-             pack.owned[s], pack.values[s]),
+def _sharded_args(pack: ShardedTablePack, fid: int, s_begin: int, s_end: int,
+                  *flags: int):
+    """(planes, ints) of ``tp_spack_lookup`` / ``tp_spack_grad`` for member
+    ``fid``: the replicated planes, the owner-rebased-base and owner planes,
+    every shard's padded values slice, the shard count and the shard range
+    ``[s_begin, s_end)`` that the launch sums."""
+    return ((pack.boundaries, pack.inv_delta, pack.owner_base, pack.seg_count,
+             pack.owner, pack.values),
             (fid, pack.n_max, pack.n_intervals[fid], pack.footprint_per_shard,
-             *flags))
+             pack.n_shards, s_begin, s_end, *flags))
 
 
 def sharded_sum(pack: ShardedTablePack, x: torch.Tensor, contrib, plain):
-    """The off-mesh shard sum every sharded wrapper shares: ``plain()`` for a
-    tensor on the CPU; on the card ``contrib(s)`` (one launch) for each shard,
-    added in shard order in x's dtype (a pair of outputs pairwise), as the
-    reference's ``_sharded_sum_pallas`` adds its per-shard kernel outputs."""
+    """The grad wrappers' shard sum: ``plain()`` for a tensor on the CPU; on
+    the card ``contrib(s)`` (one launch) for each shard, the pairs of outputs
+    added pairwise in shard order in x's dtype, as the reference's
+    ``_sharded_sum_pallas`` adds its per-shard kernel outputs."""
     check(x, pack.device, "pack")
     if x.device.type == "cpu":
         return plain()
     out = None
     for s in range(pack.n_shards):
         c = contrib(s)
-        if out is None:
-            out = c
-        elif isinstance(c, tuple):
-            out = tuple(a + b for a, b in zip(out, c))
-        else:
-            out = out + c
+        out = c if out is None else tuple(a + b for a, b in zip(out, c))
     return out
 
 
 def sharded_shard_contrib_plain(pack: ShardedTablePack, fn, shard: int,
                                 x: torch.Tensor, *, extrapolate: bool = False,
                                 slope: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of one ``tp_spack_lookup`` launch:
+    """Plain PyTorch version of ``tp_spack_lookup`` over one shard:
     ``shard_contrib_ref`` of shard ``shard``, in x's dtype."""
     fid = pack.member_id(fn)
     return shard_contrib(pack, fid, shard, x.to(torch.float32),
@@ -336,12 +337,13 @@ def sharded_shard_contrib(pack: ShardedTablePack, fn, shard: int, x: torch.Tenso
                           *, extrapolate: bool = False,
                           slope: bool = False) -> torch.Tensor:
     """Shard ``shard``'s masked contribution of member ``fn`` (its lerp, or
-    with ``slope`` its segment slope), in x's dtype: one launch."""
+    with ``slope`` its segment slope), in x's dtype: one launch over the
+    shard range ``[shard, shard + 1)``."""
     fid = pack.member_id(fn)
     if not 0 <= shard < pack.n_shards:
         raise IndexError(f"shard {shard} out of range for {pack.n_shards} shards")
     return run("tp_spack_lookup", "sharded_pack_lookup", x, pack.device, "pack",
-               _sharded_args(pack, fid, shard, int(extrapolate), int(slope)),
+               _sharded_args(pack, fid, shard, shard + 1, int(extrapolate), int(slope)),
                lambda: sharded_shard_contrib_plain(pack, fid, shard, x,
                                                    extrapolate=extrapolate,
                                                    slope=slope))
@@ -356,12 +358,12 @@ def sharded_pack_lookup_plain(pack: ShardedTablePack, fn, x: torch.Tensor, *,
 
 def sharded_pack_lookup(pack: ShardedTablePack, fn, x: torch.Tensor, *,
                         extrapolate: bool = False) -> torch.Tensor:
-    """Evaluate member ``fn`` of the sharded pack: S launches, summed."""
+    """Evaluate member ``fn`` of the sharded pack: one launch over the S
+    shards, summed in shard order on the card."""
     fid = pack.member_id(fn)
-    return sharded_sum(
-        pack, x,
-        lambda s: sharded_shard_contrib(pack, fid, s, x, extrapolate=extrapolate),
-        lambda: sharded_pack_lookup_plain(pack, fid, x, extrapolate=extrapolate))
+    return run("tp_spack_lookup", "sharded_pack_lookup", x, pack.device, "pack",
+               _sharded_args(pack, fid, 0, pack.n_shards, int(extrapolate), 0),
+               lambda: sharded_pack_lookup_plain(pack, fid, x, extrapolate=extrapolate))
 
 
 def sharded_pack_slope_plain(pack: ShardedTablePack, fn, x: torch.Tensor, *,
@@ -373,14 +375,12 @@ def sharded_pack_slope_plain(pack: ShardedTablePack, fn, x: torch.Tensor, *,
 
 def sharded_pack_slope(pack: ShardedTablePack, fn, x: torch.Tensor, *,
                        extrapolate: bool = False) -> torch.Tensor:
-    """The slope alone (no value pass): S launches of the value kernel in
-    its slope mode, summed."""
+    """The slope alone (no value pass): one launch of the value kernel in its
+    slope mode over the S shards, summed."""
     fid = pack.member_id(fn)
-    return sharded_sum(
-        pack, x,
-        lambda s: sharded_shard_contrib(pack, fid, s, x, extrapolate=extrapolate,
-                                        slope=True),
-        lambda: sharded_pack_slope_plain(pack, fid, x, extrapolate=extrapolate))
+    return run("tp_spack_lookup", "sharded_pack_lookup", x, pack.device, "pack",
+               _sharded_args(pack, fid, 0, pack.n_shards, int(extrapolate), 1),
+               lambda: sharded_pack_slope_plain(pack, fid, x, extrapolate=extrapolate))
 
 
 def sharded_pack_grad_plain(pack: ShardedTablePack, fn, x: torch.Tensor, *,
@@ -400,6 +400,6 @@ def sharded_pack_grad(pack: ShardedTablePack, fn, x: torch.Tensor, *,
     return sharded_sum(
         pack, x,
         lambda s: run("tp_spack_grad", "sharded_pack_grad", x, pack.device, "pack",
-                      _sharded_args(pack, fid, s, int(extrapolate)),
+                      _sharded_args(pack, fid, s, s + 1, int(extrapolate)),
                       lambda: None),  # x is on the card here: never called
         lambda: sharded_pack_grad_plain(pack, fid, x, extrapolate=extrapolate))

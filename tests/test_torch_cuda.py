@@ -737,7 +737,8 @@ def test_reduced_routed_card_matches_cpu(cuda, mode):
 
 
 # --------------------------------------------------------------------------------------
-# ShardedPack: one launch a shard, summed
+# ShardedPack: one launch a call over the shards, summed on the card (the grad
+# kernels: one launch a shard, the outputs added)
 # --------------------------------------------------------------------------------------
 
 SHARDS = (1, 2, 3, 4, 8)
@@ -774,7 +775,8 @@ def test_sharded_kernels_bitwise(spacks, pack, n_shards, name, dtype):
         cs = [K.sharded_shard_contrib(sp, fid, s, x, extrapolate=ex)
               for s in range(n_shards)]
         torch.cuda.synchronize()
-        assert K.launches["sharded_pack_lookup"] == 3 * n_shards
+        # one launch a call (lookup, slope), one a shard's contribution
+        assert K.launches["sharded_pack_lookup"] == 2 + n_shards
         assert K.launches["sharded_pack_grad"] == n_shards
         wy, wd = K.sharded_pack_grad_plain(sp, fid, x, extrapolate=ex)
         for got, want in ((y, wy), (gy, wy), (d, wd), (gd, wd)):
@@ -785,6 +787,68 @@ def test_sharded_kernels_bitwise(spacks, pack, n_shards, name, dtype):
         ry, rd = K.table_pack_grad(pack, fid, x, extrapolate=ex)
         assert_equal_values(y, ry, x)
         assert_equal_values(d, rd, x)
+
+
+def _shard_launches_summed(contrib, n_shards):
+    """The S single-shard launches added in shard order in x's dtype (the
+    S-launch path the one-launch sum replaces)."""
+    out = None
+    for s in range(n_shards):
+        c = contrib(s)
+        out = c if out is None else out + c
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_shards", SHARDS + ("past budget",))
+def test_sharded_fused_sum_equals_shard_launches(spacks, cuda, n_shards, dtype):
+    """One launch over all the shards, static (value and slope) and routed,
+    bit for bit the S single-shard launches added in shard order in x's
+    dtype, for every member: at the edge inputs (scalar path), the training
+    gate and a ragged size past the capped grid (16-byte vectors and a
+    scalar tail) and a view one element off 16-byte alignment (scalar
+    path); the pack
+    past the shared budget reads its slices from global memory."""
+    if n_shards == "past budget":
+        sp = build_sharded_pack(("silu", "exp_neg"), 1e-8, 2, omega=0.2, device=cuda)
+        assert sp.footprint_per_shard > 10240
+    else:
+        sp = spacks[n_shards]
+    S, F = sp.n_shards, sp.n_functions
+    g = torch.Generator(device="cuda").manual_seed(S)
+    big = (torch.randn((4, 128, 6912), generator=g, device="cuda") * 6).to(dtype)
+    ragged = (torch.randn(300_001, generator=g, device="cuda") * 6).to(dtype)
+    for fid in range(F):
+        e = edge_input(sp, fid, 4093, dtype, seed=fid)
+        for x in (e, big, ragged, ragged[1:]):
+            for ex in (False, True):
+                for slope in (False, True):
+                    fused = (K.sharded_pack_slope if slope else K.sharded_pack_lookup)(
+                        sp, fid, x, extrapolate=ex)
+                    summed = _shard_launches_summed(
+                        lambda s: K.sharded_shard_contrib(sp, fid, s, x, extrapolate=ex,
+                                                          slope=slope), S)
+                    assert_bitwise(fused, summed)
+                    if x is e:
+                        plain = (K.sharded_pack_slope_plain if slope
+                                 else K.sharded_pack_lookup_plain)
+                        assert_bitwise(fused, plain(sp, fid, x, extrapolate=ex))
+    ids = [(3 * r + 1) % F for r in range(2 * F + 1)]
+    x = torch.stack([edge_input(sp, f, 3000, dtype, seed=r)[:3000]
+                     for r, f in enumerate(ids)])
+    for ex in (False, True, tuple(f % 2 == 0 for f in range(F))):
+        K.reset_launches()
+        fused = R.sharded_routed_pack_lookup(sp, ids, x, extrapolate=ex)
+        summed = _shard_launches_summed(
+            lambda s: R.sharded_routed_shard_contrib(sp, ids, s, x, extrapolate=ex), S)
+        assert K.launches["sharded_routed_pack_lookup"] == 1 + S
+        assert_bitwise(fused, summed)
+        assert_bitwise(fused, R.sharded_routed_pack_lookup_plain(sp, ids, x,
+                                                                  extrapolate=ex))
+        for s in range(S):
+            assert_bitwise(R.sharded_routed_shard_contrib(sp, ids, s, x, extrapolate=ex),
+                           R.sharded_routed_shard_contrib_plain(sp, ids, s, x,
+                                                                extrapolate=ex))
 
 
 def test_sharded_values_beyond_shared_memory(cuda):
@@ -821,8 +885,8 @@ def test_sharded_routed_kernels_bitwise(spacks, n_shards, flags, dtype):
 
 
 def test_sharded_routed_cuda_graph_reroute(spacks):
-    """The S routed launches of a sharded call captured in one CUDA graph
-    follow an ids tensor rewritten in place."""
+    """A sharded routed call (one launch; the grad's S launches) captured in
+    one CUDA graph follows an ids tensor rewritten in place."""
     pk = spacks[4]
     F = pk.n_functions
     ids = torch.arange(8, device="cuda", dtype=torch.int32) % F
@@ -858,8 +922,8 @@ def test_sharded_wrappers_contract(spacks):
     assert all(t.shape == x.shape and t.is_contiguous() for t in (y, yg, s, ry, rg, rs))
     K.sharded_pack_lookup(sp, "silu", torch.empty(0, device="cuda"))  # no launch
     assert {k: v for k, v in K.launches.items() if v} == {
-        "sharded_pack_lookup": 4, "sharded_pack_grad": 4,
-        "sharded_routed_pack_lookup": 4, "sharded_routed_pack_grad": 4}
+        "sharded_pack_lookup": 1, "sharded_pack_grad": 4,
+        "sharded_routed_pack_lookup": 1, "sharded_routed_pack_grad": 4}
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         K.sharded_pack_lookup(sp, "silu", x.half())
     with pytest.raises(ValueError, match="pack lives on"):
@@ -868,6 +932,8 @@ def test_sharded_wrappers_contract(spacks):
         R.sharded_routed_pack_lookup(sp, torch.zeros(6, dtype=torch.int32), x)
     with pytest.raises(IndexError):
         K.sharded_shard_contrib(sp, "silu", 4, x)
+    with pytest.raises(IndexError):
+        R.sharded_routed_shard_contrib(sp, "silu", -1, x)
 
 
 def test_reduced_sharded_card_matches_cpu(cuda):
@@ -890,6 +956,13 @@ def test_reduced_sharded_card_matches_cpu(cuda):
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, global_batch=4, seq_len=16))
     opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
     served, losses = {}, {}
+    # the gate calls of the same serving in table_pack (one launch each)
+    K.reset_launches()
+    ContinuousEngine(build_model(cfg.replace(approx=dataclasses.replace(
+        cfg.approx, mode="table_pack")), "cuda"),
+        tree_map(lambda t: t.detach().clone().to("cuda"), cpu_state)["params"],
+        2, 64).serve(reqs)
+    gate_calls = K.launches["table_pack_lookup"]
     for dev in ("cpu", "cuda"):
         model = build_model(cfg, dev)
         state = tree_map(lambda t: t.detach().clone().to(dev), cpu_state)
@@ -901,8 +974,8 @@ def test_reduced_sharded_card_matches_cpu(cuda):
         for s in range(2):
             state, m = step(state, batch_to(data.batch_at(s), dev))
             losses[dev].append(float(m["loss"]))
-        if dev == "cuda":  # 4 launches a gate call
-            assert lookups > 0 and lookups % 4 == 0
+        if dev == "cuda":  # 1 launch a gate call; the grad 4
+            assert lookups == gate_calls > 0
             assert K.launches["sharded_pack_grad"] > 0
             assert K.launches["sharded_pack_grad"] % 4 == 0
     for a, b in zip(served["cuda"], served["cpu"]):

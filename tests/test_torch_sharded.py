@@ -60,13 +60,14 @@ from repro_torch.core import packing
 from repro_torch.kernels import _lib
 from repro_torch.kernels import routed_pack_lookup as R
 from repro_torch.kernels import table_pack_lookup as K
-from tests.test_torch_pack import (assert_bitwise, assert_within_ulp, inputs,
+from tests.test_torch_pack import (N, assert_bitwise, assert_within_ulp, inputs,
                                    lerp_scale)
 
 NAMES = ("gelu", "silu", "tanh", "sigmoid_sym", "softplus", "exp_neg")
 EA = 1e-4
 OMEGA = 0.2
 SHARDS = (2, 4)
+SHARD_COUNTS = (1, 2, 3, 4, 8)  # the fused-sum property's (and the card's)
 
 
 def _values_equal(got, want):
@@ -115,6 +116,13 @@ def spacks(layouts):
             for s in SHARDS}
 
 
+@pytest.fixture(scope="module")
+def port_spacks(layouts, spacks):
+    """{S: port ShardedTablePack} for every count of SHARD_COUNTS (no JAX)."""
+    return {s: spacks[s][1] if s in spacks else table_pack.from_sharded_layout(
+        packing.shard_pack_layout(layouts[1], s), "cpu") for s in SHARD_COUNTS}
+
+
 def member_inputs(pack, fid, seed=0):
     lo, hi = pack.domains[fid]
     b = pack.boundaries[fid, : pack.n_intervals[fid] + 1].numpy()
@@ -146,6 +154,16 @@ def test_layout_matches_reference(n_shards, layouts):
         assert got.dtype == torch.float32 and got.is_contiguous()
         np.testing.assert_array_equal(got.numpy(), want, err_msg=a)
     assert tp.footprint_per_shard == jp.footprint_per_shard
+    # the owner planes the card's kernels read: the layout's, and the same
+    # ownership and rebased bases as the reference's per-shard planes
+    np.testing.assert_array_equal(tp.owner.numpy(), js.owner.astype(np.float32))
+    np.testing.assert_array_equal(tp.owner_base.numpy(),
+                                  js.local_base.astype(np.float32))
+    own, lb = np.asarray(jp.owned), np.asarray(jp.local_base)
+    for s in range(n_shards):
+        mine = js.owner == s
+        np.testing.assert_array_equal(own[s], mine.astype(np.float32))
+        np.testing.assert_array_equal(lb[s][mine], tp.owner_base.numpy()[mine])
     assert tp.routing_scalars()[0].tolist() == list(jp.routing_scalars()[0])
     assert tp.domains == tuple((float(jp.boundaries[f, 0]),
                                 float(jp.boundaries[f, n]))
@@ -265,6 +283,112 @@ def test_shard_contributions(spacks):
             R.sharded_routed_pack_grad(tp, [0], torch.zeros(1, 4, dtype=dt))
     with pytest.raises(KeyError):
         K.sharded_pack_grad(tp, "nope", xt)
+
+
+def _int_view(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _same_bits(got, want):
+    """Bit for bit, NaN positions matched (the sign of a zero counts)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    nan = torch.isnan(got) & torch.isnan(want)
+    assert not bool(((_int_view(got) != _int_view(want)) & ~nan).any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_shards", SHARD_COUNTS)
+def test_shard_contributions_summed_in_dtype(n_shards, dtype, spacks, port_spacks):
+    """The property the card's one-launch sum relies on: the single-shard
+    contributions rounded to x's dtype and added in shard order in x's dtype
+    (acc = round(acc + c), what one launch over all the shards computes and
+    what the S single-shard launches added give) are bit for bit the plain
+    ``eval_sharded_ref`` / ``eval_sharded_slope``, which sum in f32 and cast,
+    for every member, value and slope, extrapolation off and on, at the edge
+    inputs; and at 2 and 4 shards every member's sums are also the
+    reference's eager ``eval_sharded_ref`` / ``_slope`` on the same numpy
+    inputs (at 1, 3 and 8 shards the reference's layout is held to the
+    port's by ``test_layout_matches_reference``).  The routed one-shard
+    contributions sum to ``eval_routed_sharded_ref`` the same way.
+
+    Cost, under the tier-1 run's six workers: the inputs are every edge
+    input and 512 of the uniform draws (the property is elementwise, and
+    tensors this small stay below PyTorch's intra-op parallel grain, whose
+    thread regions the other workers slow ~100-fold), and the reference
+    runs on the full inputs, whose shapes the test above has compiled, its
+    result sliced the same way."""
+    tp = port_spacks[n_shards]
+    jp = spacks[n_shards][0] if n_shards in spacks else None
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    for fid, name in enumerate(NAMES):
+        full = member_inputs(tp, fid, seed=fid)
+        x = full[N - 512:]
+        xt = torch.from_numpy(x).to(tdt)
+        for ex in (False, True):
+            for slope, plain, ref in (
+                    (False, table_pack.eval_sharded_ref, tp_ref.eval_sharded_ref),
+                    (True, table_pack.eval_sharded_slope, tp_ref.eval_sharded_slope)):
+                acc = None
+                for s in range(n_shards):
+                    c = K.sharded_shard_contrib(tp, fid, s, xt, extrapolate=ex,
+                                                slope=slope)
+                    assert c.dtype == tdt
+                    acc = c if acc is None else acc + c
+                _same_bits(acc, plain(tp, name, xt, extrapolate=ex))
+                if jp is not None:
+                    xj = jnp.asarray(full).astype(jdt)
+                    assert_bitwise(_np(acc),
+                                   _jnp(ref(jp, name, xj, extrapolate=ex))[N - 512:])
+    F = len(NAMES)
+    ids = [r % F for r in range(2 * F)]
+    x = np.stack([np.resize(member_inputs(tp, f, seed=r), 64) for r, f in enumerate(ids)])
+    xt = torch.from_numpy(x).to(tdt)
+    flags = tuple(f % 2 == 0 for f in range(F))
+    acc = None
+    for s in range(n_shards):
+        c = R.sharded_routed_shard_contrib(tp, ids, s, xt, extrapolate=flags)
+        acc = c if acc is None else acc + c
+    _same_bits(acc, table_pack.eval_routed_sharded_ref(tp, ids, xt, extrapolate=flags))
+    with pytest.raises(IndexError):
+        R.sharded_routed_shard_contrib(tp, ids, n_shards, xt)
+
+
+def test_entries_match_argument_builders(spacks):
+    """The ctypes rows of the sharded entry points against what the
+    argument builders hand them (no launch): every entry takes the
+    owner-rebased-base and owner planes, every shard's values slice, the
+    shard count and a shard range (the grads' wrappers a range of one)."""
+    _, tp = spacks[4]
+    S, F = tp.n_shards, tp.n_functions
+    fid = tp.fn_id("silu")
+    x = torch.zeros(3, 5)
+    routed = R._sharded_routed_args(tp, [0, 1, 5], x, True, 1, 3)
+    cases = {
+        "tp_spack_lookup": K._sharded_args(tp, fid, 0, S, 1, 0),
+        "tp_spack_grad": K._sharded_args(tp, fid, 2, 3, 1),
+        "tp_sharded_routed_lookup": routed,
+        "tp_sharded_routed_grad": routed,
+    }
+    for entry, (planes, ints) in cases.items():
+        _, n_planes, n_int = _lib._ENTRIES[entry]
+        assert (len(planes), len(ints)) == (n_planes, n_int), entry
+        assert all(p.is_contiguous() and p.dtype in (torch.float32, torch.int32)
+                   for p in planes), entry
+        assert all(isinstance(i, int) for i in ints), entry
+        assert (planes[-4] is tp.owner_base and planes[-2] is tp.owner
+                and planes[-1] is tp.values), entry
+    planes, ints = cases["tp_spack_lookup"]
+    assert ints == (fid, tp.n_max, tp.n_intervals[fid], tp.footprint_per_shard,
+                    S, 0, S, 1, 0)
+    assert cases["tp_spack_grad"][1] == (fid, tp.n_max, tp.n_intervals[fid],
+                                         tp.footprint_per_shard, S, 2, 3, 1)
+    rplanes, rints = routed
+    assert rplanes[0].tolist() == [0, 1, 5] and rplanes[0].dtype == torch.int32
+    assert rints == (F, tp.n_max, tp.footprint_per_shard, S, 1, 3, 3)
+    # the one-shard contribution is the value entry over a range of one
+    assert K._sharded_args(tp, fid, 3, 4, 0, 1)[1][4:] == (S, 3, 4, 0, 1)
+    with pytest.raises(ValueError, match="takes 6 planes and 9 int"):
+        _lib.launch("tp_spack_lookup", x, planes[3:], ints)
 
 
 @pytest.mark.parametrize("n_shards", SHARDS)
