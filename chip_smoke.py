@@ -87,10 +87,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    sin, cos, exp and log, f32 and bf16, at the rotary angle shapes and two
    ragged sizes, over the full-range samples of tests/harness/fullrange.py
    (every decade, both signs, near-multiples of pi/2 in both reduction
-   regimes, powers of two, subnormals, +-0, +-inf, NaN) and 200,000 draws
-   with |x| >= 2048 (Payne-Hanek); the routed poly kernels as phase 13 does
-   the other routed kernels, over stablelm-3b's poly pack and the mixed
-   poly pack, re-routed inside a CUDA graph too;
+   regimes, powers of two, subnormals, +-0, +-inf, NaN), 200,000 draws
+   with |x| >= 2048 (Payne-Hanek) and, for sin and cos, warps that mix
+   Payne-Hanek lanes with small ones, over stablelm-3b's folded pack (each
+   kind's staging image staged) and the cores at e_a 1e-10 (past the
+   budget); the routed poly kernels as phase 13 does the other routed
+   kernels, over stablelm-3b's poly pack and the mixed poly pack (the whole
+   pack staged) and the mixed poly pack at e_a 1e-8 (past the budget:
+   restaged per member), re-routed inside a CUDA graph too;
 18. table-served RoPE and routed PolyPack serving: full stablelm-3b serving
    the 8 requests (+ TableFlash) with ``rope_table`` in ``table_pack``,
    ``folded_pack`` and ``folded_routed_pack`` (tokens equal to the ``_ref``
@@ -107,8 +111,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    folded grad kernel): ``folded_pack_grad`` must launch and the gradient be
    bitwise the plain slope times dy;
 20. their times, as in phase 16 (the folded kernels beside ``torch.sin`` /
-   ``cos`` / ``exp`` / ``log``; the routed poly kernels beside the static poly
-   kernel of the same member);
+   ``cos`` / ``exp`` / ``log``, also at the decode and prefill angles; the
+   routed poly kernels beside the static poly kernel of the same member);
 21. ShardedPack kernels: the static sharded kernels (value and its slope
    mode, one launch over all the shards; value + slope, one launch a shard)
    and each shard's single contribution bitwise against their plain
@@ -156,6 +160,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -193,6 +198,7 @@ PACK_SHARDS = 4  # the sharded paths' shard count: silu, the gate, is split
 SHARD_COUNTS = (1, 2, 3, 4, 8)  # the kernel checks'
 SHARDED = ("sharded_pack", "sharded_pack_ref")
 FOLDED = ("sin", "cos", "exp", "log")
+SMEM_BUDGET = 48 * 1024  # a block's dynamic shared staging (kSmemBytes)
 # stablelm-3b's rotary angles (d_head 80 -> 40 frequencies): decode, prefill
 # (the queue's longest prompt, 27), training micro-batch
 ROPE_SHAPES = ((BATCH, 1, 40), (BATCH, 27, 40), (MICRO, TRAIN_SEQ, 40))
@@ -1381,6 +1387,7 @@ def routed_timing_phase(packs_ops, smi_line):
                                routed_bytes(pk, fid, 1), ops + 2 * (n_out - 1))
             rows[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                bound_ms=b_ms, bound_by=b_by)
+            rows[f"{kname} static"] = dict(ms=static_ms)
             log(f"time: {kname} {tuple(x.shape)} {x.dtype}: kernel {ms * 1e3:.2f} us, "
                 f"static kernel of the same member {static_ms * 1e3:.2f} us, plain "
                 f"{plain_ms * 1e3:.2f} us, yardstick (F.silu"
@@ -1397,6 +1404,7 @@ def routed_timing_phase(packs_ops, smi_line):
             ms = graph_ms(lambda: kern(pk, cyc_ids, xb, extrapolate=ex))
             six = graph_ms(lambda: [static(pk, f, p, extrapolate=bool(flags[f]))
                                     for f, p in parts.items()])
+            rows[f"{kname} mixed"] = dict(ms=ms)
             log(f"time: {kname} mixed batch {tuple(xb.shape)} bf16 over "
                 f"{pk.n_functions} members: one routed launch {ms * 1e3:.2f} us, "
                 f"{len(parts)} static launches on the members' rows "
@@ -1431,9 +1439,48 @@ def fullrange_input(shape, dtype, seed):
     return torch.from_numpy(x).to("cuda").to(dtype)
 
 
-def folded_kernel_phase(pack):
+def payne_hanek_by_warp(n, seed):
+    """n angles, warp by warp (32 lanes): all below 2048 (a warp that skips
+    Payne-Hanek); Payne-Hanek lanes (|x| >= 2048) interleaved with small
+    ones; all Payne-Hanek; one Payne-Hanek lane among small ones; and so on
+    cyclically (a ragged n leaves a partial last warp)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    small = rng.uniform(-2047.0, 2047.0, n)
+    big = np.exp(rng.uniform(7.63, 87.0, n)) * rng.choice([-1.0, 1.0], n)
+    lane, warp = np.arange(n) % 32, (np.arange(n) // 32) % 4
+    take_big = np.select([warp == 0, warp == 1, warp == 2, warp == 3],
+                         [False, lane % 2 == 1, True, lane == 17])
+    return torch.from_numpy(np.where(take_big, big, small).astype(np.float32)).cuda()
+
+
+def fold_packs(approx):
+    """(tag, pack) of phase 17's folded checks: stablelm-3b's folded pack,
+    whose staging images fit a block's 48 KB (one round trip stages what a
+    kind reads), and the four cores at e_a 1e-10, whose images do not (the
+    launch stages as the budget allows, the rest read from global memory)."""
+    from repro_torch.approx.table_pack import build_pack
+
+    big = build_pack(("sin_core", "cos_core", "exp_core", "log_core"), 1e-10,
+                     omega=approx.omega, device="cuda")
+    packs = (("image", dataclasses.replace(approx, mode="folded_pack").pack("cuda")),
+             ("past budget", big))
+    for tag, pk in packs:
+        for name in FOLDED:
+            fits = 4 * pk.fold_images[name][0].numel() <= SMEM_BUDGET
+            check(fits == (tag == "image"), f"{tag} pack: {name}'s staging image of "
+                  f"{4 * pk.fold_images[name][0].numel()} bytes on the wrong side of "
+                  f"the {SMEM_BUDGET}-byte budget")
+    return packs
+
+
+def folded_kernel_phase(packs):
     """Phase 17, first half: the folded value and value + slope kernels
-    bitwise against their plain versions over the full f32 range."""
+    bitwise against their plain versions over the full f32 range, and sin
+    and cos over warps that mix Payne-Hanek lanes with small ones, for each
+    ``(tag, pack)`` of ``packs``."""
     import torch
 
     from repro_torch.kernels import table_pack_lookup as K
@@ -1444,27 +1491,57 @@ def folded_kernel_phase(pack):
     big = torch.where(torch.rand(200_000, generator=g, device="cuda") < 0.5, -big, big)
     worst = {"folded_pack_lookup": 0.0, "folded_pack_grad": 0.0}
     cases = 0
-    for name in FOLDED:
-        for dtype in (torch.bfloat16, torch.float32):
-            inputs = [(shape, fullrange_input(shape, dtype, seed=i))
-                      for i, shape in enumerate(shapes)]
-            inputs.append(((200_000,), big.to(dtype)))
-            for shape, x in inputs:
-                got = K.folded_pack_lookup(pack, name, x)
-                got_g = K.folded_pack_grad(pack, name, x)
-                torch.cuda.synchronize()
-                tag = f"{name} {dtype} {shape}"
-                worst["folded_pack_lookup"] = max(worst["folded_pack_lookup"], check_pair(
-                    f"folded_pack_lookup {tag}", got,
-                    K.folded_pack_lookup_plain(pack, name, x), shape, dtype))
-                worst["folded_pack_grad"] = max(worst["folded_pack_grad"], check_pair(
-                    f"folded_pack_grad {tag}", got_g,
-                    K.folded_pack_grad_plain(pack, name, x), shape, dtype))
-                cases += 2
+    for ptag, pack in packs:
+        for name in FOLDED:
+            for dtype in (torch.bfloat16, torch.float32):
+                inputs = [(shape, fullrange_input(shape, dtype, seed=i))
+                          for i, shape in enumerate(shapes)]
+                inputs.append(((200_000,), big.to(dtype)))
+                if name in ("sin", "cos"):
+                    inputs += [(shape, payne_hanek_by_warp(
+                        int(math.prod(shape)), seed=i).reshape(shape).to(dtype))
+                        for i, shape in enumerate(list(ROPE_SHAPES) + [(32 * 37 + 13,)])]
+                for i, (shape, x) in enumerate(inputs):
+                    got = K.folded_pack_lookup(pack, name, x)
+                    got_g = K.folded_pack_grad(pack, name, x)
+                    torch.cuda.synchronize()
+                    tag = f"[{ptag}] {name} {dtype} {shape} (input {i})"
+                    worst["folded_pack_lookup"] = max(
+                        worst["folded_pack_lookup"], check_pair(
+                            f"folded_pack_lookup {tag}", got,
+                            K.folded_pack_lookup_plain(pack, name, x), shape, dtype))
+                    worst["folded_pack_grad"] = max(
+                        worst["folded_pack_grad"], check_pair(
+                            f"folded_pack_grad {tag}", got_g,
+                            K.folded_pack_grad_plain(pack, name, x), shape, dtype))
+                    cases += 2
+        log(f"folded: [{ptag}] members {pack.names}, staging images "
+            f"{ {k: 4 * v[0].numel() for k, v in pack.fold_images.items()} } bytes")
     log(f"folded: {cases} folded kernel cases bitwise equal to the plain versions "
-        f"(sin, cos, exp, log; bf16+f32; shapes {shapes} of the full-range samples "
-        f"and 200,000 draws with |x| >= 2048; members {pack.names})")
+        f"(sin, cos, exp, log; bf16+f32; shapes {shapes} of the full-range samples, "
+        f"200,000 draws with |x| >= 2048 and, for sin and cos, warps mixing "
+        f"Payne-Hanek lanes with small ones; packs {[t for t, _ in packs]})")
     return worst
+
+
+def past_budget_poly_pack(approx):
+    """The mixed poly pack at e_a 1e-8: its staging image is past the 48 KB
+    a block of the routed poly kernels stages whole, so they restage per
+    member (phase 17 checks that path too)."""
+    from repro_torch.approx.table_pack import from_poly_layout
+    from repro_torch.core import design
+    from repro_torch.core.packing import poly_pack_layout
+
+    pk = from_poly_layout(poly_pack_layout(
+        [design.poly_member(n, 1e-8, degree=d, bits=b) for n, d, b in MIXED]), "cuda")
+    for tag, p in (("stablelm-3b's", approx.poly_pack("cuda")), ("e_a 1e-8", pk)):
+        whole = 4 * (p.image.numel() + p.n_functions)
+        check((whole <= SMEM_BUDGET) == (p is not pk),
+              f"{tag} poly pack: {whole} staging bytes on the wrong side of the "
+              f"{SMEM_BUDGET}-byte budget")
+        log(f"routed poly: {tag} pack stages {whole} bytes "
+            f"({'whole' if whole <= SMEM_BUDGET else 'per member'})")
+    return pk
 
 
 def folded_autograd_check(smi_line):
@@ -1542,10 +1619,15 @@ def folded_timing_phase(pack, smi_line):
                 f"{plain_ms * 1e3:.2f} us, yardstick (torch.{name}"
                 f"{'' if n_out == 1 else ', value only'}) {lib_ms * 1e3:.2f} us, bound "
                 f"{b_ms * 1e3:.3f} us ({b_by}) [{smi_line}]")
-    xd = ang[:, :1].contiguous()  # a decode step's angles, (4, 1, 40)
-    log(f"time: folded_pack_lookup sin {tuple(xd.shape)} f32 (decode): kernel "
-        f"{graph_ms(lambda: K.folded_pack_lookup(pack, 'sin', xd)) * 1e3:.2f} us, "
-        f"torch.sin {graph_ms(lambda: torch.sin(xd)) * 1e3:.2f} us [{smi_line}]")
+    # a decode step's and a prefill's angles, (4, 1, 40) and (4, 27, 40): their
+    # times also go into the rows (read by tools/torch_kernel_ab.py)
+    for xs in (ang[:, :1].contiguous(), ang[:, :27].contiguous()):
+        for kname, kern in (("folded_pack_lookup", K.folded_pack_lookup),
+                            ("folded_pack_grad", K.folded_pack_grad)):
+            ms = graph_ms(lambda: kern(pack, "sin", xs))
+            rows[f"{kname} {tuple(xs.shape)}"] = dict(ms=ms)
+            log(f"time: {kname} sin {tuple(xs.shape)} f32: kernel {ms * 1e3:.2f} us, "
+                f"torch.sin {graph_ms(lambda: torch.sin(xs)) * 1e3:.2f} us [{smi_line}]")
     return rows
 
 
@@ -2021,11 +2103,17 @@ def main() -> int:
         # per-element f32 operations beyond the compares, as phases 8 and 12
         times.update(routed_timing_phase(((pack, 14), (qp_packs[0][2], 22)), smi_line))
         # 17-20: RangeFold (table-served RoPE) and routed PolyPack
-        fold_pack = dataclasses.replace(cfg.approx, mode="folded_pack").pack("cuda")
+        f_packs = fold_packs(cfg.approx)
+        fold_pack = f_packs[0][1]
         log(f"fold pack: {fold_pack.names}, intervals {fold_pack.n_intervals}")
-        worst.update(folded_kernel_phase(fold_pack))
+        worst.update(folded_kernel_phase(f_packs))
+        del f_packs
+        big_poly = past_budget_poly_pack(cfg.approx)
         worst.update(routed_kernel_phase((("poly", qp_packs[2][2]),
-                                          ("mixed poly", qp_packs[3][2])), s0))
+                                          ("mixed poly", qp_packs[3][2]),
+                                          ("mixed poly e_a 1e-8", big_poly)), s0))
+        reroute_check(big_poly)
+        del big_poly
         # each mode's launches, counted from 0 before it serves or trains
         serve18 = pack_serving_paths(smi_line, (
             ("table_pack+rope", ("folded_pack_lookup", "table_pack_lookup")),

@@ -39,8 +39,8 @@ from repro_torch.core.range_reduce import (exp_edges, exp_fold, exp_reconstruct,
                                            trig_edges, trig_fold, trig_reconstruct,
                                            trig_slope_reconstruct, u32_bits)
 
-from .table_pack import (eval_pack_ref, eval_pack_slope, eval_routed_ref,
-                         make_pack_fn, make_routed_unary_fn)
+from .table_pack import (FOLDABLE, eval_pack_ref, eval_pack_slope,
+                         eval_routed_ref, make_pack_fn, make_routed_unary_fn)
 from .torch_table import slope_rule
 
 FOLDED_MODES = ("folded_pack", "folded_pack_ref",
@@ -50,14 +50,6 @@ FOLDED_MODES = ("folded_pack", "folded_pack_ref",
 # appends them to pack_functions whenever a folded mode (or rope_table) needs
 # them.
 FOLDED_CORE_MEMBERS = ("sin_core", "cos_core", "exp_core", "log_core")
-
-# foldable member -> the core members its reconstruction reads
-FOLDABLE = {
-    "sin": ("sin_core", "cos_core"),
-    "cos": ("sin_core", "cos_core"),
-    "exp": ("exp_core",),
-    "log": ("log_core",),
-}
 
 
 def _check_cores(pack, name: str) -> None:

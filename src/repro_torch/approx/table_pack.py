@@ -94,6 +94,12 @@ class TablePack:
     # flag tuple (routed_extr_operand)
     _extr_operands: Dict[bytes, torch.Tensor] = field(
         default_factory=dict, compare=False, repr=False)
+    # RangeFold's staging images on the pack's device, built once with the
+    # pack: foldable name -> (image, values it holds), for every foldable
+    # name whose core members the pack holds (sin and cos share one image);
+    # see fold_image_layout
+    fold_images: Dict[str, Tuple[torch.Tensor, int]] = field(
+        default_factory=dict, compare=False, repr=False)
 
     def routing_scalars(self) -> Tuple[torch.Tensor, ...]:
         """The routed kernels' per-member operands, gathered by fn_id on the
@@ -136,6 +142,67 @@ def _row_domains(layout: PackLayout) -> Tuple[Tuple[float, float], ...]:
                  for f, n in enumerate(layout.n_intervals))
 
 
+# foldable member -> the core members its reconstruction reads (RangeFold,
+# approx/range_fold.py)
+FOLDABLE = {
+    "sin": ("sin_core", "cos_core"),
+    "cos": ("sin_core", "cos_core"),
+    "exp": ("exp_core",),
+    "log": ("log_core",),
+}
+
+
+def fold_image_layout(n_intervals: Sequence[int]) -> Tuple[Tuple[int, ...], int]:
+    """Where a RangeFold staging image over core rows of ``n_intervals``
+    sub-intervals keeps them, in f32 words: the start of each core's row
+    (its ``n + 1`` boundaries, then its ``n`` inv_delta, base and
+    seg_count) and the start of the values behind the rows.  The folded
+    kernels (``csrc/table_pack_lookup.cu``, ``fold_values_at``) lay it out
+    the same."""
+    starts, at = [], 0
+    for n in n_intervals:
+        starts.append(at)
+        at += 4 * n + 1
+    return tuple(starts), at
+
+
+def _fold_image(layout: PackLayout, cores: Sequence[str]) -> Tuple[np.ndarray, int]:
+    """One foldable kind's staging image (fold_image_layout): what its
+    folded kernel reads of the pack and nothing else.  The core rows (only
+    the real sub-intervals: a scan of the +inf padding never moves the
+    selector), each base rebased into the image, then the cores' values
+    from the first core's first entry to the end of the last cell,
+    zero-padded to a 16-byte multiple so that one bulk copy stages it.
+    Returns (f32 image, values it holds)."""
+    f32 = lambda a: np.asarray(a, np.float64).astype(np.float32)
+    fids = [layout.names.index(c) for c in cores]
+    ns = [layout.n_intervals[f] for f in fids]
+    base = np.asarray(layout.base, np.int64)
+    segs = np.asarray(layout.seg_count, np.int64)
+    v0 = min(int(base[f, :n].min()) for f, n in zip(fids, ns))
+    v1 = max(int((base[f, :n] + segs[f, :n]).max()) for f, n in zip(fids, ns)) + 1
+    starts, v_at = fold_image_layout(ns)
+    img = np.zeros(-(-(v_at + v1 - v0) // 4) * 4, np.float32)
+    for f, n, at in zip(fids, ns, starts):
+        img[at: at + 4 * n + 1] = np.concatenate(
+            [f32(layout.boundaries[f, : n + 1]), f32(layout.inv_delta[f, :n]),
+             f32(base[f, :n] - v0), f32(segs[f, :n])])
+    img[v_at: v_at + v1 - v0] = f32(layout.values[v0:v1])
+    return img, v1 - v0
+
+
+def _fold_images(layout: PackLayout, dev: torch.device):
+    """fold_images of a pack: one image for each set of cores it holds."""
+    images, by_cores = {}, {}
+    for name, cores in FOLDABLE.items():
+        if all(c in layout.names for c in cores):
+            if cores not in by_cores:
+                img, m_img = _fold_image(layout, cores)
+                by_cores[cores] = (torch.from_numpy(img).to(dev), m_img)
+            images[name] = by_cores[cores]
+    return images
+
+
 def from_layout(layout: PackLayout, device: DeviceLike = None) -> TablePack:
     if layout.footprint >= EXACT_INT_LIMIT:
         raise ValueError("pack footprint exceeds f32 exact-integer range")
@@ -151,6 +218,7 @@ def from_layout(layout: PackLayout, device: DeviceLike = None) -> TablePack:
         values=f32_tensor(layout.values, dev),
         domains=_row_domains(layout),
         routing=(_int32_tensor(layout.n_intervals, dev),),
+        fold_images=_fold_images(layout, dev),
     )
 
 
@@ -276,15 +344,21 @@ def make_attn_exp_fn(pack: TablePack, *, use_kernel: bool = True):
 # --------------------------------------------------------------------------------------
 
 
+_NP_CODES = {torch.int8: np.int8, torch.int16: np.int16, torch.float32: np.float32}
+
+
+def _codes_array(codes: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """A width group's codes as stored; an empty group keeps a 1-entry dummy
+    so that the operand stays valid, as in the reference."""
+    if len(codes) == 0:
+        return np.zeros((1,), dtype=_NP_CODES[dtype])
+    return np.asarray(codes).astype(_NP_CODES[dtype])
+
+
 def _codes_tensor(codes: np.ndarray, dtype: torch.dtype,
                   device: torch.device) -> torch.Tensor:
-    """A width group's codes on ``device``; an empty group keeps a 1-entry
-    dummy so that the operand stays valid, as in the reference."""
-    if len(codes) == 0:
-        return torch.zeros((1,), dtype=dtype, device=device)
-    np_dtype = {torch.int8: np.int8, torch.int16: np.int16,
-                torch.float32: np.float32}[dtype]
-    return torch.from_numpy(np.asarray(codes).astype(np_dtype)).to(device)
+    """A width group's codes on ``device`` (:func:`_codes_array`)."""
+    return torch.from_numpy(_codes_array(codes, dtype)).to(device)
 
 
 def _check_exact(*groups: np.ndarray) -> None:
@@ -562,6 +636,10 @@ class PolyTablePack(_RaggedPack):
     # routed dispatch's per-member int32 operands on the pack's device, built
     # once with the pack: see routing_scalars()
     routing: Tuple[torch.Tensor, ...]
+    # the whole pack (routing operands, metadata lanes, code groups) as ONE
+    # int32 buffer on the pack's device, built once with the pack: what a
+    # block of the routed kernels stages where it fits (poly_image_layout)
+    image: torch.Tensor
     _extr_operands: Dict[bytes, torch.Tensor] = field(
         default_factory=dict, compare=False, repr=False)
 
@@ -580,11 +658,61 @@ class PolyTablePack(_RaggedPack):
         return {8: self.codes8, 16: self.codes16, 32: self.codes32}
 
 
+# the sections of a polynomial pack's staging image, in order
+POLY_IMAGE_SECTIONS = ("n_intervals", "bounds_offsets", "lane_offsets", "entry_bits",
+                       "strides", "boundaries", "inv_delta", "base", "seg_count",
+                       "zero", "ramp", "scale", "codes32", "codes16", "codes8")
+
+
+def poly_image_layout(n_functions: int, n_sub: int, lanes: int, m8: int, m16: int,
+                      m32: int) -> Tuple[Dict[str, int], int]:
+    """Where a polynomial pack's staging image keeps each of
+    ``POLY_IMAGE_SECTIONS``, in 32-bit words, and the image's length: the
+    five routing operands
+    (``n_functions`` each), the ``n_sub + n_functions`` boundaries, the
+    ``n_sub`` inv_delta / base / seg_count, the ``n_sub * lanes`` zero /
+    ramp / scale, then the ``m32`` f32, ``m16`` int16 and ``m8`` int8
+    codes.  The routed kernels (``csrc/table_pack_lookup.cu``,
+    ``poly_image``) lay it out the same."""
+    words = ((n_functions,) * 5 + (n_sub + n_functions, n_sub, n_sub, n_sub)
+             + (n_sub * lanes,) * 3 + (m32, (m16 + 1) // 2, (m8 + 3) // 4))
+    starts, at = {}, 0
+    for name, w in zip(POLY_IMAGE_SECTIONS, words):
+        starts[name] = at
+        at += w
+    return starts, at
+
+
+def _poly_image(layout: PolyPackLayout, routing, codes) -> np.ndarray:
+    """The int32 staging image of a polynomial pack (poly_image_layout):
+    ``routing`` its five int32 operands, ``codes`` its (codes8, codes16,
+    codes32) groups as stored."""
+    f32 = lambda a: np.asarray(a, np.float64).astype(np.float32)
+    c8, c16, c32 = codes
+    starts, total = poly_image_layout(len(layout.names), len(layout.inv_delta),
+                                      layout.max_degree + 1, len(c8), len(c16),
+                                      len(c32))
+    parts = tuple(np.asarray(r, np.int32) for r in routing) + tuple(
+        f32(a) for a in (layout.boundaries, layout.inv_delta, layout.base,
+                         layout.seg_count, layout.zero, layout.ramp, layout.scale)
+    ) + (c32, c16, c8)
+    img = np.zeros(total * 4, np.uint8)
+    for name, part in zip(POLY_IMAGE_SECTIONS, parts):
+        raw = np.ascontiguousarray(part).view(np.uint8)
+        img[4 * starts[name]: 4 * starts[name] + raw.size] = raw
+    return img.view(np.int32)
+
+
 def from_poly_layout(layout: PolyPackLayout,
                      device: DeviceLike = None) -> PolyTablePack:
     _check_exact(layout.codes8, layout.codes16, layout.codes32)
     dev = resolve_device(device)
     f32 = lambda a: f32_tensor(a, dev)
+    routing = (layout.n_intervals, layout.bounds_offsets, layout.lane_offsets,
+               layout.entry_bits, [d + 1 for d in layout.degrees])
+    codes = (_codes_array(layout.codes8, torch.int8),
+             _codes_array(layout.codes16, torch.int16),
+             _codes_array(layout.codes32, torch.float32))
     return PolyTablePack(
         names=layout.names,
         n_intervals=layout.n_intervals,
@@ -598,13 +726,12 @@ def from_poly_layout(layout: PolyPackLayout,
         zero=f32(layout.zero),
         ramp=f32(layout.ramp),
         scale=f32(layout.scale),
-        codes8=_codes_tensor(layout.codes8, torch.int8, dev),
-        codes16=_codes_tensor(layout.codes16, torch.int16, dev),
-        codes32=_codes_tensor(layout.codes32, torch.float32, dev),
+        codes8=torch.from_numpy(codes[0]).to(dev),
+        codes16=torch.from_numpy(codes[1]).to(dev),
+        codes32=torch.from_numpy(codes[2]).to(dev),
         domains=_domains(layout),
-        routing=tuple(_int32_tensor(v, dev) for v in (
-            layout.n_intervals, layout.bounds_offsets, layout.lane_offsets,
-            layout.entry_bits, [d + 1 for d in layout.degrees])),
+        routing=tuple(_int32_tensor(v, dev) for v in routing),
+        image=torch.from_numpy(_poly_image(layout, routing, codes)).to(dev),
     )
 
 

@@ -102,16 +102,21 @@ struct TrigFold {
   bool sflip;
 };
 
-TL_HD TrigFold trig_fold(float x) {
+// `ph`: evaluate Payne-Hanek.  A caller may pass false only where x is not
+// big (|x| < 2048), where the selection discards r_ph and q_ph: the folded
+// kernels pass false for a warp none of whose lanes is big.
+TL_HD TrigFold trig_fold(float x, bool ph) {
   const float ax = fabsf(x);
   const float kf = clampf(rintf(x * kTwoOverPi), -4194304.0f, 4194304.0f);
   const float r_cw = ((x - kf * kPio2Hi) - kf * kPio2Mid) - kf * kPio2Lo;
   const int q_cw = to_int(kf) & 3;
   int q_ph = 0;
-  const float r_ph = payne_hanek(ax, &q_ph);
+  const float r_ph = ph ? payne_hanek(ax, &q_ph) : 0.0f;
   const bool big = ax >= kTrigCwMax;
   return TrigFold{big ? r_ph : r_cw, big ? q_ph : q_cw, big && x < 0.0f};
 }
+
+TL_HD TrigFold trig_fold(float x) { return trig_fold(x, true); }
 
 // [ys, yc, -ys, -yc][q] for sin, [yc, -ys, -yc, ys][q] for cos.
 TL_HD float quadrant_select(int kind, float ys, float yc, int q) {
@@ -219,11 +224,11 @@ TL_HD float log_slope_mask(float x) {
 // chain-ruled slope from the same selector passes: the core slopes through
 // the quadrant cycle (trig, 0 on non-finite x), through 2^k (exp, 0 where x
 // or the rescaled slope is not finite), or times m / x (log, 0 off the
-// positive normal numbers).
+// positive normal numbers).  `ph` as trig_fold's.
 TL_HD float folded(int kind, float x, const tl::Row& a, const tl::Row& b,
-                   const float* values, int m, float* slope) {
+                   const float* values, int m, float* slope, bool ph = true) {
   if (kind == kSin || kind == kCos) {
-    const TrigFold f = trig_fold(x);
+    const TrigFold f = trig_fold(x, ph);
     float ys, yc;
     if (slope) {
       float ds, dc;

@@ -101,21 +101,38 @@
 // past kSmemBytes like the static kernels.  The per-element bodies are the
 // static kernels' own (table_lookup.cuh) with the member's values read at run
 // time, so row i is bit-identical to the static launch of member fn_ids[i].
-// The polynomial pack stages its widest member's lanes and its largest code
-// group (int8, int16 or f32), restaging the codes where the width changes;
-// each row runs the static poly kernel's Horner body at its member's own
-// degree (the reference's uniform lmax-lane Horner gives the same bits: a
-// padded lane dequantizes to exactly 0.0).
+// Each row of the polynomial pack runs the static poly kernel's Horner body
+// at its member's own degree (the reference's uniform lmax-lane Horner gives
+// the same bits: a padded lane dequantizes to exactly 0.0).  At the decode
+// gate a block does one work item, so the dependent round trips before its
+// first x load (the id, the member's scalars, its lanes, its code group)
+// set its time.  So where the whole pack fits kSmemBytes (stablelm's is
+// 2.2 KB) a block stages all of it once: the pack's staging image
+// (PolyTablePack.image: routing scalars, every metadata lane, the three
+// code groups, built with the pack) by one register-batched loop, with the
+// call's extrapolate flags, its first id and its first x in flight at the
+// same time; a row of another member then only points at other sections
+// (routed_poly_pack_kernel).  Past the budget a block stages the widest member's lanes and the largest
+// code group, restaging both per member (routed_poly_kernel).
 //
 // RangeFold.  The folded kernels are the static pack body (tl::lookup /
 // lookup_grad, extrapolation off) between the fold prologue and the
 // reconstruction epilogue of range_reduce.cuh, over the flat element count.
-// Trig reads two core rows (sin_core, cos_core): both metadata rows and the
-// shared values are staged once a block.  The fold adds ~40 integer and
-// float operations an element for Payne-Hanek (|x| >= 2048) and ~10 for the
-// other folds; at the rotary shapes (4 * 27 * 40 angles) the kernels are
-// launch-bound.  The kind (sin, cos, exp, log) is a launch argument, uniform
-// over the grid.
+// Trig reads two core rows (sin_core, cos_core), exp and log one.  A block
+// stages only what its kind reads, in one round trip: the kind's staging
+// image (TablePack.fold_images, built with the pack: the core rows over
+// their real sub-intervals, their bases rebased into the image, and the
+// cores' values span, 464 bytes for trig in stablelm's pack against the
+// ~4.3 KB of rows and whole values vector staged before), by one TMA bulk
+// copy on an uncapped grid or one register-batched loop, while each
+// thread's first x load is already in flight (folded_image_kernel).  A pack
+// whose image is past kSmemBytes stages both rows and the values as the
+// budget allows (folded_kernel).  The fold adds ~40 integer and float
+// operations an element for Payne-Hanek (|x| >= 2048) and ~10 for the other
+// folds; a warp none of whose lanes needs Payne-Hanek skips it (a vote; the
+// rotary angles never need it).  At the rotary shapes (4 * 27 * 40 angles)
+// the kernels are launch-bound.  The kind (sin, cos, exp, log) is a launch
+// argument, uniform over the grid.
 //
 // ShardedPack.  The reference runs one Pallas kernel a shard (on the mesh a
 // shard is a device) and sums the outputs outside its kernels.  On one card
@@ -736,14 +753,19 @@ routed_quant_kernel(const T* __restrict__ x, T* __restrict__ out,
   routed_walk(w, ids, n_fn, restage, body);
 }
 
+// Columns [c0, c1) of one routed poly row; with `preloaded`, x0 is this
+// thread's first x of them, already loaded (the whole-pack kernel issues
+// that load before its staging).
 template <typename T, typename C, int kMode>
-__device__ __forceinline__ void routed_poly_cols(const T* x, T* out, T* slope,
-                                                 long long row0, long long c0,
-                                                 long long c1, const tl::PolyRow& pr,
-                                                 const C* cd, int m, bool ex) {
+__device__ __forceinline__ void routed_poly_run(const T* x, T* out, T* slope,
+                                                long long row0, long long c0,
+                                                long long c1, const tl::PolyRow& pr,
+                                                const C* cd, int m, bool ex,
+                                                bool preloaded, float x0) {
   for (long long c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
     const long long idx = row0 + c;
-    const float xv = load_f32(x, idx);
+    const float xv = preloaded ? x0 : load_f32(x, idx);
+    preloaded = false;
     if (kMode == kGrad) {
       float d;
       store_f32(out, idx, tl::poly_lookup(xv, pr, cd, m, ex, &d));
@@ -753,6 +775,14 @@ __device__ __forceinline__ void routed_poly_cols(const T* x, T* out, T* slope,
                                           static_cast<float*>(nullptr)));
     }
   }
+}
+
+template <typename T, typename C, int kMode>
+__device__ __forceinline__ void routed_poly_cols(const T* x, T* out, T* slope,
+                                                 long long row0, long long c0,
+                                                 long long c1, const tl::PolyRow& pr,
+                                                 const C* cd, int m, bool ex) {
+  routed_poly_run<T, C, kMode>(x, out, slope, row0, c0, c1, pr, cd, m, ex, false, 0.0f);
 }
 
 // `codes8` / `codes16` / `codes32` are the three width groups (m8 / m16 / m32
@@ -825,6 +855,115 @@ routed_poly_kernel(const T* __restrict__ x, T* __restrict__ out,
   routed_walk(w, ids, n_fn, restage, body);
 }
 
+// Sections of a polynomial pack's staging image (PolyTablePack.image, laid
+// out by approx/table_pack.py poly_image_layout), in 32-bit words from its
+// start: the routing operands, the metadata lanes and the three code groups;
+// `words` is the image's length.
+struct PolyImage {
+  long long n_arr, bo, lo, bits, strides, bounds, invd, base, segs, zero, ramp, scale,
+      c32, c16, c8, words;
+};
+
+__host__ __device__ __forceinline__ long long image_take(long long* at, long long words) {
+  const long long start = *at;
+  *at += words;
+  return start;
+}
+
+// n_sub: the pack's sub-intervals (every member's); lmax its lanes; m8 /
+// m16 / m32 its code groups' entries.
+__host__ __device__ __forceinline__ PolyImage poly_image(int n_fn, int n_sub, int lmax,
+                                                         int m8, int m16, int m32) {
+  PolyImage p;
+  long long at = 0;
+  const long long nl = static_cast<long long>(n_sub) * lmax;
+  p.n_arr = image_take(&at, n_fn);
+  p.bo = image_take(&at, n_fn);
+  p.lo = image_take(&at, n_fn);
+  p.bits = image_take(&at, n_fn);
+  p.strides = image_take(&at, n_fn);
+  p.bounds = image_take(&at, static_cast<long long>(n_sub) + n_fn);
+  p.invd = image_take(&at, n_sub);
+  p.base = image_take(&at, n_sub);
+  p.segs = image_take(&at, n_sub);
+  p.zero = image_take(&at, nl);
+  p.ramp = image_take(&at, nl);
+  p.scale = image_take(&at, nl);
+  p.c32 = image_take(&at, m32);
+  p.c16 = image_take(&at, (m16 + 1LL) / 2);
+  p.c8 = image_take(&at, (m8 + 3LL) / 4);
+  p.words = at;
+  return p;
+}
+
+// The routed poly kernel where the whole pack fits kSmemBytes (the launch
+// decides): every block stages the pack's staging image (one register-batched
+// loop: tools/torch_kernel_ab.py timed it 0.13 us faster at the decode gate
+// than one TMA bulk copy of stablelm's 2.2 KB) and the call's per-member
+// extrapolate flags, with this block's first id and each thread's first x
+// already in flight; entering another member's row then only points at
+// other sections of shared memory (no loads, no barrier), and the next row's
+// id is loaded while this row runs.  The per-element body is
+// routed_poly_kernel's, at the member's own degree.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kThreads)
+routed_poly_pack_kernel(const T* __restrict__ x, T* __restrict__ out,
+                        T* __restrict__ slope, RoutedWork w, const int* __restrict__ ids,
+                        const int* __restrict__ extr, const int* __restrict__ image,
+                        PolyImage im, int n_fn, int lmax, int m8, int m16, int m32) {
+  extern __shared__ __align__(16) float smem[];
+  const int* si = reinterpret_cast<const int*>(smem);
+  int* sflags = reinterpret_cast<int*>(smem + im.words);
+  const long long w0 = static_cast<long long>(blockIdx.x) * w.per;
+  long long left = w0 + w.per < w.items ? w.per : w.items - w0;  // tiles to do
+  long long r = w0 / w.tiles;
+  long long t = w0 - r * w.tiles;  // first tile within row r
+  // in flight while the image lands: the first row's id, this thread's first
+  // x and the flags
+  int id = ids[r];
+  const long long c_first = t * kRoutedTile + threadIdx.x;
+  const float x_first = c_first < w.cols ? load_f32(x, r * w.cols + c_first) : 0.0f;
+  const int flag = threadIdx.x < n_fn ? extr[threadIdx.x] : 0;
+  stage_copy(smem, reinterpret_cast<const float*>(image), static_cast<int>(im.words),
+             true);
+  if (threadIdx.x < n_fn) sflags[threadIdx.x] = flag;
+  for (int k = threadIdx.x + blockDim.x; k < n_fn; k += blockDim.x) sflags[k] = extr[k];
+  __syncthreads();
+  bool first = true;
+  while (left > 0) {
+    const int fid = id < 0 ? 0 : (id > n_fn - 1 ? n_fn - 1 : id);
+    const long long nt = w.tiles - t < left ? w.tiles - t : left;
+    if (left > nt) id = ids[r + 1];  // the next row's, loaded while this row runs
+    const int nn = si[im.n_arr + fid];
+    const int bo = si[im.bo + fid], lo = si[im.lo + fid];
+    const bool ex = sflags[fid] != 0;
+    const long long lane0 = static_cast<long long>(lo) * lmax;
+    const tl::PolyRow pr{smem + im.bounds + bo, smem + im.invd + lo, smem + im.base + lo,
+                         smem + im.segs + lo, smem + im.zero + lane0,
+                         smem + im.ramp + lane0, smem + im.scale + lane0,
+                         nn, lmax, si[im.strides + fid] - 1};
+    const long long c0 = t * kRoutedTile;
+    const long long c1 = c0 + nt * kRoutedTile < w.cols ? c0 + nt * kRoutedTile : w.cols;
+    const int bits = si[im.bits + fid];
+    if (bits == 8) {
+      routed_poly_run<T, int8_t, kMode>(x, out, slope, r * w.cols, c0, c1, pr,
+                                        reinterpret_cast<const int8_t*>(smem + im.c8),
+                                        m8, ex, first, x_first);
+    } else if (bits == 16) {
+      routed_poly_run<T, int16_t, kMode>(x, out, slope, r * w.cols, c0, c1, pr,
+                                         reinterpret_cast<const int16_t*>(smem + im.c16),
+                                         m16, ex, first, x_first);
+    } else {
+      routed_poly_run<T, float, kMode>(x, out, slope, r * w.cols, c0, c1, pr,
+                                       smem + im.c32, m32, ex, first, x_first);
+    }
+    first = false;
+    left -= nt;
+    ++r;
+    t = 0;
+  }
+}
+
 // ---- RangeFold ----------------------------------------------------------------
 
 // The f32 pack's core rows fid_a and fid_b (equal for exp and log) are staged
@@ -868,6 +1007,72 @@ folded_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slop
       store_f32(out, idx, rr::folded(kind, xv, a, b, vals, m,
                                      static_cast<float*>(nullptr)));
     }
+  }
+}
+
+// A RangeFold staging image (TablePack.fold_images, laid out by
+// approx/table_pack.py fold_image_layout): core row a (n_a + 1 boundaries,
+// then n_a inv_delta, base rebased into the image and seg_count), core row b
+// of n_b when the kind reads two (trig), then the cores' values, padded to a
+// 16-byte multiple.  Where the values start, and the image's f32 words:
+__host__ __device__ __forceinline__ int fold_values_at(int n_a, int n_b, bool two) {
+  return 4 * n_a + 1 + (two ? 4 * n_b + 1 : 0);
+}
+__host__ __device__ __forceinline__ long long fold_image_floats(int n_a, int n_b,
+                                                                bool two, int m_img) {
+  return (fold_values_at(n_a, n_b, two) + static_cast<long long>(m_img) + 3) / 4 * 4;
+}
+
+// One core row of n sub-intervals at `p` in a staging image.
+__device__ __forceinline__ tl::Row image_row(const float* p, int n) {
+  return tl::Row{p, p + n + 1, p + 2 * n + 1, p + 3 * n + 1, n, n};
+}
+
+// The folded kernels where the kind's staging image fits kSmemBytes (the
+// launch decides).  Each thread's first x load is issued before the
+// staging, which is ONE round trip for the image (a TMA bulk copy where
+// `bulk` and the image is 16-byte aligned, else one register-batched loop);
+// the grid-stride loop loads the next x before this one's arithmetic.  The
+// loop runs warp by warp (its bound is the warp's first index), so that a
+// warp with no lane at |x| >= 2048 skips Payne-Hanek (a vote over all 32
+// lanes; the ragged tail's lanes past n vote false).  The image's rows scan
+// only their real sub-intervals: the +inf padding of a pack row never moves
+// the selector, so the bits are the pack rows'.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kThreads)
+folded_image_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
+                    long long n, const float* __restrict__ image, int n_a, int n_b,
+                    int m_img, int kind, int bulk) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t bar;
+  const bool trig = kind == rr::kSin || kind == rr::kCos;
+  long long idx = first_index();
+  float xv = idx < n ? load_f32(x, idx) : 0.0f;  // in flight while the image lands
+  const bool in_flight =
+      slab_start(smem, image, static_cast<int>(fold_image_floats(n_a, n_b, trig, m_img)),
+                 bulk != 0, &bar);
+  __syncthreads();
+  if (in_flight) slab_wait(&bar);
+  const tl::Row a = image_row(smem, n_a);
+  const tl::Row b = trig ? image_row(smem + 4 * n_a + 1, n_b) : a;
+  const float* vals = smem + fold_values_at(n_a, n_b, trig);
+  const long long stride = grid_stride();
+  for (; idx - threadIdx.x % 32 < n; idx += stride) {
+    const bool live = idx < n;
+    const float xn = idx + stride < n ? load_f32(x, idx + stride) : 0.0f;
+    const bool ph =
+        trig && __any_sync(0xffffffffu, live && fabsf(xv) >= rr::kTrigCwMax);
+    if (live) {
+      if (kMode == kGrad) {
+        float d;
+        store_f32(out, idx, rr::folded(kind, xv, a, b, vals, m_img, &d, ph));
+        store_f32(slope, idx, d);
+      } else {
+        store_f32(out, idx, rr::folded(kind, xv, a, b, vals, m_img,
+                                       static_cast<float*>(nullptr), ph));
+      }
+    }
+    xv = xn;
   }
 }
 
@@ -1157,24 +1362,41 @@ cudaError_t launch_routed_quant(const void* x, void* out, void* slope, long long
 }
 
 // lmax: the pack's lanes (max degree + 1); max_n: the widest member's interval
-// count; m8 / m16 / m32: the three code groups' sizes.  The staging holds the
-// widest member's seven lanes and the largest group.  Refuses what
-// launch_routed refuses, an empty code group and lmax outside [1, 4].
+// count; m8 / m16 / m32: the three code groups' sizes; n_sub: the pack's
+// sub-intervals.  Where the staging image and the flags fit kSmemBytes, a
+// block stages the whole pack (routed_poly_pack_kernel); otherwise
+// routed_poly_kernel's staging holds the widest member's seven lanes and the
+// largest group, restaged per member.  Refuses what launch_routed refuses,
+// an empty code group, lmax outside [1, 4] and a sub-interval count below
+// the widest member's.
 template <int kMode>
 cudaError_t launch_routed_poly(const void* x, void* out, void* slope, long long n,
                                int dtype, const int* const* routing,
                                const float* const* planes, const void* codes8,
-                               const void* codes16, const void* codes32, int n_fn,
-                               int max_n, int lmax, int m8, int m16, int m32,
-                               int rows, cudaStream_t stream) {
+                               const void* codes16, const void* codes32,
+                               const void* image, int n_fn, int max_n, int lmax, int m8,
+                               int m16, int m32, int n_sub, int rows,
+                               cudaStream_t stream) {
   if (n_fn < 1 || max_n < 1 || lmax < 1 || lmax > tl::kMaxLanes || m8 < 1 ||
-      m16 < 1 || m32 < 1 || rows < 1 || n < 0 || n % rows != 0 ||
+      m16 < 1 || m32 < 1 || n_sub < max_n || rows < 1 || n < 0 || n % rows != 0 ||
       (kMode == kGrad && !slope)) {
     return cudaErrorInvalidValue;
   }
   if (n == 0) return cudaSuccess;
   int blocks = 0;
   const RoutedWork w = routed_work(n, rows, &blocks);
+  const PolyImage im = poly_image(n_fn, n_sub, lmax, m8, m16, m32);
+  const long long whole = 4 * (im.words + n_fn);
+  if (whole <= kSmemBytes) {
+#define TP_ROUTED_POLY_PACK(T, ...)                                                    \
+  routed_poly_pack_kernel<T, kMode><<<blocks, kThreads, whole, stream>>>(              \
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), w,       \
+      routing[0], routing[2], static_cast<const int*>(image), im, n_fn, lmax, m8, m16, \
+      m32)
+    TP_DISPATCH_DTYPE(dtype, TP_ROUTED_POLY_PACK, 0);
+#undef TP_ROUTED_POLY_PACK
+    return cudaGetLastError();
+  }
   long long code_bytes = m8 > 2LL * m16 ? m8 : 2LL * m16;
   code_bytes = code_bytes > 4LL * m32 ? code_bytes : 4LL * m32;
   const Staging st = staging_for(4LL * max_n + 1 + 3LL * max_n * lmax, code_bytes);
@@ -1191,22 +1413,39 @@ cudaError_t launch_routed_poly(const void* x, void* out, void* slope, long long 
   return cudaGetLastError();
 }
 
-// kind: rr::Kind (0 sin, 1 cos, 2 exp, 3 log).  Refuses an empty or
-// inconsistent core row, a values vector of fewer than two entries, an
-// unknown kind and an unknown dtype.
+// kind: rr::Kind (0 sin, 1 cos, 2 exp, 3 log); m_img: the values in the
+// kind's staging image.  Where the image fits kSmemBytes, folded_image_kernel
+// stages it (by a TMA bulk copy where the scalar grid is not capped, as
+// launch_spack's slab); otherwise folded_kernel stages the two core rows and
+// the values as the budget allows.  Refuses an empty or inconsistent core
+// row, a values vector (or image) of fewer than two entries, an unknown kind
+// and an unknown dtype.
 template <int kMode>
 cudaError_t launch_folded(const void* x, void* out, void* slope, long long n,
                           int dtype, const float* bounds, const float* invd,
                           const float* base, const float* segs, const float* values,
-                          int fid_a, int fid_b, int n_max, int n_a, int n_b, int m,
-                          int kind, cudaStream_t stream) {
+                          const float* image, int fid_a, int fid_b, int n_max, int n_a,
+                          int n_b, int m, int kind, int m_img, cudaStream_t stream) {
   if (n_max < 1 || n_a < 1 || n_a > n_max || n_b < 1 || n_b > n_max || fid_a < 0 ||
-      fid_b < 0 || m < 2 || kind < rr::kSin || kind > rr::kLog || n < 0 ||
-      (kMode == kGrad && !slope)) {
+      fid_b < 0 || m < 2 || m_img < 2 || m_img > m || kind < rr::kSin ||
+      kind > rr::kLog || n < 0 || (kMode == kGrad && !slope)) {
     return cudaErrorInvalidValue;
   }
   if (n == 0) return cudaSuccess;
   const int blocks = grid_for(n);
+  const bool trig = kind == rr::kSin || kind == rr::kCos;
+  const long long image_bytes = 4 * fold_image_floats(n_a, n_b, trig, m_img);
+  if (image_bytes <= kSmemBytes) {
+    const bool capped = (n + kThreads - 1) / kThreads >
+                        static_cast<long long>(sm_count()) * kBlocksPerSM;
+#define TP_FOLDED_IMAGE(T, ...)                                                        \
+  folded_image_kernel<T, kMode><<<blocks, kThreads, image_bytes, stream>>>(            \
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), n,       \
+      image, n_a, n_b, m_img, kind, !capped)
+    TP_DISPATCH_DTYPE(dtype, TP_FOLDED_IMAGE, 0);
+#undef TP_FOLDED_IMAGE
+    return cudaGetLastError();
+  }
   const Staging st = staging_for(2LL * (4LL * n_max + 1), 4LL * m);
 #define TP_FOLDED(T, ...)                                                              \
   folded_kernel<T, kMode><<<blocks, kThreads, st.bytes, stream>>>(                     \
@@ -1405,18 +1644,22 @@ extern "C" cudaError_t tp_routed_quant_grad(
 // width groups passed (codes8 of m8 entries, codes16 of m16, codes32 of m32
 // raw f32 coefficients); lmax is the pack's lane count.  Plane order: bounds,
 // invd, base, segs, zero, ramp, scale (the dequant planes lane-padded).
+// `image` is the pack's staging image (PolyTablePack.image) and n_sub its
+// sub-interval count.
 extern "C" cudaError_t tp_routed_poly_lookup(
     const void* x, void* out, long long n, int dtype, const int* ids,
     const int* n_arr, const int* extr, const int* bo, const int* lo, const int* bits,
     const int* strides, const float* bounds, const float* invd, const float* base,
     const float* segs, const float* zero, const float* ramp, const float* scale,
-    const void* codes8, const void* codes16, const void* codes32, int n_fn,
-    int max_n, int lmax, int m8, int m16, int m32, int rows, void* stream) {
+    const void* codes8, const void* codes16, const void* codes32, const void* image,
+    int n_fn, int max_n, int lmax, int m8, int m16, int m32, int n_sub, int rows,
+    void* stream) {
   const int* routing[7] = {ids, n_arr, extr, bo, lo, bits, strides};
   const float* planes[7] = {bounds, invd, base, segs, zero, ramp, scale};
   return launch_routed_poly<kValue>(x, out, nullptr, n, dtype, routing, planes,
-                                    codes8, codes16, codes32, n_fn, max_n, lmax, m8,
-                                    m16, m32, rows, static_cast<cudaStream_t>(stream));
+                                    codes8, codes16, codes32, image, n_fn, max_n, lmax,
+                                    m8, m16, m32, n_sub, rows,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t tp_routed_poly_grad(
@@ -1424,38 +1667,41 @@ extern "C" cudaError_t tp_routed_poly_grad(
     const int* n_arr, const int* extr, const int* bo, const int* lo, const int* bits,
     const int* strides, const float* bounds, const float* invd, const float* base,
     const float* segs, const float* zero, const float* ramp, const float* scale,
-    const void* codes8, const void* codes16, const void* codes32, int n_fn,
-    int max_n, int lmax, int m8, int m16, int m32, int rows, void* stream) {
+    const void* codes8, const void* codes16, const void* codes32, const void* image,
+    int n_fn, int max_n, int lmax, int m8, int m16, int m32, int n_sub, int rows,
+    void* stream) {
   const int* routing[7] = {ids, n_arr, extr, bo, lo, bits, strides};
   const float* planes[7] = {bounds, invd, base, segs, zero, ramp, scale};
   return launch_routed_poly<kGrad>(x, y, slope, n, dtype, routing, planes, codes8,
-                                   codes16, codes32, n_fn, max_n, lmax, m8, m16, m32,
-                                   rows, static_cast<cudaStream_t>(stream));
+                                   codes16, codes32, image, n_fn, max_n, lmax, m8, m16,
+                                   m32, n_sub, rows, static_cast<cudaStream_t>(stream));
 }
 
 // RangeFold over the f32 pack: member rows fid_a / fid_b are the core members
 // (sin_core and cos_core for kind sin or cos; fid_b = fid_a = exp_core or
 // log_core for exp or log) with n_a / n_b real sub-intervals; values has m
-// entries.
+// entries; `image` is the kind's staging image (TablePack.fold_images),
+// holding m_img of the values.
 extern "C" cudaError_t tp_folded_lookup(const void* x, void* out, long long n,
                                         int dtype, const float* bounds,
                                         const float* invd, const float* base,
                                         const float* segs, const float* values,
-                                        int fid_a, int fid_b, int n_max, int n_a,
-                                        int n_b, int m, int kind, void* stream) {
+                                        const float* image, int fid_a, int fid_b,
+                                        int n_max, int n_a, int n_b, int m, int kind,
+                                        int m_img, void* stream) {
   return launch_folded<kValue>(x, out, nullptr, n, dtype, bounds, invd, base, segs,
-                               values, fid_a, fid_b, n_max, n_a, n_b, m, kind,
-                               static_cast<cudaStream_t>(stream));
+                               values, image, fid_a, fid_b, n_max, n_a, n_b, m, kind,
+                               m_img, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t tp_folded_grad(const void* x, void* y, void* slope, long long n,
                                       int dtype, const float* bounds, const float* invd,
                                       const float* base, const float* segs,
-                                      const float* values, int fid_a, int fid_b,
-                                      int n_max, int n_a, int n_b, int m, int kind,
-                                      void* stream) {
+                                      const float* values, const float* image,
+                                      int fid_a, int fid_b, int n_max, int n_a, int n_b,
+                                      int m, int kind, int m_img, void* stream) {
   return launch_folded<kGrad>(x, y, slope, n, dtype, bounds, invd, base, segs, values,
-                              fid_a, fid_b, n_max, n_a, n_b, m, kind,
+                              image, fid_a, fid_b, n_max, n_a, n_b, m, kind, m_img,
                               static_cast<cudaStream_t>(stream));
 }
 

@@ -14,7 +14,10 @@ boundary offsets, lane offsets and code widths, and the polynomial pack's
 coefficient strides), then the pack's planes (every code group of the
 quantized or polynomial pack), then the row count.  The folded entries take
 the f32 pack's five planes and the core members' ids and interval counts and
-the fold's kind.  The sharded entries take bounds, invd, the
+the fold's kind, and the kind's staging image (``TablePack.fold_images``)
+with the values it holds; the routed polynomial entries also the pack's
+staging image (``PolyTablePack.image``) and its sub-interval count.  The
+sharded entries take bounds, invd, the
 owner-rebased base, segs, the owner plane and every shard's padded values
 slice (the routed ones after the three routing vectors), the shard count and
 a shard range ``[s_begin, s_end)`` that one launch sums.
@@ -76,13 +79,15 @@ _ENTRIES = {
     # n_fn, max_n, m8, m16, rows
     "tp_routed_quant_lookup": (1, 15, 5),
     "tp_routed_quant_grad": (2, 15, 5),
-    # fid_a, fid_b, n_max, n_a, n_b, m, kind (0 sin, 1 cos, 2 exp, 3 log)
-    "tp_folded_lookup": (1, 5, 7),
-    "tp_folded_grad": (2, 5, 7),
+    # 5 f32 planes + the kind's staging image; fid_a, fid_b, n_max, n_a, n_b,
+    # m, kind (0 sin, 1 cos, 2 exp, 3 log), the values in the image
+    "tp_folded_lookup": (1, 6, 8),
+    "tp_folded_grad": (2, 6, 8),
     # ids, n_arr, extr, bo, lo, bits, strides + 7 f32 planes + codes8, codes16,
-    # codes32; n_fn, max_n, lmax, m8, m16, m32, rows
-    "tp_routed_poly_lookup": (1, 17, 7),
-    "tp_routed_poly_grad": (2, 17, 7),
+    # codes32 + the pack's staging image; n_fn, max_n, lmax, m8, m16, m32,
+    # the sub-interval count, rows
+    "tp_routed_poly_lookup": (1, 18, 8),
+    "tp_routed_poly_grad": (2, 18, 8),
     # bounds, invd, obase, segs, owner, values (the owner-rebased-base and
     # owner planes, every shard's slice); fn_id, n_max, n_intervals, m_max,
     # n_shards, s_begin, s_end, extrapolate (+ slope for the value): one

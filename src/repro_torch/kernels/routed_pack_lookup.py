@@ -112,16 +112,19 @@ def _routed_quant_args(pack: QuantTablePack, fn_ids, x: torch.Tensor, extrapolat
 
 
 def _routed_poly_args(pack: PolyTablePack, fn_ids, x: torch.Tensor, extrapolate):
-    """(planes, ints) of a poly-pack routed entry point."""
+    """(planes, ints) of a poly-pack routed entry point: the routing
+    operands, the pack's planes and code groups and its staging image, the
+    sizes and the sub-interval count that lay the image out."""
     rows = _rows(x)
     n_arr, bo, lo, bits, strides = pack.routing_scalars()
     return ((_fn_id_operand(pack, fn_ids, rows).contiguous(), n_arr,
              routed_extr_operand(pack, extrapolate), bo, lo, bits, strides,
              pack.boundaries, pack.inv_delta, pack.base, pack.seg_count, pack.zero,
-             pack.ramp, pack.scale, pack.codes8, pack.codes16, pack.codes32),
+             pack.ramp, pack.scale, pack.codes8, pack.codes16, pack.codes32,
+             pack.image),
             (pack.n_functions, max(pack.n_intervals), pack.max_lanes,
              pack.codes8.shape[0], pack.codes16.shape[0], pack.codes32.shape[0],
-             rows))
+             pack.inv_delta.shape[0], rows))
 
 
 def routed_pack_lookup_plain(pack: TablePack, fn_ids, x: torch.Tensor, *,

@@ -248,19 +248,22 @@ FOLD_KIND = {"sin": 0, "cos": 1, "exp": 2, "log": 3}
 
 
 def _folded_args(pack: TablePack, name: str):
-    """(planes, ints) of a folded entry point: the core members' fn_ids
-    (``fid_b = fid_a`` for exp and log) and interval counts, resolved as the
-    reference's ``_folded_prep`` does; a non-foldable name raises its
-    ``KeyError``."""
+    """(planes, ints) of a folded entry point: the pack's planes and the
+    kind's staging image (``pack.fold_images``, built with the pack), the
+    core members' fn_ids (``fid_b = fid_a`` for exp and log) and interval
+    counts, resolved as the reference's ``_folded_prep`` does, and the
+    values the image holds; a non-foldable name raises its ``KeyError``."""
     if name not in FOLDABLE:
         raise KeyError(f"folded kernel serves {sorted(FOLDABLE)}, got {name!r}; "
                        f"use table_pack_lookup for plain members")
     cores = FOLDABLE[name]
     fid_a = pack.member_id(cores[0])
     fid_b = pack.member_id(cores[1]) if len(cores) > 1 else fid_a
-    return ((pack.boundaries, pack.inv_delta, pack.base, pack.seg_count, pack.values),
+    image, m_img = pack.fold_images[name]
+    return ((pack.boundaries, pack.inv_delta, pack.base, pack.seg_count, pack.values,
+             image),
             (fid_a, fid_b, pack.n_max, pack.n_intervals[fid_a],
-             pack.n_intervals[fid_b], pack.footprint, FOLD_KIND[name]))
+             pack.n_intervals[fid_b], pack.footprint, FOLD_KIND[name], m_img))
 
 
 def folded_pack_lookup_plain(pack: TablePack, name: str,

@@ -537,8 +537,24 @@ def routed_packs(cuda, pack, quant, poly, mixed):
     mixed_w = from_quant_layout(quant_pack_layout(
         [plan_quant_member(n, 1e-4, dtype=d) for n, d in MIXED_WIDTHS]), cuda)
     fine = build_quant_pack(NAMES, 1e-6, omega=0.2, device=cuda)
+    # the mixed poly pack at e_a 1e-8: past the 48 KB a block stages whole
+    # (the per-member restage)
+    big = from_poly_layout(poly_pack_layout(
+        [design.poly_member(n, 1e-8, degree=d, bits=b) for n, d, b in MIXED]), cuda)
     return {"f32": pack, "quant": quant, "mixed": mixed_w, "quant_1e-6": fine,
-            "poly": poly, "mixed_poly": mixed}
+            "poly": poly, "mixed_poly": mixed, "poly_past_budget": big}
+
+
+SMEM_BUDGET = 48 * 1024  # the kernels' dynamic shared memory (kSmemBytes)
+
+
+def test_routed_poly_staging_paths(routed_packs):
+    """stablelm's and the mixed poly packs fit a block's budget whole (image
+    and flags), so their routed launches stage the whole pack; the pack at
+    e_a 1e-8 does not, so its launches restage per member."""
+    for kind, whole in (("poly", True), ("mixed_poly", True), ("poly_past_budget", False)):
+        pk = routed_packs[kind]
+        assert (4 * (pk.image.numel() + pk.n_functions) <= SMEM_BUDGET) == whole, kind
 
 
 def _routed_fns(pack):
@@ -595,7 +611,7 @@ def _routed_check(pack, ids, x, ex):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("flags", ["off", "on", "per_member"])
 @pytest.mark.parametrize("kind", ["f32", "quant", "mixed", "quant_1e-6", "poly",
-                                  "mixed_poly"])
+                                  "mixed_poly", "poly_past_budget"])
 def test_routed_kernels_bitwise(routed_packs, kind, flags, dtype):
     pk = routed_packs[kind]
     F = pk.n_functions
@@ -610,7 +626,7 @@ def test_routed_kernels_bitwise(routed_packs, kind, flags, dtype):
     _routed_check(pk, raw, x, ex)
 
 
-@pytest.mark.parametrize("kind", ["f32", "quant", "poly"])
+@pytest.mark.parametrize("kind", ["f32", "quant", "poly", "poly_past_budget"])
 def test_routed_rows_beyond_grid_limit(routed_packs, kind):
     """70,000 rows of 3 (more rows than a CUDA grid's y or z extent holds)."""
     pk = routed_packs[kind]
@@ -621,7 +637,8 @@ def test_routed_rows_beyond_grid_limit(routed_packs, kind):
         _routed_check(pk, ids, x, ex)
 
 
-@pytest.mark.parametrize("kind", ["f32", "quant", "poly", "mixed_poly"])
+@pytest.mark.parametrize("kind", ["f32", "quant", "poly", "mixed_poly",
+                                  "poly_past_budget"])
 def test_routed_cuda_graph_reroute(routed_packs, kind):
     """A routed call captured in a CUDA graph reads the ids tensor at replay:
     rewriting it in place re-routes the replay, with no capture anew."""
@@ -998,6 +1015,33 @@ def fold_pack(cuda):
     return ApproxConfig(mode="folded_pack", e_a=1e-4, omega=0.2).pack(cuda)
 
 
+@pytest.fixture(scope="module")
+def fold_packs(fold_pack):
+    """stablelm's folded pack (every kind's staging image fits a block's 48
+    KB) and the cores at e_a 1e-10 (every image past it: the launches stage
+    as the budget allows and read the rest from global memory)."""
+    big = build_pack(("sin_core", "cos_core", "exp_core", "log_core"), 1e-10,
+                     omega=0.2, device="cuda")
+    for pk, fits in ((fold_pack, True), (big, False)):
+        for name in FOLDED:
+            assert (4 * pk.fold_images[name][0].numel() <= SMEM_BUDGET) == fits
+    return {"image": fold_pack, "past_budget": big}
+
+
+def payne_hanek_by_warp(n, seed):
+    """n angles, warp by warp (32 lanes): all below 2048; Payne-Hanek lanes
+    (|x| >= 2048) interleaved with small ones; all Payne-Hanek; one
+    Payne-Hanek lane; and so on cyclically (a ragged n leaves a partial last
+    warp)."""
+    rng = np.random.default_rng(seed)
+    small = rng.uniform(-2047.0, 2047.0, n)
+    big = np.exp(rng.uniform(7.63, 87.0, n)) * rng.choice([-1.0, 1.0], n)
+    lane, warp = np.arange(n) % 32, (np.arange(n) // 32) % 4
+    take_big = np.select([warp == 0, warp == 1, warp == 2, warp == 3],
+                         [False, lane % 2 == 1, True, lane == 17])
+    return torch.from_numpy(np.where(take_big, big, small).astype(np.float32)).cuda()
+
+
 def fullrange_input(shape, dtype, seed=0):
     """The full-range samples of tests/harness/fullrange.py (every decade,
     both signs, near-multiples of pi/2 in both reduction regimes, powers of
@@ -1013,10 +1057,13 @@ def fullrange_input(shape, dtype, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", FOLDED)
-def test_folded_kernels_bitwise(fold_pack, name, dtype):
+@pytest.mark.parametrize("which", ["image", "past_budget"])
+def test_folded_kernels_bitwise(fold_packs, which, name, dtype):
     """Value and value + slope kernels bitwise against their plain versions
     over the full f32 range (Payne-Hanek lanes and subnormals included), at
-    the rotary shapes and a ragged size."""
+    the rotary shapes and a ragged size, staging the kind's image and past
+    its budget."""
+    fold_pack = fold_packs[which]
     for i, shape in enumerate(ROPE_SHAPES + [(70_000,)]):
         x = fullrange_input(shape, dtype, seed=i)
         got = K.folded_pack_lookup(fold_pack, name, x)
@@ -1035,6 +1082,27 @@ def test_folded_kernels_bitwise(fold_pack, name, dtype):
     want_y, want_s = K.folded_pack_grad_plain(fold_pack, name, big)
     assert_bitwise(y, want_y)
     assert_bitwise(s, want_s)
+
+
+@pytest.mark.parametrize("which", ["image", "past_budget"])
+def test_folded_payne_hanek_lanes_by_warp(fold_packs, which):
+    """sin and cos, value and value + slope, at the rotary shapes and a
+    ragged size: warps with no Payne-Hanek lane (which skip it), warps
+    mixing them with small lanes, warps of Payne-Hanek lanes alone and a
+    partial last warp; bitwise the plain versions."""
+    pk = fold_packs[which]
+    for i, shape in enumerate(ROPE_SHAPES[:3] + [(32 * 37 + 13,)]):
+        x = payne_hanek_by_warp(int(np.prod(shape)), seed=i).reshape(shape)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            for name in ("sin", "cos"):
+                got = K.folded_pack_lookup(pk, name, xd)
+                y, s = K.folded_pack_grad(pk, name, xd)
+                torch.cuda.synchronize()
+                want_y, want_s = K.folded_pack_grad_plain(pk, name, xd)
+                assert_bitwise(got, K.folded_pack_lookup_plain(pk, name, xd))
+                assert_bitwise(y, want_y)
+                assert_bitwise(s, want_s)
 
 
 def test_folded_wrappers_contract(fold_pack):

@@ -57,7 +57,7 @@ from repro.kernels.table_pack_lookup import (folded_pack_grad_pallas,
                                              folded_pack_lookup_pallas)
 from repro_torch import approx as port_approx
 from repro_torch.approx import (FOLDED_CORE_MEMBERS, FOLDED_MODES, SHARDED_MODES,
-                                TABLE_MODES, ApproxConfig, range_fold)
+                                TABLE_MODES, ApproxConfig, range_fold, table_pack)
 from repro_torch.core import range_reduce as rr
 from repro_torch.kernels import _lib
 from repro_torch.kernels import table_pack_lookup as K
@@ -306,6 +306,44 @@ def test_folded_routed_plain_and_kernel_shapes(packs, name):
                                                                    use_pallas=False))
     want = rf_ref.eval_folded_routed(jp, name, xj, use_pallas=True)
     _assert_within_interp(name, got_k.numpy(), want)
+
+
+@pytest.mark.parametrize("name", FOLDED_FUNCS)
+def test_fold_image_covers_every_read(packs, name):
+    """The kind's staging image (``TablePack.fold_images``, what a block of
+    the folded kernels stages on the card) holds every float the folded
+    lookup reads: its rebased core rows address the same floats as the
+    pack's rows, and with every value of the pack outside the image's span
+    poisoned with NaN the plain value and slope keep their bits over the
+    full-range samples (subnormals and the specials included)."""
+    _, tp = packs
+    image, m_img = tp.fold_images[name]
+    img = image.numpy()
+    cores = [tp.fn_id(c) for c in range_fold.FOLDABLE[name]]
+    starts, v_at = table_pack.fold_image_layout([tp.n_intervals[f] for f in cores])
+    assert image.dtype == torch.float32 and image.is_contiguous()
+    assert img.size % 4 == 0 and v_at + m_img <= img.size < v_at + m_img + 4
+    vals, v0 = img[v_at: v_at + m_img], set()
+    for f, at in zip(cores, starts):
+        n = tp.n_intervals[f]
+        rows = [img[at: at + n + 1]] + [img[at + n + 1 + k * n: at + 2 * n + 1 + k * n]
+                                        for k in range(3)]
+        assert_bitwise(rows[0], tp.boundaries[f, : n + 1].numpy())
+        assert_bitwise(rows[1], tp.inv_delta[f, :n].numpy())
+        assert_bitwise(rows[3], tp.seg_count[f, :n].numpy())
+        pbase = tp.base[f, :n].numpy()
+        v0 |= set((pbase - rows[2]).tolist())
+        for j in range(n):  # every cell's values, from the image and the pack
+            k = np.arange(int(rows[3][j]) + 1)
+            assert_bitwise(vals[int(rows[2][j]) + k], tp.values.numpy()[int(pbase[j]) + k])
+    (v0,) = v0  # one shift rebases every core row
+    poisoned = tp.values.clone()
+    poisoned[: int(v0)] = float("nan")
+    poisoned[int(v0) + m_img:] = float("nan")
+    bad = dataclasses.replace(tp, values=poisoned)
+    x = torch.from_numpy(np.concatenate([SPECIALS, fullrange_samples(fast=True, seed=12)]))
+    for fn in (range_fold.eval_folded_ref, range_fold.eval_folded_slope):
+        assert_bitwise(fn(bad, name, x).numpy(), fn(tp, name, x).numpy())
 
 
 def test_folded_routed_plain_members_fall_through(packs):

@@ -109,6 +109,46 @@ def test_layout_offsets_match_reference(mixed):
     assert set(t.entry_bits) == {8, 16, 32} and len(set(t.degrees)) == 3
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_staging_image_covers_every_read(kind, request):
+    """The pack's staging image (``PolyTablePack.image``, what a block of the
+    routed poly kernels stages on the card where it fits) holds every value
+    they read: its routing sections are the routing operands, and a pack
+    whose planes and code groups are all read from the image's sections
+    (nothing of the pack outside them) gives the routed plain value and
+    slope with the same bits, extrapolation off, on and per member."""
+    _, tp = _packs(kind, request)
+    groups = (tp.codes8, tp.codes16, tp.codes32)
+    starts, words = table_pack.poly_image_layout(
+        tp.n_functions, tp.inv_delta.shape[0], tp.max_lanes,
+        *(g.shape[0] for g in groups))
+    assert tp.image.dtype == torch.int32 and tp.image.shape == (words,)
+    raw = tp.image.view(torch.uint8)
+
+    def section(name, like):
+        at = 4 * starts[name]
+        return raw[at: at + like.numel() * like.element_size()].view(like.dtype)
+
+    for name, r in zip(table_pack.POLY_IMAGE_SECTIONS, tp.routing_scalars()):
+        assert torch.equal(section(name, r), r), name
+    planes = ("boundaries", "inv_delta", "base", "seg_count", "zero", "ramp", "scale")
+    codes = dict(zip(("codes8", "codes16", "codes32"), groups))
+    rebuilt = dataclasses.replace(
+        tp, **{p: section(p, getattr(tp, p)) for p in planes},
+        **{c: section(c, g) for c, g in codes.items()})
+    for p in planes + tuple(codes):
+        assert torch.equal(getattr(rebuilt, p), getattr(tp, p)), p
+    ids, x = mixed_rows(tp, seed=5, cols=128)
+    xt = torch.from_numpy(x)
+    ft = torch.from_numpy(np.where(np.isfinite(x), x, 0.0).astype(np.float32))
+    for flags in FLAGS:
+        ex = _flags(tp, flags)
+        for fn, xin in ((table_pack.eval_routed_poly_ref, xt),
+                        (table_pack.eval_routed_poly_slope, ft)):
+            assert_bitwise(fn(rebuilt, ids, xin, extrapolate=ex).numpy(),
+                           fn(tp, ids, xin, extrapolate=ex).numpy())
+
+
 def test_routed_poly_errors(poly):
     _, tp = poly
     with pytest.raises(KeyError, match=r"'nope' not in pack \('gelu'"):

@@ -56,7 +56,7 @@ from repro.kernels.table_pack_lookup import (sharded_pack_grad_pallas,
                                              sharded_shard_contrib_pallas)
 from repro_torch.approx import (SHARDED_MODES, TABLE_MODES, ApproxConfig,
                                 table_pack)
-from repro_torch.core import packing
+from repro_torch.core import design, packing
 from repro_torch.kernels import _lib
 from repro_torch.kernels import routed_pack_lookup as R
 from repro_torch.kernels import table_pack_lookup as K
@@ -389,6 +389,27 @@ def test_entries_match_argument_builders(spacks):
     assert K._sharded_args(tp, fid, 3, 4, 0, 1)[1][4:] == (S, 3, 4, 0, 1)
     with pytest.raises(ValueError, match="takes 6 planes and 9 int"):
         _lib.launch("tp_spack_lookup", x, planes[3:], ints)
+    # the folded and routed poly entries take their pack's staging image
+    fp = table_pack.build_pack(("silu", "sin_core", "cos_core", "exp_core", "log_core"),
+                               EA, omega=OMEGA, device="cpu")
+    pp = table_pack.from_poly_layout(packing.poly_pack_layout(
+        [design.poly_member(n, EA, degree=d, bits=b)
+         for n, d, b in (("tanh", 1, 32), ("exp_neg", 3, 8), ("gelu", 2, 16))]), "cpu")
+    cases = {f"tp_folded_{e} {name}": (K._folded_args(fp, name), fp.fold_images[name])
+             for e in ("lookup", "grad") for name in ("sin", "cos", "exp", "log")}
+    for e in ("lookup", "grad"):
+        cases[f"tp_routed_poly_{e}"] = (R._routed_poly_args(pp, [0, 2, 1], x, True),
+                                        (pp.image, pp.inv_delta.shape[0]))
+    for key, ((planes, ints), (image, count)) in cases.items():
+        _, n_planes, n_int = _lib._ENTRIES[key.split()[0]]
+        assert (len(planes), len(ints)) == (n_planes, n_int), key
+        assert all(p.is_contiguous() and p.dtype in (torch.float32, torch.int32,
+                                                     torch.int16, torch.int8)
+                   for p in planes), key
+        assert all(isinstance(i, int) for i in ints), key
+        assert planes[-1] is image and ints[-1 if "folded" in key else -2] == count, key
+    assert fp.fold_images["sin"] is fp.fold_images["cos"]
+    assert K._folded_args(fp, "exp")[1][:2] == (fp.fn_id("exp_core"),) * 2
 
 
 @pytest.mark.parametrize("n_shards", SHARDS)
