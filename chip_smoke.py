@@ -15,7 +15,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    (every boundary and its neighbours, +-inf, NaN, -2e38, lo, +-0): the pack
    kernels (value, TableFlash, value + slope) and the single-table kernels
    (value, value + slope) over ``ApproxConfig.table_for`` of the six default
-   functions;
+   functions; TableFlash also over ("silu", "exp_neg") at e_a 3e-8 (exp_neg's
+   staging image of 23 KB staged) and at e_a 3e-9 (its image past the 48 KB
+   budget: the pack kernel's staging), with subnormal lanes;
 4. serving path: full-width, full-depth stablelm-3b (random weights from seed
    0) serving the launcher's default traffic (8 requests, batch 4, cache 256,
    16 new tokens) through ContinuousEngine in ``table_pack`` with TableFlash;
@@ -41,7 +43,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``table_lookup_grad`` must have launched;
 8. times: each kernel, its plain version and a PyTorch yardstick, at its
    path's shape, by CUDA events around a CUDA graph of repeated calls
-   (device time, no host launch cost);
+   (device time, no host launch cost); TableFlash also at the prefill and
+   training exponent shapes;
 9. QuantPack / PolyPack kernels: the four kernels of the quantized and
    polynomial packs (value, value + slope) bitwise against their plain
    versions, NaN positions matched, over every member of stablelm-3b's quant
@@ -65,13 +68,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    value and value + slope) bitwise against their plain versions AND, row by
    row, against the static kernel of the row's member, NaN positions
    matched, over every member of stablelm-3b's f32 and quant packs, the
-   reference's mixed int8/int16 pack and the quant pack at e_a 1e-6, f32 and
+   reference's mixed int8/int16 pack and the quant pack at e_a 1e-6 (each
+   quant pack's staging image staged whole) and at e_a 3e-7 (its image past
+   the 48 KB budget: restaged per member), f32 and
    bf16, extrapolation off, on and per member, at the unary shapes of the
    paths (one id, the tensor one row), a routed_fn batch of 512 x 6912 rows
    cycling over the members, a ragged (70000, 3) (more rows than a grid's y
    or z extent) and the edge inputs; then a routed call captured in a CUDA
    graph whose ids tensor is rewritten in place between replays must follow
-   the new routing;
+   the new routing (the f32 pack and both quant staging paths);
 14. routed serving: full stablelm-3b serving the 8 requests in
    ``routed_pack`` and ``routed_quant_pack`` (+ TableFlash); the routed value
    kernel and ``tableflash_exp`` must have launched, and the tokens must
@@ -316,7 +321,30 @@ def check_pair(tag, got, want, shape, dtype):
     return err
 
 
-def kernel_phase(pack, s0):
+def flash_packs(pack, approx):
+    """(tag, pack) of phase 3's TableFlash checks: stablelm-3b's pack and
+    ("silu", "exp_neg") at e_a 3e-8, whose exp_neg staging images fit a
+    block's 48 KB (one round trip stages them), and the same at e_a 3e-9,
+    whose image does not (the pack kernel stages the row, the values are
+    read from global memory)."""
+    from repro_torch.approx.table_pack import build_pack
+
+    packs = [("image", pack, True)]
+    for e_a, fits in ((3e-8, True), (3e-9, False)):
+        packs.append((f"e_a {e_a}", build_pack(("silu", "exp_neg"), e_a,
+                                               omega=approx.omega, device="cuda"), fits))
+    for tag, pk, fits in packs:
+        nbytes = 4 * pk.flash_image[0].numel()
+        check((nbytes <= SMEM_BUDGET) == fits,
+              f"{tag} pack: exp_neg's staging image of {nbytes} bytes on the wrong "
+              f"side of the {SMEM_BUDGET}-byte budget")
+        log(f"kernels: TableFlash [{tag}] exp_neg image {nbytes} bytes "
+            f"({'staged' if fits else 'past the budget'})")
+    return tuple((tag, pk) for tag, pk, _ in packs)
+
+
+def kernel_phase(pack, s0, flash):
+    import numpy as np
     import torch
 
     from repro_torch.kernels import table_pack_lookup as K
@@ -340,19 +368,24 @@ def kernel_phase(pack, s0):
                         f"table_pack_lookup {name} {dtype} {shape} extrapolate={ex}",
                         got, want, shape, dtype))
                     cases += 1
-            if name != "exp_neg":
-                continue
+    tiny = torch.finfo(torch.float32).smallest_normal / 8  # a subnormal
+    for tag, pk in flash:
+        fid = pk.fn_id("exp_neg")
+        lo = pk.domains[fid][0]
+        edges = np.concatenate([edge_values(pk, fid), [tiny, -tiny]]).astype(np.float32)
+        for dtype in (torch.bfloat16, torch.float32):
             for shape in flash_shapes:
                 x = make_input(shape, -40.0, 0.0, edges, dtype, seed=99)
-                got = K.tableflash_exp(pack, x)
-                want = K.tableflash_exp_plain(pack, x)
+                got = K.tableflash_exp(pk, x)
+                want = K.tableflash_exp_plain(pk, x)
                 torch.cuda.synchronize()
                 worst["tableflash_exp"] = max(worst["tableflash_exp"], check_pair(
-                    f"tableflash_exp {dtype} {shape}", got, want, shape, dtype))
+                    f"tableflash_exp [{tag}] {dtype} {shape}", got, want, shape, dtype))
                 check(bool((got[x < lo] == 0).all()), "tableflash zero tail")
                 cases += 1
     log(f"kernels: {cases} kernel-vs-plain cases bitwise equal "
-        f"(members {pack.names}, bf16+f32, extrapolate on/off, edges)")
+        f"(members {pack.names}, bf16+f32, extrapolate on/off, edges; TableFlash "
+        f"over {[tag for tag, _ in flash]})")
     return worst
 
 
@@ -890,6 +923,10 @@ def timing_phase(pack, approx, smi_line):
     gate_t = (torch.randn((MICRO, TRAIN_SEQ, 6912), generator=g, device="cuda")
               * 2).to(torch.bfloat16)
     z = -30.0 * torch.rand((BATCH, 1, 32, 1, CACHE_LEN), generator=g, device="cuda")
+    # the exponent at prefill (the queue's longest prompt, 27) and training
+    zp = -30.0 * torch.rand((BATCH, 27, 32, 1, 27), generator=g, device="cuda")
+    zt = -30.0 * torch.rand((MICRO, TRAIN_SEQ, 32, 1, TRAIN_SEQ), generator=g,
+                            device="cuda")
     rows = {}
     tb_silu, tb_exp, tb_jt = (member_bytes(pack, silu), member_bytes(pack, exp_neg),
                               member_bytes(jt))
@@ -903,6 +940,14 @@ def timing_phase(pack, approx, smi_line):
          lambda: K.tableflash_exp(pack, z),
          lambda: K.tableflash_exp_plain(pack, z),
          lambda: torch.exp(z), "torch.exp"),
+        ("tableflash_exp prefill", zp, 1, tb_exp, pack.n_intervals[exp_neg] + 16,
+         lambda: K.tableflash_exp(pack, zp),
+         lambda: K.tableflash_exp_plain(pack, zp),
+         lambda: torch.exp(zp), "torch.exp"),
+        ("tableflash_exp train", zt, 1, tb_exp, pack.n_intervals[exp_neg] + 16,
+         lambda: K.tableflash_exp(pack, zt),
+         lambda: K.tableflash_exp_plain(pack, zt),
+         lambda: torch.exp(zt), "torch.exp"),
         ("table_pack_grad", gate_t, 2, tb_silu, ops + 2,
          lambda: K.table_pack_grad(pack, silu, gate_t, extrapolate=True),
          lambda: K.table_pack_grad_plain(pack, silu, gate_t, extrapolate=True),
@@ -1169,6 +1214,25 @@ def mixed_width_pack(approx):
         [plan_quant_member(n, approx.e_a, dtype=d) for n, d in MIXED_WIDTHS]), "cuda")
 
 
+def routed_quant_packs(approx, quant, fine):
+    """(tag, pack) of phase 13's quant packs: stablelm-3b's quant pack, the
+    reference's mixed int8/int16 pack and the quant pack at e_a 1e-6
+    (``fine``), whose staging images and flags fit the 48 KB a block of the
+    routed quant kernels stages whole, and stablelm's members at e_a 3e-7,
+    whose image does not (the kernels restage per member)."""
+    past = dataclasses.replace(approx, e_a=3e-7).quant_pack("cuda")
+    packs = (("quant", quant), ("mixed widths", mixed_width_pack(approx)),
+             ("quant e_a 1e-6", fine), ("quant e_a 3e-7", past))
+    for tag, p in packs:
+        whole = 4 * (p.image.numel() + p.n_functions)
+        check((whole <= SMEM_BUDGET) == (p is not past),
+              f"{tag} pack: {whole} staging bytes on the wrong side of the "
+              f"{SMEM_BUDGET}-byte budget")
+        log(f"routed quant: {tag} pack stages {whole} bytes "
+            f"({'whole' if whole <= SMEM_BUDGET else 'per member'})")
+    return packs
+
+
 def routed_fns(pack):
     """((name, routed kernel, plain version, static kernel), ...) of the value
     and the value + slope kernels of the pack's family."""
@@ -1400,15 +1464,22 @@ def routed_timing_phase(packs_ops, smi_line):
         ex = tuple(n in ("gelu", "silu", "softplus") for n in pk.names)
         flags = routed_extr_flags(pk, ex)
         parts = {f: xb[r].contiguous() for f, r in member_rows(pk, cyc).items()}
-        for kname, kern, _, static in routed_fns(pk):
+        # bound: every member's rows and values, the routing, and the rows'
+        # mean compares
+        tbytes = (sum(member_bytes(pk, f) for f in parts) + 4 * ROUTED_ROWS
+                  + 4 * pk.n_functions * (1 + len(pk.routing_scalars())))
+        mean_ops = statistics.mean(pk.n_intervals[f] for f in cyc) + ops0
+        for (kname, kern, _, static), n_out in zip(routed_fns(pk), (1, 2)):
             ms = graph_ms(lambda: kern(pk, cyc_ids, xb, extrapolate=ex))
             six = graph_ms(lambda: [static(pk, f, p, extrapolate=bool(flags[f]))
                                     for f, p in parts.items()])
-            rows[f"{kname} mixed"] = dict(ms=ms)
+            b_ms, b_by = bound(xb.numel(), xb.element_size(), n_out, tbytes,
+                               mean_ops + 2 * (n_out - 1))
+            rows[f"{kname} mixed"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
             log(f"time: {kname} mixed batch {tuple(xb.shape)} bf16 over "
                 f"{pk.n_functions} members: one routed launch {ms * 1e3:.2f} us, "
                 f"{len(parts)} static launches on the members' rows "
-                f"{six * 1e3:.2f} us [{smi_line}]")
+                f"{six * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by}) [{smi_line}]")
     return rows
 
 
@@ -2072,7 +2143,7 @@ def main() -> int:
         log(f"pack: {pack.names}, {pack.footprint} f32 entries, n_max {pack.n_max}, "
             f"intervals {pack.n_intervals}; main-path prefill width S0={s0}")
         approx = dataclasses.replace(cfg.approx, mode="table_pallas")
-        worst = kernel_phase(pack, s0)
+        worst = kernel_phase(pack, s0, flash_packs(pack, approx))
         worst.update(grad_kernel_phase(pack, approx, s0))
         # each kernel's launches come from the run of the path it serves,
         # counted from 0 just before that path and read just after it
@@ -2090,10 +2161,11 @@ def main() -> int:
         counts.update(pack_train_paths(smi_line, (
             ("quant_pack", ("quant_pack_grad",)), ("poly_pack", ("poly_pack_grad",)))))
         times.update(quant_poly_timing_phase(qp_packs[0][2], qp_packs[2][2], smi_line))
-        r_packs = (("f32", pack), ("quant", qp_packs[0][2]),
-                   ("mixed widths", mixed_width_pack(cfg.approx)),
-                   ("quant e_a 1e-6", qp_packs[1][2]))
+        r_packs = (("f32", pack),) + routed_quant_packs(cfg.approx, qp_packs[0][2],
+                                                        qp_packs[1][2])
         worst.update(routed_kernel_phase(r_packs, s0))
+        reroute_check(r_packs[-1][1])  # the quant pack restaged per member
+        del r_packs
         counts.update(pack_serving_paths(smi_line, (
             ("routed_pack", ("routed_pack_lookup",)),
             ("routed_quant_pack", ("routed_quant_pack_lookup",)))))

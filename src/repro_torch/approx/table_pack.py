@@ -97,9 +97,13 @@ class TablePack:
     # RangeFold's staging images on the pack's device, built once with the
     # pack: foldable name -> (image, values it holds), for every foldable
     # name whose core members the pack holds (sin and cos share one image);
-    # see fold_image_layout
+    # see member_image_layout
     fold_images: Dict[str, Tuple[torch.Tensor, int]] = field(
         default_factory=dict, compare=False, repr=False)
+    # TableFlash's staging image (exp_neg's row and values) and the values it
+    # holds, built once with the pack; None without an exp_neg member
+    flash_image: Optional[Tuple[torch.Tensor, int]] = field(
+        default=None, compare=False, repr=False)
 
     def routing_scalars(self) -> Tuple[torch.Tensor, ...]:
         """The routed kernels' per-member operands, gathered by fn_id on the
@@ -152,13 +156,13 @@ FOLDABLE = {
 }
 
 
-def fold_image_layout(n_intervals: Sequence[int]) -> Tuple[Tuple[int, ...], int]:
-    """Where a RangeFold staging image over core rows of ``n_intervals``
-    sub-intervals keeps them, in f32 words: the start of each core's row
+def member_image_layout(n_intervals: Sequence[int]) -> Tuple[Tuple[int, ...], int]:
+    """Where a member staging image over rows of ``n_intervals``
+    sub-intervals keeps them, in f32 words: the start of each member's row
     (its ``n + 1`` boundaries, then its ``n`` inv_delta, base and
-    seg_count) and the start of the values behind the rows.  The folded
-    kernels (``csrc/table_pack_lookup.cu``, ``fold_values_at``) lay it out
-    the same."""
+    seg_count) and the start of the values behind the rows.  The kernels
+    that stage such images (``csrc/table_pack_lookup.cu``,
+    ``image_values_at``) lay it out the same."""
     starts, at = [], 0
     for n in n_intervals:
         starts.append(at)
@@ -166,29 +170,29 @@ def fold_image_layout(n_intervals: Sequence[int]) -> Tuple[Tuple[int, ...], int]
     return tuple(starts), at
 
 
-def _fold_image(layout: PackLayout, cores: Sequence[str]) -> Tuple[np.ndarray, int]:
-    """One foldable kind's staging image (fold_image_layout): what its
-    folded kernel reads of the pack and nothing else.  The core rows (only
-    the real sub-intervals: a scan of the +inf padding never moves the
-    selector), each base rebased into the image, then the cores' values
-    from the first core's first entry to the end of the last cell,
+def _member_image(layout: PackLayout, members: Sequence[str], dev: torch.device):
+    """The staging image of ``members`` (member_image_layout): what a kernel
+    that reads only those members reads of the pack and nothing else.  Their
+    rows (only the real sub-intervals: a scan of the +inf padding never
+    moves the selector), each base rebased into the image, then their values
+    from the first member's first entry to the end of the last cell,
     zero-padded to a 16-byte multiple so that one bulk copy stages it.
-    Returns (f32 image, values it holds)."""
+    Returns (f32 image on ``dev``, values it holds)."""
     f32 = lambda a: np.asarray(a, np.float64).astype(np.float32)
-    fids = [layout.names.index(c) for c in cores]
+    fids = [layout.names.index(c) for c in members]
     ns = [layout.n_intervals[f] for f in fids]
     base = np.asarray(layout.base, np.int64)
     segs = np.asarray(layout.seg_count, np.int64)
     v0 = min(int(base[f, :n].min()) for f, n in zip(fids, ns))
     v1 = max(int((base[f, :n] + segs[f, :n]).max()) for f, n in zip(fids, ns)) + 1
-    starts, v_at = fold_image_layout(ns)
+    starts, v_at = member_image_layout(ns)
     img = np.zeros(-(-(v_at + v1 - v0) // 4) * 4, np.float32)
     for f, n, at in zip(fids, ns, starts):
         img[at: at + 4 * n + 1] = np.concatenate(
             [f32(layout.boundaries[f, : n + 1]), f32(layout.inv_delta[f, :n]),
              f32(base[f, :n] - v0), f32(segs[f, :n])])
     img[v_at: v_at + v1 - v0] = f32(layout.values[v0:v1])
-    return img, v1 - v0
+    return torch.from_numpy(img).to(dev), v1 - v0
 
 
 def _fold_images(layout: PackLayout, dev: torch.device):
@@ -197,8 +201,7 @@ def _fold_images(layout: PackLayout, dev: torch.device):
     for name, cores in FOLDABLE.items():
         if all(c in layout.names for c in cores):
             if cores not in by_cores:
-                img, m_img = _fold_image(layout, cores)
-                by_cores[cores] = (torch.from_numpy(img).to(dev), m_img)
+                by_cores[cores] = _member_image(layout, cores, dev)
             images[name] = by_cores[cores]
     return images
 
@@ -219,6 +222,8 @@ def from_layout(layout: PackLayout, device: DeviceLike = None) -> TablePack:
         domains=_row_domains(layout),
         routing=(_int32_tensor(layout.n_intervals, dev),),
         fold_images=_fold_images(layout, dev),
+        flash_image=(_member_image(layout, ("exp_neg",), dev)
+                     if "exp_neg" in layout.names else None),
     )
 
 
@@ -355,15 +360,35 @@ def _codes_array(codes: np.ndarray, dtype: torch.dtype) -> np.ndarray:
     return np.asarray(codes).astype(_NP_CODES[dtype])
 
 
-def _codes_tensor(codes: np.ndarray, dtype: torch.dtype,
-                  device: torch.device) -> torch.Tensor:
-    """A width group's codes on ``device`` (:func:`_codes_array`)."""
-    return torch.from_numpy(_codes_array(codes, dtype)).to(device)
-
-
 def _check_exact(*groups: np.ndarray) -> None:
     if max(len(g) for g in groups) >= EXACT_INT_LIMIT:
         raise ValueError("pack footprint exceeds f32 exact-integer range")
+
+
+def _image_starts(sections, words) -> Tuple[Dict[str, int], int]:
+    """Each section's start in 32-bit words, back to back, and the end."""
+    starts, at = {}, 0
+    for name, w in zip(sections, words):
+        starts[name] = at
+        at += w
+    return starts, at
+
+
+def _pack_image(layout, sections, starts, total, routing, codes,
+                dev: torch.device) -> torch.Tensor:
+    """The int32 staging image of a quantized or polynomial pack, ``total``
+    words on ``dev``, each of ``sections`` at its start: the pack's int32
+    ``routing`` operands, then the layout's f32 planes of the sections'
+    names, then its ``codes`` groups as stored."""
+    f32 = lambda a: np.asarray(a, np.float64).astype(np.float32)
+    planes = sections[len(routing): len(sections) - len(codes)]
+    parts = (tuple(np.asarray(r, np.int32) for r in routing)
+             + tuple(f32(getattr(layout, p)) for p in planes) + tuple(codes))
+    img = np.zeros(total * 4, np.uint8)
+    for name, part in zip(sections, parts):
+        raw = np.ascontiguousarray(part).view(np.uint8)
+        img[4 * starts[name]: 4 * starts[name] + raw.size] = raw
+    return torch.from_numpy(img.view(np.int32)).to(dev)
 
 
 class _RaggedPack:
@@ -442,6 +467,10 @@ class QuantTablePack(_RaggedPack):
     # routed dispatch's per-member int32 operands on the pack's device, built
     # once with the pack: see routing_scalars()
     routing: Tuple[torch.Tensor, ...]
+    # the whole pack (routing operands, metadata lanes, both code groups) as
+    # ONE int32 buffer on the pack's device, built once with the pack: what a
+    # block of the routed kernels stages where it fits (quant_image_layout)
+    image: torch.Tensor
     _extr_operands: Dict[bytes, torch.Tensor] = field(
         default_factory=dict, compare=False, repr=False)
 
@@ -451,6 +480,26 @@ class QuantTablePack(_RaggedPack):
         vectors on the pack's device (the reference's ragged offsets and
         width-group choice)."""
         return self.routing
+
+
+# the sections of a quantized pack's staging image, in order
+QUANT_IMAGE_SECTIONS = ("n_intervals", "bounds_offsets", "lane_offsets", "entry_bits",
+                        "boundaries", "inv_delta", "base", "seg_count", "scale",
+                        "zero", "ramp", "codes16", "codes8")
+
+
+def quant_image_layout(n_functions: int, n_sub: int, m8: int,
+                       m16: int) -> Tuple[Dict[str, int], int]:
+    """Where a quantized pack's staging image keeps each of
+    ``QUANT_IMAGE_SECTIONS``, in 32-bit words, and the image's length: the
+    four routing operands (``n_functions`` each), the ``n_sub +
+    n_functions`` boundaries, the ``n_sub`` inv_delta / base / seg_count /
+    scale / zero / ramp, then the ``m16`` int16 and ``m8`` int8 codes.  The
+    routed kernels (``csrc/table_pack_lookup.cu``, ``quant_image``) lay it
+    out the same."""
+    return _image_starts(QUANT_IMAGE_SECTIONS, (
+        (n_functions,) * 4 + (n_sub + n_functions,) + (n_sub,) * 6
+        + ((m16 + 1) // 2, (m8 + 3) // 4)))
 
 
 def _domains(layout) -> Tuple[Tuple[float, float], ...]:
@@ -467,6 +516,10 @@ def from_quant_layout(layout: QuantPackLayout,
     _check_exact(layout.codes8, layout.codes16)
     dev = resolve_device(device)
     f32 = lambda a: f32_tensor(a, dev)
+    routing = (layout.n_intervals, layout.bounds_offsets, layout.lane_offsets,
+               layout.entry_bits)
+    codes = (_codes_array(layout.codes8, torch.int8),
+             _codes_array(layout.codes16, torch.int16))
     return QuantTablePack(
         names=layout.names,
         n_intervals=layout.n_intervals,
@@ -479,12 +532,14 @@ def from_quant_layout(layout: QuantPackLayout,
         scale=f32(layout.scale),
         zero=f32(layout.zero),
         ramp=f32(layout.ramp),
-        codes8=_codes_tensor(layout.codes8, torch.int8, dev),
-        codes16=_codes_tensor(layout.codes16, torch.int16, dev),
+        codes8=torch.from_numpy(codes[0]).to(dev),
+        codes16=torch.from_numpy(codes[1]).to(dev),
         domains=_domains(layout),
-        routing=tuple(_int32_tensor(v, dev) for v in (
-            layout.n_intervals, layout.bounds_offsets, layout.lane_offsets,
-            layout.entry_bits)),
+        routing=tuple(_int32_tensor(v, dev) for v in routing),
+        image=_pack_image(
+            layout, QUANT_IMAGE_SECTIONS,
+            *quant_image_layout(len(layout.names), len(layout.inv_delta),
+                                *(len(c) for c in codes)), routing, codes[::-1], dev),
     )
 
 
@@ -674,33 +729,9 @@ def poly_image_layout(n_functions: int, n_sub: int, lanes: int, m8: int, m16: in
     ramp / scale, then the ``m32`` f32, ``m16`` int16 and ``m8`` int8
     codes.  The routed kernels (``csrc/table_pack_lookup.cu``,
     ``poly_image``) lay it out the same."""
-    words = ((n_functions,) * 5 + (n_sub + n_functions, n_sub, n_sub, n_sub)
-             + (n_sub * lanes,) * 3 + (m32, (m16 + 1) // 2, (m8 + 3) // 4))
-    starts, at = {}, 0
-    for name, w in zip(POLY_IMAGE_SECTIONS, words):
-        starts[name] = at
-        at += w
-    return starts, at
-
-
-def _poly_image(layout: PolyPackLayout, routing, codes) -> np.ndarray:
-    """The int32 staging image of a polynomial pack (poly_image_layout):
-    ``routing`` its five int32 operands, ``codes`` its (codes8, codes16,
-    codes32) groups as stored."""
-    f32 = lambda a: np.asarray(a, np.float64).astype(np.float32)
-    c8, c16, c32 = codes
-    starts, total = poly_image_layout(len(layout.names), len(layout.inv_delta),
-                                      layout.max_degree + 1, len(c8), len(c16),
-                                      len(c32))
-    parts = tuple(np.asarray(r, np.int32) for r in routing) + tuple(
-        f32(a) for a in (layout.boundaries, layout.inv_delta, layout.base,
-                         layout.seg_count, layout.zero, layout.ramp, layout.scale)
-    ) + (c32, c16, c8)
-    img = np.zeros(total * 4, np.uint8)
-    for name, part in zip(POLY_IMAGE_SECTIONS, parts):
-        raw = np.ascontiguousarray(part).view(np.uint8)
-        img[4 * starts[name]: 4 * starts[name] + raw.size] = raw
-    return img.view(np.int32)
+    return _image_starts(POLY_IMAGE_SECTIONS, (
+        (n_functions,) * 5 + (n_sub + n_functions, n_sub, n_sub, n_sub)
+        + (n_sub * lanes,) * 3 + (m32, (m16 + 1) // 2, (m8 + 3) // 4)))
 
 
 def from_poly_layout(layout: PolyPackLayout,
@@ -731,7 +762,11 @@ def from_poly_layout(layout: PolyPackLayout,
         codes32=torch.from_numpy(codes[2]).to(dev),
         domains=_domains(layout),
         routing=tuple(_int32_tensor(v, dev) for v in routing),
-        image=torch.from_numpy(_poly_image(layout, routing, codes)).to(dev),
+        image=_pack_image(
+            layout, POLY_IMAGE_SECTIONS,
+            *poly_image_layout(len(layout.names), len(layout.inv_delta),
+                               layout.max_degree + 1, *(len(c) for c in codes)),
+            routing, codes[::-1], dev),
     )
 
 

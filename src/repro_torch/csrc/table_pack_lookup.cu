@@ -87,6 +87,16 @@
 // and stores with round to nearest even.  Built with -fmad=false:
 // bit-identical to the plain PyTorch versions.
 //
+// TableFlash.  At the decode exponent (4 * 32 * 256 f32, one element a
+// thread) the staging sets the kernel's time, and the exp_neg member reads
+// 25 row floats and 118 of the pack's 894 values.  So where exp_neg's
+// staging image fits kSmemBytes, a block stages only that: the image
+// (TablePack.flash_image, built with the pack: the member's row over its
+// real sub-intervals, its base rebased, its values span; 576 bytes in
+// stablelm's pack) in ONE round trip (one register-batched loop), while each
+// thread's first x load is already in flight (flash_image_kernel).  Past the budget it stages the
+// member's row and the pack's values as above (pack_kernel).
+//
 // Routed dispatch.  The TPU kernels scalar-prefetched the per-row fn_ids and
 // let them steer each grid row's metadata DMA.  Here the ids, the members'
 // interval counts and extrapolate flags (and, for the quantized pack, their
@@ -112,8 +122,13 @@
 // code groups, built with the pack) by one register-batched loop, with the
 // call's extrapolate flags, its first id and its first x in flight at the
 // same time; a row of another member then only points at other sections
-// (routed_poly_pack_kernel).  Past the budget a block stages the widest member's lanes and the largest
-// code group, restaging both per member (routed_poly_kernel).
+// (routed_poly_pack_kernel).  The quantized pack does the same with its own
+// image (QuantTablePack.image: routing scalars, the seven metadata lanes,
+// both code groups; 4.6 KB in stablelm's pack, one batch of 8 loads a
+// thread) (routed_quant_pack_kernel).
+// Past the budget a block stages the widest member's lanes and the largest
+// code group, restaging both per member (routed_poly_kernel,
+// routed_quant_kernel).
 //
 // RangeFold.  The folded kernels are the static pack body (tl::lookup /
 // lookup_grad, extrapolation off) between the fold prologue and the
@@ -198,21 +213,21 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, long long i, float v
 constexpr int kStageUnroll = 4;  // entries a thread loads per batch
 
 // Copy `count` entries from global `src` into shared `dst` (all threads of the
-// block, kStageUnroll loads in flight per thread); returns dst, or src itself
+// block, kUnroll loads in flight per thread); returns dst, or src itself
 // when `stage` is false.
-template <typename E>
+template <typename E, int kUnroll = kStageUnroll>
 __device__ __forceinline__ const E* stage_copy(E* dst, const E* src, int count,
                                                bool stage) {
   if (!stage) return src;
-  for (int k0 = threadIdx.x; k0 < count; k0 += kStageUnroll * blockDim.x) {
-    E v[kStageUnroll];
+  for (int k0 = threadIdx.x; k0 < count; k0 += kUnroll * blockDim.x) {
+    E v[kUnroll];
 #pragma unroll
-    for (int u = 0; u < kStageUnroll; ++u) {
+    for (int u = 0; u < kUnroll; ++u) {
       const int k = k0 + u * blockDim.x;
       v[u] = k < count ? src[k] : E();
     }
 #pragma unroll
-    for (int u = 0; u < kStageUnroll; ++u) {
+    for (int u = 0; u < kUnroll; ++u) {
       const int k = k0 + u * blockDim.x;
       if (k < count) dst[k] = v[u];
     }
@@ -675,14 +690,19 @@ routed_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slop
   routed_walk(w, ids, n_fn, restage, body);
 }
 
+// Columns [c0, c1) of one routed quant row; with `preloaded`, x0 is this
+// thread's first x of them, already loaded (the whole-pack kernel issues
+// that load before its staging).
 template <typename T, typename C, int kMode>
-__device__ __forceinline__ void routed_quant_cols(const T* x, T* out, T* slope,
-                                                  long long row0, long long c0,
-                                                  long long c1, const tl::QuantRow& qr,
-                                                  const C* cd, int m, bool ex) {
+__device__ __forceinline__ void routed_quant_run(const T* x, T* out, T* slope,
+                                                 long long row0, long long c0,
+                                                 long long c1, const tl::QuantRow& qr,
+                                                 const C* cd, int m, bool ex,
+                                                 bool preloaded, float x0) {
   for (long long c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
     const long long idx = row0 + c;
-    const float xv = load_f32(x, idx);
+    const float xv = preloaded ? x0 : load_f32(x, idx);
+    preloaded = false;
     if (kMode == kGrad) {
       float d;
       store_f32(out, idx, tl::quant_lookup(xv, qr, cd, m, ex, &d));
@@ -692,6 +712,14 @@ __device__ __forceinline__ void routed_quant_cols(const T* x, T* out, T* slope,
                                            static_cast<float*>(nullptr)));
     }
   }
+}
+
+template <typename T, typename C, int kMode>
+__device__ __forceinline__ void routed_quant_cols(const T* x, T* out, T* slope,
+                                                  long long row0, long long c0,
+                                                  long long c1, const tl::QuantRow& qr,
+                                                  const C* cd, int m, bool ex) {
+  routed_quant_run<T, C, kMode>(x, out, slope, row0, c0, c1, qr, cd, m, ex, false, 0.0f);
 }
 
 // `codes8` / `codes16` are the two width groups (m8 / m16 entries); a row
@@ -964,6 +992,104 @@ routed_poly_pack_kernel(const T* __restrict__ x, T* __restrict__ out,
   }
 }
 
+// Sections of a quantized pack's staging image (QuantTablePack.image, laid
+// out by approx/table_pack.py quant_image_layout), in 32-bit words from its
+// start: the routing operands, the metadata lanes and the two code groups;
+// `words` is the image's length.
+struct QuantImage {
+  long long n_arr, bo, lo, bits, bounds, invd, base, segs, scale, zero, ramp, c16, c8,
+      words;
+};
+
+// n_sub: the pack's sub-intervals (every member's); m8 / m16 its code
+// groups' entries.
+__host__ __device__ __forceinline__ QuantImage quant_image(int n_fn, int n_sub, int m8,
+                                                           int m16) {
+  QuantImage q;
+  long long at = 0;
+  q.n_arr = image_take(&at, n_fn);
+  q.bo = image_take(&at, n_fn);
+  q.lo = image_take(&at, n_fn);
+  q.bits = image_take(&at, n_fn);
+  q.bounds = image_take(&at, static_cast<long long>(n_sub) + n_fn);
+  q.invd = image_take(&at, n_sub);
+  q.base = image_take(&at, n_sub);
+  q.segs = image_take(&at, n_sub);
+  q.scale = image_take(&at, n_sub);
+  q.zero = image_take(&at, n_sub);
+  q.ramp = image_take(&at, n_sub);
+  q.c16 = image_take(&at, (m16 + 1LL) / 2);
+  q.c8 = image_take(&at, (m8 + 3LL) / 4);
+  q.words = at;
+  return q;
+}
+
+// Image words a thread loads in one batch: stablelm's quant image (1,161
+// words) lands in one round trip of 8 loads a thread, where the 4 of
+// stage_copy's default take two (tools/torch_kernel_ab.py: 0.26 us faster
+// at the decode gate, and 0.17 us faster than one TMA bulk copy).
+constexpr int kQuantImageUnroll = 8;
+
+// The routed quant kernel where the whole pack fits kSmemBytes (the launch
+// decides), as routed_poly_pack_kernel: every block stages the pack's
+// staging image (one register-batched loop of kQuantImageUnroll loads a
+// thread) and the call's per-member extrapolate flags, with this block's
+// first id and each thread's first x already in flight; entering another
+// member's row then only points at other sections of shared memory (no
+// loads, no barrier), and the next row's id is loaded while this row runs.
+// The per-element body is routed_quant_kernel's.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kThreads)
+routed_quant_pack_kernel(const T* __restrict__ x, T* __restrict__ out,
+                         T* __restrict__ slope, RoutedWork w, const int* __restrict__ ids,
+                         const int* __restrict__ extr, const int* __restrict__ image,
+                         QuantImage im, int n_fn, int m8, int m16) {
+  extern __shared__ __align__(16) float smem[];
+  const int* si = reinterpret_cast<const int*>(smem);
+  int* sflags = reinterpret_cast<int*>(smem + im.words);
+  const long long w0 = static_cast<long long>(blockIdx.x) * w.per;
+  long long left = w0 + w.per < w.items ? w.per : w.items - w0;  // tiles to do
+  long long r = w0 / w.tiles;
+  long long t = w0 - r * w.tiles;  // first tile within row r
+  // in flight while the image lands: the first row's id, this thread's first
+  // x and the flags
+  int id = ids[r];
+  const long long c_first = t * kRoutedTile + threadIdx.x;
+  const float x_first = c_first < w.cols ? load_f32(x, r * w.cols + c_first) : 0.0f;
+  const int flag = threadIdx.x < n_fn ? extr[threadIdx.x] : 0;
+  stage_copy<int, kQuantImageUnroll>(reinterpret_cast<int*>(smem), image,
+                                     static_cast<int>(im.words), true);
+  if (threadIdx.x < n_fn) sflags[threadIdx.x] = flag;
+  for (int k = threadIdx.x + blockDim.x; k < n_fn; k += blockDim.x) sflags[k] = extr[k];
+  __syncthreads();
+  bool first = true;
+  while (left > 0) {
+    const int fid = id < 0 ? 0 : (id > n_fn - 1 ? n_fn - 1 : id);
+    const long long nt = w.tiles - t < left ? w.tiles - t : left;
+    if (left > nt) id = ids[r + 1];  // the next row's, loaded while this row runs
+    const int bo = si[im.bo + fid], lo = si[im.lo + fid];
+    const tl::QuantRow qr{smem + im.bounds + bo, smem + im.invd + lo, smem + im.base + lo,
+                          smem + im.segs + lo,   smem + im.scale + lo, smem + im.zero + lo,
+                          smem + im.ramp + lo,   si[im.n_arr + fid]};
+    const bool ex = sflags[fid] != 0;
+    const long long c0 = t * kRoutedTile;
+    const long long c1 = c0 + nt * kRoutedTile < w.cols ? c0 + nt * kRoutedTile : w.cols;
+    if (si[im.bits + fid] == 8) {
+      routed_quant_run<T, int8_t, kMode>(x, out, slope, r * w.cols, c0, c1, qr,
+                                         reinterpret_cast<const int8_t*>(smem + im.c8),
+                                         m8, ex, first, x_first);
+    } else {
+      routed_quant_run<T, int16_t, kMode>(x, out, slope, r * w.cols, c0, c1, qr,
+                                          reinterpret_cast<const int16_t*>(smem + im.c16),
+                                          m16, ex, first, x_first);
+    }
+    first = false;
+    left -= nt;
+    ++r;
+    t = 0;
+  }
+}
+
 // ---- RangeFold ----------------------------------------------------------------
 
 // The f32 pack's core rows fid_a and fid_b (equal for exp and log) are staged
@@ -1010,17 +1136,18 @@ folded_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slop
   }
 }
 
-// A RangeFold staging image (TablePack.fold_images, laid out by
-// approx/table_pack.py fold_image_layout): core row a (n_a + 1 boundaries,
-// then n_a inv_delta, base rebased into the image and seg_count), core row b
-// of n_b when the kind reads two (trig), then the cores' values, padded to a
-// 16-byte multiple.  Where the values start, and the image's f32 words:
-__host__ __device__ __forceinline__ int fold_values_at(int n_a, int n_b, bool two) {
+// A member staging image (TablePack.fold_images or flash_image, laid out by
+// approx/table_pack.py member_image_layout): member row a (n_a + 1
+// boundaries, then n_a inv_delta, base rebased into the image and
+// seg_count), member row b of n_b when the image holds two (the trig
+// cores), then the members' values, padded to a 16-byte multiple.  Where
+// the values start, and the image's f32 words:
+__host__ __device__ __forceinline__ int image_values_at(int n_a, int n_b, bool two) {
   return 4 * n_a + 1 + (two ? 4 * n_b + 1 : 0);
 }
-__host__ __device__ __forceinline__ long long fold_image_floats(int n_a, int n_b,
-                                                                bool two, int m_img) {
-  return (fold_values_at(n_a, n_b, two) + static_cast<long long>(m_img) + 3) / 4 * 4;
+__host__ __device__ __forceinline__ long long image_floats(int n_a, int n_b, bool two,
+                                                           int m_img) {
+  return (image_values_at(n_a, n_b, two) + static_cast<long long>(m_img) + 3) / 4 * 4;
 }
 
 // One core row of n sub-intervals at `p` in a staging image.
@@ -1049,13 +1176,13 @@ folded_image_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict_
   long long idx = first_index();
   float xv = idx < n ? load_f32(x, idx) : 0.0f;  // in flight while the image lands
   const bool in_flight =
-      slab_start(smem, image, static_cast<int>(fold_image_floats(n_a, n_b, trig, m_img)),
+      slab_start(smem, image, static_cast<int>(image_floats(n_a, n_b, trig, m_img)),
                  bulk != 0, &bar);
   __syncthreads();
   if (in_flight) slab_wait(&bar);
   const tl::Row a = image_row(smem, n_a);
   const tl::Row b = trig ? image_row(smem + 4 * n_a + 1, n_b) : a;
-  const float* vals = smem + fold_values_at(n_a, n_b, trig);
+  const float* vals = smem + image_values_at(n_a, n_b, trig);
   const long long stride = grid_stride();
   for (; idx - threadIdx.x % 32 < n; idx += stride) {
     const bool live = idx < n;
@@ -1072,6 +1199,35 @@ folded_image_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict_
                                        static_cast<float*>(nullptr), ph));
       }
     }
+    xv = xn;
+  }
+}
+
+// TableFlash where exp_neg's staging image (TablePack.flash_image: its row
+// over its n real sub-intervals, its base rebased into the image, and its
+// m_img values) fits kSmemBytes (the launch decides), as folded_image_kernel:
+// each thread's first x load is issued before the staging, which is ONE
+// round trip (one register-batched loop: tools/torch_kernel_ab.py timed it
+// 0.1 us faster than one TMA bulk copy at the decode exponent and 0.4 us at
+// prefill), and the grid-stride loop loads the next x before this one's
+// arithmetic.  The body is pack_kernel's kFlash one over the image's row and
+// values: the same bits (a NaN z's address 0 reads another value than the
+// pack's first, and its output is NaN either way).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_image_kernel(const T* __restrict__ x, T* __restrict__ out, long long n,
+                   const float* __restrict__ image, int n_img, int m_img) {
+  extern __shared__ __align__(16) float smem[];
+  long long idx = first_index();
+  float xv = idx < n ? load_f32(x, idx) : 0.0f;  // in flight while the image lands
+  stage_copy(smem, image, static_cast<int>(image_floats(n_img, 0, false, m_img)), true);
+  __syncthreads();
+  const tl::Row r = image_row(smem, n_img);
+  const float* vals = smem + image_values_at(n_img, 0, false);
+  const long long stride = grid_stride();
+  for (; idx < n; idx += stride) {
+    const float xn = idx + stride < n ? load_f32(x, idx + stride) : 0.0f;
+    store_f32(out, idx, tl::tableflash(xv, r, vals, m_img));
     xv = xn;
   }
 }
@@ -1139,16 +1295,21 @@ Staging staging_for(long long meta_floats, long long value_bytes) {
     }                                                                                  \
   } while (0)
 
-// Refuses (cudaErrorInvalidValue, no launch) an empty or inconsistent row, a
-// values vector of fewer than two entries and an unknown dtype.
+// An empty or inconsistent row, or a values vector of fewer than two entries.
+bool pack_refused(long long n, int fn_id, int n_max, int n_intervals, int m) {
+  return n_max < 1 || n_intervals < 1 || n_intervals > n_max || fn_id < 0 || m < 2 ||
+         n < 0;
+}
+
+// Refuses (cudaErrorInvalidValue, no launch) what pack_refused names and an
+// unknown dtype.
 template <int kMode>
 cudaError_t launch_pack(const void* x, void* out, void* slope, long long n, int dtype,
                         const float* bounds, const float* invd, const float* base,
                         const float* segs, const float* values, int fn_id, int n_max,
                         int n_intervals, int m, int extrapolate,
                         cudaStream_t stream) {
-  if (n_max < 1 || n_intervals < 1 || n_intervals > n_max || fn_id < 0 || m < 2 ||
-      n < 0 || (kMode == kGrad && !slope)) {
+  if (pack_refused(n, fn_id, n_max, n_intervals, m) || (kMode == kGrad && !slope)) {
     return cudaErrorInvalidValue;
   }
   if (n == 0) return cudaSuccess;
@@ -1161,6 +1322,33 @@ cudaError_t launch_pack(const void* x, void* out, void* slope, long long n, int 
       st.stage)
   TP_DISPATCH_DTYPE(dtype, TP_PACK, 0);
 #undef TP_PACK
+  return cudaGetLastError();
+}
+
+// TableFlash over member fn_id (exp_neg) of m_img values in its staging
+// image.  Where the image fits kSmemBytes, flash_image_kernel stages it;
+// otherwise pack_kernel<T, kFlash> stages the member's row and the pack's
+// values as the budget allows.  Refuses what launch_pack refuses and an
+// image of fewer than two values or more than the pack's.
+cudaError_t launch_flash(const void* x, void* out, long long n, int dtype,
+                         const float* bounds, const float* invd, const float* base,
+                         const float* segs, const float* values, const float* image,
+                         int fn_id, int n_max, int n_intervals, int m, int m_img,
+                         cudaStream_t stream) {
+  if (pack_refused(n, fn_id, n_max, n_intervals, m) || m_img < 2 || m_img > m) {
+    return cudaErrorInvalidValue;
+  }
+  const long long image_bytes = 4 * image_floats(n_intervals, 0, false, m_img);
+  if (image_bytes > kSmemBytes) {
+    return launch_pack<kFlash>(x, out, nullptr, n, dtype, bounds, invd, base, segs,
+                               values, fn_id, n_max, n_intervals, m, 0, stream);
+  }
+  if (n == 0) return cudaSuccess;
+#define TP_FLASH_IMAGE(T, ...)                                                         \
+  flash_image_kernel<T><<<grid_for(n), kThreads, image_bytes, stream>>>(               \
+      static_cast<const T*>(x), static_cast<T*>(out), n, image, n_intervals, m_img)
+  TP_DISPATCH_DTYPE(dtype, TP_FLASH_IMAGE, 0);
+#undef TP_FLASH_IMAGE
   return cudaGetLastError();
 }
 
@@ -1332,21 +1520,37 @@ cudaError_t launch_routed(const void* x, void* out, void* slope, long long n, in
 }
 
 // max_n: the widest member's interval count; m8 / m16: the two code groups'
-// sizes.  The staging holds the widest member's seven lanes and the larger
-// group.  Refuses what launch_routed refuses and an empty code group.
+// sizes; n_sub: the pack's sub-intervals.  Where the staging image and the
+// flags fit kSmemBytes, a block stages the whole pack
+// (routed_quant_pack_kernel); otherwise routed_quant_kernel's staging holds
+// the widest member's seven lanes and the larger group, restaged per
+// member.  Refuses what launch_routed refuses, an empty code group and a
+// sub-interval count below the widest member's.
 template <int kMode>
 cudaError_t launch_routed_quant(const void* x, void* out, void* slope, long long n,
                                 int dtype, const int* const* routing,
                                 const float* const* planes, const void* codes8,
-                                const void* codes16, int n_fn, int max_n, int m8,
-                                int m16, int rows, cudaStream_t stream) {
-  if (n_fn < 1 || max_n < 1 || m8 < 1 || m16 < 1 || rows < 1 || n < 0 ||
-      n % rows != 0 || (kMode == kGrad && !slope)) {
+                                const void* codes16, const void* image, int n_fn,
+                                int max_n, int m8, int m16, int n_sub, int rows,
+                                cudaStream_t stream) {
+  if (n_fn < 1 || max_n < 1 || m8 < 1 || m16 < 1 || n_sub < max_n || rows < 1 ||
+      n < 0 || n % rows != 0 || (kMode == kGrad && !slope)) {
     return cudaErrorInvalidValue;
   }
   if (n == 0) return cudaSuccess;
   int blocks = 0;
   const RoutedWork w = routed_work(n, rows, &blocks);
+  const QuantImage im = quant_image(n_fn, n_sub, m8, m16);
+  const long long whole = 4 * (im.words + n_fn);
+  if (whole <= kSmemBytes) {
+#define TP_ROUTED_QUANT_PACK(T, ...)                                                   \
+  routed_quant_pack_kernel<T, kMode><<<blocks, kThreads, whole, stream>>>(             \
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), w,       \
+      routing[0], routing[2], static_cast<const int*>(image), im, n_fn, m8, m16)
+    TP_DISPATCH_DTYPE(dtype, TP_ROUTED_QUANT_PACK, 0);
+#undef TP_ROUTED_QUANT_PACK
+    return cudaGetLastError();
+  }
   const long long code_bytes = m8 > 2LL * m16 ? m8 : 2LL * m16;
   const Staging st = staging_for(7LL * max_n + 1, code_bytes);
 #define TP_ROUTED_QUANT(T, ...)                                                        \
@@ -1434,7 +1638,7 @@ cudaError_t launch_folded(const void* x, void* out, void* slope, long long n,
   if (n == 0) return cudaSuccess;
   const int blocks = grid_for(n);
   const bool trig = kind == rr::kSin || kind == rr::kCos;
-  const long long image_bytes = 4 * fold_image_floats(n_a, n_b, trig, m_img);
+  const long long image_bytes = 4 * image_floats(n_a, n_b, trig, m_img);
   if (image_bytes <= kSmemBytes) {
     const bool capped = (n + kThreads - 1) / kThreads >
                         static_cast<long long>(sm_count()) * kBlocksPerSM;
@@ -1473,15 +1677,17 @@ extern "C" cudaError_t tp_pack_lookup(const void* x, void* out, long long n, int
                              static_cast<cudaStream_t>(stream));
 }
 
+// `image` is exp_neg's staging image (TablePack.flash_image), holding m_img
+// of the values.
 extern "C" cudaError_t tp_tableflash_exp(const void* x, void* out, long long n,
                                          int dtype, const float* bounds,
                                          const float* invd, const float* base,
                                          const float* segs, const float* values,
-                                         int fn_id, int n_max, int n_intervals, int m,
+                                         const float* image, int fn_id, int n_max,
+                                         int n_intervals, int m, int m_img,
                                          void* stream) {
-  return launch_pack<kFlash>(x, out, nullptr, n, dtype, bounds, invd, base, segs,
-                             values, fn_id, n_max, n_intervals, m, 0,
-                             static_cast<cudaStream_t>(stream));
+  return launch_flash(x, out, n, dtype, bounds, invd, base, segs, values, image, fn_id,
+                      n_max, n_intervals, m, m_img, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t tp_pack_grad(const void* x, void* y, void* slope, long long n,
@@ -1610,19 +1816,21 @@ extern "C" cudaError_t tp_routed_grad(const void* x, void* y, void* slope, long 
 // Routed quantized pack: as tp_routed_lookup, with bo / lo (each member's
 // boundary and lane offsets) and bits (its code width, 8 or 16) gathered by
 // fn_id too, and both width groups passed (codes8 of m8 entries, codes16 of
-// m16).  Plane order: bounds, invd, base, segs, scale, zero, ramp.
+// m16).  Plane order: bounds, invd, base, segs, scale, zero, ramp.  `image`
+// is the pack's staging image (QuantTablePack.image) and n_sub its
+// sub-interval count.
 extern "C" cudaError_t tp_routed_quant_lookup(
     const void* x, void* out, long long n, int dtype, const int* ids,
     const int* n_arr, const int* extr, const int* bo, const int* lo, const int* bits,
     const float* bounds, const float* invd, const float* base, const float* segs,
     const float* scale, const float* zero, const float* ramp, const void* codes8,
-    const void* codes16, int n_fn, int max_n, int m8, int m16, int rows,
-    void* stream) {
+    const void* codes16, const void* image, int n_fn, int max_n, int m8, int m16,
+    int n_sub, int rows, void* stream) {
   const int* routing[6] = {ids, n_arr, extr, bo, lo, bits};
   const float* planes[7] = {bounds, invd, base, segs, scale, zero, ramp};
   return launch_routed_quant<kValue>(x, out, nullptr, n, dtype, routing, planes,
-                                     codes8, codes16, n_fn, max_n, m8, m16, rows,
-                                     static_cast<cudaStream_t>(stream));
+                                     codes8, codes16, image, n_fn, max_n, m8, m16,
+                                     n_sub, rows, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t tp_routed_quant_grad(
@@ -1630,12 +1838,12 @@ extern "C" cudaError_t tp_routed_quant_grad(
     const int* n_arr, const int* extr, const int* bo, const int* lo, const int* bits,
     const float* bounds, const float* invd, const float* base, const float* segs,
     const float* scale, const float* zero, const float* ramp, const void* codes8,
-    const void* codes16, int n_fn, int max_n, int m8, int m16, int rows,
-    void* stream) {
+    const void* codes16, const void* image, int n_fn, int max_n, int m8, int m16,
+    int n_sub, int rows, void* stream) {
   const int* routing[6] = {ids, n_arr, extr, bo, lo, bits};
   const float* planes[7] = {bounds, invd, base, segs, scale, zero, ramp};
   return launch_routed_quant<kGrad>(x, y, slope, n, dtype, routing, planes, codes8,
-                                    codes16, n_fn, max_n, m8, m16, rows,
+                                    codes16, image, n_fn, max_n, m8, m16, n_sub, rows,
                                     static_cast<cudaStream_t>(stream));
 }
 

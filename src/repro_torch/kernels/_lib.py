@@ -15,8 +15,11 @@ coefficient strides), then the pack's planes (every code group of the
 quantized or polynomial pack), then the row count.  The folded entries take
 the f32 pack's five planes and the core members' ids and interval counts and
 the fold's kind, and the kind's staging image (``TablePack.fold_images``)
-with the values it holds; the routed polynomial entries also the pack's
-staging image (``PolyTablePack.image``) and its sub-interval count.  The
+with the values it holds; the TableFlash entry also exp_neg's staging image
+(``TablePack.flash_image``) with the values it holds; the routed quantized
+and polynomial entries also the pack's staging image
+(``QuantTablePack.image``, ``PolyTablePack.image``) and its sub-interval
+count.  The
 sharded entries take bounds, invd, the
 owner-rebased base, segs, the owner plane and every shard's padded values
 slice (the routed ones after the three routing vectors), the shard count and
@@ -62,7 +65,9 @@ _I = ctypes.c_int
 # stream)
 _ENTRIES = {
     "tp_pack_lookup": (1, 5, 5),     # fn_id, n_max, n_intervals, m, extrapolate
-    "tp_tableflash_exp": (1, 5, 4),  # fn_id, n_max, n_intervals, m
+    # 5 f32 planes + exp_neg's staging image; fn_id, n_max, n_intervals, m,
+    # the values in the image
+    "tp_tableflash_exp": (1, 6, 5),
     "tp_pack_grad": (2, 5, 5),       # fn_id, n_max, n_intervals, m, extrapolate
     "tp_table_lookup": (1, 5, 3),    # n_intervals, m, extrapolate
     "tp_table_grad": (2, 5, 3),      # n_intervals, m, extrapolate
@@ -75,10 +80,10 @@ _ENTRIES = {
     # ids, n_arr, extr + 5 f32 planes; n_fn, n_max, m, rows
     "tp_routed_lookup": (1, 8, 4),
     "tp_routed_grad": (2, 8, 4),
-    # ids, n_arr, extr, bo, lo, bits + 7 f32 planes + codes8, codes16;
-    # n_fn, max_n, m8, m16, rows
-    "tp_routed_quant_lookup": (1, 15, 5),
-    "tp_routed_quant_grad": (2, 15, 5),
+    # ids, n_arr, extr, bo, lo, bits + 7 f32 planes + codes8, codes16 + the
+    # pack's staging image; n_fn, max_n, m8, m16, the sub-interval count, rows
+    "tp_routed_quant_lookup": (1, 16, 6),
+    "tp_routed_quant_grad": (2, 16, 6),
     # 5 f32 planes + the kind's staging image; fid_a, fid_b, n_max, n_a, n_b,
     # m, kind (0 sin, 1 cos, 2 exp, 3 log), the values in the image
     "tp_folded_lookup": (1, 6, 8),

@@ -100,15 +100,17 @@ def _routed_args(pack: TablePack, fn_ids, x: torch.Tensor, extrapolate):
 
 
 def _routed_quant_args(pack: QuantTablePack, fn_ids, x: torch.Tensor, extrapolate):
-    """(planes, ints) of a quant-pack routed entry point."""
+    """(planes, ints) of a quant-pack routed entry point: the routing
+    operands, the pack's planes and code groups and its staging image, the
+    sizes and the sub-interval count that lay the image out."""
     rows = _rows(x)
     n_arr, bo, lo, bits = pack.routing_scalars()
     return ((_fn_id_operand(pack, fn_ids, rows).contiguous(), n_arr,
              routed_extr_operand(pack, extrapolate), bo, lo, bits, pack.boundaries,
              pack.inv_delta, pack.base, pack.seg_count, pack.scale, pack.zero,
-             pack.ramp, pack.codes8, pack.codes16),
+             pack.ramp, pack.codes8, pack.codes16, pack.image),
             (pack.n_functions, max(pack.n_intervals), pack.codes8.shape[0],
-             pack.codes16.shape[0], rows))
+             pack.codes16.shape[0], pack.inv_delta.shape[0], rows))
 
 
 def _routed_poly_args(pack: PolyTablePack, fn_ids, x: torch.Tensor, extrapolate):

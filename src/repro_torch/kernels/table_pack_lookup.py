@@ -124,11 +124,19 @@ def tableflash_exp_plain(pack: TablePack, x: torch.Tensor) -> torch.Tensor:
     return torch.where(x < lo, 0.0, y)
 
 
+def _flash_args(pack: TablePack):
+    """(planes, ints) of ``tp_tableflash_exp``: the pack's planes and
+    exp_neg's staging image (``pack.flash_image``, built with the pack),
+    exp_neg's row and the values the image holds."""
+    image, m_img = pack.flash_image
+    planes, ints = _pack_args(pack, pack.member_id("exp_neg"))
+    return planes + (image,), ints + (m_img,)
+
+
 def tableflash_exp(pack: TablePack, x: torch.Tensor) -> torch.Tensor:
     """Fused clamp + exp_neg lookup over flash attention's exponent tensor."""
     return run("tp_tableflash_exp", "tableflash_exp", x, pack.device, "pack",
-               _pack_args(pack, pack.member_id("exp_neg")),
-               lambda: tableflash_exp_plain(pack, x))
+               _flash_args(pack), lambda: tableflash_exp_plain(pack, x))
 
 
 def table_pack_grad_plain(pack: TablePack, fn, x: torch.Tensor, *,

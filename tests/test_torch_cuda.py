@@ -117,6 +117,10 @@ def test_pack_kernel_bitwise(pack, name, extrapolate, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tableflash_kernel_bitwise(pack, dtype):
+    """stablelm's pack: exp_neg's staging image fits a block's budget, so the
+    launch stages the image (NaN, +-inf, subnormal and z < lo lanes
+    included)."""
+    assert 4 * pack.flash_image[0].numel() <= SMEM_BUDGET
     fid = pack.fn_id("exp_neg")
     x = torch.cat([edge_input(pack, fid, 2000, dtype),
                    torch.linspace(-40, 0, 3001, device="cuda").to(dtype)])
@@ -128,15 +132,23 @@ def test_tableflash_kernel_bitwise(pack, dtype):
 
 def test_values_beyond_shared_memory(cuda):
     """A pack larger than the kernel's static shared budget (10,240 f32
-    values) is read from global memory: same bits."""
+    values) is read from global memory: same bits.  TableFlash over it stages
+    exp_neg's image (23 KB); at e_a 3e-9 that image is past the budget too,
+    and the launch stages exp_neg's row and reads the values from global
+    memory: same bits, NaN lanes included."""
     big = build_pack(("silu", "exp_neg"), 3e-8, omega=0.2, device=cuda)
     assert big.footprint > 10240
     for fid in range(2):
         x = edge_input(big, fid, 5000, torch.float32, seed=fid)
         assert_bitwise(K.table_pack_lookup(big, fid, x, extrapolate=True),
                        K.table_pack_lookup_plain(big, fid, x, extrapolate=True))
-    x = torch.linspace(-30, 0, 7777, device="cuda")
-    assert_bitwise(K.tableflash_exp(big, x), K.tableflash_exp_plain(big, x))
+    finer = build_pack(("silu", "exp_neg"), 3e-9, omega=0.2, device=cuda)
+    for pk, fits in ((big, True), (finer, False)):
+        assert (4 * pk.flash_image[0].numel() <= SMEM_BUDGET) == fits
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.cat([edge_input(pk, 1, 3000, dtype, seed=2),
+                           torch.linspace(-30, 0, 7777, device="cuda").to(dtype)])
+            assert_bitwise(K.tableflash_exp(pk, x), K.tableflash_exp_plain(pk, x))
 
 
 def test_wrapper_contract(pack):
@@ -541,8 +553,12 @@ def routed_packs(cuda, pack, quant, poly, mixed):
     # (the per-member restage)
     big = from_poly_layout(poly_pack_layout(
         [design.poly_member(n, 1e-8, degree=d, bits=b) for n, d, b in MIXED]), cuda)
+    # stablelm's members at e_a 3e-7: a quant image past the 48 KB (the
+    # per-member restage)
+    finer = build_quant_pack(NAMES, 3e-7, omega=0.2, device=cuda)
     return {"f32": pack, "quant": quant, "mixed": mixed_w, "quant_1e-6": fine,
-            "poly": poly, "mixed_poly": mixed, "poly_past_budget": big}
+            "quant_past_budget": finer, "poly": poly, "mixed_poly": mixed,
+            "poly_past_budget": big}
 
 
 SMEM_BUDGET = 48 * 1024  # the kernels' dynamic shared memory (kSmemBytes)
@@ -553,6 +569,17 @@ def test_routed_poly_staging_paths(routed_packs):
     and flags), so their routed launches stage the whole pack; the pack at
     e_a 1e-8 does not, so its launches restage per member."""
     for kind, whole in (("poly", True), ("mixed_poly", True), ("poly_past_budget", False)):
+        pk = routed_packs[kind]
+        assert (4 * (pk.image.numel() + pk.n_functions) <= SMEM_BUDGET) == whole, kind
+
+
+def test_routed_quant_staging_paths(routed_packs):
+    """stablelm's, the mixed-width and the e_a 1e-6 quant packs fit a
+    block's budget whole (image and flags), so their routed launches stage
+    the whole pack; the pack at e_a 3e-7 does not, so its launches restage
+    per member."""
+    for kind, whole in (("quant", True), ("mixed", True), ("quant_1e-6", True),
+                        ("quant_past_budget", False)):
         pk = routed_packs[kind]
         assert (4 * (pk.image.numel() + pk.n_functions) <= SMEM_BUDGET) == whole, kind
 
@@ -610,8 +637,9 @@ def _routed_check(pack, ids, x, ex):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("flags", ["off", "on", "per_member"])
-@pytest.mark.parametrize("kind", ["f32", "quant", "mixed", "quant_1e-6", "poly",
-                                  "mixed_poly", "poly_past_budget"])
+@pytest.mark.parametrize("kind", ["f32", "quant", "mixed", "quant_1e-6",
+                                  "quant_past_budget", "poly", "mixed_poly",
+                                  "poly_past_budget"])
 def test_routed_kernels_bitwise(routed_packs, kind, flags, dtype):
     pk = routed_packs[kind]
     F = pk.n_functions
@@ -626,7 +654,8 @@ def test_routed_kernels_bitwise(routed_packs, kind, flags, dtype):
     _routed_check(pk, raw, x, ex)
 
 
-@pytest.mark.parametrize("kind", ["f32", "quant", "poly", "poly_past_budget"])
+@pytest.mark.parametrize("kind", ["f32", "quant", "quant_past_budget", "poly",
+                                  "poly_past_budget"])
 def test_routed_rows_beyond_grid_limit(routed_packs, kind):
     """70,000 rows of 3 (more rows than a CUDA grid's y or z extent holds)."""
     pk = routed_packs[kind]
@@ -637,8 +666,8 @@ def test_routed_rows_beyond_grid_limit(routed_packs, kind):
         _routed_check(pk, ids, x, ex)
 
 
-@pytest.mark.parametrize("kind", ["f32", "quant", "poly", "mixed_poly",
-                                  "poly_past_budget"])
+@pytest.mark.parametrize("kind", ["f32", "quant", "mixed", "quant_past_budget", "poly",
+                                  "mixed_poly", "poly_past_budget"])
 def test_routed_cuda_graph_reroute(routed_packs, kind):
     """A routed call captured in a CUDA graph reads the ids tensor at replay:
     rewriting it in place re-routes the replay, with no capture anew."""

@@ -320,7 +320,7 @@ def test_fold_image_covers_every_read(packs, name):
     image, m_img = tp.fold_images[name]
     img = image.numpy()
     cores = [tp.fn_id(c) for c in range_fold.FOLDABLE[name]]
-    starts, v_at = table_pack.fold_image_layout([tp.n_intervals[f] for f in cores])
+    starts, v_at = table_pack.member_image_layout([tp.n_intervals[f] for f in cores])
     assert image.dtype == torch.float32 and image.is_contiguous()
     assert img.size % 4 == 0 and v_at + m_img <= img.size < v_at + m_img + 4
     vals, v0 = img[v_at: v_at + m_img], set()

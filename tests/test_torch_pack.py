@@ -30,6 +30,7 @@ On the CPU the kernel wrappers run their plain versions, so the wrapper is
 held to the same contract.
 """
 
+import dataclasses
 from functools import partial
 
 import jax
@@ -394,6 +395,39 @@ class TestTableFlash:
         x = torch.linspace(-20, 0, 257).to(torch.bfloat16)
         y = K.tableflash_exp(tp, x)
         assert y.dtype == torch.bfloat16 and (y[x < -16] == 0).all()
+
+    def test_member_image_covers_every_read(self, packs):
+        """exp_neg's staging image (``TablePack.flash_image``, what a block of
+        the TableFlash kernel stages on the card) holds every float the
+        lookup reads: its row is the pack's exp_neg row over the real
+        sub-intervals with the base rebased by one shift, its values are the
+        pack's over that span, and with every value of the pack outside the
+        span poisoned with NaN the plain TableFlash keeps its bits (NaN,
+        +-inf, z < lo, subnormals and a linspace over [-40, 0])."""
+        _, tp = packs
+        fid = tp.fn_id("exp_neg")
+        n = tp.n_intervals[fid]
+        image, m_img = tp.flash_image
+        img = image.numpy()
+        (at,), v_at = table_pack.member_image_layout([n])
+        assert image.dtype == torch.float32 and image.is_contiguous()
+        assert img.size % 4 == 0 and v_at + m_img <= img.size < v_at + m_img + 4
+        rows = [img[at: at + n + 1]] + [img[at + n + 1 + k * n: at + 2 * n + 1 + k * n]
+                                        for k in range(3)]
+        assert_bitwise(rows[0], tp.boundaries[fid, : n + 1].numpy())
+        assert_bitwise(rows[1], tp.inv_delta[fid, :n].numpy())
+        assert_bitwise(rows[3], tp.seg_count[fid, :n].numpy())
+        (v0,) = set((tp.base[fid, :n].numpy() - rows[2]).tolist())
+        v0 = int(v0)
+        assert_bitwise(img[v_at: v_at + m_img], tp.values.numpy()[v0: v0 + m_img])
+        poisoned = tp.values.clone()
+        poisoned[:v0] = float("nan")
+        poisoned[v0 + m_img:] = float("nan")
+        bad = dataclasses.replace(tp, values=poisoned)
+        tiny = np.finfo(np.float32).smallest_subnormal
+        x = torch.from_numpy(np.concatenate(
+            [self._x(), [np.inf, tiny, -tiny, -1e-40, -16.5, -1e30]]).astype(np.float32))
+        assert_bitwise(K.tableflash_exp_plain(bad, x), K.tableflash_exp_plain(tp, x))
 
 
 class TestContracts:

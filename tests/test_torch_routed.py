@@ -172,6 +172,38 @@ def assert_bitwise(got, want):
     assert int(ulps(got, want).max()) == 0
 
 
+def assert_image_covers_every_read(tp, sections, layout, planes, groups, value, slope):
+    """The pack's staging image (``tp.image``, what a block of its routed
+    kernels stages on the card where it fits) holds every value they read:
+    its routing sections (the first of ``sections``) are the routing
+    operands, and a pack whose ``planes`` and code ``groups`` are all read
+    from the image's sections (nothing of the pack outside them) gives the
+    routed plain ``value`` and ``slope`` with the same bits, extrapolation
+    off, on and per member.  ``layout``: (section starts, image words)."""
+    starts, words = layout
+    assert tp.image.dtype == torch.int32 and tp.image.shape == (words,)
+    raw = tp.image.view(torch.uint8)
+
+    def section(name, like):
+        at = 4 * starts[name]
+        return raw[at: at + like.numel() * like.element_size()].view(like.dtype)
+
+    for name, r in zip(sections, tp.routing_scalars()):
+        assert torch.equal(section(name, r), r), name
+    rebuilt = dataclasses.replace(
+        tp, **{p: section(p, getattr(tp, p)) for p in planes + groups})
+    for p in planes + groups:
+        assert torch.equal(getattr(rebuilt, p), getattr(tp, p)), p
+    ids, x = mixed_rows(tp, seed=5, cols=128)
+    xt = torch.from_numpy(x)
+    ft = torch.from_numpy(np.where(np.isfinite(x), x, 0.0).astype(np.float32))
+    for flags in FLAGS:
+        ex = _flags(tp, flags)
+        for fn, xin in ((value, xt), (slope, ft)):
+            assert_bitwise(fn(rebuilt, ids, xin, extrapolate=ex).numpy(),
+                           fn(tp, ids, xin, extrapolate=ex).numpy())
+
+
 # --------------------------------------------------------------------------------------
 # routing operands and id handling
 # --------------------------------------------------------------------------------------
@@ -193,6 +225,19 @@ def test_layout_offsets_match_reference(mixed):
     np.testing.assert_array_equal(t.bounds_offsets, j.bounds_offsets)
     np.testing.assert_array_equal(t.lane_offsets, j.lane_offsets)
     assert t.bounds_offsets.dtype == t.lane_offsets.dtype == np.int32
+
+
+@pytest.mark.parametrize("kind", ["quant", "mixed"])
+def test_staging_image_covers_every_read(kind, request):
+    """The quantized pack's staging image (``QuantTablePack.image``)."""
+    _, tp = _packs(kind, request)
+    assert_image_covers_every_read(
+        tp, table_pack.QUANT_IMAGE_SECTIONS,
+        table_pack.quant_image_layout(tp.n_functions, tp.inv_delta.shape[0],
+                                      tp.codes8.shape[0], tp.codes16.shape[0]),
+        ("boundaries", "inv_delta", "base", "seg_count", "scale", "zero", "ramp"),
+        ("codes8", "codes16"), table_pack.eval_routed_quant_ref,
+        table_pack.eval_routed_quant_slope)
 
 
 @pytest.mark.parametrize("kind", ["f32", "quant"])

@@ -49,7 +49,8 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels import routed_pack_lookup as R
 from repro_torch.kernels import table_pack_lookup as K
 from tests.test_torch_quant_poly import _poly_scale
-from tests.test_torch_routed import (FLAGS, _flags, assert_bitwise, mixed_rows,
+from tests.test_torch_routed import (FLAGS, _flags, assert_bitwise,
+                                     assert_image_covers_every_read, mixed_rows,
                                      row_inputs)
 
 NAMES = ("gelu", "silu", "tanh", "sigmoid_sym", "softplus", "exp_neg")
@@ -118,35 +119,14 @@ def test_staging_image_covers_every_read(kind, request):
     (nothing of the pack outside them) gives the routed plain value and
     slope with the same bits, extrapolation off, on and per member."""
     _, tp = _packs(kind, request)
-    groups = (tp.codes8, tp.codes16, tp.codes32)
-    starts, words = table_pack.poly_image_layout(
-        tp.n_functions, tp.inv_delta.shape[0], tp.max_lanes,
-        *(g.shape[0] for g in groups))
-    assert tp.image.dtype == torch.int32 and tp.image.shape == (words,)
-    raw = tp.image.view(torch.uint8)
-
-    def section(name, like):
-        at = 4 * starts[name]
-        return raw[at: at + like.numel() * like.element_size()].view(like.dtype)
-
-    for name, r in zip(table_pack.POLY_IMAGE_SECTIONS, tp.routing_scalars()):
-        assert torch.equal(section(name, r), r), name
-    planes = ("boundaries", "inv_delta", "base", "seg_count", "zero", "ramp", "scale")
-    codes = dict(zip(("codes8", "codes16", "codes32"), groups))
-    rebuilt = dataclasses.replace(
-        tp, **{p: section(p, getattr(tp, p)) for p in planes},
-        **{c: section(c, g) for c, g in codes.items()})
-    for p in planes + tuple(codes):
-        assert torch.equal(getattr(rebuilt, p), getattr(tp, p)), p
-    ids, x = mixed_rows(tp, seed=5, cols=128)
-    xt = torch.from_numpy(x)
-    ft = torch.from_numpy(np.where(np.isfinite(x), x, 0.0).astype(np.float32))
-    for flags in FLAGS:
-        ex = _flags(tp, flags)
-        for fn, xin in ((table_pack.eval_routed_poly_ref, xt),
-                        (table_pack.eval_routed_poly_slope, ft)):
-            assert_bitwise(fn(rebuilt, ids, xin, extrapolate=ex).numpy(),
-                           fn(tp, ids, xin, extrapolate=ex).numpy())
+    assert_image_covers_every_read(
+        tp, table_pack.POLY_IMAGE_SECTIONS,
+        table_pack.poly_image_layout(tp.n_functions, tp.inv_delta.shape[0],
+                                     tp.max_lanes, tp.codes8.shape[0],
+                                     tp.codes16.shape[0], tp.codes32.shape[0]),
+        ("boundaries", "inv_delta", "base", "seg_count", "zero", "ramp", "scale"),
+        ("codes8", "codes16", "codes32"), table_pack.eval_routed_poly_ref,
+        table_pack.eval_routed_poly_slope)
 
 
 def test_routed_poly_errors(poly):

@@ -389,17 +389,22 @@ def test_entries_match_argument_builders(spacks):
     assert K._sharded_args(tp, fid, 3, 4, 0, 1)[1][4:] == (S, 3, 4, 0, 1)
     with pytest.raises(ValueError, match="takes 6 planes and 9 int"):
         _lib.launch("tp_spack_lookup", x, planes[3:], ints)
-    # the folded and routed poly entries take their pack's staging image
-    fp = table_pack.build_pack(("silu", "sin_core", "cos_core", "exp_core", "log_core"),
-                               EA, omega=OMEGA, device="cpu")
+    # the folded, TableFlash, routed quant and routed poly entries take their
+    # pack's staging image
+    fp = table_pack.build_pack(("silu", "sin_core", "cos_core", "exp_core", "log_core",
+                                "exp_neg"), EA, omega=OMEGA, device="cpu")
+    qp = table_pack.build_quant_pack(("silu", "tanh"), EA, omega=OMEGA, device="cpu")
     pp = table_pack.from_poly_layout(packing.poly_pack_layout(
         [design.poly_member(n, EA, degree=d, bits=b)
          for n, d, b in (("tanh", 1, 32), ("exp_neg", 3, 8), ("gelu", 2, 16))]), "cpu")
     cases = {f"tp_folded_{e} {name}": (K._folded_args(fp, name), fp.fold_images[name])
              for e in ("lookup", "grad") for name in ("sin", "cos", "exp", "log")}
+    cases["tp_tableflash_exp"] = (K._flash_args(fp), fp.flash_image)
     for e in ("lookup", "grad"):
         cases[f"tp_routed_poly_{e}"] = (R._routed_poly_args(pp, [0, 2, 1], x, True),
                                         (pp.image, pp.inv_delta.shape[0]))
+        cases[f"tp_routed_quant_{e}"] = (R._routed_quant_args(qp, [0, 1, 1], x, True),
+                                         (qp.image, qp.inv_delta.shape[0]))
     for key, ((planes, ints), (image, count)) in cases.items():
         _, n_planes, n_int = _lib._ENTRIES[key.split()[0]]
         assert (len(planes), len(ints)) == (n_planes, n_int), key
@@ -407,8 +412,10 @@ def test_entries_match_argument_builders(spacks):
                                                      torch.int16, torch.int8)
                    for p in planes), key
         assert all(isinstance(i, int) for i in ints), key
-        assert planes[-1] is image and ints[-1 if "folded" in key else -2] == count, key
+        assert planes[-1] is image, key
+        assert ints[-2 if "routed" in key else -1] == count, key
     assert fp.fold_images["sin"] is fp.fold_images["cos"]
+    assert K._flash_args(fp)[1][:4] == K._pack_args(fp, fp.fn_id("exp_neg"))[1]
     assert K._folded_args(fp, "exp")[1][:2] == (fp.fn_id("exp_core"),) * 2
 
 
