@@ -49,7 +49,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    polynomial packs (value, value + slope) bitwise against their plain
    versions, NaN positions matched, over every member of stablelm-3b's quant
    and poly packs (e_a 1e-4), the mixed-degree / mixed-width poly pack
-   (tanh d1 f32, exp_neg d3 int8, gelu d2 int16) and the quant pack at e_a
+   (tanh d1 f32, exp_neg d3 int8, gelu d2 int16), the same at e_a 1e-8
+   (each poly pack's bytes a block stages and the kernel that stages them
+   logged: the whole staging image where it fits the 48 KB budget, the
+   member's lanes and codes past it) and the quant pack at e_a
    1e-6 (119 to 279 sub-intervals a member), f32 and bf16, extrapolation on
    and off, at the main paths' shapes, a ragged size and the edge inputs;
 10. QuantPack / PolyPack serving: full-width, full-depth stablelm-3b (the
@@ -67,7 +70,9 @@ Phases, each fatal on failure (exit code 1, no result line):
 13. routed kernels: the four routed kernels (f32 pack and quantized pack,
    value and value + slope) bitwise against their plain versions AND, row by
    row, against the static kernel of the row's member, NaN positions
-   matched, over every member of stablelm-3b's f32 and quant packs, the
+   matched, over every member of stablelm-3b's f32 pack (its staging image
+   staged whole) and of the f32 pack at e_a 3e-7 (its image past the 48 KB
+   budget: a row restaged per member), of stablelm-3b's quant pack, the
    reference's mixed int8/int16 pack and the quant pack at e_a 1e-6 (each
    quant pack's staging image staged whole) and at e_a 3e-7 (its image past
    the 48 KB budget: restaged per member), f32 and
@@ -76,7 +81,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    cycling over the members, a ragged (70000, 3) (more rows than a grid's y
    or z extent) and the edge inputs; then a routed call captured in a CUDA
    graph whose ids tensor is rewritten in place between replays must follow
-   the new routing (the f32 pack and both quant staging paths);
+   the new routing (both f32 and both quant staging paths);
 14. routed serving: full stablelm-3b serving the 8 requests in
    ``routed_pack`` and ``routed_quant_pack`` (+ TableFlash); the routed value
    kernel and ``tableflash_exp`` must have launched, and the tokens must
@@ -997,6 +1002,24 @@ def ragged_edge_values(pack, fid):
     return row_edges(pack.boundaries[bo: bo + pack.n_intervals[fid] + 1].cpu().numpy())
 
 
+def poly_staging(pack):
+    """What a block of the static poly kernels stages over ``pack``: the
+    pack's staging image where it fits the budget (poly_image_kernel),
+    otherwise (poly_kernel) each member's lanes and code group, or its lanes
+    alone, as the budget allows."""
+    image = 4 * pack.image.numel()
+    if image <= SMEM_BUDGET:
+        return f"each block stages the {image}-byte image (poly_image_kernel)"
+    per = []
+    for fid, n in enumerate(pack.n_intervals):
+        meta = 4 * (4 * n + 1 + 3 * n * pack.max_lanes)
+        codes = pack.codes_for(fid)
+        full = meta + codes.numel() * codes.element_size()
+        per.append(full if full <= SMEM_BUDGET else meta if meta <= SMEM_BUDGET else 0)
+    return (f"image {image} bytes past the budget: each block stages {per} bytes "
+            f"by member (poly_kernel)")
+
+
 def quant_poly_kernel_phase(packs, s0):
     import torch
 
@@ -1029,7 +1052,8 @@ def quant_poly_kernel_phase(packs, s0):
                             cases += 1
         log(f"kernels: [{tag}] members {pack.names}, intervals {pack.n_intervals}, "
             f"code bits {pack.entry_bits}"
-            + (f", degrees {pack.degrees}" if hasattr(pack, "degrees") else ""))
+            + (f", degrees {pack.degrees}; {poly_staging(pack)}" if kind == "poly"
+               else ""))
     log(f"kernels: {cases} quant/poly kernel-vs-plain cases bitwise equal "
         f"(bf16+f32, extrapolate on/off, edges, shapes {shapes})")
     return worst
@@ -1212,6 +1236,26 @@ def mixed_width_pack(approx):
 
     return from_quant_layout(quant_pack_layout(
         [plan_quant_member(n, approx.e_a, dtype=d) for n, d in MIXED_WIDTHS]), "cuda")
+
+
+def routed_f32_packs(approx, pack):
+    """(tag, pack) of phase 13's f32 packs: stablelm-3b's pack, whose
+    staging image and per-member scalars fit the 48 KB a block of the routed
+    f32 kernels stages whole (routed_pack_image_kernel), and stablelm's
+    members at e_a 3e-7, whose image does not (routed_kernel restages a row
+    per member)."""
+    past = dataclasses.replace(approx, e_a=3e-7, mode="table_pack").pack("cuda")
+    packs = (("f32", pack), ("f32 e_a 3e-7", past))
+    for tag, p in packs:
+        whole = 4 * (p.image[0].numel() + 3 * p.n_functions)
+        check((whole <= SMEM_BUDGET) == (p is not past),
+              f"{tag} pack: {whole} staging bytes on the wrong side of the "
+              f"{SMEM_BUDGET}-byte budget")
+        log(f"routed f32: {tag} pack stages {whole} bytes "
+            + ("whole (routed_pack_image_kernel)" if whole <= SMEM_BUDGET else
+               f"past the budget: a row of {4 * (4 * p.n_max + 1)} bytes per member "
+               f"and the {4 * p.footprint}-byte values as they fit (routed_kernel)"))
+    return packs
 
 
 def routed_quant_packs(approx, quant, fine):
@@ -1598,7 +1642,9 @@ def folded_kernel_phase(packs):
 def past_budget_poly_pack(approx):
     """The mixed poly pack at e_a 1e-8: its staging image is past the 48 KB
     a block of the routed poly kernels stages whole, so they restage per
-    member (phase 17 checks that path too)."""
+    member, and past what a block of the static poly kernels stages, so
+    they stage the member's lanes and code group (phases 9 and 17 check
+    those paths too)."""
     from repro_torch.approx.table_pack import from_poly_layout
     from repro_torch.core import design
     from repro_torch.core.packing import poly_pack_layout
@@ -2155,16 +2201,20 @@ def main() -> int:
         counts["table_lookup_grad"] = train_counts["table_lookup_grad"]
         times = timing_phase(pack, approx, smi_line)
         qp_packs = quant_poly_packs(cfg.approx)
-        worst.update(quant_poly_kernel_phase(qp_packs, s0))
+        big_poly = past_budget_poly_pack(cfg.approx)
+        worst.update(quant_poly_kernel_phase(
+            qp_packs + (("poly", "mixed poly e_a 1e-8", big_poly),), s0))
         counts.update(pack_serving_paths(smi_line, (
             ("quant_pack", ("quant_pack_lookup",)), ("poly_pack", ("poly_pack_lookup",)))))
         counts.update(pack_train_paths(smi_line, (
             ("quant_pack", ("quant_pack_grad",)), ("poly_pack", ("poly_pack_grad",)))))
         times.update(quant_poly_timing_phase(qp_packs[0][2], qp_packs[2][2], smi_line))
-        r_packs = (("f32", pack),) + routed_quant_packs(cfg.approx, qp_packs[0][2],
-                                                        qp_packs[1][2])
+        r_packs = (routed_f32_packs(cfg.approx, pack)
+                   + routed_quant_packs(cfg.approx, qp_packs[0][2], qp_packs[1][2]))
         worst.update(routed_kernel_phase(r_packs, s0))
-        reroute_check(r_packs[-1][1])  # the quant pack restaged per member
+        # (the phase re-routes both f32 packs) the quant pack staged whole and
+        # restaged per member
+        reroute_check(r_packs[2][1], r_packs[-1][1])
         del r_packs
         counts.update(pack_serving_paths(smi_line, (
             ("routed_pack", ("routed_pack_lookup",)),
@@ -2180,7 +2230,6 @@ def main() -> int:
         log(f"fold pack: {fold_pack.names}, intervals {fold_pack.n_intervals}")
         worst.update(folded_kernel_phase(f_packs))
         del f_packs
-        big_poly = past_budget_poly_pack(cfg.approx)
         worst.update(routed_kernel_phase((("poly", qp_packs[2][2]),
                                           ("mixed poly", qp_packs[3][2]),
                                           ("mixed poly e_a 1e-8", big_poly)), s0))

@@ -90,6 +90,14 @@ class TablePack:
     # routed dispatch's per-member int32 operands on the pack's device, built
     # once with the pack: (n_arr,), see routing_scalars()
     routing: Tuple[torch.Tensor, ...]
+    # the whole pack's staging image (every member's row over its real
+    # sub-intervals, then the values; member_image_layout over all the
+    # names) and the values it holds, built once with the pack: what a block
+    # of the routed kernels stages where it fits
+    image: Tuple[torch.Tensor, int]
+    # each member's row start in ``image`` (int32, on the pack's device):
+    # the routed kernels gather it by fn_id beside n_arr
+    image_rows: torch.Tensor
     # per-member extrapolate flag vectors on the device, one per distinct
     # flag tuple (routed_extr_operand)
     _extr_operands: Dict[bytes, torch.Tensor] = field(
@@ -221,6 +229,8 @@ def from_layout(layout: PackLayout, device: DeviceLike = None) -> TablePack:
         values=f32_tensor(layout.values, dev),
         domains=_row_domains(layout),
         routing=(_int32_tensor(layout.n_intervals, dev),),
+        image=_member_image(layout, layout.names, dev),
+        image_rows=_int32_tensor(member_image_layout(layout.n_intervals)[0], dev),
         fold_images=_fold_images(layout, dev),
         flash_image=(_member_image(layout, ("exp_neg",), dev)
                      if "exp_neg" in layout.names else None),
@@ -693,7 +703,8 @@ class PolyTablePack(_RaggedPack):
     routing: Tuple[torch.Tensor, ...]
     # the whole pack (routing operands, metadata lanes, code groups) as ONE
     # int32 buffer on the pack's device, built once with the pack: what a
-    # block of the routed kernels stages where it fits (poly_image_layout)
+    # block of the routed and of the static kernels stages where it fits
+    # (poly_image_layout)
     image: torch.Tensor
     _extr_operands: Dict[bytes, torch.Tensor] = field(
         default_factory=dict, compare=False, repr=False)

@@ -97,6 +97,15 @@
 // thread's first x load is already in flight (flash_image_kernel).  Past the budget it stages the
 // member's row and the pack's values as above (pack_kernel).
 //
+// PolyPack.  The static poly kernels are launch-bound at the decode gate the
+// same way, and their member reads its lanes and a span of its width group.
+// Where the pack's staging image (PolyTablePack.image, the routed poly
+// kernels' own: 2,216 bytes in stablelm's pack) fits kSmemBytes, a block
+// stages it in ONE round trip with each thread's first x in flight and
+// addresses the member's sections from the launch's offsets
+// (poly_image_kernel); past the budget it stages the member's lanes and its
+// code group as the budget allows (poly_kernel).
+//
 // Routed dispatch.  The TPU kernels scalar-prefetched the per-row fn_ids and
 // let them steer each grid row's metadata DMA.  Here the ids, the members'
 // interval counts and extrapolate flags (and, for the quantized pack, their
@@ -125,10 +134,15 @@
 // (routed_poly_pack_kernel).  The quantized pack does the same with its own
 // image (QuantTablePack.image: routing scalars, the seven metadata lanes,
 // both code groups; 4.6 KB in stablelm's pack, one batch of 8 loads a
-// thread) (routed_quant_pack_kernel).
+// thread) (routed_quant_pack_kernel), and the f32 pack its own
+// (TablePack.image: every member's row over its real sub-intervals, then the
+// values; 4,080 bytes in stablelm's pack, one batch of 4 loads a thread),
+// the members' interval counts, row starts and flags loaded beside it
+// (routed_pack_image_kernel).
 // Past the budget a block stages the widest member's lanes and the largest
 // code group, restaging both per member (routed_poly_kernel,
-// routed_quant_kernel).
+// routed_quant_kernel), or the f32 member's row at n_max and the values
+// (routed_kernel).
 //
 // RangeFold.  The folded kernels are the static pack body (tl::lookup /
 // lookup_grad, extrapolation off) between the fold prologue and the
@@ -1232,6 +1246,143 @@ flash_image_kernel(const T* __restrict__ x, T* __restrict__ out, long long n,
   }
 }
 
+// ---- whole-pack staging images: the static poly pack, the routed f32 pack ------
+
+// The static poly kernels where the pack's staging image (PolyTablePack.image,
+// the one the routed poly kernels stage: 2,216 bytes in stablelm's pack)
+// fits kSmemBytes (the launch decides), as flash_image_kernel: each thread's
+// first x load is issued before the staging, which is ONE round trip (one
+// register-batched loop), where poly_kernel took two dependent ones (the
+// member's seven metadata segments, then its whole code group) before its
+// first x load.  The member's sections are addressed from the launch's
+// offsets (bo, lo) into the image's planes and its width group's section
+// (C: int8_t, int16_t or float); the grid-stride loop loads the next x
+// before this one's arithmetic.  The body is poly_kernel's over the same
+// numbers at other addresses: the same bits.
+template <typename T, typename C, int kMode>
+__global__ void __launch_bounds__(kThreads)
+poly_image_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
+                  long long n, const int* __restrict__ image, PolyImage im, int bo,
+                  int lo, int n_intervals, int lmax, int degree, int m,
+                  int extrapolate) {
+  extern __shared__ __align__(16) float smem[];
+  long long idx = first_index();
+  float xv = idx < n ? load_f32(x, idx) : 0.0f;  // in flight while the image lands
+  stage_copy(reinterpret_cast<int*>(smem), image, static_cast<int>(im.words), true);
+  __syncthreads();
+  const long long lane0 = static_cast<long long>(lo) * lmax;
+  const tl::PolyRow r{smem + im.bounds + bo, smem + im.invd + lo, smem + im.base + lo,
+                      smem + im.segs + lo,   smem + im.zero + lane0,
+                      smem + im.ramp + lane0, smem + im.scale + lane0,
+                      n_intervals, lmax, degree};
+  const C* cd = reinterpret_cast<const C*>(
+      smem + (sizeof(C) == 1 ? im.c8 : sizeof(C) == 2 ? im.c16 : im.c32));
+  const bool ex = extrapolate != 0;
+  const long long stride = grid_stride();
+  for (; idx < n; idx += stride) {
+    const float xn = idx + stride < n ? load_f32(x, idx + stride) : 0.0f;
+    if (kMode == kGrad) {
+      float d;
+      store_f32(out, idx, tl::poly_lookup(xv, r, cd, m, ex, &d));
+      store_f32(slope, idx, d);
+    } else {
+      store_f32(out, idx, tl::poly_lookup(xv, r, cd, m, ex,
+                                          static_cast<float*>(nullptr)));
+    }
+    xv = xn;
+  }
+}
+
+// Columns [c0, c1) of one routed f32 row; with `preloaded`, x0 is this
+// thread's first x of them, already loaded (issued before the staging).
+template <typename T, int kMode>
+__device__ __forceinline__ void routed_pack_run(const T* x, T* out, T* slope,
+                                                long long row0, long long c0,
+                                                long long c1, const tl::Row& rw,
+                                                const float* vals, int m, bool ex,
+                                                bool preloaded, float x0) {
+  for (long long c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
+    const long long idx = row0 + c;
+    const float xv = preloaded ? x0 : load_f32(x, idx);
+    preloaded = false;
+    if (kMode == kGrad) {
+      float d;
+      store_f32(out, idx, tl::lookup_grad(xv, rw, vals, m, ex, &d));
+      store_f32(slope, idx, d);
+    } else {
+      store_f32(out, idx, tl::lookup(xv, rw, vals, m, ex));
+    }
+  }
+}
+
+// The routed f32 kernels where the pack's staging image (TablePack.image:
+// every member's row over its real sub-intervals, the bases rebased into
+// the image, then the values; 4,080 bytes in stablelm's pack) and the
+// per-member scalars fit kSmemBytes (the launch decides), as
+// routed_quant_pack_kernel: every block stages the image (one
+// register-batched loop: stablelm's 1,020 words are one batch of
+// kStageUnroll loads a thread) with this block's first id, each thread's
+// first x and the members' interval counts, row starts and extrapolate
+// flags (one each for the first n_fn threads) already in flight, the
+// latter stored behind the image; entering another member's row then only
+// points at another row of shared memory (no loads, no barrier), and the
+// next row's id is loaded while this row runs.  The image's rows scan only
+// their real sub-intervals (the +inf padding of a pack row never moves the
+// selector), so every row has routed_kernel's bits.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kThreads)
+routed_pack_image_kernel(const T* __restrict__ x, T* __restrict__ out,
+                         T* __restrict__ slope, RoutedWork w, const int* __restrict__ ids,
+                         const int* __restrict__ n_arr, const int* __restrict__ starts,
+                         const int* __restrict__ extr, const float* __restrict__ image,
+                         int words, int v_at, int m_img, int n_fn) {
+  extern __shared__ __align__(16) float smem[];
+  int* s_n = reinterpret_cast<int*>(smem + words);
+  int* s_at = s_n + n_fn;
+  int* s_ex = s_at + n_fn;
+  const long long w0 = static_cast<long long>(blockIdx.x) * w.per;
+  long long left = w0 + w.per < w.items ? w.per : w.items - w0;  // tiles to do
+  long long r = w0 / w.tiles;
+  long long t = w0 - r * w.tiles;  // first tile within row r
+  // in flight while the image lands: the first row's id, this thread's first
+  // x and the per-member scalars
+  int id = ids[r];
+  const long long c_first = t * kRoutedTile + threadIdx.x;
+  const float x_first = c_first < w.cols ? load_f32(x, r * w.cols + c_first) : 0.0f;
+  const bool mine = threadIdx.x < n_fn;
+  const int n0 = mine ? n_arr[threadIdx.x] : 0;
+  const int at0 = mine ? starts[threadIdx.x] : 0;
+  const int ex0 = mine ? extr[threadIdx.x] : 0;
+  stage_copy(smem, image, words, true);
+  if (mine) {
+    s_n[threadIdx.x] = n0;
+    s_at[threadIdx.x] = at0;
+    s_ex[threadIdx.x] = ex0;
+  }
+  for (int k = threadIdx.x + blockDim.x; k < n_fn; k += blockDim.x) {
+    s_n[k] = n_arr[k];
+    s_at[k] = starts[k];
+    s_ex[k] = extr[k];
+  }
+  __syncthreads();
+  const float* vals = smem + v_at;
+  bool first = true;
+  while (left > 0) {
+    const int fid = id < 0 ? 0 : (id > n_fn - 1 ? n_fn - 1 : id);
+    const long long nt = w.tiles - t < left ? w.tiles - t : left;
+    if (left > nt) id = ids[r + 1];  // the next row's, loaded while this row runs
+    const long long c0 = t * kRoutedTile;
+    const long long c1 = c0 + nt * kRoutedTile < w.cols ? c0 + nt * kRoutedTile : w.cols;
+    routed_pack_run<T, kMode>(x, out, slope, r * w.cols, c0, c1,
+                              image_row(smem + s_at[fid], s_n[fid]), vals, m_img,
+                              s_ex[fid] != 0, first, x_first);
+    first = false;
+    left -= nt;
+    ++r;
+    t = 0;
+  }
+}
+
 // ---- launches -----------------------------------------------------------------
 
 int sm_count() {
@@ -1445,21 +1596,55 @@ void poly_go(int blocks, Staging st, cudaStream_t stream, const void* x, void* o
       n_intervals, lmax, degree, m, extrapolate, st.stage);
 }
 
+template <typename T, typename C, int kMode>
+void poly_image_go(int blocks, long long bytes, cudaStream_t stream, const void* x,
+                   void* out, void* slope, long long n, const void* image,
+                   const PolyImage& im, int bo, int lo, int n_intervals, int lmax,
+                   int degree, int m, int extrapolate) {
+  poly_image_kernel<T, C, kMode><<<blocks, kThreads, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), n,
+      static_cast<const int*>(image), im, bo, lo, n_intervals, lmax, degree, m,
+      extrapolate);
+}
+
 // code_bits: 8, 16 or 32 (raw f32 coefficients); degree 1..3 and
-// degree + 1 <= lmax <= 4.  Refuses anything else, as launch_quant does.
+// degree + 1 <= lmax <= 4; `image` the pack's staging image, laid out by
+// n_fn, n_sub (the pack's sub-intervals) and m8 / m16 / m32 (its code
+// groups' entries, m the member's group's).  Where the image fits
+// kSmemBytes, poly_image_kernel stages it; otherwise poly_kernel stages the
+// member's lanes and its code group as the budget allows.  Refuses anything
+// else, as launch_quant does, and a member whose lanes leave the image's.
 template <int kMode>
 cudaError_t launch_poly(const void* x, void* out, void* slope, long long n, int dtype,
-                        const float* const* planes, const void* codes, int bo, int lo,
-                        int n_intervals, int lmax, int degree, int m, int code_bits,
-                        int extrapolate, cudaStream_t stream) {
+                        const float* const* planes, const void* codes,
+                        const void* image, int bo, int lo, int n_intervals, int lmax,
+                        int degree, int m, int code_bits, int extrapolate, int n_fn,
+                        int n_sub, int m8, int m16, int m32, cudaStream_t stream) {
   if (n_intervals < 1 || bo < 0 || lo < 0 || m < 1 || n < 0 || degree < 1 ||
       degree >= tl::kMaxLanes || lmax < degree + 1 || lmax > tl::kMaxLanes ||
       (code_bits != 8 && code_bits != 16 && code_bits != 32) ||
-      (kMode == kGrad && !slope)) {
+      m != (code_bits == 8 ? m8 : code_bits == 16 ? m16 : m32) || n_fn < 1 ||
+      m8 < 0 || m16 < 0 || m32 < 0 || lo + n_intervals > n_sub ||
+      bo + n_intervals + 1 > n_sub + n_fn || (kMode == kGrad && !slope)) {
     return cudaErrorInvalidValue;
   }
   if (n == 0) return cudaSuccess;
   const int blocks = grid_for(n);
+  const PolyImage im = poly_image(n_fn, n_sub, lmax, m8, m16, m32);
+  if (4 * im.words <= kSmemBytes) {
+#define TP_POLY_IMAGE(T, C)                                                            \
+  poly_image_go<T, C, kMode>(blocks, 4 * im.words, stream, x, out, slope, n, image,    \
+                             im, bo, lo, n_intervals, lmax, degree, m, extrapolate)
+    if (code_bits == 8) {
+      TP_DISPATCH_DTYPE(dtype, TP_POLY_IMAGE, int8_t);
+    } else if (code_bits == 16) {
+      TP_DISPATCH_DTYPE(dtype, TP_POLY_IMAGE, int16_t);
+    } else {
+      TP_DISPATCH_DTYPE(dtype, TP_POLY_IMAGE, float);
+    }
+#undef TP_POLY_IMAGE
+    return cudaGetLastError();
+  }
   const Staging st = staging_for(
       4LL * n_intervals + 1 + 3LL * n_intervals * lmax,
       static_cast<long long>(m) * (code_bits / 8));
@@ -1516,6 +1701,49 @@ cudaError_t launch_routed(const void* x, void* out, void* slope, long long n, in
     TP_DISPATCH_DTYPE(dtype, TP_ROUTED, false);
   }
 #undef TP_ROUTED
+  return cudaGetLastError();
+}
+
+// The routed f32 pack with its staging image (TablePack.image): n_sub the
+// pack's sub-intervals (every member's), m_img the values the image holds,
+// `starts` each member's row start in it.  Where the image and the
+// per-member scalars fit kSmemBytes, routed_pack_image_kernel stages the
+// whole pack; otherwise routed_kernel stages a row at n_max and the values
+// as the budget allows, restaging the row per member.  Refuses what
+// launch_routed refuses and an image whose values or rows cannot be the
+// pack's.
+template <int kMode>
+cudaError_t launch_routed_image(const void* x, void* out, void* slope, long long n,
+                                int dtype, const int* ids, const int* n_arr,
+                                const int* starts, const int* extr,
+                                const float* bounds, const float* invd,
+                                const float* base, const float* segs,
+                                const float* values, const float* image, int n_fn,
+                                int n_max, int m, int n_sub, int m_img, int rows,
+                                cudaStream_t stream) {
+  if (n_fn < 1 || n_max < 1 || m < 2 || n_sub < n_fn ||
+      n_sub > static_cast<long long>(n_fn) * n_max || m_img < 2 || m_img > m ||
+      rows < 1 || n < 0 || n % rows != 0 || (kMode == kGrad && !slope)) {
+    return cudaErrorInvalidValue;
+  }
+  const long long v_at = 4LL * n_sub + n_fn;
+  const long long words = (v_at + m_img + 3) / 4 * 4;
+  const long long whole = 4 * (words + 3LL * n_fn);
+  if (whole > kSmemBytes) {
+    return launch_routed<kMode, false>(x, out, slope, n, dtype, ids, n_arr, extr,
+                                       bounds, invd, base, segs, values, nullptr, n_fn,
+                                       n_max, m, 1, 0, 1, rows, stream);
+  }
+  if (n == 0) return cudaSuccess;
+  int blocks = 0;
+  const RoutedWork w = routed_work(n, rows, &blocks);
+#define TP_ROUTED_IMAGE(T, ...)                                                        \
+  routed_pack_image_kernel<T, kMode><<<blocks, kThreads, whole, stream>>>(             \
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), w, ids,  \
+      n_arr, starts, extr, image, static_cast<int>(words), static_cast<int>(v_at),     \
+      m_img, n_fn)
+  TP_DISPATCH_DTYPE(dtype, TP_ROUTED_IMAGE, 0);
+#undef TP_ROUTED_IMAGE
   return cudaGetLastError();
 }
 
@@ -1755,18 +1983,23 @@ extern "C" cudaError_t tp_quant_grad(const void* x, void* y, void* slope, long l
 // The polynomial pack: as the quantized one, with lane-padded dequant planes
 // (lmax lanes per sub-interval, lane offset lo * lmax), the member's degree,
 // and code_bits 8, 16 or 32 (raw f32 coefficients).  Plane order: bounds,
-// invd, base, segs, zero, ramp, scale.
+// invd, base, segs, zero, ramp, scale.  `image` is the pack's staging image
+// (PolyTablePack.image), laid out by n_fn, n_sub (the pack's sub-interval
+// count) and m8 / m16 / m32 (its code groups' entries).
 extern "C" cudaError_t tp_poly_lookup(const void* x, void* out, long long n, int dtype,
                                       const float* bounds, const float* invd,
                                       const float* base, const float* segs,
                                       const float* zero, const float* ramp,
-                                      const float* scale, const void* codes, int bo,
-                                      int lo, int n_intervals, int lmax, int degree,
-                                      int m, int code_bits, int extrapolate,
+                                      const float* scale, const void* codes,
+                                      const void* image, int bo, int lo,
+                                      int n_intervals, int lmax, int degree, int m,
+                                      int code_bits, int extrapolate, int n_fn,
+                                      int n_sub, int m8, int m16, int m32,
                                       void* stream) {
   const float* planes[7] = {bounds, invd, base, segs, zero, ramp, scale};
-  return launch_poly<kValue>(x, out, nullptr, n, dtype, planes, codes, bo, lo,
+  return launch_poly<kValue>(x, out, nullptr, n, dtype, planes, codes, image, bo, lo,
                              n_intervals, lmax, degree, m, code_bits, extrapolate,
+                             n_fn, n_sub, m8, m16, m32,
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -1774,43 +2007,51 @@ extern "C" cudaError_t tp_poly_grad(const void* x, void* y, void* slope, long lo
                                     int dtype, const float* bounds, const float* invd,
                                     const float* base, const float* segs,
                                     const float* zero, const float* ramp,
-                                    const float* scale, const void* codes, int bo,
-                                    int lo, int n_intervals, int lmax, int degree,
-                                    int m, int code_bits, int extrapolate,
+                                    const float* scale, const void* codes,
+                                    const void* image, int bo, int lo,
+                                    int n_intervals, int lmax, int degree, int m,
+                                    int code_bits, int extrapolate, int n_fn,
+                                    int n_sub, int m8, int m16, int m32,
                                     void* stream) {
   const float* planes[7] = {bounds, invd, base, segs, zero, ramp, scale};
-  return launch_poly<kGrad>(x, y, slope, n, dtype, planes, codes, bo, lo, n_intervals,
-                            lmax, degree, m, code_bits, extrapolate,
-                            static_cast<cudaStream_t>(stream));
+  return launch_poly<kGrad>(x, y, slope, n, dtype, planes, codes, image, bo, lo,
+                            n_intervals, lmax, degree, m, code_bits, extrapolate, n_fn,
+                            n_sub, m8, m16, m32, static_cast<cudaStream_t>(stream));
 }
 
 // Routed f32 pack: x holds `rows` rows of n / rows columns; row r goes
 // through member ids[r] (clamped to [0, n_fn - 1]).  ids, n_arr (interval
-// counts) and extr (extrapolate flags) are int32 device vectors, ids of
-// `rows` entries, the others of n_fn.
+// counts), starts (each member's row start in the staging image) and extr
+// (extrapolate flags) are int32 device vectors, ids of `rows` entries, the
+// others of n_fn.  `image` is the pack's staging image (TablePack.image),
+// holding m_img of the values after the rows of the pack's n_sub
+// sub-intervals.
 extern "C" cudaError_t tp_routed_lookup(const void* x, void* out, long long n,
                                         int dtype, const int* ids, const int* n_arr,
-                                        const int* extr, const float* bounds,
-                                        const float* invd, const float* base,
-                                        const float* segs, const float* values,
-                                        int n_fn, int n_max, int m, int rows,
-                                        void* stream) {
-  return launch_routed<kValue, false>(x, out, nullptr, n, dtype, ids, n_arr, extr,
-                                      bounds, invd, base, segs, values, nullptr, n_fn,
-                                      n_max, m, 1, 0, 1, rows,
-                                      static_cast<cudaStream_t>(stream));
+                                        const int* starts, const int* extr,
+                                        const float* bounds, const float* invd,
+                                        const float* base, const float* segs,
+                                        const float* values, const float* image,
+                                        int n_fn, int n_max, int m, int n_sub,
+                                        int m_img, int rows, void* stream) {
+  return launch_routed_image<kValue>(x, out, nullptr, n, dtype, ids, n_arr, starts,
+                                     extr, bounds, invd, base, segs, values, image,
+                                     n_fn, n_max, m, n_sub, m_img, rows,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t tp_routed_grad(const void* x, void* y, void* slope, long long n,
                                       int dtype, const int* ids, const int* n_arr,
-                                      const int* extr, const float* bounds,
-                                      const float* invd, const float* base,
-                                      const float* segs, const float* values,
-                                      int n_fn, int n_max, int m, int rows,
-                                      void* stream) {
-  return launch_routed<kGrad, false>(x, y, slope, n, dtype, ids, n_arr, extr, bounds,
-                                     invd, base, segs, values, nullptr, n_fn, n_max, m,
-                                     1, 0, 1, rows, static_cast<cudaStream_t>(stream));
+                                      const int* starts, const int* extr,
+                                      const float* bounds, const float* invd,
+                                      const float* base, const float* segs,
+                                      const float* values, const float* image,
+                                      int n_fn, int n_max, int m, int n_sub, int m_img,
+                                      int rows, void* stream) {
+  return launch_routed_image<kGrad>(x, y, slope, n, dtype, ids, n_arr, starts, extr,
+                                    bounds, invd, base, segs, values, image, n_fn,
+                                    n_max, m, n_sub, m_img, rows,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // Routed quantized pack: as tp_routed_lookup, with bo / lo (each member's

@@ -7,12 +7,17 @@ Every entry point takes ``(x, out[, slope], n, dtype, <planes>, <ints>,
 stream)`` and returns the launch's CUDA error code.  The f32 pack and table
 entries take five f32 planes (bounds, invd, base, segs, values); the quantized
 and polynomial ones seven f32 planes (bounds, invd, base, segs and three
-dequant planes) and then the codes pointer of the member's width group.  The
+dequant planes) and then the codes pointer of the member's width group; the
+polynomial ones also the pack's staging image (``PolyTablePack.image``) and,
+after the member's ints, the counts that lay it out.  The
 routed entries take the int32 routing vectors first (ids, per-member interval
-counts, extrapolate flags; for the quantized and polynomial packs also
+counts, extrapolate flags; for the f32 pack also each member's row start in
+its staging image, for the quantized and polynomial packs
 boundary offsets, lane offsets and code widths, and the polynomial pack's
 coefficient strides), then the pack's planes (every code group of the
-quantized or polynomial pack), then the row count.  The folded entries take
+quantized or polynomial pack), then the row count; the routed f32 entries
+also the pack's staging image (``TablePack.image``), its sub-interval count
+and the values the image holds.  The folded entries take
 the f32 pack's five planes and the core members' ids and interval counts and
 the fold's kind, and the kind's staging image (``TablePack.fold_images``)
 with the values it holds; the TableFlash entry also exp_neg's staging image
@@ -74,12 +79,16 @@ _ENTRIES = {
     # bo, lo, n_intervals, m, code_bits, extrapolate
     "tp_quant_lookup": (1, 8, 6),
     "tp_quant_grad": (2, 8, 6),
-    # bo, lo, n_intervals, lmax, degree, m, code_bits, extrapolate
-    "tp_poly_lookup": (1, 8, 8),
-    "tp_poly_grad": (2, 8, 8),
-    # ids, n_arr, extr + 5 f32 planes; n_fn, n_max, m, rows
-    "tp_routed_lookup": (1, 8, 4),
-    "tp_routed_grad": (2, 8, 4),
+    # 7 f32 planes + the member's codes + the pack's staging image; bo, lo,
+    # n_intervals, lmax, degree, m, code_bits, extrapolate, then n_fn, the
+    # sub-interval count, m8, m16, m32 (the image's layout)
+    "tp_poly_lookup": (1, 9, 13),
+    "tp_poly_grad": (2, 9, 13),
+    # ids, n_arr, the members' row starts in the staging image, extr + 5 f32
+    # planes + the staging image; n_fn, n_max, m, the sub-interval count, the
+    # values in the image, rows
+    "tp_routed_lookup": (1, 10, 6),
+    "tp_routed_grad": (2, 10, 6),
     # ids, n_arr, extr, bo, lo, bits + 7 f32 planes + codes8, codes16 + the
     # pack's staging image; n_fn, max_n, m8, m16, the sub-interval count, rows
     "tp_routed_quant_lookup": (1, 16, 6),

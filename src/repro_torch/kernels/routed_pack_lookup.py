@@ -90,13 +90,18 @@ def _rows(x: torch.Tensor) -> int:
 
 
 def _routed_args(pack: TablePack, fn_ids, x: torch.Tensor, extrapolate):
-    """(planes, ints) of an f32-pack routed entry point."""
+    """(planes, ints) of an f32-pack routed entry point: the routing
+    operands and the members' row starts in the pack's staging image, the
+    pack's planes and its staging image, the sizes, the sub-interval count
+    and the values the image holds."""
     rows = _rows(x)
     (n_arr,) = pack.routing_scalars()
-    return ((_fn_id_operand(pack, fn_ids, rows).contiguous(), n_arr,
+    image, m_img = pack.image
+    return ((_fn_id_operand(pack, fn_ids, rows).contiguous(), n_arr, pack.image_rows,
              routed_extr_operand(pack, extrapolate), pack.boundaries,
-             pack.inv_delta, pack.base, pack.seg_count, pack.values),
-            (pack.n_functions, pack.n_max, pack.footprint, rows))
+             pack.inv_delta, pack.base, pack.seg_count, pack.values, image),
+            (pack.n_functions, pack.n_max, pack.footprint, sum(pack.n_intervals),
+             m_img, rows))
 
 
 def _routed_quant_args(pack: QuantTablePack, fn_ids, x: torch.Tensor, extrapolate):

@@ -172,13 +172,18 @@ def _quant_args(pack: QuantTablePack, fid: int, extrapolate: bool):
 
 
 def _poly_args(pack: PolyTablePack, fid: int, extrapolate: bool):
-    """(planes, ints) of a poly-pack entry point for member ``fid``."""
+    """(planes, ints) of a poly-pack entry point for member ``fid``: the
+    pack's planes, the member's code group and the pack's staging image
+    (``pack.image``), the member's offsets and sizes, and the counts that
+    lay the image out (members, sub-intervals, each code group's
+    entries)."""
     codes = pack.codes_for(fid)
     return ((pack.boundaries, pack.inv_delta, pack.base, pack.seg_count,
-             pack.zero, pack.ramp, pack.scale, codes),
+             pack.zero, pack.ramp, pack.scale, codes, pack.image),
             (pack.bounds_offset(fid), pack.lane_offset(fid), pack.n_intervals[fid],
              pack.max_lanes, pack.degrees[fid], codes.shape[0], pack.entry_bits[fid],
-             int(extrapolate)))
+             int(extrapolate), pack.n_functions, pack.inv_delta.shape[0],
+             pack.codes8.shape[0], pack.codes16.shape[0], pack.codes32.shape[0]))
 
 
 def quant_pack_lookup_plain(pack: QuantTablePack, fn, x: torch.Tensor, *,

@@ -554,9 +554,13 @@ def routed_packs(cuda, pack, quant, poly, mixed):
     big = from_poly_layout(poly_pack_layout(
         [design.poly_member(n, 1e-8, degree=d, bits=b) for n, d, b in MIXED]), cuda)
     # stablelm's members at e_a 3e-7: a quant image past the 48 KB (the
-    # per-member restage)
+    # per-member restage), and an f32 image past it too (61,400 bytes with
+    # the per-member scalars: the row restaged per member); at e_a 1e-6 the
+    # f32 image (34,088 bytes) is staged whole, in several batches of loads
     finer = build_quant_pack(NAMES, 3e-7, omega=0.2, device=cuda)
-    return {"f32": pack, "quant": quant, "mixed": mixed_w, "quant_1e-6": fine,
+    return {"f32": pack, "f32_1e-6": build_pack(NAMES, 1e-6, omega=0.2, device=cuda),
+            "f32_past_budget": build_pack(NAMES, 3e-7, omega=0.2, device=cuda),
+            "quant": quant, "mixed": mixed_w, "quant_1e-6": fine,
             "quant_past_budget": finer, "poly": poly, "mixed_poly": mixed,
             "poly_past_budget": big}
 
@@ -582,6 +586,45 @@ def test_routed_quant_staging_paths(routed_packs):
                         ("quant_past_budget", False)):
         pk = routed_packs[kind]
         assert (4 * (pk.image.numel() + pk.n_functions) <= SMEM_BUDGET) == whole, kind
+
+
+def test_routed_f32_staging_paths(routed_packs):
+    """stablelm's f32 pack and the one at e_a 1e-6 fit a block's budget
+    whole (image, interval counts, row starts and flags), so their routed
+    launches stage the whole pack (routed_pack_image_kernel); the pack at
+    e_a 3e-7 does not, so its launches restage a row per member
+    (routed_kernel)."""
+    for kind, whole in (("f32", True), ("f32_1e-6", True), ("f32_past_budget", False)):
+        pk = routed_packs[kind]
+        image, m_img = pk.image
+        assert image.numel() == (4 * sum(pk.n_intervals) + pk.n_functions + m_img + 3) // 4 * 4
+        assert (4 * (image.numel() + 3 * pk.n_functions) <= SMEM_BUDGET) == whole, kind
+    assert routed_packs["f32"].image[0].numel() == 1020  # one batch of 4 loads a thread
+
+
+def test_static_poly_staging_paths(routed_packs):
+    """stablelm's and the mixed poly packs' staging images fit a block's
+    budget, so a static poly launch stages the image (poly_image_kernel);
+    the mixed pack at e_a 1e-8 does not, so it stages the member's lanes and
+    code group as the budget allows (poly_kernel)."""
+    for kind, fits in (("poly", True), ("mixed_poly", True), ("poly_past_budget", False)):
+        assert (4 * routed_packs[kind].image.numel() <= SMEM_BUDGET) == fits, kind
+    assert routed_packs["poly"].image.numel() == 554  # one batch of 4 loads a thread
+
+
+@pytest.mark.parametrize("extrapolate", [False, True])
+def test_poly_kernels_past_the_budget_bitwise(routed_packs, extrapolate):
+    """The static poly kernels over a pack whose staging image is past the
+    budget (the mixed pack at e_a 1e-8: degrees 1-3 at f32, int8 and int16):
+    every member, value and slope, both dtypes, with NaN, +-inf, subnormal
+    and out-of-domain lanes."""
+    big = routed_packs["poly_past_budget"]
+    for fid in range(big.n_functions):
+        for dtype in (torch.float32, torch.bfloat16):
+            _value_and_grad_bitwise(
+                K.poly_pack_lookup, K.poly_pack_grad, K.poly_pack_lookup_plain,
+                K.poly_pack_grad_plain, big, fid,
+                ragged_edge_input(big, fid, 4093, dtype, seed=fid), extrapolate)
 
 
 def _routed_fns(pack):
@@ -637,9 +680,9 @@ def _routed_check(pack, ids, x, ex):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("flags", ["off", "on", "per_member"])
-@pytest.mark.parametrize("kind", ["f32", "quant", "mixed", "quant_1e-6",
-                                  "quant_past_budget", "poly", "mixed_poly",
-                                  "poly_past_budget"])
+@pytest.mark.parametrize("kind", ["f32", "f32_1e-6", "f32_past_budget", "quant",
+                                  "mixed", "quant_1e-6", "quant_past_budget", "poly",
+                                  "mixed_poly", "poly_past_budget"])
 def test_routed_kernels_bitwise(routed_packs, kind, flags, dtype):
     pk = routed_packs[kind]
     F = pk.n_functions
@@ -654,8 +697,8 @@ def test_routed_kernels_bitwise(routed_packs, kind, flags, dtype):
     _routed_check(pk, raw, x, ex)
 
 
-@pytest.mark.parametrize("kind", ["f32", "quant", "quant_past_budget", "poly",
-                                  "poly_past_budget"])
+@pytest.mark.parametrize("kind", ["f32", "f32_past_budget", "quant",
+                                  "quant_past_budget", "poly", "poly_past_budget"])
 def test_routed_rows_beyond_grid_limit(routed_packs, kind):
     """70,000 rows of 3 (more rows than a CUDA grid's y or z extent holds)."""
     pk = routed_packs[kind]
@@ -666,8 +709,9 @@ def test_routed_rows_beyond_grid_limit(routed_packs, kind):
         _routed_check(pk, ids, x, ex)
 
 
-@pytest.mark.parametrize("kind", ["f32", "quant", "mixed", "quant_past_budget", "poly",
-                                  "mixed_poly", "poly_past_budget"])
+@pytest.mark.parametrize("kind", ["f32", "f32_past_budget", "quant", "mixed",
+                                  "quant_past_budget", "poly", "mixed_poly",
+                                  "poly_past_budget"])
 def test_routed_cuda_graph_reroute(routed_packs, kind):
     """A routed call captured in a CUDA graph reads the ids tensor at replay:
     rewriting it in place re-routes the replay, with no capture anew."""

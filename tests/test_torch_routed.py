@@ -172,14 +172,13 @@ def assert_bitwise(got, want):
     assert int(ulps(got, want).max()) == 0
 
 
-def assert_image_covers_every_read(tp, sections, layout, planes, groups, value, slope):
-    """The pack's staging image (``tp.image``, what a block of its routed
-    kernels stages on the card where it fits) holds every value they read:
-    its routing sections (the first of ``sections``) are the routing
-    operands, and a pack whose ``planes`` and code ``groups`` are all read
-    from the image's sections (nothing of the pack outside them) gives the
-    routed plain ``value`` and ``slope`` with the same bits, extrapolation
-    off, on and per member.  ``layout``: (section starts, image words)."""
+def image_sections(tp, sections, layout, planes, groups):
+    """A quantized or polynomial pack whose ``planes`` and code ``groups``
+    are all read from the sections of its staging image (``tp.image``, what
+    a block of its kernels stages on the card where it fits), nothing of the
+    pack outside them; the image's routing sections (the first of
+    ``sections``) must be the routing operands.  ``layout``: (section
+    starts, image words)."""
     starts, words = layout
     assert tp.image.dtype == torch.int32 and tp.image.shape == (words,)
     raw = tp.image.view(torch.uint8)
@@ -194,14 +193,77 @@ def assert_image_covers_every_read(tp, sections, layout, planes, groups, value, 
         tp, **{p: section(p, getattr(tp, p)) for p in planes + groups})
     for p in planes + groups:
         assert torch.equal(getattr(rebuilt, p), getattr(tp, p)), p
-    ids, x = mixed_rows(tp, seed=5, cols=128)
+    return rebuilt
+
+
+def f32_image_pack(tp):
+    """The f32 pack read from its staging image (``tp.image``): each
+    member's row from its start (``tp.image_rows``, member_image_layout) over
+    its real sub-intervals, padded as the pack's rows (+inf boundaries) with
+    NaN in the other planes' padding, which no lookup may read, and the
+    image's values only."""
+    image, m_img = tp.image
+    starts, v_at = table_pack.member_image_layout(tp.n_intervals)
+    assert tp.image_rows.dtype == torch.int32
+    assert tp.image_rows.tolist() == list(starts)
+    assert image.dtype == torch.float32 and image.numel() % 4 == 0
+    assert v_at + m_img <= image.numel() < v_at + m_img + 4
+    F, n_max = tp.n_functions, tp.n_max
+    b = torch.full((F, n_max + 1), float("inf"))
+    rows = [torch.full((F, n_max), float("nan")) for _ in range(3)]
+    for f, (at, n) in enumerate(zip(starts, tp.n_intervals)):
+        b[f, : n + 1] = image[at: at + n + 1]
+        for k, plane in enumerate(rows):
+            plane[f, :n] = image[at + n + 1 + k * n: at + 2 * n + 1 + k * n]
+    return dataclasses.replace(tp, boundaries=b, inv_delta=rows[0], base=rows[1],
+                               seg_count=rows[2], values=image[v_at: v_at + m_img])
+
+
+def cell_midpoints(pack, fid):
+    """The middle of every cell of member ``fid`` (f32): a lookup there
+    reads the cell's pair of values or codes."""
+    n = pack.n_intervals[fid]
+    if isinstance(pack, table_pack.TablePack):
+        b, invd, segs = (pack.boundaries[fid, : n + 1], pack.inv_delta[fid, :n],
+                         pack.seg_count[fid, :n])
+    else:
+        bo, lo = pack.bounds_offset(fid), pack.lane_offset(fid)
+        b, invd, segs = (pack.boundaries[bo: bo + n + 1], pack.inv_delta[lo: lo + n],
+                         pack.seg_count[lo: lo + n])
+    return np.concatenate([
+        float(b[j]) + (np.arange(int(segs[j])) + 0.5) / float(invd[j])
+        for j in range(n)]).astype(np.float32)
+
+
+def assert_image_covers_every_read(tp, rebuilt, value, slope, static=False):
+    """``rebuilt`` (the pack read from its staging image alone) gives the
+    plain ``value`` and ``slope`` with ``tp``'s bits, extrapolation off, on
+    and per member: routed over mixed rows, or (``static``: ``value(pack,
+    fid, x, *, extrapolate)``) each member over a row of its own."""
+    F = tp.n_functions
+    mids = [cell_midpoints(tp, f) for f in range(F)]
+    width = max(m.size for m in mids)
+    # a row a member: its edges, then a point in each of its cells (so every
+    # value or code it holds is read), then (routed) the mixed rows
+    ids = list(range(F))
+    x = np.stack([np.concatenate([row_inputs(tp, f, 5 + f, 128), np.resize(m, width)])
+                  for f, m in enumerate(mids)])
+    if not static:
+        more, xm = mixed_rows(tp, seed=5, cols=128 + width)
+        ids, x = ids + more, np.concatenate([x, xm])
     xt = torch.from_numpy(x)
     ft = torch.from_numpy(np.where(np.isfinite(x), x, 0.0).astype(np.float32))
     for flags in FLAGS:
         ex = _flags(tp, flags)
         for fn, xin in ((value, xt), (slope, ft)):
-            assert_bitwise(fn(rebuilt, ids, xin, extrapolate=ex).numpy(),
-                           fn(tp, ids, xin, extrapolate=ex).numpy())
+            if not static:
+                assert_bitwise(fn(rebuilt, ids, xin, extrapolate=ex).numpy(),
+                               fn(tp, ids, xin, extrapolate=ex).numpy())
+                continue
+            for f in ids:
+                e = ex if isinstance(ex, bool) else ex[f]
+                assert_bitwise(fn(rebuilt, f, xin[f], extrapolate=e).numpy(),
+                               fn(tp, f, xin[f], extrapolate=e).numpy())
 
 
 # --------------------------------------------------------------------------------------
@@ -227,17 +289,24 @@ def test_layout_offsets_match_reference(mixed):
     assert t.bounds_offsets.dtype == t.lane_offsets.dtype == np.int32
 
 
-@pytest.mark.parametrize("kind", ["quant", "mixed"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_staging_image_covers_every_read(kind, request):
-    """The quantized pack's staging image (``QuantTablePack.image``)."""
+    """The f32 pack's staging image (``TablePack.image``: the members' rows
+    over their real sub-intervals at ``image_rows``, then the values) and
+    the quantized pack's (``QuantTablePack.image``)."""
     _, tp = _packs(kind, request)
-    assert_image_covers_every_read(
+    if kind == "f32":
+        assert_image_covers_every_read(tp, f32_image_pack(tp), table_pack.eval_routed_ref,
+                                       table_pack.eval_routed_slope)
+        return
+    rebuilt = image_sections(
         tp, table_pack.QUANT_IMAGE_SECTIONS,
         table_pack.quant_image_layout(tp.n_functions, tp.inv_delta.shape[0],
                                       tp.codes8.shape[0], tp.codes16.shape[0]),
         ("boundaries", "inv_delta", "base", "seg_count", "scale", "zero", "ramp"),
-        ("codes8", "codes16"), table_pack.eval_routed_quant_ref,
-        table_pack.eval_routed_quant_slope)
+        ("codes8", "codes16"))
+    assert_image_covers_every_read(tp, rebuilt, table_pack.eval_routed_quant_ref,
+                                   table_pack.eval_routed_quant_slope)
 
 
 @pytest.mark.parametrize("kind", ["f32", "quant"])

@@ -50,8 +50,8 @@ from repro_torch.kernels import routed_pack_lookup as R
 from repro_torch.kernels import table_pack_lookup as K
 from tests.test_torch_quant_poly import _poly_scale
 from tests.test_torch_routed import (FLAGS, _flags, assert_bitwise,
-                                     assert_image_covers_every_read, mixed_rows,
-                                     row_inputs)
+                                     assert_image_covers_every_read, image_sections,
+                                     mixed_rows, row_inputs)
 
 NAMES = ("gelu", "silu", "tanh", "sigmoid_sym", "softplus", "exp_neg")
 EA = 1e-4  # stablelm-3b's own settings: e_a 1e-4, omega 0.2
@@ -110,23 +110,30 @@ def test_layout_offsets_match_reference(mixed):
     assert set(t.entry_bits) == {8, 16, 32} and len(set(t.degrees)) == 3
 
 
+@pytest.mark.parametrize("reader", ["routed", "static"])
 @pytest.mark.parametrize("kind", KINDS)
-def test_staging_image_covers_every_read(kind, request):
+def test_staging_image_covers_every_read(kind, reader, request):
     """The pack's staging image (``PolyTablePack.image``, what a block of the
-    routed poly kernels stages on the card where it fits) holds every value
-    they read: its routing sections are the routing operands, and a pack
-    whose planes and code groups are all read from the image's sections
-    (nothing of the pack outside them) gives the routed plain value and
-    slope with the same bits, extrapolation off, on and per member."""
+    routed poly kernels, and of the static poly kernels, stages on the card
+    where it fits) holds every value they read: its routing sections are the
+    routing operands, and a pack whose planes and code groups are all read
+    from the image's sections (nothing of the pack outside them) gives the
+    routed plain value and slope, or each member's static ones, with the
+    same bits, extrapolation off, on and per member."""
     _, tp = _packs(kind, request)
-    assert_image_covers_every_read(
+    rebuilt = image_sections(
         tp, table_pack.POLY_IMAGE_SECTIONS,
         table_pack.poly_image_layout(tp.n_functions, tp.inv_delta.shape[0],
                                      tp.max_lanes, tp.codes8.shape[0],
                                      tp.codes16.shape[0], tp.codes32.shape[0]),
         ("boundaries", "inv_delta", "base", "seg_count", "zero", "ramp", "scale"),
-        ("codes8", "codes16", "codes32"), table_pack.eval_routed_poly_ref,
-        table_pack.eval_routed_poly_slope)
+        ("codes8", "codes16", "codes32"))
+    if reader == "routed":
+        assert_image_covers_every_read(tp, rebuilt, table_pack.eval_routed_poly_ref,
+                                       table_pack.eval_routed_poly_slope)
+    else:
+        assert_image_covers_every_read(tp, rebuilt, table_pack.eval_poly_pack_ref,
+                                       table_pack.eval_poly_pack_slope, static=True)
 
 
 def test_routed_poly_errors(poly):

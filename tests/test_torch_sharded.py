@@ -389,8 +389,8 @@ def test_entries_match_argument_builders(spacks):
     assert K._sharded_args(tp, fid, 3, 4, 0, 1)[1][4:] == (S, 3, 4, 0, 1)
     with pytest.raises(ValueError, match="takes 6 planes and 9 int"):
         _lib.launch("tp_spack_lookup", x, planes[3:], ints)
-    # the folded, TableFlash, routed quant and routed poly entries take their
-    # pack's staging image
+    # the folded, TableFlash, static poly and every routed entry (but the
+    # sharded ones) take their pack's staging image
     fp = table_pack.build_pack(("silu", "sin_core", "cos_core", "exp_core", "log_core",
                                 "exp_neg"), EA, omega=OMEGA, device="cpu")
     qp = table_pack.build_quant_pack(("silu", "tanh"), EA, omega=OMEGA, device="cpu")
@@ -405,6 +405,9 @@ def test_entries_match_argument_builders(spacks):
                                         (pp.image, pp.inv_delta.shape[0]))
         cases[f"tp_routed_quant_{e}"] = (R._routed_quant_args(qp, [0, 1, 1], x, True),
                                          (qp.image, qp.inv_delta.shape[0]))
+        cases[f"tp_poly_{e}"] = (K._poly_args(pp, 2, True),
+                                 (pp.image, pp.inv_delta.shape[0]))
+        cases[f"tp_routed_{e}"] = (R._routed_args(fp, [0, 1, 5], x, True), fp.image)
     for key, ((planes, ints), (image, count)) in cases.items():
         _, n_planes, n_int = _lib._ENTRIES[key.split()[0]]
         assert (len(planes), len(ints)) == (n_planes, n_int), key
@@ -413,7 +416,15 @@ def test_entries_match_argument_builders(spacks):
                    for p in planes), key
         assert all(isinstance(i, int) for i in ints), key
         assert planes[-1] is image, key
-        assert ints[-2 if "routed" in key else -1] == count, key
+        # the count that places the image's values (the static poly entries:
+        # the sub-intervals, then the code groups' sizes)
+        assert ints[-4 if key.startswith("tp_poly") else
+                    -2 if "routed" in key else -1] == count, key
+    (planes, ints), _ = cases["tp_routed_lookup"]
+    assert planes[2] is fp.image_rows and ints[3] == sum(fp.n_intervals)
+    (planes, ints), _ = cases["tp_poly_lookup"]
+    assert ints[8:] == (pp.n_functions, pp.inv_delta.shape[0], pp.codes8.shape[0],
+                        pp.codes16.shape[0], pp.codes32.shape[0])
     assert fp.fold_images["sin"] is fp.fold_images["cos"]
     assert K._flash_args(fp)[1][:4] == K._pack_args(fp, fp.fn_id("exp_neg"))[1]
     assert K._folded_args(fp, "exp")[1][:2] == (fp.fn_id("exp_core"),) * 2
