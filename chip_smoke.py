@@ -15,9 +15,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    (every boundary and its neighbours, +-inf, NaN, -2e38, lo, +-0): the pack
    kernels (value, TableFlash, value + slope) and the single-table kernels
    (value, value + slope) over ``ApproxConfig.table_for`` of the six default
-   functions; TableFlash also over ("silu", "exp_neg") at e_a 3e-8 (exp_neg's
-   staging image of 23 KB staged) and at e_a 3e-9 (its image past the 48 KB
-   budget: the pack kernel's staging), with subnormal lanes;
+   functions, subnormal lanes included; the pack kernels (value, value +
+   slope) also over stablelm's members at e_a 3e-7 and the table kernels
+   over silu's table at e_a 3e-8 and 1e-8 (each staging image's bytes and
+   the kernel that stages it logged: the pack's or table's image where it
+   fits the 48 KB budget, pack_image_kernel; the member's row and the values
+   past it, pack_kernel); TableFlash also over ("silu", "exp_neg") at e_a
+   3e-8 (exp_neg's staging image of 23 KB staged) and at e_a 3e-9 (its image
+   past the 48 KB budget: the pack kernel's staging), with subnormal lanes;
 4. serving path: full-width, full-depth stablelm-3b (random weights from seed
    0) serving the launcher's default traffic (8 requests, batch 4, cache 256,
    16 new tokens) through ContinuousEngine in ``table_pack`` with TableFlash;
@@ -40,7 +45,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 7. table_pallas path: full-width stablelm-3b cut to 4 layers, serving the
    same 8 requests token-identical to ``table_ref`` and training 2 steps with
    step-0 loss equal to ``table_ref``'s; ``table_lookup`` and
-   ``table_lookup_grad`` must have launched;
+   ``table_lookup_grad`` must have launched, and the gate's table's staging
+   image must fit the 48 KB budget (pack_image_kernel);
 8. times: each kernel, its plain version and a PyTorch yardstick, at its
    path's shape, by CUDA events around a CUDA graph of repeated calls
    (device time, no host launch cost); TableFlash also at the prefill and
@@ -52,9 +58,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    (tanh d1 f32, exp_neg d3 int8, gelu d2 int16), the same at e_a 1e-8
    (each poly pack's bytes a block stages and the kernel that stages them
    logged: the whole staging image where it fits the 48 KB budget, the
-   member's lanes and codes past it) and the quant pack at e_a
-   1e-6 (119 to 279 sub-intervals a member), f32 and bf16, extrapolation on
-   and off, at the main paths' shapes, a ragged size and the edge inputs;
+   member's lanes and codes past it), the quant pack at e_a
+   1e-6 (119 to 279 sub-intervals a member; its staging image staged,
+   quant_image_kernel) and at e_a 3e-7 (its image past the budget,
+   quant_kernel; the decode gate and two ragged sizes), f32 and bf16,
+   extrapolation on and off, at the main paths' shapes, a ragged size and
+   the edge inputs with subnormal lanes;
 10. QuantPack / PolyPack serving: full-width, full-depth stablelm-3b (the
    same seed-0 weights) serving the same 8 requests in ``quant_pack`` and in
    ``poly_pack``, each with TableFlash; ``quant_pack_lookup`` /
@@ -348,8 +357,60 @@ def flash_packs(pack, approx):
     return tuple((tag, pk) for tag, pk, _ in packs)
 
 
-def kernel_phase(pack, s0, flash):
+def static_staging(tag, image, fits, what):
+    """Check that a static launch over a pack or table whose staging image
+    has ``image`` 32-bit words stages it (``fits``) or is past the 48 KB
+    budget, and log which kernel that takes (``what``: (image kernel, the
+    kernel past the budget))."""
+    nbytes = 4 * image
+    check((nbytes <= SMEM_BUDGET) == fits, f"{tag}: its {nbytes}-byte staging image "
+          f"is on the wrong side of the {SMEM_BUDGET}-byte budget")
+    log(f"kernels: [{tag}] staging image {nbytes} bytes: "
+        + (f"staged ({what[0]})" if fits else f"past the budget ({what[1]})"))
+
+
+def static_f32_packs(pack, approx):
+    """(tag, pack, shapes) of phase 3's static f32-pack checks: stablelm-3b's
+    pack (its 4,080-byte staging image staged, pack_image_kernel) at every
+    gate shape, and its members at e_a 3e-7 (61,328 bytes, past the budget:
+    pack_kernel) at the decode gate and two ragged sizes."""
+    past = dataclasses.replace(approx, e_a=3e-7, mode="table_pack").pack("cuda")
+    packs = (("f32", pack, None), ("f32 e_a 3e-7", past, [(BATCH, 1, 6912), (12345,),
+                                                         (1,)]))
+    for tag, pk, short in packs:
+        static_staging(tag, pk.image[0].numel(), short is None,
+                       ("pack_image_kernel", "pack_kernel"))
+    return packs
+
+
+def static_tables(approx, names):
+    """(tag, table, shapes) of phase 3's single-table checks: the tables of
+    ``names``, the six default functions (each staging image staged), at
+    every shape, and silu's table at e_a 3e-8 (41,712 bytes: staged, several
+    batches of loads) and at e_a 1e-8 (72,064 bytes: past the budget) at the
+    decode gate and two ragged sizes."""
+    short = [(BATCH, 1, 6912), (12345,), (1,)]
+    tables = [(name, approx.table_for(name, "cuda"), None) for name in names]
+    for e_a, fits in ((3e-8, True), (1e-8, False)):
+        jt = dataclasses.replace(approx, e_a=e_a).table_for("silu", "cuda")
+        tables.append((f"silu e_a {e_a}", jt, short))
+        static_staging(f"silu table e_a {e_a}", jt.image.numel(), fits,
+                       ("pack_image_kernel", "pack_kernel"))
+    for tag, jt, _ in tables[: len(names)]:
+        static_staging(f"{tag} table", jt.image.numel(), True,
+                       ("pack_image_kernel", "pack_kernel"))
+    return tables
+
+
+def with_subnormals(edges):
+    """Edge values and a subnormal of each sign (one bf16 holds too)."""
     import numpy as np
+
+    tiny = np.finfo(np.float32).smallest_normal / 8
+    return np.concatenate([edges, [tiny, -tiny]]).astype(np.float32)
+
+
+def kernel_phase(f32_packs, s0, flash):
     import torch
 
     from repro_torch.kernels import table_pack_lookup as K
@@ -359,25 +420,26 @@ def kernel_phase(pack, s0, flash):
                     (12345,), (1,)]
     worst = {"table_pack_lookup": 0.0, "tableflash_exp": 0.0}
     cases = 0
-    for fid, name in enumerate(pack.names):
-        lo, hi = pack.domains[fid]
-        edges = edge_values(pack, fid)
-        for dtype in (torch.bfloat16, torch.float32):
-            for shape in gate_shapes:
-                x = make_input(shape, lo, hi, edges, dtype, seed=fid)
-                for ex in (False, True):
-                    got = K.table_pack_lookup(pack, fid, x, extrapolate=ex)
-                    want = K.table_pack_lookup_plain(pack, fid, x, extrapolate=ex)
-                    torch.cuda.synchronize()
-                    worst["table_pack_lookup"] = max(worst["table_pack_lookup"], check_pair(
-                        f"table_pack_lookup {name} {dtype} {shape} extrapolate={ex}",
-                        got, want, shape, dtype))
-                    cases += 1
-    tiny = torch.finfo(torch.float32).smallest_normal / 8  # a subnormal
+    for tag, pack, shapes in f32_packs:
+        for fid, name in enumerate(pack.names):
+            lo, hi = pack.domains[fid]
+            edges = with_subnormals(edge_values(pack, fid))
+            for dtype in (torch.bfloat16, torch.float32):
+                for shape in shapes or gate_shapes:
+                    x = make_input(shape, lo, hi, edges, dtype, seed=fid)
+                    for ex in (False, True):
+                        got = K.table_pack_lookup(pack, fid, x, extrapolate=ex)
+                        want = K.table_pack_lookup_plain(pack, fid, x, extrapolate=ex)
+                        torch.cuda.synchronize()
+                        worst["table_pack_lookup"] = max(
+                            worst["table_pack_lookup"], check_pair(
+                                f"table_pack_lookup [{tag}] {name} {dtype} {shape} "
+                                f"extrapolate={ex}", got, want, shape, dtype))
+                        cases += 1
     for tag, pk in flash:
         fid = pk.fn_id("exp_neg")
         lo = pk.domains[fid][0]
-        edges = np.concatenate([edge_values(pk, fid), [tiny, -tiny]]).astype(np.float32)
+        edges = with_subnormals(edge_values(pk, fid))
         for dtype in (torch.bfloat16, torch.float32):
             for shape in flash_shapes:
                 x = make_input(shape, -40.0, 0.0, edges, dtype, seed=99)
@@ -389,15 +451,15 @@ def kernel_phase(pack, s0, flash):
                 check(bool((got[x < lo] == 0).all()), "tableflash zero tail")
                 cases += 1
     log(f"kernels: {cases} kernel-vs-plain cases bitwise equal "
-        f"(members {pack.names}, bf16+f32, extrapolate on/off, edges; TableFlash "
-        f"over {[tag for tag, _ in flash]})")
+        f"(packs {[tag for tag, _, _ in f32_packs]}, bf16+f32, extrapolate on/off, "
+        f"edges and subnormals; TableFlash over {[tag for tag, _ in flash]})")
     return worst
 
 
-def grad_kernel_phase(pack, approx, s0):
-    """The value + slope pack kernel over every member, and the single-table
-    kernels over the six default functions' tables, bitwise against their
-    plain versions."""
+def grad_kernel_phase(f32_packs, tables, s0):
+    """The value + slope pack kernel over every member of each f32 pack, and
+    the single-table kernels over each table, bitwise against their plain
+    versions."""
     import torch
 
     from repro_torch.kernels import table_grad as TG
@@ -405,32 +467,33 @@ def grad_kernel_phase(pack, approx, s0):
     from repro_torch.kernels import table_pack_lookup as K
 
     train_gate = (MICRO, TRAIN_SEQ, 6912)
-    shapes = [train_gate, (BATCH, 1, 6912), (BATCH, s0, 6912), (12345,), (1,)]
+    all_shapes = [train_gate, (BATCH, 1, 6912), (BATCH, s0, 6912), (12345,), (1,)]
     worst = {"table_pack_grad": 0.0, "table_lookup": 0.0, "table_lookup_grad": 0.0}
     cases = 0
-    for fid, name in enumerate(pack.names):
-        lo, hi = pack.domains[fid]
-        edges = edge_values(pack, fid)
-        member_shapes = shapes
-        if name == "exp_neg":  # TableFlash's slope: the exponent tensor, f32
-            member_shapes = shapes + [(MICRO, TRAIN_SEQ, 32, 1, TRAIN_SEQ)]
-        for dtype in (torch.bfloat16, torch.float32):
-            for shape in member_shapes:
-                x = make_input(shape, lo, hi, edges, dtype, seed=fid)
-                for ex in (False, True):
-                    got = K.table_pack_grad(pack, fid, x, extrapolate=ex)
-                    want = K.table_pack_grad_plain(pack, fid, x, extrapolate=ex)
-                    torch.cuda.synchronize()
-                    worst["table_pack_grad"] = max(worst["table_pack_grad"], check_pair(
-                        f"table_pack_grad {name} {dtype} {shape} extrapolate={ex}",
-                        got, want, shape, dtype))
-                    cases += 1
-    for name in pack.names:
-        jt = approx.table_for(name, "cuda")
+    for tag, pack, shapes in f32_packs:
+        for fid, name in enumerate(pack.names):
+            lo, hi = pack.domains[fid]
+            edges = with_subnormals(edge_values(pack, fid))
+            member_shapes = shapes or all_shapes
+            if name == "exp_neg" and not shapes:  # TableFlash's slope: the exponent, f32
+                member_shapes = all_shapes + [(MICRO, TRAIN_SEQ, 32, 1, TRAIN_SEQ)]
+            for dtype in (torch.bfloat16, torch.float32):
+                for shape in member_shapes:
+                    x = make_input(shape, lo, hi, edges, dtype, seed=fid)
+                    for ex in (False, True):
+                        got = K.table_pack_grad(pack, fid, x, extrapolate=ex)
+                        want = K.table_pack_grad_plain(pack, fid, x, extrapolate=ex)
+                        torch.cuda.synchronize()
+                        worst["table_pack_grad"] = max(
+                            worst["table_pack_grad"], check_pair(
+                                f"table_pack_grad [{tag}] {name} {dtype} {shape} "
+                                f"extrapolate={ex}", got, want, shape, dtype))
+                        cases += 1
+    for name, jt, shapes in tables:
         lo, hi = float(jt.boundaries[0]), float(jt.boundaries[-1])
-        edges = row_edges(jt.boundaries.cpu().numpy())
+        edges = with_subnormals(row_edges(jt.boundaries.cpu().numpy()))
         for dtype in (torch.bfloat16, torch.float32):
-            for shape in shapes:
+            for shape in shapes or all_shapes:
                 x = make_input(shape, lo, hi, edges, dtype, seed=7)
                 for ex in (False, True):
                     for kname, kern, plain in (
@@ -445,8 +508,9 @@ def grad_kernel_phase(pack, approx, s0):
                             got, want, shape, dtype))
                         cases += 1
     log(f"kernels: {cases} grad/table kernel-vs-plain cases bitwise equal "
-        f"(table_pack_grad over {pack.names}; table_lookup[_grad] over their "
-        f"tables; bf16+f32, extrapolate on/off, edges, training gate {train_gate})")
+        f"(table_pack_grad over {[tag for tag, _, _ in f32_packs]}; "
+        f"table_lookup[_grad] over {[tag for tag, _, _ in tables]}; bf16+f32, "
+        f"extrapolate on/off, edges and subnormals, training gate {train_gate})")
     return worst
 
 
@@ -823,6 +887,10 @@ def table_pallas_path(smi_line):
     check(serve_counts["table_lookup"] > 0, "table_lookup was not launched serving")
     log(f"pallas: {cfg.n_layers}L d={cfg.d_model} table_pallas served {len(out)} "
         f"requests token-identical to table_ref; launches {serve_counts}")
+    # the gate's table stages its staging image (pack_image_kernel)
+    static_staging(f"table_pallas {cfg.act} table",
+                   cfg.approx.table_for(cfg.act, "cuda").image.numel(), True,
+                   ("pack_image_kernel", "pack_kernel"))
 
     data = _trainer_data(cfg)
     ref_loss, ref_gn = plain_step0(ref, params, batch_to(data.batch_at(0), "cuda"))
@@ -982,19 +1050,27 @@ def timing_phase(pack, approx, smi_line):
 
 
 def quant_poly_packs(approx):
-    """(kind, tag, pack) of the four packs phase 9 checks: stablelm-3b's own
-    quant and poly packs, the quant pack at e_a 1e-6 and the mixed poly
-    pack."""
+    """(kind, tag, pack) of the five packs phase 9 checks: stablelm-3b's own
+    quant and poly packs, the quant pack at e_a 1e-6 and the mixed poly pack
+    (each staging image staged), and the quant pack at e_a 3e-7 (its image
+    past the budget)."""
     from repro_torch.approx.table_pack import from_poly_layout
     from repro_torch.core import design
     from repro_torch.core.packing import poly_pack_layout
 
     members = [design.poly_member(n, approx.e_a, degree=d, bits=b) for n, d, b in MIXED]
-    return (("quant", "quant", approx.quant_pack("cuda")),
-            ("quant", "quant e_a 1e-6",
-             dataclasses.replace(approx, e_a=1e-6).quant_pack("cuda")),
-            ("poly", "poly", approx.poly_pack("cuda")),
-            ("poly", "mixed poly", from_poly_layout(poly_pack_layout(members), "cuda")))
+    packs = (("quant", "quant", approx.quant_pack("cuda")),
+             ("quant", "quant e_a 1e-6",
+              dataclasses.replace(approx, e_a=1e-6).quant_pack("cuda")),
+             ("poly", "poly", approx.poly_pack("cuda")),
+             ("poly", "mixed poly", from_poly_layout(poly_pack_layout(members), "cuda")),
+             ("quant", "quant e_a 3e-7",
+              dataclasses.replace(approx, e_a=3e-7).quant_pack("cuda")))
+    for kind, tag, pk in packs:
+        if kind == "quant":
+            static_staging(tag, pk.image.numel(), "3e-7" not in tag,
+                           ("quant_image_kernel", "quant_kernel"))
+    return packs
 
 
 def ragged_edge_values(pack, fid):
@@ -1035,11 +1111,13 @@ def quant_poly_kernel_phase(packs, s0):
     worst = {k: 0.0 for pair in kernels.values() for k, _, _ in pair}
     cases = 0
     for kind, tag, pack in packs:
+        # a quant pack past the budget: the decode gate and two ragged sizes
+        past = kind == "quant" and 4 * pack.image.numel() > SMEM_BUDGET
         for fid, name in enumerate(pack.names):
             lo, hi = pack.domains[fid]
-            edges = ragged_edge_values(pack, fid)
+            edges = with_subnormals(ragged_edge_values(pack, fid))
             for dtype in (torch.bfloat16, torch.float32):
-                for shape in shapes:
+                for shape in shapes[1:2] + shapes[3:] if past else shapes:
                     x = make_input(shape, lo, hi, edges, dtype, seed=fid)
                     for ex in (False, True):
                         for kname, kern, plain in kernels[kind]:
@@ -1055,7 +1133,8 @@ def quant_poly_kernel_phase(packs, s0):
             + (f", degrees {pack.degrees}; {poly_staging(pack)}" if kind == "poly"
                else ""))
     log(f"kernels: {cases} quant/poly kernel-vs-plain cases bitwise equal "
-        f"(bf16+f32, extrapolate on/off, edges, shapes {shapes})")
+        f"(bf16+f32, extrapolate on/off, edges and subnormals, shapes {shapes}; "
+        f"a quant pack past the budget at {shapes[1:2] + shapes[3:]})")
     return worst
 
 
@@ -1238,13 +1317,12 @@ def mixed_width_pack(approx):
         [plan_quant_member(n, approx.e_a, dtype=d) for n, d in MIXED_WIDTHS]), "cuda")
 
 
-def routed_f32_packs(approx, pack):
+def routed_f32_packs(pack, past):
     """(tag, pack) of phase 13's f32 packs: stablelm-3b's pack, whose
     staging image and per-member scalars fit the 48 KB a block of the routed
     f32 kernels stages whole (routed_pack_image_kernel), and stablelm's
-    members at e_a 3e-7, whose image does not (routed_kernel restages a row
-    per member)."""
-    past = dataclasses.replace(approx, e_a=3e-7, mode="table_pack").pack("cuda")
+    members at e_a 3e-7 (``past``, phase 3's), whose image does not
+    (routed_kernel restages a row per member)."""
     packs = (("f32", pack), ("f32 e_a 3e-7", past))
     for tag, p in packs:
         whole = 4 * (p.image[0].numel() + 3 * p.n_functions)
@@ -1258,13 +1336,13 @@ def routed_f32_packs(approx, pack):
     return packs
 
 
-def routed_quant_packs(approx, quant, fine):
+def routed_quant_packs(approx, quant, fine, past):
     """(tag, pack) of phase 13's quant packs: stablelm-3b's quant pack, the
     reference's mixed int8/int16 pack and the quant pack at e_a 1e-6
     (``fine``), whose staging images and flags fit the 48 KB a block of the
-    routed quant kernels stages whole, and stablelm's members at e_a 3e-7,
-    whose image does not (the kernels restage per member)."""
-    past = dataclasses.replace(approx, e_a=3e-7).quant_pack("cuda")
+    routed quant kernels stages whole, and stablelm's members at e_a 3e-7
+    (``past``, phase 9's), whose image does not (the kernels restage per
+    member)."""
     packs = (("quant", quant), ("mixed widths", mixed_width_pack(approx)),
              ("quant e_a 1e-6", fine), ("quant e_a 3e-7", past))
     for tag, p in packs:
@@ -2189,8 +2267,9 @@ def main() -> int:
         log(f"pack: {pack.names}, {pack.footprint} f32 entries, n_max {pack.n_max}, "
             f"intervals {pack.n_intervals}; main-path prefill width S0={s0}")
         approx = dataclasses.replace(cfg.approx, mode="table_pallas")
-        worst = kernel_phase(pack, s0, flash_packs(pack, approx))
-        worst.update(grad_kernel_phase(pack, approx, s0))
+        f32_packs = static_f32_packs(pack, cfg.approx)
+        worst = kernel_phase(f32_packs, s0, flash_packs(pack, approx))
+        worst.update(grad_kernel_phase(f32_packs, static_tables(approx, pack.names), s0))
         # each kernel's launches come from the run of the path it serves,
         # counted from 0 just before that path and read just after it
         counts = main_path(smi_line)
@@ -2209,8 +2288,9 @@ def main() -> int:
         counts.update(pack_train_paths(smi_line, (
             ("quant_pack", ("quant_pack_grad",)), ("poly_pack", ("poly_pack_grad",)))))
         times.update(quant_poly_timing_phase(qp_packs[0][2], qp_packs[2][2], smi_line))
-        r_packs = (routed_f32_packs(cfg.approx, pack)
-                   + routed_quant_packs(cfg.approx, qp_packs[0][2], qp_packs[1][2]))
+        r_packs = (routed_f32_packs(pack, f32_packs[1][1])
+                   + routed_quant_packs(cfg.approx, qp_packs[0][2], qp_packs[1][2],
+                                        qp_packs[4][2]))
         worst.update(routed_kernel_phase(r_packs, s0))
         # (the phase re-routes both f32 packs) the quant pack staged whole and
         # restaged per member

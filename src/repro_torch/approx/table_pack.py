@@ -93,7 +93,9 @@ class TablePack:
     # the whole pack's staging image (every member's row over its real
     # sub-intervals, then the values; member_image_layout over all the
     # names) and the values it holds, built once with the pack: what a block
-    # of the routed kernels stages where it fits
+    # of the routed and of the static value and grad kernels stages where it
+    # fits.  Its values start at the pack's first entry (the first member's
+    # base is 0), so its bases are the pack's own
     image: Tuple[torch.Tensor, int]
     # each member's row start in ``image`` (int32, on the pack's device):
     # the routed kernels gather it by fn_id beside n_arr
@@ -479,7 +481,8 @@ class QuantTablePack(_RaggedPack):
     routing: Tuple[torch.Tensor, ...]
     # the whole pack (routing operands, metadata lanes, both code groups) as
     # ONE int32 buffer on the pack's device, built once with the pack: what a
-    # block of the routed kernels stages where it fits (quant_image_layout)
+    # block of the routed and of the static kernels stages where it fits
+    # (quant_image_layout)
     image: torch.Tensor
     _extr_operands: Dict[bytes, torch.Tensor] = field(
         default_factory=dict, compare=False, repr=False)

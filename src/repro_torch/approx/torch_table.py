@@ -26,7 +26,7 @@ the incoming gradient.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -48,6 +48,18 @@ class TorchTable:
     base: torch.Tensor  # (n,)   f32 (exact integers < 2^24)
     seg_count: torch.Tensor  # (n,)   f32
     values: torch.Tensor  # (M_F,) f32
+    # the table's staging image, built once with the table (the port's own,
+    # for its kernels): the row (n + 1 boundaries, then the n inv_delta,
+    # base and seg_count), then the M_F values, zero-padded to a 16-byte
+    # multiple; member_image_layout([n]) of approx/table_pack.py.  What a
+    # block of the table kernels stages where it fits
+    image: torch.Tensor = field(init=False, compare=False, repr=False)
+
+    def __post_init__(self):
+        parts = [self.boundaries, self.inv_delta, self.base, self.seg_count, self.values]
+        pad = -sum(t.numel() for t in parts) % 4
+        parts.append(self.values.new_zeros(pad))
+        object.__setattr__(self, "image", torch.cat(parts).contiguous())
 
     @property
     def n_intervals(self) -> int:

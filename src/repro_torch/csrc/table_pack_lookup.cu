@@ -8,7 +8,8 @@
 //
 //   tp_pack_lookup     replaces the TPU kernel _pack_kernel
 //                      (src/repro/kernels/table_pack_lookup.py:43): one pack
-//                      member's lerp, with optional linear extrapolation.
+//                      member's lerp, with optional linear extrapolation,
+//                      over the pack's staging image where it fits.
 //   tp_tableflash_exp  replaces the TPU kernel _tableflash_kernel
 //                      (src/repro/kernels/table_pack_lookup.py:188): the exp_neg
 //                      lookup at max(z, lo), t clamped, exactly 0 where z < lo.
@@ -16,13 +17,15 @@
 //                      (src/repro/kernels/table_pack_lookup.py:66): value and
 //                      slope of one pack member from one selector pass.
 //   tp_table_lookup    replaces the TPU kernel _table_kernel
-//                      (src/repro/kernels/table_lookup.py:66): one table's lerp.
+//                      (src/repro/kernels/table_lookup.py:66): one table's
+//                      lerp, over the table's staging image where it fits.
 //   tp_table_grad      replaces the TPU kernel _table_grad_kernel
 //                      (src/repro/kernels/table_grad.py:28): one table's value
 //                      and slope from one selector pass.
 //   tp_quant_lookup    replaces the TPU kernel _quant_kernel
 //                      (src/repro/kernels/table_pack_lookup.py:283): one
-//                      quantized member, codes dequantized on read.
+//                      quantized member, codes dequantized on read, over the
+//                      pack's staging image where it fits.
 //   tp_quant_grad      replaces _quant_grad_kernel (:309): its value and slope.
 //   tp_poly_lookup     replaces _poly_kernel (:503): one polynomial member,
 //                      per-lane dequantization and Horner.
@@ -71,14 +74,25 @@
 //
 // Design.  The TPU kernels tiled x into (rows, 512) blocks and pinned the pack
 // in VMEM.  Here a grid-stride loop walks the flat element count (ragged tail
-// masked by the loop bound, no padding), and each block stages the member's
-// metadata row and the pack's values (or the member's code group) in dynamic
-// shared memory — the counterpart of the VMEM/BRAM pinning — so the
-// data-dependent gathers hit shared memory.  The launch sizes the staging:
-// metadata and values when both fit kSmemBytes, the metadata alone when only
-// it fits, nothing otherwise; whatever is not staged is read from global
-// memory (L2) by the same kernel.  So no interval count or pack size is
-// refused.  Member offsets, interval counts, code width, degree and
+// masked by the loop bound, no padding), and each block stages what its
+// member reads in dynamic shared memory — the counterpart of the VMEM/BRAM
+// pinning — so the data-dependent gathers hit shared memory.  At the decode
+// gate (108 blocks of 256 threads, one element a thread) the chain of
+// dependent global-memory round trips before a block's first x load sets a
+// kernel's time.  So where a staging image built with the pack (or table)
+// fits kSmemBytes, a block stages that image in ONE round trip (one
+// register-batched loop), with each thread's first x load already in
+// flight, and the grid-stride loop loads the next x before this one's
+// arithmetic: the f32 pack's TablePack.image and a single table's
+// TorchTable.image (pack_image_kernel), the quantized pack's
+// QuantTablePack.image (quant_image_kernel), the polynomial pack's
+// PolyTablePack.image (poly_image_kernel), exp_neg's and the folds' member
+// images (below).  Past the budget the launch sizes the staging: the
+// member's metadata and the values (or code group) when both fit
+// kSmemBytes, the metadata alone when only it fits, nothing otherwise;
+// whatever is not staged is read from global memory (L2) by the same kernel
+// (pack_kernel, quant_kernel, poly_kernel).  So no interval count or pack
+// size is refused.  Member offsets, interval counts, code width, degree and
 // extrapolate are runtime arguments: one compiled kernel per (input dtype,
 // code type, mode) serves every member and every single table (a table is a
 // pack of one row, n_max = n_intervals).  The grad mode writes the slope to a
@@ -1104,6 +1118,49 @@ routed_quant_pack_kernel(const T* __restrict__ x, T* __restrict__ out,
   }
 }
 
+// The static quant kernels where the pack's staging image
+// (QuantTablePack.image, the one the routed quant kernels stage: 1,161
+// words in stablelm's pack, one batch of kQuantImageUnroll loads a thread)
+// fits kSmemBytes (the launch decides), as poly_image_kernel: each thread's
+// first x load is issued before the staging, which is ONE round trip, where
+// quant_kernel took two dependent ones (the member's seven lanes, then its
+// whole width group) before its first x load.  The member's lanes are
+// addressed from the launch's offsets (bo, lo) into the image's planes, its
+// codes in its width group's section (C: int8_t or int16_t), every address
+// global into the group as in quant_kernel; the grid-stride loop loads the
+// next x before this one's arithmetic.  The body is quant_kernel's over the
+// same numbers at other addresses: the same bits.
+template <typename T, typename C, int kMode>
+__global__ void __launch_bounds__(kThreads)
+quant_image_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
+                   long long n, const int* __restrict__ image, QuantImage im, int bo,
+                   int lo, int n_intervals, int m, int extrapolate) {
+  extern __shared__ __align__(16) float smem[];
+  long long idx = first_index();
+  float xv = idx < n ? load_f32(x, idx) : 0.0f;  // in flight while the image lands
+  stage_copy<int, kQuantImageUnroll>(reinterpret_cast<int*>(smem), image,
+                                     static_cast<int>(im.words), true);
+  __syncthreads();
+  const tl::QuantRow r{smem + im.bounds + bo, smem + im.invd + lo, smem + im.base + lo,
+                       smem + im.segs + lo,   smem + im.scale + lo, smem + im.zero + lo,
+                       smem + im.ramp + lo,   n_intervals};
+  const C* cd = reinterpret_cast<const C*>(smem + (sizeof(C) == 1 ? im.c8 : im.c16));
+  const bool ex = extrapolate != 0;
+  const long long stride = grid_stride();
+  for (; idx < n; idx += stride) {
+    const float xn = idx + stride < n ? load_f32(x, idx + stride) : 0.0f;
+    if (kMode == kGrad) {
+      float d;
+      store_f32(out, idx, tl::quant_lookup(xv, r, cd, m, ex, &d));
+      store_f32(slope, idx, d);
+    } else {
+      store_f32(out, idx, tl::quant_lookup(xv, r, cd, m, ex,
+                                           static_cast<float*>(nullptr)));
+    }
+    xv = xn;
+  }
+}
+
 // ---- RangeFold ----------------------------------------------------------------
 
 // The f32 pack's core rows fid_a and fid_b (equal for exp and log) are staged
@@ -1246,7 +1303,52 @@ flash_image_kernel(const T* __restrict__ x, T* __restrict__ out, long long n,
   }
 }
 
-// ---- whole-pack staging images: the static poly pack, the routed f32 pack ------
+// ---- staging images: the static f32 pack and table, the static poly pack, the
+// routed f32 pack --------------------------------------------------------------
+
+// The static f32 pack and single-table kernels (kValue, kGrad) where the
+// staging image fits kSmemBytes (the launch decides), as flash_image_kernel:
+// each thread's first x load is issued before the staging, which is ONE
+// round trip (one register-batched loop: stablelm's whole-pack image,
+// TablePack.image, is 1,020 words, one batch of kStageUnroll loads a
+// thread), where pack_kernel took two dependent ones (the member's row at
+// n_max, then all the pack's values) before its first x load; the
+// grid-stride loop loads the next x before this one's arithmetic.  The
+// image is the pack's (every member's row over its real sub-intervals from
+// word row_at of its member, then m_img values from word v_at) or a
+// table's (its row, then its values).  Its values start at the pack's
+// first entry and its bases are the pack's, so every address reads the
+// pack's own entry, a NaN x's address 0 too (its extrapolated slope is
+// (values[1] - values[0]) * invd[0]); an in-domain or clamped address
+// never passes base + segs, inside the image's values.  The row scans only
+// its real sub-intervals: the +inf padding of a pack row never moves the
+// selector.  So the bits are pack_kernel's.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kThreads)
+pack_image_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
+                  long long n, const float* __restrict__ image, int words, int row_at,
+                  int v_at, int n_intervals, int m_img, int extrapolate) {
+  extern __shared__ __align__(16) float smem[];
+  long long idx = first_index();
+  float xv = idx < n ? load_f32(x, idx) : 0.0f;  // in flight while the image lands
+  stage_copy(smem, image, words, true);
+  __syncthreads();
+  const tl::Row r = image_row(smem + row_at, n_intervals);
+  const float* vals = smem + v_at;
+  const bool ex = extrapolate != 0;
+  const long long stride = grid_stride();
+  for (; idx < n; idx += stride) {
+    const float xn = idx + stride < n ? load_f32(x, idx + stride) : 0.0f;
+    if (kMode == kGrad) {
+      float d;
+      store_f32(out, idx, tl::lookup_grad(xv, r, vals, m_img, ex, &d));
+      store_f32(slope, idx, d);
+    } else {
+      store_f32(out, idx, tl::lookup(xv, r, vals, m_img, ex));
+    }
+    xv = xn;
+  }
+}
 
 // The static poly kernels where the pack's staging image (PolyTablePack.image,
 // the one the routed poly kernels stage: 2,216 bytes in stablelm's pack)
@@ -1452,19 +1554,40 @@ bool pack_refused(long long n, int fn_id, int n_max, int n_intervals, int m) {
          n < 0;
 }
 
-// Refuses (cudaErrorInvalidValue, no launch) what pack_refused names and an
-// unknown dtype.
+// `image` (nullptr for none) is the member's staging image: the pack's
+// (TablePack.image) or the table's (TorchTable.image), laid out by
+// member_image_layout, the member's row of n_intervals sub-intervals from
+// word row_at and m_img of the pack's values, from its first entry, at word
+// v_at.  Where it fits kSmemBytes, pack_image_kernel stages it; otherwise
+// (and for kFlash, which passes none) pack_kernel stages the member's row at
+// n_max and the pack's values as the budget allows.  Refuses
+// (cudaErrorInvalidValue, no launch) what pack_refused names, an unknown
+// dtype and an image whose row or values cannot be the member's.
 template <int kMode>
 cudaError_t launch_pack(const void* x, void* out, void* slope, long long n, int dtype,
                         const float* bounds, const float* invd, const float* base,
-                        const float* segs, const float* values, int fn_id, int n_max,
-                        int n_intervals, int m, int extrapolate,
-                        cudaStream_t stream) {
-  if (pack_refused(n, fn_id, n_max, n_intervals, m) || (kMode == kGrad && !slope)) {
+                        const float* segs, const float* values, const float* image,
+                        int fn_id, int n_max, int n_intervals, int m, int extrapolate,
+                        int row_at, int v_at, int m_img, cudaStream_t stream) {
+  if (pack_refused(n, fn_id, n_max, n_intervals, m) || (kMode == kGrad && !slope) ||
+      (image && (row_at < 0 || v_at < row_at + 4LL * n_intervals + 1 || m_img < 2 ||
+                 m_img > m))) {
     return cudaErrorInvalidValue;
   }
   if (n == 0) return cudaSuccess;
   const int blocks = grid_for(n);
+  if constexpr (kMode != kFlash) {
+    const long long words = (static_cast<long long>(v_at) + m_img + 3) / 4 * 4;
+    if (image && 4 * words <= kSmemBytes) {
+#define TP_PACK_IMAGE(T, ...)                                                          \
+  pack_image_kernel<T, kMode><<<blocks, kThreads, 4 * words, stream>>>(                \
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), n,       \
+      image, static_cast<int>(words), row_at, v_at, n_intervals, m_img, extrapolate)
+      TP_DISPATCH_DTYPE(dtype, TP_PACK_IMAGE, 0);
+#undef TP_PACK_IMAGE
+      return cudaGetLastError();
+    }
+  }
   const Staging st = staging_for(4LL * n_max + 1, 4LL * m);
 #define TP_PACK(T, ...)                                                                \
   pack_kernel<T, kMode><<<blocks, kThreads, st.bytes, stream>>>(                       \
@@ -1492,7 +1615,8 @@ cudaError_t launch_flash(const void* x, void* out, long long n, int dtype,
   const long long image_bytes = 4 * image_floats(n_intervals, 0, false, m_img);
   if (image_bytes > kSmemBytes) {
     return launch_pack<kFlash>(x, out, nullptr, n, dtype, bounds, invd, base, segs,
-                               values, fn_id, n_max, n_intervals, m, 0, stream);
+                               values, nullptr, fn_id, n_max, n_intervals, m, 0, 0, 0,
+                               0, stream);
   }
   if (n == 0) return cudaSuccess;
 #define TP_FLASH_IMAGE(T, ...)                                                         \
@@ -1558,19 +1682,50 @@ void quant_go(int blocks, Staging st, cudaStream_t stream, const void* x, void* 
       n_intervals, m, extrapolate, st.stage);
 }
 
-// code_bits: 8 (int8) or 16 (int16).  Refuses an empty row, negative
-// offsets, an empty code group, another code width and an unknown dtype.
+template <typename T, typename C, int kMode>
+void quant_image_go(int blocks, long long bytes, cudaStream_t stream, const void* x,
+                    void* out, void* slope, long long n, const void* image,
+                    const QuantImage& im, int bo, int lo, int n_intervals, int m,
+                    int extrapolate) {
+  quant_image_kernel<T, C, kMode><<<blocks, kThreads, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<T*>(slope), n,
+      static_cast<const int*>(image), im, bo, lo, n_intervals, m, extrapolate);
+}
+
+// code_bits: 8 (int8) or 16 (int16); `image` the pack's staging image,
+// laid out by n_fn, n_sub (the pack's sub-intervals) and m8 / m16 (its code
+// groups' entries, m the member's group's).  Where the image fits
+// kSmemBytes, quant_image_kernel stages it; otherwise quant_kernel stages
+// the member's lanes and its code group as the budget allows.  Refuses an
+// empty row, negative offsets, an empty code group, another code width, an
+// unknown dtype and a member whose lanes or group leave the image's.
 template <int kMode>
 cudaError_t launch_quant(const void* x, void* out, void* slope, long long n, int dtype,
-                         const float* const* planes, const void* codes, int bo, int lo,
-                         int n_intervals, int m, int code_bits, int extrapolate,
-                         cudaStream_t stream) {
+                         const float* const* planes, const void* codes,
+                         const void* image, int bo, int lo, int n_intervals, int m,
+                         int code_bits, int extrapolate, int n_fn, int n_sub, int m8,
+                         int m16, cudaStream_t stream) {
   if (n_intervals < 1 || bo < 0 || lo < 0 || m < 1 || n < 0 ||
-      (code_bits != 8 && code_bits != 16) || (kMode == kGrad && !slope)) {
+      (code_bits != 8 && code_bits != 16) || m != (code_bits == 8 ? m8 : m16) ||
+      n_fn < 1 || m8 < 0 || m16 < 0 || lo + n_intervals > n_sub ||
+      bo + n_intervals + 1 > n_sub + n_fn || (kMode == kGrad && !slope)) {
     return cudaErrorInvalidValue;
   }
   if (n == 0) return cudaSuccess;
   const int blocks = grid_for(n);
+  const QuantImage im = quant_image(n_fn, n_sub, m8, m16);
+  if (4 * im.words <= kSmemBytes) {
+#define TP_QUANT_IMAGE(T, C)                                                           \
+  quant_image_go<T, C, kMode>(blocks, 4 * im.words, stream, x, out, slope, n, image,   \
+                              im, bo, lo, n_intervals, m, extrapolate)
+    if (code_bits == 8) {
+      TP_DISPATCH_DTYPE(dtype, TP_QUANT_IMAGE, int8_t);
+    } else {
+      TP_DISPATCH_DTYPE(dtype, TP_QUANT_IMAGE, int16_t);
+    }
+#undef TP_QUANT_IMAGE
+    return cudaGetLastError();
+  }
   const Staging st = staging_for(7LL * n_intervals + 1, static_cast<long long>(m) *
                                                             (code_bits / 8));
 #define TP_QUANT(T, C)                                                                 \
@@ -1894,15 +2049,18 @@ cudaError_t launch_folded(const void* x, void* out, void* slope, long long n,
 // dtype: 0 = float32, 1 = bfloat16.  All pointers are device pointers; the
 // launch is asynchronous on `stream`, allocates nothing, and returns the
 // launch's own error (cudaGetLastError), which the Python wrapper raises on.
+// `image` is the pack's staging image (TablePack.image): member fn_id's row
+// from word row_at, m_img of the values from word v_at.
 extern "C" cudaError_t tp_pack_lookup(const void* x, void* out, long long n, int dtype,
                                       const float* bounds, const float* invd,
                                       const float* base, const float* segs,
-                                      const float* values, int fn_id, int n_max,
-                                      int n_intervals, int m, int extrapolate,
+                                      const float* values, const float* image,
+                                      int fn_id, int n_max, int n_intervals, int m,
+                                      int extrapolate, int row_at, int v_at, int m_img,
                                       void* stream) {
   return launch_pack<kValue>(x, out, nullptr, n, dtype, bounds, invd, base, segs,
-                             values, fn_id, n_max, n_intervals, m, extrapolate,
-                             static_cast<cudaStream_t>(stream));
+                             values, image, fn_id, n_max, n_intervals, m, extrapolate,
+                             row_at, v_at, m_img, static_cast<cudaStream_t>(stream));
 }
 
 // `image` is exp_neg's staging image (TablePack.flash_image), holding m_img
@@ -1921,63 +2079,73 @@ extern "C" cudaError_t tp_tableflash_exp(const void* x, void* out, long long n,
 extern "C" cudaError_t tp_pack_grad(const void* x, void* y, void* slope, long long n,
                                     int dtype, const float* bounds, const float* invd,
                                     const float* base, const float* segs,
-                                    const float* values, int fn_id, int n_max,
-                                    int n_intervals, int m, int extrapolate,
-                                    void* stream) {
+                                    const float* values, const float* image, int fn_id,
+                                    int n_max, int n_intervals, int m, int extrapolate,
+                                    int row_at, int v_at, int m_img, void* stream) {
   return launch_pack<kGrad>(x, y, slope, n, dtype, bounds, invd, base, segs, values,
-                            fn_id, n_max, n_intervals, m, extrapolate,
-                            static_cast<cudaStream_t>(stream));
+                            image, fn_id, n_max, n_intervals, m, extrapolate, row_at,
+                            v_at, m_img, static_cast<cudaStream_t>(stream));
 }
 
-// A single table: bounds (n+1,), invd/base/segs (n,), values (m,).
+// A single table: bounds (n+1,), invd/base/segs (n,), values (m,), and its
+// staging image (TorchTable.image): the row, then the m values.
 extern "C" cudaError_t tp_table_lookup(const void* x, void* out, long long n, int dtype,
                                        const float* bounds, const float* invd,
                                        const float* base, const float* segs,
-                                       const float* values, int n_intervals, int m,
-                                       int extrapolate, void* stream) {
+                                       const float* values, const float* image,
+                                       int n_intervals, int m, int extrapolate,
+                                       void* stream) {
   return launch_pack<kValue>(x, out, nullptr, n, dtype, bounds, invd, base, segs,
-                             values, 0, n_intervals, n_intervals, m, extrapolate,
+                             values, image, 0, n_intervals, n_intervals, m, extrapolate,
+                             0, 4 * n_intervals + 1, m,
                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t tp_table_grad(const void* x, void* y, void* slope, long long n,
                                      int dtype, const float* bounds, const float* invd,
                                      const float* base, const float* segs,
-                                     const float* values, int n_intervals, int m,
-                                     int extrapolate, void* stream) {
+                                     const float* values, const float* image,
+                                     int n_intervals, int m, int extrapolate,
+                                     void* stream) {
   return launch_pack<kGrad>(x, y, slope, n, dtype, bounds, invd, base, segs, values,
-                            0, n_intervals, n_intervals, m, extrapolate,
-                            static_cast<cudaStream_t>(stream));
+                            image, 0, n_intervals, n_intervals, m, extrapolate, 0,
+                            4 * n_intervals + 1, m, static_cast<cudaStream_t>(stream));
 }
 
 // The quantized pack: member fid's boundaries start at bo in the flat
 // boundary lane, its other lanes at lo; `codes` is its width group of m
 // entries (code_bits 8 or 16).  Plane order: bounds, invd, base, segs, scale,
-// zero, ramp.
+// zero, ramp.  `image` is the pack's staging image (QuantTablePack.image),
+// laid out by n_fn, n_sub (the pack's sub-interval count) and m8 / m16 (its
+// code groups' entries).
 extern "C" cudaError_t tp_quant_lookup(const void* x, void* out, long long n, int dtype,
                                        const float* bounds, const float* invd,
                                        const float* base, const float* segs,
                                        const float* scale, const float* zero,
-                                       const float* ramp, const void* codes, int bo,
-                                       int lo, int n_intervals, int m, int code_bits,
-                                       int extrapolate, void* stream) {
+                                       const float* ramp, const void* codes,
+                                       const void* image, int bo, int lo,
+                                       int n_intervals, int m, int code_bits,
+                                       int extrapolate, int n_fn, int n_sub, int m8,
+                                       int m16, void* stream) {
   const float* planes[7] = {bounds, invd, base, segs, scale, zero, ramp};
-  return launch_quant<kValue>(x, out, nullptr, n, dtype, planes, codes, bo, lo,
-                              n_intervals, m, code_bits, extrapolate,
-                              static_cast<cudaStream_t>(stream));
+  return launch_quant<kValue>(x, out, nullptr, n, dtype, planes, codes, image, bo, lo,
+                              n_intervals, m, code_bits, extrapolate, n_fn, n_sub, m8,
+                              m16, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t tp_quant_grad(const void* x, void* y, void* slope, long long n,
                                      int dtype, const float* bounds, const float* invd,
                                      const float* base, const float* segs,
                                      const float* scale, const float* zero,
-                                     const float* ramp, const void* codes, int bo,
-                                     int lo, int n_intervals, int m, int code_bits,
-                                     int extrapolate, void* stream) {
+                                     const float* ramp, const void* codes,
+                                     const void* image, int bo, int lo,
+                                     int n_intervals, int m, int code_bits,
+                                     int extrapolate, int n_fn, int n_sub, int m8,
+                                     int m16, void* stream) {
   const float* planes[7] = {bounds, invd, base, segs, scale, zero, ramp};
-  return launch_quant<kGrad>(x, y, slope, n, dtype, planes, codes, bo, lo,
-                             n_intervals, m, code_bits, extrapolate,
-                             static_cast<cudaStream_t>(stream));
+  return launch_quant<kGrad>(x, y, slope, n, dtype, planes, codes, image, bo, lo,
+                             n_intervals, m, code_bits, extrapolate, n_fn, n_sub, m8,
+                             m16, static_cast<cudaStream_t>(stream));
 }
 
 // The polynomial pack: as the quantized one, with lane-padded dequant planes

@@ -5,11 +5,14 @@ wrappers of :mod:`~repro_torch.kernels.table_pack_lookup`,
 
 Every entry point takes ``(x, out[, slope], n, dtype, <planes>, <ints>,
 stream)`` and returns the launch's CUDA error code.  The f32 pack and table
-entries take five f32 planes (bounds, invd, base, segs, values); the quantized
-and polynomial ones seven f32 planes (bounds, invd, base, segs and three
-dequant planes) and then the codes pointer of the member's width group; the
-polynomial ones also the pack's staging image (``PolyTablePack.image``) and,
-after the member's ints, the counts that lay it out.  The
+entries take five f32 planes (bounds, invd, base, segs, values) and the
+staging image (``TablePack.image``, ``TorchTable.image``); the pack's also,
+after the member's ints, its row start in the image, where the image's
+values start and how many it holds.  The quantized and polynomial ones take
+seven f32 planes (bounds, invd, base, segs and three dequant planes), the
+codes pointer of the member's width group and the pack's staging image
+(``QuantTablePack.image``, ``PolyTablePack.image``) and, after the member's
+ints, the counts that lay it out.  The
 routed entries take the int32 routing vectors first (ids, per-member interval
 counts, extrapolate flags; for the f32 pack also each member's row start in
 its staging image, for the quantized and polynomial packs
@@ -69,16 +72,22 @@ _I = ctypes.c_int
 # entry point -> (outputs, pointer planes, trailing int arguments before the
 # stream)
 _ENTRIES = {
-    "tp_pack_lookup": (1, 5, 5),     # fn_id, n_max, n_intervals, m, extrapolate
+    # 5 f32 planes + the pack's staging image; fn_id, n_max, n_intervals, m,
+    # extrapolate, the member's row start, where the values start and the
+    # values in the image
+    "tp_pack_lookup": (1, 6, 8),
     # 5 f32 planes + exp_neg's staging image; fn_id, n_max, n_intervals, m,
     # the values in the image
     "tp_tableflash_exp": (1, 6, 5),
-    "tp_pack_grad": (2, 5, 5),       # fn_id, n_max, n_intervals, m, extrapolate
-    "tp_table_lookup": (1, 5, 3),    # n_intervals, m, extrapolate
-    "tp_table_grad": (2, 5, 3),      # n_intervals, m, extrapolate
-    # bo, lo, n_intervals, m, code_bits, extrapolate
-    "tp_quant_lookup": (1, 8, 6),
-    "tp_quant_grad": (2, 8, 6),
+    "tp_pack_grad": (2, 6, 8),
+    # 5 f32 planes + the table's staging image; n_intervals, m, extrapolate
+    "tp_table_lookup": (1, 6, 3),
+    "tp_table_grad": (2, 6, 3),
+    # 7 f32 planes + the member's codes + the pack's staging image; bo, lo,
+    # n_intervals, m, code_bits, extrapolate, then n_fn, the sub-interval
+    # count, m8, m16 (the image's layout)
+    "tp_quant_lookup": (1, 9, 10),
+    "tp_quant_grad": (2, 9, 10),
     # 7 f32 planes + the member's codes + the pack's staging image; bo, lo,
     # n_intervals, lmax, degree, m, code_bits, extrapolate, then n_fn, the
     # sub-interval count, m8, m16, m32 (the image's layout)

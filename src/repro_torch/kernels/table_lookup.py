@@ -14,8 +14,11 @@ walks the flat element count and masks the ragged tail itself.  The wrapper
 contract is that of :mod:`~repro_torch.kernels.table_pack_lookup`: dtype and
 device checked, the plain version only for a CPU tensor, a launch or an error
 for a CUDA tensor, one count in :data:`launches` per launch.  A table of any
-interval count runs: the kernel stages its metadata in shared memory when it
-fits and reads it from global memory otherwise.
+interval count runs: where the table's staging image (``TorchTable.image``:
+its row, then its values, built with the table) fits a block's 48 KB, the
+kernel stages it in one round trip with x in flight; past it the kernel
+stages the row, and the values as they fit, and reads the rest from global
+memory.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from ._lib import run
 
 
 def table_planes(jt: TorchTable):
-    return (jt.boundaries, jt.inv_delta, jt.base, jt.seg_count, jt.values)
+    """The planes of ``tp_table_lookup`` / ``tp_table_grad``: the table's
+    row, its values and its staging image."""
+    return (jt.boundaries, jt.inv_delta, jt.base, jt.seg_count, jt.values, jt.image)
 
 
 def table_lookup_plain(jt: TorchTable, x: torch.Tensor, *,

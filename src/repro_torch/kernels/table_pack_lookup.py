@@ -4,8 +4,11 @@ their wrappers and plain PyTorch versions.
   * :func:`table_pack_lookup` — one pack member over a tensor (the GLU gate's
     ``silu`` on the serving path).  CUDA kernel ``tp_pack_lookup`` in
     ``csrc/table_pack_lookup.cu``; replaces the TPU kernel ``_pack_kernel``
-    (``src/repro/kernels/table_pack_lookup.py:43``).  Plain version:
-    :func:`table_pack_lookup_plain`, the torch twin of ``eval_pack_ref``.
+    (``src/repro/kernels/table_pack_lookup.py:43``).  Where the pack's
+    staging image (``TablePack.image``) fits a block's 48 KB, a block stages
+    it in one round trip with x in flight; :func:`table_pack_grad` too.
+    Plain version: :func:`table_pack_lookup_plain`, the torch twin of
+    ``eval_pack_ref``.
   * :func:`tableflash_exp` — flash attention's running-softmax exponent from
     the ``exp_neg`` member, with the underflow-to-zero tail below ``lo``.
     CUDA kernel ``tp_tableflash_exp``; replaces ``_tableflash_kernel``
@@ -21,8 +24,9 @@ their wrappers and plain PyTorch versions.
     dequantized on read), value or value + slope.  CUDA kernels
     ``tp_quant_lookup`` / ``tp_quant_grad``; replace ``_quant_kernel`` /
     ``_quant_grad_kernel`` (``src/repro/kernels/table_pack_lookup.py:283``,
-    ``:309``).  Plain versions: ``eval_quant_pack_ref`` and
-    ``eval_quant_pack_slope``.
+    ``:309``); they stage the pack's staging image (``QuantTablePack.image``)
+    where it fits, as the static poly kernels stage theirs.  Plain versions:
+    ``eval_quant_pack_ref`` and ``eval_quant_pack_slope``.
   * :func:`poly_pack_lookup` / :func:`poly_pack_grad` — one member of a
     :class:`~repro_torch.approx.table_pack.PolyTablePack` (degree-d cells,
     int8/int16/f32 coefficient codes, Horner), value or value + slope.  CUDA
@@ -65,6 +69,8 @@ the top of the CUDA source.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.approx.table_pack import (PolyTablePack, QuantTablePack,
@@ -73,7 +79,8 @@ from repro_torch.approx.table_pack import (PolyTablePack, QuantTablePack,
                                           eval_poly_pack_ref, eval_poly_pack_slope,
                                           eval_quant_pack_ref,
                                           eval_quant_pack_slope, eval_sharded_ref,
-                                          eval_sharded_slope, shard_contrib)
+                                          eval_sharded_slope, member_image_layout,
+                                          shard_contrib)
 
 from repro_torch.approx.range_fold import (FOLDABLE, eval_folded_ref,
                                           eval_folded_slope)
@@ -99,6 +106,20 @@ def _pack_args(pack: TablePack, fid: int, *flags: int):
             (fid, pack.n_max, pack.n_intervals[fid], pack.footprint, *flags))
 
 
+_image_layout = functools.lru_cache(maxsize=None)(member_image_layout)
+
+
+def _pack_image_args(pack: TablePack, fid: int, extrapolate: bool):
+    """(planes, ints) of ``tp_pack_lookup`` / ``tp_pack_grad``: member
+    ``fid``'s, the pack's staging image (``pack.image``, built with the
+    pack), the member's row start in it, where its values start and how
+    many it holds."""
+    image, m_img = pack.image
+    starts, v_at = _image_layout(pack.n_intervals)
+    planes, ints = _pack_args(pack, fid, int(extrapolate))
+    return planes + (image,), ints + (starts[fid], v_at, m_img)
+
+
 def table_pack_lookup_plain(pack: TablePack, fn, x: torch.Tensor, *,
                             extrapolate: bool = False) -> torch.Tensor:
     """Plain PyTorch version of ``tp_pack_lookup``: the torch twin of the JAX
@@ -111,7 +132,7 @@ def table_pack_lookup(pack: TablePack, fn, x: torch.Tensor, *,
     """Evaluate member ``fn`` (name or fn_id) of the pack over a tensor."""
     fid = pack.member_id(fn)
     return run("tp_pack_lookup", "table_pack_lookup", x, pack.device, "pack",
-               _pack_args(pack, fid, int(extrapolate)),
+               _pack_image_args(pack, fid, extrapolate),
                lambda: table_pack_lookup_plain(pack, fid, x, extrapolate=extrapolate))
 
 
@@ -153,7 +174,7 @@ def table_pack_grad(pack: TablePack, fn, x: torch.Tensor, *,
     one selector pass."""
     fid = pack.member_id(fn)
     return run("tp_pack_grad", "table_pack_grad", x, pack.device, "pack",
-               _pack_args(pack, fid, int(extrapolate)),
+               _pack_image_args(pack, fid, extrapolate),
                lambda: table_pack_grad_plain(pack, fid, x, extrapolate=extrapolate))
 
 
@@ -163,12 +184,17 @@ def table_pack_grad(pack: TablePack, fn, x: torch.Tensor, *,
 
 
 def _quant_args(pack: QuantTablePack, fid: int, extrapolate: bool):
-    """(planes, ints) of a quant-pack entry point for member ``fid``."""
+    """(planes, ints) of a quant-pack entry point for member ``fid``: the
+    pack's planes, the member's code group and the pack's staging image
+    (``pack.image``), the member's offsets and sizes, and the counts that
+    lay the image out (members, sub-intervals, each code group's
+    entries)."""
     codes = pack.codes_for(fid)
     return ((pack.boundaries, pack.inv_delta, pack.base, pack.seg_count,
-             pack.scale, pack.zero, pack.ramp, codes),
+             pack.scale, pack.zero, pack.ramp, codes, pack.image),
             (pack.bounds_offset(fid), pack.lane_offset(fid), pack.n_intervals[fid],
-             codes.shape[0], pack.entry_bits[fid], int(extrapolate)))
+             codes.shape[0], pack.entry_bits[fid], int(extrapolate), pack.n_functions,
+             pack.inv_delta.shape[0], pack.codes8.shape[0], pack.codes16.shape[0]))
 
 
 def _poly_args(pack: PolyTablePack, fid: int, extrapolate: bool):

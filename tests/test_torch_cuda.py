@@ -627,6 +627,74 @@ def test_poly_kernels_past_the_budget_bitwise(routed_packs, extrapolate):
                 ragged_edge_input(big, fid, 4093, dtype, seed=fid), extrapolate)
 
 
+
+@pytest.fixture(scope="module")
+def tables(cuda):
+    """silu's table at stablelm's settings (848-byte staging image), at e_a
+    3e-8 (41,712 bytes: staged, in several batches of loads) and at e_a 1e-8
+    (72,064 bytes: past the budget)."""
+    return {"silu": ApproxConfig(e_a=1e-4, omega=0.2).table_for("silu", cuda),
+            "silu_3e-8": from_spec(cached_table("silu", 3e-8, omega=0.2), cuda),
+            "silu_past_budget": from_spec(cached_table("silu", 1e-8, omega=0.2), cuda)}
+
+
+def test_static_f32_quant_table_staging_paths(routed_packs, tables):
+    """Where a static f32-pack, table or quant launch stages the staging
+    image (the pack's, the table's; pack_image_kernel, quant_image_kernel)
+    and where the image is past the budget (the member's row or lanes and
+    its values or codes as the budget allows; pack_kernel, quant_kernel)."""
+    for kind, fits in (("f32", True), ("f32_1e-6", True), ("f32_past_budget", False)):
+        assert (4 * routed_packs[kind].image[0].numel() <= SMEM_BUDGET) == fits, kind
+    for kind, fits in (("quant", True), ("mixed", True), ("quant_1e-6", True),
+                       ("quant_past_budget", False)):
+        assert (4 * routed_packs[kind].image.numel() <= SMEM_BUDGET) == fits, kind
+    for kind, fits in (("silu", True), ("silu_3e-8", True), ("silu_past_budget", False)):
+        assert (4 * tables[kind].image.numel() <= SMEM_BUDGET) == fits, kind
+    # one batch of loads a thread: 4 of 256 threads, 8 for the quant image
+    assert routed_packs["f32"].image[0].numel() == 1020
+    assert routed_packs["quant"].image.numel() == 1161
+
+
+def _table_fn(f):
+    """A table kernel or plain version in the pack ones' form."""
+    return lambda jt, _fid, x, extrapolate: f(jt, x, extrapolate=extrapolate)
+
+
+@pytest.mark.parametrize("extrapolate", [False, True])
+@pytest.mark.parametrize("kind", ["f32_1e-6", "f32_past_budget", "mixed", "quant_1e-6",
+                                  "quant_past_budget", "silu_3e-8", "silu_past_budget"])
+def test_static_kernels_on_both_staging_paths_bitwise(routed_packs, tables, kind,
+                                                      extrapolate):
+    """The static f32-pack, table and quant kernels (value, value + slope)
+    over packs and tables whose staging image is staged and past the
+    budget (stablelm's own: the tests above): every member, both dtypes,
+    with NaN, +-inf, subnormal and out-of-domain lanes."""
+    K.reset_launches()
+    if kind.startswith("silu"):
+        jt = tables[kind]
+        for dtype in (torch.float32, torch.bfloat16):
+            _value_and_grad_bitwise(
+                _table_fn(TL.table_lookup), _table_fn(TG.table_lookup_grad),
+                _table_fn(TL.table_lookup_plain), _table_fn(TG.table_lookup_grad_plain),
+                jt, 0, _table_edges(jt, 4093, dtype, seed=3), extrapolate)
+        assert K.launches["table_lookup"] == K.launches["table_lookup_grad"] == 2
+        return
+    pk = routed_packs[kind]
+    f32 = kind.startswith("f32")
+    fns = ((K.table_pack_lookup, K.table_pack_grad, K.table_pack_lookup_plain,
+            K.table_pack_grad_plain) if f32 else
+           (K.quant_pack_lookup, K.quant_pack_grad, K.quant_pack_lookup_plain,
+            K.quant_pack_grad_plain))
+    edges = edge_input if f32 else ragged_edge_input
+    for fid in range(pk.n_functions):
+        for dtype in (torch.float32, torch.bfloat16):
+            _value_and_grad_bitwise(*fns, pk, fid, edges(pk, fid, 4093, dtype, seed=fid),
+                                    extrapolate)
+    count = "table_pack" if f32 else "quant_pack"
+    assert (K.launches[f"{count}_lookup"] == K.launches[f"{count}_grad"]
+            == 2 * pk.n_functions)
+
+
 def _routed_fns(pack):
     """(routed value, routed grad, their plain versions, static value, static
     grad) of a pack's family."""

@@ -430,6 +430,85 @@ class TestTableFlash:
         assert_bitwise(K.tableflash_exp_plain(bad, x), K.tableflash_exp_plain(tp, x))
 
 
+
+def _row_of(image, at, n):
+    """(bounds, invd, base, segs) of a staging image's row of ``n``
+    sub-intervals at word ``at`` (member_image_layout)."""
+    return (image[at: at + n + 1],) + tuple(
+        image[at + n + 1 + k * n: at + 2 * n + 1 + k * n] for k in range(3))
+
+
+def _cell_points(bounds, invd, segs):
+    """The middle of every cell of a row (so a lookup reads every value its
+    member holds), every boundary and its f32 neighbours, the specials
+    (+-inf, NaN, out of domain) and subnormals."""
+    b = bounds.numpy()
+    mids = np.concatenate([b[j] + (np.arange(int(segs[j])) + 0.5) / float(invd[j])
+                           for j in range(len(segs))])
+    tiny = np.finfo(np.float32).smallest_subnormal
+    rng = np.random.default_rng(11)
+    return torch.from_numpy(np.concatenate([
+        mids, b, np.nextafter(b, np.float32(np.inf)), np.nextafter(b, np.float32(-np.inf)),
+        rng.uniform(b[0] - 3.0, b[-1] + 3.0, 1024),
+        [np.inf, -np.inf, np.nan, -np.nan, -2e38, 2e38, 0.0, -0.0, tiny, -tiny, 1e-40,
+         -1e-40]]).astype(np.float32))
+
+
+@pytest.mark.parametrize("reader", ["pack", "table"])
+def test_static_image_covers_every_read(reader, packs):
+    """What a static launch stages where it fits (the pack's
+    ``TablePack.image`` for ``tp_pack_lookup`` / ``tp_pack_grad``, a table's
+    ``TorchTable.image`` for ``tp_table_lookup`` / ``tp_table_grad``) holds
+    every float it reads: a pack (or table) rebuilt only from the sections
+    the launch addresses (the member's row from its start, over its real
+    sub-intervals; the image's values), NaN everywhere else (the other
+    members' rows, the row's padding), gives each member's plain value and
+    slope with the same bits, extrapolation off and on, at NaN, +-inf,
+    out-of-domain, boundary and subnormal lanes and a point in every cell.
+    The image's values are the pack's from its first entry, so a NaN x's
+    address 0 (whose extrapolated slope is ``(v[1] - v[0]) * invd[0]``)
+    reads the pack's own pair."""
+    _, tp = packs
+    if reader == "pack":
+        image, m_img = tp.image
+        starts, v_at = table_pack.member_image_layout(tp.n_intervals)
+        assert m_img == tp.footprint and image.numel() == (v_at + m_img + 3) // 4 * 4
+        assert_bitwise(image[v_at: v_at + m_img], tp.values)
+        values = image[v_at: v_at + m_img]
+        cases = []
+        for fid, (at, n) in enumerate(zip(starts, tp.n_intervals)):
+            planes = [torch.full_like(p, float("nan")) for p in
+                      (tp.boundaries, tp.inv_delta, tp.base, tp.seg_count)]
+            for plane, sec in zip(planes, _row_of(image, at, n)):
+                plane[fid, : sec.numel()] = sec
+            assert_bitwise(planes[2][fid, :n], tp.base[fid, :n])  # not rebased
+            rebuilt = dataclasses.replace(tp, boundaries=planes[0], inv_delta=planes[1],
+                                          base=planes[2], seg_count=planes[3],
+                                          values=values)
+            fns = tuple(lambda pk, x, ex, f=f, fid=fid: f(pk, fid, x, extrapolate=ex)
+                        for f in (table_pack.eval_pack_ref, table_pack.eval_pack_slope))
+            cases.append(fns + (rebuilt, tp, _row_of(image, at, n)))
+    else:
+        cases = []
+        for name in tp.names:
+            tt = torch_table.from_spec(cached_table(name, 1e-4), device="cpu")
+            n, m = tt.n_intervals, tt.footprint
+            v_at = table_pack.member_image_layout([n])[1]
+            assert v_at == 4 * n + 1 and tt.image.numel() == (v_at + m + 3) // 4 * 4
+            row = _row_of(tt.image, 0, n)
+            rebuilt = torch_table.TorchTable(
+                boundaries=row[0], inv_delta=row[1], delta=torch.full_like(row[1], np.nan),
+                base=row[2], seg_count=row[3], values=tt.image[v_at: v_at + m])
+            fns = tuple(lambda t, x, ex, f=f: f(t, x, extrapolate=ex)
+                        for f in (torch_table.eval_table_ref, torch_table.eval_table_slope))
+            cases.append(fns + (rebuilt, tt, row))
+    for value, slope, rebuilt, ref, row in cases:
+        x = _cell_points(row[0], row[1], row[3])
+        for ex in (False, True):
+            for f in (value, slope):
+                assert_bitwise(f(rebuilt, x, ex), f(ref, x, ex))
+
+
 class TestContracts:
     def test_member_id_keyerror(self, packs):
         _, tp = packs

@@ -289,11 +289,15 @@ def test_layout_offsets_match_reference(mixed):
     assert t.bounds_offsets.dtype == t.lane_offsets.dtype == np.int32
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_staging_image_covers_every_read(kind, request):
+@pytest.mark.parametrize("kind, reader", [
+    ("f32", "routed"), ("quant", "routed"), ("mixed", "routed"), ("quant", "static"),
+    ("mixed", "static")], ids=list(KINDS) + ["quant-static", "mixed-static"])
+def test_staging_image_covers_every_read(kind, reader, request):
     """The f32 pack's staging image (``TablePack.image``: the members' rows
     over their real sub-intervals at ``image_rows``, then the values) and
-    the quantized pack's (``QuantTablePack.image``)."""
+    the quantized pack's (``QuantTablePack.image``), which the routed quant
+    kernels and the static ones (``reader="static"``: each member over a
+    row of its own) stage where it fits."""
     _, tp = _packs(kind, request)
     if kind == "f32":
         assert_image_covers_every_read(tp, f32_image_pack(tp), table_pack.eval_routed_ref,
@@ -305,8 +309,12 @@ def test_staging_image_covers_every_read(kind, request):
                                       tp.codes8.shape[0], tp.codes16.shape[0]),
         ("boundaries", "inv_delta", "base", "seg_count", "scale", "zero", "ramp"),
         ("codes8", "codes16"))
-    assert_image_covers_every_read(tp, rebuilt, table_pack.eval_routed_quant_ref,
-                                   table_pack.eval_routed_quant_slope)
+    if reader == "routed":
+        assert_image_covers_every_read(tp, rebuilt, table_pack.eval_routed_quant_ref,
+                                       table_pack.eval_routed_quant_slope)
+    else:
+        assert_image_covers_every_read(tp, rebuilt, table_pack.eval_quant_pack_ref,
+                                       table_pack.eval_quant_pack_slope, static=True)
 
 
 @pytest.mark.parametrize("kind", ["f32", "quant"])

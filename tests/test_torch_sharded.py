@@ -59,6 +59,7 @@ from repro_torch.approx import (SHARDED_MODES, TABLE_MODES, ApproxConfig,
 from repro_torch.core import design, packing
 from repro_torch.kernels import _lib
 from repro_torch.kernels import routed_pack_lookup as R
+from repro_torch.kernels import table_lookup as TL
 from repro_torch.kernels import table_pack_lookup as K
 from tests.test_torch_pack import (N, assert_bitwise, assert_within_ulp, inputs,
                                    lerp_scale)
@@ -389,14 +390,15 @@ def test_entries_match_argument_builders(spacks):
     assert K._sharded_args(tp, fid, 3, 4, 0, 1)[1][4:] == (S, 3, 4, 0, 1)
     with pytest.raises(ValueError, match="takes 6 planes and 9 int"):
         _lib.launch("tp_spack_lookup", x, planes[3:], ints)
-    # the folded, TableFlash, static poly and every routed entry (but the
-    # sharded ones) take their pack's staging image
+    # the folded, TableFlash, every static and every routed entry (but the
+    # sharded ones) take their pack's (or table's) staging image
     fp = table_pack.build_pack(("silu", "sin_core", "cos_core", "exp_core", "log_core",
                                 "exp_neg"), EA, omega=OMEGA, device="cpu")
     qp = table_pack.build_quant_pack(("silu", "tanh"), EA, omega=OMEGA, device="cpu")
     pp = table_pack.from_poly_layout(packing.poly_pack_layout(
         [design.poly_member(n, EA, degree=d, bits=b)
          for n, d, b in (("tanh", 1, 32), ("exp_neg", 3, 8), ("gelu", 2, 16))]), "cpu")
+    jt = ApproxConfig(e_a=EA, omega=OMEGA).table_for("silu", "cpu")
     cases = {f"tp_folded_{e} {name}": (K._folded_args(fp, name), fp.fold_images[name])
              for e in ("lookup", "grad") for name in ("sin", "cos", "exp", "log")}
     cases["tp_tableflash_exp"] = (K._flash_args(fp), fp.flash_image)
@@ -408,6 +410,11 @@ def test_entries_match_argument_builders(spacks):
         cases[f"tp_poly_{e}"] = (K._poly_args(pp, 2, True),
                                  (pp.image, pp.inv_delta.shape[0]))
         cases[f"tp_routed_{e}"] = (R._routed_args(fp, [0, 1, 5], x, True), fp.image)
+        cases[f"tp_pack_{e}"] = (K._pack_image_args(fp, 5, True), fp.image)
+        cases[f"tp_quant_{e}"] = (K._quant_args(qp, 1, True),
+                                  (qp.image, qp.inv_delta.shape[0]))
+        cases[f"tp_table_{e}"] = ((TL.table_planes(jt), (jt.n_intervals, jt.footprint, 1)),
+                                  (jt.image, jt.footprint))
     for key, ((planes, ints), (image, count)) in cases.items():
         _, n_planes, n_int = _lib._ENTRIES[key.split()[0]]
         assert (len(planes), len(ints)) == (n_planes, n_int), key
@@ -416,15 +423,23 @@ def test_entries_match_argument_builders(spacks):
                    for p in planes), key
         assert all(isinstance(i, int) for i in ints), key
         assert planes[-1] is image, key
-        # the count that places the image's values (the static poly entries:
-        # the sub-intervals, then the code groups' sizes)
-        assert ints[-4 if key.startswith("tp_poly") else
-                    -2 if "routed" in key else -1] == count, key
+        # the count that places the image's values (the static poly and
+        # quant entries: the sub-intervals, then the code groups' sizes; a
+        # table's: its values, before the flag)
+        family = key.split()[0].rsplit("_", 1)[0]
+        at = {"tp_poly": -4, "tp_quant": -3, "tp_table": -2}.get(
+            family, -2 if "routed" in key else -1)
+        assert ints[at] == count, key
     (planes, ints), _ = cases["tp_routed_lookup"]
     assert planes[2] is fp.image_rows and ints[3] == sum(fp.n_intervals)
     (planes, ints), _ = cases["tp_poly_lookup"]
     assert ints[8:] == (pp.n_functions, pp.inv_delta.shape[0], pp.codes8.shape[0],
                         pp.codes16.shape[0], pp.codes32.shape[0])
+    starts, v_at = table_pack.member_image_layout(fp.n_intervals)
+    assert cases["tp_pack_lookup"][0][1] == K._pack_args(fp, 5, 1)[1] + (starts[5], v_at,
+                                                                         fp.image[1])
+    assert cases["tp_quant_lookup"][0][1][6:] == (qp.n_functions, qp.inv_delta.shape[0],
+                                                  qp.codes8.shape[0], qp.codes16.shape[0])
     assert fp.fold_images["sin"] is fp.fold_images["cos"]
     assert K._flash_args(fp)[1][:4] == K._pack_args(fp, fp.fn_id("exp_neg"))[1]
     assert K._folded_args(fp, "exp")[1][:2] == (fp.fn_id("exp_core"),) * 2
