@@ -132,11 +132,11 @@ Phases, each fatal on failure (exit code 1, no result line):
 20. their times, as in phase 16 (the folded kernels beside ``torch.sin`` /
    ``cos`` / ``exp`` / ``log``, also at the decode and prefill angles; the
    routed poly kernels beside the static poly kernel of the same member);
-21. ShardedPack kernels: the static sharded kernels (value and its slope
-   mode, one launch over all the shards; value + slope, one launch a shard)
-   and each shard's single contribution bitwise against their plain
-   versions, NaN positions matched, and the one-launch value and slope
-   bitwise equal to the S single-shard launches added in shard order in x's
+21. ShardedPack kernels: the static sharded kernels (value, its slope mode
+   and value + slope, each one launch over all the shards) and each shard's
+   single contribution bitwise against their plain versions, NaN positions
+   matched, and the one-launch value, slope and value + slope bitwise equal
+   to the S single-shard launches (value, slope) added in shard order in x's
    dtype (the S-launch path they replace), over every member of
    stablelm-3b's pack cut into 1, 2, 3, 4 and 8 shards and of ``("silu",
    "exp_neg")`` at e_a 1e-8 in 2 shards (slices past the kernels' 48 KB
@@ -148,6 +148,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    reads another entry); the routed sharded kernels as phase 13 does the
    routed kernels (the static sharded kernels row by row, the one-launch
    value also against the S one-shard routed launches added, the
+   value + slope at the training gate as one row too, the
    replicated routed kernels as values, the 512 x 6912 ``routed_fn``
    batch), re-routed inside a CUDA graph too;
 22. ShardedPack serving: full stablelm-3b serving the 8 requests in
@@ -156,15 +157,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    for each gate call of phase 4, and the decode step ms of ``table_pack``,
    ``sharded_pack`` and ``sharded_pack_ref`` in alternating rounds; then
    ``routed_activation`` of ``sharded_pack`` over the 512 x 6912 batch, value
-   and gradient (the routed sharded kernels: 1 value launch, 4 grad
-   launches), bitwise the plain mode's;
+   and gradient (the routed sharded kernels: 1 value launch, 1 grad
+   launch), bitwise the plain mode's;
 23. ShardedPack training: 2 steps at the trainer's defaults at
    ``pack_shards=4``, step-0 loss equal to ``sharded_pack_ref``'s and to
    phase 6's ``table_pack`` bit for bit, and a third step under the
-   profiler (device busy time and its kernels, as phase 6's);
+   profiler (device busy time and its kernels, as phase 6's); one
+   ``sharded_pack_grad`` launch a gate call;
 24. their times: each sharded call at the decode and the training gate (the
    value one launch over 4 shards, beside the 4 single-shard launches and 3
-   adds it replaces; the grad 4 launches and 3 adds), a launch over the
+   adds it replaces; the grads one launch over 4 shards, beside the 4
+   single-shard value and 4 slope launches and 2 x 3 adds), a launch over the
    1-shard pack, the replicated static and routed kernels of the same
    member, the plain versions and ``F.silu``; the 512 x 6912 mixed batch as
    one routed sharded call against the six static sharded calls and the
@@ -1922,6 +1925,8 @@ def sharded_kernel_phase(packs, s0):
                                    f"added {t}", y, sy, shape, dtype)
                         check_pair(f"sharded_pack_slope vs {sp.n_shards} launches "
                                    f"added {t}", d, sd, shape, dtype)
+                        check_pair(f"sharded_pack_grad vs {sp.n_shards} value and "
+                                   f"slope launches added {t}", g, (sy, sd), shape, dtype)
                         ry, rd = K.table_pack_grad(rp, fid, x, extrapolate=ex)
                         equal_values(f"sharded sum {t}", y, ry, x)
                         equal_values(f"sharded slope sum {t}", d, rd, x)
@@ -1930,9 +1935,9 @@ def sharded_kernel_phase(packs, s0):
             f"{sp.footprint_per_shard} values, shapes {shapes}")
     log(f"sharded: {cases} cases, each the value, slope and value + slope kernels "
         f"and every shard's contribution bitwise equal to the plain versions, the "
-        f"one-launch value and slope bitwise equal to the single-shard launches "
-        f"added in shard order, the shard sums equal to the replicated kernels "
-        f"(bf16+f32, extrapolate on/off, edges)")
+        f"one-launch value, slope and value + slope bitwise equal to the "
+        f"single-shard launches added in shard order, the shard sums equal to the "
+        f"replicated kernels (bf16+f32, extrapolate on/off, edges)")
     return worst
 
 
@@ -2034,8 +2039,7 @@ def sharded_serving_path(smi_line, gate_calls):
             torch.cuda.synchronize()
             routed = {k: K.launches[k] for k in ("sharded_routed_pack_lookup",
                                                  "sharded_routed_pack_grad")}
-    check(routed == {"sharded_routed_pack_lookup": 1,
-                     "sharded_routed_pack_grad": PACK_SHARDS},
+    check(routed == {"sharded_routed_pack_lookup": 1, "sharded_routed_pack_grad": 1},
           f"routed_activation(sharded_pack) launches {routed}")
     for a, b, what in zip(out["kernel"], out["plain"], ("value under autograd",
                                                         "gradient", "value")):
@@ -2118,11 +2122,13 @@ def sharded_timing_phase(approx, smi_line):
     1-shard pack, the replicated static and routed kernels of the same
     member, the plain version and F.silu, at the decode gate (4, 1, 6912)
     and the training gate (4, 128, 6912) bf16 (the routed calls view them as
-    one row); beside each value call the PACK_SHARDS single-shard launches
-    added in shard order that it replaces (where the checkout has them);
-    then the 512 x 6912 mixed batch as one routed sharded call against the
-    six static sharded calls and the replicated routed kernel.  The rows
-    ``*@train`` are the value calls at the training gate."""
+    one row); beside each call the PACK_SHARDS single-shard launches added
+    in shard order that it replaces (a value call's value launches, a grad
+    call's value and slope launches of the static kernel, where the
+    checkout has them); then the 512 x 6912 mixed batch as one routed
+    sharded call against the six static sharded calls and the replicated
+    routed kernel.  The rows ``*@train`` are the value calls at the
+    training gate."""
     import torch
     import torch.nn.functional as F
 
@@ -2158,6 +2164,12 @@ def sharded_timing_phase(approx, smi_line):
                 lambda: shard_launches_summed(lambda s: K.sharded_shard_contrib(
                     sp, fid, s, x, extrapolate=True), S))
 
+    def grad_summed(x):
+        """The grad's S-launch path from the single-shard contributions:
+        value and slope, each S launches + S - 1 adds."""
+        return lambda: tuple(shard_launches_summed(lambda s: K.sharded_shard_contrib(
+            sp, fid, s, x, extrapolate=True, slope=slope), S) for slope in (False, True))
+
     def routed_value(name, x):
         return (name, x, 1,
                 lambda: R.sharded_routed_pack_lookup(sp, ids, x, extrapolate=True),
@@ -2180,7 +2192,8 @@ def sharded_timing_phase(approx, smi_line):
          (("table_pack_grad", lambda: K.table_pack_grad(rp, fid, gate_t,
                                                         extrapolate=True)),
           ("routed_pack_grad", lambda: R.routed_pack_grad(rp, ids, row_t,
-                                                          extrapolate=True))), None),
+                                                          extrapolate=True))),
+         grad_summed(gate_t)),
         routed_value("sharded_routed_pack_lookup", row),
         routed_value("sharded_routed_pack_lookup@train", row_t),
         ("sharded_routed_pack_grad", row_t, 2,
@@ -2190,7 +2203,8 @@ def sharded_timing_phase(approx, smi_line):
          (("routed_pack_grad", lambda: R.routed_pack_grad(rp, ids, row_t,
                                                           extrapolate=True)),
           ("table_pack_grad", lambda: K.table_pack_grad(rp, fid, gate_t,
-                                                        extrapolate=True))), None),
+                                                        extrapolate=True))),
+         grad_summed(row_t)),
     ):
         ms, single_ms = graph_ms(kern), graph_ms(single)
         plain_ms, lib_ms = graph_ms(plain), graph_ms(lambda: F.silu(x))
@@ -2200,12 +2214,13 @@ def sharded_timing_phase(approx, smi_line):
                            sharded_bytes(sp, fid, routed), ops + 2 * (n_out - 1))
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=b_ms, bound_by=b_by)
-        how = (f"{S} shards in one launch" if n_out == 1
-               else f"{S} shards ({S} launches + {S - 1} adds)")
+        how = f"{S} shards in one launch"
         if summed:
-            rows[f"{name} ({S} launches + {S - 1} adds)"] = dict(ms=graph_ms(summed))
-            how += (f" (the {S} single-shard launches + {S - 1} adds: "
-                    f"{rows[f'{name} ({S} launches + {S - 1} adds)']['ms'] * 1e3:.2f} us)")
+            key = f"{name} ({S} launches + {S - 1} adds{'' if n_out == 1 else ' x 2'})"
+            rows[key] = dict(ms=graph_ms(summed))
+            how += (f" (the {S} single-shard {'launches' if n_out == 1 else 'value and '}"
+                    f"{'' if n_out == 1 else f'{S} slope launches'} + "
+                    f"{(S - 1) * n_out} adds: {rows[key]['ms'] * 1e3:.2f} us)")
         beside = ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in other.items())
         log(f"time: {name} {tuple(x.shape)} {x.dtype}: {how} {ms * 1e3:.2f} us, one "
             f"launch (1 shard) {single_ms * 1e3:.2f} us, replicated: {beside}, plain "
@@ -2342,9 +2357,14 @@ def main() -> int:
         counts.update(sharded_serving_path(smi_line, counts["table_pack_lookup"]))
         train23 = pack_train_paths(smi_line, (("sharded_pack", ("sharded_pack_grad",)),),
                                    profile=True)
-        check(train23["sharded_pack_grad"] % PACK_SHARDS == 0,
-              f"sharded_pack_grad launches {train23['sharded_pack_grad']} are not "
-              f"{PACK_SHARDS} a gate call")
+        # the gate calls of its QP_STEPS + 1 steps: routed_pack's gate grad
+        # launches once a call over QP_STEPS steps of the same trainer
+        gate_calls = counts["routed_pack_grad"] // QP_STEPS * (QP_STEPS + 1)
+        check(train23["sharded_pack_grad"] == gate_calls,
+              f"sharded_pack_grad launches {train23['sharded_pack_grad']} != the "
+              f"{gate_calls} gate calls (one launch a call)")
+        log(f"sharded_pack: 1 grad launch over {PACK_SHARDS} shards for each of the "
+            f"{gate_calls} gate calls of {QP_STEPS + 1} training steps")
         counts["sharded_pack_grad"] = train23["sharded_pack_grad"]
         times.update(sharded_timing_phase(cfg.approx, smi_line))
     except SmokeError as e:

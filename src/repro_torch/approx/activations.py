@@ -320,7 +320,7 @@ class ApproxConfig:
                 make = make_routed_unary_fn
             elif self.mode in SHARDED_MODES:
                 # one launch a call over the S shards, their contributions
-                # summed on the card (the grad: one launch a shard)
+                # summed on the card (the value, and the value + slope)
                 make = make_sharded_pack_fn
             else:
                 make = (make_poly_pack_fn if self.mode in POLY_PACK_MODES

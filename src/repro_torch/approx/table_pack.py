@@ -960,6 +960,10 @@ class ShardedTablePack:
     domains: Tuple[Tuple[float, float], ...]  # member domains [lo, hi), host
     # routed dispatch's per-member int32 operands, built once with the pack
     routing: Tuple[torch.Tensor, ...]
+    # the staging image of the whole pack (sharded_image_layout) and where
+    # its values slices start, built once with the pack: what a block of the
+    # static and routed grad kernels stages where it fits
+    image: Tuple[torch.Tensor, int]
     _extr_operands: Dict[bytes, torch.Tensor] = field(
         default_factory=dict, compare=False, repr=False)
 
@@ -992,6 +996,48 @@ class ShardedTablePack:
         return self.routing
 
 
+def sharded_image_layout(n_intervals: Sequence[int], n_shards: int,
+                         m: int) -> Tuple[Tuple[int, ...], int, int]:
+    """Where a sharded pack's staging image keeps its parts, in f32 words:
+    a header of each member's row start and sub-interval count (words 2f
+    and 2f + 1); each member's row from its start, over its real
+    sub-intervals: one quad (inv_delta, owner-rebased base, seg_count,
+    owner) for each sub-interval, then its ``n + 1`` boundaries; and the
+    ``n_shards`` padded values slices of ``m`` entries, back to back, from
+    the values start.  Every part starts at a multiple of 4 words, so that a
+    quad is one 16-byte shared-memory read.  Returns (row starts, values
+    start, the image's words).  The kernels that stage it
+    (``csrc/table_pack_lookup.cu``, ``spack_image_kernel``) read it so."""
+    def up4(w):
+        return -(-w // 4) * 4
+
+    starts, at = [], up4(2 * len(n_intervals))
+    for n in n_intervals:
+        starts.append(at)
+        at += up4(5 * n + 1)
+    return tuple(starts), at, up4(at + n_shards * m)
+
+
+def _sharded_image(slayout: ShardedPackLayout, values: np.ndarray,
+                   dev: torch.device) -> Tuple[torch.Tensor, int]:
+    """The staging image of a sharded pack (sharded_image_layout), from the
+    numbers its planes hold (the header's counts are exact in f32), and
+    where its values slices start."""
+    lay = slayout.layout
+    f32 = lambda a: np.asarray(a, np.float64).astype(np.float32)
+    starts, v_at, words = sharded_image_layout(lay.n_intervals, slayout.n_shards,
+                                               values.shape[1])
+    img = np.zeros(words, np.float32)
+    for f, (at, n) in enumerate(zip(starts, lay.n_intervals)):
+        img[2 * f: 2 * f + 2] = (at, n)
+        img[at: at + 4 * n] = np.stack(
+            [f32(lay.inv_delta[f, :n]), f32(slayout.local_base[f, :n]),
+             f32(lay.seg_count[f, :n]), f32(slayout.owner[f, :n])], axis=1).reshape(-1)
+        img[at + 4 * n: at + 5 * n + 1] = f32(lay.boundaries[f, : n + 1])
+    img[v_at: v_at + values.size] = f32(values).reshape(-1)
+    return torch.from_numpy(img).to(dev), v_at
+
+
 def from_sharded_layout(slayout: ShardedPackLayout,
                         device: DeviceLike = None) -> ShardedTablePack:
     if slayout.max_shard_entries >= EXACT_INT_LIMIT:
@@ -1022,6 +1068,7 @@ def from_sharded_layout(slayout: ShardedPackLayout,
         owner_base=f32_tensor(slayout.local_base, dev),
         domains=_row_domains(lay),
         routing=(_int32_tensor(lay.n_intervals, dev),),
+        image=_sharded_image(slayout, vals, dev),
     )
 
 
@@ -1129,8 +1176,8 @@ def make_sharded_pack_fn(pack: ShardedTablePack, name: str, *,
     device (the reference's off-mesh branch).
 
     ``use_kernel=True`` (``sharded_pack``) runs ``sharded_pack_lookup``
-    without a gradient (one launch a call over the S shards) and the fused
-    value + slope ``sharded_pack_grad`` under one (S launches);
+    without a gradient and the fused value + slope ``sharded_pack_grad``
+    under one (each one launch a call over the S shards);
     ``False`` (``sharded_pack_ref``) the plain versions.  Tangent: the table slope, or ``exact_d1(x)`` when given.
     """
     from repro_torch.kernels import table_pack_lookup as K
@@ -1333,8 +1380,8 @@ def make_routed_fn(pack, fn_ids, *, use_kernel: bool = True, extrapolate=False):
     """Differentiable per-row routed ``f(x)``: row i of ``x`` (leading axis)
     is served by member ``fn_ids[i]`` of the pack — f32 (:class:`TablePack`),
     quantized (:class:`QuantTablePack`), polynomial (:class:`PolyTablePack`)
-    or sharded (:class:`ShardedTablePack`: the value one launch a call over
-    the S shards, the value + slope S launches).
+    or sharded (:class:`ShardedTablePack`: the value and the value + slope
+    each one launch a call over the S shards).
 
     ``fn_ids`` may be names/ints (validated here and copied to the pack's
     device once) or a ``torch.Tensor`` of ids on the pack's device (a

@@ -54,14 +54,17 @@
 //                      a sharded-pack member's masked lerps (or, in its slope
 //                      mode, masked slopes) over a range of shards, summed in
 //                      shard order, in one launch.
-//   tp_spack_grad      replaces _spack_grad_kernel (:697): one shard's masked
-//                      value and slope from one selector pass.
+//   tp_spack_grad      replaces _spack_grad_kernel (:697) and the sum over its
+//                      per-shard outputs: the masked value and slope over all
+//                      the shards, summed, from one selector pass in one
+//                      launch, over the pack's staging image where it fits.
 //   tp_sharded_routed_lookup  replaces _sharded_routed_kernel
 //                      (src/repro/kernels/routed_pack_lookup.py:451) and its
 //                      shard sum (_sharded_routed_sum, :529): the routed f32
 //                      kernel over a range of shards, masked and summed.
-//   tp_sharded_routed_grad    replaces _sharded_routed_grad_kernel (:480): one
-//                      shard.
+//   tp_sharded_routed_grad    replaces _sharded_routed_grad_kernel (:480) and
+//                      its shard sum: the routed value and slope over all the
+//                      shards in one launch, as tp_spack_grad.
 //
 // What bounds them on the card: bytes.  Each element is read once and its
 // output(s) written once, N * (in_bytes + n_out * out_bytes) at 3.35 TB/s; the
@@ -203,10 +206,25 @@
 // 16-byte multiples, instead of the register-batched loop, whose round trips
 // bound the staging (on a capped grid the loop was faster); once the grid is
 // capped (the training gate, prefill) x and the outputs move in 16-byte
-// vectors (8 bf16 or 4 f32 a thread), a scalar tail after.  The grad kernels
-// (spack_kernel<kGrad>, routed_kernel<kGrad, true>) run the same body over a
-// range of one shard: their wrappers launch the S shards in turn and add the
-// outputs in shard order.
+// vectors (8 bf16 or 4 f32 a thread), a scalar tail after.
+//
+// The sharded grads.  They run at the training gate (3.5 M bf16 elements,
+// the grid capped at kBlocksPerSM blocks a multiprocessor, ~26 elements a
+// thread), so a thread's instructions an element and the bytes it keeps in
+// flight set their pace, not the staging.  Over all the shards (what their
+// wrappers launch: one launch a call, where S single-shard launches and
+// S - 1 adds of each output moved ~10x the bytes) the static and the routed grad
+// stage the pack's staging image (ShardedTablePack.image: a header of row
+// starts, each member's row of (invd, owner-rebased base, segs, owner)
+// quads over its real sub-intervals and its boundaries, then the S values
+// slices; 5,584 bytes in stablelm's 4-shard pack) in one round trip of
+// 16-byte loads with each thread's first x in flight, move x, y and the
+// slope in 16-byte chunks, scan each boundary once for a chunk's
+// elements, read the
+// four gathers after the selector in one 16-byte shared access and round
+// each output once (spack_image_kernel; a routed row of another member is
+// another row of the image).  Past the budget the grads run spack_kernel
+// and routed_kernel<..., true> over the range, as the value kernels do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1485,6 +1503,232 @@ routed_pack_image_kernel(const T* __restrict__ x, T* __restrict__ out,
   }
 }
 
+// ---- the sharded pack's staging image: the grads over all the shards ---------
+
+// One member's row in the sharded pack's staging image (ShardedTablePack.image,
+// laid out by approx/table_pack.py sharded_image_layout): quad j holds
+// sub-interval j's (invd, owner-rebased base, segs, owner), so the four
+// gathers after the selector are one 16-byte shared-memory read; the n + 1
+// boundaries follow the quads.  The image's header holds each member's row
+// start and sub-interval count (words 2f, 2f + 1), exact in f32.
+struct ShardRow {
+  const float4* quad;
+  const float* bounds;
+  int n;
+  bool ex;
+};
+
+__device__ __forceinline__ ShardRow shard_row(const float* img, int fid, bool ex) {
+  const int at = static_cast<int>(img[2 * fid]);
+  const int n = static_cast<int>(img[2 * fid + 1]);
+  return ShardRow{reinterpret_cast<const float4*>(img + at), img + at + 4 * n, n, ex};
+}
+
+// kE elements of one member, value and slope over all the shards before
+// the sum's +0.0 (spack_put adds it): tl::sharded_sum over the range [0, S),
+// op for op.  Every real sub-interval's owner lies in that range, so there
+// is no owner test: the owner's slice answers.  The selector counts
+// b_1 .. b_{n-1}, each boundary read once for the kE elements: the row
+// ascends, so this is tl::select's min(#(x >= b_k, 1 <= k <= n_max), n - 1)
+// (x >= b_n puts j at n - 1 either way, and the +inf padding never counts).
+template <int kE>
+__device__ __forceinline__ void spack_elems(const float (&x)[kE], const ShardRow& r,
+                                            const float* slab, int m, float (&y)[kE],
+                                            float (&d)[kE]) {
+  int j[kE];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) j[e] = 0;
+  for (int k = 1; k < r.n; ++k) {
+    const float b = r.bounds[k];
+#pragma unroll
+    for (int e = 0; e < kE; ++e) j[e] += x[e] >= b ? 1 : 0;
+  }
+  const float lo = r.bounds[0];
+  const float hi = r.bounds[r.n];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const float4 q = r.quad[j[e]];  // invd, owner-rebased base, segs, owner
+    const float u = (x[e] - r.bounds[j[e]]) * q.x;
+    const float i = tl::clamp_cell(u, q.z);
+    const int a = tl::address(q.y + i);
+    const float* v = slab + static_cast<int>(q.w) * m;
+    const float y0 = v[tl::clip_address(a, m)];
+    const float y1 = v[tl::clip_address(a + 1, m)];
+    float t = u - i;
+    float s = (y1 - y0) * q.x;
+    if (!r.ex) {
+      t = tl::clamp_hi(tl::clamp_lo(t, 0.0f), 1.0f);
+      s = s * ((x[e] >= lo && x[e] < hi) ? 1.0f : 0.0f);
+    }
+    y[e] = y0 + t * (y1 - y0);
+    d[e] = s;
+  }
+}
+
+// tl::sharded_sum's round(y) + 0.0f on the rounded bits of a bf16 pair: a
+// half that is -0.0 becomes +0.0 (bit 15 of (h & 0x7fff) + 0x7fff is set
+// unless the half is +-0; no carry crosses the halves).  A tiny negative y
+// that rounds to -0.0 becomes +0.0 too, which y + 0.0f before the rounding
+// would not give.
+__device__ __forceinline__ uint32_t plus_zero2(uint32_t w) {
+  return w & (((w & 0x7fff7fffu) + 0x7fff7fffu) | 0x7fff7fffu);
+}
+
+// One chunk of x: a 16-byte vector of kE = 16 / sizeof(T) elements, or one
+// element (kE = 1), and its outputs' store: each rounded to T once and, with
+// kSum (a range longer than one shard), -0.0 turned +0.0.
+template <typename T, int kE>
+struct Chunk {
+  uint4 w;
+  static __device__ __forceinline__ Chunk load(const T* p, long long q) {
+    return Chunk{reinterpret_cast<const uint4*>(p)[q]};
+  }
+  __device__ __forceinline__ float get(int e) const { return vec_get<T>(w, e); }
+};
+template <typename T>
+struct Chunk<T, 1> {
+  float v;
+  static __device__ __forceinline__ Chunk load(const T* p, long long q) {
+    return Chunk{load_f32(p, q)};
+  }
+  __device__ __forceinline__ float get(int) const { return v; }
+};
+
+template <typename T, bool kSum, int kE>
+__device__ __forceinline__ void spack_put(T* p, long long q, const float (&v)[kE]) {
+  if constexpr (sizeof(T) == 4) {
+    float o[kE];
+#pragma unroll
+    for (int e = 0; e < kE; ++e) o[e] = kSum ? v[e] + 0.0f : v[e];
+    if constexpr (kE == 1) {
+      p[q] = o[0];
+    } else {
+      reinterpret_cast<uint4*>(p)[q] = make_uint4(__float_as_uint(o[0]), __float_as_uint(o[1]),
+                                                  __float_as_uint(o[2]), __float_as_uint(o[3]));
+    }
+  } else if constexpr (kE == 1) {
+    uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(v[0]));
+    if (kSum) h = plus_zero2(h);
+    reinterpret_cast<unsigned short*>(p)[q] = static_cast<unsigned short>(h);
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+      w[k] = *reinterpret_cast<const uint32_t*>(&h);
+      if (kSum) w[k] = plus_zero2(w[k]);
+    }
+    reinterpret_cast<uint4*>(p)[q] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// What spack_image_kernel walks: `rows` rows of `cols` elements (the static
+// grad's is one row), in chunks of kE elements that never straddle a row;
+// block b takes chunks [b * per, min((b + 1) * per, chunks)).  A static
+// walk in 16-byte chunks leaves the n % kE elements past the last chunk to
+// the last block.
+struct SpackWork {
+  long long cols;    // elements of a row
+  long long cpr;     // chunks of a row
+  long long chunks;  // chunks of all the rows
+  long long per;     // chunks of one block
+};
+
+template <typename T, bool kRouted, bool kSum, int kE>
+__device__ __forceinline__ void spack_walk(const T* x, T* out, T* slope,
+                                           const SpackWork& w, const int* ids,
+                                           const int* extr, int fid, int extrapolate,
+                                           const float* image, int words, int v_at, int m,
+                                           int n_fn, float* smem) {
+  const long long c0 = static_cast<long long>(blockIdx.x) * w.per;
+  const long long c1 = c0 + w.per < w.chunks ? c0 + w.per : w.chunks;
+  long long r = kRouted ? c0 / w.cpr : 0;
+  // in flight while the image lands: this thread's first chunk, the first
+  // row's id and the members' extrapolate flags (one each for the first
+  // n_fn threads)
+  const long long first = c0 + threadIdx.x;
+  Chunk<T, kE> pre{};
+  if (first < c1) pre = Chunk<T, kE>::load(x, first);
+  int id = kRouted ? (c0 < c1 ? ids[r] : 0) : fid;
+  const bool mine = kRouted && threadIdx.x < n_fn;
+  const int ex0 = mine ? extr[threadIdx.x] : 0;
+  stage_copy(reinterpret_cast<float4*>(smem), reinterpret_cast<const float4*>(image),
+             words / 4, true);
+  int* s_ex = reinterpret_cast<int*>(smem + words);
+  if (kRouted) {
+    if (mine) s_ex[threadIdx.x] = ex0;
+    for (int k = threadIdx.x + blockDim.x; k < n_fn; k += blockDim.x) s_ex[k] = extr[k];
+  }
+  __syncthreads();
+  const float* slab = smem + v_at;
+  for (long long c = c0; c < c1; ++r) {
+    const long long re = kRouted && (r + 1) * w.cpr < c1 ? (r + 1) * w.cpr : c1;
+    const int f = kRouted ? (id < 0 ? 0 : (id > n_fn - 1 ? n_fn - 1 : id)) : fid;
+    if (kRouted && re < c1) id = ids[r + 1];  // the next row's, loaded while this row runs
+    const ShardRow row = shard_row(smem, f, kRouted ? s_ex[f] != 0 : extrapolate != 0);
+    for (long long q = c + threadIdx.x; q < re; q += kThreads) {
+      const Chunk<T, kE> cur = q == first ? pre : Chunk<T, kE>::load(x, q);
+      float xv[kE], y[kE], d[kE];
+#pragma unroll
+      for (int e = 0; e < kE; ++e) xv[e] = cur.get(e);
+      spack_elems<kE>(xv, row, slab, m, y, d);
+      spack_put<T, kSum, kE>(out, q, y);
+      spack_put<T, kSum, kE>(slope, q, d);
+    }
+    c = re;
+  }
+  if (!kRouted && kE > 1 && blockIdx.x == gridDim.x - 1) {
+    const long long e = w.chunks * kE + threadIdx.x;
+    if (e < w.cols) {
+      const float xv[1] = {load_f32(x, e)};
+      float y[1], d[1];
+      spack_elems<1>(xv, shard_row(smem, fid, extrapolate != 0), slab, m, y, d);
+      spack_put<T, kSum, 1>(out, e, y);
+      spack_put<T, kSum, 1>(slope, e, d);
+    }
+  }
+}
+
+// Replaces _spack_grad_kernel (src/repro/kernels/table_pack_lookup.py:697)
+// and, kRouted, _sharded_routed_grad_kernel
+// (src/repro/kernels/routed_pack_lookup.py:480), with the sum over their
+// per-shard outputs (_sharded_sum_pallas, :803; _sharded_routed_sum, :529):
+// value and slope of member fid (kRouted: row r through member ids[r],
+// clamped, its flag extr[...]) over ALL the shards in one launch, where the
+// pack's staging image fits kSmemBytes (the launch decides).  Bound: bytes
+// (x read once, y and the slope written once: 6.34 us at the training gate);
+// the S launches and S - 1 adds of each output it replaces moved ~10x that.
+// At the training gate the grid is capped (kBlocksPerSM blocks of kThreads
+// a multiprocessor, ~26 elements a thread), so what a thread issues an
+// element and the bytes it keeps in flight set the pace.  So: each thread's
+// first x is in flight while the image lands, in ONE round trip (16-byte
+// loads, one batch; stablelm's 4-shard image is 1,396 words); a row of
+// another member is another row of shared memory (no loads, no barrier);
+// where the grid is capped, x, y and the slope move in 16-byte chunks
+// (8 bf16 or 4 f32 elements, kE); the selector scans the member's real
+// sub-intervals once for the chunk's kE elements; the four gathers after
+// it are one 16-byte shared read; each output is rounded to T once.  Each
+// was kept where tools/torch_kernel_ab.py timed it faster; loading the
+// next chunk before this one's arithmetic did not time faster (its 16 KB
+// an SM already cover Little's law) and went.  kSum: S > 1.
+// The bits are spack_kernel's and routed_kernel<..., true>'s over [0, S).
+template <typename T, bool kRouted, bool kSum>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+spack_image_kernel(const T* __restrict__ x, T* __restrict__ out, T* __restrict__ slope,
+                   SpackWork w, const int* __restrict__ ids, const int* __restrict__ extr,
+                   int fid, int extrapolate, const float* __restrict__ image, int words,
+                   int v_at, int m, int n_fn, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  if (vec) {
+    spack_walk<T, kRouted, kSum, 16 / sizeof(T)>(x, out, slope, w, ids, extr, fid,
+                                                 extrapolate, image, words, v_at, m,
+                                                 n_fn, smem);
+  } else {
+    spack_walk<T, kRouted, kSum, 1>(x, out, slope, w, ids, extr, fid, extrapolate,
+                                    image, words, v_at, m, n_fn, smem);
+  }
+}
+
 // ---- launches -----------------------------------------------------------------
 
 int sm_count() {
@@ -1627,6 +1871,69 @@ cudaError_t launch_flash(const void* x, void* out, long long n, int dtype,
   return cudaGetLastError();
 }
 
+// The sharded pack's staging image (ShardedTablePack.image): its header
+// holds n_fn members' rows and its values slices start at word v_at, a
+// multiple of 4 past the header.
+bool spack_image_sane(int n_fn, int v_at) {
+  return n_fn >= 1 && v_at >= 2LL * n_fn && v_at % 4 == 0;
+}
+
+long long spack_image_words(int v_at, int m, int n_shards) {
+  return (v_at + static_cast<long long>(n_shards) * m + 3) / 4 * 4;
+}
+
+// Whether a grad launch over shards [s_begin, s_end) takes
+// spack_image_kernel: the range is all the shards and the image (16-byte
+// aligned), with a routed launch's n_fn flags, fits kSmemBytes.
+bool spack_image_fits(const float* image, int v_at, int m, int n_shards, int s_begin,
+                      int s_end, int n_flags) {
+  return image && reinterpret_cast<uintptr_t>(image) % 16 == 0 && s_begin == 0 &&
+         s_end == n_shards &&
+         4 * (spack_image_words(v_at, m, n_shards) + n_flags) <= kSmemBytes;
+}
+
+// spack_image_kernel over `rows` rows of n / rows elements (the static
+// grad: one row, member fid, flag extrapolate; routed: ids and extr).  Where
+// the scalar grid would be capped and x, y and the slope are 16-byte
+// aligned (and a row holds whole 16-byte chunks), the walk moves 16-byte
+// chunks; otherwise one element a chunk.
+template <bool kRouted>
+cudaError_t launch_spack_image(const void* x, void* y, void* slope, long long n,
+                               int dtype, int rows, const int* ids, const int* extr,
+                               int fid, int extrapolate, const float* image, int v_at,
+                               int m, int n_shards, int n_fn, cudaStream_t stream) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const long long cap = static_cast<long long>(sm_count()) * kBlocksPerSM;
+  const int elem_vec = dtype == 1 ? 8 : 4;
+  SpackWork w;
+  w.cols = n / rows;
+  const int vec = (n + kThreads - 1) / kThreads > cap && aligned(x) && aligned(y) &&
+                  aligned(slope) && (!kRouted || w.cols % elem_vec == 0) &&
+                  n >= elem_vec;
+  const int ke = vec ? elem_vec : 1;
+  w.cpr = w.cols / ke;
+  w.chunks = kRouted ? w.cpr * rows : n / ke;
+  long long b = (w.chunks + kThreads - 1) / kThreads;
+  b = b < cap ? b : cap;
+  w.per = (w.chunks + b - 1) / b;
+  const int blocks = static_cast<int>((w.chunks + w.per - 1) / w.per);
+  const long long words = spack_image_words(v_at, m, n_shards);
+  const size_t bytes = 4 * (words + (kRouted ? n_fn : 0));
+#define TP_SPACK_IMAGE(T, SUM)                                                         \
+  spack_image_kernel<T, kRouted, SUM><<<blocks, kThreads, bytes, stream>>>(            \
+      static_cast<const T*>(x), static_cast<T*>(y), static_cast<T*>(slope), w, ids,    \
+      extr, fid, extrapolate, image, static_cast<int>(words), v_at, m, n_fn, vec)
+  if (n_shards > 1) {
+    TP_DISPATCH_DTYPE(dtype, TP_SPACK_IMAGE, true);
+  } else {
+    TP_DISPATCH_DTYPE(dtype, TP_SPACK_IMAGE, false);
+  }
+#undef TP_SPACK_IMAGE
+  return cudaGetLastError();
+}
+
 // Shards [s_begin, s_end) of the S-shard pack, summed (see spack_kernel);
 // refuses what launch_pack refuses and a shard range that is empty or leaves
 // [0, S).  Where the scalar grid would be capped (the card already full: the
@@ -1639,13 +1946,19 @@ cudaError_t launch_spack(const void* x, void* out, void* slope, long long n, int
                          const float* bounds, const float* invd, const float* obase,
                          const float* segs, const float* owner, const float* values,
                          int fn_id, int n_max, int n_intervals, int m, int n_shards,
-                         int s_begin, int s_end, int extrapolate, cudaStream_t stream) {
+                         int s_begin, int s_end, int extrapolate, cudaStream_t stream,
+                         const float* image = nullptr, int n_fn = 0, int v_at = 0) {
   if (n_max < 1 || n_intervals < 1 || n_intervals > n_max || fn_id < 0 || m < 2 ||
       s_begin < 0 || s_end <= s_begin || s_end > n_shards || n < 0 ||
-      (kMode == kGrad && !slope)) {
+      (kMode == kGrad && !slope) ||
+      (image && (fn_id >= n_fn || !spack_image_sane(n_fn, v_at)))) {
     return cudaErrorInvalidValue;
   }
   if (n == 0) return cudaSuccess;
+  if (kMode == kGrad && spack_image_fits(image, v_at, m, n_shards, s_begin, s_end, 0)) {
+    return launch_spack_image<false>(x, out, slope, n, dtype, 1, nullptr, nullptr, fn_id,
+                                     extrapolate, image, v_at, m, n_shards, 0, stream);
+  }
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
@@ -1832,13 +2145,20 @@ cudaError_t launch_routed(const void* x, void* out, void* slope, long long n, in
                           const float* bounds, const float* invd, const float* base,
                           const float* segs, const float* values, const float* owner,
                           int n_fn, int n_max, int m, int n_shards, int s_begin,
-                          int s_end, int rows, cudaStream_t stream) {
+                          int s_end, int rows, cudaStream_t stream,
+                          const float* image = nullptr, int v_at = 0) {
   if (n_fn < 1 || n_max < 1 || m < 2 || rows < 1 || n < 0 || n % rows != 0 ||
       s_begin < 0 || s_end <= s_begin || s_end > n_shards ||
-      (kMode == kGrad && !slope) || (kSharded && !owner)) {
+      (kMode == kGrad && !slope) || (kSharded && !owner) ||
+      (image && !spack_image_sane(n_fn, v_at))) {
     return cudaErrorInvalidValue;
   }
   if (n == 0) return cudaSuccess;
+  if (kMode == kGrad && kSharded &&
+      spack_image_fits(image, v_at, m, n_shards, s_begin, s_end, n_fn)) {
+    return launch_spack_image<true>(x, out, slope, n, dtype, rows, ids, extr, 0, 0, image,
+                                    v_at, m, n_shards, n_fn, stream);
+  }
   int blocks = 0;
   const RoutedWork w = routed_work(n, rows, &blocks);
   const int range = s_end - s_begin;
@@ -2346,18 +2666,24 @@ extern "C" cudaError_t tp_spack_lookup(const void* x, void* out, long long n, in
                               static_cast<cudaStream_t>(stream));
 }
 
-// Value and slope of shards [s_begin, s_end), planes as tp_spack_lookup's
-// (the wrapper passes one shard).
+// Value and slope of shards [s_begin, s_end), planes as tp_spack_lookup's,
+// then the pack's staging image (ShardedTablePack.image; nullptr for none)
+// with its member count n_fn and values start v_at: over all the shards
+// (what the wrapper passes) spack_image_kernel stages it where it fits;
+// otherwise spack_kernel stages the member's rows and the range's slices as
+// the budget allows.
 extern "C" cudaError_t tp_spack_grad(const void* x, void* y, void* slope, long long n,
                                      int dtype, const float* bounds, const float* invd,
                                      const float* obase, const float* segs,
                                      const float* owner, const float* values,
-                                     int fn_id, int n_max, int n_intervals, int m,
-                                     int n_shards, int s_begin, int s_end,
-                                     int extrapolate, void* stream) {
+                                     const float* image, int fn_id, int n_max,
+                                     int n_intervals, int m, int n_shards, int s_begin,
+                                     int s_end, int extrapolate, int n_fn, int v_at,
+                                     void* stream) {
   return launch_spack<kGrad>(x, y, slope, n, dtype, bounds, invd, obase, segs, owner,
                              values, fn_id, n_max, n_intervals, m, n_shards, s_begin,
-                             s_end, extrapolate, static_cast<cudaStream_t>(stream));
+                             s_end, extrapolate, static_cast<cudaStream_t>(stream), image,
+                             n_fn, v_at);
 }
 
 // Routed over the S-shard pack, shards [s_begin, s_end) summed: as
@@ -2375,18 +2701,21 @@ extern "C" cudaError_t tp_sharded_routed_lookup(
                                      static_cast<cudaStream_t>(stream));
 }
 
-// Value and slope, planes as tp_sharded_routed_lookup's (the wrapper passes
-// one shard).
+// Value and slope, planes as tp_sharded_routed_lookup's, then the pack's
+// staging image (ShardedTablePack.image; nullptr for none) and its values
+// start v_at: over all the shards (what the wrapper passes)
+// spack_image_kernel stages it where it and the flags fit; otherwise
+// routed_kernel restages the member's rows per member.
 extern "C" cudaError_t tp_sharded_routed_grad(
     const void* x, void* y, void* slope, long long n, int dtype, const int* ids,
     const int* n_arr, const int* extr, const float* bounds, const float* invd,
     const float* obase, const float* segs, const float* owner, const float* values,
-    int n_fn, int n_max, int m, int n_shards, int s_begin, int s_end, int rows,
-    void* stream) {
+    const float* image, int n_fn, int n_max, int m, int n_shards, int s_begin,
+    int s_end, int rows, int v_at, void* stream) {
   return launch_routed<kGrad, true>(x, y, slope, n, dtype, ids, n_arr, extr, bounds,
                                     invd, obase, segs, values, owner, n_fn, n_max, m,
                                     n_shards, s_begin, s_end, rows,
-                                    static_cast<cudaStream_t>(stream));
+                                    static_cast<cudaStream_t>(stream), image, v_at);
 }
 
 extern "C" const char* tp_error_string(int err) {

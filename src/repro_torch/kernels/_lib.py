@@ -31,7 +31,9 @@ count.  The
 sharded entries take bounds, invd, the
 owner-rebased base, segs, the owner plane and every shard's padded values
 slice (the routed ones after the three routing vectors), the shard count and
-a shard range ``[s_begin, s_end)`` that one launch sums.
+a shard range ``[s_begin, s_end)`` that one launch sums; the grads also the
+pack's staging image (``ShardedTablePack.image``) and where its values
+start (the static one also the member count).
 :func:`launch` flattens x, allocates the outputs, launches on the current
 stream and raises on an error; :data:`launches` counts the launches of each
 kernel, and only a launch adds to it.  :func:`run` is the one wrapper
@@ -114,13 +116,17 @@ _ENTRIES = {
     # bounds, invd, obase, segs, owner, values (the owner-rebased-base and
     # owner planes, every shard's slice); fn_id, n_max, n_intervals, m_max,
     # n_shards, s_begin, s_end, extrapolate (+ slope for the value): one
-    # launch sums shards [s_begin, s_end) (the grad's wrapper: one shard)
+    # launch sums shards [s_begin, s_end)
     "tp_spack_lookup": (1, 6, 9),
-    "tp_spack_grad": (2, 6, 8),
+    # the same 6 planes + the pack's staging image; the same 8 ints, then
+    # n_fn and the image's values start
+    "tp_spack_grad": (2, 7, 10),
     # ids, n_arr, extr + the same 6 planes; n_fn, n_max, m_max, n_shards,
     # s_begin, s_end, rows
     "tp_sharded_routed_lookup": (1, 9, 7),
-    "tp_sharded_routed_grad": (2, 9, 7),
+    # the same 9 planes + the pack's staging image; the same 7 ints, then the
+    # image's values start
+    "tp_sharded_routed_grad": (2, 10, 8),
 }
 _typed: Dict[int, ctypes.CDLL] = {}
 

@@ -33,12 +33,14 @@ CUDA graph whose ids tensor is rewritten in place between replays.
   * :func:`sharded_routed_pack_lookup` / :func:`sharded_routed_pack_grad` —
     the sharded pack: each shard gathers from its values slice, elements the
     shard does not own masked to zero, the contributions summed in shard
-    order in x's dtype.  The value is one launch a call over all S shards,
-    summed on the card; the value + slope one launch a shard, the outputs
-    added.  CUDA kernels ``tp_sharded_routed_lookup`` /
-    ``tp_sharded_routed_grad``; replace ``_sharded_routed_kernel`` (and its
-    sum, ``_sharded_routed_sum``) / ``_sharded_routed_grad_kernel``
-    (``:451``, ``:529``, ``:480``).  Plain versions:
+    order in x's dtype: one launch a call over all S shards, summed on the
+    card (the value + slope stages the pack's staging image,
+    ``ShardedTablePack.image``, where it fits, and enters a row of another
+    member by pointing at another row of it).  CUDA kernels
+    ``tp_sharded_routed_lookup`` / ``tp_sharded_routed_grad``; replace
+    ``_sharded_routed_kernel`` / ``_sharded_routed_grad_kernel`` and their
+    sum, ``_sharded_routed_sum`` (``:451``, ``:480``, ``:529``).  Plain
+    versions:
     ``eval_routed_sharded_ref`` and ``eval_routed_sharded_slope``.
     :func:`sharded_routed_shard_contrib` is one shard's routed contribution
     (the value kernel over a range of one shard).
@@ -48,8 +50,7 @@ CUDA graph whose ids tensor is rewritten in place between replays.
 device (clamped to ``[0, F-1]``: by ``torch.clamp`` in the plain versions, by
 the kernel on the card).  ``extrapolate`` is one flag or one per member.
 Every wrapper goes through :func:`repro_torch.kernels._lib.run`: a CPU tensor
-gets the plain version, a CUDA tensor one launch (a sharded grad call S) or
-an error.
+gets the plain version, a CUDA tensor one launch or an error.
 """
 
 from __future__ import annotations
@@ -69,7 +70,6 @@ from repro_torch.approx.table_pack import (PolyTablePack, QuantTablePack,
                                           shard_contrib)
 
 from ._lib import launches, reset_launches, run
-from .table_pack_lookup import sharded_sum
 
 __all__ = ["launches", "reset_launches", "routed_pack_lookup",
            "routed_pack_lookup_plain", "routed_pack_grad", "routed_pack_grad_plain",
@@ -252,6 +252,16 @@ def _sharded_routed_args(pack: ShardedTablePack, fn_ids, x: torch.Tensor,
              s_begin, s_end, rows))
 
 
+def _sharded_routed_grad_args(pack: ShardedTablePack, fn_ids, x: torch.Tensor,
+                              extrapolate):
+    """(planes, ints) of ``tp_sharded_routed_grad``: :func:`_sharded_routed_args`
+    over all the shards, then the pack's staging image (``pack.image``) and
+    where its values start."""
+    image, v_at = pack.image
+    planes, ints = _sharded_routed_args(pack, fn_ids, x, extrapolate, 0, pack.n_shards)
+    return planes + (image,), ints + (v_at,)
+
+
 def sharded_routed_shard_contrib_plain(pack: ShardedTablePack, fn_ids, shard: int,
                                        x: torch.Tensor, *,
                                        extrapolate=False) -> torch.Tensor:
@@ -308,18 +318,10 @@ def sharded_routed_pack_grad_plain(pack: ShardedTablePack, fn_ids, x: torch.Tens
 
 def sharded_routed_pack_grad(pack: ShardedTablePack, fn_ids, x: torch.Tensor, *,
                              extrapolate=False):
-    """Routed sharded ``(y, dy/dx)``, both in x's dtype: one fused pass a
-    shard (S launches, the ids and flag operands built once for all of
-    them), each output summed over the shards in shard order."""
-
-    def plain():
-        return sharded_routed_pack_grad_plain(pack, fn_ids, x, extrapolate=extrapolate)
-
-    def contrib(s):
-        return run("tp_sharded_routed_grad", "sharded_routed_pack_grad", x,
-                   pack.device, "pack", (planes, ints[:4] + (s, s + 1) + ints[6:]),
-                   plain)
-
-    if x.device.type != "cpu":  # the operands built once, the range set per shard
-        planes, ints = _sharded_routed_args(pack, fn_ids, x, extrapolate, 0, 1)
-    return sharded_sum(pack, x, contrib, plain)
+    """Routed sharded ``(y, dy/dx)``, both in x's dtype, from one fused pass:
+    one routed launch over the S shards, each output summed in shard order
+    on the card."""
+    return run("tp_sharded_routed_grad", "sharded_routed_pack_grad", x, pack.device,
+               "pack", _sharded_routed_grad_args(pack, fn_ids, x, extrapolate),
+               lambda: sharded_routed_pack_grad_plain(pack, fn_ids, x,
+                                                      extrapolate=extrapolate))

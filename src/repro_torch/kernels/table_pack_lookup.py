@@ -50,18 +50,19 @@ their wrappers and plain PyTorch versions.
     ``_spack_kernel`` (``:663``) and the sum over its outputs
     (``_sharded_sum_pallas``, ``:803``).  Plain versions:
     ``eval_sharded_ref`` / ``eval_sharded_slope`` and ``shard_contrib``.
-  * :func:`sharded_pack_grad` — value and slope of each shard in one
-    selector pass: S launches a call, the outputs added in shard order in
-    x's dtype.  CUDA kernel ``tp_spack_grad``; replaces
-    ``_spack_grad_kernel`` (``:697``).  Plain version:
-    ``(eval_sharded_ref, eval_sharded_slope)``.
+  * :func:`sharded_pack_grad` — value and slope over all S shards in one
+    selector pass and one launch a call, each summed in shard order in x's
+    dtype on the card; where the pack's staging image
+    (``ShardedTablePack.image``) fits a block's 48 KB, a block stages it in
+    one round trip with x in flight.  CUDA kernel ``tp_spack_grad``;
+    replaces ``_spack_grad_kernel`` (``:697``) and the sum over its
+    outputs.  Plain version: ``(eval_sharded_ref, eval_sharded_slope)``.
 
 Every wrapper goes through :func:`repro_torch.kernels._lib.run`: it checks
 x's dtype (float32 or bfloat16) and that x and the pack share a device, then
 runs the plain version only because the tensor lies on the CPU.  For a CUDA
 tensor it launches the kernel or raises: there is no fallback.  Every launch
-adds one to :data:`launches`, and nothing else does (a sharded grad call
-adds S).
+adds one to :data:`launches`, and nothing else does.
 The kernels are bounded by bytes (``N * (in_bytes + n_out * out_bytes)`` at
 the card's memory rate) and are launch-bound at decode shapes; see the note at
 the top of the CUDA source.
@@ -85,7 +86,7 @@ from repro_torch.approx.table_pack import (PolyTablePack, QuantTablePack,
 from repro_torch.approx.range_fold import (FOLDABLE, eval_folded_ref,
                                           eval_folded_slope)
 
-from ._lib import check, launches, reset_launches, run
+from ._lib import launches, reset_launches, run
 
 __all__ = ["launches", "reset_launches", "table_pack_lookup",
            "table_pack_lookup_plain", "tableflash_exp", "tableflash_exp_plain",
@@ -96,8 +97,7 @@ __all__ = ["launches", "reset_launches", "table_pack_lookup",
            "folded_pack_grad", "folded_pack_grad_plain", "sharded_shard_contrib",
            "sharded_shard_contrib_plain", "sharded_pack_lookup",
            "sharded_pack_lookup_plain", "sharded_pack_slope",
-           "sharded_pack_slope_plain", "sharded_pack_grad", "sharded_pack_grad_plain",
-           "sharded_sum"]
+           "sharded_pack_slope_plain", "sharded_pack_grad", "sharded_pack_grad_plain"]
 
 
 def _pack_args(pack: TablePack, fid: int, *flags: int):
@@ -334,7 +334,7 @@ def folded_pack_grad(pack: TablePack, name: str, x: torch.Tensor):
 
 
 # --------------------------------------------------------------------------------------
-# ShardedPack: one launch a call over the shards (the grad: one launch a shard)
+# ShardedPack: one launch a call over the shards
 # --------------------------------------------------------------------------------------
 
 
@@ -350,19 +350,14 @@ def _sharded_args(pack: ShardedTablePack, fid: int, s_begin: int, s_end: int,
              pack.n_shards, s_begin, s_end, *flags))
 
 
-def sharded_sum(pack: ShardedTablePack, x: torch.Tensor, contrib, plain):
-    """The grad wrappers' shard sum: ``plain()`` for a tensor on the CPU; on
-    the card ``contrib(s)`` (one launch) for each shard, the pairs of outputs
-    added pairwise in shard order in x's dtype, as the reference's
-    ``_sharded_sum_pallas`` adds its per-shard kernel outputs."""
-    check(x, pack.device, "pack")
-    if x.device.type == "cpu":
-        return plain()
-    out = None
-    for s in range(pack.n_shards):
-        c = contrib(s)
-        out = c if out is None else tuple(a + b for a, b in zip(out, c))
-    return out
+def _sharded_grad_args(pack: ShardedTablePack, fid: int, extrapolate: bool):
+    """(planes, ints) of ``tp_spack_grad`` for member ``fid`` over all the
+    shards: :func:`_sharded_args` over ``[0, S)``, then the pack's staging
+    image (``pack.image``, built with the pack), the member count and where
+    the image's values start."""
+    image, v_at = pack.image
+    planes, ints = _sharded_args(pack, fid, 0, pack.n_shards, int(extrapolate))
+    return planes + (image,), ints + (pack.n_functions, v_at)
 
 
 def sharded_shard_contrib_plain(pack: ShardedTablePack, fn, shard: int,
@@ -435,13 +430,10 @@ def sharded_pack_grad_plain(pack: ShardedTablePack, fn, x: torch.Tensor, *,
 
 def sharded_pack_grad(pack: ShardedTablePack, fn, x: torch.Tensor, *,
                       extrapolate: bool = False):
-    """``(y, dy/dx)`` of sharded member ``fn``, both in x's dtype: one fused
-    selector pass a shard (S launches), each output summed over the
-    shards."""
+    """``(y, dy/dx)`` of sharded member ``fn``, both in x's dtype, from one
+    selector pass: one launch over the S shards, each output summed in shard
+    order on the card."""
     fid = pack.member_id(fn)
-    return sharded_sum(
-        pack, x,
-        lambda s: run("tp_spack_grad", "sharded_pack_grad", x, pack.device, "pack",
-                      _sharded_args(pack, fid, s, s + 1, int(extrapolate)),
-                      lambda: None),  # x is on the card here: never called
-        lambda: sharded_pack_grad_plain(pack, fid, x, extrapolate=extrapolate))
+    return run("tp_spack_grad", "sharded_pack_grad", x, pack.device, "pack",
+               _sharded_grad_args(pack, fid, extrapolate),
+               lambda: sharded_pack_grad_plain(pack, fid, x, extrapolate=extrapolate))

@@ -895,8 +895,8 @@ def test_reduced_routed_card_matches_cpu(cuda, mode):
 
 
 # --------------------------------------------------------------------------------------
-# ShardedPack: one launch a call over the shards, summed on the card (the grad
-# kernels: one launch a shard, the outputs added)
+# ShardedPack: one launch a call over the shards, summed on the card (the grads
+# over the pack's staging image where it fits)
 # --------------------------------------------------------------------------------------
 
 SHARDS = (1, 2, 3, 4, 8)
@@ -933,9 +933,9 @@ def test_sharded_kernels_bitwise(spacks, pack, n_shards, name, dtype):
         cs = [K.sharded_shard_contrib(sp, fid, s, x, extrapolate=ex)
               for s in range(n_shards)]
         torch.cuda.synchronize()
-        # one launch a call (lookup, slope), one a shard's contribution
+        # one launch a call (lookup, slope, grad), one a shard's contribution
         assert K.launches["sharded_pack_lookup"] == 2 + n_shards
-        assert K.launches["sharded_pack_grad"] == n_shards
+        assert K.launches["sharded_pack_grad"] == 1
         wy, wd = K.sharded_pack_grad_plain(sp, fid, x, extrapolate=ex)
         for got, want in ((y, wy), (gy, wy), (d, wd), (gd, wd)):
             assert_bitwise(got, want)
@@ -960,13 +960,14 @@ def _shard_launches_summed(contrib, n_shards):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_shards", SHARDS + ("past budget",))
 def test_sharded_fused_sum_equals_shard_launches(spacks, cuda, n_shards, dtype):
-    """One launch over all the shards, static (value and slope) and routed,
-    bit for bit the S single-shard launches added in shard order in x's
-    dtype, for every member: at the edge inputs (scalar path), the training
-    gate and a ragged size past the capped grid (16-byte vectors and a
-    scalar tail) and a view one element off 16-byte alignment (scalar
-    path); the pack
-    past the shared budget reads its slices from global memory."""
+    """One launch over all the shards, static (value, slope and the grad's
+    value + slope) and routed, bit for bit the S single-shard launches
+    (value, slope) added in shard order in x's dtype, for every member: at
+    the edge inputs (scalar path; NaN, +-inf, subnormal and out-of-domain
+    lanes), the training gate and a ragged size past the capped grid
+    (16-byte vectors and a scalar tail) and a view one element off 16-byte
+    alignment (scalar path); the pack past the shared budget reads its
+    slices from global memory (the grads' staging image does not fit)."""
     if n_shards == "past budget":
         sp = build_sharded_pack(("silu", "exp_neg"), 1e-8, 2, omega=0.2, device=cuda)
         assert sp.footprint_per_shard > 10240
@@ -980,6 +981,9 @@ def test_sharded_fused_sum_equals_shard_launches(spacks, cuda, n_shards, dtype):
         e = edge_input(sp, fid, 4093, dtype, seed=fid)
         for x in (e, big, ragged, ragged[1:]):
             for ex in (False, True):
+                K.reset_launches()
+                grad = K.sharded_pack_grad(sp, fid, x, extrapolate=ex)
+                assert K.launches["sharded_pack_grad"] == 1
                 for slope in (False, True):
                     fused = (K.sharded_pack_slope if slope else K.sharded_pack_lookup)(
                         sp, fid, x, extrapolate=ex)
@@ -987,10 +991,15 @@ def test_sharded_fused_sum_equals_shard_launches(spacks, cuda, n_shards, dtype):
                         lambda s: K.sharded_shard_contrib(sp, fid, s, x, extrapolate=ex,
                                                           slope=slope), S)
                     assert_bitwise(fused, summed)
+                    assert_bitwise(grad[slope], summed)
                     if x is e:
                         plain = (K.sharded_pack_slope_plain if slope
                                  else K.sharded_pack_lookup_plain)
                         assert_bitwise(fused, plain(sp, fid, x, extrapolate=ex))
+                if x is e:
+                    want = K.sharded_pack_grad_plain(sp, fid, x, extrapolate=ex)
+                    assert_bitwise(grad[0], want[0])
+                    assert_bitwise(grad[1], want[1])
     ids = [(3 * r + 1) % F for r in range(2 * F + 1)]
     x = torch.stack([edge_input(sp, f, 3000, dtype, seed=r)[:3000]
                      for r, f in enumerate(ids)])
@@ -1007,6 +1016,35 @@ def test_sharded_fused_sum_equals_shard_launches(spacks, cuda, n_shards, dtype):
             assert_bitwise(R.sharded_routed_shard_contrib(sp, ids, s, x, extrapolate=ex),
                            R.sharded_routed_shard_contrib_plain(sp, ids, s, x,
                                                                 extrapolate=ex))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_shards", SHARDS + ("past budget",))
+def test_sharded_routed_grad_one_launch(spacks, cuda, n_shards, dtype):
+    """The routed grad, one launch over all the shards, at the shapes where
+    the grid is capped: the training gate as one row (16-byte chunks), a
+    512 x 6912 batch routing every member (chunks of rows that change
+    inside a block) and 300 x 1001 rows (capped, a row not whole chunks:
+    one element a chunk), each against its plain version and, row by row,
+    the static grad of the row's member; with extrapolation off, on and per
+    member.  The pack past the budget restages rows per member."""
+    if n_shards == "past budget":
+        sp = build_sharded_pack(("silu", "exp_neg"), 1e-8, 2, omega=0.2, device=cuda)
+    else:
+        sp = spacks[n_shards]
+    F = sp.n_functions
+    g = torch.Generator(device="cuda").manual_seed(F)
+    gate = (torch.randn((1, 4 * 128 * 6912), generator=g, device="cuda") * 6).to(dtype)
+    wide = (torch.randn((512, 6912), generator=g, device="cuda") * 6).to(dtype)
+    odd = (torch.randn((300, 1001), generator=g, device="cuda") * 6).to(dtype)
+    wide[:, :4093] = torch.stack([_member_edges(sp, r % F, 4093, dtype, seed=r)[:4093]
+                                  for r in range(512)])
+    for x, ids in ((gate, [sp.fn_id("silu")]), (wide, [r % F for r in range(512)]),
+                   (odd, [(7 * r) % F for r in range(300)])):
+        for ex in (False, True, tuple(f % 2 == 0 for f in range(F))):
+            K.reset_launches()
+            _routed_check(sp, ids, x, ex)
+            assert K.launches["sharded_routed_pack_grad"] == 1
 
 
 def test_sharded_values_beyond_shared_memory(cuda):
@@ -1043,8 +1081,9 @@ def test_sharded_routed_kernels_bitwise(spacks, n_shards, flags, dtype):
 
 
 def test_sharded_routed_cuda_graph_reroute(spacks):
-    """A sharded routed call (one launch; the grad's S launches) captured in
-    one CUDA graph follows an ids tensor rewritten in place."""
+    """A sharded routed call (one launch each, the grad's over the pack's
+    staging image) captured in one CUDA graph follows an ids tensor
+    rewritten in place."""
     pk = spacks[4]
     F = pk.n_functions
     ids = torch.arange(8, device="cuda", dtype=torch.int32) % F
@@ -1080,8 +1119,8 @@ def test_sharded_wrappers_contract(spacks):
     assert all(t.shape == x.shape and t.is_contiguous() for t in (y, yg, s, ry, rg, rs))
     K.sharded_pack_lookup(sp, "silu", torch.empty(0, device="cuda"))  # no launch
     assert {k: v for k, v in K.launches.items() if v} == {
-        "sharded_pack_lookup": 1, "sharded_pack_grad": 4,
-        "sharded_routed_pack_lookup": 1, "sharded_routed_pack_grad": 4}
+        "sharded_pack_lookup": 1, "sharded_pack_grad": 1,
+        "sharded_routed_pack_lookup": 1, "sharded_routed_pack_grad": 1}
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         K.sharded_pack_lookup(sp, "silu", x.half())
     with pytest.raises(ValueError, match="pack lives on"):

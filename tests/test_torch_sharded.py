@@ -61,8 +61,8 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels import routed_pack_lookup as R
 from repro_torch.kernels import table_lookup as TL
 from repro_torch.kernels import table_pack_lookup as K
-from tests.test_torch_pack import (N, assert_bitwise, assert_within_ulp, inputs,
-                                   lerp_scale)
+from tests.test_torch_pack import (N, _cell_points, assert_bitwise, assert_within_ulp,
+                                   inputs, lerp_scale)
 
 NAMES = ("gelu", "silu", "tanh", "sigmoid_sym", "softplus", "exp_neg")
 EA = 1e-4
@@ -354,11 +354,80 @@ def test_shard_contributions_summed_in_dtype(n_shards, dtype, spacks, port_spack
         R.sharded_routed_shard_contrib(tp, ids, n_shards, xt)
 
 
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+def test_staging_image_layout(n_shards, port_spacks):
+    """The grads' staging image (``ShardedTablePack.image``) against the
+    pack: the header's row starts and sub-interval counts; each member's
+    quads (inv_delta, owner-rebased base, seg_count, owner) over its real
+    sub-intervals, then its boundaries; the S padded values slices back to
+    back; zeros elsewhere; every section on a 16-byte boundary.  stablelm's
+    image fits the kernels' 48 KB at every count (1,396 words at 4
+    shards)."""
+    tp = port_spacks[n_shards]
+    S, F, m = tp.n_shards, tp.n_functions, tp.footprint_per_shard
+    starts, v_at, words = table_pack.sharded_image_layout(tp.n_intervals, S, m)
+    img = tp.image[0]
+    assert img.dtype == torch.float32 and img.shape == (words,)
+    assert all(w % 4 == 0 for w in starts + (v_at, words)) and starts[0] >= 2 * F
+    assert v_at == tp.image[1] and 4 * words <= 48 * 1024
+    assert n_shards != 4 or words == 1396
+    used = torch.zeros(words, dtype=torch.bool)
+    used[: 2 * F] = True
+    for f, (at, n) in enumerate(zip(starts, tp.n_intervals)):
+        assert (img[2 * f].item(), img[2 * f + 1].item()) == (at, n)
+        quads = img[at: at + 4 * n].view(n, 4)
+        for k, plane in enumerate((tp.inv_delta, tp.owner_base, tp.seg_count, tp.owner)):
+            assert_bitwise(quads[:, k], plane[f, :n])
+        assert_bitwise(img[at + 4 * n: at + 5 * n + 1], tp.boundaries[f, : n + 1])
+        used[at: at + 5 * n + 1] = True
+    assert_bitwise(img[v_at: v_at + S * m], tp.values.reshape(-1))
+    used[v_at: v_at + S * m] = True
+    assert not bool(img[~used].any())
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+def test_staging_image_covers_every_read(n_shards, port_spacks):
+    """A sharded pack rebuilt only from what a grad launch reads of the
+    staging image (member f's quads and boundaries from the header's row
+    start, the values slices), NaN everywhere else (the other members'
+    rows, the padding, a shard's base where it does not own the
+    sub-interval), gives each member's plain value and slope with the same
+    bits, extrapolation off and on, at NaN (whose extrapolated slope reads
+    the owner slice's first pair), +-inf, out-of-domain, boundary and
+    subnormal lanes and a point in every cell."""
+    tp = port_spacks[n_shards]
+    S, m = tp.n_shards, tp.footprint_per_shard
+    img, v_at = tp.image
+    values = img[v_at: v_at + S * m].view(S, m)
+    for f in range(tp.n_functions):
+        at, n = int(img[2 * f]), int(img[2 * f + 1])
+        quads = img[at: at + 4 * n].view(n, 4)
+        bounds = img[at + 4 * n: at + 5 * n + 1]
+        planes = {k: torch.full_like(getattr(tp, k), float("nan"))
+                  for k in ("boundaries", "inv_delta", "seg_count", "owner",
+                            "owner_base", "local_base", "owned")}
+        planes["boundaries"][f, : n + 1] = bounds
+        for k, name in enumerate(("inv_delta", "owner_base", "seg_count", "owner")):
+            planes[name][f, :n] = quads[:, k]
+        for s in range(S):
+            mine = quads[:, 3] == s
+            planes["owned"][s, f, :n] = mine.float()
+            planes["local_base"][s, f, :n] = torch.where(mine, quads[:, 1], float("nan"))
+        rebuilt = dataclasses.replace(tp, values=values, **planes)
+        x = _cell_points(bounds, quads[:, 0], quads[:, 2])
+        for ex in (False, True):
+            for fn in (table_pack.eval_sharded_ref, table_pack.eval_sharded_slope):
+                assert_bitwise(fn(rebuilt, f, x, extrapolate=ex),
+                               fn(tp, f, x, extrapolate=ex))
+
+
 def test_entries_match_argument_builders(spacks):
     """The ctypes rows of the sharded entry points against what the
     argument builders hand them (no launch): every entry takes the
     owner-rebased-base and owner planes, every shard's values slice, the
-    shard count and a shard range (the grads' wrappers a range of one)."""
+    shard count and a shard range; the grads' wrappers the range [0, S) and,
+    last, the pack's staging image and where its values start (the static
+    grad also the member count)."""
     _, tp = spacks[4]
     S, F = tp.n_shards, tp.n_functions
     fid = tp.fn_id("silu")
@@ -366,9 +435,9 @@ def test_entries_match_argument_builders(spacks):
     routed = R._sharded_routed_args(tp, [0, 1, 5], x, True, 1, 3)
     cases = {
         "tp_spack_lookup": K._sharded_args(tp, fid, 0, S, 1, 0),
-        "tp_spack_grad": K._sharded_args(tp, fid, 2, 3, 1),
+        "tp_spack_grad": K._sharded_grad_args(tp, fid, True),
         "tp_sharded_routed_lookup": routed,
-        "tp_sharded_routed_grad": routed,
+        "tp_sharded_routed_grad": R._sharded_routed_grad_args(tp, [0, 1, 5], x, True),
     }
     for entry, (planes, ints) in cases.items():
         _, n_planes, n_int = _lib._ENTRIES[entry]
@@ -376,16 +445,21 @@ def test_entries_match_argument_builders(spacks):
         assert all(p.is_contiguous() and p.dtype in (torch.float32, torch.int32)
                    for p in planes), entry
         assert all(isinstance(i, int) for i in ints), entry
-        assert (planes[-4] is tp.owner_base and planes[-2] is tp.owner
-                and planes[-1] is tp.values), entry
+        grad = int(entry.endswith("grad"))
+        assert (planes[-4 - grad] is tp.owner_base and planes[-2 - grad] is tp.owner
+                and planes[-1 - grad] is tp.values), entry
+        assert not grad or planes[-1] is tp.image[0], entry
+    v_at = table_pack.sharded_image_layout(tp.n_intervals, S, tp.footprint_per_shard)[1]
     planes, ints = cases["tp_spack_lookup"]
     assert ints == (fid, tp.n_max, tp.n_intervals[fid], tp.footprint_per_shard,
                     S, 0, S, 1, 0)
     assert cases["tp_spack_grad"][1] == (fid, tp.n_max, tp.n_intervals[fid],
-                                         tp.footprint_per_shard, S, 2, 3, 1)
+                                         tp.footprint_per_shard, S, 0, S, 1, F, v_at)
     rplanes, rints = routed
     assert rplanes[0].tolist() == [0, 1, 5] and rplanes[0].dtype == torch.int32
     assert rints == (F, tp.n_max, tp.footprint_per_shard, S, 1, 3, 3)
+    assert cases["tp_sharded_routed_grad"][1] == (F, tp.n_max, tp.footprint_per_shard,
+                                                  S, 0, S, 3, v_at)
     # the one-shard contribution is the value entry over a range of one
     assert K._sharded_args(tp, fid, 3, 4, 0, 1)[1][4:] == (S, 3, 4, 0, 1)
     with pytest.raises(ValueError, match="takes 6 planes and 9 int"):

@@ -7,12 +7,13 @@ Each directory is a checkout of the repository (for example a ``git archive``
 of the parent commit unpacked into a git-ignored directory).  Each checkout's
 ``csrc/<source>.cu`` is built by that checkout's own ``kernels/_build.py``
 (in a fresh process, into the checkout's ``build/``), and ``cuobjdump -sass``
-of both libraries is split by kernel function.  Instruction offsets are
-dropped, so a kernel whose instructions are the same in both builds counts
-as identical wherever the linker placed it.  Prints the counts of identical
-and different kernels, each different kernel, and the kernels found in one
-build only.  Needs the CUDA toolkit (``nvcc``, ``cuobjdump``); exits
-non-zero without it.
+of both libraries is split by kernel function.  Instruction offsets and
+the column padding are dropped, so a kernel whose instructions and
+encodings are the same in both builds counts as identical wherever the
+linker placed it and whatever else the library holds.  Prints the counts
+of identical and different kernels, each different kernel with its first
+differing line, and the kernels found in one build only.  Needs the CUDA
+toolkit (``nvcc``, ``cuobjdump``); exits non-zero without it.
 """
 
 from __future__ import annotations
@@ -53,7 +54,9 @@ def kernels(cuobjdump: str, lib: str) -> dict:
             cur = m.group(1)
             out[cur] = []
         elif cur is not None:
-            out[cur].append(re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).strip())
+            # cuobjdump pads the columns to the widest instruction of the
+            # whole library: compare the words, encodings included
+            out[cur].append(" ".join(re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).split()))
     return out
 
 
@@ -74,7 +77,10 @@ def main(argv=None) -> int:
     print(f"identical SASS: {len(same)} of {len(p)} parent kernels")
     print(f"different: {len(diff)}")
     for k in diff:
-        print(f"  {k} ({len(p[k])} -> {len(c[k])} lines)")
+        first = next((i for i, (a, b) in enumerate(zip(p[k], c[k])) if a != b),
+                     min(len(p[k]), len(c[k])))
+        print(f"  {k} ({len(p[k])} -> {len(c[k])} lines; first difference at line "
+              f"{first}: {p[k][first:first + 1]} -> {c[k][first:first + 1]})")
     print(f"only in parent: {[k for k in p if k not in c]}")
     print(f"only in change: {[k for k in c if k not in p]}")
     return 0
