@@ -23,11 +23,20 @@ Phases, each fatal on failure (exit code 1, no result line):
    past it, pack_kernel); TableFlash also over ("silu", "exp_neg") at e_a
    3e-8 (exp_neg's staging image of 23 KB staged) and at e_a 3e-9 (its image
    past the 48 KB budget: the pack kernel's staging), with subnormal lanes;
+   and, on the same pack (the dense family's approx settings are
+   stablelm's), phases 25-27's shapes: the gate member of each (``gelu`` at
+   d_ff 12288 and 15360 up to gemma3's long prefill, ``silu`` at 20480) at
+   its decode and prefill shapes, the exponents at each model's head layout
+   and kv chunk, and the training gates and exponent slopes of starcoder2
+   and gemma3;
 4. serving path: full-width, full-depth stablelm-3b (random weights from seed
    0) serving the launcher's default traffic (8 requests, batch 4, cache 256,
    16 new tokens) through ContinuousEngine in ``table_pack`` with TableFlash;
    both kernels must have launched, and the same queue served through the
-   plain versions (``table_pack_ref``) must give identical tokens;
+   plain versions (``table_pack_ref``) must give identical tokens; one
+   prefill and decode step's logits equal ``table_pack_ref``'s (within
+   1e-6), the decode step launching the gate once a layer and the exponent
+   twice a layer and kv chunk;
 5. reference: a reduced stablelm in float32 on the card against the same
    model on the CPU (logits within 1e-4, identical greedy tokens);
 6. training path: full-width, full-depth stablelm-3b (2.80 B f32 parameters,
@@ -171,7 +180,38 @@ Phases, each fatal on failure (exit code 1, no result line):
    1-shard pack, the replicated static and routed kernels of the same
    member, the plain versions and ``F.silu``; the 512 x 6912 mixed batch as
    one routed sharded call against the six static sharded calls and the
-   replicated routed kernel.
+   replicated routed kernel;
+25. starcoder2-3b (plain 2-matrix ``gelu`` MLP, 24 q / 2 kv heads padded to
+   32, d_head 128, d_ff 12288, vocab 49152; random weights from seed 0) at
+   full width and depth serving the 8 requests in ``table_pack`` with
+   TableFlash, token-identical to ``table_pack_ref``; prefill and decode
+   logits and one decode step's launches as phase 4's; its decode-step
+   times as phase 26's; then trained 2 steps at
+   full depth at the trainer's defaults (3.37 B f32 parameters; AdamW
+   moments and two grad trees at accum 2, ~63 GiB peak): step-0 loss equal
+   to ``table_pack_ref``'s bit for bit, grad norm within 1e-3, and
+   ``table_pack_grad`` launched as often a layer and micro-batch as phase 6's
+   silu gate and flash slopes;
+26. gemma3-12b, the slice's main path: full width and depth (48 layers in 8
+   groups of 5 local layers with a 1,024-token window and 1 global, d 3840,
+   16 q / 8 kv heads x 256, qk-norm, ``gelu_tanh`` GLU at d_ff 15360, tied
+   embeddings, vocab 262144; 11.77 B f32 parameters) serving the 8 requests
+   as phase 25 does, then 2 prompts of 1,100-1,200 tokens in a 2,048-token
+   cache, which wrap the local rings, token-identical to ``table_pack_ref``;
+   the launches of one decode step at each cache; the decode-step and
+   prefill ms of ``table_pack``, ``table_pack_ref`` and ``exact``, and a
+   profiler view of the ``table_pack`` decode step (device busy and idle
+   share), as phase 4's; then one local:global group (6 of its 48 layers:
+   the f32 AdamW state of all 48 does not fit one card) trained 2 steps as
+   phase 25's starcoder2-3b, the tied embedding taking both uses' grads;
+27. yi-34b (56 q / 8 kv heads padded to 64, d_head 128, rope theta 5e6,
+   ``silu`` GLU at d_ff 20480) at full width cut to 24 of its 60 layers (the
+   deepest multiple of 4 whose f32 parameters stay under 3/4 of the card)
+   serving the 8 requests, with the logits, launches and times, as phase 25
+   does;
+28. reference: reduced gemma3-12b (its local window set to 8, so the
+   prompts wrap the rings) and starcoder2-3b in float32 on the card against
+   the same models on the CPU, as phase 5.
 
 The line before the last is one JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout of
@@ -224,6 +264,16 @@ SMEM_BUDGET = 48 * 1024  # a block's dynamic shared staging (kSmemBytes)
 # stablelm-3b's rotary angles (d_head 80 -> 40 frequencies): decode, prefill
 # (the queue's longest prompt, 27), training micro-batch
 ROPE_SHAPES = ((BATCH, 1, 40), (BATCH, 27, 40), (MICRO, TRAIN_SEQ, 40))
+# phases 25-27: yi-34b serves 24 of its 60 layers, the deepest multiple of 4
+# whose f32 parameters (14.68 B, 58.7 GB; 28 layers 67.9 GB, 60 layers 141 GB)
+# stay under 3/4 of the card's 80 GB; gemma3-12b trains one local:global group (6 of 48 layers:
+# 2.35 B f32 parameters, 37.6 GB with grads and AdamW moments); its long
+# queue: 2 prompts of 1,100-1,200 tokens in a 2,048-token cache, wrapping its
+# 1,024-slot rings
+YI_LAYERS, GEMMA_TRAIN_LAYERS = 24, 6
+LONG_REQ, LONG_LEN, LONG_CACHE = 2, (1100, 1200), 2048
+DENSE_FAMILY = ("starcoder2-3b", "gemma3-12b", "yi-34b")
+Q_CHUNK, KV_CHUNK = 512, 1024  # flash_attention's query and kv chunks
 
 
 class SmokeError(RuntimeError):
@@ -413,14 +463,19 @@ def with_subnormals(edges):
     return np.concatenate([edges, [tiny, -tiny]]).astype(np.float32)
 
 
-def kernel_phase(f32_packs, s0, flash):
+def kernel_phase(f32_packs, s0, flash, dense):
+    """The value kernels bitwise against their plain versions: stablelm-3b's
+    gate and TableFlash shapes, and ``dense`` (``dense_family_shapes``'s
+    serving half: phases 25-27's gate shapes by member, their exponent
+    shapes) on the f32 pack that serves them all."""
     import torch
 
     from repro_torch.kernels import table_pack_lookup as K
 
+    dense_gates, dense_flash = dense
     gate_shapes = [(BATCH, s0, 6912), (BATCH, 1, 6912), (12345,), (1,)]
     flash_shapes = [(BATCH, 1, 32, 1, CACHE_LEN), (BATCH, s0, 32, 1, s0),
-                    (12345,), (1,)]
+                    (12345,), (1,)] + dense_flash
     worst = {"table_pack_lookup": 0.0, "tableflash_exp": 0.0}
     cases = 0
     for tag, pack, shapes in f32_packs:
@@ -428,7 +483,7 @@ def kernel_phase(f32_packs, s0, flash):
             lo, hi = pack.domains[fid]
             edges = with_subnormals(edge_values(pack, fid))
             for dtype in (torch.bfloat16, torch.float32):
-                for shape in shapes or gate_shapes:
+                for shape in shapes or gate_shapes + dense_gates.get(name, []):
                     x = make_input(shape, lo, hi, edges, dtype, seed=fid)
                     for ex in (False, True):
                         got = K.table_pack_lookup(pack, fid, x, extrapolate=ex)
@@ -455,20 +510,24 @@ def kernel_phase(f32_packs, s0, flash):
                 cases += 1
     log(f"kernels: {cases} kernel-vs-plain cases bitwise equal "
         f"(packs {[tag for tag, _, _ in f32_packs]}, bf16+f32, extrapolate on/off, "
-        f"edges and subnormals; TableFlash over {[tag for tag, _ in flash]})")
+        f"edges and subnormals; TableFlash over {[tag for tag, _ in flash]}; "
+        f"phases 25-27's gates { {k: len(v) for k, v in dense_gates.items()} } and "
+        f"{len(dense_flash)} exponent shapes)")
     return worst
 
 
-def grad_kernel_phase(f32_packs, tables, s0):
+def grad_kernel_phase(f32_packs, tables, s0, dense):
     """The value + slope pack kernel over every member of each f32 pack, and
     the single-table kernels over each table, bitwise against their plain
-    versions."""
+    versions.  ``dense`` (``dense_family_shapes``'s training half) adds the
+    dense family's training gates by member and exponent shapes."""
     import torch
 
     from repro_torch.kernels import table_grad as TG
     from repro_torch.kernels import table_lookup as TL
     from repro_torch.kernels import table_pack_lookup as K
 
+    dense_gates, dense_flash = dense
     train_gate = (MICRO, TRAIN_SEQ, 6912)
     all_shapes = [train_gate, (BATCH, 1, 6912), (BATCH, s0, 6912), (12345,), (1,)]
     worst = {"table_pack_grad": 0.0, "table_lookup": 0.0, "table_lookup_grad": 0.0}
@@ -477,9 +536,10 @@ def grad_kernel_phase(f32_packs, tables, s0):
         for fid, name in enumerate(pack.names):
             lo, hi = pack.domains[fid]
             edges = with_subnormals(edge_values(pack, fid))
-            member_shapes = shapes or all_shapes
+            member_shapes = shapes or all_shapes + dense_gates.get(name, [])
             if name == "exp_neg" and not shapes:  # TableFlash's slope: the exponent, f32
-                member_shapes = all_shapes + [(MICRO, TRAIN_SEQ, 32, 1, TRAIN_SEQ)]
+                member_shapes = all_shapes + [(MICRO, TRAIN_SEQ, 32, 1, TRAIN_SEQ)
+                                              ] + dense_flash
             for dtype in (torch.bfloat16, torch.float32):
                 for shape in member_shapes:
                     x = make_input(shape, lo, hi, edges, dtype, seed=fid)
@@ -513,7 +573,9 @@ def grad_kernel_phase(f32_packs, tables, s0):
     log(f"kernels: {cases} grad/table kernel-vs-plain cases bitwise equal "
         f"(table_pack_grad over {[tag for tag, _, _ in f32_packs]}; "
         f"table_lookup[_grad] over {[tag for tag, _, _ in tables]}; bf16+f32, "
-        f"extrapolate on/off, edges and subnormals, training gate {train_gate})")
+        f"extrapolate on/off, edges and subnormals, training gate {train_gate}; the "
+        f"dense family's training gates { {k: v for k, v in dense_gates.items()} } "
+        f"and exponents {dense_flash})")
     return worst
 
 
@@ -525,10 +587,8 @@ def grad_kernel_phase(f32_packs, tables, s0):
 def main_path(smi_line):
     import torch
 
-    from repro_torch.kernels import table_pack_lookup as K
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import build_model, get_config
-    from repro_torch.serving.engine import ContinuousEngine
 
     base = get_config("stablelm-3b")
     cfg = base.replace(approx=dataclasses.replace(
@@ -542,60 +602,17 @@ def main_path(smi_line):
         f"{cfg.vocab_pad}), {cfg.param_count() / 1e9:.2f}B params "
         f"{cfg.param_dtype}, init {time.perf_counter() - t0:.1f}s")
     reqs = make_requests(cfg.vocab, N_REQ, MAX_NEW)
-
-    engine = ContinuousEngine(model, params, BATCH, CACHE_LEN)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    K.reset_launches()
-    t0 = time.perf_counter()
-    out = engine.serve(reqs)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = dict(K.launches)
-    tokens = sum(r.steps for r in out)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"main: served {len(out)} requests, {tokens} tokens in {dt:.3f}s = "
-        f"{tokens / dt:.1f} tok/s, peak memory {peak:.2f} GiB, "
-        f"{engine.prefills} prefills, {engine.batch_steps} rounds "
-        f"[{smi_line}]")
-    log(f"main: kernel launches {counts}")
-    for k in ("table_pack_lookup", "tableflash_exp"):
-        check(counts[k] > 0, f"kernel {k} was not launched on the serving path")
-    check(all(r.steps == MAX_NEW for r in out), "every request gets its budget")
-
-    ref_cfg = cfg.replace(approx=dataclasses.replace(cfg.approx,
-                                                     mode="table_pack_ref"))
-    ref_model = build_model(ref_cfg, "cuda")
-    K.reset_launches()
-    ref_out = ContinuousEngine(ref_model, params, BATCH, CACHE_LEN).serve(reqs)
-    check(all(v == 0 for v in K.launches.values()), "table_pack_ref launched a kernel")
-    for i, (a, b) in enumerate(zip(out, ref_out)):
-        check((a.tokens == b.tokens).all(), f"request {i}: kernel tokens "
-              f"{a.tokens.tolist()} != plain {b.tokens.tolist()}")
+    ref = build_model(_with_mode(cfg, "table_pack_ref"), "cuda")
+    out, counts = serve_against_plain("main", model, ref, params, reqs, BATCH,
+                                      CACHE_LEN, smi_line)
     SERVED["table_pack"] = [r.tokens for r in out]
 
-    s0 = max(len(r.prompt) for r in reqs)
-    rows = torch.zeros((BATCH, s0), dtype=torch.int64, device="cuda")
-    for j, r in enumerate(reqs[:BATCH]):
-        rows[j, s0 - len(r.prompt):] = torch.as_tensor(r.prompt, device="cuda")
-    with torch.inference_mode():
-        lk, ck = model.prefill(params, {"tokens": rows}, model.init_cache(BATCH, CACHE_LEN))
-        lr, cr = ref_model.prefill(params, {"tokens": rows},
-                                   ref_model.init_cache(BATCH, CACHE_LEN))
-        tok = torch.argmax(lk, -1)[:, None]
-        pos = torch.full((BATCH,), s0, dtype=torch.int32, device="cuda")
-        dk, _ = model.decode_step(params, tok, pos, ck)
-        dr, _ = ref_model.decode_step(params, tok, pos, cr)
-    check(lk.shape == (BATCH, cfg.vocab_pad) and bool(torch.isfinite(lk[:, :cfg.vocab]).all()),
-          "prefill logits finite, (B, vocab_pad)")
-    diff = max(float((lk - lr).abs().max()), float((dk - dr).abs().max()))
-    log(f"main: {len(out)} requests token-identical to table_pack_ref (plain "
-        f"versions on the card); max |logit diff| prefill+decode = {diff}")
-    exact = build_model(cfg.replace(approx=dataclasses.replace(cfg.approx,
-                                                               mode="exact")), "cuda")
-    step_breakdown({"table_pack": model, "table_pack_ref": ref_model, "exact": exact},
+    rows = prompt_rows(reqs, BATCH)
+    ck = logits_and_launches("main", model, ref, params, rows, CACHE_LEN)
+    exact = build_model(_with_mode(cfg, "exact"), "cuda")
+    step_breakdown({"table_pack": model, "table_pack_ref": ref, "exact": exact},
                    params, rows, ck, smi_line)
-    del params, engine
+    del params
     torch.cuda.empty_cache()
     return counts
 
@@ -611,7 +628,7 @@ def _mean_ms(fn, reps):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def step_breakdown(models, params, rows, cache, smi_line):
+def step_breakdown(models, params, rows, cache, smi_line, tag=""):
     """Host-clock ms of one prefill (B, S0) and one decode step (B, cache 256)
     per approx mode, in two alternating rounds after a warm-up; then a
     profiler view of the table_pack decode step: device busy share of the
@@ -633,7 +650,7 @@ def step_breakdown(models, params, rows, cache, smi_line):
                 dec = _mean_ms(lambda: m.decode_step(params, tok, pos, cache), 10)
                 pre = _mean_ms(lambda: m.prefill(params, {"tokens": rows}, fresh), 3)
                 step_ms[mode] = dec
-                log(f"step: round {rnd} {mode}: decode {dec:.3f} ms, prefill "
+                log(f"step: {tag}round {rnd} {mode}: decode {dec:.3f} ms, prefill "
                     f"(S0={rows.shape[1]}) {pre:.3f} ms [{smi_line}]")
         m = models["table_pack"]
         torch.cuda.synchronize()
@@ -652,7 +669,7 @@ def step_breakdown(models, params, rows, cache, smi_line):
         log("profile: no device time in key_averages(): not measured")
         return
     busy_ms = busy_us / 5e3
-    log(f"profile: table_pack decode x5: wall {wall_us / 5e3:.3f} ms/step under the "
+    log(f"profile: {tag}table_pack decode x5: wall {wall_us / 5e3:.3f} ms/step under the "
         f"profiler, device busy {busy_ms:.3f} ms/step; idle share "
         f"{1 - busy_ms / step_ms['table_pack']:.3f} of the unprofiled "
         f"{step_ms['table_pack']:.3f} ms step")
@@ -661,16 +678,19 @@ def step_breakdown(models, params, rows, cache, smi_line):
             f"{e.count // 5:5d} calls/step  {e.key[:90]}")
 
 
-def reference_check():
-    """Reduced stablelm in f32: the card against the CPU (plain versions)."""
+def reference_check(arch="stablelm-3b", window=None):
+    """Reduced ``arch`` in f32: the card against the CPU (plain versions).
+    ``window`` sets the local layers' ``LOCAL_WINDOW`` for the check, so that
+    the queue's prompts wrap a local:global stack's rings on both devices."""
     import torch
 
     from repro_torch.approx import ApproxConfig
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import build_model, reduced
+    from repro_torch.models import transformer
     from repro_torch.serving.engine import ContinuousEngine
 
-    cfg = reduced("stablelm-3b").replace(
+    cfg = reduced(arch).replace(
         compute_dtype="float32",
         approx=ApproxConfig(mode="table_pack", e_a=1e-4, omega=0.2, attn_table=True))
     cpu_model = build_model(cfg, "cpu")
@@ -690,19 +710,27 @@ def reference_check():
     rows = torch.zeros((2, s0), dtype=torch.int64)
     for j, r in enumerate(reqs[:2]):
         rows[j, s0 - len(r.prompt):] = torch.as_tensor(r.prompt)
-    with torch.inference_mode():
-        lc, _ = cpu_model.prefill(cpu_params, {"tokens": rows}, cpu_model.init_cache(2, 64))
-        lg, _ = gpu_model.prefill(gpu_params, {"tokens": rows.cuda()},
-                                  gpu_model.init_cache(2, 64))
-    err = float((lc - lg.cpu()).abs()[:, :cfg.vocab].max())
-    check(err <= 1e-4, f"reduced f32 logits card vs CPU: {err} > 1e-4")
-    a = ContinuousEngine(cpu_model, cpu_params, 2, 64).serve(reqs)
-    b = ContinuousEngine(gpu_model, gpu_params, 2, 64).serve(reqs)
+    kept = transformer.LOCAL_WINDOW
+    transformer.LOCAL_WINDOW = window or kept
+    try:
+        with torch.inference_mode():
+            lc, _ = cpu_model.prefill(cpu_params, {"tokens": rows},
+                                      cpu_model.init_cache(2, 64))
+            lg, _ = gpu_model.prefill(gpu_params, {"tokens": rows.cuda()},
+                                      gpu_model.init_cache(2, 64))
+        err = float((lc - lg.cpu()).abs()[:, :cfg.vocab].max())
+        check(err <= 1e-4, f"reduced {arch} f32 logits card vs CPU: {err} > 1e-4")
+        a = ContinuousEngine(cpu_model, cpu_params, 2, 64).serve(reqs)
+        b = ContinuousEngine(gpu_model, gpu_params, 2, 64).serve(reqs)
+    finally:
+        transformer.LOCAL_WINDOW = kept
     for i, (x, y) in enumerate(zip(a, b)):
-        check((x.tokens == y.tokens).all(), f"reduced request {i}: card tokens "
-              f"differ from CPU")
-    log(f"reference: reduced stablelm f32 table_pack+TableFlash, card vs CPU: "
-        f"max |logit diff| {err:.3e} (<= 1e-4), {len(a)} requests token-identical")
+        check((x.tokens == y.tokens).all(), f"reduced {arch} request {i}: card "
+              f"tokens differ from CPU")
+    wl = f", local window {window} (prompts of up to {s0} tokens)" if window else ""
+    log(f"reference: reduced {arch} ({cfg.n_layers}L) f32 table_pack+TableFlash{wl}, "
+        f"card vs CPU: max |logit diff| {err:.3e} (<= 1e-4), {len(a)} requests "
+        f"token-identical")
 
 
 # --------------------------------------------------------------------------------------
@@ -865,10 +893,8 @@ def table_pallas_path(smi_line):
 
     import torch
 
-    from repro_torch.kernels import table_pack_lookup as K
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import build_model, get_config
-    from repro_torch.serving.engine import ContinuousEngine
     from repro_torch.train.loop import batch_to
 
     cfg = _with_mode(get_config("stablelm-3b").replace(n_layers=PALLAS_LAYERS),
@@ -877,19 +903,8 @@ def table_pallas_path(smi_line):
     ref = build_model(_with_mode(cfg, "table_ref"), "cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     reqs = make_requests(cfg.vocab, N_REQ, MAX_NEW)
-    K.reset_launches()
-    out = ContinuousEngine(model, params, BATCH, CACHE_LEN).serve(reqs)
-    torch.cuda.synchronize()
-    serve_counts = dict(K.launches)
-    K.reset_launches()
-    ref_out = ContinuousEngine(ref, params, BATCH, CACHE_LEN).serve(reqs)
-    check(all(v == 0 for v in K.launches.values()), "table_ref launched a kernel")
-    for i, (a, b) in enumerate(zip(out, ref_out)):
-        check((a.tokens == b.tokens).all(), f"table_pallas request {i}: tokens "
-              f"{a.tokens.tolist()} != table_ref {b.tokens.tolist()}")
-    check(serve_counts["table_lookup"] > 0, "table_lookup was not launched serving")
-    log(f"pallas: {cfg.n_layers}L d={cfg.d_model} table_pallas served {len(out)} "
-        f"requests token-identical to table_ref; launches {serve_counts}")
+    _, serve_counts = serve_against_plain("pallas", model, ref, params, reqs, BATCH,
+                                          CACHE_LEN, smi_line, ("table_lookup",))
     # the gate's table stages its staging image (pack_image_kernel)
     static_staging(f"table_pallas {cfg.act} table",
                    cfg.approx.table_for(cfg.act, "cuda").image.numel(), True,
@@ -1148,10 +1163,8 @@ def pack_serving_paths(smi_line, modes):
     static mode's tokens (``SERVED``).  Every kernel named must launch."""
     import torch
 
-    from repro_torch.kernels import table_pack_lookup as K
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import build_model, get_config
-    from repro_torch.serving.engine import ContinuousEngine
 
     base = get_config("stablelm-3b")
     params = build_model(base, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
@@ -1163,37 +1176,15 @@ def pack_serving_paths(smi_line, modes):
                          **_shard_kw(mode))
         model = build_model(cfg, "cuda")
         ref = build_model(_with_mode(cfg, mode + "_ref"), "cuda")
-        torch.cuda.synchronize()
-        K.reset_launches()
-        t0 = time.perf_counter()
-        out = ContinuousEngine(model, params, BATCH, CACHE_LEN).serve(reqs)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        c = dict(K.launches)
-        check(all(c[k] > 0 for k in knames + ("tableflash_exp",)),
-              f"{key}: {knames} / tableflash_exp not launched serving: {c}")
-        check(all(r.steps == MAX_NEW for r in out), "every request gets its budget")
-        K.reset_launches()
-        t1 = time.perf_counter()
-        ref_out = ContinuousEngine(ref, params, BATCH, CACHE_LEN).serve(reqs)
-        torch.cuda.synchronize()
-        ref_dt = time.perf_counter() - t1
-        check(all(v == 0 for v in K.launches.values()), f"{mode}_ref launched a kernel")
-        for i, (a, b) in enumerate(zip(out, ref_out)):
-            check((a.tokens == b.tokens).all(), f"{mode} request {i}: kernel tokens "
-                  f"{a.tokens.tolist()} != plain {b.tokens.tolist()}")
+        out, c = serve_against_plain(key, model, ref, params, reqs, BATCH, CACHE_LEN,
+                                     smi_line, knames + ("tableflash_exp",))
         SERVED[key] = [r.tokens for r in out]
-        same = f"{mode}_ref"
-        if key in ROUTED_STATIC:
-            static = ROUTED_STATIC[key]
+        static = ROUTED_STATIC.get(key)
+        if static:
             for i, (a, b) in enumerate(zip(out, SERVED[static])):
                 check((a.tokens == b).all(), f"{key} request {i}: tokens "
                       f"{a.tokens.tolist()} != {static}'s {b.tolist()}")
-            same += f" and to {static}"
-        tokens = sum(r.steps for r in out)
-        log(f"{key}: served {len(out)} requests, {tokens} tokens in {dt:.3f}s = "
-            f"{tokens / dt:.1f} tok/s ({mode}_ref: {tokens / ref_dt:.1f} tok/s), "
-            f"token-identical to {same}; launches {c} [{smi_line}]")
+            log(f"{key}: token-identical to {static}")
         for k in knames:
             counts[k] = counts.get(k, 0) + c[k]
         del model, ref
@@ -2249,6 +2240,272 @@ def sharded_timing_phase(approx, smi_line):
 
 
 # --------------------------------------------------------------------------------------
+# 25-28. the rest of the dense family: starcoder2-3b, gemma3-12b, yi-34b
+# --------------------------------------------------------------------------------------
+
+
+def prompt_rows(reqs, batch):
+    """The first ``batch`` prompts of ``reqs`` left-padded to the longest, on
+    the card, as the engine's prefill sees them."""
+    import torch
+
+    s0 = max(len(r.prompt) for r in reqs)
+    rows = torch.zeros((batch, s0), dtype=torch.int64, device="cuda")
+    for j, r in enumerate(reqs[:batch]):
+        rows[j, s0 - len(r.prompt):] = torch.as_tensor(r.prompt, device="cuda")
+    return rows
+
+
+def serve_against_plain(tag, model, ref, params, reqs, batch, cache_len, smi_line,
+                        kernels=("table_pack_lookup", "tableflash_exp")):
+    """Serve ``reqs`` through ContinuousEngine in ``model``'s mode and in
+    ``ref``'s (its ``_ref`` mode: the plain versions) on the same ``params``:
+    each of ``kernels`` must launch, the plain versions none, every request
+    get its budget and the tokens be identical.  Returns the kernel run's
+    results and launches."""
+    import torch
+
+    from repro_torch.kernels import table_pack_lookup as K
+    from repro_torch.serving.engine import ContinuousEngine
+
+    engine = ContinuousEngine(model, params, batch, cache_len)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = engine.serve(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k in kernels:
+        check(counts[k] > 0, f"{tag}: kernel {k} was not launched serving: {counts}")
+    check(all(o.steps == r.max_new_tokens for o, r in zip(out, reqs)),
+          f"{tag}: every request gets its budget")
+    ref_mode = ref.cfg.approx.mode
+    K.reset_launches()
+    t1 = time.perf_counter()
+    ref_out = ContinuousEngine(ref, params, batch, cache_len).serve(reqs)
+    torch.cuda.synchronize()
+    ref_dt = time.perf_counter() - t1
+    check(all(v == 0 for v in K.launches.values()), f"{tag}: {ref_mode} launched "
+          "a kernel")
+    for i, (a, b) in enumerate(zip(out, ref_out)):
+        check((a.tokens == b.tokens).all(), f"{tag} request {i}: kernel tokens "
+              f"{a.tokens.tolist()} != plain {b.tokens.tolist()}")
+    tokens = sum(r.steps for r in out)
+    lens = [len(r.prompt) for r in reqs]
+    log(f"{tag}: served {len(out)} requests (prompts {min(lens)}..{max(lens)} "
+        f"tokens, batch {batch}, cache {cache_len}), {tokens} tokens in {dt:.3f}s = "
+        f"{tokens / dt:.1f} tok/s ({ref_mode} {tokens / ref_dt:.1f} tok/s), "
+        f"{engine.prefills} prefills, {engine.batch_steps} rounds, token-identical "
+        f"to {ref_mode}; peak memory {peak:.2f} GiB; launches "
+        f"{ {k: v for k, v in counts.items() if v} } [{smi_line}]")
+    return out, counts
+
+
+def logits_and_launches(tag, model, ref, params, rows, cache_len):
+    """One prefill of ``rows`` and one decode step in ``model``'s table_pack
+    and in ``ref``'s table_pack_ref on the same parameters: the logits of
+    both equal (the kernels are bitwise their plain versions, the rest is
+    the same code), finite and (B, vocab_pad); the table_pack decode step
+    launches the gate once a layer and the two running-softmax exponents
+    once a layer and kv chunk.  Returns the table_pack cache."""
+    import torch
+
+    from repro_torch.kernels import table_pack_lookup as K
+
+    B, s0 = rows.shape
+    with torch.inference_mode():
+        lk, ck = model.prefill(params, {"tokens": rows}, model.init_cache(B, cache_len))
+        lr, cr = ref.prefill(params, {"tokens": rows}, ref.init_cache(B, cache_len))
+        tok = torch.argmax(lk, -1)[:, None]
+        pos = torch.full((B,), s0, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        K.reset_launches()
+        dk, _ = model.decode_step(params, tok, pos, ck)
+        torch.cuda.synchronize()
+        c = dict(K.launches)
+        dr, _ = ref.decode_step(params, tok, pos, cr)
+    cfg = model.cfg
+    for what, a in (("prefill", lk), ("decode", dk)):
+        check(a.shape == (B, cfg.vocab_pad) and bool(torch.isfinite(a[:, :cfg.vocab]).all()),
+              f"{tag}: {what} logits finite, (B, vocab_pad)")
+    diff = max(float((lk - lr).abs().max()), float((dk - dr).abs().max()))
+    check(diff <= 1e-6, f"{tag}: table_pack logits differ from table_pack_ref's by "
+          f"{diff} > 1e-6")
+    # each layer attends over its own position buffer's width in kv chunks
+    chunks = sum(-(-ck[pre + "pos"].shape[1] // KV_CHUNK)
+                 for _, _, pre, _ in model._stack(params))
+    check(c["table_pack_lookup"] == cfg.n_layers,
+          f"{tag}: {c['table_pack_lookup']} gate launches a decode step, not one a "
+          f"layer ({cfg.n_layers})")
+    check(c["tableflash_exp"] == 2 * chunks, f"{tag}: {c['tableflash_exp']} exponent "
+          f"launches a decode step, not 2 a layer and kv chunk ({2 * chunks})")
+    widths = {n: ck[n].shape[1] for n in ck if n.endswith("pos")}
+    log(f"{tag}: prefill (B={B}, S0={s0}) and decode logits equal table_pack_ref's "
+        f"(max |diff| {diff}); one decode step (cache {cache_len}, position buffers "
+        f"{widths}) launches the {cfg.act} gate {c['table_pack_lookup']}x (one a "
+        f"layer) and the exponent {c['tableflash_exp']}x (2 a layer and kv chunk)")
+    return ck
+
+
+def long_requests(vocab):
+    """gemma3-12b's long queue: LONG_REQ prompts of LONG_LEN tokens, from
+    seed 1."""
+    import numpy as np
+
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(1)
+    lens = rng.integers(LONG_LEN[0], LONG_LEN[1] + 1, LONG_REQ)
+    return [Request(prompt=rng.integers(0, vocab, (int(n),)).astype(np.int32),
+                    max_new_tokens=MAX_NEW) for n in lens]
+
+
+def flash_exp_shapes(cfg, B, S, T):
+    """The shapes of flash_attention's two exponents for B rows of S queries
+    over T keys in ``cfg``'s head layout: the scores (B, Sq, G, Qg, Tc) and
+    the running max's step (B, Sq, G, Qg), Sq and Tc its chunks."""
+    g = cfg.attn_geom
+    q = (B, min(Q_CHUNK, S), g.g_eff, g.q_per_group)
+    return [q + (min(KV_CHUNK, T),), q]
+
+
+def dense_family_shapes(s0):
+    """Phases 25-27's kernel shapes, as ``((gates, exponents), (gates,
+    exponents))`` for serving and training, gates by pack member.  Serving:
+    the gate of a decode step, of the queue's prefill (S0 = ``s0``) and of
+    gemma3-12b's long prefill, and the exponents over the same queries and
+    the caches' (and local rings') widths.  Training: a micro-batch of
+    starcoder2-3b and of gemma3-12b."""
+    from repro_torch.models import get_config
+
+    serve_g, serve_f, train_g, train_f = {}, [], {}, []
+    approx = get_config("stablelm-3b").approx
+    for arch in DENSE_FAMILY:
+        cfg = get_config(arch)
+        check(cfg.approx == approx, f"{arch}'s approx settings are not stablelm-3b's: "
+              "phase 3's pack does not serve it")
+        member = {"gelu_tanh": "gelu"}.get(cfg.act, cfg.act)  # gelu_tanh: gelu's table
+        runs = [(BATCH, 1, CACHE_LEN), (BATCH, s0, s0)]
+        if arch == "gemma3-12b":
+            lmax = max(len(r.prompt) for r in long_requests(cfg.vocab))
+            # a decode step's local ring (1,024 slots) is one kv chunk, as
+            # each chunk of the 2,048-slot global buffer
+            runs += [(LONG_REQ, 1, LONG_CACHE), (LONG_REQ, lmax, lmax)]
+        for B, S, T in runs:
+            serve_g.setdefault(member, []).append((B, S, cfg.d_ff))
+            serve_f += flash_exp_shapes(cfg, B, S, T)
+        if arch != "yi-34b":
+            train_g.setdefault(member, []).append((MICRO, TRAIN_SEQ, cfg.d_ff))
+            train_f += flash_exp_shapes(cfg, MICRO, TRAIN_SEQ, TRAIN_SEQ)
+    dedup = lambda shapes: list(dict.fromkeys(shapes))
+    return (({k: dedup(v) for k, v in serve_g.items()}, dedup(serve_f)),
+            ({k: dedup(v) for k, v in train_g.items()}, dedup(train_f)))
+
+
+def dense_model(arch, n_layers=None):
+    """``arch`` at full width in table_pack + TableFlash (``n_layers`` cuts its
+    depth), its table_pack_ref twin and random f32 parameters from seed 0."""
+    import torch
+
+    from repro_torch.models import build_model, get_config
+    from repro_torch.tree import leaves
+
+    full = get_config(arch)
+    cfg = _with_mode(full.replace(n_layers=n_layers or full.n_layers), "table_pack",
+                     attn_table=True)
+    model = build_model(cfg, "cuda")
+    ref = build_model(_with_mode(cfg, "table_pack_ref"), "cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    g = cfg.attn_geom
+    cut = (f" (cut from {full.n_layers})" if cfg.n_layers != full.n_layers else "")
+    log(f"{arch}: {cfg.n_layers}L{cut} d={cfg.d_model} {cfg.n_heads} q / "
+        f"{cfg.n_kv_heads} kv heads (h_eff {g.h_eff}, g_eff {g.g_eff}) x "
+        f"{cfg.head_dim}, {cfg.mlp_kind} {cfg.act} d_ff={cfg.d_ff}, vocab {cfg.vocab} "
+        f"(padded {cfg.vocab_pad}), period {model.period}, tied "
+        f"{cfg.tie_embeddings}, qk_norm {cfg.attn.qk_norm}, rope {cfg.attn.rope_theta:g}: "
+        f"{sum(t.numel() for t in leaves(params)) / 1e9:.2f}B f32 parameters "
+        f"({cfg.param_count() / 1e9:.2f}B by param_count), init "
+        f"{time.perf_counter() - t0:.1f}s")
+    return model, ref, params
+
+
+def dense_serving_path(arch, smi_line, n_layers=None, long_queue=False):
+    """Phases 25-27: ``arch`` serving the launcher's 8 requests against
+    table_pack_ref, the prefill and decode logits against table_pack_ref's
+    with one decode step's launches, and the decode-step and prefill ms of
+    table_pack, table_pack_ref and exact with a profiler view of the
+    table_pack step (``step_breakdown``).  With ``long_queue`` (gemma3-12b,
+    phase 26) also ``long_requests`` in a LONG_CACHE cache, which wrap the
+    local rings."""
+    import torch
+
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer
+
+    model, ref, params = dense_model(arch, n_layers)
+    cfg = model.cfg
+    reqs = make_requests(cfg.vocab, N_REQ, MAX_NEW)
+    serve_against_plain(arch, model, ref, params, reqs, BATCH, CACHE_LEN, smi_line)
+    rows = prompt_rows(reqs, BATCH)
+    cache = logits_and_launches(arch, model, ref, params, rows, CACHE_LEN)
+    if long_queue:
+        long_reqs = long_requests(cfg.vocab)
+        check(min(len(r.prompt) for r in long_reqs) > transformer.LOCAL_WINDOW,
+              "the long prompts wrap the local rings")
+        serve_against_plain(f"{arch} long", model, ref, params, long_reqs, LONG_REQ,
+                            LONG_CACHE, smi_line)
+        logits_and_launches(f"{arch} long", model, ref, params,
+                            prompt_rows(long_reqs, LONG_REQ), LONG_CACHE)
+    exact = build_model(_with_mode(cfg, "exact"), "cuda")
+    step_breakdown({"table_pack": model, "table_pack_ref": ref, "exact": exact},
+                   params, rows, cache, smi_line, tag=f"{arch} ")
+    del model, ref, exact, params, cache
+    torch.cuda.empty_cache()
+
+
+def dense_train_path(arch, smi_line, per_layer, n_layers=None):
+    """Phases 25-26's training: ``arch`` at full width (``n_layers`` cuts its
+    depth), QP_STEPS steps at the trainer's defaults in table_pack +
+    TableFlash, step 0 against table_pack_ref.  ``per_layer`` is phase 6's
+    table_pack_grad launches a layer and micro-batch (stablelm's silu gate
+    and flash slopes): the gate of ``arch`` must launch as often."""
+    import torch
+
+    from repro_torch.train.loop import batch_to
+
+    model, ref, params = dense_model(arch, n_layers)
+    data = _trainer_data(model.cfg)
+    ref_loss, ref_gn = plain_step0(ref, params, batch_to(data.batch_at(0), "cuda"))
+    rows, c, peak, _ = train_steps(model, params, data, QP_STEPS, smi_line, arch)
+    for k in ("table_pack_grad", "tableflash_exp"):
+        check(c[k] > 0, f"{arch}: kernel {k} was not launched training")
+    check(all(math.isfinite(r["loss"]) for r in rows), f"non-finite {arch} loss")
+    check(rows[0]["loss"] == ref_loss, f"{arch} step-0 loss {rows[0]['loss']!r} != "
+          f"table_pack_ref's {ref_loss!r}")
+    gn_rel = abs(rows[0]["grad_norm"] - ref_gn) / ref_gn
+    check(gn_rel <= 1e-3, f"{arch} step-0 grad norm {rows[0]['grad_norm']} vs "
+          f"table_pack_ref's {ref_gn}: {gn_rel:.2e} > 1e-3")
+    per = c["table_pack_grad"] / (QP_STEPS * model.cfg.n_layers * TRAIN_ACCUM)
+    check(per == per_layer, f"{arch}: {per} table_pack_grad launches a layer and "
+          f"micro-batch, stablelm's silu gate and flash slopes {per_layer}")
+    log(f"{arch}: trained {len(rows)} steps ({model.cfg.n_layers}L, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, accum {TRAIN_ACCUM}), step-0 loss equals "
+        f"table_pack_ref's bit for bit ({ref_loss!r}), grad norm "
+        f"{rows[0]['grad_norm']:.6f} vs {ref_gn:.6f} ({gn_rel:.2e} rel); step ms "
+        f"{[round(r['ms'], 1) for r in rows]}; table_pack_grad {per:g} a layer and "
+        f"micro-batch, as stablelm's; launches { {k: v for k, v in c.items() if v} }; "
+        f"peak {peak:.2f} GiB [{smi_line}]")
+    del model, ref, params
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2283,8 +2540,12 @@ def main() -> int:
             f"intervals {pack.n_intervals}; main-path prefill width S0={s0}")
         approx = dataclasses.replace(cfg.approx, mode="table_pallas")
         f32_packs = static_f32_packs(pack, cfg.approx)
-        worst = kernel_phase(f32_packs, s0, flash_packs(pack, approx))
-        worst.update(grad_kernel_phase(f32_packs, static_tables(approx, pack.names), s0))
+        # the dense family's shapes (phases 25-27) on the same pack: its
+        # approx settings are stablelm-3b's
+        serve_shapes, train_shapes = dense_family_shapes(s0)
+        worst = kernel_phase(f32_packs, s0, flash_packs(pack, approx), serve_shapes)
+        worst.update(grad_kernel_phase(f32_packs, static_tables(approx, pack.names), s0,
+                                       train_shapes))
         # each kernel's launches come from the run of the path it serves,
         # counted from 0 just before that path and read just after it
         counts = main_path(smi_line)
@@ -2367,6 +2628,17 @@ def main() -> int:
             f"{gate_calls} gate calls of {QP_STEPS + 1} training steps")
         counts["sharded_pack_grad"] = train23["sharded_pack_grad"]
         times.update(sharded_timing_phase(cfg.approx, smi_line))
+        # 25-28: the rest of the dense family, through the pack kernels
+        t25 = time.perf_counter()
+        per_layer = counts["table_pack_grad"] / (TRAIN_STEPS * cfg.n_layers * TRAIN_ACCUM)
+        dense_serving_path("starcoder2-3b", smi_line)
+        dense_train_path("starcoder2-3b", smi_line, per_layer)
+        dense_serving_path("gemma3-12b", smi_line, long_queue=True)
+        dense_train_path("gemma3-12b", smi_line, per_layer, n_layers=GEMMA_TRAIN_LAYERS)
+        dense_serving_path("yi-34b", smi_line, n_layers=YI_LAYERS)
+        reference_check("gemma3-12b", window=8)
+        reference_check("starcoder2-3b")
+        log(f"dense family: phases 25-28 in {time.perf_counter() - t25:.1f}s")
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -2,10 +2,12 @@
 
 ``params_from_jax(cfg, tree)`` takes the tree of ``repro`` ``DecoderLM.init``,
 handed over as numpy arrays (this module imports no JAX), and returns the
-port's nested dict of tensors: the stacked layer axis is unstacked into a list
-of per-layer dicts, and every weight keeps the JAX layout — ``wq`` stays
-(d, H, D) — except ``wo``, which is reshaped to (g_eff, q_per_group, D, d) as
-``attention_out`` contracts it.  The port and the reference then compute the
+port's nested dict of tensors: the stacked layer axes are unstacked into lists
+of per-layer dicts (``layers`` (L, ...) into a list; a local:global stack's
+``layers_loc`` (n_groups, period-1, ...) into a list of n_groups lists and
+``layers_glob`` (n_groups, ...) into a list), and every weight keeps the JAX
+layout — ``wq`` stays (d, H, D) — except ``wo``, which is reshaped to (g_eff,
+q_per_group, D, d) as ``attention_out`` contracts it.  The port and the reference then compute the
 same function, which is what the parity tests compare.
 
 ``train_state_from_jax(cfg, state)`` converts a reference train state
@@ -33,27 +35,34 @@ def _tensors(tree: Any, device: torch.device):
 
 def params_from_jax(cfg: ArchConfig, tree: Mapping, device: DeviceLike = None) -> dict:
     """JAX ``DecoderLM`` parameters (numpy leaves) -> the port's parameters."""
-    if "layers" not in tree:
-        raise NotImplementedError(
-            "only period-1 DecoderLM trees (a stacked 'layers' entry) convert "
-            "so far; local:global stacks come with ROADMAP queue 1, item 11")
     dev = resolve_device(device)
-    out = _tensors({k: v for k, v in tree.items() if k != "layers"}, dev)
-    stacked = _tensors(tree["layers"], dev)
+    stacks = {"layers": 1, "layers_loc": 2, "layers_glob": 1}  # leading layer axes
+    out = _tensors({k: v for k, v in tree.items() if k not in stacks}, dev)
+    stacked = {k: _tensors(tree[k], dev) for k in stacks if k in tree}
     geom = cfg.attn_geom
 
-    def layer(i: int, sub):
+    def layer(sub, idx):
         if isinstance(sub, Mapping):
-            return {k: layer(i, v) for k, v in sub.items()}
-        return sub[i]
+            return {k: layer(v, idx) for k, v in sub.items()}
+        return sub[idx]
 
-    out["layers"] = []
-    for i in range(cfg.n_layers):
-        lp = layer(i, stacked)
+    def unstacked(name, n_axes, idx=()):
+        """The stack ``name`` as nested lists over its ``n_axes`` leading
+        axes, whose sizes its leaves carry."""
+        if len(idx) < n_axes:
+            leaf = stacked[name]
+            while isinstance(leaf, Mapping):
+                leaf = next(iter(leaf.values()))
+            return [unstacked(name, n_axes, idx + (i,))
+                    for i in range(leaf.shape[len(idx)])]
+        lp = layer(stacked[name], idx)
         wo = lp["attn"]["wo"]["w"]
         lp["attn"]["wo"]["w"] = wo.reshape(geom.g_eff, geom.q_per_group,
                                            geom.d_head, -1)
-        out["layers"].append(lp)
+        return lp
+
+    for name in stacked:
+        out[name] = unstacked(name, stacks[name])
     return out
 
 

@@ -1,7 +1,7 @@
 """Feed-forward blocks: gated-linear-unit MLP and the plain 2-matrix MLP.
 
 All nonlinearities route through the paper's table backend via ``act``.  The
-MoE block comes with the remaining model families (ROADMAP queue 1, item 11).
+MoE block comes with the MoE family (ROADMAP queue 1, item 11c).
 """
 
 from __future__ import annotations

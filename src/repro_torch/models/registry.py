@@ -9,16 +9,17 @@ from repro_torch.device import DeviceLike
 from .config import DENSE, ArchConfig
 from .transformer import DecoderLM
 
-# The JAX package registers ten architectures; the port serves these so far
-# (the other families come with ROADMAP queue 1, item 11).
-ARCH_IDS = ("stablelm-3b",)
+# The JAX package registers ten architectures; the port serves its dense
+# family (the MoE, hybrid, xLSTM, encoder-decoder and vision families come
+# with ROADMAP queue 1, items 11c-f).
+ARCH_IDS = ("stablelm-3b", "yi-34b", "gemma3-12b", "starcoder2-3b")
 
 
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in ARCH_IDS:
         raise NotImplementedError(
             f"architecture {arch_id!r} is not ported yet (ported: {ARCH_IDS}); "
-            "ROADMAP queue 1, item 11")
+            "ROADMAP queue 1, items 11c-f")
     mod_name = arch_id.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG

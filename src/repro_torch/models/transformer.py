@@ -1,5 +1,5 @@
 """DecoderLM — the dense GQA transformer behind one API (the JAX package's
-``models/transformer.py::DecoderLM`` for a period-1 stack):
+``models/transformer.py::DecoderLM``), period-1 and local:global stacks:
 
     model = build_model(cfg, device=...)          # repro_torch.models.registry
     params = model.init(generator)
@@ -7,15 +7,24 @@
     loss = model.loss(params, batch)
     cache = model.init_cache(batch_size, cache_len)
     logits, cache = model.prefill(params, batch, cache)
+    logits, cache = model.prefill_chunked(params, batch, cache, chunk)
     logits, cache = model.decode_step(params, tok, pos, cache)
 
-The stacked-layer ``lax.scan`` becomes a loop over a list of per-layer
-parameter dicts; the cache keeps the reference's stacked (L, B, W, G, D)
-layout.  ``cfg.remat`` (the reference's ``jax.checkpoint`` around the scan
-body) checkpoints each layer of ``train_logits`` with
-``torch.utils.checkpoint``.  All nonlinearities route through ``cfg.approx``
-(the paper's table backend).  MoE and local:global stacks come with ROADMAP
-queue 1, item 11.
+The reference's stacked-layer ``lax.scan`` becomes a loop over per-layer
+parameter dicts.  A period-1 stack keeps them in ``layers`` and its cache in
+the reference's stacked (L, B, W, G, D) layout.  A local:global stack
+(``cfg.attn.global_every`` = period > 1, gemma3's 5:1) has ``n_groups`` groups
+of ``period - 1`` local layers, which attend within ``LOCAL_WINDOW`` tokens,
+and one global layer: ``layers_loc`` is a list of ``n_groups`` lists of
+``period - 1`` dicts, ``layers_glob`` a list of ``n_groups`` dicts, and the
+cache holds a ring of min(LOCAL_WINDOW, cache_len) slots for the local layers
+(``loc_k``/``loc_v`` (n_groups, period-1, B, Wl, G, D), ``loc_pos`` (B, Wl))
+and a full buffer for the global ones (``glob_k``/``glob_v`` (n_groups, B,
+cache_len, G, D), ``glob_pos``).  ``cfg.remat`` (the reference's
+``jax.checkpoint`` around the scan body) checkpoints each layer of
+``train_logits`` with ``torch.utils.checkpoint``.  All nonlinearities route
+through ``cfg.approx`` (the paper's table backend).  MoE stacks come with
+ROADMAP queue 1, item 11c.
 """
 
 from __future__ import annotations
@@ -51,6 +60,8 @@ Cache = Dict[str, torch.Tensor]
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 AUX_WEIGHT = 0.01  # MoE load-balance loss weight (0 aux for dense stacks)
+# sliding window of 'local' layers in a local:global pattern (read at call time)
+LOCAL_WINDOW = 1024
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -86,11 +97,11 @@ class DecoderLM:
         if cfg.family != DENSE:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet: ROADMAP queue 1, "
-                "item 11 (remaining model families)")
-        if max(1, cfg.attn.global_every) != 1:
-            raise NotImplementedError(
-                "local:global layer stacks are not ported yet: ROADMAP queue 1, "
-                "item 11 (gemma3)")
+                "items 11c-f (remaining model families)")
+        self.period = max(1, cfg.attn.global_every)
+        if cfg.n_layers % self.period:
+            raise ValueError("n_layers must be divisible by the local:global period")
+        self.n_groups = cfg.n_layers // self.period
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.compute_dtype]
@@ -130,8 +141,16 @@ class DecoderLM:
         params: Params = {
             "embed": init_embedding(gen, cfg.vocab_pad, cfg.d_model, torch.float32),
             "final_norm": init_rmsnorm(cfg.d_model, self.device, torch.float32),
-            "layers": [self._init_layer(gen) for _ in range(cfg.n_layers)],
         }
+        if self.period == 1:
+            params["layers"] = [self._init_layer(gen) for _ in range(cfg.n_layers)]
+        else:  # the reference's order: every local layer, then the global ones
+            n_loc = self.period - 1
+            loc = [self._init_layer(gen) for _ in range(self.n_groups * n_loc)]
+            params["layers_loc"] = [loc[g * n_loc:(g + 1) * n_loc]
+                                    for g in range(self.n_groups)]
+            params["layers_glob"] = [self._init_layer(gen)
+                                     for _ in range(self.n_groups)]
         if not cfg.tie_embeddings:
             params["unembed"] = init_embedding(gen, cfg.vocab_pad, cfg.d_model,
                                                torch.float32)
@@ -160,24 +179,44 @@ class DecoderLM:
                            geom=cfg.attn_geom, rope_theta=cfg.attn.rope_theta,
                            rope_sin_cos=self.rope_sin_cos)
 
-    def _self_block(self, lp, x, positions):
+    def _self_block(self, lp, x, positions, window):
         """Prefill block: attend within x.  Returns (x, (k, v))."""
         cfg = self.cfg
         q, k, v = self._qkv(lp, x, positions)
         o = flash_attention(q, k, v, positions, positions, causal=True,
-                            window=cfg.attn.window, exp_fn=self.attn_exp)
+                            window=window, exp_fn=self.attn_exp)
         x = x + attention_out(lp["attn"], o, cfg.attn_geom)
         return self._ffn(lp, x), (k, v)
 
-    def _decode_block(self, lp, x, positions, kb, vb, pb_new):
-        """Decode block: project 1 token, insert, attend over the buffer."""
+    def _decode_block(self, lp, x, positions, window, kb, vb, pb_new):
+        """Decode block: project the new tokens, insert, attend over the buffer."""
         cfg = self.cfg
         q, k, v = self._qkv(lp, x, positions)
         kb, vb, _ = cache_insert(kb, vb, pb_new, k, v, positions)
         o = flash_attention(q, kb, vb, positions, pb_new, causal=True,
-                            window=cfg.attn.window, exp_fn=self.attn_exp)
+                            window=window, exp_fn=self.attn_exp)
         x = x + attention_out(lp["attn"], o, cfg.attn_geom)
         return self._ffn(lp, x), kb, vb
+
+    def _window_of(self, idx_in_period):
+        if self.period == 1:
+            return self.cfg.attn.window
+        return LOCAL_WINDOW if idx_in_period < self.period - 1 else 0
+
+    def _stack(self, params):
+        """Every layer in order, as (layer params, window, cache prefix, cache
+        index): prefix "" with index i for a period-1 stack, "loc_" with (g, i)
+        for a local layer, "glob_" with g for a global one."""
+        if self.period == 1:
+            w = self._window_of(0)
+            return [(lp, w, "", i) for i, lp in enumerate(params["layers"])]
+        out = []
+        for g in range(self.n_groups):
+            for i, lp in enumerate(params["layers_loc"][g]):
+                out.append((lp, self._window_of(i), "loc_", (g, i)))
+            out.append((params["layers_glob"][g], self._window_of(self.period - 1),
+                        "glob_", g))
+        return out
 
     # ------------------------------- train -----------------------------------------
 
@@ -187,12 +226,12 @@ class DecoderLM:
         tokens = batch["tokens"]
         x = embed(params["embed"], tokens, self.dtype)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        block = lambda lp, h: self._self_block(lp, h, positions)[0]
-        for lp in params["layers"]:
+        block = lambda lp, h, w: self._self_block(lp, h, positions, w)[0]
+        for lp, window, _, _ in self._stack(params):
             if self.cfg.remat:
-                x = checkpoint(block, lp, x, use_reentrant=False)
+                x = checkpoint(block, lp, x, window, use_reentrant=False)
             else:
-                x = block(lp, x)
+                x = block(lp, x, window)
         return self._logits(params, x), torch.zeros((), dtype=torch.float32,
                                                     device=x.device)
 
@@ -203,17 +242,28 @@ class DecoderLM:
     # ------------------------------- cache ------------------------------------------
 
     def init_cache(self, batch: int, cache_len: int, device: DeviceLike = None) -> Cache:
-        """bf16 k/v (L, B, W, G, D) and per-slot (B, W) int32 positions
-        (-1 = empty), so a freed slot can be refilled mid-stream.
-        ``device`` defaults to the model's (``"meta"`` gives shapes only)."""
+        """bf16 k/v buffers and per-slot (B, W) int32 positions (-1 = empty),
+        so a freed slot can be refilled mid-stream: (L, B, W, G, D) for a
+        period-1 stack, the local rings and global buffers of the module
+        docstring for a local:global one.  ``device`` defaults to the model's
+        (``"meta"`` gives shapes only)."""
         cfg = self.cfg
         dev = self.device if device is None else torch.device(device)
         G, D = cfg.attn_geom.g_eff, cfg.head_dim
-        W = cache_len if cfg.attn.window == 0 else min(cfg.attn.window, cache_len)
-        shape = (cfg.n_layers, batch, W, G, D)
-        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                "pos": torch.full((batch, W), -1, dtype=torch.int32, device=dev)}
+        mk = lambda *s: torch.zeros(s, dtype=torch.bfloat16, device=dev)
+        pos = lambda W: torch.full((batch, W), -1, dtype=torch.int32, device=dev)
+        if self.period == 1:
+            W = cache_len if cfg.attn.window == 0 else min(cfg.attn.window, cache_len)
+            return {"k": mk(cfg.n_layers, batch, W, G, D),
+                    "v": mk(cfg.n_layers, batch, W, G, D), "pos": pos(W)}
+        Wl = min(LOCAL_WINDOW, cache_len)
+        n_loc = self.period - 1
+        return {"loc_k": mk(self.n_groups, n_loc, batch, Wl, G, D),
+                "loc_v": mk(self.n_groups, n_loc, batch, Wl, G, D),
+                "loc_pos": pos(Wl),
+                "glob_k": mk(self.n_groups, batch, cache_len, G, D),
+                "glob_v": mk(self.n_groups, batch, cache_len, G, D),
+                "glob_pos": pos(cache_len)}
 
     @staticmethod
     def _ring_window(k_new, v_new, positions, W):
@@ -222,39 +272,77 @@ class DecoderLM:
             return k_new[:, -W:], v_new[:, -W:], positions[-W:]
         return k_new, v_new, positions
 
+    @staticmethod
+    def _stacked(cache, bufs):
+        """The per-layer buffers ``bufs`` (name -> list in layer order) stacked
+        into ``cache``'s layout."""
+        return {n: torch.stack(b).reshape(cache[n].shape) for n, b in bufs.items()}
+
     # --------------------------- prefill / decode ------------------------------------
 
     def prefill(self, params, batch, cache):
         """batch["tokens"]: (B, S) integer tensor.  Returns the last
         position's logits (B, V) and a new cache."""
         tokens = batch["tokens"]
-        S = tokens.shape[1]
         x = embed(params["embed"], tokens, self.dtype)
-        positions = torch.arange(S, device=tokens.device)
-        W = cache["k"].shape[2]
-        ks, vs = [], []
-        pb = cache["pos"]
-        for i, lp in enumerate(params["layers"]):
-            x, (k, v) = self._self_block(lp, x, positions)
-            kn, vn, pn = self._ring_window(k, v, positions, W)
-            kb, vb, pb = cache_insert(cache["k"][i], cache["v"][i], cache["pos"],
-                                      kn, vn, pn)
-            ks.append(kb)
-            vs.append(vb)
-        new_cache = {"k": torch.stack(ks), "v": torch.stack(vs), "pos": pb}
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        bufs = {n: [] for n in cache if not n.endswith("pos")}
+        pbs = {}
+        for lp, window, pre, idx in self._stack(params):
+            x, (k, v) = self._self_block(lp, x, positions, window)
+            kn, vn, pn = self._ring_window(k, v, positions, cache[pre + "pos"].shape[1])
+            kb, vb, pbs[pre + "pos"] = cache_insert(
+                cache[pre + "k"][idx], cache[pre + "v"][idx], cache[pre + "pos"],
+                kn, vn, pn)
+            bufs[pre + "k"].append(kb)
+            bufs[pre + "v"].append(vb)
+        return self._logits(params, x[:, -1:])[:, 0], {**self._stacked(cache, bufs),
+                                                       **pbs}
+
+    def _decode_stack(self, params, x, positions, pbs, cache):
+        """Every layer's decode block over x at ``positions``, with the
+        position buffers ``pbs`` (name -> this step's buffer).  Returns x and
+        the new cache."""
+        bufs = {n: [] for n in cache if not n.endswith("pos")}
+        for lp, window, pre, idx in self._stack(params):
+            x, kb, vb = self._decode_block(lp, x, positions, window,
+                                           cache[pre + "k"][idx],
+                                           cache[pre + "v"][idx], pbs[pre + "pos"])
+            bufs[pre + "k"].append(kb)
+            bufs[pre + "v"].append(vb)
+        return x, {**self._stacked(cache, bufs), **pbs}
+
+    def prefill_chunked(self, params, batch, cache, chunk: int = 4096):
+        """Deployment prefill for long prompts: feed ``chunk`` tokens at a
+        time through the decode path (insert the chunk's k/v, attend to
+        cache + self), so peak activation memory is O(chunk) instead of O(S).
+        Equivalent to ``prefill``; single-period stacks only, as in the
+        reference."""
+        tokens = batch["tokens"]
+        if self.period != 1:
+            raise NotImplementedError("chunked prefill: single-period stacks only")
+        logits = None
+        for start in range(0, tokens.shape[1], chunk):
+            tok_c = tokens[:, start:start + chunk]
+            pos_c = torch.arange(start, start + tok_c.shape[1], device=tokens.device)
+            logits, cache = self._prefill_chunk_step(params, tok_c, pos_c, cache)
+        return logits, cache
+
+    def _prefill_chunk_step(self, params, tok_c, positions, cache):
+        x = embed(params["embed"], tok_c, self.dtype)
+        pb = cache["pos"].clone()
+        pb[:, positions % pb.shape[1]] = positions.to(torch.int32)
+        x, new_cache = self._decode_stack(params, x, positions, {"pos": pb}, cache)
         return self._logits(params, x[:, -1:])[:, 0], new_cache
 
     def decode_step(self, params, tok, pos, cache):
         """tok: (B, 1) integer tensor; pos: () shared absolute position, or
         (B,) per-slot positions (continuous batching)."""
         x = embed(params["embed"], tok, self.dtype)
-        W = cache["k"].shape[2]
-        positions, pb = _decode_positions(pos, cache["pos"], W)
-        ks, vs = [], []
-        for i, lp in enumerate(params["layers"]):
-            x, kb, vb = self._decode_block(lp, x, positions, cache["k"][i],
-                                           cache["v"][i], pb)
-            ks.append(kb)
-            vs.append(vb)
-        new_cache = {"k": torch.stack(ks), "v": torch.stack(vs), "pos": pb}
+        pbs = {}
+        for name in cache:
+            if name.endswith("pos"):  # one clock, each buffer modulo its width
+                positions, pbs[name] = _decode_positions(pos, cache[name],
+                                                         cache[name].shape[1])
+        x, new_cache = self._decode_stack(params, x, positions, pbs, cache)
         return self._logits(params, x)[:, 0], new_cache

@@ -435,7 +435,7 @@ class ContinuousEngine(_EngineBase):
                     cache = scatter_cache_slots(cache, rcache,
                                                 [j for j, _, _ in take],
                                                 self._axes)
-                    st["sync"] = cache["pos"]
+                    st["sync"] = next(iter(cache.values()))
                 lg = _host(logits.float())
                 for j, i, r in take:
                     live[j] = _Slot(req_idx=i, prompt_len=len(r.prompt),

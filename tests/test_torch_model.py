@@ -27,7 +27,7 @@ from repro.models import get_config as j_get_config
 from repro.serving.engine import ContinuousEngine as JContinuousEngine
 from repro_torch.approx import ApproxConfig
 from repro_torch.convert import params_from_jax
-from repro_torch.models import build_model, get_config, reduced
+from repro_torch.models import ARCH_IDS, build_model, get_config, reduced
 from repro_torch.serving.engine import (ContinuousEngine, DecodeEngine, Request,
                                         _trim_at_eos, cache_batch_axes,
                                         scatter_cache_slots, serve_static)
@@ -76,9 +76,21 @@ class TestConfig:
         assert full.param_count() == j_get_config("stablelm-3b").param_count()
         assert (full.vocab_pad, full.head_dim) == (51200, 80)
 
+    @pytest.mark.parametrize("arch", ARCH_IDS)
+    def test_dense_family_fields_and_param_count_equal(self, arch):
+        """Each ported id's config, its reduced config and geometry equal the
+        reference's field for field, and so does ``param_count`` at full width."""
+        t, j = get_config(arch), j_get_config(arch)
+        assert _asdict(t) == _asdict(j)
+        assert t.param_count() == j.param_count()
+        assert (t.vocab_pad, t.head_dim) == (j.vocab_pad, j.head_dim)
+        assert _asdict(reduced(arch)) == _asdict(j_reduced(arch))
+        assert (dataclasses.asdict(reduced(arch).attn_geom)
+                == dataclasses.asdict(j_reduced(arch).attn_geom))
+
     def test_unported_archs_raise(self):
-        with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-            get_config("gemma3-12b")
+        with pytest.raises(NotImplementedError, match="queue 1, items 11c-f"):
+            get_config("zamba2-1.2b")
 
 
 class TestLogits:
