@@ -211,10 +211,32 @@ Phases, each fatal on failure (exit code 1, no result line):
    does;
 28. reference: reduced gemma3-12b (its local window set to 8, so the
    prompts wrap the rings) and starcoder2-3b in float32 on the card against
-   the same models on the CPU, as phase 5.
+   the same models on the CPU, as phase 5;
+29. the paper's cells through the table kernel: Fig. 3 (log, reference
+   spacing, Ea 1.25e-4), Figs. 4-5 (log, Ea 1.22e-4: reference, binary,
+   hierarchical eps 0.015, sequential eps 0.3), Table 2's six cells (Ea
+   9.5367e-7, hierarchical, omega 0.3) and Table 3's six (omega 0.1), each
+   designed by ``run_flow(verify_error=True)`` on the host and built as a
+   ``TorchTable`` on the card; ``table_lookup`` over the cell's edge inputs
+   and 2^22 uniform f32 points in [lo, hi) bitwise equal to its plain
+   version (NaN positions matched, extrapolation off and on), max |y - f(x)|
+   (f in f64 on the same f32 x) within Ea plus the f32 rounding allowance
+   ``rounding_allowance`` derives from the kernel's op order, the staging
+   image's bytes equal to ``smem_cost``'s and staged, or past the 48 KB
+   budget for Table 2 exp and Table 3 tan; one row a cell in the paper's
+   Table 3 columns (M_F and BRAM18s of the reference and the split, image
+   bytes, the error beside ``run_flow``'s) with the kernel's device time at
+   2^24 f32 elements and its byte bound;
+30. TableFlash's proven bound at full width: ``flash_attention`` with the
+   ``tableflash_exp`` kernel over stablelm-3b's pack against exact exp on
+   the same seeded f32 q, k, v, at stablelm-3b's decode and prefill (cache
+   256) and gemma3-12b's global layer decoding at cache 2,048 (two kv
+   chunks); each max row error within ``flash_abs_bound``.
 
-The line before the last is one JSON object listing the kernels; the last line
-is ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout of
+The line before the last is one JSON object listing the kernels (each one's
+launches from the path it serves; ``table_lookup`` and ``tableflash_exp``
+also carry ``paper_launches``, theirs in phases 29-30); the last line is
+``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout of
 the repository, the script exits non-zero and prints no result.
 """
 
@@ -2506,6 +2528,226 @@ def dense_train_path(arch, smi_line, per_layer, n_layers=None):
 
 
 # --------------------------------------------------------------------------------------
+# 29-30. the paper's cells through the table kernel; TableFlash's bound
+# --------------------------------------------------------------------------------------
+
+
+def paper_cells():
+    """(tag, run_flow arguments) of the paper's experiment cells: Fig. 3, the
+    four tables of Figs. 4-5, Table 2 (hierarchical, omega 0.3) and Table 3
+    (hierarchical, omega 0.1), from the port's configs/tabla_paper.py."""
+    from repro_torch.configs import tabla_paper as P
+
+    log_dom = (0.625, 15.625)
+    cells = [("fig3 log reference", ("log", P.E_A_FIG3, *log_dom, "reference", 0.3, {}))]
+    for alg, kw in (("reference", {}), ("binary", {}),
+                    ("hierarchical", {"epsilon": 0.015}),
+                    ("sequential", {"epsilon": 0.3})):
+        cells.append((f"fig45 log {alg}",
+                      ("log", P.E_A_WORKED, *log_dom, alg, 0.3, kw)))
+    for table, grid, omega in (("table2", P.TABLE2_CELLS, 0.3),
+                               ("table3", P.TABLE3_CELLS, 0.1)):
+        for name, (lo, hi) in grid.items():
+            cells.append((f"{table} {name}",
+                          (name, P.E_A_TABLE2, lo, hi, "hierarchical", omega, {})))
+    return cells
+
+
+# 2^-24: half an f32 ulp, relative to the magnitude of a normal result
+HALF_ULP = 2.0 ** -24
+
+
+def rounding_allowance(spec):
+    """Per sub-interval j, the most that the table kernel's f32 roundings add to
+    the design flow's interpolation error (Ea) at an f32 x in [lo, hi).
+
+    The kernel's op order (csrc/table_lookup.cuh, -fmad=false): p = f32(P_j),
+    invd = f32(1 / delta_j), u = (x - p) * invd, i = clip(floor(u)), t = u - i
+    (exact), y0, y1 = f32(v_a), f32(v_a+1), d = y1 - y0, y = y0 + t * d.  Each
+    f32 rounding adds at most half an ulp of its result, <= 2^-24 |result|:
+      * position (x units; the lerp is continuous with cell slopes <= S_j, so
+        a position error e moves y by <= S_j e): P_j rounded, <= 2^-24 X_j
+        (X_j = max(|P_j|, |P_j+1|), which also covers an x between P_j+1 and
+        its f32 that the comparators give to j); invd rounded, x - p rounded
+        and the product rounded, each <= 2^-24 W_j (W_j = P_j+1 - P_j >= |x - p|);
+      * values: y0 and y1 stored in f32, <= 2^-24 Y_j for their convex
+        combination (Y_j = max |f32 value| over j); d rounded and t * d
+        rounded, each <= 2^-24 D_j (D_j = max |v_k+1 - v_k| over j, t <= 1);
+        y0 + t * d rounded, <= 2^-24 Y_j.
+    So A_j = 2^-24 (2 Y_j + 2 D_j + S_j (X_j + 3 W_j)), and the kernel's
+    |y - f(x)| <= Ea + A_j for x in sub-interval j (f in f64 on the f32 x)."""
+    import numpy as np
+
+    v = spec.values.astype(np.float32).astype(np.float64)
+    n = spec.n_intervals
+    ends = np.append(spec.base[1:], spec.footprint)
+    out = np.empty(n)
+    for j in range(n):
+        vj = v[int(spec.base[j]): int(ends[j])]
+        steps = np.abs(np.diff(vj)) if vj.size > 1 else np.zeros(1)
+        y, d = float(np.max(np.abs(vj))), float(np.max(steps))
+        s = d / float(spec.delta[j])
+        p0, p1 = float(spec.boundaries[j]), float(spec.boundaries[j + 1])
+        out[j] = HALF_ULP * (2 * y + 2 * d + s * (max(abs(p0), abs(p1)) + 3 * (p1 - p0)))
+    return out
+
+
+PAPER_POINTS, PAPER_TIMED = 1 << 22, 1 << 24  # checked and timed elements a cell
+
+
+def paper_phase(smi_line):
+    """Phase 29: each paper cell's ``run_flow(verify_error=True)`` on the host, its
+    ``TorchTable`` on the card, and ``table_lookup`` over the cell's edge inputs
+    and PAPER_POINTS uniform f32 points in [lo, hi): bitwise its plain version
+    (NaN positions matched), max |y - f(x)| within Ea + the derived rounding
+    allowance, its staging image staged or past the budget, and its device
+    time at PAPER_TIMED f32 elements; the cells' rows go to one
+    ``PAPER_CELLS [...]`` JSON line.  Returns the path's table_lookup
+    launches (one a cell, counted from 0 around each cell's lookup)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.approx.torch_table import from_spec
+    from repro_torch.core import get_function, run_flow
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import table_lookup as TL
+
+    past = {"table2 exp", "table3 tan"}  # the cells whose image is past 48 KB
+    rows, launches = [], 0
+    t0 = time.perf_counter()
+    for tag, (name, e_a, lo, hi, alg, omega, kw) in paper_cells():
+        rep = run_flow(name, e_a, lo, hi, alg, omega, verify_error=True, **kw)
+        spec, fn = rep.spec, get_function(name)
+        check(rep.measured_max_error <= e_a, f"paper {tag}: run_flow's measured error "
+              f"{rep.measured_max_error:.3e} > Ea {e_a:g}")
+        jt = from_spec(spec, "cuda")
+        check(rep.smem.image_bytes == 4 * jt.image.numel(),
+              f"paper {tag}: smem_cost {rep.smem.image_bytes} != the image's "
+              f"{4 * jt.image.numel()} bytes")
+        check(rep.smem.fits == (tag not in past),
+              f"paper {tag}: image of {rep.smem.image_bytes} bytes on the wrong side "
+              f"of the {SMEM_BUDGET}-byte budget")
+        g = torch.Generator(device="cuda").manual_seed(29)
+        x = torch.rand(PAPER_POINTS, generator=g, device="cuda") * (hi - lo) + lo
+        x = torch.where(x < hi, x, torch.full_like(x, lo))  # [lo, hi) after rounding
+        edges = torch.as_tensor(row_edges(jt.boundaries.cpu().numpy()), device="cuda")
+        x = torch.cat([edges, x])
+        _lib.reset_launches()
+        y = TL.table_lookup(jt, x)  # the path: one launch over the cell's inputs
+        torch.cuda.synchronize()
+        launches += _lib.launches["table_lookup"]
+        check(_lib.launches["table_lookup"] == 1, f"paper {tag}: table_lookup did not "
+              "launch")
+        check_pair(f"paper {tag} table_lookup", y, TL.table_lookup_plain(jt, x),
+                   x.shape, torch.float32)
+        check_pair(f"paper {tag} table_lookup extrapolate=True", TL.table_lookup(
+            jt, x, extrapolate=True), TL.table_lookup_plain(jt, x, extrapolate=True),
+            x.shape, torch.float32)
+        xs = x.cpu().numpy().astype(np.float64)
+        ys = y.cpu().numpy().astype(np.float64)
+        inside = np.isfinite(xs) & (xs >= lo) & (xs < hi)
+        xs, ys = xs[inside], ys[inside]
+        err = np.abs(ys - np.asarray(fn.f(xs)))
+        allow = rounding_allowance(spec)
+        j = np.clip(np.searchsorted(spec.boundaries.astype(np.float32), xs,
+                                    side="right") - 1, 0, spec.n_intervals - 1)
+        limit = e_a + allow[j]
+        worst = int(np.argmax(err - limit))
+        check(bool(np.all(np.isfinite(ys))) and bool(np.all(err <= limit)),
+              f"paper {tag}: |y - f(x)| {err[worst]:.4e} at x={xs[worst]!r} > Ea "
+              f"{e_a:g} + allowance {allow[j[worst]]:.4e}")
+        xt = torch.rand(PAPER_TIMED, generator=g, device="cuda") * (hi - lo) + lo
+        ms = graph_ms(lambda: TL.table_lookup(jt, xt))
+        b_ms, b_by = bound(PAPER_TIMED, 4, 1, member_bytes(jt), jt.n_intervals + 14)
+        row = dict(cell=tag, fn=name, domain=[lo, hi], e_a=e_a, algorithm=alg,
+                   omega=omega, mf_reference=rep.reference_footprint,
+                   mf_split=rep.footprint, reduction_pct=rep.reduction_pct,
+                   n_intervals=rep.n_intervals, bram_reference=rep.brams_reference,
+                   bram_split=rep.brams, smem_bytes=rep.smem.image_bytes,
+                   staged=rep.smem.fits, max_err=float(err.max()),
+                   flow_max_err=rep.measured_max_error,
+                   max_allowance=float(allow.max()), us=ms * 1e3,
+                   bound_us=b_ms * 1e3, bound_by=b_by)
+        rows.append(row)
+        log(f"paper: [{tag}] {name}[{lo},{hi}) Ea={e_a:g} {alg} omega={omega}: M_F "
+            f"{rep.reference_footprint} -> {rep.footprint} (-{rep.reduction_pct:.1f}%), "
+            f"n={rep.n_intervals}, BRAM18 {rep.brams_reference} -> {rep.brams}, "
+            f"smem {rep.smem.image_bytes} B "
+            f"({'staged' if rep.smem.fits else 'past the budget'}); kernel bitwise its "
+            f"plain version over {x.numel()} inputs; max |y - f| {err.max():.4e} "
+            f"(run_flow's {rep.measured_max_error:.4e}; Ea {e_a:g}, allowance <= "
+            f"{allow.max():.4e}); {ms * 1e3:.2f} us at {PAPER_TIMED} f32, bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}) [{smi_line}]")
+    log(f"paper: {len(rows)} cells, {launches} table_lookup launches on their path, "
+        f"phase 29 in {time.perf_counter() - t0:.1f}s")
+    print("PAPER_CELLS " + json.dumps(rows))
+    return launches
+
+
+def flash_bound_phase(smi_line):
+    """Phase 30: ``flash_attention`` with ``exp_fn`` the ``tableflash_exp`` kernel
+    over stablelm-3b's pack (e_a 1e-4, omega 0.2) against ``exp_fn=None`` on
+    the same seeded f32 q, k, v: stablelm-3b's decode (per-row clocks, empty
+    slots) and prefill (S0 = 27) at cache 256, and gemma3-12b's global layer
+    decoding at cache 2,048 (two kv chunks of 1,024).  The max row error must
+    be finite and within ``flash_abs_bound(EA_EFF, T, KV_CHUNK, max|v|)``, with
+    the reference test's EA_EFF = Ea * 1.02 + 1e-5.  Returns the table runs'
+    tableflash_exp launches."""
+    import torch
+
+    from repro_torch.core.attn_error import EXP_NEG_LO, flash_abs_bound
+    from repro_torch.kernels import _lib
+    from repro_torch.models import get_config
+    from repro_torch.models.attention import flash_attention
+
+    base = get_config("stablelm-3b")
+    approx = dataclasses.replace(base.approx, mode="table_pack", attn_table=True)
+    pack = approx.pack("cuda")
+    fid = pack.fn_id("exp_neg")
+    check(pack.domains[fid][0] == EXP_NEG_LO, f"exp_neg's lo {pack.domains[fid][0]} "
+          f"is not the bound's {EXP_NEG_LO}")
+    exp_fn = approx.attn_exp("cuda")
+    ea_eff = approx.e_a * 1.02 + 1e-5
+    g = torch.Generator(device="cuda").manual_seed(30)
+    gem = get_config("gemma3-12b").attn_geom
+    stl = base.attn_geom
+    # (tag, B, S, T, G, Qg, D, query positions (B, S), live keys per row)
+    cases = (("stablelm-3b decode", BATCH, 1, CACHE_LEN, stl.g_eff, stl.q_per_group,
+              base.head_dim, [[100], [180], [255], [37]], [101, 181, 256, 38]),
+             ("stablelm-3b prefill", BATCH, 27, CACHE_LEN, stl.g_eff, stl.q_per_group,
+              base.head_dim, [list(range(27))] * BATCH, [27] * BATCH),
+             ("gemma3-12b global decode", LONG_REQ, 1, LONG_CACHE, gem.g_eff,
+              gem.q_per_group, get_config("gemma3-12b").head_dim, [[1500], [2047]],
+              [1501, 2048]))
+    launches = 0
+    for tag, B, S, T, G, Qg, D, qpos, live in cases:
+        q = torch.randn((B, S, G, Qg, D), generator=g, device="cuda")
+        k = torch.randn((B, T, G, D), generator=g, device="cuda")
+        v = torch.randn((B, T, G, D), generator=g, device="cuda")
+        q_pos = torch.tensor(qpos, dtype=torch.int32, device="cuda")
+        k_pos = torch.arange(T, dtype=torch.int32, device="cuda").repeat(B, 1)
+        k_pos = torch.where(k_pos < torch.tensor(live, device="cuda")[:, None], k_pos, -1)
+        exact = flash_attention(q, k, v, q_pos, k_pos, kv_chunk=KV_CHUNK)
+        _lib.reset_launches()
+        table = flash_attention(q, k, v, q_pos, k_pos, kv_chunk=KV_CHUNK, exp_fn=exp_fn)
+        torch.cuda.synchronize()
+        n = _lib.launches["tableflash_exp"]
+        n_chunks = -(-T // min(KV_CHUNK, T))
+        check(n == 2 * n_chunks, f"flash bound [{tag}]: {n} tableflash_exp launches, "
+              f"not 2 a kv chunk ({n_chunks} chunks)")
+        launches += n
+        err = float((table - exact).abs().max())
+        bnd = flash_abs_bound(ea_eff, T, KV_CHUNK, float(v.abs().max()))
+        check(math.isfinite(err) and math.isfinite(bnd) and err <= bnd,
+              f"flash bound [{tag}]: max row error {err:.4e} > flash_abs_bound {bnd:.4e}")
+        log(f"flash bound: [{tag}] q {tuple(q.shape)} k/v {tuple(k.shape)}, kv chunk "
+            f"{min(KV_CHUNK, T)} x {n_chunks}: max |table - exact| {err:.4e} <= "
+            f"flash_abs_bound {bnd:.4e} (EA_EFF {ea_eff:g}, max|v| "
+            f"{float(v.abs().max()):.3f}); {n} tableflash_exp launches [{smi_line}]")
+    return launches
+
+
+# --------------------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2639,6 +2881,12 @@ def main() -> int:
         reference_check("gemma3-12b", window=8)
         reference_check("starcoder2-3b")
         log(f"dense family: phases 25-28 in {time.perf_counter() - t25:.1f}s")
+        # 29-30: the paper's cells through the table kernel, TableFlash's bound
+        t29 = time.perf_counter()
+        # their own launches, beside the kernels line's main-path counts
+        paper_launches = {"table_lookup": paper_phase(smi_line),
+                          "tableflash_exp": flash_bound_phase(smi_line)}
+        log(f"paper: phases 29-30 in {time.perf_counter() - t29:.1f}s")
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2671,6 +2919,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": counts[kname], "max_abs_err": worst[kname],
             **times[kname]})
+        if kname in paper_launches:  # phases 29-30 drive these two again
+            kernels[-1]["paper_launches"] = paper_launches[kname]
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))

@@ -46,10 +46,10 @@ greedy-downgrade-from-preferred under ``budget_bytes`` (start every function at
 its lowest-degree/widest-width candidate, repeatedly switch the function with
 the largest byte saving to its cheapest candidate until the pack fits).
 
-The pack-level VMEM residency report (``PackPlan.vmem`` over
-``core/bram.py``) describes the TPU's memory and is not carried over (ROADMAP
-queue 1, item 15): the port's counterpart is the CUDA kernels' shared-memory
-staging.  tests/test_torch_quant_poly.py holds this copy to the reference's
+The pack-level VMEM residency report (``PackPlan.vmem``) describes the TPU's
+memory and is not carried over: a pack's shared-memory residency report is
+ROADMAP queue 1, item 15.  For a single table, ``core.bram.smem_cost`` gives
+the table kernels' staging image.  tests/test_torch_quant_poly.py holds this copy to the reference's
 candidates and plans.
 """
 

@@ -3,24 +3,34 @@
 The port's copy of ``repro.core.packing``: the f32 :class:`PackLayout`, the
 QuantPack layout (int8/int16 codes + ragged dequant metadata), the PolyPack
 layout (degree-d coefficient codes, lane-padded dequant metadata) and the
-ShardedPack layout (the f32 values vector cut into per-shard slices).  The
-reference's ``vmem()`` reports (TPU VMEM residency over ``core/bram.py``) are
-not carried over (queue 1, item 15): the port's counterpart is the CUDA
-kernels' shared-memory staging.
+ShardedPack layout (the f32 values vector cut into per-shard slices), and the
+paper's future work (Sec. 8): :func:`quantize_table`, one interval-split table
+whose entries are stored affinely quantized per sub-interval at the narrowest
+width of a menu (the BRAM18 widths, byte widths, or any width up to 36 bits)
+that keeps the total error within ``E_a``.
+
+The reference's pack-level ``vmem()`` reports (TPU VMEM residency) are not
+carried over (ROADMAP queue 1, item 15); for a single table the port reports
+the table kernels' shared-memory staging image (``core.bram.smem_cost``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Sequence, Tuple
+from typing import TYPE_CHECKING, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .functions import FunctionSpec, get as get_function
 from .quantize import QuantMember
-from .table import TableSpec
+from .table import TableSpec, build_table
 
 if TYPE_CHECKING:  # for the annotations only: design imports this package
     from .design import PolyMember
+
+BRAM_WIDTHS = (1, 2, 4, 9, 18, 36)  # physical BRAM18 entry widths
+INT_WIDTHS = (4, 8, 16, 32)  # byte-aligned storage menu
+PACKED_WIDTHS = tuple(range(1, 37))  # arbitrary-width bitfield packing
 
 
 @dataclass(frozen=True)
@@ -516,3 +526,98 @@ def poly_pack_layout(members: Sequence["PolyMember"]) -> PolyPackLayout:
         codes16=cat_i(codes[16]),
         codes32=cat_f(codes[32]),
     )
+
+
+@dataclass(frozen=True)
+class QuantizedTableSpec:
+    """A TableSpec whose values are stored affinely quantized per sub-interval."""
+
+    base: TableSpec
+    q_values: np.ndarray  # (M_F,) int64 codes
+    scale: np.ndarray  # (n,) f64 per sub-interval
+    zero: np.ndarray  # (n,) f64 per sub-interval
+    bits: np.ndarray  # (n,) i64 chosen width per sub-interval
+    rho: float
+
+    @property
+    def footprint_bits(self) -> int:
+        counts = np.diff(np.concatenate([self.base.base,
+                                         [self.base.footprint]]))
+        return int(np.sum(counts * self.bits))
+
+    @property
+    def footprint_bits_fp32(self) -> int:
+        return 32 * self.base.footprint
+
+    @property
+    def bit_reduction(self) -> float:
+        return 1.0 - self.footprint_bits / self.footprint_bits_fp32
+
+    def eval(self, x: np.ndarray) -> np.ndarray:
+        """Dequantize-on-read evaluation (the hardware path)."""
+        ts = self.base
+        x = np.asarray(x, dtype=np.float64)
+        j = np.clip(np.searchsorted(ts.boundaries, x, side="right") - 1,
+                    0, ts.n_intervals - 1)
+        p_j = ts.boundaries[j]
+        i = np.clip(np.floor((x - p_j) * ts.inv_delta[j]).astype(np.int64),
+                    0, ts.seg_count[j] - 1)
+        a = ts.base[j] + i
+        y0 = self.zero[j] + self.scale[j] * self.q_values[a]
+        y1 = self.zero[j] + self.scale[j] * self.q_values[a + 1]
+        t = np.clip((x - (p_j + i * ts.delta[j])) * ts.inv_delta[j], 0.0, 1.0)
+        return y0 + t * (y1 - y0)
+
+    def max_error_on_grid(self, fn: Optional[FunctionSpec] = None,
+                          n: int = 100_001) -> float:
+        fn = fn or get_function(self.base.name)
+        xs = np.linspace(self.base.lo, self.base.hi, n)
+        xs = xs[xs < self.base.hi]
+        return float(np.max(np.abs(self.eval(xs) - np.asarray(fn.f(xs)))))
+
+
+def _min_width(value_range: float, tol: float, menu: Tuple[int, ...]) -> int:
+    """Smallest menu width b with (range / (2^b - 1)) / 2 <= tol."""
+    for b in menu:
+        if b >= 63:
+            return b
+        if value_range <= 2.0 * tol * (2**b - 1):
+            return b
+    return menu[-1]
+
+
+def quantize_table(
+    fn: FunctionSpec | str,
+    e_a: float,
+    lo: Optional[float] = None,
+    hi: Optional[float] = None,
+    algorithm: str = "hierarchical",
+    omega: float = 0.3,
+    *,
+    rho: float = 0.8,
+    width_menu: Tuple[int, ...] = PACKED_WIDTHS,
+) -> QuantizedTableSpec:
+    """Build an interval-split table at rho*Ea and quantize each sub-interval's
+    entries at the minimal width keeping total error <= Ea."""
+    if not (0.0 < rho < 1.0):
+        raise ValueError("rho must be in (0, 1)")
+    fn = get_function(fn) if isinstance(fn, str) else fn
+    ts = build_table(fn, rho * e_a, lo, hi, algorithm=algorithm, omega=omega)
+    tol = (1.0 - rho) * e_a
+    counts = np.diff(np.concatenate([ts.base, [ts.footprint]]))
+    q = np.zeros(ts.footprint, dtype=np.int64)
+    scale = np.zeros(ts.n_intervals)
+    zero = np.zeros(ts.n_intervals)
+    bits = np.zeros(ts.n_intervals, dtype=np.int64)
+    for jj in range(ts.n_intervals):
+        s0, s1 = int(ts.base[jj]), int(ts.base[jj] + counts[jj])
+        vals = ts.values[s0:s1]
+        vmin, vmax = float(vals.min()), float(vals.max())
+        b = _min_width(vmax - vmin, tol, width_menu)
+        levels = 2**b - 1
+        s = (vmax - vmin) / levels if vmax > vmin else 1.0
+        codes = np.clip(np.rint((vals - vmin) / s), 0, levels)
+        q[s0:s1] = codes.astype(np.int64)
+        scale[jj], zero[jj], bits[jj] = s, vmin, b
+    return QuantizedTableSpec(base=ts, q_values=q, scale=scale, zero=zero,
+                              bits=bits, rho=rho)

@@ -1,7 +1,15 @@
-"""Error-budgeted entry quantization for the QuantPack runtime (the port's copy
-of the QuantPack half of ``repro.core.quantize``).
+"""Quantized table storage (the port's copy of ``repro.core.quantize``):
+the paper's fixed-point I/O formats and QuantPack entry codes.
 
-The stored breakpoint values of an interval-split table are replaced by int8 /
+Fixed-point (S, W, F) formats — the paper's I/O number representation.  The
+hardware consumes/produces fixed-point bit vectors described by tuples
+``(S, W, F)``: sign bit, total width, fractional bits (Sec. 6/7.1, Table 3).
+The design flow uses this to (a) quantize stored table values the way the BRAM
+would hold them and (b) budget the quantization error against ``E_a`` in the
+paper's fidelity experiment (``launch/paper.py``).  Paper-faithful accounting,
+not the hot path.
+
+Error-budgeted entry quantization for the QuantPack runtime.  The stored breakpoint values of an interval-split table are replaced by int8 /
 int16 codes that the kernel dequantizes on read.  The user's bound ``E_a`` is
 split ``rho * E_a`` for interpolation (the table is built with the tightened
 bound by the existing splitting algorithms) and ``(1-rho) * E_a`` for code
@@ -21,10 +29,8 @@ partition at existing breakpoints — interval splitting applied a second time,
 for the quantization axis.  ``plan_quant_member`` searches {int8, int16} x
 refinement and picks the cheapest feasible encoding.
 
-The paper's fixed-point (S, W, F) I/O formats (``FixedPointFormat``,
-``PAPER_FORMATS``) are not on the serving or training path and are not carried
-over (ROADMAP queue 1, item 7).  tests/test_torch_quant_poly.py holds this copy
-to the reference's arrays.
+tests/test_torch_quant_poly.py holds the QuantPack half to the reference's
+arrays, tests/test_torch_paper.py the fixed-point formats.
 """
 
 from __future__ import annotations
@@ -40,6 +46,78 @@ from repro_torch import obs
 
 from .functions import FunctionSpec, get as get_function
 from .table import TableSpec
+
+
+@dataclass(frozen=True)
+class FixedPointFormat:
+    signed: int  # S: 1 if a sign bit is present
+    width: int  # W: total bits
+    frac: int  # F: fractional bits
+
+    def __post_init__(self):
+        if self.signed not in (0, 1):
+            raise ValueError("S must be 0 or 1")
+        if self.width <= 0 or self.frac < 0:
+            raise ValueError("bad (W, F)")
+        if self.frac > self.width - self.signed:
+            raise ValueError("F exceeds available magnitude bits")
+
+    @property
+    def scale(self) -> float:
+        return float(2.0 ** self.frac)
+
+    @property
+    def resolution(self) -> float:
+        return float(2.0 ** (-self.frac))
+
+    @property
+    def max_value(self) -> float:
+        int_levels = 2 ** (self.width - self.signed)
+        return (int_levels - 1) * self.resolution
+
+    @property
+    def min_value(self) -> float:
+        if not self.signed:
+            return 0.0
+        return -(2.0 ** (self.width - 1 - self.frac))
+
+    def quantize(self, x: np.ndarray) -> np.ndarray:
+        """Round-to-nearest-even quantization with saturation (hardware clamp)."""
+        x = np.asarray(x, dtype=np.float64)
+        q = np.rint(x * self.scale) / self.scale
+        return np.clip(q, self.min_value, self.max_value)
+
+    def quantization_error_bound(self) -> float:
+        """Half-ULP rounding bound inside the representable range."""
+        return 0.5 * self.resolution
+
+    def to_bits(self, x: np.ndarray) -> np.ndarray:
+        """Two's-complement integer codes (for bit-exactness tests)."""
+        q = self.quantize(x)
+        codes = np.rint(q * self.scale).astype(np.int64)
+        if self.signed:
+            codes = codes & ((1 << self.width) - 1)
+        return codes
+
+    def from_bits(self, codes: np.ndarray) -> np.ndarray:
+        codes = np.asarray(codes, dtype=np.int64)
+        if self.signed:
+            sign_bit = 1 << (self.width - 1)
+            codes = np.where(codes & sign_bit, codes - (1 << self.width), codes)
+        return codes.astype(np.float64) * self.resolution
+
+
+# Table 3 I/O formats, keyed by function name: (input fmt, output fmt)
+PAPER_FORMATS = {
+    "tan": (FixedPointFormat(1, 32, 30), FixedPointFormat(1, 32, 27)),
+    "log": (FixedPointFormat(0, 32, 28), FixedPointFormat(1, 32, 29)),
+    "exp": (FixedPointFormat(0, 32, 29), FixedPointFormat(0, 32, 24)),
+    "tanh": (FixedPointFormat(1, 32, 27), FixedPointFormat(1, 32, 31)),
+    "gauss": (FixedPointFormat(1, 32, 28), FixedPointFormat(1, 32, 32 - 1)),  # see note
+    "sigmoid": (FixedPointFormat(1, 32, 27), FixedPointFormat(0, 32, 32)),
+}
+# Note: Table 3 prints (1,32,32) for gauss output — 33 bits of sign+frac in a 32-bit
+# word, impossible; the reference uses F=31 and flags the erratum in EXPERIMENTS.md.
 
 
 # --------------------------------------------------------------------------------------

@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or anything of the JAX package ``repro``.
+``chip_smoke.py`` or ``examples/quickstart_torch.py``, imports JAX or anything
+of the JAX package ``repro`` (the quickstart's run is checked in
+tests/test_torch_paper.py).
 
 Checked twice: by importing every module in a fresh interpreter and looking
 at ``sys.modules``, and by an AST scan of the sources (which also catches an
@@ -31,7 +33,10 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     for m in ("repro_torch.kernels.table_pack_lookup", "repro_torch.core.range_reduce",
-              "repro_torch.approx.range_fold", "repro_torch.kernels.routed_pack_lookup"):
+              "repro_torch.approx.range_fold", "repro_torch.kernels.routed_pack_lookup",
+              "repro_torch.core.bram", "repro_torch.core.stats",
+              "repro_torch.core.attn_error", "repro_torch.configs.tabla_paper",
+              "repro_torch.launch.paper"):
         assert m in mods, m
     code = (
         "import importlib, json, sys\n"
@@ -59,7 +64,8 @@ def _imported_roots(path: Path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "examples" / "quickstart_torch.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_has_no_jax_or_repro_import(path):
     bad = [(m, ln) for m, ln in _imported_roots(path) if m in FORBIDDEN]
