@@ -23,12 +23,16 @@ Phases, each fatal on failure (exit code 1, no result line):
    past it, pack_kernel); TableFlash also over ("silu", "exp_neg") at e_a
    3e-8 (exp_neg's staging image of 23 KB staged) and at e_a 3e-9 (its image
    past the 48 KB budget: the pack kernel's staging), with subnormal lanes;
-   and, on the same pack (the dense family's approx settings are
-   stablelm's), phases 25-27's shapes: the gate member of each (``gelu`` at
-   d_ff 12288 and 15360 up to gemma3's long prefill, ``silu`` at 20480) at
-   its decode and prefill shapes, the exponents at each model's head layout
-   and kv chunk, and the training gates and exponent slopes of starcoder2
-   and gemma3;
+   and, on the same pack (the dense and MoE families' approx settings are
+   stablelm's), phases 25-27's and 31-33's shapes: the gate member of each
+   (``gelu`` at d_ff 12288 and 15360 up to gemma3's long prefill, ``silu``
+   at 20480, and the MoE gates: deepseek-moe-16b's routed experts over
+   their (64, C, 1408) buffer and its shared experts over (T, 2816),
+   qwen3-moe-235b-a22b's experts over (128, C, 1536), C the capacity of T
+   tokens) at its decode and prefill shapes, the exponents at each model's
+   head layout and kv chunk (deepseek's 16 x 128, qwen3's 64 q / 4 kv,
+   g_eff 16), and the training gates and exponent slopes of starcoder2,
+   gemma3 and deepseek-moe-16b ((64, 61, 1408) and (512, 2816));
 4. serving path: full-width, full-depth stablelm-3b (random weights from seed
    0) serving the launcher's default traffic (8 requests, batch 4, cache 256,
    16 new tokens) through ContinuousEngine in ``table_pack`` with TableFlash;
@@ -79,7 +83,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``poly_pack_lookup`` and ``tableflash_exp`` must have launched and the
    tokens must equal the plain versions' (``quant_pack_ref`` /
    ``poly_pack_ref``);
-11. QuantPack / PolyPack training: full width and depth, 2 steps each in
+11. QuantPack / PolyPack training: full width cut to 8 of the 32 layers
+   (phases 15, 19 and 23 too: the run keeps to 900 s with phases 31-34;
+   phase 6 trains the main path at full depth), 2 steps each in
    ``quant_pack`` and ``poly_pack`` with TableFlash at the trainer's
    defaults; ``quant_pack_grad`` / ``poly_pack_grad`` must have launched,
    step 0's loss must equal the ``_ref`` mode's bit for bit and its grad norm
@@ -106,7 +112,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    equal the ``_ref`` mode's and the static mode's (``table_pack`` /
    ``quant_pack``, served in phases 4 and 10);
 15. routed training: 2 steps each in ``routed_pack`` and
-   ``routed_quant_pack`` (+ TableFlash) at the trainer's defaults, as phase 11;
+   ``routed_quant_pack`` (+ TableFlash) at the trainer's defaults, as phase 11
+   (8 layers; step 0 also equal to the static mode's at 8 layers);
 16. their times, as in phase 8, beside the static kernel of the same member
    at the same shape (the cost of dynamic dispatch), and the 512 x 6912 mixed
    batch against the six static launches it replaces;
@@ -123,17 +130,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    kernels, over stablelm-3b's poly pack and the mixed poly pack (the whole
    pack staged) and the mixed poly pack at e_a 1e-8 (past the budget:
    restaged per member), re-routed inside a CUDA graph too;
-18. table-served RoPE and routed PolyPack serving: full stablelm-3b serving
-   the 8 requests (+ TableFlash) with ``rope_table`` in ``table_pack``,
-   ``folded_pack`` and ``folded_routed_pack`` (tokens equal to the ``_ref``
-   mode's and to ``table_pack``'s with ``rope_table``), and in
+18. table-served RoPE and routed PolyPack serving: stablelm-3b at full
+   width cut to 8 of its 32 layers (their ``_ref`` runs through the plain
+   folded trig took ~46 s each at full depth) serving the 8 requests (+
+   TableFlash) with ``rope_table`` in ``table_pack``, ``folded_pack`` and
+   ``folded_routed_pack`` (tokens equal to the ``_ref`` mode's and to
+   ``table_pack``'s with ``rope_table``), and full stablelm-3b in
    ``routed_poly_pack`` (tokens equal to ``routed_poly_pack_ref``'s and to
    phase 10's ``poly_pack``); ``folded_pack_lookup`` and
    ``routed_poly_pack_lookup`` must have launched;
-19. their training: 2 steps each at the trainer's defaults in ``table_pack``
-   with ``rope_table`` and in ``routed_poly_pack`` (+ TableFlash), step 0 as
-   in phase 11 and ``routed_poly_pack``'s step-0 loss equal to
-   ``poly_pack``'s of phase 11; then ``ApproxConfig(mode="folded_pack")
+19. their training (8 layers): 2 steps each at the trainer's defaults in
+   ``table_pack`` with ``rope_table`` and in ``routed_poly_pack`` (+
+   TableFlash), step 0 as in phase 11 and ``routed_poly_pack``'s step-0
+   loss equal to ``poly_pack``'s of phase 11; then ``ApproxConfig(mode="folded_pack")
    .unary(name)`` under autograd for each of sin, cos, exp and log (the
    rotary angles carry no gradient, so the model's step does not reach the
    folded grad kernel): ``folded_pack_grad`` must launch and the gradient be
@@ -168,9 +177,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``routed_activation`` of ``sharded_pack`` over the 512 x 6912 batch, value
    and gradient (the routed sharded kernels: 1 value launch, 1 grad
    launch), bitwise the plain mode's;
-23. ShardedPack training: 2 steps at the trainer's defaults at
+23. ShardedPack training (8 layers): 2 steps at the trainer's defaults at
    ``pack_shards=4``, step-0 loss equal to ``sharded_pack_ref``'s and to
-   phase 6's ``table_pack`` bit for bit, and a third step under the
+   ``table_pack``'s at 8 layers bit for bit, and a third step under the
    profiler (device busy time and its kernels, as phase 6's); one
    ``sharded_pack_grad`` launch a gate call;
 24. their times: each sharded call at the decode and the training gate (the
@@ -231,17 +240,42 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``tableflash_exp`` kernel over stablelm-3b's pack against exact exp on
    the same seeded f32 q, k, v, at stablelm-3b's decode and prefill (cache
    256) and gemma3-12b's global layer decoding at cache 2,048 (two kv
-   chunks); each max row error within ``flash_abs_bound``.
+   chunks); each max row error within ``flash_abs_bound``;
+31. deepseek-moe-16b (64 routed experts top-6 of d_ff 1408 + 2 shared, 16
+   heads x 128 (MHA), vocab 102400; 16.88 B f32 parameters, random from
+   seed 0) at full width and depth serving the 8 requests in
+   ``table_pack`` + TableFlash, token-identical to ``table_pack_ref`` (the
+   MoE's capacity is shared across the batch, so the oracle is the same
+   queue, not each request alone); prefill and decode logits within 1e-6 of
+   ``table_pack_ref``'s; one decode step launching the gate twice a layer
+   (experts and shared experts) and the exponent twice a layer and kv
+   chunk; the decode-step and prefill ms, idle share, the host time and op
+   events of one decode step, and the peak memory, as phase 26;
+32. deepseek-moe-16b trained 2 steps at full width cut to 4 of its 28
+   layers (2.77 B f32 parameters: the f32 AdamW state of all 28 does not
+   fit one card), as phase 25's training, each step's aux loss beside its
+   loss, ``table_pack_grad`` launched 8 times a layer and micro-batch
+   (stablelm's 6 and 2 for the shared experts' gate);
+33. qwen3-moe-235b-a22b (128 experts top-8 of d_ff 1536, no shared expert,
+   64 q / 4 kv heads x 128, qk-norm, vocab 151936) at full width cut to 6
+   of its 94 layers (16.18 B f32 parameters) serving as phase 31, one gate
+   launch a layer;
+34. reference: reduced deepseek-moe-16b and qwen3-moe-235b-a22b in float32
+   on the card against the same models on the CPU, as phase 5.
 
-The line before the last is one JSON object listing the kernels (each one's
-launches from the path it serves; ``table_lookup`` and ``tableflash_exp``
-also carry ``paper_launches``, theirs in phases 29-30); the last line is
-``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout of
-the repository, the script exits non-zero and prints no result.
+Each phase prints its wall seconds (``phase N: ...s``) and the run ends
+with all of them in one line.  The line before the last is one JSON object
+listing the kernels (each one's launches from the path it serves;
+``table_lookup`` and ``tableflash_exp`` also carry ``paper_launches``,
+theirs in phases 29-30, and ``table_pack_lookup``, ``tableflash_exp`` and
+``table_pack_grad`` ``moe_launches``, theirs in phases 31-33); the last
+line is ``{"ok": true, "device": {...}}``.  Without a card, or outside a
+checkout of the repository, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -275,9 +309,15 @@ ROUTED_STATIC = {"routed_pack": "table_pack", "routed_quant_pack": "quant_pack",
                  "folded_pack+rope": "table_pack+rope",
                  "folded_routed_pack+rope": "table_pack+rope",
                  "sharded_pack": "table_pack"}
-# each training mode's step-0 loss (phases 6, 11, 15, 19, 23): a routed or
-# sharded mode whose static mode trained before must match it
+# each training mode's step-0 loss by (mode, depth) (phases 6, 11, 15, 19,
+# 23): a routed or sharded mode must match its static mode's at its depth
 STEP0 = {}
+# phases 11, 15, 19 and 23 train stablelm-3b cut to 8 of its 32 layers, and
+# phase 18 serves its three rope_table modes at 8 (their _ref runs through the
+# plain folded trig took ~46 s each at 32 layers), so that the run keeps to
+# 900 s of its 1,200 s limit with the MoE phases (31-34); phases 4 and 6
+# serve and train the main path at full depth
+NON_MAIN_TRAIN_LAYERS = ROPE_SERVE_LAYERS = 8
 PACK_SHARDS = 4  # the sharded paths' shard count: silu, the gate, is split
 SHARD_COUNTS = (1, 2, 3, 4, 8)  # the kernel checks'
 SHARDED = ("sharded_pack", "sharded_pack_ref")
@@ -295,6 +335,13 @@ ROPE_SHAPES = ((BATCH, 1, 40), (BATCH, 27, 40), (MICRO, TRAIN_SEQ, 40))
 YI_LAYERS, GEMMA_TRAIN_LAYERS = 24, 6
 LONG_REQ, LONG_LEN, LONG_CACHE = 2, (1100, 1200), 2048
 DENSE_FAMILY = ("starcoder2-3b", "gemma3-12b", "yi-34b")
+# phases 31-34: deepseek-moe-16b serves at full depth (16.88 B f32 parameters,
+# 62.9 GiB) and trains 4 of its 28 layers (2.77 B: the f32 AdamW state of all
+# 28, ~270 GB, does not fit one card); qwen3-moe-235b-a22b serves 6 of its 94
+# layers (16.18 B, 64.7 GB; each layer holds 2.49 B)
+MOE_FAMILY = ("deepseek-moe-16b", "qwen3-moe-235b-a22b")
+MOE_TRAIN_LAYERS, QWEN_LAYERS = 4, 6
+PHASE_S = {}  # each phase's wall seconds
 Q_CHUNK, KV_CHUNK = 512, 1024  # flash_attention's query and kv chunks
 
 
@@ -309,6 +356,15 @@ def check(cond, msg):
 
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def phase(label):
+    """Time the phases ``label`` ("4", "9-12", ...) on the host's wall clock."""
+    t0 = time.perf_counter()
+    yield
+    PHASE_S[label] = round(time.perf_counter() - t0, 1)
+    log(f"phase {label}: {PHASE_S[label]}s")
 
 
 # --------------------------------------------------------------------------------------
@@ -487,8 +543,8 @@ def with_subnormals(edges):
 
 def kernel_phase(f32_packs, s0, flash, dense):
     """The value kernels bitwise against their plain versions: stablelm-3b's
-    gate and TableFlash shapes, and ``dense`` (``dense_family_shapes``'s
-    serving half: phases 25-27's gate shapes by member, their exponent
+    gate and TableFlash shapes, and ``dense`` (``family_shapes``'s
+    serving half: phases 25-27's and 31-33's gate shapes by member, their exponent
     shapes) on the f32 pack that serves them all."""
     import torch
 
@@ -533,16 +589,16 @@ def kernel_phase(f32_packs, s0, flash, dense):
     log(f"kernels: {cases} kernel-vs-plain cases bitwise equal "
         f"(packs {[tag for tag, _, _ in f32_packs]}, bf16+f32, extrapolate on/off, "
         f"edges and subnormals; TableFlash over {[tag for tag, _ in flash]}; "
-        f"phases 25-27's gates { {k: len(v) for k, v in dense_gates.items()} } and "
-        f"{len(dense_flash)} exponent shapes)")
+        f"phases 25-27's and 31-33's gates {dense_gates} and "
+        f"exponent shapes {dense_flash})")
     return worst
 
 
 def grad_kernel_phase(f32_packs, tables, s0, dense):
     """The value + slope pack kernel over every member of each f32 pack, and
     the single-table kernels over each table, bitwise against their plain
-    versions.  ``dense`` (``dense_family_shapes``'s training half) adds the
-    dense family's training gates by member and exponent shapes."""
+    versions.  ``dense`` (``family_shapes``'s training half) adds the
+    dense and MoE families' training gates by member and exponent shapes."""
     import torch
 
     from repro_torch.kernels import table_grad as TG
@@ -596,7 +652,7 @@ def grad_kernel_phase(f32_packs, tables, s0, dense):
         f"(table_pack_grad over {[tag for tag, _, _ in f32_packs]}; "
         f"table_lookup[_grad] over {[tag for tag, _, _ in tables]}; bf16+f32, "
         f"extrapolate on/off, edges and subnormals, training gate {train_gate}; the "
-        f"dense family's training gates { {k: v for k, v in dense_gates.items()} } "
+        f"dense and MoE families' training gates {dense_gates} "
         f"and exponents {dense_flash})")
     return worst
 
@@ -791,12 +847,16 @@ def plain_step0(ref_model, params, batch):
     return float(loss), gn
 
 
-def train_steps(model, params, data, n_steps, smi_line, tag, profile_last=False):
+def train_steps(model, params, data, n_steps, smi_line, tag, profile_last=False,
+                aux_model=None):
     """``n_steps`` of make_train_step (AdamW at the launcher's settings for
     that many steps) from ``params``, updated in place.  Returns per-step
     rows, the kernel launch counts of the run and the peak memory (GiB).
     With ``profile_last`` the last step runs under torch.profiler and its
-    device busy time is returned as well."""
+    device busy time is returned as well.  With ``aux_model`` (an MoE
+    model's _ref twin: the plain versions, which launch nothing) each step's
+    aux loss, the mean over its micro-batches at the step's parameters, is
+    taken before the step, outside its time, and printed beside its loss."""
     import torch
 
     from repro_torch.kernels import table_pack_lookup as K
@@ -814,6 +874,14 @@ def train_steps(model, params, data, n_steps, smi_line, tag, profile_last=False)
     rows, busy_ms = [], None
     for s in range(n_steps):
         batch = batch_to(data.batch_at(s), "cuda")
+        aux = ""
+        if aux_model is not None:
+            with torch.no_grad():
+                toks = batch["tokens"]
+                micro = toks.reshape(TRAIN_ACCUM, -1, toks.shape[1])
+                aux = sum(float(aux_model.train_logits(state["params"], {"tokens": t})[1])
+                          for t in micro) / TRAIN_ACCUM
+            aux = f" aux {aux:.6f}"
         prof = s == n_steps - 1 and profile_last
         t0 = time.perf_counter()
         if prof:
@@ -823,7 +891,7 @@ def train_steps(model, params, data, n_steps, smi_line, tag, profile_last=False)
         loss, gn = float(m["loss"]), float(m["grad_norm"])
         ms = (time.perf_counter() - t0) * 1e3
         rows.append({"loss": loss, "grad_norm": gn, "ms": ms})
-        log(f"{tag}: step {s} loss {loss:.6f} grad_norm {gn:.6f} lr "
+        log(f"{tag}: step {s} loss {loss:.6f}{aux} grad_norm {gn:.6f} lr "
             f"{float(m['lr']):.3e} {ms:.1f} ms{' (under the profiler)' if prof else ''} "
             f"[{smi_line}]")
     counts = dict(K.launches)
@@ -894,7 +962,7 @@ def train_path(smi_line):
     gn_rel = abs(rows[0]["grad_norm"] - ref_gn) / ref_gn
     check(gn_rel <= 1e-3, f"step-0 grad norm {rows[0]['grad_norm']} vs "
           f"table_pack_ref's {ref_gn}: {gn_rel:.2e} > 1e-3")
-    STEP0["table_pack"] = losses[0]
+    STEP0["table_pack", cfg.n_layers] = losses[0]
     steady = [r["ms"] for r in rows[1:-1]]
     idle = f"{1 - busy_ms / min(steady):.3f}" if busy_ms and steady else "not measured"
     log(f"train: step-0 loss equals table_pack_ref's bit for bit ({ref_loss!r}); "
@@ -1178,17 +1246,19 @@ def quant_poly_kernel_phase(packs, s0):
     return worst
 
 
-def pack_serving_paths(smi_line, modes):
-    """Full stablelm-3b serving the 8 requests in each ``(mode, kernels)`` of
-    ``modes`` (+ TableFlash; a mode ending in "+rope" with ``rope_table``),
-    each against its _ref mode and a routed or folded mode also against its
-    static mode's tokens (``SERVED``).  Every kernel named must launch."""
+def pack_serving_paths(smi_line, modes, n_layers=None):
+    """Full stablelm-3b (``n_layers`` cuts its depth) serving the 8 requests
+    in each ``(mode, kernels)`` of ``modes`` (+ TableFlash; a mode ending in
+    "+rope" with ``rope_table``), each against its _ref mode and a routed or
+    folded mode also against its static mode's tokens (``SERVED``, served
+    at the same depth).  Every kernel named must launch."""
     import torch
 
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import build_model, get_config
 
     base = get_config("stablelm-3b")
+    base = base.replace(n_layers=n_layers or base.n_layers)
     params = build_model(base, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
     reqs = make_requests(base.vocab, N_REQ, MAX_NEW)
     counts = {}
@@ -1215,13 +1285,29 @@ def pack_serving_paths(smi_line, modes):
     return counts
 
 
+def static_step0(cfg, static, params, batch):
+    """The step-0 loss of the kernel mode ``static`` ("+rope" as in
+    pack_serving_paths) on ``params`` and ``batch`` at ``cfg``'s depth:
+    its grads through accumulated_grads, no update."""
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import accumulated_grads
+
+    mode, rope = static.split("+")[0], static.endswith("+rope")
+    model = build_model(_with_mode(cfg, mode, rope_table=rope, **_shard_kw(mode)),
+                        "cuda")
+    loss, _ = accumulated_grads(model, params, batch, TRAIN_ACCUM)
+    return float(loss)
+
+
 def pack_train_paths(smi_line, modes, profile=False):
-    """Full stablelm-3b, QP_STEPS steps in each ``(mode, kernels)`` of
-    ``modes`` (+ TableFlash; "+rope" as in pack_serving_paths), step 0
-    against the _ref mode and a routed mode's against its static mode's
-    (``STEP0``).  Every kernel named must launch.  With ``profile`` one more
-    step runs under torch.profiler: its device busy time against the
-    unprofiled steady step gives the idle share."""
+    """stablelm-3b at full width cut to NON_MAIN_TRAIN_LAYERS layers, QP_STEPS
+    steps in each ``(mode, kernels)`` of ``modes`` (+ TableFlash; "+rope" as
+    in pack_serving_paths), step 0 against the _ref mode and a routed or
+    sharded mode's against its static mode's at the same depth (``STEP0``;
+    taken here where no earlier phase trained the static mode that deep).
+    Every kernel named must launch.  With ``profile`` one more step runs
+    under torch.profiler: its device busy time against the unprofiled
+    steady step gives the idle share."""
     import math
 
     import torch
@@ -1230,15 +1316,20 @@ def pack_train_paths(smi_line, modes, profile=False):
     from repro_torch.train.loop import batch_to
 
     counts = {}
+    base = get_config("stablelm-3b").replace(n_layers=NON_MAIN_TRAIN_LAYERS)
     for key, knames in modes:
         mode, rope = key.split("+")[0], key.endswith("+rope")
-        cfg = _with_mode(get_config("stablelm-3b"), mode, attn_table=True,
-                         rope_table=rope, **_shard_kw(mode))
+        cfg = _with_mode(base, mode, attn_table=True, rope_table=rope,
+                         **_shard_kw(mode))
         model = build_model(cfg, "cuda")
         ref = build_model(_with_mode(cfg, mode + "_ref"), "cuda")
         params = model.init(torch.Generator(device="cuda").manual_seed(0))
         data = _trainer_data(cfg)
-        ref_loss, ref_gn = plain_step0(ref, params, batch_to(data.batch_at(0), "cuda"))
+        batch0 = batch_to(data.batch_at(0), "cuda")
+        ref_loss, ref_gn = plain_step0(ref, params, batch0)
+        static = ROUTED_STATIC.get(key)
+        if static and (static, cfg.n_layers) not in STEP0:
+            STEP0[static, cfg.n_layers] = static_step0(cfg, static, params, batch0)
         rows, c, peak, busy_ms = train_steps(model, params, data,
                                              QP_STEPS + int(profile), smi_line, key,
                                              profile_last=profile)
@@ -1250,14 +1341,15 @@ def pack_train_paths(smi_line, modes, profile=False):
         gn_rel = abs(rows[0]["grad_norm"] - ref_gn) / ref_gn
         check(gn_rel <= 1e-3, f"{mode} step-0 grad norm {rows[0]['grad_norm']} vs "
               f"{ref_gn}: {gn_rel:.2e} > 1e-3")
-        STEP0[key] = rows[0]["loss"]
+        STEP0[key, cfg.n_layers] = rows[0]["loss"]
         same = f"{mode}_ref's"
-        static = ROUTED_STATIC.get(key)
-        if static in STEP0:
-            check(rows[0]["loss"] == STEP0[static], f"{key} step-0 loss "
-                  f"{rows[0]['loss']!r} != {static}'s {STEP0[static]!r}")
+        if static:
+            want = STEP0[static, cfg.n_layers]
+            check(rows[0]["loss"] == want, f"{key} step-0 loss "
+                  f"{rows[0]['loss']!r} != {static}'s {want!r}")
             same += f" and {static}'s"
-        log(f"{key}: trained {len(rows)} steps, step-0 loss equals {same} bit "
+        log(f"{key}: trained {len(rows)} steps ({cfg.n_layers} of 32 layers), "
+            f"step-0 loss equals {same} bit "
             f"for bit ({ref_loss!r}), grad norm {rows[0]['grad_norm']:.6f} vs "
             f"{ref_gn:.6f} ({gn_rel:.2e} rel); step ms "
             f"{[round(r['ms'], 1) for r in rows]}; launches {c}; peak {peak:.2f} GiB "
@@ -2326,13 +2418,21 @@ def serve_against_plain(tag, model, ref, params, reqs, batch, cache_len, smi_lin
     return out, counts
 
 
+def gate_calls(cfg):
+    """The gate (``act``) calls of one layer's forward: the GLU's or MLP's
+    one; an MoE layer's routed experts' one over its (E, C, d_ff) buffer and
+    its shared experts' one, where it has them."""
+    return 1 + int(cfg.family == "moe" and cfg.moe.n_shared > 0)
+
+
 def logits_and_launches(tag, model, ref, params, rows, cache_len):
     """One prefill of ``rows`` and one decode step in ``model``'s table_pack
     and in ``ref``'s table_pack_ref on the same parameters: the logits of
     both equal (the kernels are bitwise their plain versions, the rest is
     the same code), finite and (B, vocab_pad); the table_pack decode step
-    launches the gate once a layer and the two running-softmax exponents
-    once a layer and kv chunk.  Returns the table_pack cache."""
+    launches the gate once for each gate call of a layer (``gate_calls``)
+    and the two running-softmax exponents once a layer and kv chunk.
+    Returns the table_pack cache."""
     import torch
 
     from repro_torch.kernels import table_pack_lookup as K
@@ -2359,15 +2459,16 @@ def logits_and_launches(tag, model, ref, params, rows, cache_len):
     # each layer attends over its own position buffer's width in kv chunks
     chunks = sum(-(-ck[pre + "pos"].shape[1] // KV_CHUNK)
                  for _, _, pre, _ in model._stack(params))
-    check(c["table_pack_lookup"] == cfg.n_layers,
-          f"{tag}: {c['table_pack_lookup']} gate launches a decode step, not one a "
-          f"layer ({cfg.n_layers})")
+    per = gate_calls(cfg)
+    check(c["table_pack_lookup"] == per * cfg.n_layers,
+          f"{tag}: {c['table_pack_lookup']} gate launches a decode step, not {per} a "
+          f"layer ({per * cfg.n_layers})")
     check(c["tableflash_exp"] == 2 * chunks, f"{tag}: {c['tableflash_exp']} exponent "
           f"launches a decode step, not 2 a layer and kv chunk ({2 * chunks})")
     widths = {n: ck[n].shape[1] for n in ck if n.endswith("pos")}
     log(f"{tag}: prefill (B={B}, S0={s0}) and decode logits equal table_pack_ref's "
         f"(max |diff| {diff}); one decode step (cache {cache_len}, position buffers "
-        f"{widths}) launches the {cfg.act} gate {c['table_pack_lookup']}x (one a "
+        f"{widths}) launches the {cfg.act} gate {c['table_pack_lookup']}x ({per} a "
         f"layer) and the exponent {c['tableflash_exp']}x (2 a layer and kv chunk)")
     return ck
 
@@ -2394,18 +2495,32 @@ def flash_exp_shapes(cfg, B, S, T):
     return [q + (min(KV_CHUNK, T),), q]
 
 
-def dense_family_shapes(s0):
-    """Phases 25-27's kernel shapes, as ``((gates, exponents), (gates,
-    exponents))`` for serving and training, gates by pack member.  Serving:
-    the gate of a decode step, of the queue's prefill (S0 = ``s0``) and of
-    gemma3-12b's long prefill, and the exponents over the same queries and
-    the caches' (and local rings') widths.  Training: a micro-batch of
-    starcoder2-3b and of gemma3-12b."""
+def gate_shapes(cfg, B, S):
+    """The shapes ``act`` sees in one forward of B x S tokens: the GLU's or
+    MLP's (B, S, d_ff); an MoE layer's (E, C, d_ff) expert buffer and its
+    shared experts' (B*S, n_shared * d_ff)."""
+    from repro_torch.models.mlp import moe_capacity
+
+    if cfg.family != "moe":
+        return [(B, S, cfg.d_ff)]
+    m, T = cfg.moe, B * S
+    C = moe_capacity(T, m.top_k, m.n_experts, m.capacity_factor)
+    shared = [(T, m.n_shared * cfg.d_ff)] if m.n_shared else []
+    return [(m.n_experts, C, cfg.d_ff)] + shared
+
+
+def family_shapes(s0):
+    """Phases 25-27's and 31-33's kernel shapes, as ``((gates, exponents),
+    (gates, exponents))`` for serving and training, gates by pack member.
+    Serving: the gates of a decode step, of the queue's prefill (S0 =
+    ``s0``) and of gemma3-12b's long prefill, and the exponents over the same
+    queries and the caches' (and local rings') widths.  Training: a
+    micro-batch of starcoder2-3b, gemma3-12b and deepseek-moe-16b."""
     from repro_torch.models import get_config
 
     serve_g, serve_f, train_g, train_f = {}, [], {}, []
     approx = get_config("stablelm-3b").approx
-    for arch in DENSE_FAMILY:
+    for arch in DENSE_FAMILY + MOE_FAMILY:
         cfg = get_config(arch)
         check(cfg.approx == approx, f"{arch}'s approx settings are not stablelm-3b's: "
               "phase 3's pack does not serve it")
@@ -2417,10 +2532,10 @@ def dense_family_shapes(s0):
             # each chunk of the 2,048-slot global buffer
             runs += [(LONG_REQ, 1, LONG_CACHE), (LONG_REQ, lmax, lmax)]
         for B, S, T in runs:
-            serve_g.setdefault(member, []).append((B, S, cfg.d_ff))
+            serve_g.setdefault(member, []).extend(gate_shapes(cfg, B, S))
             serve_f += flash_exp_shapes(cfg, B, S, T)
-        if arch != "yi-34b":
-            train_g.setdefault(member, []).append((MICRO, TRAIN_SEQ, cfg.d_ff))
+        if arch not in ("yi-34b", "qwen3-moe-235b-a22b"):  # these serve only
+            train_g.setdefault(member, []).extend(gate_shapes(cfg, MICRO, TRAIN_SEQ))
             train_f += flash_exp_shapes(cfg, MICRO, TRAIN_SEQ, TRAIN_SEQ)
     dedup = lambda shapes: list(dict.fromkeys(shapes))
     return (({k: dedup(v) for k, v in serve_g.items()}, dedup(serve_f)),
@@ -2443,11 +2558,14 @@ def dense_model(arch, n_layers=None):
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    g = cfg.attn_geom
+    g, m = cfg.attn_geom, cfg.moe
     cut = (f" (cut from {full.n_layers})" if cfg.n_layers != full.n_layers else "")
+    ffn = (f"moe {m.n_experts} experts top-{m.top_k} + {m.n_shared} shared, "
+           f"capacity factor {m.capacity_factor}" if cfg.family == "moe"
+           else cfg.mlp_kind)
     log(f"{arch}: {cfg.n_layers}L{cut} d={cfg.d_model} {cfg.n_heads} q / "
         f"{cfg.n_kv_heads} kv heads (h_eff {g.h_eff}, g_eff {g.g_eff}) x "
-        f"{cfg.head_dim}, {cfg.mlp_kind} {cfg.act} d_ff={cfg.d_ff}, vocab {cfg.vocab} "
+        f"{cfg.head_dim}, {ffn} {cfg.act} d_ff={cfg.d_ff}, vocab {cfg.vocab} "
         f"(padded {cfg.vocab_pad}), period {model.period}, tied "
         f"{cfg.tie_embeddings}, qk_norm {cfg.attn.qk_norm}, rope {cfg.attn.rope_theta:g}: "
         f"{sum(t.numel() for t in leaves(params)) / 1e9:.2f}B f32 parameters "
@@ -2456,14 +2574,17 @@ def dense_model(arch, n_layers=None):
     return model, ref, params
 
 
-def dense_serving_path(arch, smi_line, n_layers=None, long_queue=False):
-    """Phases 25-27: ``arch`` serving the launcher's 8 requests against
-    table_pack_ref, the prefill and decode logits against table_pack_ref's
-    with one decode step's launches, and the decode-step and prefill ms of
-    table_pack, table_pack_ref and exact with a profiler view of the
-    table_pack step (``step_breakdown``).  With ``long_queue`` (gemma3-12b,
-    phase 26) also ``long_requests`` in a LONG_CACHE cache, which wrap the
-    local rings."""
+def dense_serving_path(arch, smi_line, n_layers=None, long_queue=False,
+                       host_cost=False):
+    """Phases 25-27 and 31, 33: ``arch`` serving the launcher's 8 requests
+    against table_pack_ref, the prefill and decode logits against
+    table_pack_ref's with one decode step's launches, and the decode-step and
+    prefill ms of table_pack, table_pack_ref and exact with a profiler view
+    of the table_pack step (``step_breakdown``).  With ``long_queue``
+    (gemma3-12b, phase 26) also ``long_requests`` in a LONG_CACHE cache,
+    which wrap the local rings.  With ``host_cost`` also the host time and
+    operator events of one table_pack decode step.  Returns the serving
+    run's launches."""
     import torch
 
     from repro_torch.launch.serve import make_requests
@@ -2473,7 +2594,8 @@ def dense_serving_path(arch, smi_line, n_layers=None, long_queue=False):
     model, ref, params = dense_model(arch, n_layers)
     cfg = model.cfg
     reqs = make_requests(cfg.vocab, N_REQ, MAX_NEW)
-    serve_against_plain(arch, model, ref, params, reqs, BATCH, CACHE_LEN, smi_line)
+    _, counts = serve_against_plain(arch, model, ref, params, reqs, BATCH, CACHE_LEN,
+                                    smi_line)
     rows = prompt_rows(reqs, BATCH)
     cache = logits_and_launches(arch, model, ref, params, rows, CACHE_LEN)
     if long_queue:
@@ -2487,16 +2609,28 @@ def dense_serving_path(arch, smi_line, n_layers=None, long_queue=False):
     exact = build_model(_with_mode(cfg, "exact"), "cuda")
     step_breakdown({"table_pack": model, "table_pack_ref": ref, "exact": exact},
                    params, rows, cache, smi_line, tag=f"{arch} ")
+    if host_cost:
+        tok = rows[:, -1:]
+        pos = torch.full((BATCH,), rows.shape[1], dtype=torch.int32, device="cuda")
+        with torch.inference_mode():
+            host_us, n_ops = _host_cost(lambda: model.decode_step(params, tok, pos,
+                                                                  cache), 5)
+        log(f"host: {arch} table_pack decode step: {host_us / 1e3:.3f} ms host, "
+            f"{n_ops} host op events ({n_ops / cfg.n_layers:.1f} a layer) [{smi_line}]")
     del model, ref, exact, params, cache
     torch.cuda.empty_cache()
+    return counts
 
 
 def dense_train_path(arch, smi_line, per_layer, n_layers=None):
-    """Phases 25-26's training: ``arch`` at full width (``n_layers`` cuts its
-    depth), QP_STEPS steps at the trainer's defaults in table_pack +
-    TableFlash, step 0 against table_pack_ref.  ``per_layer`` is phase 6's
-    table_pack_grad launches a layer and micro-batch (stablelm's silu gate
-    and flash slopes): the gate of ``arch`` must launch as often."""
+    """Phases 25-26's and 32's training: ``arch`` at full width (``n_layers``
+    cuts its depth), QP_STEPS steps at the trainer's defaults in table_pack +
+    TableFlash, step 0 against table_pack_ref (an MoE model's aux printed
+    beside each step's loss).  ``per_layer`` is phase 6's table_pack_grad
+    launches a layer and micro-batch (stablelm's silu gate: 1 gate call,
+    2 launches, the forward's and remat's recompute; flash's two exponent
+    slopes: 4): each further gate call of a layer (an MoE layer's shared
+    experts) adds 2.  Returns the training run's launches."""
     import torch
 
     from repro_torch.train.loop import batch_to
@@ -2504,7 +2638,9 @@ def dense_train_path(arch, smi_line, per_layer, n_layers=None):
     model, ref, params = dense_model(arch, n_layers)
     data = _trainer_data(model.cfg)
     ref_loss, ref_gn = plain_step0(ref, params, batch_to(data.batch_at(0), "cuda"))
-    rows, c, peak, _ = train_steps(model, params, data, QP_STEPS, smi_line, arch)
+    moe = model.cfg.family == "moe"
+    rows, c, peak, _ = train_steps(model, params, data, QP_STEPS, smi_line, arch,
+                                   aux_model=ref if moe else None)
     for k in ("table_pack_grad", "tableflash_exp"):
         check(c[k] > 0, f"{arch}: kernel {k} was not launched training")
     check(all(math.isfinite(r["loss"]) for r in rows), f"non-finite {arch} loss")
@@ -2514,17 +2650,20 @@ def dense_train_path(arch, smi_line, per_layer, n_layers=None):
     check(gn_rel <= 1e-3, f"{arch} step-0 grad norm {rows[0]['grad_norm']} vs "
           f"table_pack_ref's {ref_gn}: {gn_rel:.2e} > 1e-3")
     per = c["table_pack_grad"] / (QP_STEPS * model.cfg.n_layers * TRAIN_ACCUM)
-    check(per == per_layer, f"{arch}: {per} table_pack_grad launches a layer and "
-          f"micro-batch, stablelm's silu gate and flash slopes {per_layer}")
+    want = per_layer + 2 * (gate_calls(model.cfg) - 1)
+    check(per == want, f"{arch}: {per} table_pack_grad launches a layer and "
+          f"micro-batch, not {want} (stablelm's silu gate and flash slopes "
+          f"{per_layer}, 2 for each further gate call)")
     log(f"{arch}: trained {len(rows)} steps ({model.cfg.n_layers}L, batch "
         f"{TRAIN_BATCH} x {TRAIN_SEQ}, accum {TRAIN_ACCUM}), step-0 loss equals "
         f"table_pack_ref's bit for bit ({ref_loss!r}), grad norm "
         f"{rows[0]['grad_norm']:.6f} vs {ref_gn:.6f} ({gn_rel:.2e} rel); step ms "
         f"{[round(r['ms'], 1) for r in rows]}; table_pack_grad {per:g} a layer and "
-        f"micro-batch, as stablelm's; launches { {k: v for k, v in c.items() if v} }; "
-        f"peak {peak:.2f} GiB [{smi_line}]")
+        f"micro-batch (gate calls a layer: {gate_calls(model.cfg)}); launches "
+        f"{ {k: v for k, v in c.items() if v} }; peak {peak:.2f} GiB [{smi_line}]")
     del model, ref, params
     torch.cuda.empty_cache()
+    return c
 
 
 # --------------------------------------------------------------------------------------
@@ -2769,124 +2908,174 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     try:
-        name, smi_line = device_info()
-        build_kernels()
+        with phase("1-2"):
+            name, smi_line = device_info()
+            build_kernels()
         from repro_torch.launch.serve import make_requests
         from repro_torch.models import get_config
 
         cfg = get_config("stablelm-3b")
-        # the pack stablelm-3b's own approx settings build (e_a 1e-4, omega 0.2)
-        pack = dataclasses.replace(cfg.approx, mode="table_pack").pack("cuda")
-        s0 = max(len(r.prompt) for r in make_requests(cfg.vocab, N_REQ, MAX_NEW))
-        log(f"pack: {pack.names}, {pack.footprint} f32 entries, n_max {pack.n_max}, "
-            f"intervals {pack.n_intervals}; main-path prefill width S0={s0}")
-        approx = dataclasses.replace(cfg.approx, mode="table_pallas")
-        f32_packs = static_f32_packs(pack, cfg.approx)
-        # the dense family's shapes (phases 25-27) on the same pack: its
-        # approx settings are stablelm-3b's
-        serve_shapes, train_shapes = dense_family_shapes(s0)
-        worst = kernel_phase(f32_packs, s0, flash_packs(pack, approx), serve_shapes)
-        worst.update(grad_kernel_phase(f32_packs, static_tables(approx, pack.names), s0,
-                                       train_shapes))
+        with phase("3"):
+            # the pack stablelm-3b's own approx settings build (e_a 1e-4, omega 0.2)
+            pack = dataclasses.replace(cfg.approx, mode="table_pack").pack("cuda")
+            s0 = max(len(r.prompt) for r in make_requests(cfg.vocab, N_REQ, MAX_NEW))
+            log(f"pack: {pack.names}, {pack.footprint} f32 entries, n_max {pack.n_max}, "
+                f"intervals {pack.n_intervals}; main-path prefill width S0={s0}")
+            approx = dataclasses.replace(cfg.approx, mode="table_pallas")
+            f32_packs = static_f32_packs(pack, cfg.approx)
+            # the dense and MoE families' shapes (phases 25-27, 31-33) on the same
+            # pack: their approx settings are stablelm-3b's
+            serve_shapes, train_shapes = family_shapes(s0)
+            worst = kernel_phase(f32_packs, s0, flash_packs(pack, approx), serve_shapes)
+            worst.update(grad_kernel_phase(f32_packs, static_tables(approx, pack.names),
+                                           s0, train_shapes))
         # each kernel's launches come from the run of the path it serves,
         # counted from 0 just before that path and read just after it
-        counts = main_path(smi_line)
-        reference_check()
-        counts["table_pack_grad"] = train_path(smi_line)["table_pack_grad"]
-        serve_counts, train_counts = table_pallas_path(smi_line)
+        with phase("4"):
+            counts = main_path(smi_line)
+        with phase("5"):
+            reference_check()
+        with phase("6"):
+            counts["table_pack_grad"] = train_path(smi_line)["table_pack_grad"]
+        with phase("7"):
+            serve_counts, train_counts = table_pallas_path(smi_line)
         counts["table_lookup"] = serve_counts["table_lookup"]
         counts["table_lookup_grad"] = train_counts["table_lookup_grad"]
-        times = timing_phase(pack, approx, smi_line)
-        qp_packs = quant_poly_packs(cfg.approx)
-        big_poly = past_budget_poly_pack(cfg.approx)
-        worst.update(quant_poly_kernel_phase(
-            qp_packs + (("poly", "mixed poly e_a 1e-8", big_poly),), s0))
-        counts.update(pack_serving_paths(smi_line, (
-            ("quant_pack", ("quant_pack_lookup",)), ("poly_pack", ("poly_pack_lookup",)))))
-        counts.update(pack_train_paths(smi_line, (
-            ("quant_pack", ("quant_pack_grad",)), ("poly_pack", ("poly_pack_grad",)))))
-        times.update(quant_poly_timing_phase(qp_packs[0][2], qp_packs[2][2], smi_line))
-        r_packs = (routed_f32_packs(pack, f32_packs[1][1])
-                   + routed_quant_packs(cfg.approx, qp_packs[0][2], qp_packs[1][2],
-                                        qp_packs[4][2]))
-        worst.update(routed_kernel_phase(r_packs, s0))
-        # (the phase re-routes both f32 packs) the quant pack staged whole and
-        # restaged per member
-        reroute_check(r_packs[2][1], r_packs[-1][1])
-        del r_packs
-        counts.update(pack_serving_paths(smi_line, (
-            ("routed_pack", ("routed_pack_lookup",)),
-            ("routed_quant_pack", ("routed_quant_pack_lookup",)))))
-        counts.update(pack_train_paths(smi_line, (
-            ("routed_pack", ("routed_pack_grad",)),
-            ("routed_quant_pack", ("routed_quant_pack_grad",)))))
-        # per-element f32 operations beyond the compares, as phases 8 and 12
-        times.update(routed_timing_phase(((pack, 14), (qp_packs[0][2], 22)), smi_line))
+        with phase("8"):
+            times = timing_phase(pack, approx, smi_line)
+        with phase("9"):
+            qp_packs = quant_poly_packs(cfg.approx)
+            big_poly = past_budget_poly_pack(cfg.approx)
+            worst.update(quant_poly_kernel_phase(
+                qp_packs + (("poly", "mixed poly e_a 1e-8", big_poly),), s0))
+        with phase("10"):
+            counts.update(pack_serving_paths(smi_line, (
+                ("quant_pack", ("quant_pack_lookup",)),
+                ("poly_pack", ("poly_pack_lookup",)))))
+        with phase("11"):
+            counts.update(pack_train_paths(smi_line, (
+                ("quant_pack", ("quant_pack_grad",)),
+                ("poly_pack", ("poly_pack_grad",)))))
+        with phase("12"):
+            times.update(quant_poly_timing_phase(qp_packs[0][2], qp_packs[2][2],
+                                                 smi_line))
+        with phase("13"):
+            r_packs = (routed_f32_packs(pack, f32_packs[1][1])
+                       + routed_quant_packs(cfg.approx, qp_packs[0][2], qp_packs[1][2],
+                                            qp_packs[4][2]))
+            worst.update(routed_kernel_phase(r_packs, s0))
+            # (the phase re-routes both f32 packs) the quant pack staged whole and
+            # restaged per member
+            reroute_check(r_packs[2][1], r_packs[-1][1])
+            del r_packs
+        with phase("14"):
+            counts.update(pack_serving_paths(smi_line, (
+                ("routed_pack", ("routed_pack_lookup",)),
+                ("routed_quant_pack", ("routed_quant_pack_lookup",)))))
+        with phase("15"):
+            counts.update(pack_train_paths(smi_line, (
+                ("routed_pack", ("routed_pack_grad",)),
+                ("routed_quant_pack", ("routed_quant_pack_grad",)))))
+        with phase("16"):
+            # per-element f32 operations beyond the compares, as phases 8 and 12
+            times.update(routed_timing_phase(((pack, 14), (qp_packs[0][2], 22)),
+                                             smi_line))
         # 17-20: RangeFold (table-served RoPE) and routed PolyPack
-        f_packs = fold_packs(cfg.approx)
-        fold_pack = f_packs[0][1]
-        log(f"fold pack: {fold_pack.names}, intervals {fold_pack.n_intervals}")
-        worst.update(folded_kernel_phase(f_packs))
-        del f_packs
-        worst.update(routed_kernel_phase((("poly", qp_packs[2][2]),
-                                          ("mixed poly", qp_packs[3][2]),
-                                          ("mixed poly e_a 1e-8", big_poly)), s0))
-        reroute_check(big_poly)
-        del big_poly
+        with phase("17"):
+            f_packs = fold_packs(cfg.approx)
+            fold_pack = f_packs[0][1]
+            log(f"fold pack: {fold_pack.names}, intervals {fold_pack.n_intervals}")
+            worst.update(folded_kernel_phase(f_packs))
+            del f_packs
+            worst.update(routed_kernel_phase((("poly", qp_packs[2][2]),
+                                              ("mixed poly", qp_packs[3][2]),
+                                              ("mixed poly e_a 1e-8", big_poly)), s0))
+            reroute_check(big_poly)
+            del big_poly
         # each mode's launches, counted from 0 before it serves or trains
-        serve18 = pack_serving_paths(smi_line, (
-            ("table_pack+rope", ("folded_pack_lookup", "table_pack_lookup")),
-            ("folded_pack+rope", ("folded_pack_lookup", "table_pack_lookup")),
-            ("folded_routed_pack+rope", ("folded_pack_lookup", "routed_pack_lookup")),
-            ("routed_poly_pack", ("routed_poly_pack_lookup",))))
+        with phase("18"):
+            serve18 = pack_serving_paths(smi_line, (
+                ("table_pack+rope", ("folded_pack_lookup", "table_pack_lookup")),
+                ("folded_pack+rope", ("folded_pack_lookup", "table_pack_lookup")),
+                ("folded_routed_pack+rope", ("folded_pack_lookup",
+                                             "routed_pack_lookup"))),
+                n_layers=ROPE_SERVE_LAYERS)
+            serve18.update(pack_serving_paths(smi_line, (
+                ("routed_poly_pack", ("routed_poly_pack_lookup",)),)))
         counts["folded_pack_lookup"] = serve18["folded_pack_lookup"]
         counts["routed_poly_pack_lookup"] = serve18["routed_poly_pack_lookup"]
-        train19 = pack_train_paths(smi_line, (
-            ("table_pack+rope", ("folded_pack_lookup", "table_pack_grad")),
-            ("routed_poly_pack", ("routed_poly_pack_grad",))))
+        with phase("19"):
+            train19 = pack_train_paths(smi_line, (
+                ("table_pack+rope", ("folded_pack_lookup", "table_pack_grad")),
+                ("routed_poly_pack", ("routed_poly_pack_grad",))))
+            counts["folded_pack_grad"] = folded_autograd_check(smi_line)
         counts["routed_poly_pack_grad"] = train19["routed_poly_pack_grad"]
-        counts["folded_pack_grad"] = folded_autograd_check(smi_line)
-        times.update(folded_timing_phase(fold_pack, smi_line))
-        poly = qp_packs[2][2]
-        d = poly.degrees[poly.fn_id("silu")]
-        times.update(routed_timing_phase(((poly, 10 + 6 * (d + 1) + 5 * d),), smi_line))
+        with phase("20"):
+            times.update(folded_timing_phase(fold_pack, smi_line))
+            poly = qp_packs[2][2]
+            d = poly.degrees[poly.fn_id("silu")]
+            times.update(routed_timing_phase(((poly, 10 + 6 * (d + 1) + 5 * d),),
+                                             smi_line))
         # 21-24: ShardedPack
-        t21 = time.perf_counter()
-        s_packs = sharded_packs(cfg.approx)
-        worst.update(sharded_kernel_phase(s_packs, s0))
-        worst.update(sharded_routed_kernel_phase(s_packs, s0))
-        log(f"sharded: phase 21 in {time.perf_counter() - t21:.1f}s")
-        del s_packs
-        counts.update(sharded_serving_path(smi_line, counts["table_pack_lookup"]))
-        train23 = pack_train_paths(smi_line, (("sharded_pack", ("sharded_pack_grad",)),),
-                                   profile=True)
+        with phase("21"):
+            s_packs = sharded_packs(cfg.approx)
+            worst.update(sharded_kernel_phase(s_packs, s0))
+            worst.update(sharded_routed_kernel_phase(s_packs, s0))
+            del s_packs
+        with phase("22"):
+            counts.update(sharded_serving_path(smi_line, counts["table_pack_lookup"]))
+        with phase("23"):
+            train23 = pack_train_paths(smi_line, (("sharded_pack",
+                                                   ("sharded_pack_grad",)),),
+                                       profile=True)
         # the gate calls of its QP_STEPS + 1 steps: routed_pack's gate grad
         # launches once a call over QP_STEPS steps of the same trainer
-        gate_calls = counts["routed_pack_grad"] // QP_STEPS * (QP_STEPS + 1)
-        check(train23["sharded_pack_grad"] == gate_calls,
+        gate_calls23 = counts["routed_pack_grad"] // QP_STEPS * (QP_STEPS + 1)
+        check(train23["sharded_pack_grad"] == gate_calls23,
               f"sharded_pack_grad launches {train23['sharded_pack_grad']} != the "
-              f"{gate_calls} gate calls (one launch a call)")
+              f"{gate_calls23} gate calls (one launch a call)")
         log(f"sharded_pack: 1 grad launch over {PACK_SHARDS} shards for each of the "
-            f"{gate_calls} gate calls of {QP_STEPS + 1} training steps")
+            f"{gate_calls23} gate calls of {QP_STEPS + 1} training steps")
         counts["sharded_pack_grad"] = train23["sharded_pack_grad"]
-        times.update(sharded_timing_phase(cfg.approx, smi_line))
+        with phase("24"):
+            times.update(sharded_timing_phase(cfg.approx, smi_line))
         # 25-28: the rest of the dense family, through the pack kernels
-        t25 = time.perf_counter()
         per_layer = counts["table_pack_grad"] / (TRAIN_STEPS * cfg.n_layers * TRAIN_ACCUM)
-        dense_serving_path("starcoder2-3b", smi_line)
-        dense_train_path("starcoder2-3b", smi_line, per_layer)
-        dense_serving_path("gemma3-12b", smi_line, long_queue=True)
-        dense_train_path("gemma3-12b", smi_line, per_layer, n_layers=GEMMA_TRAIN_LAYERS)
-        dense_serving_path("yi-34b", smi_line, n_layers=YI_LAYERS)
-        reference_check("gemma3-12b", window=8)
-        reference_check("starcoder2-3b")
-        log(f"dense family: phases 25-28 in {time.perf_counter() - t25:.1f}s")
-        # 29-30: the paper's cells through the table kernel, TableFlash's bound
-        t29 = time.perf_counter()
+        with phase("25"):
+            dense_serving_path("starcoder2-3b", smi_line)
+            dense_train_path("starcoder2-3b", smi_line, per_layer)
+        with phase("26"):
+            dense_serving_path("gemma3-12b", smi_line, long_queue=True)
+            dense_train_path("gemma3-12b", smi_line, per_layer,
+                             n_layers=GEMMA_TRAIN_LAYERS)
+        with phase("27"):
+            dense_serving_path("yi-34b", smi_line, n_layers=YI_LAYERS)
+        with phase("28"):
+            reference_check("gemma3-12b", window=8)
+            reference_check("starcoder2-3b")
+        # 29-30: the paper's cells through the table kernel, TableFlash's bound;
         # their own launches, beside the kernels line's main-path counts
-        paper_launches = {"table_lookup": paper_phase(smi_line),
-                          "tableflash_exp": flash_bound_phase(smi_line)}
-        log(f"paper: phases 29-30 in {time.perf_counter() - t29:.1f}s")
+        with phase("29"):
+            paper_launches = {"table_lookup": paper_phase(smi_line)}
+        with phase("30"):
+            paper_launches["tableflash_exp"] = flash_bound_phase(smi_line)
+        # 31-34: the MoE family, through the pack kernels; their launches too
+        moe_launches = {}
+
+        def add(c):
+            for k in ("table_pack_lookup", "tableflash_exp", "table_pack_grad"):
+                moe_launches[k] = moe_launches.get(k, 0) + c[k]
+        with phase("31"):
+            add(dense_serving_path("deepseek-moe-16b", smi_line, host_cost=True))
+        with phase("32"):
+            add(dense_train_path("deepseek-moe-16b", smi_line, per_layer,
+                                 n_layers=MOE_TRAIN_LAYERS))
+        with phase("33"):
+            add(dense_serving_path("qwen3-moe-235b-a22b", smi_line, n_layers=QWEN_LAYERS,
+                                   host_cost=True))
+        with phase("34"):
+            for arch in MOE_FAMILY:
+                reference_check(arch)
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2921,6 +3110,9 @@ def main() -> int:
             **times[kname]})
         if kname in paper_launches:  # phases 29-30 drive these two again
             kernels[-1]["paper_launches"] = paper_launches[kname]
+        if kname in moe_launches:  # and phases 31-33 these three
+            kernels[-1]["moe_launches"] = moe_launches[kname]
+    log(f"phase seconds: {json.dumps(PHASE_S)}")
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))

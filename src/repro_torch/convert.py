@@ -5,7 +5,9 @@ handed over as numpy arrays (this module imports no JAX), and returns the
 port's nested dict of tensors: the stacked layer axes are unstacked into lists
 of per-layer dicts (``layers`` (L, ...) into a list; a local:global stack's
 ``layers_loc`` (n_groups, period-1, ...) into a list of n_groups lists and
-``layers_glob`` (n_groups, ...) into a list), and every weight keeps the JAX
+``layers_glob`` (n_groups, ...) into a list; an MoE layer's ``moe`` subtree
+unstacks alike: ``router.w`` (L, d, E), ``experts.wi``/``wu`` (L, E, d, f) and
+``wd`` (L, E, f, d), and the ``shared`` GLU), and every weight keeps the JAX
 layout — ``wq`` stays (d, H, D) — except ``wo``, which is reshaped to (g_eff,
 q_per_group, D, d) as ``attention_out`` contracts it.  The port and the reference then compute the
 same function, which is what the parity tests compare.

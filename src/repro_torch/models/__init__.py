@@ -1,4 +1,4 @@
-"""repro_torch.models — the ported architectures (dense decoder so far)."""
+"""repro_torch.models — the ported architectures (the dense and MoE decoder)."""
 
 from .config import ArchConfig, ShapeSpec
 from .registry import ARCH_IDS, build_model, get_config, reduced

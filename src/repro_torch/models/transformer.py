@@ -1,5 +1,6 @@
-"""DecoderLM — the dense GQA transformer behind one API (the JAX package's
-``models/transformer.py::DecoderLM``), period-1 and local:global stacks:
+"""DecoderLM — the dense and MoE GQA transformer behind one API (the JAX
+package's ``models/transformer.py::DecoderLM``), period-1 and local:global
+stacks:
 
     model = build_model(cfg, device=...)          # repro_torch.models.registry
     params = model.init(generator)
@@ -22,9 +23,13 @@ cache holds a ring of min(LOCAL_WINDOW, cache_len) slots for the local layers
 and a full buffer for the global ones (``glob_k``/``glob_v`` (n_groups, B,
 cache_len, G, D), ``glob_pos``).  ``cfg.remat`` (the reference's
 ``jax.checkpoint`` around the scan body) checkpoints each layer of
-``train_logits`` with ``torch.utils.checkpoint``.  All nonlinearities route
-through ``cfg.approx`` (the paper's table backend).  MoE stacks come with
-ROADMAP queue 1, item 11c.
+``train_logits`` with ``torch.utils.checkpoint``.  An MoE stack
+(``cfg.family == "moe"``: deepseek-moe-16b, qwen3-moe-235b-a22b) has a
+``moe`` subtree (router, experts, shared experts) in place of each layer's
+``mlp``; its blocks return the layer's load-balance aux loss, which
+``train_logits`` sums over the layers and divides by ``n_layers``, and which
+prefill and decode drop.  All nonlinearities route through ``cfg.approx``
+(the paper's table backend).
 """
 
 from __future__ import annotations
@@ -51,8 +56,8 @@ from .common import (
     softcap,
     unembed,
 )
-from .config import DENSE, ArchConfig
-from .mlp import glu, init_glu, init_mlp, mlp
+from .config import DENSE, MOE, ArchConfig
+from .mlp import glu, init_glu, init_mlp, init_moe, mlp, moe
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
@@ -94,10 +99,10 @@ def _decode_positions(pos: torch.Tensor, pos_buf: torch.Tensor, W: int):
 
 class DecoderLM:
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
-        if cfg.family != DENSE:
+        if cfg.family not in (DENSE, MOE):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet: ROADMAP queue 1, "
-                "items 11c-f (remaining model families)")
+                "items 11d-f (remaining model families)")
         self.period = max(1, cfg.attn.global_every)
         if cfg.n_layers % self.period:
             raise ValueError("n_layers must be divisible by the local:global period")
@@ -124,7 +129,10 @@ class DecoderLM:
                                    qk_norm=cfg.attn.qk_norm, dtype=dt),
             "ln2": init_rmsnorm(cfg.d_model, self.device, dt),
         }
-        if cfg.mlp_kind == "glu":
+        if cfg.family == MOE:
+            p["moe"] = init_moe(gen, cfg.d_model, cfg.d_ff, cfg.moe.n_experts,
+                                cfg.moe.n_shared, dt)
+        elif cfg.mlp_kind == "glu":
             p["mlp"] = init_glu(gen, cfg.d_model, cfg.d_ff, dt)
         else:
             p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt)
@@ -168,10 +176,19 @@ class DecoderLM:
         return logits
 
     def _ffn(self, lp, x):
+        """The feed-forward half: (x + ffn(x), the layer's aux loss, None for
+        a dense layer)."""
+        cfg = self.cfg
         hin = rmsnorm(lp["ln2"], x)
-        if self.cfg.mlp_kind == "glu":
-            return x + glu(lp["mlp"], hin, self.act)
-        return x + mlp(lp["mlp"], hin, self.act)
+        if cfg.family == MOE:
+            ff, aux = moe(lp["moe"], hin, self.act, top_k=cfg.moe.top_k,
+                          capacity_factor=cfg.moe.capacity_factor,
+                          device_groups=cfg.moe.device_groups,
+                          max_groups=cfg.moe.max_groups)
+            return x + ff, aux
+        if cfg.mlp_kind == "glu":
+            return x + glu(lp["mlp"], hin, self.act), None
+        return x + mlp(lp["mlp"], hin, self.act), None
 
     def _qkv(self, lp, x, positions):
         cfg = self.cfg
@@ -180,13 +197,14 @@ class DecoderLM:
                            rope_sin_cos=self.rope_sin_cos)
 
     def _self_block(self, lp, x, positions, window):
-        """Prefill block: attend within x.  Returns (x, (k, v))."""
+        """Train/prefill block: attend within x.  Returns (x, (k, v), aux)."""
         cfg = self.cfg
         q, k, v = self._qkv(lp, x, positions)
         o = flash_attention(q, k, v, positions, positions, causal=True,
                             window=window, exp_fn=self.attn_exp)
         x = x + attention_out(lp["attn"], o, cfg.attn_geom)
-        return self._ffn(lp, x), (k, v)
+        x, aux = self._ffn(lp, x)
+        return x, (k, v), aux
 
     def _decode_block(self, lp, x, positions, window, kb, vb, pb_new):
         """Decode block: project the new tokens, insert, attend over the buffer."""
@@ -196,7 +214,7 @@ class DecoderLM:
         o = flash_attention(q, kb, vb, positions, pb_new, causal=True,
                             window=window, exp_fn=self.attn_exp)
         x = x + attention_out(lp["attn"], o, cfg.attn_geom)
-        return self._ffn(lp, x), kb, vb
+        return self._ffn(lp, x)[0], kb, vb
 
     def _window_of(self, idx_in_period):
         if self.period == 1:
@@ -222,18 +240,25 @@ class DecoderLM:
 
     def train_logits(self, params, batch):
         """batch["tokens"]: (B, S) integer tensor.  Returns the (B, S, V) f32
-        logits and the aux loss (0 for a dense stack)."""
+        logits and the aux loss: the layers' sum over ``n_layers`` (0 for a
+        dense stack)."""
         tokens = batch["tokens"]
         x = embed(params["embed"], tokens, self.dtype)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        block = lambda lp, h, w: self._self_block(lp, h, positions, w)[0]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def block(lp, h, w):
+            h, _, a = self._self_block(lp, h, positions, w)
+            return h, a
+
         for lp, window, _, _ in self._stack(params):
             if self.cfg.remat:
-                x = checkpoint(block, lp, x, window, use_reentrant=False)
+                x, a = checkpoint(block, lp, x, window, use_reentrant=False)
             else:
-                x = block(lp, x, window)
-        return self._logits(params, x), torch.zeros((), dtype=torch.float32,
-                                                    device=x.device)
+                x, a = block(lp, x, window)
+            if a is not None:
+                aux = aux + a
+        return self._logits(params, x), aux / self.cfg.n_layers
 
     def loss(self, params, batch):
         logits, aux = self.train_logits(params, batch)
@@ -289,7 +314,7 @@ class DecoderLM:
         bufs = {n: [] for n in cache if not n.endswith("pos")}
         pbs = {}
         for lp, window, pre, idx in self._stack(params):
-            x, (k, v) = self._self_block(lp, x, positions, window)
+            x, (k, v), _ = self._self_block(lp, x, positions, window)
             kn, vn, pn = self._ring_window(k, v, positions, cache[pre + "pos"].shape[1])
             kb, vb, pbs[pre + "pos"] = cache_insert(
                 cache[pre + "k"][idx], cache[pre + "v"][idx], cache[pre + "pos"],

@@ -285,10 +285,15 @@ class ContinuousEngine(_EngineBase):
 
     Every prompt is left-padded to one fixed prefill width (``prefill_len``,
     default: the queue's longest prompt); per-slot position clocks keep every
-    decode tick at one shape.  Greedy output is token-identical to serving each
-    request alone (the per-request oracle): slot rows never interact, and a
-    refilled slot's scattered cache rows are exactly the rows a solo prefill
-    would have produced.  Token-only prompts.
+    decode tick at one shape.  For a dense stack, greedy output is
+    token-identical to serving each request alone (the per-request oracle):
+    slot rows never interact, and a refilled slot's scattered cache rows are
+    exactly the rows a solo prefill would have produced.  An MoE stack's rows
+    do interact: expert capacity is shared across the batch, so a slot's
+    neighbours (drained slots decoding garbage included) change its routing
+    and drops; its oracle is the same queue through the ``_ref`` mode, and the
+    reference's cross-family engine test leaves MoE out for this reason.
+    Token-only prompts.
     """
 
     def __init__(self, model, params, batch_size: int, cache_len: int,

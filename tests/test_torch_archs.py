@@ -1,11 +1,15 @@
-"""The port's dense family beyond stablelm-3b against the JAX reference, on the
-CPU: starcoder2-3b (plain 2-matrix ``gelu`` MLP, 2 kv heads), yi-34b
-(``rope_theta`` 5e6) and gemma3-12b's local:global stack (period 6: 5 local
-layers and 1 global a group, qk-norm, ``gelu_tanh``, tied embeddings), each
-``reduced`` (d=64; gemma3 2 groups, 12 layers) on weights made with numpy in
-the reference's tree and carried over by ``params_from_jax``.  ``LOCAL_WINDOW`` is set to 4 on both
-modules, so 9-token prompts wrap the local rings (at the real 1024, a
-window that never binds would pass unchecked).
+"""The port's dense family beyond stablelm-3b and its MoE family against the
+JAX reference, on the CPU: starcoder2-3b (plain 2-matrix ``gelu`` MLP, 2 kv
+heads), yi-34b (``rope_theta`` 5e6), gemma3-12b's local:global stack (period
+6: 5 local layers and 1 global a group, qk-norm, ``gelu_tanh``, tied
+embeddings), deepseek-moe-16b (top-2 of 4 experts and 2 shared, MHA) and
+qwen3-moe-235b-a22b (top-2 of 4, no shared expert, GQA, qk-norm), each
+``reduced`` (d=64; gemma3 2 groups, 12 layers; the MoE stacks 2 layers, d_ff
+32) on weights made with numpy in the reference's tree and carried over by
+``params_from_jax``.  An MoE loss includes ``AUX_WEIGHT * aux``.
+``LOCAL_WINDOW`` is set to 4 on both modules, so 9-token prompts wrap the
+local rings (at the real 1024, a window that never binds would pass
+unchecked).
 
 Tolerances, with their reasons (those of ``tests/test_torch_model.py`` and
 ``tests/test_torch_train.py``):
@@ -51,7 +55,8 @@ from tests.test_archs import reduced as j_reduced
 from tests.test_serving import mixed_requests
 from tests.test_torch_train import assert_grads_close, np_batch, rel
 
-ARCHS = ("starcoder2-3b", "yi-34b", "gemma3-12b")
+ARCHS = ("starcoder2-3b", "yi-34b", "gemma3-12b", "deepseek-moe-16b",
+         "qwen3-moe-235b-a22b")
 WINDOW = 4  # LOCAL_WINDOW on both sides
 APPROX = {  # name -> (mode, attn_table, e_a)
     "exact": ("exact", False, 1e-4),
@@ -69,7 +74,8 @@ def numpy_params(arch, seed=0):
     """A reference parameter tree of ``reduced(arch)`` (its shapes from
     ``jax.eval_shape`` of ``init``), filled from a numpy seed with the
     reference's init scales: tables and ``wo`` N(0, 0.02), the other weights
-    N(0, 1/fan_in), and the norm gains 1 + N(0, 0.1) where the reference
+    N(0, 1/fan_in) (an expert's fan-in is the axis after the expert axis),
+    and the norm gains 1 + N(0, 0.1) where the reference
     has ones, so that they count too.  (The reference's own ``init`` would
     spend ~14 s compiling its ops eagerly, once a process.)"""
     shapes = jax.eval_shape(j_build_model(j_reduced(arch)).init, jax.random.key(0))
@@ -83,7 +89,8 @@ def numpy_params(arch, seed=0):
         if keys[-1] == "table" or keys[-2:] == ["wo", "w"]:
             return 0.02 * z
         stacked = {"layers": 1, "layers_glob": 1, "layers_loc": 2}.get(keys[0], 0)
-        return z / np.float32(np.sqrt(leaf.shape[stacked]))
+        fan_in = stacked + int("experts" in keys)
+        return z / np.float32(np.sqrt(leaf.shape[fan_in]))
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
@@ -164,13 +171,16 @@ def test_prefill_and_decode(jax_params, arch, approx):
         assert err <= 1e-4, err
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma3-12b"])
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma3-12b", "deepseek-moe-16b",
+                                  "qwen3-moe-235b-a22b"])
 def test_train_logits_loss_and_grads(jax_params, arch):
     """``train_logits``, the loss and every gradient leaf through
     ``table_pack`` + TableFlash: starcoder2's plain ``gelu`` MLP, gemma3's
-    local:global stack (its tied embedding takes the grads of both its uses);
-    yi-34b's ``silu`` GLU grads are stablelm's (``tests/test_torch_train.py``).
-    The port checkpoints each layer (``remat``)."""
+    local:global stack (its tied embedding takes the grads of both its uses),
+    the MoE stacks (router, experts and shared experts; the aux loss summed
+    over the layers through the checkpointed blocks); yi-34b's ``silu`` GLU
+    grads are stablelm's (``tests/test_torch_train.py``).  The port
+    checkpoints each layer (``remat``)."""
     jm, jp, tm, tp = pair(jax_params, arch, "table_pack_attn")
     tm = build_model(tm.cfg.replace(remat=True), device="cpu")
     b = np_batch(tm.cfg.vocab, B=2, S=9, ignore=True)
@@ -184,10 +194,12 @@ def test_train_logits_loss_and_grads(jax_params, arch):
         jp, {k: jnp.asarray(v) for k, v in b.items()})
     tb = batch_to(b, "cpu")
     with torch.no_grad():
-        tlogits, _ = tm.train_logits(tp, tb)
+        tlogits, taux = tm.train_logits(tp, tb)
     V = tm.cfg.vocab
     err = np.abs(tlogits.numpy()[..., :V] - np.asarray(jlogits)[..., :V]).max()
     assert err <= 1e-4, err
+    if tm.cfg.family == "moe":
+        assert 0.5 < float(taux) < 4.0, float(taux)  # ~1 when balanced
     tl, tg = value_and_grad(tm, tp, tb)
     assert rel(tl, jl) <= 1e-5, (float(tl), float(jl))
     assert_grads_close(tm.cfg, jg, tg)
@@ -308,10 +320,11 @@ def test_serve_cli(arch, tmp_path, capsys):
     assert "refill.scatter" in trace.read_text()
 
 
-def test_train_cli(tmp_path, capsys):
+@pytest.mark.parametrize("arch", ["gemma3-12b", "deepseek-moe-16b"])
+def test_train_cli(arch, tmp_path, capsys):
     from repro_torch.launch.train import main
 
-    out = main(["--arch", "gemma3-12b", "--reduced", "--device", "cpu",
+    out = main(["--arch", arch, "--reduced", "--device", "cpu",
                 "--steps", "2", "--batch", "4", "--seq", "16", "--accum", "2",
                 "--approx-mode", "table_pack", "--approx-ea", "1e-6",
                 "--ckpt-dir", str(tmp_path)])

@@ -36,7 +36,8 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.approx.range_fold", "repro_torch.kernels.routed_pack_lookup",
               "repro_torch.core.bram", "repro_torch.core.stats",
               "repro_torch.core.attn_error", "repro_torch.configs.tabla_paper",
-              "repro_torch.launch.paper"):
+              "repro_torch.launch.paper", "repro_torch.configs.deepseek_moe_16b",
+              "repro_torch.configs.qwen3_moe_235b_a22b"):
         assert m in mods, m
     code = (
         "import importlib, json, sys\n"
