@@ -32,7 +32,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    tokens) at its decode and prefill shapes, the exponents at each model's
    head layout and kv chunk (deepseek's 16 x 128, qwen3's 64 q / 4 kv,
    g_eff 16), and the training gates and exponent slopes of starcoder2,
-   gemma3 and deepseek-moe-16b ((64, 61, 1408) and (512, 2816));
+   gemma3 and deepseek-moe-16b ((64, 61, 1408) and (512, 2816)); and phases
+   35-37's: zamba2's softplus on dt (4, S, 64), silu on x and the gate
+   (4, S, 4096), on B and C (4, S, 64) and its GLU's (4, S, 8192), xlstm's
+   exp_neg over (4, 4, L, L), (4, 4, L), (4, 4) and (4, 768) (L = 1, S0, 128),
+   sigmoid over (4, S, 768) and (4, 768) and tanh over (4, 768), at S = 1,
+   S0 and the training micro-batch's 128; every member's inputs also hold
+   -1e30 (the xLSTM stabilizers' start, far below exp_neg's lo);
 4. serving path: full-width, full-depth stablelm-3b (random weights from seed
    0) serving the launcher's default traffic (8 requests, batch 4, cache 256,
    16 new tokens) through ContinuousEngine in ``table_pack`` with TableFlash;
@@ -261,16 +267,42 @@ Phases, each fatal on failure (exit code 1, no result line):
    of its 94 layers (16.18 B f32 parameters) serving as phase 31, one gate
    launch a layer;
 34. reference: reduced deepseek-moe-16b and qwen3-moe-235b-a22b in float32
-   on the card against the same models on the CPU, as phase 5.
+   on the card against the same models on the CPU, as phase 5;
+35. zamba2-1.2b (38 Mamba2 layers: 6 groups of 6 and 2 trailing, d 2048,
+   expand 2, 64-wide heads, state 64, chunk 256; one shared attention + GLU
+   block of 32 heads x 64 and d_ff 8192 used after each group; vocab 32000;
+   1.17 B f32 parameters, random from seed 0) at full width and depth
+   serving the 8 requests in ``table_pack`` + TableFlash, token-identical
+   to ``table_pack_ref``; prefill and decode logits within 1e-6 of
+   ``table_pack_ref``'s; one decode step launching the gates 5 times a
+   Mamba2 layer (silu on x, B, C and the gate, softplus on dt, f32) and
+   once a shared-block use (its GLU), 196 in all, and the exponent twice a
+   use and kv chunk, 12; the decode-step and prefill ms, idle share, the
+   host time and op events of one decode step and the peak memory, as
+   phase 31;
+36. zamba2-1.2b trained 2 steps at full width and depth as phase 25's
+   training (remat: each group and each trailing layer checkpointed), step-0
+   loss equal to ``table_pack_ref``'s bit for bit, grad norm within 1e-3,
+   ``table_pack_grad`` launched twice for each gate call of a micro-batch
+   (softplus slopes f32, silu gates; the shared block's as a stablelm layer's);
+37. xlstm-125m (6 mLSTM/sLSTM pairs, d 768, 4 mLSTM heads, vocab 50304) at
+   full width and depth serving the 8 requests as phase 35 (no attention:
+   ``table_pack_lookup`` only, 10 launches a pair a decode step: 5 exp_neg
+   and the output gate's sigmoid of the mLSTM, tanh, 2 exp_neg and sigmoid
+   of the sLSTM step) and trained 2 steps as phase 36 (the sLSTM's 128-step
+   loop over time in each layer);
+38. reference: reduced zamba2-1.2b and xlstm-125m in float32 on the card
+   against the same models on the CPU, as phase 5 (at least 2 refills).
 
 Each phase prints its wall seconds (``phase N: ...s``) and the run ends
 with all of them in one line.  The line before the last is one JSON object
 listing the kernels (each one's launches from the path it serves;
 ``table_lookup`` and ``tableflash_exp`` also carry ``paper_launches``,
 theirs in phases 29-30, and ``table_pack_lookup``, ``tableflash_exp`` and
-``table_pack_grad`` ``moe_launches``, theirs in phases 31-33); the last
-line is ``{"ok": true, "device": {...}}``.  Without a card, or outside a
-checkout of the repository, the script exits non-zero and prints no result.
+``table_pack_grad`` ``moe_launches`` and ``recurrent_launches``, theirs in
+phases 31-33 and 35-37); the last line is ``{"ok": true, "device": {...}}``.
+Without a card, or outside a checkout of the repository, the script exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -341,6 +373,14 @@ DENSE_FAMILY = ("starcoder2-3b", "gemma3-12b", "yi-34b")
 # layers (16.18 B, 64.7 GB; each layer holds 2.49 B)
 MOE_FAMILY = ("deepseek-moe-16b", "qwen3-moe-235b-a22b")
 MOE_TRAIN_LAYERS, QWEN_LAYERS = 4, 6
+# phases 35-38: zamba2-1.2b (38 Mamba2 layers, 6 uses of one shared attention
+# + GLU block; 1.17 B f32) and xlstm-125m (6 mLSTM/sLSTM pairs) at full width
+# and depth.  The gate calls of their blocks, by the code: a Mamba2 layer
+# silu on x, B, C and the gate z and softplus on dt; an mLSTM block 5 exp_neg
+# a chunk (carry, intra-chunk, denominator, carry rescale, chunk-end weights)
+# and its output gate's sigmoid; an sLSTM step tanh, 2 exp_neg and sigmoid
+RECURRENT_FAMILY = ("zamba2-1.2b", "xlstm-125m")
+MAMBA_GATES, MLSTM_CHUNK_GATES, MLSTM_GATES, SLSTM_STEP_GATES = 5, 5, 1, 4
 PHASE_S = {}  # each phase's wall seconds
 Q_CHUNK, KV_CHUNK = 512, 1024  # flash_attention's query and kv chunks
 
@@ -541,6 +581,16 @@ def with_subnormals(edges):
     return np.concatenate([edges, [tiny, -tiny]]).astype(np.float32)
 
 
+def phase3_edges(pack, fid):
+    """A member's edge inputs for phase 3: -1e30 first (the xLSTM
+    stabilizers' start reaches exp_neg far below its lo; first, so that every
+    input holds it), then the edges and subnormals."""
+    import numpy as np
+
+    return np.concatenate([[-1e30], with_subnormals(edge_values(pack, fid))]
+                          ).astype(np.float32)
+
+
 def kernel_phase(f32_packs, s0, flash, dense):
     """The value kernels bitwise against their plain versions: stablelm-3b's
     gate and TableFlash shapes, and ``dense`` (``family_shapes``'s
@@ -559,7 +609,7 @@ def kernel_phase(f32_packs, s0, flash, dense):
     for tag, pack, shapes in f32_packs:
         for fid, name in enumerate(pack.names):
             lo, hi = pack.domains[fid]
-            edges = with_subnormals(edge_values(pack, fid))
+            edges = phase3_edges(pack, fid)
             for dtype in (torch.bfloat16, torch.float32):
                 for shape in shapes or gate_shapes + dense_gates.get(name, []):
                     x = make_input(shape, lo, hi, edges, dtype, seed=fid)
@@ -588,8 +638,8 @@ def kernel_phase(f32_packs, s0, flash, dense):
                 cases += 1
     log(f"kernels: {cases} kernel-vs-plain cases bitwise equal "
         f"(packs {[tag for tag, _, _ in f32_packs]}, bf16+f32, extrapolate on/off, "
-        f"edges and subnormals; TableFlash over {[tag for tag, _ in flash]}; "
-        f"phases 25-27's and 31-33's gates {dense_gates} and "
+        f"edges, -1e30 and subnormals; TableFlash over {[tag for tag, _ in flash]}; "
+        f"phases 25-27's, 31-33's and 35-37's gates {dense_gates} and "
         f"exponent shapes {dense_flash})")
     return worst
 
@@ -613,11 +663,11 @@ def grad_kernel_phase(f32_packs, tables, s0, dense):
     for tag, pack, shapes in f32_packs:
         for fid, name in enumerate(pack.names):
             lo, hi = pack.domains[fid]
-            edges = with_subnormals(edge_values(pack, fid))
+            edges = phase3_edges(pack, fid)
             member_shapes = shapes or all_shapes + dense_gates.get(name, [])
             if name == "exp_neg" and not shapes:  # TableFlash's slope: the exponent, f32
                 member_shapes = all_shapes + [(MICRO, TRAIN_SEQ, 32, 1, TRAIN_SEQ)
-                                              ] + dense_flash
+                                              ] + dense_flash + dense_gates.get(name, [])
             for dtype in (torch.bfloat16, torch.float32):
                 for shape in member_shapes:
                     x = make_input(shape, lo, hi, edges, dtype, seed=fid)
@@ -651,8 +701,8 @@ def grad_kernel_phase(f32_packs, tables, s0, dense):
     log(f"kernels: {cases} grad/table kernel-vs-plain cases bitwise equal "
         f"(table_pack_grad over {[tag for tag, _, _ in f32_packs]}; "
         f"table_lookup[_grad] over {[tag for tag, _, _ in tables]}; bf16+f32, "
-        f"extrapolate on/off, edges and subnormals, training gate {train_gate}; the "
-        f"dense and MoE families' training gates {dense_gates} "
+        f"extrapolate on/off, edges, -1e30 and subnormals, training gate {train_gate}; "
+        f"the dense, MoE and recurrent families' training gates {dense_gates} "
         f"and exponents {dense_flash})")
     return worst
 
@@ -799,16 +849,18 @@ def reference_check(arch="stablelm-3b", window=None):
         err = float((lc - lg.cpu()).abs()[:, :cfg.vocab].max())
         check(err <= 1e-4, f"reduced {arch} f32 logits card vs CPU: {err} > 1e-4")
         a = ContinuousEngine(cpu_model, cpu_params, 2, 64).serve(reqs)
-        b = ContinuousEngine(gpu_model, gpu_params, 2, 64).serve(reqs)
+        engine = ContinuousEngine(gpu_model, gpu_params, 2, 64)
+        b = engine.serve(reqs)
     finally:
         transformer.LOCAL_WINDOW = kept
+    check(engine.refills >= 2, f"reduced {arch}: {engine.refills} refills < 2")
     for i, (x, y) in enumerate(zip(a, b)):
         check((x.tokens == y.tokens).all(), f"reduced {arch} request {i}: card "
               f"tokens differ from CPU")
     wl = f", local window {window} (prompts of up to {s0} tokens)" if window else ""
     log(f"reference: reduced {arch} ({cfg.n_layers}L) f32 table_pack+TableFlash{wl}, "
         f"card vs CPU: max |logit diff| {err:.3e} (<= 1e-4), {len(a)} requests "
-        f"token-identical")
+        f"token-identical through {engine.refills} refills")
 
 
 # --------------------------------------------------------------------------------------
@@ -2456,21 +2508,60 @@ def logits_and_launches(tag, model, ref, params, rows, cache_len):
     diff = max(float((lk - lr).abs().max()), float((dk - dr).abs().max()))
     check(diff <= 1e-6, f"{tag}: table_pack logits differ from table_pack_ref's by "
           f"{diff} > 1e-6")
-    # each layer attends over its own position buffer's width in kv chunks
-    chunks = sum(-(-ck[pre + "pos"].shape[1] // KV_CHUNK)
-                 for _, _, pre, _ in model._stack(params))
-    per = gate_calls(cfg)
-    check(c["table_pack_lookup"] == per * cfg.n_layers,
-          f"{tag}: {c['table_pack_lookup']} gate launches a decode step, not {per} a "
-          f"layer ({per * cfg.n_layers})")
-    check(c["tableflash_exp"] == 2 * chunks, f"{tag}: {c['tableflash_exp']} exponent "
-          f"launches a decode step, not 2 a layer and kv chunk ({2 * chunks})")
+    (gates, why), flash = decode_launches(model, params, ck)
+    check(c["table_pack_lookup"] == gates,
+          f"{tag}: {c['table_pack_lookup']} gate launches a decode step, not {why}")
+    check(c["tableflash_exp"] == flash, f"{tag}: {c['tableflash_exp']} exponent "
+          f"launches a decode step, not 2 a layer (or shared-block use) and kv "
+          f"chunk ({flash})")
     widths = {n: ck[n].shape[1] for n in ck if n.endswith("pos")}
     log(f"{tag}: prefill (B={B}, S0={s0}) and decode logits equal table_pack_ref's "
         f"(max |diff| {diff}); one decode step (cache {cache_len}, position buffers "
-        f"{widths}) launches the {cfg.act} gate {c['table_pack_lookup']}x ({per} a "
-        f"layer) and the exponent {c['tableflash_exp']}x (2 a layer and kv chunk)")
+        f"{widths}) launches the gates {c['table_pack_lookup']}x ({why}) and the "
+        f"exponent {c['tableflash_exp']}x (2 a layer and kv chunk)")
     return ck
+
+
+def decode_launches(model, params, cache):
+    """One table_pack decode step's expected launches, from the code:
+    ``((table_pack_lookup, how it is counted), tableflash_exp)``.  A decoder
+    layer calls its gate ``gate_calls`` times and attends over its position
+    buffer's width in kv chunks (2 exponents a chunk); zamba2's Mamba2 layer
+    makes MAMBA_GATES calls and each use of the shared block 1 (its GLU) and
+    2 exponents a kv chunk; an xLSTM pair at S = 1 makes one mLSTM chunk's
+    gates and one sLSTM step's, and no exponent."""
+    cfg = model.cfg
+    if cfg.family == "hybrid":
+        chunks = -(-cache["attn_pos"].shape[1] // KV_CHUNK)
+        gates = MAMBA_GATES * cfg.n_layers + model.n_groups
+        return ((gates, f"{MAMBA_GATES} a Mamba2 layer x {cfg.n_layers} + 1 a shared-"
+                 f"block use x {model.n_groups} = {gates}"),
+                2 * model.n_groups * chunks)
+    if cfg.family == "xlstm":
+        per = MLSTM_CHUNK_GATES + MLSTM_GATES + SLSTM_STEP_GATES
+        return (per * model.n_pairs, f"{per} a pair x {model.n_pairs}"), 0
+    # each layer attends over its own position buffer's width in kv chunks
+    chunks = sum(-(-cache[pre + "pos"].shape[1] // KV_CHUNK)
+                 for _, _, pre, _ in model._stack(params))
+    per = gate_calls(cfg)
+    return (per * cfg.n_layers, f"{per} a layer x {cfg.n_layers}"), 2 * chunks
+
+
+def grad_launches(model, per_layer):
+    """table_pack_grad's launches a training micro-batch, from the code:
+    every gate call of the forward launches once and once more in remat's
+    recompute.  ``per_layer`` is phase 6's count a stablelm layer: its silu
+    gate's 2 and the flash exponents' slopes (per_layer - 2, one kv chunk at
+    TRAIN_SEQ), which zamba2's shared block has too; each further gate call
+    of a decoder layer (an MoE layer's shared experts) adds 2."""
+    cfg = model.cfg
+    if cfg.family == "hybrid":
+        return 2 * MAMBA_GATES * cfg.n_layers + per_layer * model.n_groups
+    if cfg.family == "xlstm":
+        chunks = -(-TRAIN_SEQ // 128)  # mlstm_block's chunk
+        return 2 * model.n_pairs * (MLSTM_CHUNK_GATES * chunks + MLSTM_GATES
+                                    + SLSTM_STEP_GATES * TRAIN_SEQ)
+    return (per_layer + 2 * (gate_calls(cfg) - 1)) * cfg.n_layers
 
 
 def long_requests(vocab):
@@ -2509,18 +2600,37 @@ def gate_shapes(cfg, B, S):
     return [(m.n_experts, C, cfg.d_ff)] + shared
 
 
+def recurrent_gate_shapes(cfg, B, S):
+    """The shapes each pack member sees in one forward of B x S tokens of a
+    recurrent family: zamba2's Mamba2 silu on x and z (B, S, inner), on B
+    and C (B, S, N) and its shared GLU's (B, S, d_ff), softplus on dt
+    (B, S, H); the mLSTM's exp_neg over a chunk's (B, H, L, L) weights, its
+    (B, H, L) carry, denominator and chunk-end weights and (B, H) rescale,
+    its output gate's sigmoid (B, S, d), the sLSTM step's exp_neg, sigmoid
+    and tanh over (B, d)."""
+    if cfg.family == "hybrid":
+        s = cfg.ssm
+        inner = s.expand * cfg.d_model
+        return {"silu": [(B, S, inner), (B, S, s.state_dim), (B, S, cfg.d_ff)],
+                "softplus": [(B, S, inner // s.head_dim)]}
+    H, d, L = cfg.n_heads, cfg.d_model, min(128, S)  # mlstm_block's chunk
+    return {"exp_neg": [(B, H, L, L), (B, H, L), (B, H), (B, d)],
+            "sigmoid_sym": [(B, S, d), (B, d)], "tanh": [(B, d)]}
+
+
 def family_shapes(s0):
-    """Phases 25-27's and 31-33's kernel shapes, as ``((gates, exponents),
-    (gates, exponents))`` for serving and training, gates by pack member.
-    Serving: the gates of a decode step, of the queue's prefill (S0 =
-    ``s0``) and of gemma3-12b's long prefill, and the exponents over the same
-    queries and the caches' (and local rings') widths.  Training: a
-    micro-batch of starcoder2-3b, gemma3-12b and deepseek-moe-16b."""
+    """Phases 25-27's, 31-33's and 35-37's kernel shapes, as ``((gates,
+    exponents), (gates, exponents))`` for serving and training, gates by
+    pack member.  Serving: the gates of a decode step, of the queue's
+    prefill (S0 = ``s0``) and of gemma3-12b's long prefill, and the
+    exponents over the same queries and the caches' (and local rings')
+    widths.  Training: a micro-batch of starcoder2-3b, gemma3-12b,
+    deepseek-moe-16b, zamba2-1.2b and xlstm-125m."""
     from repro_torch.models import get_config
 
     serve_g, serve_f, train_g, train_f = {}, [], {}, []
     approx = get_config("stablelm-3b").approx
-    for arch in DENSE_FAMILY + MOE_FAMILY:
+    for arch in DENSE_FAMILY + MOE_FAMILY + RECURRENT_FAMILY:
         cfg = get_config(arch)
         check(cfg.approx == approx, f"{arch}'s approx settings are not stablelm-3b's: "
               "phase 3's pack does not serve it")
@@ -2531,6 +2641,16 @@ def family_shapes(s0):
             # a decode step's local ring (1,024 slots) is one kv chunk, as
             # each chunk of the 2,048-slot global buffer
             runs += [(LONG_REQ, 1, LONG_CACHE), (LONG_REQ, lmax, lmax)]
+        if arch in RECURRENT_FAMILY:
+            for B, S in ((BATCH, 1), (BATCH, s0), (MICRO, TRAIN_SEQ)):
+                for name, shapes in recurrent_gate_shapes(cfg, B, S).items():
+                    (train_g if S == TRAIN_SEQ else serve_g).setdefault(
+                        name, []).extend(shapes)
+            if cfg.family == "hybrid":  # the shared block's exponents
+                for B, S, T in runs:
+                    serve_f += flash_exp_shapes(cfg, B, S, T)
+                train_f += flash_exp_shapes(cfg, MICRO, TRAIN_SEQ, TRAIN_SEQ)
+            continue
         for B, S, T in runs:
             serve_g.setdefault(member, []).extend(gate_shapes(cfg, B, S))
             serve_f += flash_exp_shapes(cfg, B, S, T)
@@ -2558,18 +2678,28 @@ def dense_model(arch, n_layers=None):
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    g, m = cfg.attn_geom, cfg.moe
+    g, m, sm = cfg.attn_geom, cfg.moe, cfg.ssm
     cut = (f" (cut from {full.n_layers})" if cfg.n_layers != full.n_layers else "")
     ffn = (f"moe {m.n_experts} experts top-{m.top_k} + {m.n_shared} shared, "
            f"capacity factor {m.capacity_factor}" if cfg.family == "moe"
            else cfg.mlp_kind)
-    log(f"{arch}: {cfg.n_layers}L{cut} d={cfg.d_model} {cfg.n_heads} q / "
-        f"{cfg.n_kv_heads} kv heads (h_eff {g.h_eff}, g_eff {g.g_eff}) x "
-        f"{cfg.head_dim}, {ffn} {cfg.act} d_ff={cfg.d_ff}, vocab {cfg.vocab} "
-        f"(padded {cfg.vocab_pad}), period {model.period}, tied "
-        f"{cfg.tie_embeddings}, qk_norm {cfg.attn.qk_norm}, rope {cfg.attn.rope_theta:g}: "
-        f"{sum(t.numel() for t in leaves(params)) / 1e9:.2f}B f32 parameters "
-        f"({cfg.param_count() / 1e9:.2f}B by param_count), init "
+    heads = (f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads (h_eff {g.h_eff}, g_eff "
+             f"{g.g_eff}) x {cfg.head_dim}")
+    if cfg.family == "hybrid":
+        desc = (f"{model.n_groups} groups of {model.per_group} Mamba2 layers + "
+                f"{model.trailing} trailing (expand {sm.expand}, {sm.head_dim}-wide "
+                f"heads, state {sm.state_dim}, conv {sm.conv_width}, chunk "
+                f"{sm.chunk}), one shared block of {heads} and a {cfg.act} GLU at "
+                f"d_ff={cfg.d_ff}")
+    elif cfg.family == "xlstm":
+        desc = f"{model.n_pairs} mLSTM/sLSTM pairs, {cfg.n_heads} mLSTM heads"
+    else:
+        desc = (f"{heads}, {ffn} {cfg.act} d_ff={cfg.d_ff}, period {model.period}, "
+                f"qk_norm {cfg.attn.qk_norm}, rope {cfg.attn.rope_theta:g}")
+    log(f"{arch}: {cfg.n_layers}L{cut} d={cfg.d_model} {desc}, vocab {cfg.vocab} "
+        f"(padded {cfg.vocab_pad}), tied {cfg.tie_embeddings}: "
+        f"{sum(t.numel() for t in leaves(params)) / 1e9:.3f}B f32 parameters "
+        f"({cfg.param_count() / 1e9:.3f}B by param_count), init "
         f"{time.perf_counter() - t0:.1f}s")
     return model, ref, params
 
@@ -2594,8 +2724,10 @@ def dense_serving_path(arch, smi_line, n_layers=None, long_queue=False,
     model, ref, params = dense_model(arch, n_layers)
     cfg = model.cfg
     reqs = make_requests(cfg.vocab, N_REQ, MAX_NEW)
+    kernels = ("table_pack_lookup",) + (("tableflash_exp",) if cfg.family != "xlstm"
+                                        else ())
     _, counts = serve_against_plain(arch, model, ref, params, reqs, BATCH, CACHE_LEN,
-                                    smi_line)
+                                    smi_line, kernels=kernels)
     rows = prompt_rows(reqs, BATCH)
     cache = logits_and_launches(arch, model, ref, params, rows, CACHE_LEN)
     if long_queue:
@@ -2641,7 +2773,9 @@ def dense_train_path(arch, smi_line, per_layer, n_layers=None):
     moe = model.cfg.family == "moe"
     rows, c, peak, _ = train_steps(model, params, data, QP_STEPS, smi_line, arch,
                                    aux_model=ref if moe else None)
-    for k in ("table_pack_grad", "tableflash_exp"):
+    kernels = ("table_pack_grad",) + (("tableflash_exp",)
+                                      if model.cfg.family != "xlstm" else ())
+    for k in kernels:
         check(c[k] > 0, f"{arch}: kernel {k} was not launched training")
     check(all(math.isfinite(r["loss"]) for r in rows), f"non-finite {arch} loss")
     check(rows[0]["loss"] == ref_loss, f"{arch} step-0 loss {rows[0]['loss']!r} != "
@@ -2649,17 +2783,17 @@ def dense_train_path(arch, smi_line, per_layer, n_layers=None):
     gn_rel = abs(rows[0]["grad_norm"] - ref_gn) / ref_gn
     check(gn_rel <= 1e-3, f"{arch} step-0 grad norm {rows[0]['grad_norm']} vs "
           f"table_pack_ref's {ref_gn}: {gn_rel:.2e} > 1e-3")
-    per = c["table_pack_grad"] / (QP_STEPS * model.cfg.n_layers * TRAIN_ACCUM)
-    want = per_layer + 2 * (gate_calls(model.cfg) - 1)
-    check(per == want, f"{arch}: {per} table_pack_grad launches a layer and "
-          f"micro-batch, not {want} (stablelm's silu gate and flash slopes "
-          f"{per_layer}, 2 for each further gate call)")
+    per = c["table_pack_grad"] / (QP_STEPS * TRAIN_ACCUM)
+    want = grad_launches(model, per_layer)
+    check(per == want, f"{arch}: {per} table_pack_grad launches a micro-batch, not "
+          f"{want} (2 a gate call: the forward's and remat's recompute; stablelm's "
+          f"layer {per_layer})")
     log(f"{arch}: trained {len(rows)} steps ({model.cfg.n_layers}L, batch "
         f"{TRAIN_BATCH} x {TRAIN_SEQ}, accum {TRAIN_ACCUM}), step-0 loss equals "
         f"table_pack_ref's bit for bit ({ref_loss!r}), grad norm "
         f"{rows[0]['grad_norm']:.6f} vs {ref_gn:.6f} ({gn_rel:.2e} rel); step ms "
-        f"{[round(r['ms'], 1) for r in rows]}; table_pack_grad {per:g} a layer and "
-        f"micro-batch (gate calls a layer: {gate_calls(model.cfg)}); launches "
+        f"{[round(r['ms'], 1) for r in rows]}; table_pack_grad {per:g} a micro-batch "
+        f"({per / model.cfg.n_layers:g} a layer), as derived; launches "
         f"{ {k: v for k, v in c.items() if v} }; peak {peak:.2f} GiB [{smi_line}]")
     del model, ref, params
     torch.cuda.empty_cache()
@@ -3076,6 +3210,22 @@ def main() -> int:
         with phase("34"):
             for arch in MOE_FAMILY:
                 reference_check(arch)
+        # 35-38: the recurrent families, through the pack kernels; their launches too
+        recurrent_launches = {}
+
+        def add_recurrent(c):
+            for k in ("table_pack_lookup", "tableflash_exp", "table_pack_grad"):
+                recurrent_launches[k] = recurrent_launches.get(k, 0) + c[k]
+        with phase("35"):
+            add_recurrent(dense_serving_path("zamba2-1.2b", smi_line, host_cost=True))
+        with phase("36"):
+            add_recurrent(dense_train_path("zamba2-1.2b", smi_line, per_layer))
+        with phase("37"):
+            add_recurrent(dense_serving_path("xlstm-125m", smi_line, host_cost=True))
+            add_recurrent(dense_train_path("xlstm-125m", smi_line, per_layer))
+        with phase("38"):
+            for arch in RECURRENT_FAMILY:
+                reference_check(arch)
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -3112,6 +3262,8 @@ def main() -> int:
             kernels[-1]["paper_launches"] = paper_launches[kname]
         if kname in moe_launches:  # and phases 31-33 these three
             kernels[-1]["moe_launches"] = moe_launches[kname]
+        if kname in recurrent_launches:  # and phases 35-37
+            kernels[-1]["recurrent_launches"] = recurrent_launches[kname]
     log(f"phase seconds: {json.dumps(PHASE_S)}")
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(smi_line)

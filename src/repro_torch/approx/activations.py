@@ -113,6 +113,14 @@ _ROPE_SIN_COS_CACHE: Dict[tuple, Callable] = {}
 # device — every attention layer shares it
 _ATTN_EXP_CACHE: Dict[tuple, Callable] = {}
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` = max(x, 0) + log1p(exp(-|x|))
+    (``F.softplus`` switches to x above a threshold of 20 and orders its
+    operations otherwise).  The max splits a tie's gradient as JAX's does, so
+    the slope at 0 is sigmoid(0) = 0.5."""
+    return torch.maximum(x, x.new_zeros(())) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
 _EXACT: Dict[str, Callable] = {
     "gelu": lambda x: F.gelu(x),
     "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
@@ -120,7 +128,7 @@ _EXACT: Dict[str, Callable] = {
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
     "sigmoid_sym": torch.sigmoid,
-    "softplus": F.softplus,
+    "softplus": softplus,
     "exp": torch.exp,
     "exp_neg": torch.exp,
     "sin": torch.sin,

@@ -1,16 +1,20 @@
 """Carry a JAX parameter tree over into the port's parameters.
 
-``params_from_jax(cfg, tree)`` takes the tree of ``repro`` ``DecoderLM.init``,
+``params_from_jax(cfg, tree)`` takes the tree of a ``repro`` model's ``init``,
 handed over as numpy arrays (this module imports no JAX), and returns the
 port's nested dict of tensors: the stacked layer axes are unstacked into lists
 of per-layer dicts (``layers`` (L, ...) into a list; a local:global stack's
 ``layers_loc`` (n_groups, period-1, ...) into a list of n_groups lists and
 ``layers_glob`` (n_groups, ...) into a list; an MoE layer's ``moe`` subtree
 unstacks alike: ``router.w`` (L, d, E), ``experts.wi``/``wu`` (L, E, d, f) and
-``wd`` (L, E, f, d), and the ``shared`` GLU), and every weight keeps the JAX
-layout — ``wq`` stays (d, H, D) — except ``wo``, which is reshaped to (g_eff,
-q_per_group, D, d) as ``attention_out`` contracts it.  The port and the reference then compute the
-same function, which is what the parity tests compare.
+``wd`` (L, E, f, d), and the ``shared`` GLU; a hybrid stack's ``mamba``
+(n_groups, per_group, ...) into n_groups lists and ``mamba_tail`` (trailing,
+...) into a list, its one ``shared`` attention+GLU block as it is; an xLSTM
+stack's ``mlstm`` and ``slstm`` (n_pairs, ...) into lists), and every weight
+keeps the JAX layout — ``wq`` stays (d, H, D) — except an attention block's
+``wo``, which is reshaped to (g_eff, q_per_group, D, d) as ``attention_out``
+contracts it.  The port and the reference then compute the same function,
+which is what the parity tests compare.
 
 ``train_state_from_jax(cfg, state)`` converts a reference train state
 (``{"params", "opt": {"m", "v", "count"}, "step"}``) the same way: the AdamW
@@ -35,13 +39,24 @@ def _tensors(tree: Any, device: torch.device):
     return torch.from_numpy(np.array(tree)).to(device)
 
 
+# leading layer axes of each stacked subtree
+_STACKS = {"layers": 1, "layers_loc": 2, "layers_glob": 1, "mamba": 2,
+           "mamba_tail": 1, "mlstm": 1, "slstm": 1}
+
+
 def params_from_jax(cfg: ArchConfig, tree: Mapping, device: DeviceLike = None) -> dict:
-    """JAX ``DecoderLM`` parameters (numpy leaves) -> the port's parameters."""
+    """A JAX model's parameters (numpy leaves) -> the port's parameters."""
     dev = resolve_device(device)
-    stacks = {"layers": 1, "layers_loc": 2, "layers_glob": 1}  # leading layer axes
-    out = _tensors({k: v for k, v in tree.items() if k not in stacks}, dev)
-    stacked = {k: _tensors(tree[k], dev) for k in stacks if k in tree}
+    out = _tensors({k: v for k, v in tree.items() if k not in _STACKS}, dev)
+    stacked = {k: _tensors(tree[k], dev) for k in _STACKS if k in tree}
     geom = cfg.attn_geom
+
+    def attn_out_layout(lp):
+        if "attn" in lp:
+            wo = lp["attn"]["wo"]["w"]
+            lp["attn"]["wo"]["w"] = wo.reshape(geom.g_eff, geom.q_per_group,
+                                               geom.d_head, -1)
+        return lp
 
     def layer(sub, idx):
         if isinstance(sub, Mapping):
@@ -57,14 +72,12 @@ def params_from_jax(cfg: ArchConfig, tree: Mapping, device: DeviceLike = None) -
                 leaf = next(iter(leaf.values()))
             return [unstacked(name, n_axes, idx + (i,))
                     for i in range(leaf.shape[len(idx)])]
-        lp = layer(stacked[name], idx)
-        wo = lp["attn"]["wo"]["w"]
-        lp["attn"]["wo"]["w"] = wo.reshape(geom.g_eff, geom.q_per_group,
-                                           geom.d_head, -1)
-        return lp
+        return attn_out_layout(layer(stacked[name], idx))
 
     for name in stacked:
-        out[name] = unstacked(name, stacks[name])
+        out[name] = unstacked(name, _STACKS[name])
+    if "shared" in out and "attn" in out["shared"]:  # the hybrid's one block
+        attn_out_layout(out["shared"])
     return out
 
 

@@ -52,6 +52,12 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
     return {"table": table.mul_(0.02)}
 
 
+def min0(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.minimum(x, 0.0)``: a tie at 0 passes half the gradient, as in
+    JAX (``clamp`` would pass all of it)."""
+    return torch.minimum(x, x.new_zeros(()))
+
+
 def embed(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return p["table"][tokens].to(dtype)
 

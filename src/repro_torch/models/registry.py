@@ -6,21 +6,21 @@ import importlib
 
 from repro_torch.device import DeviceLike
 
-from .config import DENSE, MOE, ArchConfig, MoEConfig
-from .transformer import DecoderLM
+from .config import DENSE, MOE, SSM_HYBRID, XLSTM, ArchConfig, MoEConfig, SSMConfig
+from .transformer import BaseLM, DecoderLM, HybridLM, XLSTMLM
 
-# The JAX package registers ten architectures; the port serves its dense and
-# MoE families (the hybrid, xLSTM, encoder-decoder and vision families come
-# with ROADMAP queue 1, items 11d-f).
+# The JAX package registers ten architectures; the port serves its dense, MoE,
+# hybrid and xLSTM families (the encoder-decoder and vision families come
+# with ROADMAP queue 1, item 11f).
 ARCH_IDS = ("stablelm-3b", "yi-34b", "gemma3-12b", "starcoder2-3b",
-            "deepseek-moe-16b", "qwen3-moe-235b-a22b")
+            "deepseek-moe-16b", "qwen3-moe-235b-a22b", "zamba2-1.2b", "xlstm-125m")
 
 
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in ARCH_IDS:
         raise NotImplementedError(
             f"architecture {arch_id!r} is not ported yet (ported: {ARCH_IDS}); "
-            "ROADMAP queue 1, items 11d-f")
+            "ROADMAP queue 1, item 11f")
     mod_name = arch_id.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
@@ -28,23 +28,36 @@ def get_config(arch_id: str) -> ArchConfig:
 
 def reduced(arch_id: str) -> ArchConfig:
     """Family-preserving shrink for tests and ``--reduced`` runs: few layers,
-    small width, few experts, tiny vocab — the dense and MoE branches of the
-    JAX package's ``tests/test_archs.py::reduced``."""
+    small width, few experts, tiny vocab — the dense, MoE, hybrid and xLSTM
+    branches of the JAX package's ``tests/test_archs.py::reduced``."""
     cfg = get_config(arch_id)
     kw = dict(d_model=64, vocab=128, remat=False)
-    if cfg.family == MOE:
+    if cfg.family == XLSTM:
+        kw.update(n_layers=2, n_heads=2, n_kv_heads=2, d_ff=0)
+    elif cfg.family == MOE:
         kw.update(n_layers=2, n_heads=4,
                   n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4,
                   d_head=16, d_ff=32,
                   moe=MoEConfig(n_experts=4, top_k=2, n_shared=cfg.moe.n_shared))
+    elif cfg.family == SSM_HYBRID:
+        kw.update(n_layers=5, n_heads=4, n_kv_heads=4, d_ff=128,
+                  ssm=SSMConfig(state_dim=8, head_dim=16, conv_width=4, expand=2,
+                                chunk=8),
+                  shared_attn_every=2)  # 2 groups of 2 + 1 trailing
     elif cfg.family == DENSE:
         period = max(1, cfg.attn.global_every)
         kw.update(n_layers=2 * period, n_heads=4, n_kv_heads=2, d_head=16, d_ff=128)
     else:
-        raise NotImplementedError(f"reduced(): family {cfg.family!r} not ported")
+        raise NotImplementedError(f"reduced(): family {cfg.family!r} not ported "
+                                  "(ROADMAP queue 1, item 11f)")
     return cfg.replace(**kw)
 
 
-def build_model(cfg: ArchConfig, device: DeviceLike = None) -> DecoderLM:
-    """Construct the model for ``cfg`` on ``device`` (default ``cuda``)."""
+def build_model(cfg: ArchConfig, device: DeviceLike = None) -> BaseLM:
+    """Construct the family's model for ``cfg`` on ``device`` (default
+    ``cuda``)."""
+    if cfg.family == SSM_HYBRID:
+        return HybridLM(cfg, device)
+    if cfg.family == XLSTM:
+        return XLSTMLM(cfg, device)
     return DecoderLM(cfg, device)

@@ -1,6 +1,5 @@
-"""DecoderLM — the dense and MoE GQA transformer behind one API (the JAX
-package's ``models/transformer.py::DecoderLM``), period-1 and local:global
-stacks:
+"""The port's model families behind one API (the JAX package's
+``models/transformer.py``):
 
     model = build_model(cfg, device=...)          # repro_torch.models.registry
     params = model.init(generator)
@@ -8,8 +7,14 @@ stacks:
     loss = model.loss(params, batch)
     cache = model.init_cache(batch_size, cache_len)
     logits, cache = model.prefill(params, batch, cache)
-    logits, cache = model.prefill_chunked(params, batch, cache, chunk)
+    logits, cache = model.prefill_chunked(params, batch, cache, chunk)  # DecoderLM
     logits, cache = model.decode_step(params, tok, pos, cache)
+
+Families: ``DecoderLM`` (dense and MoE GQA transformers, period-1 and
+local:global stacks), ``HybridLM`` (zamba2's Mamba2 stack with one shared
+attention+MLP block every k layers) and ``XLSTMLM`` (alternating mLSTM /
+sLSTM blocks).  ``BaseLM`` holds what they share: the approx closures, the
+loss and the logits head.
 
 The reference's stacked-layer ``lax.scan`` becomes a loop over per-layer
 parameter dicts.  A period-1 stack keeps them in ``layers`` and its cache in
@@ -23,13 +28,16 @@ cache holds a ring of min(LOCAL_WINDOW, cache_len) slots for the local layers
 and a full buffer for the global ones (``glob_k``/``glob_v`` (n_groups, B,
 cache_len, G, D), ``glob_pos``).  ``cfg.remat`` (the reference's
 ``jax.checkpoint`` around the scan body) checkpoints each layer of
-``train_logits`` with ``torch.utils.checkpoint``.  An MoE stack
+``train_logits`` with ``torch.utils.checkpoint`` (a hybrid group and each
+trailing layer; an xLSTM pair).  An MoE stack
 (``cfg.family == "moe"``: deepseek-moe-16b, qwen3-moe-235b-a22b) has a
 ``moe`` subtree (router, experts, shared experts) in place of each layer's
 ``mlp``; its blocks return the layer's load-balance aux loss, which
 ``train_logits`` sums over the layers and divides by ``n_layers``, and which
-prefill and decode drop.  All nonlinearities route through ``cfg.approx``
-(the paper's table backend).
+prefill and decode drop.  The recurrent families' caches are flat dicts with
+one stacked tensor a state field, each with one batch axis (the engine's
+slot refill moves rows along it; see ``HybridLM`` and ``XLSTMLM``).  All
+nonlinearities route through ``cfg.approx`` (the paper's table backend).
 """
 
 from __future__ import annotations
@@ -56,8 +64,11 @@ from .common import (
     softcap,
     unembed,
 )
-from .config import DENSE, MOE, ArchConfig
+from .config import DENSE, ENCDEC, MOE, VLM, ArchConfig
 from .mlp import glu, init_glu, init_mlp, init_moe, mlp, moe
+from .ssm import SSMCache, init_mamba2, init_ssm_cache, mamba2_block
+from .xlstm import (MLSTMCache, SLSTMCache, init_mlstm, init_mlstm_cache, init_slstm,
+                    init_slstm_cache, mlstm_block, slstm_block)
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
@@ -97,16 +108,12 @@ def _decode_positions(pos: torch.Tensor, pos_buf: torch.Tensor, W: int):
     return pos32[:, None], pos_buf.index_put((b, (pos32 % W).long()), pos32)
 
 
-class DecoderLM:
+class BaseLM:
+    """What the families share: the compute dtype, the approx closures (the
+    gate, the softcap tanh, table-served RoPE and TableFlash's exponent, on
+    the model's device), the loss and the logits head."""
+
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
-        if cfg.family not in (DENSE, MOE):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: ROADMAP queue 1, "
-                "items 11d-f (remaining model families)")
-        self.period = max(1, cfg.attn.global_every)
-        if cfg.n_layers % self.period:
-            raise ValueError("n_layers must be divisible by the local:global period")
-        self.n_groups = cfg.n_layers // self.period
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.compute_dtype]
@@ -118,6 +125,39 @@ class DecoderLM:
         # TableFlash: flash attention's softmax exponent through the pack's
         # exp_neg member when attn_table is on (None = exact exp)
         self.attn_exp = cfg.approx.attn_exp(self.device)
+
+    def _check_gen(self, gen: torch.Generator) -> None:
+        if gen.device.type != self.device.type:
+            raise ValueError(f"generator on {gen.device}, model on {self.device}")
+
+    def loss(self, params, batch):
+        logits, aux = self.train_logits(params, batch)
+        return cross_entropy(logits, batch["targets"]) + AUX_WEIGHT * aux
+
+    def _logits(self, params, x):
+        x = rmsnorm(params["final_norm"], x)
+        logits = unembed(params.get("unembed", params["embed"]), x)
+        logits = softcap(logits, self.cfg.attn.logit_softcap, self._cap_tanh)
+        if self.cfg.vocab_pad != self.cfg.vocab:  # mask padded vocab rows
+            iota = torch.arange(logits.shape[-1], device=logits.device)
+            logits = torch.where(iota < self.cfg.vocab, logits, -1e30)
+        return logits
+
+
+class DecoderLM(BaseLM):
+    def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
+        if cfg.family in (ENCDEC, VLM):
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet: ROADMAP queue 1, "
+                "item 11f (the encoder-decoder and vision families)")
+        if cfg.family not in (DENSE, MOE):
+            raise ValueError(f"family {cfg.family!r} is not a decoder stack; "
+                             "build_model builds its model")
+        self.period = max(1, cfg.attn.global_every)
+        if cfg.n_layers % self.period:
+            raise ValueError("n_layers must be divisible by the local:global period")
+        self.n_groups = cfg.n_layers // self.period
+        super().__init__(cfg, device)
 
     # ------------------------------- init ----------------------------------------
 
@@ -143,8 +183,7 @@ class DecoderLM:
         device), every leaf f32 whatever ``cfg.param_dtype`` says: the
         reference's ``init`` never reads that field, and the trainer scales
         and sums the grads in the leaves' dtype."""
-        if gen.device.type != self.device.type:
-            raise ValueError(f"generator on {gen.device}, model on {self.device}")
+        self._check_gen(gen)
         cfg = self.cfg
         params: Params = {
             "embed": init_embedding(gen, cfg.vocab_pad, cfg.d_model, torch.float32),
@@ -165,15 +204,6 @@ class DecoderLM:
         return params
 
     # ------------------------------ blocks -----------------------------------------
-
-    def _logits(self, params, x):
-        x = rmsnorm(params["final_norm"], x)
-        logits = unembed(params.get("unembed", params["embed"]), x)
-        logits = softcap(logits, self.cfg.attn.logit_softcap, self._cap_tanh)
-        if self.cfg.vocab_pad != self.cfg.vocab:  # mask padded vocab rows
-            iota = torch.arange(logits.shape[-1], device=logits.device)
-            logits = torch.where(iota < self.cfg.vocab, logits, -1e30)
-        return logits
 
     def _ffn(self, lp, x):
         """The feed-forward half: (x + ffn(x), the layer's aux loss, None for
@@ -259,10 +289,6 @@ class DecoderLM:
             if a is not None:
                 aux = aux + a
         return self._logits(params, x), aux / self.cfg.n_layers
-
-    def loss(self, params, batch):
-        logits, aux = self.train_logits(params, batch)
-        return cross_entropy(logits, batch["targets"]) + AUX_WEIGHT * aux
 
     # ------------------------------- cache ------------------------------------------
 
@@ -371,3 +397,319 @@ class DecoderLM:
                                                          cache[name].shape[1])
         x, new_cache = self._decode_stack(params, x, positions, pbs, cache)
         return self._logits(params, x)[:, 0], new_cache
+
+
+# ======================================================================================
+# HybridLM — Mamba2 + shared attention block (zamba2)
+# ======================================================================================
+
+
+def _stacked_states(states, prefix: str, fields) -> Cache:
+    """A nested list of state NamedTuples (any depth, batch axis innermost)
+    as one flat cache entry a field: ``prefix + field`` -> stacked tensor."""
+    def stack(t, f):
+        if isinstance(t, list):
+            return torch.stack([stack(u, f) for u in t])
+        return getattr(t, f)
+    return {prefix + f: stack(states, f) for f in fields}
+
+
+class HybridLM(BaseLM):
+    """``shared_attn_every`` Mamba2 layers a group, then ONE shared
+    (weight-tied) attention+MLP block; trailing Mamba2 layers take the
+    remainder (zamba2-1.2b: 6 groups of 6, and 2).
+
+    Parameters: ``mamba`` a list of ``n_groups`` lists of ``per_group``
+    layer dicts (``ln``, ``m``), ``mamba_tail`` a list of the trailing
+    layers, ``shared`` the one attention+GLU block.  The cache is a flat
+    dict: ``mamba_state`` (n_groups, per_group, B, H, P, N) f32 and
+    ``mamba_conv_x``/``_b``/``_c`` (n_groups, per_group, B, K-1, C) f32, the
+    same fields under ``mamba_tail_`` with a (trailing,) stack axis, and the
+    shared block's ``attn_k``/``attn_v`` (n_groups, B, W, G, D) bf16 and
+    ``attn_pos`` (B, W).  ``cfg.remat`` checkpoints each group (its Mamba2
+    layers and the shared block's use) and each trailing layer, as the
+    reference's ``jax.checkpoint`` does; the shared block's gradient sums
+    over its uses."""
+
+    def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
+        super().__init__(cfg, device)
+        self.act_softplus = cfg.approx.unary("softplus", self.device)
+        k = cfg.shared_attn_every or cfg.n_layers
+        self.n_groups = cfg.n_layers // k
+        self.per_group = k
+        self.trailing = cfg.n_layers - self.n_groups * k
+        self.inner = cfg.ssm.expand * cfg.d_model
+
+    # ------------------------------- init ----------------------------------------
+
+    def _init_mamba(self, gen: torch.Generator) -> Params:
+        s, d = self.cfg.ssm, self.cfg.d_model
+        return {"ln": init_rmsnorm(d, self.device),
+                "m": init_mamba2(gen, d, expand=s.expand, head_dim=s.head_dim,
+                                 state_dim=s.state_dim, conv_width=s.conv_width)}
+
+    def init(self, gen: torch.Generator) -> Params:
+        """Random f32 parameters drawn from ``gen`` (a generator on the
+        model's device), in the reference's tree and scales."""
+        self._check_gen(gen)
+        cfg, dt = self.cfg, torch.float32
+        params: Params = {
+            "embed": init_embedding(gen, cfg.vocab_pad, cfg.d_model, dt),
+            "mamba": [[self._init_mamba(gen) for _ in range(self.per_group)]
+                      for _ in range(self.n_groups)],
+            "shared": {
+                "ln1": init_rmsnorm(cfg.d_model, self.device),
+                "attn": init_attention(gen, cfg.d_model, cfg.attn_geom, dtype=dt),
+                "ln2": init_rmsnorm(cfg.d_model, self.device),
+                "mlp": init_glu(gen, cfg.d_model, cfg.d_ff, dt),
+            },
+            "final_norm": init_rmsnorm(cfg.d_model, self.device),
+        }
+        if self.trailing:
+            params["mamba_tail"] = [self._init_mamba(gen) for _ in range(self.trailing)]
+        if not cfg.tie_embeddings:
+            params["unembed"] = init_embedding(gen, cfg.vocab_pad, cfg.d_model, dt)
+        return params
+
+    # ------------------------------ blocks -----------------------------------------
+
+    def _mamba(self, lp, x, cache=None):
+        s = self.cfg.ssm
+        y, new_cache = mamba2_block(
+            lp["m"], rmsnorm(lp["ln"], x), expand=s.expand, head_dim=s.head_dim,
+            state_dim=s.state_dim, conv_width=s.conv_width, chunk=s.chunk,
+            act_silu=self.act, act_softplus=self.act_softplus, cache=cache)
+        return x + y, new_cache
+
+    def _shared(self, sp, x, positions, kb=None, vb=None, pb=None):
+        """The shared block: attend within x (train/prefill, returning its
+        k/v), or insert into the (kb, vb) buffers at ``positions`` and attend
+        over them (decode, returning the new buffers)."""
+        cfg = self.cfg
+        q, k, v = project_qkv(sp["attn"], rmsnorm(sp["ln1"], x), positions,
+                              geom=cfg.attn_geom, rope_theta=cfg.attn.rope_theta,
+                              rope_sin_cos=self.rope_sin_cos)
+        if kb is None:
+            o = flash_attention(q, k, v, positions, positions, causal=True,
+                                window=cfg.attn.window, exp_fn=self.attn_exp)
+            new = (k, v)
+        else:
+            kb, vb, _ = cache_insert(kb, vb, pb, k, v, positions)
+            o = flash_attention(q, kb, vb, positions, pb, causal=True,
+                                window=cfg.attn.window, exp_fn=self.attn_exp)
+            new = (kb, vb)
+        x = x + attention_out(sp["attn"], o, cfg.attn_geom)
+        x = x + glu(sp["mlp"], rmsnorm(sp["ln2"], x), self.act)
+        return x, new
+
+    def _train_group(self, mps, sp, x, positions):
+        for lp in mps:
+            x, _ = self._mamba(lp, x)
+        return self._shared(sp, x, positions)[0]
+
+    def _train_tail(self, lp, x):
+        return self._mamba(lp, x)[0]
+
+    @staticmethod
+    def _ssm_cache(cache, prefix, idx) -> SSMCache:
+        return SSMCache(*(cache[prefix + f][idx] for f in SSMCache._fields))
+
+    # ------------------------------- train -----------------------------------------
+
+    def train_logits(self, params, batch):
+        tokens = batch["tokens"]
+        x = embed(params["embed"], tokens, self.dtype)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        remat = self.cfg.remat
+        for mps in params["mamba"]:
+            if remat:
+                x = checkpoint(self._train_group, mps, params["shared"], x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._train_group(mps, params["shared"], x, positions)
+        for lp in params.get("mamba_tail", []):
+            x = (checkpoint(self._train_tail, lp, x, use_reentrant=False) if remat
+                 else self._train_tail(lp, x))
+        return self._logits(params, x), torch.zeros((), dtype=torch.float32,
+                                                    device=x.device)
+
+    # ------------------------------- cache ------------------------------------------
+
+    def init_cache(self, batch: int, cache_len: int, device: DeviceLike = None) -> Cache:
+        """The flat cache of the class docstring, zero states and empty
+        (-1) positions; ``device`` defaults to the model's (``"meta"`` gives
+        shapes only)."""
+        cfg, s = self.cfg, self.cfg.ssm
+        dev = self.device if device is None else torch.device(device)
+        W = cache_len if cfg.attn.window == 0 else min(cfg.attn.window, cache_len)
+        one = init_ssm_cache(batch, self.inner, s.state_dim, s.head_dim, s.conv_width,
+                             dev)
+        c = {"mamba_" + f: getattr(one, f).expand(
+            (self.n_groups, self.per_group) + getattr(one, f).shape).clone()
+            for f in SSMCache._fields}
+        kv = (self.n_groups, batch, W, cfg.attn_geom.g_eff, cfg.head_dim)
+        c["attn_k"] = torch.zeros(kv, dtype=torch.bfloat16, device=dev)
+        c["attn_v"] = torch.zeros(kv, dtype=torch.bfloat16, device=dev)
+        c["attn_pos"] = torch.full((batch, W), -1, dtype=torch.int32, device=dev)
+        if self.trailing:
+            c.update({"mamba_tail_" + f: getattr(one, f).expand(
+                (self.trailing,) + getattr(one, f).shape).clone()
+                for f in SSMCache._fields})
+        return c
+
+    # --------------------------- prefill / decode ------------------------------------
+
+    def _forward(self, params, x, positions, cache, decode: bool):
+        """Every layer over x with the cache's states (prefill: the shared
+        block attends within x and its k/v go into the ring; decode: it
+        attends over the buffers, whose ``attn_pos`` the caller updated).
+        Returns x and the new cache."""
+        sp, new = params["shared"], dict(cache)
+        states, ks, vs = [], [], []
+        for g, mps in enumerate(params["mamba"]):
+            group = []
+            for i, lp in enumerate(mps):
+                x, nc = self._mamba(lp, x, self._ssm_cache(cache, "mamba_", (g, i)))
+                group.append(nc)
+            states.append(group)
+            kb, vb = cache["attn_k"][g], cache["attn_v"][g]
+            if decode:
+                x, (kb, vb) = self._shared(sp, x, positions, kb, vb, cache["attn_pos"])
+            else:
+                x, (k, v) = self._shared(sp, x, positions)
+                kn, vn, pn = DecoderLM._ring_window(k, v, positions, kb.shape[1])
+                kb, vb, new["attn_pos"] = cache_insert(kb, vb, cache["attn_pos"],
+                                                       kn, vn, pn)
+            ks.append(kb)
+            vs.append(vb)
+        new.update(_stacked_states(states, "mamba_", SSMCache._fields))
+        new["attn_k"], new["attn_v"] = torch.stack(ks), torch.stack(vs)
+        if self.trailing:
+            tail = []
+            for t, lp in enumerate(params["mamba_tail"]):
+                x, nc = self._mamba(lp, x, self._ssm_cache(cache, "mamba_tail_", t))
+                tail.append(nc)
+            new.update(_stacked_states(tail, "mamba_tail_", SSMCache._fields))
+        return x, new
+
+    def prefill(self, params, batch, cache):
+        """batch["tokens"]: (B, S).  Returns the last position's logits (B, V)
+        and a new cache."""
+        tokens = batch["tokens"]
+        x = embed(params["embed"], tokens, self.dtype)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x, cache = self._forward(params, x, positions, cache, decode=False)
+        return self._logits(params, x[:, -1:])[:, 0], cache
+
+    def decode_step(self, params, tok, pos, cache):
+        """tok: (B, 1); pos: () shared absolute position, or (B,) per-slot
+        positions (continuous batching) — the shared block's clock; the
+        Mamba2 states carry no position."""
+        x = embed(params["embed"], tok, self.dtype)
+        positions, pb = _decode_positions(pos, cache["attn_pos"],
+                                          cache["attn_pos"].shape[1])
+        x, cache = self._forward(params, x, positions, {**cache, "attn_pos": pb},
+                                 decode=True)
+        return self._logits(params, x)[:, 0], cache
+
+
+# ======================================================================================
+# XLSTMLM — alternating mLSTM / sLSTM
+# ======================================================================================
+
+
+class XLSTMLM(BaseLM):
+    """``n_layers / 2`` pairs of an mLSTM and an sLSTM block, no attention and
+    no positions.  Parameters: ``mlstm`` and ``slstm``, lists of ``n_pairs``
+    block dicts (``ln``, ``b``).  The cache is a flat dict, each entry
+    stacked over the pairs: the mLSTM's ``m_c`` (n_pairs, B, H, D, D),
+    ``m_n`` (n_pairs, B, H, D) and ``m_m`` (n_pairs, B, H), the sLSTM's
+    ``s_h``, ``s_c``, ``s_n``, ``s_m`` (n_pairs, B, d), all f32; the
+    stabilizers start at -1e30.  ``cfg.remat`` checkpoints each pair."""
+
+    M_FIELDS = {"m_" + f: f for f in MLSTMCache._fields}
+    S_FIELDS = {"s_" + f: f for f in SLSTMCache._fields}
+
+    def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
+        if cfg.n_layers % 2:
+            raise ValueError("xLSTM stack alternates mLSTM/sLSTM: need even layers")
+        super().__init__(cfg, device)
+        self.n_pairs = cfg.n_layers // 2
+        self.act_sigmoid = cfg.approx.unary("sigmoid", self.device)
+        self.act_tanh = cfg.approx.unary("tanh", self.device)
+        self.act_exp = cfg.approx.unary("exp", self.device)  # exp_neg table domain
+
+    def init(self, gen: torch.Generator) -> Params:
+        """Random f32 parameters drawn from ``gen`` (a generator on the
+        model's device), in the reference's tree and scales."""
+        self._check_gen(gen)
+        cfg, dt = self.cfg, torch.float32
+        ln = lambda: init_rmsnorm(cfg.d_model, self.device)
+        params: Params = {
+            "embed": init_embedding(gen, cfg.vocab_pad, cfg.d_model, dt),
+            "mlstm": [{"ln": ln(), "b": init_mlstm(gen, cfg.d_model, cfg.n_heads)}
+                      for _ in range(self.n_pairs)],
+            "slstm": [{"ln": ln(), "b": init_slstm(gen, cfg.d_model)}
+                      for _ in range(self.n_pairs)],
+            "final_norm": ln(),
+        }
+        if not cfg.tie_embeddings:
+            params["unembed"] = init_embedding(gen, cfg.vocab_pad, cfg.d_model, dt)
+        return params
+
+    def _pair(self, mp, sp, x, mcache=None, scache=None):
+        y, new_m = mlstm_block(mp["b"], rmsnorm(mp["ln"], x), n_heads=self.cfg.n_heads,
+                               act_sigmoid=self.act_sigmoid, act_exp=self.act_exp,
+                               cache=mcache)
+        x = x + y
+        y, new_s = slstm_block(sp["b"], rmsnorm(sp["ln"], x),
+                               act_sigmoid=self.act_sigmoid, act_tanh=self.act_tanh,
+                               act_exp=self.act_exp, cache=scache)
+        return x + y, new_m, new_s
+
+    def _train_pair(self, mp, sp, x):
+        return self._pair(mp, sp, x)[0]
+
+    def train_logits(self, params, batch):
+        x = embed(params["embed"], batch["tokens"], self.dtype)
+        for mp, sp in zip(params["mlstm"], params["slstm"]):
+            x = (checkpoint(self._train_pair, mp, sp, x, use_reentrant=False)
+                 if self.cfg.remat else self._train_pair(mp, sp, x))
+        return self._logits(params, x), torch.zeros((), dtype=torch.float32,
+                                                    device=x.device)
+
+    def init_cache(self, batch: int, cache_len: int, device: DeviceLike = None) -> Cache:
+        """The flat cache of the class docstring (``cache_len`` is unused:
+        the states have no positions); ``device`` defaults to the model's
+        (``"meta"`` gives shapes only)."""
+        cfg = self.cfg
+        dev = self.device if device is None else torch.device(device)
+        stack = lambda t: t.expand((self.n_pairs,) + t.shape).clone()
+        mc = init_mlstm_cache(batch, cfg.d_model, cfg.n_heads, dev)
+        sc = init_slstm_cache(batch, cfg.d_model, dev)
+        return {**{k: stack(getattr(mc, f)) for k, f in self.M_FIELDS.items()},
+                **{k: stack(getattr(sc, f)) for k, f in self.S_FIELDS.items()}}
+
+    def _forward(self, params, x, cache):
+        ms, ss = [], []
+        for i, (mp, sp) in enumerate(zip(params["mlstm"], params["slstm"])):
+            mc = MLSTMCache(*(cache[k][i] for k in self.M_FIELDS))
+            sc = SLSTMCache(*(cache[k][i] for k in self.S_FIELDS))
+            x, nm, ns = self._pair(mp, sp, x, mc, sc)
+            ms.append(nm)
+            ss.append(ns)
+        return x, {**_stacked_states(ms, "m_", MLSTMCache._fields),
+                   **_stacked_states(ss, "s_", SLSTMCache._fields)}
+
+    def prefill(self, params, batch, cache):
+        """batch["tokens"]: (B, S).  Returns the last position's logits (B, V)
+        and a new cache."""
+        x = embed(params["embed"], batch["tokens"], self.dtype)
+        x, cache = self._forward(params, x, cache)
+        return self._logits(params, x[:, -1:])[:, 0], cache
+
+    def decode_step(self, params, tok, pos, cache):
+        """tok: (B, 1); ``pos`` is unused (the states carry no position)."""
+        x = embed(params["embed"], tok, self.dtype)
+        x, cache = self._forward(params, x, cache)
+        return self._logits(params, x)[:, 0], cache

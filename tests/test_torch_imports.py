@@ -37,7 +37,9 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.core.bram", "repro_torch.core.stats",
               "repro_torch.core.attn_error", "repro_torch.configs.tabla_paper",
               "repro_torch.launch.paper", "repro_torch.configs.deepseek_moe_16b",
-              "repro_torch.configs.qwen3_moe_235b_a22b"):
+              "repro_torch.configs.qwen3_moe_235b_a22b", "repro_torch.models.ssm",
+              "repro_torch.models.xlstm", "repro_torch.configs.zamba2_1_2b",
+              "repro_torch.configs.xlstm_125m"):
         assert m in mods, m
     code = (
         "import importlib, json, sys\n"

@@ -89,8 +89,8 @@ class TestConfig:
                 == dataclasses.asdict(j_reduced(arch).attn_geom))
 
     def test_unported_archs_raise(self):
-        with pytest.raises(NotImplementedError, match="queue 1, items 11d-f"):
-            get_config("zamba2-1.2b")
+        with pytest.raises(NotImplementedError, match="queue 1, item 11f"):
+            get_config("whisper-small")
 
 
 class TestLogits:
