@@ -38,7 +38,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    exp_neg over (4, 4, L, L), (4, 4, L), (4, 4) and (4, 768) (L = 1, S0, 128),
    sigmoid over (4, S, 768) and (4, 768) and tanh over (4, 768), at S = 1,
    S0 and the training micro-batch's 128; every member's inputs also hold
-   -1e30 (the xLSTM stabilizers' start, far below exp_neg's lo);
+   -1e30 (the xLSTM stabilizers' start, far below exp_neg's lo); and phases
+   39-40's: whisper-small's ``gelu`` over its encoder's (4, 1500, 3072) and
+   its decoder's (4, S, 3072), the exponents of its encoder's 512 x 1024
+   chunks, its cross-attention's (4, S, 16, 1, 1024) over the 1,500 frames
+   and its self-attention's, internvl2-1b's ``silu`` over (4, 256 + S0,
+   4864) and (4, 1, 4864) and its exponents over the 256 + 256 cache and
+   the 256 + S0 prefix and tokens, and their training micro-batch's; the
+   encoder's and cross-attention's last kv chunk holds 548 KV_PAD lanes
+   after its 476 real keys, whose exponent input is -2e38;
 4. serving path: full-width, full-depth stablelm-3b (random weights from seed
    0) serving the launcher's default traffic (8 requests, batch 4, cache 256,
    16 new tokens) through ContinuousEngine in ``table_pack`` with TableFlash;
@@ -207,10 +215,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    to ``table_pack_ref``'s bit for bit, grad norm within 1e-3, and
    ``table_pack_grad`` launched as often a layer and micro-batch as phase 6's
    silu gate and flash slopes;
-26. gemma3-12b, the slice's main path: full width and depth (48 layers in 8
-   groups of 5 local layers with a 1,024-token window and 1 global, d 3840,
-   16 q / 8 kv heads x 256, qk-norm, ``gelu_tanh`` GLU at d_ff 15360, tied
-   embeddings, vocab 262144; 11.77 B f32 parameters) serving the 8 requests
+26. gemma3-12b at full width cut to 24 of its 48 layers (4 groups of 5
+   local layers with a 1,024-token window and 1 global, d 3840, 16 q / 8 kv
+   heads x 256, qk-norm, ``gelu_tanh`` GLU at d_ff 15360, tied embeddings,
+   vocab 262144; 11.77 B f32 parameters at 48) serving the 8 requests
    as phase 25 does, then 2 prompts of 1,100-1,200 tokens in a 2,048-token
    cache, which wrap the local rings, token-identical to ``table_pack_ref``;
    the launches of one decode step at each cache; the decode-step and
@@ -249,7 +257,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    chunks); each max row error within ``flash_abs_bound``;
 31. deepseek-moe-16b (64 routed experts top-6 of d_ff 1408 + 2 shared, 16
    heads x 128 (MHA), vocab 102400; 16.88 B f32 parameters, random from
-   seed 0) at full width and depth serving the 8 requests in
+   seed 0) at full width cut to 14 of its 28 layers serving the 8 requests in
    ``table_pack`` + TableFlash, token-identical to ``table_pack_ref`` (the
    MoE's capacity is shared across the batch, so the oracle is the same
    queue, not each request alone); prefill and decode logits within 1e-6 of
@@ -292,15 +300,40 @@ Phases, each fatal on failure (exit code 1, no result line):
    of the sLSTM step) and trained 2 steps as phase 36 (the sLSTM's 128-step
    loop over time in each layer);
 38. reference: reduced zamba2-1.2b and xlstm-125m in float32 on the card
-   against the same models on the CPU, as phase 5 (at least 2 refills).
+   against the same models on the CPU, as phase 5 (at least 2 refills);
+39. whisper-small (12 bidirectional encoder layers over 1,500 stub frame
+   embeddings with sinusoidal positions, 12 decoder layers of causal
+   self-attention with RoPE, cross-attention into the encoder output and a
+   ``gelu`` MLP at d_ff 3072; 12 heads x 64 padded to 16 kv groups; vocab
+   51865; 0.278 B f32 parameters, random from seed 0) at full width and
+   depth serving the 8 requests in groups of 4 through
+   ``DecodeEngine.generate_batch`` with each group's frames (numpy seed),
+   token-identical to ``table_pack_ref`` (ContinuousEngine serves
+   token-only prompts); prefill and decode logits within 1e-6 of
+   ``table_pack_ref``'s; one prefill launching 24 gates and 216 exponents
+   and one decode step 12 and 72 (2 a kv chunk of each attention: 3 x 2
+   chunk pairs of the encoder), as derived from the code; the decode-step
+   and prefill ms, idle share, host time and op events and peak memory, as
+   phase 31; then trained 2 steps at full depth as phase 25's training
+   (step 0 bit-equal, grad norm within 1e-3, ``table_pack_grad`` 480 a
+   micro-batch: 26 an encoder layer, 14 a decoder layer);
+40. internvl2-1b (24 layers, 14 q / 2 kv heads x 64 repeated to 16 groups,
+   ``silu`` GLU at d_ff 4864, vocab 151655, 256 stub patches of width 1024
+   projected before the tokens; 0.631 B f32) served and trained as phase
+   39, with patches (its cache 256 + 256 slots; 24 gates and 48 exponents a
+   decode step; 144 grad launches a micro-batch);
+41. reference: reduced whisper-small and internvl2-1b in float32 on the
+   card against the CPU: prefill logits within 1e-4 and greedy tokens of 3
+   groups through generate_batch identical.
 
 Each phase prints its wall seconds (``phase N: ...s``) and the run ends
 with all of them in one line.  The line before the last is one JSON object
 listing the kernels (each one's launches from the path it serves;
 ``table_lookup`` and ``tableflash_exp`` also carry ``paper_launches``,
 theirs in phases 29-30, and ``table_pack_lookup``, ``tableflash_exp`` and
-``table_pack_grad`` ``moe_launches`` and ``recurrent_launches``, theirs in
-phases 31-33 and 35-37); the last line is ``{"ok": true, "device": {...}}``.
+``table_pack_grad`` ``moe_launches``, ``recurrent_launches`` and
+``encdec_vlm_launches``, theirs in phases 31-33, 35-37 and 39-40); the last
+line is ``{"ok": true, "device": {...}}``.
 Without a card, or outside a checkout of the repository, the script exits
 non-zero and prints no result.
 """
@@ -364,15 +397,18 @@ ROPE_SHAPES = ((BATCH, 1, 40), (BATCH, 27, 40), (MICRO, TRAIN_SEQ, 40))
 # 2.35 B f32 parameters, 37.6 GB with grads and AdamW moments); its long
 # queue: 2 prompts of 1,100-1,200 tokens in a 2,048-token cache, wrapping its
 # 1,024-slot rings
-YI_LAYERS, GEMMA_TRAIN_LAYERS = 24, 6
+# (phases 26 and 31 serve gemma3-12b at 24 of 48 layers and deepseek-moe-16b
+# at 14 of 28, so that the run keeps to 900 s with phases 39-41: 939.0 s at
+# full depth on a slow host)
+YI_LAYERS, GEMMA_TRAIN_LAYERS, GEMMA_SERVE_LAYERS = 24, 6, 24
 LONG_REQ, LONG_LEN, LONG_CACHE = 2, (1100, 1200), 2048
 DENSE_FAMILY = ("starcoder2-3b", "gemma3-12b", "yi-34b")
-# phases 31-34: deepseek-moe-16b serves at full depth (16.88 B f32 parameters,
-# 62.9 GiB) and trains 4 of its 28 layers (2.77 B: the f32 AdamW state of all
+# phases 31-34: deepseek-moe-16b serves 14 of its 28 layers (16.88 B f32
+# parameters, 62.9 GiB at 28) and trains 4 (2.77 B: the f32 AdamW state of all
 # 28, ~270 GB, does not fit one card); qwen3-moe-235b-a22b serves 6 of its 94
 # layers (16.18 B, 64.7 GB; each layer holds 2.49 B)
 MOE_FAMILY = ("deepseek-moe-16b", "qwen3-moe-235b-a22b")
-MOE_TRAIN_LAYERS, QWEN_LAYERS = 4, 6
+MOE_TRAIN_LAYERS, QWEN_LAYERS, DEEPSEEK_SERVE_LAYERS = 4, 6, 14
 # phases 35-38: zamba2-1.2b (38 Mamba2 layers, 6 uses of one shared attention
 # + GLU block; 1.17 B f32) and xlstm-125m (6 mLSTM/sLSTM pairs) at full width
 # and depth.  The gate calls of their blocks, by the code: a Mamba2 layer
@@ -381,6 +417,15 @@ MOE_TRAIN_LAYERS, QWEN_LAYERS = 4, 6
 # and its output gate's sigmoid; an sLSTM step tanh, 2 exp_neg and sigmoid
 RECURRENT_FAMILY = ("zamba2-1.2b", "xlstm-125m")
 MAMBA_GATES, MLSTM_CHUNK_GATES, MLSTM_GATES, SLSTM_STEP_GATES = 5, 5, 1, 4
+# phases 39-41: whisper-small (12 encoder layers over 1,500 stub frame
+# embeddings, 12 decoder layers that cross-attend to them) and internvl2-1b
+# (24 layers after 256 projected stub patches) at full width and depth,
+# served in groups of BATCH through DecodeEngine.generate_batch with their
+# frames / patches (ContinuousEngine serves token-only prompts), each group's
+# drawn from numpy seed EXTRA_SEED + its index
+ENCDEC_VLM_FAMILY = ("whisper-small", "internvl2-1b")
+EXTRA_SEED = 7
+NEG_INF = -2.0e38  # flash_attention's masked score: a KV_PAD lane's exponent
 PHASE_S = {}  # each phase's wall seconds
 Q_CHUNK, KV_CHUNK = 512, 1024  # flash_attention's query and kv chunks
 
@@ -591,11 +636,23 @@ def phase3_edges(pack, fid):
                           ).astype(np.float32)
 
 
-def kernel_phase(f32_packs, s0, flash, dense):
+def with_kv_pad(x, kv_pad):
+    """x with the lanes past the real keys of its last kv chunk set to what
+    flash_attention's exponent sees there: a masked score (NEG_INF) less the
+    running max, -2e38 in f32.  ``kv_pad`` maps an exponent shape to the
+    real keys of its last chunk (``family_shapes``)."""
+    n = kv_pad.get(tuple(x.shape))
+    if n is not None:
+        x[..., n:] = NEG_INF
+    return x
+
+
+def kernel_phase(f32_packs, s0, flash, dense, kv_pad):
     """The value kernels bitwise against their plain versions: stablelm-3b's
     gate and TableFlash shapes, and ``dense`` (``family_shapes``'s
-    serving half: phases 25-27's and 31-33's gate shapes by member, their exponent
-    shapes) on the f32 pack that serves them all."""
+    serving half: phases 25-27's, 31-33's, 35-37's and 39-40's gate shapes by
+    member, their exponent shapes, whisper's with KV_PAD lanes, ``kv_pad``)
+    on the f32 pack that serves them all."""
     import torch
 
     from repro_torch.kernels import table_pack_lookup as K
@@ -628,7 +685,8 @@ def kernel_phase(f32_packs, s0, flash, dense):
         edges = with_subnormals(edge_values(pk, fid))
         for dtype in (torch.bfloat16, torch.float32):
             for shape in flash_shapes:
-                x = make_input(shape, -40.0, 0.0, edges, dtype, seed=99)
+                x = with_kv_pad(make_input(shape, -40.0, 0.0, edges, dtype, seed=99),
+                                kv_pad)
                 got = K.tableflash_exp(pk, x)
                 want = K.tableflash_exp_plain(pk, x)
                 torch.cuda.synchronize()
@@ -639,16 +697,17 @@ def kernel_phase(f32_packs, s0, flash, dense):
     log(f"kernels: {cases} kernel-vs-plain cases bitwise equal "
         f"(packs {[tag for tag, _, _ in f32_packs]}, bf16+f32, extrapolate on/off, "
         f"edges, -1e30 and subnormals; TableFlash over {[tag for tag, _ in flash]}; "
-        f"phases 25-27's, 31-33's and 35-37's gates {dense_gates} and "
-        f"exponent shapes {dense_flash})")
+        f"phases 25-27's, 31-33's, 35-37's and 39-40's gates {dense_gates} and "
+        f"exponent shapes {dense_flash}, KV_PAD lanes at {kv_pad})")
     return worst
 
 
-def grad_kernel_phase(f32_packs, tables, s0, dense):
+def grad_kernel_phase(f32_packs, tables, s0, dense, kv_pad):
     """The value + slope pack kernel over every member of each f32 pack, and
     the single-table kernels over each table, bitwise against their plain
     versions.  ``dense`` (``family_shapes``'s training half) adds the
-    dense and MoE families' training gates by member and exponent shapes."""
+    families' training gates by member and exponent shapes (``kv_pad``:
+    the encoder's with KV_PAD lanes)."""
     import torch
 
     from repro_torch.kernels import table_grad as TG
@@ -671,6 +730,8 @@ def grad_kernel_phase(f32_packs, tables, s0, dense):
             for dtype in (torch.bfloat16, torch.float32):
                 for shape in member_shapes:
                     x = make_input(shape, lo, hi, edges, dtype, seed=fid)
+                    if name == "exp_neg":
+                        x = with_kv_pad(x, kv_pad)
                     for ex in (False, True):
                         got = K.table_pack_grad(pack, fid, x, extrapolate=ex)
                         want = K.table_pack_grad_plain(pack, fid, x, extrapolate=ex)
@@ -756,11 +817,12 @@ def _mean_ms(fn, reps):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def step_breakdown(models, params, rows, cache, smi_line, tag=""):
-    """Host-clock ms of one prefill (B, S0) and one decode step (B, cache 256)
-    per approx mode, in two alternating rounds after a warm-up; then a
-    profiler view of the table_pack decode step: device busy share of the
-    wall time and the kernels that take it."""
+def step_breakdown(models, params, rows, cache, smi_line, tag="", extra=None):
+    """Host-clock ms of one prefill (B, S0; with ``extra``, the prefill's
+    frames or patches) and one decode step (B, cache 256) per approx mode,
+    in two alternating rounds after a warm-up; then a profiler view of the
+    table_pack decode step: device busy share of the wall time and the
+    kernels that take it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -776,7 +838,8 @@ def step_breakdown(models, params, rows, cache, smi_line, tag=""):
                 fresh = m.init_cache(rows.shape[0], CACHE_LEN)
                 _mean_ms(lambda: m.decode_step(params, tok, pos, cache), 2)
                 dec = _mean_ms(lambda: m.decode_step(params, tok, pos, cache), 10)
-                pre = _mean_ms(lambda: m.prefill(params, {"tokens": rows}, fresh), 3)
+                pre = _mean_ms(lambda: m.prefill(params, {"tokens": rows, **(extra or {})},
+                                                 fresh), 3)
                 step_ms[mode] = dec
                 log(f"step: {tag}round {rnd} {mode}: decode {dec:.3f} ms, prefill "
                     f"(S0={rows.shape[1]}) {pre:.3f} ms [{smi_line}]")
@@ -807,16 +870,19 @@ def step_breakdown(models, params, rows, cache, smi_line, tag=""):
 
 
 def reference_check(arch="stablelm-3b", window=None):
-    """Reduced ``arch`` in f32: the card against the CPU (plain versions).
-    ``window`` sets the local layers' ``LOCAL_WINDOW`` for the check, so that
-    the queue's prompts wrap a local:global stack's rings on both devices."""
+    """Reduced ``arch`` in f32: the card against the CPU (plain versions),
+    its prefill logits and the greedy tokens of a queue through
+    ContinuousEngine (whisper and internvl: through generate_batch, in
+    groups with their frames or patches).  ``window`` sets the local layers'
+    ``LOCAL_WINDOW`` for the check, so that the queue's prompts wrap a
+    local:global stack's rings on both devices."""
     import torch
 
     from repro_torch.approx import ApproxConfig
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import build_model, reduced
     from repro_torch.models import transformer
-    from repro_torch.serving.engine import ContinuousEngine
+    from repro_torch.serving.engine import ContinuousEngine, DecodeEngine, pad_and_batch
 
     cfg = reduced(arch).replace(
         compute_dtype="float32",
@@ -840,27 +906,36 @@ def reference_check(arch="stablelm-3b", window=None):
         rows[j, s0 - len(r.prompt):] = torch.as_tensor(r.prompt)
     kept = transformer.LOCAL_WINDOW
     transformer.LOCAL_WINDOW = window or kept
+    extra = extra_inputs(cpu_model, 2, EXTRA_SEED)
+    cpu_extra = {k: torch.from_numpy(v) for k, v in extra.items()}
     try:
         with torch.inference_mode():
-            lc, _ = cpu_model.prefill(cpu_params, {"tokens": rows},
+            lc, _ = cpu_model.prefill(cpu_params, {"tokens": rows, **cpu_extra},
                                       cpu_model.init_cache(2, 64))
-            lg, _ = gpu_model.prefill(gpu_params, {"tokens": rows.cuda()},
-                                      gpu_model.init_cache(2, 64))
+            lg, _ = gpu_model.prefill(gpu_params, {"tokens": rows.cuda(), **to_cuda(
+                cpu_extra)}, gpu_model.init_cache(2, 64))
         err = float((lc - lg.cpu()).abs()[:, :cfg.vocab].max())
         check(err <= 1e-4, f"reduced {arch} f32 logits card vs CPU: {err} > 1e-4")
-        a = ContinuousEngine(cpu_model, cpu_params, 2, 64).serve(reqs)
-        engine = ContinuousEngine(gpu_model, gpu_params, 2, 64)
-        b = engine.serve(reqs)
+        if extra:  # frames or patches: the static engine, one group at a time
+            a, b = ([DecodeEngine(m, p, 2, 64).generate_batch(
+                toks, 8, extra_inputs=extra_inputs(m, 2, EXTRA_SEED + g))[0]
+                for g, (_, toks) in enumerate(pad_and_batch(reqs, 2))]
+                for m, p in ((cpu_model, cpu_params), (gpu_model, gpu_params)))
+            how = f"{len(a)} groups of 2 through generate_batch"
+        else:
+            a = [r.tokens for r in ContinuousEngine(cpu_model, cpu_params, 2, 64
+                                                    ).serve(reqs)]
+            engine = ContinuousEngine(gpu_model, gpu_params, 2, 64)
+            b = [r.tokens for r in engine.serve(reqs)]
+            check(engine.refills >= 2, f"reduced {arch}: {engine.refills} refills < 2")
+            how = f"{len(a)} requests through {engine.refills} refills"
     finally:
         transformer.LOCAL_WINDOW = kept
-    check(engine.refills >= 2, f"reduced {arch}: {engine.refills} refills < 2")
     for i, (x, y) in enumerate(zip(a, b)):
-        check((x.tokens == y.tokens).all(), f"reduced {arch} request {i}: card "
-              f"tokens differ from CPU")
+        check((x == y).all(), f"reduced {arch} request {i}: card tokens differ from CPU")
     wl = f", local window {window} (prompts of up to {s0} tokens)" if window else ""
     log(f"reference: reduced {arch} ({cfg.n_layers}L) f32 table_pack+TableFlash{wl}, "
-        f"card vs CPU: max |logit diff| {err:.3e} (<= 1e-4), {len(a)} requests "
-        f"token-identical through {engine.refills} refills")
+        f"card vs CPU: max |logit diff| {err:.3e} (<= 1e-4), {how} token-identical")
 
 
 # --------------------------------------------------------------------------------------
@@ -2470,6 +2545,81 @@ def serve_against_plain(tag, model, ref, params, reqs, batch, cache_len, smi_lin
     return out, counts
 
 
+def extra_inputs(model, batch, seed):
+    """The prefill's frames (B, enc_len, d) or patches (B, n_vis, d_vis) of
+    ``model``'s family, standard normal f32 from numpy ``seed``."""
+    import numpy as np
+
+    cfg = model.cfg
+    shape = {"frames": (batch, cfg.enc_len, cfg.d_model),
+             "patches": (batch, cfg.n_vis_tokens, cfg.d_vis)}
+    rng = np.random.default_rng(seed)
+    return {k: rng.standard_normal(shape[k]).astype(np.float32)
+            for k in model.extra_inputs}
+
+
+def static_serve_against_plain(tag, model, ref, params, reqs, batch, cache_len,
+                               smi_line):
+    """Serve ``reqs`` in groups of ``batch`` (``pad_and_batch``) through
+    ``DecodeEngine.generate_batch`` with each group's ``extra_inputs`` (seed
+    EXTRA_SEED + the group's index), in ``model``'s mode and in ``ref``'s
+    (the plain versions) on the same ``params``: both kernels must launch,
+    the plain versions none, every request get its budget and the tokens be
+    identical.  Returns the kernel run's results and launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import table_pack_lookup as K
+    from repro_torch.serving.engine import DecodeEngine, Result, _trim_at_eos, pad_and_batch
+
+    groups = pad_and_batch(reqs, batch)
+
+    def run(m):
+        engine = DecodeEngine(m, params, batch, cache_len)
+        out = []
+        for g, (group, toks) in enumerate(groups):
+            budgets = np.asarray([r.max_new_tokens for r in group], np.int64)
+            gen, _ = engine.generate_batch(toks, budgets, extra_inputs=extra_inputs(
+                m, batch, EXTRA_SEED + g))
+            for i, r in enumerate(group):
+                kept = _trim_at_eos(gen[i], r.max_new_tokens, r.eos_id)
+                out.append(Result(tokens=kept, prompt_len=len(r.prompt), steps=len(kept)))
+        torch.cuda.synchronize()
+        return out[: len(reqs)], engine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out, engine = run(model)
+    dt = time.perf_counter() - t0
+    counts = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k in ("table_pack_lookup", "tableflash_exp"):
+        check(counts[k] > 0, f"{tag}: kernel {k} was not launched serving: {counts}")
+    check(all(o.steps == r.max_new_tokens for o, r in zip(out, reqs)),
+          f"{tag}: every request gets its budget")
+    K.reset_launches()
+    t1 = time.perf_counter()
+    ref_out, _ = run(ref)
+    ref_dt = time.perf_counter() - t1
+    check(all(v == 0 for v in K.launches.values()), f"{tag}: {ref.cfg.approx.mode} "
+          "launched a kernel")
+    for i, (a, b) in enumerate(zip(out, ref_out)):
+        check((a.tokens == b.tokens).all(), f"{tag} request {i}: kernel tokens "
+              f"{a.tokens.tolist()} != plain {b.tokens.tolist()}")
+    tokens = sum(r.steps for r in out)
+    lens = [len(r.prompt) for r in reqs]
+    log(f"{tag}: served {len(out)} requests (prompts {min(lens)}..{max(lens)} tokens, "
+        f"{len(groups)} groups of {batch} through generate_batch with "
+        f"{list(model.extra_inputs)}, cache {cache_len}), {tokens} tokens in "
+        f"{dt:.3f}s = {tokens / dt:.1f} tok/s ({ref.cfg.approx.mode} "
+        f"{tokens / ref_dt:.1f} tok/s), {engine.batch_steps} rounds, token-identical "
+        f"to {ref.cfg.approx.mode}; peak memory {peak:.2f} GiB; launches "
+        f"{ {k: v for k, v in counts.items() if v} } [{smi_line}]")
+    return out, counts
+
+
 def gate_calls(cfg):
     """The gate (``act``) calls of one layer's forward: the GLU's or MLP's
     one; an MoE layer's routed experts' one over its (E, C, d_ff) buffer and
@@ -2477,22 +2627,29 @@ def gate_calls(cfg):
     return 1 + int(cfg.family == "moe" and cfg.moe.n_shared > 0)
 
 
-def logits_and_launches(tag, model, ref, params, rows, cache_len):
-    """One prefill of ``rows`` and one decode step in ``model``'s table_pack
-    and in ``ref``'s table_pack_ref on the same parameters: the logits of
-    both equal (the kernels are bitwise their plain versions, the rest is
-    the same code), finite and (B, vocab_pad); the table_pack decode step
-    launches the gate once for each gate call of a layer (``gate_calls``)
-    and the two running-softmax exponents once a layer and kv chunk.
-    Returns the table_pack cache."""
+def logits_and_launches(tag, model, ref, params, rows, cache_len, extra=None):
+    """One prefill of ``rows`` (with ``extra``, the prefill's frames or
+    patches) and one decode step in ``model``'s table_pack and in ``ref``'s
+    table_pack_ref on the same parameters: the logits of both equal (the
+    kernels are bitwise their plain versions, the rest is the same code),
+    finite and (B, vocab_pad); the table_pack decode step launches the gate
+    once for each gate call of a layer (``gate_calls``) and the two
+    running-softmax exponents once a layer and kv chunk; for whisper and
+    internvl the prefill's launches also as ``prefill_launches`` derives
+    them.  Returns the table_pack cache."""
     import torch
 
     from repro_torch.kernels import table_pack_lookup as K
 
     B, s0 = rows.shape
+    batch = {"tokens": rows, **(extra or {})}
     with torch.inference_mode():
-        lk, ck = model.prefill(params, {"tokens": rows}, model.init_cache(B, cache_len))
-        lr, cr = ref.prefill(params, {"tokens": rows}, ref.init_cache(B, cache_len))
+        torch.cuda.synchronize()
+        K.reset_launches()
+        lk, ck = model.prefill(params, batch, model.init_cache(B, cache_len))
+        torch.cuda.synchronize()
+        cp = dict(K.launches)
+        lr, cr = ref.prefill(params, batch, ref.init_cache(B, cache_len))
         tok = torch.argmax(lk, -1)[:, None]
         pos = torch.full((B,), s0, dtype=torch.int32, device="cuda")
         torch.cuda.synchronize()
@@ -2514,6 +2671,13 @@ def logits_and_launches(tag, model, ref, params, rows, cache_len):
     check(c["tableflash_exp"] == flash, f"{tag}: {c['tableflash_exp']} exponent "
           f"launches a decode step, not 2 a layer (or shared-block use) and kv "
           f"chunk ({flash})")
+    pre = prefill_launches(model, s0)
+    if pre is not None:
+        got = (cp["table_pack_lookup"], cp["tableflash_exp"])
+        check(got == pre[:2], f"{tag}: the prefill launches the gates and exponent "
+              f"{got}, not {pre[:2]} ({pre[2]})")
+        log(f"{tag}: one prefill (B={B}, S0={s0}) launches the gates "
+            f"{got[0]}x and the exponent {got[1]}x, as derived ({pre[2]})")
     widths = {n: ck[n].shape[1] for n in ck if n.endswith("pos")}
     log(f"{tag}: prefill (B={B}, S0={s0}) and decode logits equal table_pack_ref's "
         f"(max |diff| {diff}); one decode step (cache {cache_len}, position buffers "
@@ -2531,6 +2695,12 @@ def decode_launches(model, params, cache):
     2 exponents a kv chunk; an xLSTM pair at S = 1 makes one mLSTM chunk's
     gates and one sLSTM step's, and no exponent."""
     cfg = model.cfg
+    if cfg.family == "encdec":  # self-attention over the cache, cross over the frames
+        chunks = -(-cache["pos"].shape[1] // KV_CHUNK) + -(-cfg.enc_len // KV_CHUNK)
+        return (cfg.n_layers, f"1 a decoder layer x {cfg.n_layers}"), \
+            2 * cfg.n_layers * chunks
+    if cfg.family == "vlm":
+        model = model.backbone
     if cfg.family == "hybrid":
         chunks = -(-cache["attn_pos"].shape[1] // KV_CHUNK)
         gates = MAMBA_GATES * cfg.n_layers + model.n_groups
@@ -2547,6 +2717,34 @@ def decode_launches(model, params, cache):
     return (per * cfg.n_layers, f"{per} a layer x {cfg.n_layers}"), 2 * chunks
 
 
+def attn_chunks(S, T):
+    """flash_attention's (query chunk, kv chunk) pairs for S queries over T
+    keys: each runs the two running-softmax exponents once."""
+    return -(-S // Q_CHUNK) * -(-T // KV_CHUNK)
+
+
+def prefill_launches(model, S):
+    """whisper's and internvl's prefill launches of S prompt tokens, from
+    the code: ``(table_pack_lookup, tableflash_exp, how)`` (None for the
+    other families).  whisper: each encoder and decoder layer's MLP gate;
+    2 exponents a chunk pair of the encoder over its enc_len frames, of the
+    decoder's self-attention over the prompt and of its cross-attention over
+    the frames.  internvl: each layer's gate, 2 exponents a chunk pair over
+    the n_vis + S prefix and tokens."""
+    cfg = model.cfg
+    if cfg.family == "encdec":
+        E, L = cfg.enc_len, cfg.n_layers
+        enc, dec = cfg.n_enc_layers * attn_chunks(E, E), L * (attn_chunks(S, S)
+                                                             + attn_chunks(S, E))
+        return (cfg.n_enc_layers + L, 2 * (enc + dec),
+                f"{cfg.n_enc_layers} encoder + {L} decoder gates; exponents 2 x "
+                f"({enc} encoder + {dec} decoder chunk pairs)")
+    if cfg.family == "vlm":
+        n = attn_chunks(cfg.n_vis_tokens + S, cfg.n_vis_tokens + S) * cfg.n_layers
+        return cfg.n_layers, 2 * n, f"{cfg.n_layers} gates; exponents 2 x {n} chunk pairs"
+    return None
+
+
 def grad_launches(model, per_layer):
     """table_pack_grad's launches a training micro-batch, from the code:
     every gate call of the forward launches once and once more in remat's
@@ -2555,6 +2753,14 @@ def grad_launches(model, per_layer):
     TRAIN_SEQ), which zamba2's shared block has too; each further gate call
     of a decoder layer (an MoE layer's shared experts) adds 2."""
     cfg = model.cfg
+    slopes = per_layer - 2  # the exponents' slopes of one chunk pair, recompute too
+    if cfg.family == "encdec":  # whisper's encoder over its frames, the decoder
+        E, S = cfg.enc_len, TRAIN_SEQ
+        return (cfg.n_enc_layers * (2 + slopes * attn_chunks(E, E))
+                + cfg.n_layers * (2 + slopes * (attn_chunks(S, S) + attn_chunks(S, E))))
+    if cfg.family == "vlm":  # the prefix and the tokens in one sequence
+        S = cfg.n_vis_tokens + TRAIN_SEQ
+        return cfg.n_layers * (2 + slopes * attn_chunks(S, S))
     if cfg.family == "hybrid":
         return 2 * MAMBA_GATES * cfg.n_layers + per_layer * model.n_groups
     if cfg.family == "xlstm":
@@ -2618,19 +2824,52 @@ def recurrent_gate_shapes(cfg, B, S):
             "sigmoid_sym": [(B, S, d), (B, d)], "tanh": [(B, d)]}
 
 
+def encdec_vlm_shapes(cfg, B, S, T):
+    """The gate and exponent shapes of a forward of B x S tokens of whisper
+    or internvl over a T-slot self-attention buffer: whisper's encoder over
+    its enc_len frames (bidirectional: enc_len queries over enc_len keys),
+    its decoder's MLP, self-attention and cross-attention over the frames;
+    internvl's backbone over its n_vis patches and the S tokens (S = 1: a
+    decode step, over the cache's T slots).  Returns (gate shapes, exponent
+    shapes, the exponents' shapes whose last kv chunk holds KV_PAD lanes
+    with the number of real keys in it)."""
+    E = cfg.enc_len
+    if cfg.family == "vlm":  # the cache holds the prefix too
+        if S > 1:  # a prefill or training forward: the prefix, then the tokens
+            S = T = cfg.n_vis_tokens + S
+        else:
+            T += cfg.n_vis_tokens
+        return [(B, S, cfg.d_ff)], flash_exp_shapes(cfg, B, S, T), {}
+    gates = [(B, S, cfg.d_ff)]
+    flash = flash_exp_shapes(cfg, B, S, T) + flash_exp_shapes(cfg, B, S, E)
+    pad = {}
+    if S > 1:  # the encoder runs in a prefill and in training
+        gates.append((B, E, cfg.d_ff))
+        enc = flash_exp_shapes(cfg, B, E, E)
+        flash += enc
+        if E % KV_CHUNK:
+            pad[enc[0]] = E % KV_CHUNK
+    if E % KV_CHUNK:  # cross-attention's last chunk
+        pad[flash_exp_shapes(cfg, B, S, E)[0]] = E % KV_CHUNK
+    return gates, flash, pad
+
+
 def family_shapes(s0):
-    """Phases 25-27's, 31-33's and 35-37's kernel shapes, as ``((gates,
-    exponents), (gates, exponents))`` for serving and training, gates by
-    pack member.  Serving: the gates of a decode step, of the queue's
-    prefill (S0 = ``s0``) and of gemma3-12b's long prefill, and the
-    exponents over the same queries and the caches' (and local rings')
-    widths.  Training: a micro-batch of starcoder2-3b, gemma3-12b,
-    deepseek-moe-16b, zamba2-1.2b and xlstm-125m."""
+    """Phases 25-27's, 31-33's, 35-37's and 39-40's kernel shapes, as
+    ``((gates, exponents), (gates, exponents), kv_pad)`` for serving and
+    training, gates by pack member, and the exponent shapes whose last kv
+    chunk ends in KV_PAD lanes (whisper's encoder and cross-attention over
+    1,500 keys: shape -> real keys in the chunk).  Serving: the gates of a
+    decode step, of the queue's prefill (S0 = ``s0``) and of gemma3-12b's
+    long prefill, and the exponents over the same queries and the caches'
+    (and local rings') widths.  Training: a micro-batch of starcoder2-3b,
+    gemma3-12b, deepseek-moe-16b, zamba2-1.2b, xlstm-125m, whisper-small and
+    internvl2-1b."""
     from repro_torch.models import get_config
 
-    serve_g, serve_f, train_g, train_f = {}, [], {}, []
+    serve_g, serve_f, train_g, train_f, kv_pad = {}, [], {}, [], {}
     approx = get_config("stablelm-3b").approx
-    for arch in DENSE_FAMILY + MOE_FAMILY + RECURRENT_FAMILY:
+    for arch in DENSE_FAMILY + MOE_FAMILY + RECURRENT_FAMILY + ENCDEC_VLM_FAMILY:
         cfg = get_config(arch)
         check(cfg.approx == approx, f"{arch}'s approx settings are not stablelm-3b's: "
               "phase 3's pack does not serve it")
@@ -2641,6 +2880,15 @@ def family_shapes(s0):
             # a decode step's local ring (1,024 slots) is one kv chunk, as
             # each chunk of the 2,048-slot global buffer
             runs += [(LONG_REQ, 1, LONG_CACHE), (LONG_REQ, lmax, lmax)]
+        if arch in ENCDEC_VLM_FAMILY:
+            for B, S, T, g, f in ((BATCH, 1, CACHE_LEN, serve_g, serve_f),
+                                  (BATCH, s0, s0, serve_g, serve_f),
+                                  (MICRO, TRAIN_SEQ, TRAIN_SEQ, train_g, train_f)):
+                gates, flash, pad = encdec_vlm_shapes(cfg, B, S, T)
+                g.setdefault(member, []).extend(gates)
+                f += flash
+                kv_pad.update(pad)
+            continue
         if arch in RECURRENT_FAMILY:
             for B, S in ((BATCH, 1), (BATCH, s0), (MICRO, TRAIN_SEQ)):
                 for name, shapes in recurrent_gate_shapes(cfg, B, S).items():
@@ -2659,7 +2907,7 @@ def family_shapes(s0):
             train_f += flash_exp_shapes(cfg, MICRO, TRAIN_SEQ, TRAIN_SEQ)
     dedup = lambda shapes: list(dict.fromkeys(shapes))
     return (({k: dedup(v) for k, v in serve_g.items()}, dedup(serve_f)),
-            ({k: dedup(v) for k, v in train_g.items()}, dedup(train_f)))
+            ({k: dedup(v) for k, v in train_g.items()}, dedup(train_f)), kv_pad)
 
 
 def dense_model(arch, n_layers=None):
@@ -2693,6 +2941,13 @@ def dense_model(arch, n_layers=None):
                 f"d_ff={cfg.d_ff}")
     elif cfg.family == "xlstm":
         desc = f"{model.n_pairs} mLSTM/sLSTM pairs, {cfg.n_heads} mLSTM heads"
+    elif cfg.family == "encdec":
+        desc = (f"decoder + {cfg.n_enc_layers} encoder layers over {cfg.enc_len} stub "
+                f"frames, {heads}, {ffn} {cfg.act} d_ff={cfg.d_ff}, rope "
+                f"{cfg.attn.rope_theta:g} (decoder self-attention)")
+    elif cfg.family == "vlm":
+        desc = (f"{heads}, {ffn} {cfg.act} d_ff={cfg.d_ff} after {cfg.n_vis_tokens} stub "
+                f"patches of width {cfg.d_vis}, rope {cfg.attn.rope_theta:g}")
     else:
         desc = (f"{heads}, {ffn} {cfg.act} d_ff={cfg.d_ff}, period {model.period}, "
                 f"qk_norm {cfg.attn.qk_norm}, rope {cfg.attn.rope_theta:g}")
@@ -2706,8 +2961,10 @@ def dense_model(arch, n_layers=None):
 
 def dense_serving_path(arch, smi_line, n_layers=None, long_queue=False,
                        host_cost=False):
-    """Phases 25-27 and 31, 33: ``arch`` serving the launcher's 8 requests
-    against table_pack_ref, the prefill and decode logits against
+    """Phases 25-27, 31, 33, 35, 37, 39 and 40: ``arch`` serving the
+    launcher's 8 requests against table_pack_ref (through ContinuousEngine;
+    whisper and internvl, whose prefill reads frames or patches, in groups
+    through DecodeEngine.generate_batch), the prefill and decode logits against
     table_pack_ref's with one decode step's launches, and the decode-step and
     prefill ms of table_pack, table_pack_ref and exact with a profiler view
     of the table_pack step (``step_breakdown``).  With ``long_queue``
@@ -2726,10 +2983,17 @@ def dense_serving_path(arch, smi_line, n_layers=None, long_queue=False,
     reqs = make_requests(cfg.vocab, N_REQ, MAX_NEW)
     kernels = ("table_pack_lookup",) + (("tableflash_exp",) if cfg.family != "xlstm"
                                         else ())
-    _, counts = serve_against_plain(arch, model, ref, params, reqs, BATCH, CACHE_LEN,
-                                    smi_line, kernels=kernels)
+    extra = {}
+    if model.extra_inputs:  # whisper's frames, internvl's patches
+        _, counts = static_serve_against_plain(arch, model, ref, params, reqs, BATCH,
+                                               CACHE_LEN, smi_line)
+        extra = {k: torch.from_numpy(v).cuda()
+                 for k, v in extra_inputs(model, BATCH, EXTRA_SEED).items()}
+    else:
+        _, counts = serve_against_plain(arch, model, ref, params, reqs, BATCH,
+                                        CACHE_LEN, smi_line, kernels=kernels)
     rows = prompt_rows(reqs, BATCH)
-    cache = logits_and_launches(arch, model, ref, params, rows, CACHE_LEN)
+    cache = logits_and_launches(arch, model, ref, params, rows, CACHE_LEN, extra)
     if long_queue:
         long_reqs = long_requests(cfg.vocab)
         check(min(len(r.prompt) for r in long_reqs) > transformer.LOCAL_WINDOW,
@@ -2740,7 +3004,7 @@ def dense_serving_path(arch, smi_line, n_layers=None, long_queue=False,
                             prompt_rows(long_reqs, LONG_REQ), LONG_CACHE)
     exact = build_model(_with_mode(cfg, "exact"), "cuda")
     step_breakdown({"table_pack": model, "table_pack_ref": ref, "exact": exact},
-                   params, rows, cache, smi_line, tag=f"{arch} ")
+                   params, rows, cache, smi_line, tag=f"{arch} ", extra=extra)
     if host_cost:
         tok = rows[:, -1:]
         pos = torch.full((BATCH,), rows.shape[1], dtype=torch.int32, device="cuda")
@@ -2749,7 +3013,7 @@ def dense_serving_path(arch, smi_line, n_layers=None, long_queue=False,
                                                                   cache), 5)
         log(f"host: {arch} table_pack decode step: {host_us / 1e3:.3f} ms host, "
             f"{n_ops} host op events ({n_ops / cfg.n_layers:.1f} a layer) [{smi_line}]")
-    del model, ref, exact, params, cache
+    del model, ref, exact, params, cache, extra
     torch.cuda.empty_cache()
     return counts
 
@@ -2793,7 +3057,8 @@ def dense_train_path(arch, smi_line, per_layer, n_layers=None):
         f"table_pack_ref's bit for bit ({ref_loss!r}), grad norm "
         f"{rows[0]['grad_norm']:.6f} vs {ref_gn:.6f} ({gn_rel:.2e} rel); step ms "
         f"{[round(r['ms'], 1) for r in rows]}; table_pack_grad {per:g} a micro-batch "
-        f"({per / model.cfg.n_layers:g} a layer), as derived; launches "
+        f"({per / (model.cfg.n_layers + model.cfg.n_enc_layers):g} a layer), as derived; "
+        f"launches "
         f"{ {k: v for k, v in c.items() if v} }; peak {peak:.2f} GiB [{smi_line}]")
     del model, ref, params
     torch.cuda.empty_cache()
@@ -3059,10 +3324,11 @@ def main() -> int:
             f32_packs = static_f32_packs(pack, cfg.approx)
             # the dense and MoE families' shapes (phases 25-27, 31-33) on the same
             # pack: their approx settings are stablelm-3b's
-            serve_shapes, train_shapes = family_shapes(s0)
-            worst = kernel_phase(f32_packs, s0, flash_packs(pack, approx), serve_shapes)
+            serve_shapes, train_shapes, kv_pad = family_shapes(s0)
+            worst = kernel_phase(f32_packs, s0, flash_packs(pack, approx), serve_shapes,
+                                 kv_pad)
             worst.update(grad_kernel_phase(f32_packs, static_tables(approx, pack.names),
-                                           s0, train_shapes))
+                                           s0, train_shapes, kv_pad))
         # each kernel's launches come from the run of the path it serves,
         # counted from 0 just before that path and read just after it
         with phase("4"):
@@ -3179,7 +3445,8 @@ def main() -> int:
             dense_serving_path("starcoder2-3b", smi_line)
             dense_train_path("starcoder2-3b", smi_line, per_layer)
         with phase("26"):
-            dense_serving_path("gemma3-12b", smi_line, long_queue=True)
+            dense_serving_path("gemma3-12b", smi_line, n_layers=GEMMA_SERVE_LAYERS,
+                               long_queue=True)
             dense_train_path("gemma3-12b", smi_line, per_layer,
                              n_layers=GEMMA_TRAIN_LAYERS)
         with phase("27"):
@@ -3200,7 +3467,8 @@ def main() -> int:
             for k in ("table_pack_lookup", "tableflash_exp", "table_pack_grad"):
                 moe_launches[k] = moe_launches.get(k, 0) + c[k]
         with phase("31"):
-            add(dense_serving_path("deepseek-moe-16b", smi_line, host_cost=True))
+            add(dense_serving_path("deepseek-moe-16b", smi_line,
+                                   n_layers=DEEPSEEK_SERVE_LAYERS, host_cost=True))
         with phase("32"):
             add(dense_train_path("deepseek-moe-16b", smi_line, per_layer,
                                  n_layers=MOE_TRAIN_LAYERS))
@@ -3225,6 +3493,21 @@ def main() -> int:
             add_recurrent(dense_train_path("xlstm-125m", smi_line, per_layer))
         with phase("38"):
             for arch in RECURRENT_FAMILY:
+                reference_check(arch)
+        # 39-41: the encoder-decoder and vision families; their launches too
+        encdec_vlm_launches = {}
+
+        def add_encdec_vlm(c):
+            for k in ("table_pack_lookup", "tableflash_exp", "table_pack_grad"):
+                encdec_vlm_launches[k] = encdec_vlm_launches.get(k, 0) + c[k]
+        with phase("39"):
+            add_encdec_vlm(dense_serving_path("whisper-small", smi_line, host_cost=True))
+            add_encdec_vlm(dense_train_path("whisper-small", smi_line, per_layer))
+        with phase("40"):
+            add_encdec_vlm(dense_serving_path("internvl2-1b", smi_line, host_cost=True))
+            add_encdec_vlm(dense_train_path("internvl2-1b", smi_line, per_layer))
+        with phase("41"):
+            for arch in ENCDEC_VLM_FAMILY:
                 reference_check(arch)
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
@@ -3264,6 +3547,8 @@ def main() -> int:
             kernels[-1]["moe_launches"] = moe_launches[kname]
         if kname in recurrent_launches:  # and phases 35-37
             kernels[-1]["recurrent_launches"] = recurrent_launches[kname]
+        if kname in encdec_vlm_launches:  # and phases 39-40
+            kernels[-1]["encdec_vlm_launches"] = encdec_vlm_launches[kname]
     log(f"phase seconds: {json.dumps(PHASE_S)}")
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(smi_line)

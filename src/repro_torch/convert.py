@@ -10,10 +10,12 @@ unstacks alike: ``router.w`` (L, d, E), ``experts.wi``/``wu`` (L, E, d, f) and
 ``wd`` (L, E, f, d), and the ``shared`` GLU; a hybrid stack's ``mamba``
 (n_groups, per_group, ...) into n_groups lists and ``mamba_tail`` (trailing,
 ...) into a list, its one ``shared`` attention+GLU block as it is; an xLSTM
-stack's ``mlstm`` and ``slstm`` (n_pairs, ...) into lists), and every weight
-keeps the JAX layout — ``wq`` stays (d, H, D) — except an attention block's
-``wo``, which is reshaped to (g_eff, q_per_group, D, d) as ``attention_out``
-contracts it.  The port and the reference then compute the same function,
+stack's ``mlstm`` and ``slstm`` (n_pairs, ...) into lists; an encoder-decoder's
+``enc_layers`` and ``dec_layers`` into lists, its ``enc_norm`` as it is; a
+VLM's ``vis_proj`` as it is), and every weight keeps the JAX layout — ``wq``
+stays (d, H, D) — except an attention block's ``wo`` (a layer's ``attn``, a
+decoder layer's ``self`` and ``cross``), which is reshaped to (g_eff,
+q_per_group, D, d) as ``attention_out`` contracts it.  The port and the reference then compute the same function,
 which is what the parity tests compare.
 
 ``train_state_from_jax(cfg, state)`` converts a reference train state
@@ -41,7 +43,9 @@ def _tensors(tree: Any, device: torch.device):
 
 # leading layer axes of each stacked subtree
 _STACKS = {"layers": 1, "layers_loc": 2, "layers_glob": 1, "mamba": 2,
-           "mamba_tail": 1, "mlstm": 1, "slstm": 1}
+           "mamba_tail": 1, "mlstm": 1, "slstm": 1, "enc_layers": 1, "dec_layers": 1}
+# a layer's attention blocks (an encoder-decoder's decoder layer has two)
+_ATTN = ("attn", "self", "cross")
 
 
 def params_from_jax(cfg: ArchConfig, tree: Mapping, device: DeviceLike = None) -> dict:
@@ -52,10 +56,11 @@ def params_from_jax(cfg: ArchConfig, tree: Mapping, device: DeviceLike = None) -
     geom = cfg.attn_geom
 
     def attn_out_layout(lp):
-        if "attn" in lp:
-            wo = lp["attn"]["wo"]["w"]
-            lp["attn"]["wo"]["w"] = wo.reshape(geom.g_eff, geom.q_per_group,
-                                               geom.d_head, -1)
+        for name in _ATTN:
+            if name in lp:
+                wo = lp[name]["wo"]["w"]
+                lp[name]["wo"]["w"] = wo.reshape(geom.g_eff, geom.q_per_group,
+                                                 geom.d_head, -1)
         return lp
 
     def layer(sub, idx):

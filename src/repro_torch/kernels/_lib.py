@@ -34,8 +34,9 @@ slice (the routed ones after the three routing vectors), the shard count and
 a shard range ``[s_begin, s_end)`` that one launch sums; the grads also the
 pack's staging image (``ShardedTablePack.image``) and where its values
 start (the static one also the member count).
-:func:`launch` flattens x, allocates the outputs, launches on the current
-stream and raises on an error; :data:`launches` counts the launches of each
+:func:`launch` flattens x (a dense x in memory order, its outputs with x's
+strides, but for the routed entries), allocates the outputs, launches on the
+current stream and raises on an error; :data:`launches` counts the launches of each
 kernel, and only a launch adds to it.  :func:`run` is the one wrapper
 contract every kernel wrapper goes through.
 """
@@ -157,20 +158,49 @@ def check(x: torch.Tensor, table_device: torch.device, what: str) -> None:
         raise ValueError(f"{what} lives on {table_device}, x on {x.device}")
 
 
+def dense_order(x: torch.Tensor):
+    """x's dims, outermost first, in the order its strides lay them out in
+    memory, where its elements fill one block without gaps or overlaps (a
+    contiguous tensor or a permutation of one: then ``x.permute(order)`` is
+    contiguous); None otherwise."""
+    order = sorted(range(x.dim()), key=lambda d: (-x.stride(d), -x.shape[d]))
+    return order if x.permute(order).is_contiguous() else None
+
+
+def operands(entry: str, x: torch.Tensor, n_out: int):
+    """``(flat, outs)`` of a launch of ``entry`` over x: the flat input the
+    kernel reads and its ``n_out`` outputs, whose memory it writes in the
+    same order.
+
+    An elementwise entry (all but the routed ones, whose rows carry their
+    member ids) reads a dense x in memory order (a view, no copy) and gets
+    outputs with x's strides, as PyTorch's elementwise ops (and so the plain
+    versions) give: a permuted x is neither copied nor handed on in another
+    layout, whose reductions downstream would sum in another order.  A
+    routed entry, or an x with gaps or overlaps, reads x in its logical
+    order and gets contiguous outputs."""
+    order = None if entry.startswith(("tp_routed", "tp_sharded_routed")) else dense_order(x)
+    if order is None:
+        flat = x.reshape(-1)
+        if not flat.is_contiguous():
+            flat = flat.contiguous()
+        return flat, [torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                      for _ in range(n_out)]
+    return x.permute(order).reshape(-1), [
+        torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
+        for _ in range(n_out)]
+
+
 def launch(entry: str, x: torch.Tensor, planes: Sequence[torch.Tensor],
            ints: Sequence[int]) -> Tuple[torch.Tensor, ...]:
-    """Flatten x, allocate the outputs in x's dtype, launch ``entry`` on the
-    current stream over the pack's ``planes`` (device tensors, in the entry's
-    order), raise on a launch error.  Returns the outputs in x's shape."""
+    """Launch ``entry`` over x (its ``operands``) on the current stream over
+    the pack's ``planes`` (device tensors, in the entry's order) and raise on
+    a launch error.  Returns the outputs, in x's shape and dtype."""
     n_out, n_planes, n_int = _ENTRIES[entry]
     if len(planes) != n_planes or len(ints) != n_int:
         raise ValueError(f"{entry} takes {n_planes} planes and {n_int} int "
                          f"arguments, got {len(planes)} and {len(ints)}")
-    flat = x.reshape(-1)
-    if not flat.is_contiguous():
-        flat = flat.contiguous()
-    outs = [torch.empty(flat.shape, dtype=x.dtype, device=x.device)
-            for _ in range(n_out)]
+    flat, outs = operands(entry, x, n_out)
     if flat.numel():
         lib = _lib()
         with torch.cuda.device(x.device):
@@ -182,7 +212,7 @@ def launch(entry: str, x: torch.Tensor, planes: Sequence[torch.Tensor],
         if err != 0:
             raise RuntimeError(f"{entry} launch failed: "
                                f"{lib.tp_error_string(err).decode()} ({err})")
-    return tuple(o.reshape(x.shape) for o in outs)
+    return tuple(outs)
 
 
 def run(entry: str, count: str, x: torch.Tensor, device: torch.device, what: str,

@@ -114,6 +114,11 @@ def main(argv=None):
     if kw:
         cfg = cfg.replace(approx=dataclasses.replace(cfg.approx, **kw))
     model = build_model(cfg, device)
+    if model.extra_inputs:
+        ap.error(f"{args.arch}'s prefill needs {list(model.extra_inputs)} besides "
+                 "the prompt tokens, which this launcher's synthetic traffic does "
+                 "not carry: serve it through DecodeEngine.generate_batch(..., "
+                 "extra_inputs=...)")
     params = model.init(torch.Generator(device=device).manual_seed(0))
 
     reqs = make_requests(cfg.vocab, args.requests, args.max_new)

@@ -73,18 +73,33 @@ def head_mask(geom) -> np.ndarray:
 def project_qkv(p: Params, x: torch.Tensor, positions: Optional[torch.Tensor], *,
                 geom, rope_theta: float, rope_sin_cos=None):
     """x: (B,S,d) -> q (B,S,g_eff,Qg,D), k/v (B,S,g_eff,D) in normalized layout.
-    positions: (S,) shared across the batch, or (B, S) per-slot clocks."""
+    positions: (S,) shared across the batch, or (B, S) per-slot clocks;
+    ``None`` or ``rope_theta == 0`` skips RoPE (whisper's absolute
+    positions)."""
     B, S, _ = x.shape
-    D = geom.d_head
     q = linear(p["wq"], x, "bsd,dhe->bshe")  # (B,S,h_eff,D)
-    k = linear(p["wk"], x, "bsd,dge->bsge")  # (B,S,g_log,D)
-    v = linear(p["wv"], x, "bsd,dge->bsge")
     if "qn" in p:
         q = _headnorm(p["qn"]["g"], q)
-        k = _headnorm(p["kn"]["g"], k)
     if positions is not None and rope_theta > 0:
         pos_b = positions if positions.dim() == 2 else positions[None, :]
         q = apply_rope(q, pos_b, rope_theta, sin_cos=rope_sin_cos)
+    k, v = project_kv(p, x, positions, geom=geom, rope_theta=rope_theta,
+                      rope_sin_cos=rope_sin_cos)
+    q = q.reshape(B, S, geom.g_eff, geom.q_per_group, geom.d_head)
+    return q, k, v
+
+
+def project_kv(p: Params, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
+               *, geom, rope_theta: float = 0.0, rope_sin_cos=None):
+    """The k/v half of ``project_qkv``: (B,S,d) -> k/v (B,S,g_eff,D).  A
+    decoder's cross-attention projects the encoder memory through it (the
+    reference projects q as well and drops it)."""
+    k = linear(p["wk"], x, "bsd,dge->bsge")  # (B,S,g_log,D)
+    v = linear(p["wv"], x, "bsd,dge->bsge")
+    if "kn" in p:
+        k = _headnorm(p["kn"]["g"], k)
+    if positions is not None and rope_theta > 0:
+        pos_b = positions if positions.dim() == 2 else positions[None, :]
         k = apply_rope(k, pos_b, rope_theta, sin_cos=rope_sin_cos)
     # normalize kv to g_eff groups on the ACTIVATION (params stay logical)
     if geom.repeat > 1:
@@ -93,8 +108,7 @@ def project_qkv(p: Params, x: torch.Tensor, positions: Optional[torch.Tensor], *
     elif geom.g_zero_pad:
         k = F.pad(k, (0, 0, 0, geom.g_zero_pad))
         v = F.pad(v, (0, 0, 0, geom.g_zero_pad))
-    q = q.reshape(B, S, geom.g_eff, geom.q_per_group, D)
-    return q, k, v
+    return k, v
 
 
 def _flash_inner(q, k, v, q_pos, k_pos, *, causal: bool, window: int,

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 Params = Dict[str, Any]
@@ -44,6 +45,19 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["g"].to(torch.float32)).to(x.dtype)
+
+
+def init_layernorm(d: int, device, dtype=torch.float32) -> Params:
+    return {"g": torch.ones((d,), dtype=dtype, device=device),
+            "b": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["g"].to(torch.float32) + p["b"].to(torch.float32)).to(x.dtype)
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int,
@@ -95,6 +109,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """(n, d) absolute position embeddings [sin | cos], computed in float64
+    numpy and rounded once to f32, as the reference does."""
+    pos = np.arange(n)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10_000.0, 2 * i / d)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(emb.astype(np.float32)).to(device)
 
 
 def softcap(x: torch.Tensor, cap: float, tanh_fn=None) -> torch.Tensor:

@@ -6,21 +6,20 @@ import importlib
 
 from repro_torch.device import DeviceLike
 
-from .config import DENSE, MOE, SSM_HYBRID, XLSTM, ArchConfig, MoEConfig, SSMConfig
-from .transformer import BaseLM, DecoderLM, HybridLM, XLSTMLM
+from .config import (DENSE, ENCDEC, MOE, SSM_HYBRID, VLM as VLM_FAM, XLSTM, ArchConfig,
+                     MoEConfig, SSMConfig)
+from .transformer import VLM, BaseLM, DecoderLM, EncDecLM, HybridLM, XLSTMLM
 
-# The JAX package registers ten architectures; the port serves its dense, MoE,
-# hybrid and xLSTM families (the encoder-decoder and vision families come
-# with ROADMAP queue 1, item 11f).
-ARCH_IDS = ("stablelm-3b", "yi-34b", "gemma3-12b", "starcoder2-3b",
-            "deepseek-moe-16b", "qwen3-moe-235b-a22b", "zamba2-1.2b", "xlstm-125m")
+# the JAX package's ten architectures, in its order
+ARCH_IDS = ("xlstm-125m", "deepseek-moe-16b", "qwen3-moe-235b-a22b", "stablelm-3b",
+            "yi-34b", "gemma3-12b", "starcoder2-3b", "whisper-small", "zamba2-1.2b",
+            "internvl2-1b")
 
 
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in ARCH_IDS:
-        raise NotImplementedError(
-            f"architecture {arch_id!r} is not ported yet (ported: {ARCH_IDS}); "
-            "ROADMAP queue 1, item 11f")
+        raise NotImplementedError(f"unknown architecture {arch_id!r} (the JAX "
+                                  f"package's and the port's: {ARCH_IDS})")
     mod_name = arch_id.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
@@ -28,8 +27,8 @@ def get_config(arch_id: str) -> ArchConfig:
 
 def reduced(arch_id: str) -> ArchConfig:
     """Family-preserving shrink for tests and ``--reduced`` runs: few layers,
-    small width, few experts, tiny vocab — the dense, MoE, hybrid and xLSTM
-    branches of the JAX package's ``tests/test_archs.py::reduced``."""
+    small width, few experts, tiny vocab — the JAX package's
+    ``tests/test_archs.py::reduced``."""
     cfg = get_config(arch_id)
     kw = dict(d_model=64, vocab=128, remat=False)
     if cfg.family == XLSTM:
@@ -44,12 +43,15 @@ def reduced(arch_id: str) -> ArchConfig:
                   ssm=SSMConfig(state_dim=8, head_dim=16, conv_width=4, expand=2,
                                 chunk=8),
                   shared_attn_every=2)  # 2 groups of 2 + 1 trailing
-    elif cfg.family == DENSE:
+    elif cfg.family == ENCDEC:
+        kw.update(n_layers=2, n_enc_layers=2, n_heads=4, n_kv_heads=4, d_ff=128,
+                  enc_len=12)
+    elif cfg.family == VLM_FAM:
+        kw.update(n_layers=2, n_heads=4, n_kv_heads=2, d_ff=128, n_vis_tokens=4,
+                  d_vis=16)
+    else:  # dense
         period = max(1, cfg.attn.global_every)
         kw.update(n_layers=2 * period, n_heads=4, n_kv_heads=2, d_head=16, d_ff=128)
-    else:
-        raise NotImplementedError(f"reduced(): family {cfg.family!r} not ported "
-                                  "(ROADMAP queue 1, item 11f)")
     return cfg.replace(**kw)
 
 
@@ -60,4 +62,10 @@ def build_model(cfg: ArchConfig, device: DeviceLike = None) -> BaseLM:
         return HybridLM(cfg, device)
     if cfg.family == XLSTM:
         return XLSTMLM(cfg, device)
-    return DecoderLM(cfg, device)
+    if cfg.family == ENCDEC:
+        return EncDecLM(cfg, device)
+    if cfg.family == VLM_FAM:
+        return VLM(cfg, device)
+    if cfg.family in (DENSE, MOE):
+        return DecoderLM(cfg, device)
+    raise ValueError(f"unknown family {cfg.family!r}")

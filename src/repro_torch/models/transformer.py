@@ -12,8 +12,12 @@
 
 Families: ``DecoderLM`` (dense and MoE GQA transformers, period-1 and
 local:global stacks), ``HybridLM`` (zamba2's Mamba2 stack with one shared
-attention+MLP block every k layers) and ``XLSTMLM`` (alternating mLSTM /
-sLSTM blocks).  ``BaseLM`` holds what they share: the approx closures, the
+attention+MLP block every k layers), ``XLSTMLM`` (alternating mLSTM /
+sLSTM blocks), ``EncDecLM`` (whisper's encoder over stub frame embeddings
+and a decoder that cross-attends to it) and ``VLM`` (stub patch embeddings
+projected before a ``DecoderLM`` backbone's tokens); the last two read
+``batch["frames"]`` / ``batch["patches"]`` besides the tokens
+(``extra_inputs``).  ``BaseLM`` holds what they share: the approx closures, the
 loss and the logits head.
 
 The reference's stacked-layer ``lax.scan`` becomes a loop over per-layer
@@ -54,17 +58,21 @@ from .attention import (
     cache_insert,
     flash_attention,
     init_attention,
+    project_kv,
     project_qkv,
 )
 from .common import (
     embed,
     init_embedding,
+    init_linear,
     init_rmsnorm,
+    linear,
     rmsnorm,
+    sinusoidal_positions,
     softcap,
     unembed,
 )
-from .config import DENSE, ENCDEC, MOE, VLM, ArchConfig
+from .config import DENSE, MOE, VLM as VLM_FAM, ArchConfig
 from .mlp import glu, init_glu, init_mlp, init_moe, mlp, moe
 from .ssm import SSMCache, init_mamba2, init_ssm_cache, mamba2_block
 from .xlstm import (MLSTMCache, SLSTMCache, init_mlstm, init_mlstm_cache, init_slstm,
@@ -113,6 +121,10 @@ class BaseLM:
     gate, the softcap tanh, table-served RoPE and TableFlash's exponent, on
     the model's device), the loss and the logits head."""
 
+    # the batch entries besides tokens that ``prefill`` reads (the engines'
+    # ``extra_inputs``): none for a decoder-only family
+    extra_inputs: tuple = ()
+
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -146,11 +158,7 @@ class BaseLM:
 
 class DecoderLM(BaseLM):
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
-        if cfg.family in (ENCDEC, VLM):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: ROADMAP queue 1, "
-                "item 11f (the encoder-decoder and vision families)")
-        if cfg.family not in (DENSE, MOE):
+        if cfg.family not in (DENSE, MOE, VLM_FAM):  # a VLM's backbone is one
             raise ValueError(f"family {cfg.family!r} is not a decoder stack; "
                              "build_model builds its model")
         self.period = max(1, cfg.attn.global_every)
@@ -274,7 +282,13 @@ class DecoderLM(BaseLM):
         dense stack)."""
         tokens = batch["tokens"]
         x = embed(params["embed"], tokens, self.dtype)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x, aux = self._train_stack(params, x)
+        return self._logits(params, x), aux / self.cfg.n_layers
+
+    def _train_stack(self, params, x):
+        """Every layer over the embedded sequence x (B, S, d) at positions
+        0..S-1: x and the layers' summed aux loss."""
+        positions = torch.arange(x.shape[1], device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
         def block(lp, h, w):
@@ -288,7 +302,7 @@ class DecoderLM(BaseLM):
                 x, a = block(lp, x, window)
             if a is not None:
                 aux = aux + a
-        return self._logits(params, x), aux / self.cfg.n_layers
+        return x, aux
 
     # ------------------------------- cache ------------------------------------------
 
@@ -334,9 +348,15 @@ class DecoderLM(BaseLM):
     def prefill(self, params, batch, cache):
         """batch["tokens"]: (B, S) integer tensor.  Returns the last
         position's logits (B, V) and a new cache."""
-        tokens = batch["tokens"]
-        x = embed(params["embed"], tokens, self.dtype)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = embed(params["embed"], batch["tokens"], self.dtype)
+        x, cache = self._prefill_stack(params, x, cache)
+        return self._logits(params, x[:, -1:])[:, 0], cache
+
+    def _prefill_stack(self, params, x, cache):
+        """Every layer over the embedded prompt x (B, S, d) at positions
+        0..S-1, each layer's k/v inserted into the cache: x and the new
+        cache."""
+        positions = torch.arange(x.shape[1], device=x.device)
         bufs = {n: [] for n in cache if not n.endswith("pos")}
         pbs = {}
         for lp, window, pre, idx in self._stack(params):
@@ -347,8 +367,7 @@ class DecoderLM(BaseLM):
                 kn, vn, pn)
             bufs[pre + "k"].append(kb)
             bufs[pre + "v"].append(vb)
-        return self._logits(params, x[:, -1:])[:, 0], {**self._stacked(cache, bufs),
-                                                       **pbs}
+        return x, {**self._stacked(cache, bufs), **pbs}
 
     def _decode_stack(self, params, x, positions, pbs, cache):
         """Every layer's decode block over x at ``positions``, with the
@@ -713,3 +732,240 @@ class XLSTMLM(BaseLM):
         x = embed(params["embed"], tok, self.dtype)
         x, cache = self._forward(params, x, cache)
         return self._logits(params, x)[:, 0], cache
+
+
+# ======================================================================================
+# EncDecLM — whisper-small (stub conv frontend)
+# ======================================================================================
+
+
+class EncDecLM(BaseLM):
+    """Encoder: a bidirectional transformer over stub frame embeddings
+    ``batch["frames"]`` (B, enc_len, d), with absolute sinusoidal positions
+    and no RoPE.  Decoder: causal self-attention (cached) with RoPE, then
+    cross-attention into the encoder memory, then the MLP.
+
+    Parameters: ``enc_layers`` and ``dec_layers``, lists of layer dicts
+    (``ln1``, ``attn``, ``ln2``, ``mlp``; ``ln1``, ``self``, ``lnx``,
+    ``cross``, ``ln2``, ``mlp``), ``enc_norm``, and an untied ``unembed``
+    whatever ``tie_embeddings`` says, as in the reference.  The cache is the
+    period-1 decoder's (``k``/``v`` (L, B, W, G, D) bf16, ``pos`` (B, W))
+    plus ``memory`` (B, enc_len, d) bf16, the encoder output rounded.
+    ``prefill`` cross-attends to the unrounded encoder output, ``decode_step``
+    to the bf16 ``memory``, whose k/v it projects again in every layer and
+    step: the reference's numbers, not a cached k/v layout."""
+
+    extra_inputs = ("frames",)
+
+    # ------------------------------- init ----------------------------------------
+
+    def _init_enc_layer(self, gen: torch.Generator) -> Params:
+        cfg = self.cfg
+        return {"ln1": init_rmsnorm(cfg.d_model, self.device),
+                "attn": init_attention(gen, cfg.d_model, cfg.attn_geom),
+                "ln2": init_rmsnorm(cfg.d_model, self.device),
+                "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff)}
+
+    def _init_dec_layer(self, gen: torch.Generator) -> Params:
+        cfg = self.cfg
+        return {"ln1": init_rmsnorm(cfg.d_model, self.device),
+                "self": init_attention(gen, cfg.d_model, cfg.attn_geom),
+                "lnx": init_rmsnorm(cfg.d_model, self.device),
+                "cross": init_attention(gen, cfg.d_model, cfg.attn_geom),
+                "ln2": init_rmsnorm(cfg.d_model, self.device),
+                "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff)}
+
+    def init(self, gen: torch.Generator) -> Params:
+        """Random f32 parameters drawn from ``gen`` (a generator on the
+        model's device), in the reference's tree and scales."""
+        self._check_gen(gen)
+        cfg = self.cfg
+        return {
+            "embed": init_embedding(gen, cfg.vocab_pad, cfg.d_model),
+            "enc_layers": [self._init_enc_layer(gen) for _ in range(cfg.n_enc_layers)],
+            "enc_norm": init_rmsnorm(cfg.d_model, self.device),
+            "dec_layers": [self._init_dec_layer(gen) for _ in range(cfg.n_layers)],
+            "final_norm": init_rmsnorm(cfg.d_model, self.device),
+            "unembed": init_embedding(gen, cfg.vocab_pad, cfg.d_model),
+        }
+
+    # ------------------------------ blocks -----------------------------------------
+
+    def _enc_block(self, lp, x, positions):
+        cfg = self.cfg
+        q, k, v = project_qkv(lp["attn"], rmsnorm(lp["ln1"], x), None,
+                              geom=cfg.attn_geom, rope_theta=0.0)
+        o = flash_attention(q, k, v, positions, positions, causal=False,
+                            exp_fn=self.attn_exp)
+        x = x + attention_out(lp["attn"], o, cfg.attn_geom)
+        return x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x), self.act)
+
+    def encode(self, params, frames):
+        """frames (B, T, d) -> the encoder memory (B, T, d) in the compute
+        dtype."""
+        cfg = self.cfg
+        T = frames.shape[1]
+        x = frames.to(self.dtype) + sinusoidal_positions(
+            T, cfg.d_model, frames.device).to(self.dtype)[None]
+        positions = torch.arange(T, device=frames.device)
+        for lp in params["enc_layers"]:
+            if cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(self._enc_block, lp, x, positions, use_reentrant=False)
+            else:
+                x = self._enc_block(lp, x, positions)
+        return rmsnorm(params["enc_norm"], x)
+
+    def _dec_block(self, lp, x, positions, memory, mem_pos, kb=None, vb=None, pb=None):
+        """Self-attention within x (train/prefill, returning its k/v) or over
+        the (kb, vb) buffers after inserting x's (decode, returning the new
+        buffers), then cross-attention into ``memory`` and the MLP."""
+        cfg = self.cfg
+        q, k, v = project_qkv(lp["self"], rmsnorm(lp["ln1"], x), positions,
+                              geom=cfg.attn_geom, rope_theta=cfg.attn.rope_theta,
+                              rope_sin_cos=self.rope_sin_cos)
+        if kb is None:
+            o = flash_attention(q, k, v, positions, positions, causal=True,
+                                exp_fn=self.attn_exp)
+            new = (k, v)
+        else:
+            kb, vb, _ = cache_insert(kb, vb, pb, k, v, positions)
+            o = flash_attention(q, kb, vb, positions, pb, causal=True,
+                                exp_fn=self.attn_exp)
+            new = (kb, vb)
+        x = x + attention_out(lp["self"], o, cfg.attn_geom)
+        # cross-attention into the encoder memory: no rope, all of it visible
+        qx, _, _ = project_qkv(lp["cross"], rmsnorm(lp["lnx"], x), None,
+                               geom=cfg.attn_geom, rope_theta=0.0)
+        km, vm = project_kv(lp["cross"], memory, geom=cfg.attn_geom)
+        ox = flash_attention(qx, km, vm, positions, mem_pos, causal=False,
+                             exp_fn=self.attn_exp)
+        x = x + attention_out(lp["cross"], ox, cfg.attn_geom)
+        x = x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x), self.act)
+        return x, new
+
+    # ------------------------------- train -----------------------------------------
+
+    def _train_dec_block(self, lp, x, positions, memory, mem_pos):
+        return self._dec_block(lp, x, positions, memory, mem_pos)[0]
+
+    def train_logits(self, params, batch):
+        """batch["tokens"] (B, S) and batch["frames"] (B, enc_len, d).
+        Returns the (B, S, V) f32 logits and a zero aux loss."""
+        memory = self.encode(params, batch["frames"])
+        mem_pos = torch.arange(memory.shape[1], device=memory.device)
+        tokens = batch["tokens"]
+        x = embed(params["embed"], tokens, self.dtype)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        for lp in params["dec_layers"]:
+            if self.cfg.remat:
+                x = checkpoint(self._train_dec_block, lp, x, positions, memory, mem_pos,
+                               use_reentrant=False)
+            else:
+                x = self._train_dec_block(lp, x, positions, memory, mem_pos)
+        return self._logits(params, x), torch.zeros((), dtype=torch.float32,
+                                                    device=x.device)
+
+    # ------------------------------- cache ------------------------------------------
+
+    def init_cache(self, batch: int, cache_len: int, device: DeviceLike = None) -> Cache:
+        """The class docstring's cache, empty (-1) positions and zero
+        memory; ``device`` defaults to the model's (``"meta"`` gives shapes
+        only)."""
+        cfg = self.cfg
+        dev = self.device if device is None else torch.device(device)
+        kv = (cfg.n_layers, batch, cache_len, cfg.attn_geom.g_eff, cfg.head_dim)
+        return {"k": torch.zeros(kv, dtype=torch.bfloat16, device=dev),
+                "v": torch.zeros(kv, dtype=torch.bfloat16, device=dev),
+                "pos": torch.full((batch, cache_len), -1, dtype=torch.int32, device=dev),
+                "memory": torch.zeros((batch, cfg.enc_len, cfg.d_model),
+                                      dtype=torch.bfloat16, device=dev)}
+
+    # --------------------------- prefill / decode ------------------------------------
+
+    def prefill(self, params, batch, cache):
+        """batch["tokens"] (B, S) and batch["frames"].  Returns the last
+        position's logits (B, V) and a new cache."""
+        memory = self.encode(params, batch["frames"])
+        mem_pos = torch.arange(memory.shape[1], device=memory.device)
+        tokens = batch["tokens"]
+        x = embed(params["embed"], tokens, self.dtype)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        W = cache["pos"].shape[1]
+        ks, vs = [], []
+        for i, lp in enumerate(params["dec_layers"]):
+            x, (k, v) = self._dec_block(lp, x, positions, memory, mem_pos)
+            kn, vn, pn = DecoderLM._ring_window(k, v, positions, W)
+            kb, vb, pb = cache_insert(cache["k"][i], cache["v"][i], cache["pos"],
+                                      kn, vn, pn)
+            ks.append(kb)
+            vs.append(vb)
+        new = {"k": torch.stack(ks), "v": torch.stack(vs), "pos": pb,
+               "memory": memory.to(torch.bfloat16)}
+        return self._logits(params, x[:, -1:])[:, 0], new
+
+    def decode_step(self, params, tok, pos, cache):
+        """tok: (B, 1); pos: () shared absolute position, or (B,) per-slot
+        positions."""
+        x = embed(params["embed"], tok, self.dtype)
+        memory = cache["memory"].to(self.dtype)
+        mem_pos = torch.arange(memory.shape[1], device=memory.device)
+        positions, pb = _decode_positions(pos, cache["pos"], cache["pos"].shape[1])
+        ks, vs = [], []
+        for i, lp in enumerate(params["dec_layers"]):
+            x, (kb, vb) = self._dec_block(lp, x, positions, memory, mem_pos,
+                                          cache["k"][i], cache["v"][i], pb)
+            ks.append(kb)
+            vs.append(vb)
+        new = {"k": torch.stack(ks), "v": torch.stack(vs), "pos": pb,
+               "memory": cache["memory"]}
+        return self._logits(params, x)[:, 0], new
+
+
+# ======================================================================================
+# VLM — vision prefix (stub) + decoder backbone
+# ======================================================================================
+
+
+class VLM(BaseLM):
+    """A ``DecoderLM`` backbone over ``n_vis_tokens`` projected
+    patch embeddings ``batch["patches"]`` (B, n_vis, d_vis) put before the
+    token embeddings.  Parameters: the backbone's and ``vis_proj``
+    (d_vis, d).  ``train_logits`` returns the text positions' logits; the
+    cache is the backbone's at ``cache_len + n_vis_tokens``, and
+    ``decode_step`` is the backbone's.  The engine's decode positions count
+    tokens only (the reference's ``S + i``), so the first decode token
+    lands in the ring slot of prefix position S and attends to positions
+    <= S: the reference's behaviour, kept."""
+
+    extra_inputs = ("patches",)
+
+    def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
+        super().__init__(cfg, device)
+        self.backbone = DecoderLM(cfg, device)
+
+    def init(self, gen: torch.Generator) -> Params:
+        """The backbone's random f32 parameters, then ``vis_proj``."""
+        params = self.backbone.init(gen)
+        params["vis_proj"] = init_linear(gen, self.cfg.d_vis, self.cfg.d_model)
+        return params
+
+    def _prefix(self, params, batch):
+        """Projected patch embeddings, then the token embeddings."""
+        vis = linear(params["vis_proj"], batch["patches"].to(self.dtype))
+        tok = embed(params["embed"], batch["tokens"], self.dtype)
+        return torch.cat([vis, tok], dim=1)
+
+    def train_logits(self, params, batch):
+        x, aux = self.backbone._train_stack(params, self._prefix(params, batch))
+        x = x[:, batch["patches"].shape[1]:]  # the text positions only
+        return self._logits(params, x), aux / self.cfg.n_layers
+
+    def init_cache(self, batch: int, cache_len: int, device: DeviceLike = None) -> Cache:
+        return self.backbone.init_cache(batch, cache_len + self.cfg.n_vis_tokens, device)
+
+    def prefill(self, params, batch, cache):
+        x, cache = self.backbone._prefill_stack(params, self._prefix(params, batch), cache)
+        return self._logits(params, x[:, -1:])[:, 0], cache
+
+    def decode_step(self, params, tok, pos, cache):
+        return self.backbone.decode_step(params, tok, pos, cache)

@@ -8,5 +8,7 @@ from .engine import (
     cache_batch_axes,
     pad_and_batch,
     scatter_cache_slots,
+    serve,
+    serve_continuous,
     serve_static,
 )

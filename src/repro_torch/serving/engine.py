@@ -3,7 +3,10 @@ request queue, with the KV cache living on the device across steps — the JAX
 package's ``serving/engine.py`` on PyTorch.
 
 ``serve_static`` groups requests into fixed-size batches; each group prefills
-together and decodes until every slot has hit its own EOS or budget.
+together and decodes until every slot has hit its own EOS or budget.  A model
+whose prefill reads more than tokens (``model.extra_inputs``: an
+encoder-decoder's ``frames``, a VLM's ``patches``) is served through
+``DecodeEngine.generate_batch(..., extra_inputs=...)``.
 
 ``ContinuousEngine`` is an admission queue with mid-stream slot refill: every
 batch slot carries its own request state (budget, EOS id, RNG stream, absolute
@@ -138,13 +141,19 @@ class DecodeEngine(_EngineBase):
         return torch.multinomial(probs, 1, generator=self.gen)[:, 0]
 
     @torch.inference_mode()
-    def generate_batch(self, prompts: np.ndarray, max_new, eos_id=-1):
+    def generate_batch(self, prompts: np.ndarray, max_new, eos_id=-1,
+                       extra_inputs: Optional[dict] = None):
         """prompts: (B, S) int32, right-aligned equal length (caller pads).
 
         ``max_new`` and ``eos_id`` are scalars or (B,) per-slot vectors (-1: that
-        slot never stops early).  Returns ``(tokens, steps)``: the (B, steps)
-        sampled tokens and the batch-wide sampling-round count; the loop stops
-        as soon as EVERY slot has hit its own EOS or budget.
+        slot never stops early).  ``extra_inputs`` adds entries to the prefill
+        batch (``{"frames": (B, enc_len, d)}`` for an encoder-decoder,
+        ``{"patches": (B, n_vis, d_vis)}`` for a VLM), arrays or tensors moved
+        onto the model's device, floating ones as f32.  Returns ``(tokens,
+        steps)``: the (B, steps) sampled tokens and the batch-wide
+        sampling-round count; the loop stops as soon as EVERY slot has hit its
+        own EOS or budget.  Decode positions count the prompt's tokens only
+        (``S + i``), as the reference's engine does, also for a VLM's prefix.
         """
         B, S = prompts.shape
         if B != self.B:
@@ -158,6 +167,9 @@ class DecodeEngine(_EngineBase):
         horizon = int(budget.max())
         cache = self.model.init_cache(B, self.cache_len)
         batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64, device=dev)}
+        for k, v in (extra_inputs or {}).items():
+            t = torch.as_tensor(v, device=dev)
+            batch[k] = t.to(torch.float32) if t.is_floating_point() else t
         cm = (_phase_span(self, tracer, "static.prefill", batch=B, prompt_len=S)
               if rec else nullcontext({}))
         with cm as st:
@@ -238,6 +250,10 @@ def serve_static(model, params, requests: List[Request], batch_size: int,
     return results[: len(requests)]
 
 
+# Legacy name of the fixed-batch path, as in the reference.
+serve = serve_static
+
+
 # ======================================================================================
 # Continuous batching: admission queue + mid-stream slot refill
 # ======================================================================================
@@ -293,12 +309,19 @@ class ContinuousEngine(_EngineBase):
     neighbours (drained slots decoding garbage included) change its routing
     and drops; its oracle is the same queue through the ``_ref`` mode, and the
     reference's cross-family engine test leaves MoE out for this reason.
-    Token-only prompts.
+    Token-only prompts: a model whose prefill needs extra inputs (encoder
+    frames, vision patches; ``model.extra_inputs``) is refused, and served
+    by ``serve_static`` / ``DecodeEngine.generate_batch`` only.
     """
 
     def __init__(self, model, params, batch_size: int, cache_len: int,
                  temperature: float = 0.0, seed: int = 0,
                  prefill_len: Optional[int] = None, pad_id: int = 0):
+        if model.extra_inputs:
+            raise ValueError(
+                f"ContinuousEngine serves token-only prompts; {model.cfg.name}'s "
+                f"prefill also needs {list(model.extra_inputs)}: use "
+                "DecodeEngine.generate_batch(..., extra_inputs=...)")
         self.model = model
         self.params = params
         self.B = batch_size
@@ -525,3 +548,18 @@ class ContinuousEngine(_EngineBase):
                                sum(s is not None for s in live))
 
         return results
+
+
+def serve_continuous(model, params, requests: List[Request], batch_size: int,
+                     cache_len: int, temperature: float = 0.0, seed: int = 0,
+                     prefill_len: Optional[int] = None,
+                     engine: Optional[ContinuousEngine] = None) -> List[Result]:
+    """Continuous-batching scheduler (admission queue + mid-stream refill).
+    A passed ``engine``'s own cache_len/temperature/seed/prefill_len apply
+    and those arguments are ignored; its batch size must agree."""
+    if engine is None:
+        engine = ContinuousEngine(model, params, batch_size, cache_len,
+                                  temperature, seed, prefill_len=prefill_len)
+    else:
+        _check_engine_batch(engine, batch_size)
+    return engine.serve(requests)

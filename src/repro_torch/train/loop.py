@@ -74,9 +74,14 @@ class StragglerMonitor:
 
 
 def batch_to(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """A host batch of int32 token arrays -> int64 tensors on ``device``."""
-    return {k: torch.from_numpy(np.asarray(v)).to(device=device, dtype=torch.int64)
-            for k, v in batch.items()}
+    """A host batch -> tensors on ``device``: the integer token arrays as
+    int64, the floating ones (an encoder-decoder's ``frames``, a VLM's
+    ``patches``) as f32."""
+    def put(v):
+        v = np.asarray(v)
+        dt = torch.float32 if np.issubdtype(v.dtype, np.floating) else torch.int64
+        return torch.from_numpy(v).to(device=device, dtype=dt)
+    return {k: put(v) for k, v in batch.items()}
 
 
 def value_and_grad(model, params, batch):

@@ -155,7 +155,7 @@ def test_wrapper_contract(pack):
     K.reset_launches()
     x = torch.randn(3, 5, 7, device="cuda").transpose(0, 2)  # not contiguous
     y = K.table_pack_lookup(pack, "silu", x)
-    assert y.shape == x.shape and y.is_contiguous()
+    assert y.shape == x.shape and y.stride() == x.stride()  # as torch.exp(x) would
     assert_bitwise(y, K.table_pack_lookup_plain(pack, "silu", x))
     K.tableflash_exp(pack, -x.abs())
     K.table_pack_lookup(pack, "silu", torch.empty(0, device="cuda"))  # no launch
@@ -244,12 +244,39 @@ def test_grad_kernels_beyond_shared_memory(cuda):
         assert_bitwise(a, b)
 
 
+@pytest.mark.parametrize("T", [27, 283, 1500])
+def test_flash_attention_kernel_exponent_bitwise_plain(pack, cuda, T):
+    """flash_attention with the TableFlash kernel equals the same attention
+    with its plain version, bit for bit, at internvl2-1b's prefill width
+    (256 patches + 27 tokens: 283 queries and keys) and whisper's encoder
+    (1,500, with KV_PAD lanes): the exponent's input comes permuted from
+    the score einsum, and the kernel's output must keep that layout, or the
+    running sum over the keys adds in another order (2 of 4 x 283 x 16 x 64
+    outputs of a layer differed when the kernel's output was contiguous)."""
+    from repro_torch.approx.table_pack import make_attn_exp_fn
+    from repro_torch.models.attention import flash_attention
+
+    g = torch.Generator(device="cuda").manual_seed(T)
+    q = torch.randn((4, T, 16, 1, 64), generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((4, T, 16, 64), generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    pos = torch.arange(T, device="cuda")
+    for causal in (True, False):
+        got, want = (flash_attention(q, k, v, pos, pos, causal=causal,
+                                     exp_fn=make_attn_exp_fn(pack, use_kernel=u))
+                     for u in (True, False))
+        assert_bitwise(got, want)
+    z = torch.einsum("bsgqd,btgd->bsgqt", q.float(), k.float()).clamp(max=0)
+    assert not z.is_contiguous()  # the score einsum's layout, group axis outermost
+    assert K.tableflash_exp(pack, z).stride() == K.tableflash_exp_plain(pack, z).stride()
+
+
 def test_grad_wrappers_contract(pack, cuda):
     K.reset_launches()
     jt = ApproxConfig(e_a=1e-4, omega=0.2).table_for("silu", cuda)
     x = torch.randn(3, 5, 7, device="cuda").transpose(0, 2)  # not contiguous
     for y, s in (K.table_pack_grad(pack, "silu", x), TG.table_lookup_grad(jt, x)):
-        assert y.shape == s.shape == x.shape and y.is_contiguous()
+        assert y.shape == s.shape == x.shape and y.stride() == s.stride() == x.stride()
     TL.table_lookup(jt, x)
     TL.table_lookup(jt, torch.empty(0, device="cuda"))  # no launch
     TG.table_lookup_grad(jt, torch.empty(0, device="cuda"))
@@ -468,7 +495,8 @@ def test_quant_poly_wrappers_contract(quant, poly, cuda):
                              (K.poly_pack_lookup, K.poly_pack_grad, poly)):
         y = lookup(pk, "silu", x)
         yg, s = grad(pk, "silu", x)
-        assert y.shape == yg.shape == s.shape == x.shape and y.is_contiguous()
+        assert y.shape == yg.shape == s.shape == x.shape
+        assert y.stride() == yg.stride() == s.stride() == x.stride()
         lookup(pk, "silu", torch.empty(0, device="cuda"))  # no launch
         grad(pk, "silu", torch.empty(0, device="cuda"))
         with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -1116,7 +1144,10 @@ def test_sharded_wrappers_contract(spacks):
     yg, s = K.sharded_pack_grad(sp, "silu", x)
     ry = R.sharded_routed_pack_lookup(sp, list(range(6)), x)
     rg, rs = R.sharded_routed_pack_grad(sp, "silu", x)
-    assert all(t.shape == x.shape and t.is_contiguous() for t in (y, yg, s, ry, rg, rs))
+    assert all(t.shape == x.shape for t in (y, yg, s, ry, rg, rs))
+    # the static kernels keep x's layout, the routed ones (rows of ids) are contiguous
+    assert all(t.stride() == x.stride() for t in (y, yg, s))
+    assert all(t.is_contiguous() for t in (ry, rg, rs))
     K.sharded_pack_lookup(sp, "silu", torch.empty(0, device="cuda"))  # no launch
     assert {k: v for k, v in K.launches.items() if v} == {
         "sharded_pack_lookup": 1, "sharded_pack_grad": 1,
@@ -1290,7 +1321,8 @@ def test_folded_wrappers_contract(fold_pack):
     x = torch.randn(6, 5, 7, device="cuda").transpose(1, 2) * 100  # not contiguous
     y = K.folded_pack_lookup(fold_pack, "sin", x)
     yg, s = K.folded_pack_grad(fold_pack, "log", x.abs())
-    assert y.shape == yg.shape == s.shape == x.shape and y.is_contiguous()
+    assert y.shape == yg.shape == s.shape == x.shape
+    assert y.stride() == yg.stride() == s.stride() == x.stride()
     K.folded_pack_lookup(fold_pack, "cos", torch.empty(0, device="cuda"))  # no launch
     with pytest.raises(KeyError, match="folded kernel serves"):
         K.folded_pack_lookup(fold_pack, "gelu", x)

@@ -39,7 +39,8 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.launch.paper", "repro_torch.configs.deepseek_moe_16b",
               "repro_torch.configs.qwen3_moe_235b_a22b", "repro_torch.models.ssm",
               "repro_torch.models.xlstm", "repro_torch.configs.zamba2_1_2b",
-              "repro_torch.configs.xlstm_125m"):
+              "repro_torch.configs.xlstm_125m", "repro_torch.configs.whisper_small",
+              "repro_torch.configs.internvl2_1b"):
         assert m in mods, m
     code = (
         "import importlib, json, sys\n"

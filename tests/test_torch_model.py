@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro.approx import ApproxConfig as JApprox
+from repro.models import ARCH_IDS as J_ARCH_IDS
 from repro.models import build_model as j_build_model
 from repro.models import get_config as j_get_config
 from repro.serving.engine import ContinuousEngine as JContinuousEngine
@@ -89,8 +90,11 @@ class TestConfig:
                 == dataclasses.asdict(j_reduced(arch).attn_geom))
 
     def test_unported_archs_raise(self):
-        with pytest.raises(NotImplementedError, match="queue 1, item 11f"):
-            get_config("whisper-small")
+        """Every one of the reference's ids is ported, in its order; an
+        unknown id is refused."""
+        assert ARCH_IDS == J_ARCH_IDS
+        with pytest.raises(NotImplementedError, match="unknown architecture"):
+            get_config("whisper-tiny")
 
 
 class TestLogits:

@@ -51,6 +51,7 @@ from repro.kernels.table_pack_lookup import (table_pack_grad_pallas,
 from repro_torch.approx import ApproxConfig, SHARDED_MODES, torch_table, table_pack
 from repro_torch.core.flow import cached_table
 from repro_torch.core.functions import get as get_function
+from repro_torch.kernels import _lib
 from repro_torch.kernels import table_grad as TG
 from repro_torch.kernels import table_lookup as TL
 from repro_torch.kernels import table_pack_lookup as K
@@ -275,6 +276,37 @@ def test_table_wrapper_contract():
     y, s = TG.table_lookup_grad(tt, torch.zeros(3, 0))
     assert y.shape == s.shape == (3, 0)
     assert K.launches == before  # the plain version on the CPU is no launch
+
+
+@pytest.mark.parametrize("entry,n_out", [("tp_tableflash_exp", 1), ("tp_pack_grad", 2),
+                                         ("tp_routed_lookup", 1)])
+@pytest.mark.parametrize("case", ["contiguous", "permuted", "strided", "size-1 dims"])
+def test_launch_operands_keep_the_layout(entry, n_out, case):
+    """What a launch reads and writes: an elementwise entry reads a dense x
+    in memory order without a copy and writes outputs with x's strides, as
+    ``torch.exp`` (and so the plain versions) would, so that a reduction
+    downstream sums in the same order (flash attention's exponents come
+    permuted from its score einsum: (B, S, G, Qg, T) with the group axis
+    outermost); a routed entry, whose rows carry their ids, and an x with
+    gaps read x in logical order into contiguous outputs.  A stand-in kernel
+    (out = 2 x, element by element in the order read) checks the pairing."""
+    base = torch.randn(3, 5, 2, 7)
+    x = {"contiguous": base, "permuted": base.permute(0, 2, 1, 3),
+         "strided": base[:, ::2], "size-1 dims": base[1:2].permute(2, 0, 1, 3)}[case]
+    flat, outs = _lib.operands(entry, x, n_out)
+    assert len(outs) == n_out and flat.numel() == x.numel() and flat.is_contiguous()
+    routed = entry.startswith("tp_routed")
+    dense = case != "strided"
+    if dense and not routed:
+        assert flat.data_ptr() == x.data_ptr()  # a view: no copy
+        assert all(o.stride() == x.stride() for o in outs)
+    else:
+        assert all(o.is_contiguous() for o in outs)
+    for o in outs:  # the kernel writes each output's memory in flat's order
+        torch.as_strided(o, (o.numel(),), (1,), o.storage_offset()).copy_(2 * flat)
+        assert o.shape == x.shape and torch.equal(o, 2 * x)
+    if case == "permuted" and not routed:
+        assert outs[0].stride() == torch.exp(x).stride() != x.contiguous().stride()
 
 
 # --------------------------------------------------------------------------------------
