@@ -324,16 +324,38 @@ Phases, each fatal on failure (exit code 1, no result line):
    decode step; 144 grad launches a micro-batch);
 41. reference: reduced whisper-small and internvl2-1b in float32 on the
    card against the CPU: prefill logits within 1e-4 and greedy tokens of 3
-   groups through generate_batch identical.
+   groups through generate_batch identical;
+42. device telemetry: stablelm-3b at full width cut to 8 of its 32 layers
+   (seed-0 weights) serving the 8 requests (+ TableFlash) in
+   ``table_pack``, ``quant_pack`` and ``routed_pack`` with the telemetry on,
+   and their ``_ref`` modes too: each mode's tokens equal its ``_ref``
+   mode's and its own telemetry-off run's, its whole counter dict equals
+   its ``_ref`` mode's, each ``approx.lookups.*`` equals the count derived
+   from the code (``served_lookups``: the gate's elements and flash
+   attention's real keys and rows, per prefill and decode tick), and
+   ``quant_pack``'s ``approx.quant_gathers.*`` is twice its lookups; a
+   ``routed_fn`` over (gelu, silu, tanh, gelu) rows in ``routed_pack``, one
+   launch, bitwise ``routed_pack_ref``'s, its dispatch counters equal; one
+   ``table_pack`` training step's grads (batch 8 x 128, accum 2, remat) with
+   the telemetry on: loss bit-equal to the off run's, counters equal to
+   ``table_pack_ref``'s, the gate counted in the forward and again in
+   remat's recompute; for each mode one decode step with the telemetry on
+   and off: its ms in 2 rounds, host op events, kernel launches (equal) and
+   device scalar reads (``aten::_local_scalar_dense`` / ``aten::item``),
+   which must be 0; then the serve CLI (reduced, ``quant_pack``) and the
+   train CLI (1 step, ``table_pack``) with ``--obs --trace`` as two
+   processes, each trace valid by ``tools/check_trace.py``, its counters
+   the ones ``--obs`` printed, rendered by ``tools/torch_obs_report.py``.
 
 Each phase prints its wall seconds (``phase N: ...s``) and the run ends
 with all of them in one line.  The line before the last is one JSON object
 listing the kernels (each one's launches from the path it serves;
 ``table_lookup`` and ``tableflash_exp`` also carry ``paper_launches``,
-theirs in phases 29-30, and ``table_pack_lookup``, ``tableflash_exp`` and
+theirs in phases 29-30, ``table_pack_lookup``, ``tableflash_exp`` and
 ``table_pack_grad`` ``moe_launches``, ``recurrent_launches`` and
-``encdec_vlm_launches``, theirs in phases 31-33, 35-37 and 39-40); the last
-line is ``{"ok": true, "device": {...}}``.
+``encdec_vlm_launches``, theirs in phases 31-33, 35-37 and 39-40, and the
+kernels phase 42 runs ``obs_launches``, theirs with the telemetry on); the
+last line is ``{"ok": true, "device": {...}}``.
 Without a card, or outside a checkout of the repository, the script exits
 non-zero and prints no result.
 """
@@ -428,6 +450,7 @@ EXTRA_SEED = 7
 NEG_INF = -2.0e38  # flash_attention's masked score: a KV_PAD lane's exponent
 PHASE_S = {}  # each phase's wall seconds
 Q_CHUNK, KV_CHUNK = 512, 1024  # flash_attention's query and kv chunks
+OBS_ROUTING = ("gelu", "silu", "tanh", "gelu")  # phase 42's routed_fn rows
 
 
 class SmokeError(RuntimeError):
@@ -3286,6 +3309,292 @@ def flash_bound_phase(smi_line):
 
 
 # --------------------------------------------------------------------------------------
+# 42. device telemetry and the observability tools
+# --------------------------------------------------------------------------------------
+
+
+def _built(cfg, telemetry):
+    """``cfg``'s model on the card, its activation closures built with the
+    device telemetry on or off (the flags are captured at build, then
+    cleared: the engines record no host spans in either run)."""
+    from repro_torch import obs
+    from repro_torch.models import build_model
+
+    obs.configure(enabled=telemetry, device_telemetry=telemetry)
+    try:
+        return build_model(cfg, "cuda")
+    finally:
+        obs.disable()
+
+
+def _read_counters():
+    """The global registry's counters (one transfer of every pending device
+    count), then an empty registry."""
+    from repro_torch import obs
+
+    counters = obs.get_registry().summary()["counters"]
+    obs.reset_registry()
+    return counters
+
+
+def served_lookups(cfg, engine, s0):
+    """``approx.lookups.*`` of a ContinuousEngine serve of stablelm, from the
+    code: each layer's gate over (B, S, d_ff) a prefill (S = s0) and a
+    decode tick (S = 1); flash attention's p over every real key of its one
+    chunk pair (s0 in a prefill, the cache's CACHE_LEN slots in a tick; no
+    KV_PAD lane) and its alpha once a query row, for B x S x g_eff x
+    q_per_group rows."""
+    check(s0 <= Q_CHUNK and CACHE_LEN <= KV_CHUNK, "one chunk pair an attention")
+    g = cfg.attn_geom
+    rows, ticks = BATCH * g.g_eff * g.q_per_group, engine.batch_steps - engine.prefills
+    return {cfg.act: cfg.n_layers * BATCH * cfg.d_ff * (engine.prefills * s0 + ticks),
+            "attn_exp": cfg.n_layers * rows * (engine.prefills * s0 * (s0 + 1)
+                                               + ticks * (CACHE_LEN + 1))}
+
+
+def _decode_cost(fn):
+    """Host operator events of one call of ``fn`` under torch.profiler (CPU
+    activity only), and how many of them read a device scalar to the host
+    (``aten::_local_scalar_dense`` / ``aten::item``: a sync)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    return len(names), sum(n in ("aten::_local_scalar_dense", "aten::item")
+                           for n in names)
+
+
+def run_clis(tmp):
+    """The serve CLI (reduced stablelm, ``quant_pack`` + TableFlash) and the
+    train CLI (1 step, ``table_pack`` + TableFlash) with ``--obs --trace``,
+    as two processes at once on the card; each trace valid by
+    ``tools/check_trace.py``, its counters the ones ``--obs`` printed,
+    rendered by ``tools/torch_obs_report.py``."""
+    import os
+
+    sys.path.insert(0, str(REPO / "tools"))
+    from check_trace import validate_trace
+
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    common = ["--arch", "stablelm-3b", "--reduced", "--attn-table", "--obs"]
+    cmds = {
+        "serve": [sys.executable, "-m", "repro_torch.launch.serve", *common,
+                  "--approx-mode", "quant_pack", "--trace", str(tmp / "serve.json")],
+        "train": [sys.executable, "-m", "repro_torch.launch.train", *common,
+                  "--steps", "1", "--batch", "4", "--seq", "16", "--approx-mode",
+                  "table_pack", "--trace", str(tmp / "train.json"), "--ckpt-dir",
+                  str(tmp / "ckpt")]}
+    procs = {k: subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, c in cmds.items()}
+    outs = {}
+    try:
+        for k, proc in procs.items():
+            outs[k] = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"{k} CLI --obs --trace exited "
+                  f"{proc.returncode}: {outs[k][1][-2000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for k, (out, _) in outs.items():
+        with open(tmp / f"{k}.json") as f:
+            doc = json.load(f)
+        errors = validate_trace(doc)
+        check(errors == [], f"{k} CLI trace invalid: {errors[:5]}")
+        printed = json.loads(out[out.index("{"): out.rindex("}") + 1])
+        printed = printed["metrics"] if k == "serve" else printed
+        counters = doc["metadata"]["metrics"]["counters"]
+        check(counters and counters == printed["counters"],
+              f"{k} CLI: the trace's counters {counters} != --obs's")
+        check(counters["approx.lookups.attn_exp"] > 0, f"{k} CLI: no TableFlash count")
+        if k == "serve":
+            check(counters["approx.quant_gathers.silu"]
+                  == 2 * counters["approx.lookups.silu"], "serve CLI: quant gathers")
+        report = subprocess.run(
+            [sys.executable, str(REPO / "tools" / "torch_obs_report.py"),
+             str(tmp / f"{k}.json")], cwd=REPO, env=env, capture_output=True,
+            text=True, timeout=120)
+        check(report.returncode == 0 and "approx.oob.attn_exp" in report.stdout,
+              f"torch_obs_report.py on the {k} trace: {report.stderr[-2000:]}")
+        log(f"obs: {k} CLI --obs --trace: {len(doc['traceEvents'])} events, valid; "
+            f"counters {counters}")
+        for line in report.stdout.splitlines()[:14]:
+            log(f"obs:   | {line}")
+
+
+def telemetry_phase(smi_line):
+    """Phase 42: full-width stablelm-3b at 8 of its 32 layers (seed-0
+    weights) with the device telemetry on and off; see the module docstring.
+    Returns the launches of the telemetry-on runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels import table_pack_lookup as K
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving.engine import ContinuousEngine
+    from repro_torch.train.loop import accumulated_grads, batch_to
+
+    base = get_config("stablelm-3b").replace(n_layers=NON_MAIN_TRAIN_LAYERS)
+    params = build_model(base, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    reqs = make_requests(base.vocab, N_REQ, MAX_NEW)
+    s0 = max(len(r.prompt) for r in reqs)
+    launches = {}
+
+    def add(c):
+        for k, v in c.items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+
+    def serve(model):
+        K.reset_launches()
+        engine = ContinuousEngine(model, params, BATCH, CACHE_LEN)
+        out = engine.serve(reqs)
+        torch.cuda.synchronize()
+        return [r.tokens for r in out], engine, dict(K.launches), _read_counters()
+
+    models = {}
+    _read_counters()
+    for mode, kname in (("table_pack", "table_pack_lookup"),
+                        ("quant_pack", "quant_pack_lookup"),
+                        ("routed_pack", "routed_pack_lookup")):
+        cfg = _with_mode(base, mode, attn_table=True)
+        off, on = _built(cfg, False), _built(cfg, True)
+        ref = _built(_with_mode(cfg, mode + "_ref"), True)
+        models[mode] = {False: off, True: on}
+        toks_off, _, _, c_off = serve(off)
+        toks, engine, c, counters = serve(on)
+        toks_ref, _, c_ref, counters_ref = serve(ref)
+        check(c_off == {} and c[kname] > 0 and c["tableflash_exp"] > 0
+              and not any(c_ref.values()),
+              f"{mode}: off run counted {c_off}; launches {c}, _ref {c_ref}")
+        for i, (a, b, d) in enumerate(zip(toks, toks_ref, toks_off)):
+            check((a == b).all() and (a == d).all(), f"{mode} request {i}: telemetry-on "
+                  f"tokens {a.tolist()}, _ref {b.tolist()}, off {d.tolist()}")
+        check(counters == counters_ref, f"{mode}: counters {counters} != "
+              f"{mode}_ref's {counters_ref}")
+        want = served_lookups(cfg, engine, s0)
+        got = {k[len("approx.lookups."):]: v for k, v in counters.items()
+               if k.startswith("approx.lookups.")}
+        check(got == want, f"{mode}: lookups {got} != {want} derived from the code")
+        if mode == "quant_pack":
+            gathers = {k[len("approx.quant_gathers."):]: v for k, v in counters.items()
+                       if k.startswith("approx.quant_gathers.")}
+            check(gathers == {cfg.act: 2 * want[cfg.act]}, f"quant gathers {gathers}")
+        add(c)
+        log(f"obs: {mode} served {N_REQ} requests ({NON_MAIN_TRAIN_LAYERS} layers, "
+            f"{engine.prefills} prefills, {engine.batch_steps - engine.prefills} ticks), "
+            f"telemetry on: tokens equal to the off run's and {mode}_ref's, counters "
+            f"equal to {mode}_ref's {counters}, lookups as derived; launches "
+            f"{ {k: v for k, v in c.items() if v} } [{smi_line}]")
+        del ref
+
+    # routed dispatch: one mixed batch, a member a row
+    x = (torch.randn((len(OBS_ROUTING), base.d_ff), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(42)) * 2
+         ).to(torch.bfloat16)
+    ys = {}
+    for mode in ("routed_pack", "routed_pack_ref"):
+        approx = dataclasses.replace(base.approx, mode=mode)
+        obs.configure(enabled=True, device_telemetry=True)
+        try:
+            f = approx.routed_fn(OBS_ROUTING, "cuda")
+        finally:
+            obs.disable()
+        K.reset_launches()
+        ys[mode] = (f(x), dict(K.launches), _read_counters())
+    (y, c, counters), (y_ref, _, counters_ref) = ys["routed_pack"], ys["routed_pack_ref"]
+    want = {f"approx.routed.{n}": OBS_ROUTING.count(n) for n in set(OBS_ROUTING)}
+    check(torch.equal(y, y_ref) and c["routed_pack_lookup"] == 1
+          and counters == counters_ref == want,
+          f"routed_fn {OBS_ROUTING}: launches {c}, counters {counters} / "
+          f"{counters_ref}, want {want}")
+    add(c)
+    log(f"obs: routed_fn {OBS_ROUTING} over ({len(OBS_ROUTING)}, {base.d_ff}) bf16, one "
+        f"routed_pack_lookup launch, bitwise routed_pack_ref's; dispatch counters "
+        f"{counters}")
+
+    # one training step's grads (remat: the recompute counts again)
+    cfg = _with_mode(base, "table_pack", attn_table=True)
+    batch0 = batch_to(_trainer_data(cfg).batch_at(0), "cuda")
+    train = {}
+    for key, model in (("off", _built(cfg, False)), ("on", _built(cfg, True)),
+                       ("ref", _built(_with_mode(cfg, "table_pack_ref"), True))):
+        K.reset_launches()
+        loss, grads = accumulated_grads(model, params, batch0, TRAIN_ACCUM)
+        torch.cuda.synchronize()
+        train[key] = (loss, dict(K.launches), _read_counters())
+        del grads, model
+    (loss_off, _, c_off), (loss, c, counters), (loss_ref, _, counters_ref) = (
+        train["off"], train["on"], train["ref"])
+    # remat recomputes each checkpointed layer's forward, counted again
+    want = (1 + base.remat) * base.n_layers * TRAIN_BATCH * TRAIN_SEQ * base.d_ff
+    check(torch.equal(loss, loss_off) and c_off == {} and c["table_pack_grad"] > 0,
+          f"train: telemetry-on loss {float(loss)!r} != off {float(loss_off)!r}, or "
+          f"launches {c}, off counters {c_off}")
+    check(counters == counters_ref and counters[f"approx.lookups.{base.act}"] == want,
+          f"train: counters {counters} != table_pack_ref's {counters_ref} (gate "
+          f"lookups {want}: the forward and remat's recompute)")
+    add(c)
+    log(f"obs: one table_pack step (batch {TRAIN_BATCH} x {TRAIN_SEQ}, accum "
+        f"{TRAIN_ACCUM}, remat), telemetry on: loss {float(loss)!r} bit-equal to the off "
+        f"run's, counters equal to table_pack_ref's (loss {float(loss_ref)!r}) "
+        f"{counters}; launches {c} [{smi_line}]")
+
+    # host cost of one decode step, telemetry on and off
+    rows = prompt_rows(reqs, BATCH)
+    pos = torch.full((BATCH,), s0, dtype=torch.int32, device="cuda")
+    tok = rows[:, -1:]
+    for mode, pair in models.items():
+        cost = {}
+        with torch.inference_mode():
+            for tele in (False, True, True, False):
+                m = pair[tele]
+                cache = m.prefill(params, {"tokens": rows},
+                                  m.init_cache(BATCH, CACHE_LEN))[1]
+                step = lambda: m.decode_step(params, tok, pos, cache)  # noqa: E731
+                _mean_ms(step, 2)
+                ms = _mean_ms(step, 10)
+                events, scalar_reads = _decode_cost(step)
+                K.reset_launches()
+                step()
+                torch.cuda.synchronize()
+                n = sum(K.launches.values())
+                c = cost.setdefault(tele, {"ms": []})
+                c["ms"].append(ms)
+                c.update(events=events, scalar_reads=scalar_reads, launches=n)
+        _read_counters()
+        for tele in (False, True):
+            c = cost[tele]
+            log(f"obs: {mode} decode step, telemetry {'on' if tele else 'off'}: "
+                f"{', '.join(f'{v:.3f}' for v in c['ms'])} ms (2 rounds), "
+                f"{c['events']} host op events, {c['launches']} kernel launches, "
+                f"{c['scalar_reads']} scalar reads [{smi_line}]")
+            check(c["scalar_reads"] == 0, f"{mode}: a decode step with telemetry "
+                  f"{'on' if tele else 'off'} read {c['scalar_reads']} device scalars")
+        check(cost[True]["launches"] == cost[False]["launches"],
+              f"{mode}: the probes launched a kernel")
+    del models, params
+    torch.cuda.empty_cache()
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_obs_"))
+    try:
+        run_clis(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+# --------------------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3509,6 +3818,9 @@ def main() -> int:
         with phase("41"):
             for arch in ENCDEC_VLM_FAMILY:
                 reference_check(arch)
+        # 42: the device telemetry and the observability tools; its launches too
+        with phase("42"):
+            obs_launches = telemetry_phase(smi_line)
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -3549,6 +3861,8 @@ def main() -> int:
             kernels[-1]["recurrent_launches"] = recurrent_launches[kname]
         if kname in encdec_vlm_launches:  # and phases 39-40
             kernels[-1]["encdec_vlm_launches"] = encdec_vlm_launches[kname]
+        if kname in obs_launches:  # and phase 42, with the telemetry on
+            kernels[-1]["obs_launches"] = obs_launches[kname]
     log(f"phase seconds: {json.dumps(PHASE_S)}")
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(smi_line)

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core.flow import cached_table
 from repro_torch.core.functions import get as get_function
 from repro_torch.device import DeviceLike, resolve_device
@@ -45,7 +46,8 @@ from .table_pack import (PolyTablePack, QuantTablePack, ShardedTablePack,
                          TablePack, build_pack, build_poly_pack, build_quant_pack,
                          build_sharded_pack, make_attn_exp_fn, make_pack_fn,
                          make_poly_pack_fn, make_quant_pack_fn, make_routed_fn,
-                         make_routed_unary_fn, make_sharded_pack_fn)
+                         make_routed_unary_fn, make_sharded_pack_fn, member_domain,
+                         quant_saturation_counts)
 from .torch_table import TorchTable, from_spec, make_table_fn
 
 PACK_MODES = ("table_pack", "table_pack_ref")
@@ -343,7 +345,59 @@ class ApproxConfig:
             # the registry table spans [-lo, 0): mirror it so gates/softcap get
             # the full symmetric domain
             f = odd_extension(f)
-        return f
+        return self._maybe_instrument_unary(f, name, reg_name, device)
+
+    def _maybe_instrument_unary(self, f, name: str, reg_name: str,
+                                device: DeviceLike = None):
+        """Device-side approximation telemetry, decided at closure-BUILD time
+        (the reference's ``_maybe_instrument_unary``).
+
+        With ``obs.device_telemetry_enabled()`` when ``unary`` builds the
+        callable, each call counts out-of-domain clamp/extrapolation hits
+        (and, on quant-backed packs, saturated endpoint codes) into the
+        global registry: a probe on a detached f32 copy of x under
+        ``no_grad``, summed on x's device with no host sync; the values
+        returned are ``f(x)``'s own.  Off — the default — ``f`` itself is
+        returned: no wrapper, no extra operator.  Flipping the flag after a
+        model is built has no effect on that model.
+        """
+        if not obs.device_telemetry_enabled():
+            return f
+        quant_pack = None
+        if self.mode in FOLDED_MODES and reg_name in FOLDABLE:
+            # folded members serve the entire finite f32 domain: the fold
+            # maps every input into its core member's interval
+            lo, hi = float("-inf"), float("inf")
+        elif self.mode in (PACK_MODES + QUANT_PACK_MODES + POLY_PACK_MODES
+                           + ROUTED_MODES + SHARDED_MODES + FOLDED_MODES):
+            pack = self._pack_for_mode(device)
+            lo, hi = member_domain(pack, reg_name)
+            if isinstance(pack, QuantTablePack):
+                quant_pack = pack
+        else:
+            # the table's outer boundaries, read on the host once, at build
+            b = self.table_for(name, "cpu").boundaries
+            lo, hi = float(b[0]), float(b[-1])
+        mirror = reg_name in _ODD_HALF_DOMAIN
+        names = {k: f"approx.{k}.{reg_name}"
+                 for k in ("oob", "lookups", "quant_sat", "quant_gathers")}
+
+        def instrumented(x):
+            reg = obs.get_registry()
+            with torch.no_grad():
+                xf = x.detach().to(torch.float32)
+                # half-domain odd members evaluate at -|x| (odd_extension):
+                # probe the mirrored input, so the domain is (lo, -lo)
+                probe = torch.minimum(xf, -xf) if mirror else xf
+                reg.counter(names["oob"]).add(((probe < lo) | (probe >= hi)).sum())
+                reg.counter(names["lookups"]).add(xf.numel())
+                if quant_pack is not None and xf.numel():
+                    sat, total = quant_saturation_counts(quant_pack, reg_name, probe)
+                    reg.counter(names["quant_sat"]).add(sat)
+                    reg.counter(names["quant_gathers"]).add(total)
+            return f(x)
+
+        return instrumented
 
     def routed_fn(self, fns, device: DeviceLike = None, *,
                   extrapolate=None) -> Callable:
@@ -377,19 +431,39 @@ class ApproxConfig:
                            extrapolate=extrapolate)
         odd = np.asarray([isinstance(n, str) and n in _ODD_HALF_DOMAIN
                           for n in names])
-        if not odd.any():
+        if odd.any():
+            odd_rows = torch.from_numpy(odd).to(pack.device)  # once, at build
+
+            def routed_odd(x, _f=f):
+                # per-row odd_extension: mirror only the half-domain rows (s
+                # is +-1 and piecewise constant, so the gradient flows
+                # through f's slope rule untouched)
+                m = odd_rows.reshape((len(names),) + (1,) * (x.dim() - 1))
+                s = torch.where(m & (x >= 0), -1.0, 1.0).to(x.dtype)
+                return s * _f(s * x)
+
+            f = routed_odd
+        return self._maybe_instrument_routed(f, names, pack)
+
+    def _maybe_instrument_routed(self, f, names, pack):
+        """Routed-dispatch telemetry, decided at closure-build time like
+        :meth:`_maybe_instrument_unary`: each call adds this routing's static
+        per-member row counts (host ints) to ``approx.routed.<member>`` —
+        across calls the counters form the fn_id dispatch histogram."""
+        if not obs.device_telemetry_enabled():
             return f
-        odd_rows = torch.from_numpy(odd).to(pack.device)  # once, at build
+        counts: Dict[str, int] = {}
+        for n in names:
+            key = n if isinstance(n, str) else pack.names[int(n)]
+            counts[key] = counts.get(key, 0) + 1
 
-        def routed_odd(x):
-            # per-row odd_extension: mirror only the half-domain rows (s is
-            # +-1 and piecewise constant, so the gradient flows through f's
-            # slope rule untouched)
-            m = odd_rows.reshape((len(names),) + (1,) * (x.dim() - 1))
-            s = torch.where(m & (x >= 0), -1.0, 1.0).to(x.dtype)
-            return s * f(s * x)
+        def instrumented(x):
+            reg = obs.get_registry()
+            for member, rows in counts.items():
+                reg.counter(f"approx.routed.{member}").add(rows)
+            return f(x)
 
-        return routed_odd
+        return instrumented
 
     def softmax(self, x: torch.Tensor, axis: int = -1, where=None,
                 device: DeviceLike = None) -> torch.Tensor:
@@ -461,5 +535,38 @@ class ApproxConfig:
         if key not in _ATTN_EXP_CACHE:
             _ATTN_EXP_CACHE[key] = make_attn_exp_fn(
                 self.pack(dev), use_kernel=self.mode in _KERNEL_BACKED)
-        return _ATTN_EXP_CACHE[key]
+        return self._maybe_instrument_attn_exp(_ATTN_EXP_CACHE[key], dev)
+
+    def _maybe_instrument_attn_exp(self, f, device: torch.device):
+        """TableFlash clamp telemetry, decided at closure-build time like
+        :meth:`_maybe_instrument_unary` (off: the cached closure itself; the
+        wrapper is never stored in the cache).
+
+        Counts only ``z < lo`` underflow-to-zero events into
+        ``approx.oob.attn_exp``: z = 0 is the running max's own argument in
+        every row and is in-domain.  The wrapper advertises
+        ``wants_count_mask``; flash attention then passes ``count_mask``,
+        False on the KV_PAD chunk-padding keys — a genuine ``k_pos == -1``
+        empty cache slot still counts its underflow, a padding lane does not
+        — and the lookups counted are the mask's sum.
+        """
+        if not obs.device_telemetry_enabled():
+            return f
+        lo, _ = member_domain(self.pack(device), "exp_neg")
+
+        def instrumented(x, count_mask=None):
+            reg = obs.get_registry()
+            with torch.no_grad():
+                under = x.detach().to(torch.float32) < lo
+                if count_mask is None:
+                    total = x.numel()
+                else:
+                    under = under & count_mask
+                    total = count_mask.expand(x.shape).sum()
+                reg.counter("approx.oob.attn_exp").add(under.sum())
+                reg.counter("approx.lookups.attn_exp").add(total)
+            return f(x)
+
+        instrumented.wants_count_mask = True
+        return instrumented
 

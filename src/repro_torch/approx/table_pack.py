@@ -665,6 +665,29 @@ def make_quant_pack_fn(pack: QuantTablePack, name: str, *,
     return _make_fn(pack, name, *fns, exact_d1, extrapolate)
 
 
+def quant_saturation_counts(pack: QuantTablePack, fn, x: torch.Tensor):
+    """(saturated, total) endpoint-code gathers member ``fn`` performs on ``x``
+    (the reference's ``quant_saturation_counts``): ``saturated`` a 0-d int64
+    tensor on x's device, no host sync; ``total == 2 * x.numel()``.
+
+    A gathered code at the signed extreme of its width (|c| >= 127 for int8,
+    >= 32767 for int16) means the per-sub-interval affine quantizer clipped
+    that entry, so the saturation rate is the telemetry's quant health
+    signal.  The addresses are the plain version's own (``_quant_select``,
+    ``pair_address``): each lookup gathers the chord's two endpoint codes.
+    """
+    fid = pack.member_id(fn)
+    xf = x.to(torch.float32)
+    p, invd, base, segs, _, _, _ = _quant_select(pack, fid, xf)
+    i = clamp_cell((xf - p) * invd, segs)
+    codes = pack.codes_for(fid)
+    a0, a1 = pair_address(base, i, codes.shape[0])
+    qmax = 127 if pack.entry_bits[fid] == 8 else 32767
+    sat = ((codes[a0].to(torch.int32).abs() >= qmax).sum()
+           + (codes[a1].to(torch.int32).abs() >= qmax).sum())
+    return sat, 2 * xf.numel()
+
+
 # --------------------------------------------------------------------------------------
 # PolyPack — planner-designed degree-d coefficient packs, Horner-evaluated on read.
 # --------------------------------------------------------------------------------------

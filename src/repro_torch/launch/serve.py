@@ -6,18 +6,24 @@ request queue, on the card unless ``--device cpu``.
 
 The flags are the JAX launcher's (``repro.launch.serve``), ``--pack-shards``
 and the sharded modes included (off the mesh: the shards are summed on one
-device), minus ``--obs`` (ROADMAP queue 1, item 13), plus ``--device``.  ``--scheduler
-continuous`` (default) serves through the ContinuousEngine; ``--scheduler
-static`` keeps the fixed-group baseline.  ``--trace PATH`` writes a
-Perfetto-loadable Chrome trace of the run.  Throughput is reported wall-clock
-and steady-state (the one-time CUDA kernel build excluded).  Weights are
-random, drawn from seed 0, and so is the traffic, as in the JAX launcher.
+device), plus ``--device``.  ``--scheduler continuous`` (default) serves
+through the ContinuousEngine; ``--scheduler static`` keeps the fixed-group
+baseline.  ``--trace PATH`` writes a Perfetto-loadable Chrome trace of the
+run with the engine's metrics and the global counters in its metadata
+(validate it with ``tools/check_trace.py``, render it with
+``tools/torch_obs_report.py``); ``--obs`` also builds the model with the
+device telemetry on (out-of-domain clamps, quant saturation, routed
+dispatch, counted on the device with no host sync) and prints the metric
+summary as JSON.  Throughput is reported wall-clock and steady-state (the
+one-time CUDA kernel build excluded).  Weights are random, drawn from seed
+0, and so is the traffic, as in the JAX launcher.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -86,15 +92,22 @@ def main(argv=None):
                     help="TableFlash: serve flash attention's softmax exponent"
                          " from the pack's exp_neg member (any table mode)")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="write a Chrome-trace JSON of the run (open in Perfetto)")
+                    help="write a Chrome-trace JSON of the run (open in "
+                         "Perfetto; validate with tools/check_trace.py)")
+    ap.add_argument("--obs", action="store_true",
+                    help="enable device-side approximation telemetry "
+                         "(out-of-domain clamps, quant saturation, routed "
+                         "dispatch) and print the metric summary")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; an error without a card) or cpu")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     # host-side spans are always on for the launcher (they never touch the
-    # device computation), so throughput can exclude the kernel build
-    obs.configure(enabled=True, trace_path=args.trace)
+    # device computation), so throughput can exclude the kernel build; device
+    # telemetry only with --obs, and only then is the model built with
+    # instrumented activation closures
+    obs.configure(enabled=True, device_telemetry=args.obs, trace_path=args.trace)
     obs.reset_tracer()
 
     cfg = reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -145,6 +158,10 @@ def main(argv=None):
     for i, r in enumerate(results[:4]):
         print(f"  req{i}: prompt_len={r.prompt_len} steps={r.steps} "
               f"-> {r.tokens[:8].tolist()}...")
+    if args.obs:
+        print(json.dumps({"metrics": obs.get_registry().summary(),
+                          "engine_metrics": engine.metrics.summary()},
+                         indent=1, default=str))
     if args.trace:
         summary = {"requests": len(results), "tokens": total_new,
                    "wall_s": dt, "compile_time_s": engine.compile_time_s,
@@ -153,7 +170,12 @@ def main(argv=None):
                    "scheduler": args.scheduler, "device": str(device)}
         obs.get_tracer().save(args.trace, metadata={
             "summary": summary,
-            "metrics": {"histograms": engine.metrics.summary()["histograms"]}})
+            "metrics": {
+                # the engine's latency histograms and the global (device
+                # telemetry) counters, merged for the report CLI
+                "histograms": engine.metrics.summary()["histograms"],
+                "counters": obs.get_registry().summary()["counters"],
+            }})
         print(f"trace written to {args.trace}")
     return results
 

@@ -7,16 +7,22 @@
 The flags are the JAX launcher's (``repro.launch.train``) for every approx
 mode (``--pack-budget``, ``--pack-shards`` and ``--rope-table`` included; the
 sharded modes off the mesh), plus ``--device``; ``--mesh`` waits for ROADMAP
-queue 1, item 12b and ``--obs`` for item 13.  Weights are random, drawn from
-seed 0, and the data is the counter-addressed synthetic stream, as in the
-JAX launcher.  The summary line reports the one-time nvcc kernel build in
-place of the reference's compile time.
+queue 1, item 12b.  ``--obs`` builds the model with the device telemetry on
+(out-of-domain clamps and quant saturation, counted on the device; a
+checkpointed layer's activations are counted again in its recompute, as
+the reference's remat counts them) and prints the metric summary as JSON;
+``--trace PATH`` writes a Chrome trace of the run with that summary in its
+metadata.  Weights are random, drawn from seed 0, and the data is the
+counter-addressed synthetic stream, as in the JAX launcher.  The summary
+line reports the one-time nvcc kernel build in place of the reference's
+compile time.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 from repro_torch import obs
@@ -75,13 +81,17 @@ def main(argv=None):
                          " from the pack's exp_neg member (any table mode)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a Chrome-trace JSON of the run (train.step / "
-                         "train.ckpt spans; open in Perfetto)")
+                         "train.ckpt spans; open in Perfetto, validate with "
+                         "tools/check_trace.py)")
+    ap.add_argument("--obs", action="store_true",
+                    help="enable device-side approximation telemetry and "
+                         "print the metric summary")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; an error without a card) or cpu")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    obs.configure(enabled=True, trace_path=args.trace)
+    obs.configure(enabled=True, device_telemetry=args.obs, trace_path=args.trace)
     obs.reset_tracer()
     obs.reset_registry()
 
@@ -126,6 +136,8 @@ def main(argv=None):
           f"{steps_done / wall:.2f} step/s wall, {steps_done / steady:.2f} "
           f"step/s steady after {out['build_time_s']:.2f}s kernel build "
           f"on {device}")
+    if args.obs:
+        print(json.dumps(obs.get_registry().summary(), indent=1, default=str))
     if args.trace:
         obs.get_tracer().save(args.trace, metadata={
             "summary": {"steps": steps_done, "wall_s": wall,

@@ -118,7 +118,10 @@ def _flash_inner(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
     q: (B, Sq, G, Qg, D); k/v: (B, T, G, D); positions: (Sq,) / (T,) shared
     across the batch, or (B, Sq) / (B, T) per-slot.  Returns (B, Sq, G, Qg, D).
     ``exp_fn`` serves the two running-softmax exponents (arguments <= 0 by
-    construction); None keeps exact ``torch.exp``.
+    construction); None keeps exact ``torch.exp``.  An instrumented closure
+    advertising ``wants_count_mask`` also receives a ``count_mask`` that
+    excludes the KV_PAD chunk-padding keys from its underflow telemetry;
+    any other ``exp_fn`` runs the same operators as without telemetry.
     """
     B, Sq, G, Qg, D = q.shape
     T = k.shape[1]
@@ -131,6 +134,7 @@ def _flash_inner(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
         k_pos = F.pad(k_pos, (0, pad), value=KV_PAD)
     qp = q_pos if q_pos.dim() == 2 else q_pos[None, :]  # (1|B, Sq)
     exp = torch.exp if exp_fn is None else exp_fn
+    count_pad = getattr(exp_fn, "wants_count_mask", False)
 
     # the scale rounds to q's dtype first, as the JAX weak-typed scalar does
     qf = (q * torch.tensor(scale, dtype=q.dtype, device=q.device)).to(torch.float32)
@@ -149,7 +153,12 @@ def _flash_inner(q, k, v, q_pos, k_pos, *, causal: bool, window: int,
             valid = valid & (kpb[:, None, :] > qp[:, :, None] - window)
         s = torch.where(valid[:, :, None, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = exp(s - m_new[..., None])
+        if count_pad:
+            # pad lanes are a chunking artifact, not approximation events
+            countable = (kpb != KV_PAD)[:, None, None, None, :]
+            p = exp(s - m_new[..., None], count_mask=countable.expand(s.shape))
+        else:
+            p = exp(s - m_new[..., None])
         alpha = exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum(

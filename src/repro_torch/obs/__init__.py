@@ -5,13 +5,30 @@
   flow emit spans through it; every hook is a no-op unless :func:`configure`
   enabled observability.
 * :mod:`repro_torch.obs.metrics` — counters / gauges / histograms with
-  percentile summaries (engines carry their own :class:`Registry`).
+  percentile summaries.  Engines carry their own :class:`Registry`; the
+  global registry (:func:`get_registry`) receives the device-side
+  approximation telemetry (out-of-domain clamp hits, routed dispatch rows,
+  quant-code saturation) that ``repro_torch.approx`` counts on the device
+  when ``device_telemetry`` is enabled, read in one transfer by
+  ``summary()``.
+* :mod:`repro_torch.obs.report` — render a run summary from a trace file and
+  diff two runs (CLI: ``tools/torch_obs_report.py``; validation:
+  ``tools/check_trace.py``).
 
-Stdlib + numpy only.  Device-side approximation telemetry (the JAX package's
-``device_telemetry`` counters) is not ported yet (ROADMAP queue 1, item 13).
+Stdlib + numpy, and torch only where a counter reads a device count.  With
+:class:`ObsConfig` disabled — the default — every hook is a cheap boolean
+check, no events are recorded and the activation closures are the un-wrapped
+ones.
 """
 
-from .config import ObsConfig, configure, disable, enabled, get_config
+from .config import (
+    ObsConfig,
+    configure,
+    device_telemetry_enabled,
+    disable,
+    enabled,
+    get_config,
+)
 from .metrics import (
     Counter,
     Gauge,
@@ -40,6 +57,7 @@ __all__ = [
     "Tracer",
     "configure",
     "counter_event",
+    "device_telemetry_enabled",
     "disable",
     "enabled",
     "get_config",

@@ -14,10 +14,15 @@ position clock).  When a slot finishes, the host prefills the next queued
 request (one fixed-shape prefill whose rows serve every slot freed that round)
 and scatters the freed slots' rows of the fresh cache into the live cache.
 
-PyTorch runs eagerly, so the JAX engines' jitted executables and
-``compile_counts`` have no counterpart here.  ``compile_time_s`` is the
-one-time CUDA kernel build (nvcc) that fell inside a traced phase, so the CLI
-can still report steady-state throughput.  Every engine call runs under
+PyTorch runs eagerly: the JAX engines jit ``prefill`` and the decode step
+(the continuous engine's decode tick), and ``compile_counts()`` here counts,
+for the same two entry points, the distinct signatures (tensor shapes and
+dtypes, in their dict/list structure) each was called with — what the
+reference's jit caches hold for the same calls.  A steady serve keeps
+``{"prefill": 1, "decode_step": 1}``: a new shape after a refill would also
+break a CUDA graph of the decode step.  ``compile_time_s`` is the one-time
+CUDA kernel build (nvcc) that fell inside a traced phase, so the CLI can
+still report steady-state throughput.  Every engine call runs under
 ``torch.inference_mode()``.
 """
 
@@ -66,11 +71,44 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu").numpy()
 
 
+def _signature(tree):
+    """The shapes and dtypes of the tensors in ``tree`` (dicts, lists and
+    tuples walked in order, keys kept), as jit's cache key holds the abstract
+    values of its arguments: Python numbers, None and meta tensors leave no
+    trace."""
+    if isinstance(tree, torch.Tensor):
+        return None if tree.is_meta else (tuple(tree.shape), tree.dtype)
+    if isinstance(tree, dict):
+        return tuple((k, _signature(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return tuple(_signature(v) for v in tree)
+    return None
+
+
 class _EngineBase:
-    """Shared engine plumbing: the batch-round / wasted-slot-step counters both
-    schedulers report.  A slot-round is one slot position in one sampling
-    round (prefill round or decode step); it counts as wasted when it yields
-    no token for a live request."""
+    """Shared engine plumbing: the build counts of the two entry points and
+    the batch-round / wasted-slot-step counters both schedulers report.  A
+    slot-round is one slot position in one sampling round (prefill round or
+    decode step); it counts as wasted when it yields no token for a live
+    request."""
+
+    ENTRY_POINTS = ("prefill", "decode_step")
+
+    def _init_builds(self) -> None:
+        self._signatures = {name: set() for name in self.ENTRY_POINTS}
+        self._params_sig = None  # the engine's params, walked once
+
+    def _called(self, entry: str, *args) -> None:
+        """Record the signature of one call of ``entry`` on ``self.params``
+        and ``args``."""
+        if self._params_sig is None:
+            self._params_sig = _signature(self.params)
+        self._signatures[entry].add((self._params_sig, _signature(args)))
+
+    def compile_counts(self) -> dict:
+        """Distinct call signatures of each entry point so far (the
+        reference's jit cache sizes); ``reset_counters`` keeps them."""
+        return {name: len(sigs) for name, sigs in self._signatures.items()}
 
     def reset_counters(self) -> None:
         self.batch_steps = 0  # sampling rounds (prefill rounds + decode steps)
@@ -132,6 +170,7 @@ class DecodeEngine(_EngineBase):
         self.temperature = temperature
         self.gen = torch.Generator(device=model.device).manual_seed(seed)
         self.metrics = obs.Registry()  # ttft_s / itl_s histograms
+        self._init_builds()
         self.reset_counters()
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
@@ -173,6 +212,7 @@ class DecodeEngine(_EngineBase):
         cm = (_phase_span(self, tracer, "static.prefill", batch=B, prompt_len=S)
               if rec else nullcontext({}))
         with cm as st:
+            self._called("prefill", batch, cache)
             logits, cache = self.model.prefill(self.params, batch, cache)
             st["sync"] = logits
         out = [self._sample(logits)]
@@ -192,8 +232,9 @@ class DecodeEngine(_EngineBase):
                     break
                 self.wasted_slot_steps += int(done.sum())
                 tok = out[-1][:, None]
-                logits, cache = self.model.decode_step(
-                    self.params, tok, torch.tensor(S + i, device=dev), cache)
+                pos = torch.tensor(S + i, device=dev)
+                self._called("decode_step", tok, pos, cache)
+                logits, cache = self.model.decode_step(self.params, tok, pos, cache)
                 nxt = self._sample(logits)
                 out.append(nxt)
                 steps += 1
@@ -333,6 +374,7 @@ class ContinuousEngine(_EngineBase):
         self.metrics = obs.Registry()  # ttft_s / itl_s / queue_wait_s
         self._axes = None
         self._fresh = None
+        self._init_builds()
         self.reset_counters()
 
     def reset_counters(self) -> None:
@@ -341,8 +383,10 @@ class ContinuousEngine(_EngineBase):
         self.refills = 0  # admissions into a previously-used slot
 
     def _tick(self, tok, pos, cache):
-        """One decode tick: step + greedy argmax + clock advance, with the
-        fed-back token and the per-slot positions staying on the device."""
+        """One decode tick (the ``decode_step`` entry point): step + greedy
+        argmax + clock advance, with the fed-back token and the per-slot
+        positions staying on the device."""
+        self._called("decode_step", tok, pos, cache)
         logits, cache = self.model.decode_step(self.params, tok, pos, cache)
         nxt = torch.argmax(logits, dim=-1)
         return nxt[:, None], logits, pos + 1, cache
@@ -448,6 +492,7 @@ class ContinuousEngine(_EngineBase):
                                   admitted=len(take)) if rec else nullcontext({}))
                 with cm as st:
                     tokens = torch.as_tensor(rows, dtype=torch.int64, device=dev)
+                    self._called("prefill", {"tokens": tokens}, self._fresh)
                     logits, rcache = self.model.prefill(
                         self.params, {"tokens": tokens}, self._fresh)
                     st["sync"] = logits

@@ -1383,3 +1383,52 @@ def test_reduced_rope_table_card_matches_cpu(cuda, mode):
             assert K.launches["folded_pack_lookup"] > 0
     for a, b in zip(served["cuda"], served["cpu"]):
         np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+@pytest.mark.parametrize("mode,kernel", [("table_pack", "table_pack_lookup"),
+                                         ("quant_pack", "quant_pack_lookup"),
+                                         ("routed_pack", "routed_pack_lookup")])
+def test_telemetry_counters_kernel_mode_equal_ref_mode(cuda, mode, kernel):
+    """Device telemetry on the card: reduced stablelm (f32, TableFlash)
+    serving through ``mode``'s kernels counts exactly what its ``_ref`` mode
+    counts (the kernels are bitwise their plain versions, so the probes see
+    the same inputs), with the same tokens; a routed_fn call counts its
+    dispatch rows."""
+    from repro_torch import obs
+    from repro_torch.models import build_model, reduced
+    from repro_torch.serving.engine import ContinuousEngine, Request
+    from repro_torch.train.loop import init_state
+
+    cfg = reduced("stablelm-3b").replace(compute_dtype="float32", approx=ApproxConfig(
+        mode=mode, e_a=1e-4, omega=0.2, attn_table=True))
+    rng = np.random.default_rng(5)
+    reqs = [Request(prompt=rng.integers(0, 128, (int(n),)).astype(np.int32),
+                    max_new_tokens=6) for n in rng.integers(3, 12, 5)]
+    params = init_state(build_model(cfg, cuda))["params"]
+    x = torch.randn((3, 64), generator=torch.Generator().manual_seed(0)).to(cuda) * 4
+    served, counters = {}, {}
+    obs.disable()
+    obs.reset_registry()
+    try:
+        for m in (mode, mode + "_ref"):
+            obs.configure(enabled=True, device_telemetry=True)
+            model = build_model(cfg.replace(
+                approx=dataclasses.replace(cfg.approx, mode=m)), cuda)
+            routed = model.cfg.approx.routed_fn(["gelu", "tanh", "gelu"], cuda)
+            obs.disable()
+            K.reset_launches()
+            served[m] = ContinuousEngine(model, params, 2, 64).serve(reqs)
+            routed(x)
+            torch.cuda.synchronize()
+            if m == mode:
+                assert K.launches[kernel] > 0 and K.launches["tableflash_exp"] > 0
+            counters[m] = obs.get_registry().summary()["counters"]
+            obs.reset_registry()
+    finally:
+        obs.disable()
+        obs.reset_registry()
+    assert counters[mode] == counters[mode + "_ref"]
+    assert counters[mode]["approx.routed.gelu"] == 2
+    assert counters[mode]["approx.lookups.attn_exp"] > 0
+    for a, b in zip(served[mode], served[mode + "_ref"]):
+        np.testing.assert_array_equal(a.tokens, b.tokens)

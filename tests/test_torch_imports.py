@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py`` or ``examples/quickstart_torch.py``, imports JAX or anything
-of the JAX package ``repro`` (the quickstart's run is checked in
-tests/test_torch_paper.py).
+``chip_smoke.py``, ``examples/quickstart_torch.py``,
+``examples/serve_decode_torch.py`` or ``tools/torch_obs_report.py``, imports
+JAX or anything of the JAX package ``repro`` (the quickstart's run is
+checked in tests/test_torch_paper.py, the serving example's and the report
+CLI's in tests/test_torch_obs.py).
 
 Checked twice: by importing every module in a fresh interpreter and looking
 at ``sys.modules``, and by an AST scan of the sources (which also catches an
@@ -40,7 +42,7 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.configs.qwen3_moe_235b_a22b", "repro_torch.models.ssm",
               "repro_torch.models.xlstm", "repro_torch.configs.zamba2_1_2b",
               "repro_torch.configs.xlstm_125m", "repro_torch.configs.whisper_small",
-              "repro_torch.configs.internvl2_1b"):
+              "repro_torch.configs.internvl2_1b", "repro_torch.obs.report"):
         assert m in mods, m
     code = (
         "import importlib, json, sys\n"
@@ -69,7 +71,9 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize(
     "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "examples" / "quickstart_torch.py"],
+                                         ROOT / "examples" / "quickstart_torch.py",
+                                         ROOT / "examples" / "serve_decode_torch.py",
+                                         ROOT / "tools" / "torch_obs_report.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_has_no_jax_or_repro_import(path):
     bad = [(m, ln) for m, ln in _imported_roots(path) if m in FORBIDDEN]
