@@ -145,7 +145,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    pack staged) and the mixed poly pack at e_a 1e-8 (past the budget:
    restaged per member), re-routed inside a CUDA graph too;
 18. table-served RoPE and routed PolyPack serving: stablelm-3b at full
-   width cut to 8 of its 32 layers (their ``_ref`` runs through the plain
+   width cut to 4 of its 32 layers (their ``_ref`` runs through the plain
    folded trig took ~46 s each at full depth) serving the 8 requests (+
    TableFlash) with ``rope_table`` in ``table_pack``, ``folded_pack`` and
    ``folded_routed_pack`` (tokens equal to the ``_ref`` mode's and to
@@ -215,21 +215,21 @@ Phases, each fatal on failure (exit code 1, no result line):
    to ``table_pack_ref``'s bit for bit, grad norm within 1e-3, and
    ``table_pack_grad`` launched as often a layer and micro-batch as phase 6's
    silu gate and flash slopes;
-26. gemma3-12b at full width cut to 24 of its 48 layers (4 groups of 5
+26. gemma3-12b at full width cut to 12 of its 48 layers (2 groups of 5
    local layers with a 1,024-token window and 1 global, d 3840, 16 q / 8 kv
    heads x 256, qk-norm, ``gelu_tanh`` GLU at d_ff 15360, tied embeddings,
    vocab 262144; 11.77 B f32 parameters at 48) serving the 8 requests
    as phase 25 does, then 2 prompts of 1,100-1,200 tokens in a 2,048-token
    cache, which wrap the local rings, token-identical to ``table_pack_ref``;
-   the launches of one decode step at each cache; the decode-step and
-   prefill ms of ``table_pack``, ``table_pack_ref`` and ``exact``, and a
-   profiler view of the ``table_pack`` decode step (device busy and idle
-   share), as phase 4's; then one local:global group (6 of its 48 layers:
+   the launches of one decode step at each cache; one round of
+   ``table_pack``'s decode-step and prefill ms (phase 4 alone times
+   ``table_pack_ref`` and ``exact`` beside it, in two rounds, and profiles
+   the step); then one local:global group (6 of its 48 layers:
    the f32 AdamW state of all 48 does not fit one card) trained 2 steps as
    phase 25's starcoder2-3b, the tied embedding taking both uses' grads;
 27. yi-34b (56 q / 8 kv heads padded to 64, d_head 128, rope theta 5e6,
-   ``silu`` GLU at d_ff 20480) at full width cut to 24 of its 60 layers (the
-   deepest multiple of 4 whose f32 parameters stay under 3/4 of the card)
+   ``silu`` GLU at d_ff 20480) at full width cut to 12 of its 60 layers (24
+   kept its f32 parameters under 3/4 of the card; 12 for the run's time)
    serving the 8 requests, with the logits, launches and times, as phase 25
    does;
 28. reference: reduced gemma3-12b (its local window set to 8, so the
@@ -257,14 +257,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    chunks); each max row error within ``flash_abs_bound``;
 31. deepseek-moe-16b (64 routed experts top-6 of d_ff 1408 + 2 shared, 16
    heads x 128 (MHA), vocab 102400; 16.88 B f32 parameters, random from
-   seed 0) at full width cut to 14 of its 28 layers serving the 8 requests in
+   seed 0) at full width cut to 7 of its 28 layers serving the 8 requests in
    ``table_pack`` + TableFlash, token-identical to ``table_pack_ref`` (the
    MoE's capacity is shared across the batch, so the oracle is the same
    queue, not each request alone); prefill and decode logits within 1e-6 of
    ``table_pack_ref``'s; one decode step launching the gate twice a layer
    (experts and shared experts) and the exponent twice a layer and kv
-   chunk; the decode-step and prefill ms, idle share, the host time and op
-   events of one decode step, and the peak memory, as phase 26;
+   chunk; the decode-step and prefill ms, the host time and op events of
+   one decode step, and the peak memory, as phase 26;
 32. deepseek-moe-16b trained 2 steps at full width cut to 4 of its 28
    layers (2.77 B f32 parameters: the f32 AdamW state of all 28 does not
    fit one card), as phase 25's training, each step's aux loss beside its
@@ -285,9 +285,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``table_pack_ref``'s; one decode step launching the gates 5 times a
    Mamba2 layer (silu on x, B, C and the gate, softplus on dt, f32) and
    once a shared-block use (its GLU), 196 in all, and the exponent twice a
-   use and kv chunk, 12; the decode-step and prefill ms, idle share, the
-   host time and op events of one decode step and the peak memory, as
-   phase 31;
+   use and kv chunk, 12; the decode-step and prefill ms, the host time and
+   op events of one decode step and the peak memory, as phase 31;
 36. zamba2-1.2b trained 2 steps at full width and depth as phase 25's
    training (remat: each group and each trailing layer checkpointed), step-0
    loss equal to ``table_pack_ref``'s bit for bit, grad norm within 1e-3,
@@ -297,8 +296,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    full width and depth serving the 8 requests as phase 35 (no attention:
    ``table_pack_lookup`` only, 10 launches a pair a decode step: 5 exp_neg
    and the output gate's sigmoid of the mLSTM, tanh, 2 exp_neg and sigmoid
-   of the sLSTM step) and trained 2 steps as phase 36 (the sLSTM's 128-step
-   loop over time in each layer);
+   of the sLSTM step) and trained 2 steps as phase 36 at 3 of its 6 pairs
+   (the sLSTM's 128-step loop over time in each layer);
 38. reference: reduced zamba2-1.2b and xlstm-125m in float32 on the card
    against the same models on the CPU, as phase 5 (at least 2 refills);
 39. whisper-small (12 bidirectional encoder layers over 1,500 stub frame
@@ -313,8 +312,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``table_pack_ref``'s; one prefill launching 24 gates and 216 exponents
    and one decode step 12 and 72 (2 a kv chunk of each attention: 3 x 2
    chunk pairs of the encoder), as derived from the code; the decode-step
-   and prefill ms, idle share, host time and op events and peak memory, as
-   phase 31; then trained 2 steps at full depth as phase 25's training
+   and prefill ms, host time and op events and peak memory, as phase 31; then trained 2 steps at full depth as phase 25's training
    (step 0 bit-equal, grad norm within 1e-3, ``table_pack_grad`` 480 a
    micro-batch: 26 an encoder layer, 14 a decoder layer);
 40. internvl2-1b (24 layers, 14 q / 2 kv heads x 64 repeated to 16 groups,
@@ -346,6 +344,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    train CLI (1 step, ``table_pack``) with ``--obs --trace`` as two
    processes, each trace valid by ``tools/check_trace.py``, its counters
    the ones ``--obs`` printed, rendered by ``tools/torch_obs_report.py``.
+43. the mesh: stablelm-3b's pack (its approx settings) placed over a (1, S)
+   ('data', 'model') mesh of S = 2 and then 4 gloo processes sharing the
+   card (gloo all-reduces CUDA tensors; NCCL refuses two ranks on one GPU),
+   each rank holding ONE values slice: first an all-reduce of a CUDA tensor
+   (the probe), then ``eval_sharded_mesh``'s value and slope (the rank's
+   ``tp_spack_lookup`` over its slice, all-reduced over 'model') BITWISE the
+   off-mesh sharded kernels on the whole pack and equal to the replicated
+   ones, for every member at phase 3's edge inputs and the gate at
+   (4,1,6912) and (4,128,6912), bf16 and f32, extrapolation off and on, 2
+   launches an evaluation in every rank (a rank that fails, or faults, fails
+   the phase); then ``launch/train.py --mesh debug`` alone, a 1 x 1 NCCL
+   mesh (weight-update sharding, ZeRO-1, the DTensor forward): stablelm-3b
+   at full width cut to 8 of its 32 layers, 2 steps (batch 8 x 128, accum
+   2) in ``sharded_pack`` at 1 shard, so that the pack is placed and its
+   gate runs the mesh branch (``tp_spack_lookup`` 2 launches a gate call,
+   ``tp_spack_grad`` none); the losses finite, step 0 within 0.05 and step
+   1 (after the first update) within 1e-3 of the unmeshed port's two steps
+   (the same init, data, optimizer and accumulation).
 
 Each phase prints its wall seconds (``phase N: ...s``) and the run ends
 with all of them in one line.  The line before the last is one JSON object
@@ -354,8 +370,10 @@ listing the kernels (each one's launches from the path it serves;
 theirs in phases 29-30, ``table_pack_lookup``, ``tableflash_exp`` and
 ``table_pack_grad`` ``moe_launches``, ``recurrent_launches`` and
 ``encdec_vlm_launches``, theirs in phases 31-33, 35-37 and 39-40, and the
-kernels phase 42 runs ``obs_launches``, theirs with the telemetry on); the
-last line is ``{"ok": true, "device": {...}}``.
+kernels phase 42 runs ``obs_launches``, theirs with the telemetry on, and
+``sharded_pack_lookup`` ``mesh_launches`` and ``mesh_rank_launches``,
+phase 43's training and ranks'); the last line is ``{"ok": true, "device":
+{...}}``.
 Without a card, or outside a checkout of the repository, the script exits
 non-zero and prints no result.
 """
@@ -366,6 +384,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -400,11 +419,11 @@ ROUTED_STATIC = {"routed_pack": "table_pack", "routed_quant_pack": "quant_pack",
 # 23): a routed or sharded mode must match its static mode's at its depth
 STEP0 = {}
 # phases 11, 15, 19 and 23 train stablelm-3b cut to 8 of its 32 layers, and
-# phase 18 serves its three rope_table modes at 8 (their _ref runs through the
-# plain folded trig took ~46 s each at 32 layers), so that the run keeps to
-# 900 s of its 1,200 s limit with the MoE phases (31-34); phases 4 and 6
+# phase 18 serves its three rope_table modes at 4 (their _ref runs through the
+# plain folded trig took ~46 s each at 32 layers, ~12 s at 8), so that the run
+# keeps to 900 s of its 1,200 s limit with the later phases; phases 4 and 6
 # serve and train the main path at full depth
-NON_MAIN_TRAIN_LAYERS = ROPE_SERVE_LAYERS = 8
+NON_MAIN_TRAIN_LAYERS, ROPE_SERVE_LAYERS = 8, 4
 PACK_SHARDS = 4  # the sharded paths' shard count: silu, the gate, is split
 SHARD_COUNTS = (1, 2, 3, 4, 8)  # the kernel checks'
 SHARDED = ("sharded_pack", "sharded_pack_ref")
@@ -419,10 +438,11 @@ ROPE_SHAPES = ((BATCH, 1, 40), (BATCH, 27, 40), (MICRO, TRAIN_SEQ, 40))
 # 2.35 B f32 parameters, 37.6 GB with grads and AdamW moments); its long
 # queue: 2 prompts of 1,100-1,200 tokens in a 2,048-token cache, wrapping its
 # 1,024-slot rings
-# (phases 26 and 31 serve gemma3-12b at 24 of 48 layers and deepseek-moe-16b
-# at 14 of 28, so that the run keeps to 900 s with phases 39-41: 939.0 s at
-# full depth on a slow host)
-YI_LAYERS, GEMMA_TRAIN_LAYERS, GEMMA_SERVE_LAYERS = 24, 6, 24
+# (phases 26, 27 and 31 serve gemma3-12b at 12 of 48 layers, two
+# local:global periods, yi-34b at 12 of 60 and deepseek-moe-16b at 7 of 28, so
+# that the run keeps to 900 s with phases 39-43: 939.0 s with the first two
+# at full depth, 1,023.0 s at 24, 24 and 14, each on a slow host)
+YI_LAYERS, GEMMA_TRAIN_LAYERS, GEMMA_SERVE_LAYERS = 12, 6, 12
 LONG_REQ, LONG_LEN, LONG_CACHE = 2, (1100, 1200), 2048
 DENSE_FAMILY = ("starcoder2-3b", "gemma3-12b", "yi-34b")
 # phases 31-34: deepseek-moe-16b serves 14 of its 28 layers (16.88 B f32
@@ -430,7 +450,7 @@ DENSE_FAMILY = ("starcoder2-3b", "gemma3-12b", "yi-34b")
 # 28, ~270 GB, does not fit one card); qwen3-moe-235b-a22b serves 6 of its 94
 # layers (16.18 B, 64.7 GB; each layer holds 2.49 B)
 MOE_FAMILY = ("deepseek-moe-16b", "qwen3-moe-235b-a22b")
-MOE_TRAIN_LAYERS, QWEN_LAYERS, DEEPSEEK_SERVE_LAYERS = 4, 6, 14
+MOE_TRAIN_LAYERS, QWEN_LAYERS, DEEPSEEK_SERVE_LAYERS = 4, 6, 7
 # phases 35-38: zamba2-1.2b (38 Mamba2 layers, 6 uses of one shared attention
 # + GLU block; 1.17 B f32) and xlstm-125m (6 mLSTM/sLSTM pairs) at full width
 # and depth.  The gate calls of their blocks, by the code: a Mamba2 layer
@@ -438,6 +458,9 @@ MOE_TRAIN_LAYERS, QWEN_LAYERS, DEEPSEEK_SERVE_LAYERS = 4, 6, 14
 # a chunk (carry, intra-chunk, denominator, carry rescale, chunk-end weights)
 # and its output gate's sigmoid; an sLSTM step tanh, 2 exp_neg and sigmoid
 RECURRENT_FAMILY = ("zamba2-1.2b", "xlstm-125m")
+# phase 37 trains xlstm-125m at 3 of its 6 pairs: an sLSTM step is a loop over
+# time, ~13 s a step at all 6 on a slow host
+XLSTM_TRAIN_LAYERS = 6
 MAMBA_GATES, MLSTM_CHUNK_GATES, MLSTM_GATES, SLSTM_STEP_GATES = 5, 5, 1, 4
 # phases 39-41: whisper-small (12 encoder layers over 1,500 stub frame
 # embeddings, 12 decoder layers that cross-attend to them) and internvl2-1b
@@ -451,6 +474,14 @@ NEG_INF = -2.0e38  # flash_attention's masked score: a KV_PAD lane's exponent
 PHASE_S = {}  # each phase's wall seconds
 Q_CHUNK, KV_CHUNK = 512, 1024  # flash_attention's query and kv chunks
 OBS_ROUTING = ("gelu", "silu", "tanh", "gelu")  # phase 42's routed_fn rows
+# phase 43: the mesh path on one card.  The sharded pack's mesh branch runs
+# across MESH_RANKS gloo processes that share the card (gloo all-reduces CUDA
+# tensors; NCCL refuses two ranks on one GPU), each holding one slice; then
+# the launcher's --mesh debug run alone, a 1 x 1 NCCL mesh, trains stablelm-3b
+# at full width cut to NON_MAIN_TRAIN_LAYERS layers in sharded_pack at one
+# shard, so that the pack is placed and its gate runs the mesh branch
+MESH_RANKS = (2, 4)
+MESH_RANK_TIMEOUT = 240  # seconds a rank group may take
 
 
 class SmokeError(RuntimeError):
@@ -840,12 +871,13 @@ def _mean_ms(fn, reps):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def step_breakdown(models, params, rows, cache, smi_line, tag="", extra=None):
+def step_breakdown(models, params, rows, cache, smi_line, tag="", extra=None,
+                   rounds=2, profile=True):
     """Host-clock ms of one prefill (B, S0; with ``extra``, the prefill's
     frames or patches) and one decode step (B, cache 256) per approx mode,
-    in two alternating rounds after a warm-up; then a profiler view of the
-    table_pack decode step: device busy share of the wall time and the
-    kernels that take it."""
+    in ``rounds`` alternating rounds after a warm-up; then, with ``profile``,
+    a profiler view of the table_pack decode step: device busy share of the
+    wall time and the kernels that take it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -855,7 +887,7 @@ def step_breakdown(models, params, rows, cache, smi_line, tag="", extra=None):
     tok = rows[:, -1:]
     step_ms = {}
     with torch.inference_mode():
-        for rnd in range(2):
+        for rnd in range(rounds):
             order = list(models.items()) if rnd == 0 else list(models.items())[::-1]
             for mode, m in order:
                 fresh = m.init_cache(rows.shape[0], CACHE_LEN)
@@ -866,6 +898,8 @@ def step_breakdown(models, params, rows, cache, smi_line, tag="", extra=None):
                 step_ms[mode] = dec
                 log(f"step: {tag}round {rnd} {mode}: decode {dec:.3f} ms, prefill "
                     f"(S0={rows.shape[1]}) {pre:.3f} ms [{smi_line}]")
+        if not profile:
+            return
         m = models["table_pack"]
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -2988,9 +3022,8 @@ def dense_serving_path(arch, smi_line, n_layers=None, long_queue=False,
     launcher's 8 requests against table_pack_ref (through ContinuousEngine;
     whisper and internvl, whose prefill reads frames or patches, in groups
     through DecodeEngine.generate_batch), the prefill and decode logits against
-    table_pack_ref's with one decode step's launches, and the decode-step and
-    prefill ms of table_pack, table_pack_ref and exact with a profiler view
-    of the table_pack step (``step_breakdown``).  With ``long_queue``
+    table_pack_ref's with one decode step's launches, and one round of
+    table_pack's decode-step and prefill ms (``step_breakdown``).  With ``long_queue``
     (gemma3-12b, phase 26) also ``long_requests`` in a LONG_CACHE cache,
     which wrap the local rings.  With ``host_cost`` also the host time and
     operator events of one table_pack decode step.  Returns the serving
@@ -2998,7 +3031,6 @@ def dense_serving_path(arch, smi_line, n_layers=None, long_queue=False,
     import torch
 
     from repro_torch.launch.serve import make_requests
-    from repro_torch.models import build_model
     from repro_torch.models import transformer
 
     model, ref, params = dense_model(arch, n_layers)
@@ -3025,9 +3057,11 @@ def dense_serving_path(arch, smi_line, n_layers=None, long_queue=False,
                             LONG_CACHE, smi_line)
         logits_and_launches(f"{arch} long", model, ref, params,
                             prompt_rows(long_reqs, LONG_REQ), LONG_CACHE)
-    exact = build_model(_with_mode(cfg, "exact"), "cuda")
-    step_breakdown({"table_pack": model, "table_pack_ref": ref, "exact": exact},
-                   params, rows, cache, smi_line, tag=f"{arch} ", extra=extra)
+    # one round of table_pack's step alone: the three modes' two rounds and
+    # the profiler view run on the main path (phase 4); here they took ~10-20
+    # s a family, which phase 43 needs to keep the run under 900 s
+    step_breakdown({"table_pack": model}, params, rows, cache, smi_line,
+                   tag=f"{arch} ", extra=extra, rounds=1, profile=False)
     if host_cost:
         tok = rows[:, -1:]
         pos = torch.full((BATCH,), rows.shape[1], dtype=torch.int32, device="cuda")
@@ -3036,7 +3070,7 @@ def dense_serving_path(arch, smi_line, n_layers=None, long_queue=False,
                                                                   cache), 5)
         log(f"host: {arch} table_pack decode step: {host_us / 1e3:.3f} ms host, "
             f"{n_ops} host op events ({n_ops / cfg.n_layers:.1f} a layer) [{smi_line}]")
-    del model, ref, exact, params, cache, extra
+    del model, ref, params, cache, extra
     torch.cuda.empty_cache()
     return counts
 
@@ -3597,6 +3631,234 @@ def telemetry_phase(smi_line):
 # --------------------------------------------------------------------------------------
 
 
+# --------------------------------------------------------------------------------------
+# 43. the mesh path
+# --------------------------------------------------------------------------------------
+
+
+def _mesh_rank(rank, world, store, layout, out):
+    """Phase 43, one of ``world`` spawned ranks sharing the card (gloo): the
+    probe (an all-reduce of a CUDA tensor), then the sharded pack placed over a (1,
+    world) mesh and ``eval_sharded_mesh``'s value and slope (this rank's
+    ``tp_spack_lookup`` over its one slice, all-reduced) against the
+    off-mesh kernels on the whole pack (bitwise) and the replicated
+    ``table_pack_grad`` (as values): every member at phase 3's edge inputs,
+    the gate at stablelm's decode and training shapes, bf16 and f32,
+    extrapolation off and on.  Writes its result to ``out/rank<r>.json``."""
+    import faulthandler
+    import traceback
+
+    res = {"rank": rank, "ok": False}
+    # a fault in a collective or a launch kills the rank: its Python stack
+    # goes to rank<r>.err, which the phase prints
+    err = open(os.path.join(out, f"rank{rank}.err"), "w")
+    faulthandler.enable(err)
+    try:
+        import torch
+        import torch.distributed as dist
+
+        sys.path.insert(0, str(REPO / "src"))
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from repro_torch.approx import table_pack
+        from repro_torch.kernels import _lib
+        from repro_torch.kernels import table_pack_lookup as K
+        from repro_torch.parallel.sharding import place_sharded_pack
+
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=world)
+        t = torch.full((8,), float(rank + 1), device="cuda")
+        dist.all_reduce(t)
+        res["probe"] = float(t[0])
+        mesh = DeviceMesh("cuda", torch.arange(world).reshape(1, world),
+                          mesh_dim_names=("data", "model"))
+        rp = table_pack.from_layout(layout, "cuda")
+        sp = table_pack.shard_pack(layout, world, "cuda")
+        placed = place_sharded_pack(sp, mesh)
+        res["held"] = [tuple(placed.values.shape), tuple(placed.owned.shape),
+                       placed.first_shard, placed.image is None]
+        gate = sp.fn_id("silu")
+        mesh_launches, cases = 0, 0
+        for fid, name in enumerate(sp.names):
+            lo, hi = sp.domains[fid]
+            edges = phase3_edges(sp, fid)
+            shapes = [(edges.size,)] + ([(BATCH, 1, 6912), (MICRO, TRAIN_SEQ, 6912)]
+                                        if fid == gate else [])
+            for dtype in (torch.bfloat16, torch.float32):
+                for shape in shapes:
+                    x = make_input(shape, lo, hi, edges, dtype, seed=fid)
+                    for ex in (False, True):
+                        t = f"rank {rank}/{world} {name} {dtype} {shape} extrapolate={ex}"
+                        before = _lib.launches["sharded_pack_lookup"]
+                        y = table_pack.eval_sharded_mesh(placed, fid, x, mesh, extrapolate=ex,
+                                                         use_kernel=True)
+                        dy = table_pack.eval_sharded_mesh(placed, fid, x, mesh,
+                                                          extrapolate=ex, use_kernel=True,
+                                                          slope=True)
+                        mesh_launches += _lib.launches["sharded_pack_lookup"] - before
+                        check_pair(f"mesh value {t}", y,
+                                   K.sharded_pack_lookup(sp, fid, x, extrapolate=ex),
+                                   shape, dtype)
+                        check_pair(f"mesh slope {t}", dy,
+                                   K.sharded_pack_slope(sp, fid, x, extrapolate=ex),
+                                   shape, dtype)
+                        ry, rd = K.table_pack_grad(rp, fid, x, extrapolate=ex)
+                        equal_values(f"mesh value vs replicated {t}", y, ry, x)
+                        equal_values(f"mesh slope vs replicated {t}", dy, rd, x)
+                        cases += 1
+        check(mesh_launches == 2 * cases, f"rank {rank}: {mesh_launches} launches of "
+              f"tp_spack_lookup for {cases} value + slope evaluations")
+        res.update(ok=True, cases=cases, launches=mesh_launches)
+        dist.destroy_process_group()
+    except BaseException:
+        res["error"] = traceback.format_exc()[-3000:]
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    faulthandler.disable()
+    err.close()
+
+
+def _rank_faults(tmp, world):
+    """The fault logs of the ranks that wrote one."""
+    out = []
+    for r in range(world):
+        path = os.path.join(tmp, f"rank{r}.err")
+        if os.path.exists(path) and os.path.getsize(path):
+            with open(path) as f:
+                out.append(f"rank {r}:\n{f.read()[-2000:]}")
+    return "\n".join(out)
+
+
+def mesh_pack_ranks(world, layout):
+    """Phase 43's pack half on ``world`` ranks: spawn them, wait, and fail
+    the phase if a rank failed or did not answer."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_mesh_rank, args=(world, os.path.join(tmp, "store"),
+                                                   layout, tmp),
+                                 nprocs=world, join=False, start_method="spawn")
+        t0 = time.perf_counter()
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > MESH_RANK_TIMEOUT:
+                    for p in ctx.processes:
+                        p.kill()
+                    raise SmokeError(f"mesh ranks ({world}) did not finish in "
+                                     f"{MESH_RANK_TIMEOUT} s\n{_rank_faults(tmp, world)}")
+        except ProcessException as e:
+            raise SmokeError(f"mesh ranks ({world}): {e}\n{_rank_faults(tmp, world)}") from None
+        res = []
+        for r in range(world):
+            path = os.path.join(tmp, f"rank{r}.json")
+            check(os.path.exists(path), f"mesh rank {r}/{world} wrote no result")
+            with open(path) as f:
+                res.append(json.load(f))
+    for r in res:
+        check(r["ok"], f"mesh rank {r['rank']}/{world} failed:\n{r.get('error')}")
+    want = world * (world + 1) / 2
+    check(all(r["probe"] == want for r in res),
+          f"gloo all-reduce of CUDA tensors over {world} ranks: {[r['probe'] for r in res]}")
+    log(f"mesh: {world} gloo ranks on one card: all-reduce of a CUDA tensor ok; "
+        f"each rank "
+        f"holds values {res[0]['held'][0]}, planes {res[0]['held'][1]} (its shard = its "
+        f"'model' coordinate, no staging image); {res[0]['cases']} cases a rank, "
+        f"eval_sharded_mesh value and slope bitwise the off-mesh sharded kernels and "
+        f"equal to the replicated ones; tp_spack_lookup launches by rank "
+        f"{[r['launches'] for r in res]}")
+    return [r["launches"] for r in res]
+
+
+def mesh_train_path(smi_line):
+    """Phase 43's training half: ``launch/train.py --mesh debug`` run alone (a
+    1 x 1 NCCL mesh), stablelm-3b at full width cut to NON_MAIN_TRAIN_LAYERS
+    layers, QP_STEPS steps at the trainer's shapes in sharded_pack at one
+    shard (the pack placed on the mesh: its gate takes the mesh branch, a
+    value and a slope launch of tp_spack_lookup a gate call); its losses
+    against the unmeshed port's two steps (the same init, data, optimizer
+    and accumulation): step 0 within 0.05 (the reference's bound for its WUS
+    step: the work copy is bf16), step 1, after the first update, within
+    1e-3.  Returns the mesh run's launches."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as cli
+    from repro_torch.models import build_model, get_config
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import batch_to, init_state, make_train_step
+
+    cfg = _with_mode(get_config("stablelm-3b").replace(n_layers=NON_MAIN_TRAIN_LAYERS),
+                     "sharded_pack", pack_shards=1)
+    plain = build_model(cfg, "cuda")
+    state = init_state(plain)
+    data = _trainer_data(cfg)
+    # the launcher's optimizer for QP_STEPS steps at its default lr
+    opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=max(1, QP_STEPS // 20),
+                            total_steps=QP_STEPS)
+    step = make_train_step(plain, opt, TRAIN_ACCUM)
+    plain_losses = []
+    for i in range(QP_STEPS):
+        state, metrics = step(state, batch_to(data.batch_at(i), "cuda"))
+        plain_losses.append(float(metrics["loss"]))
+    del plain, state, step, metrics
+    torch.cuda.empty_cache()
+    argv = ["--arch", "stablelm-3b", "--mesh", "debug", "--steps", str(QP_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--accum",
+            str(TRAIN_ACCUM), "--approx-mode", "sharded_pack", "--pack-shards", "1"]
+    get = cli.get_config
+    cli.get_config = lambda arch: get(arch).replace(n_layers=NON_MAIN_TRAIN_LAYERS)
+    try:
+        with tempfile.TemporaryDirectory() as ck:
+            _lib.reset_launches()
+            t0 = time.perf_counter()
+            out = cli.main(argv + ["--ckpt-dir", ck])
+            torch.cuda.synchronize()
+            c = dict(_lib.launches)
+            wall = time.perf_counter() - t0
+            check(os.listdir(ck), "the mesh run wrote no checkpoint")
+    finally:
+        cli.get_config = get
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    losses = out["losses"]
+    check(len(losses) == QP_STEPS and all(math.isfinite(v) for v in losses),
+          f"mesh training losses {losses}")
+    diffs = [abs(a - b) for a, b in zip(losses, plain_losses)]
+    check(diffs[0] < 0.05 and diffs[1] < 1e-3, f"mesh training losses {losses} vs the "
+          f"unmeshed port's {plain_losses}")
+    check(c["sharded_pack_lookup"] > 0 and c["sharded_pack_grad"] == 0,
+          f"the mesh run's gate did not take the mesh branch: {c}")
+    log(f"mesh: launch/train.py --mesh debug alone (1 x 1 NCCL mesh, WUS + ZeRO-1), "
+        f"stablelm-3b {NON_MAIN_TRAIN_LAYERS}L full width, {QP_STEPS} steps (batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, accum {TRAIN_ACCUM}), sharded_pack at 1 shard "
+        f"placed on the mesh: losses {losses}, the unmeshed port's {plain_losses} "
+        f"(off by {diffs}); tp_spack_lookup "
+        f"{c['sharded_pack_lookup']} launches (value and slope on the mesh), "
+        f"sharded_pack_grad 0; {wall:.1f} s with the checkpoint [{smi_line}]")
+    return c
+
+
+def mesh_phase(smi_line):
+    """Phase 43: the pack's mesh branch on 2 and 4 ranks sharing the card,
+    then the --mesh debug training.  Returns (the training's launches, the
+    ranks' launches by world)."""
+    from repro_torch.core.flow import cached_table
+    from repro_torch.core.packing import pack_layout
+    from repro_torch.models import get_config
+
+    a = get_config("stablelm-3b").approx
+    layout = pack_layout([cached_table(n, a.e_a, omega=a.omega) for n in a.pack_functions])
+    ranks = {world: mesh_pack_ranks(world, layout) for world in MESH_RANKS}
+    return mesh_train_path(smi_line), ranks
+
+
 def main() -> int:
     try:
         import torch
@@ -3799,7 +4061,8 @@ def main() -> int:
             add_recurrent(dense_train_path("zamba2-1.2b", smi_line, per_layer))
         with phase("37"):
             add_recurrent(dense_serving_path("xlstm-125m", smi_line, host_cost=True))
-            add_recurrent(dense_train_path("xlstm-125m", smi_line, per_layer))
+            add_recurrent(dense_train_path("xlstm-125m", smi_line, per_layer,
+                                           n_layers=XLSTM_TRAIN_LAYERS))
         with phase("38"):
             for arch in RECURRENT_FAMILY:
                 reference_check(arch)
@@ -3821,6 +4084,9 @@ def main() -> int:
         # 42: the device telemetry and the observability tools; its launches too
         with phase("42"):
             obs_launches = telemetry_phase(smi_line)
+        # 43: the mesh path; its launches too
+        with phase("43"):
+            mesh_counts, mesh_ranks = mesh_phase(smi_line)
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -3863,6 +4129,9 @@ def main() -> int:
             kernels[-1]["encdec_vlm_launches"] = encdec_vlm_launches[kname]
         if kname in obs_launches:  # and phase 42, with the telemetry on
             kernels[-1]["obs_launches"] = obs_launches[kname]
+        if kname == "sharded_pack_lookup":  # and phase 43: the mesh path
+            kernels[-1]["mesh_launches"] = mesh_counts[kname]
+            kernels[-1]["mesh_rank_launches"] = {str(w): v for w, v in mesh_ranks.items()}
     log(f"phase seconds: {json.dumps(PHASE_S)}")
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(smi_line)

@@ -21,8 +21,10 @@ package's.  Every table function is differentiable: its tangent is the table
 slope, or the registry's analytic derivative with ``exact_grad``.  TableFlash
 (``attn_table``) always serves the attention exponent, and ``rope_table`` the
 rotary sin/cos (through the folded trig members), from the f32 pack, in the
-sharded modes too.  The mesh placement of the sharded pack
-(``place_packs``) waits for ROADMAP queue 1, item 12b.
+sharded modes too.  ``place_packs(mesh)`` places the sharded pack over a
+mesh's 'model' axis (one values slice a rank); the closures built under
+``use_sharding(mesh)`` then hold it and evaluate on the mesh
+(``approx.table_pack.eval_sharded_mesh``).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from repro_torch import obs
 from repro_torch.core.flow import cached_table
 from repro_torch.core.functions import get as get_function
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.parallel.sharding import current_mesh
 
 from .range_fold import (FOLDABLE, FOLDED_CORE_MEMBERS, FOLDED_MODES,
                          make_folded_fn, make_folded_routed_unary_fn)
@@ -108,6 +111,10 @@ _PACK_CACHE: Dict[tuple, TablePack] = {}
 _QUANT_PACK_CACHE: Dict[tuple, QuantTablePack] = {}
 _POLY_PACK_CACHE: Dict[tuple, PolyTablePack] = {}
 _SHARDED_PACK_CACHE: Dict[tuple, ShardedTablePack] = {}
+# the packs place_packs placed, keyed by the whole pack's key and the mesh's
+# id: a placed pack holds its mesh, so the id is not reused while the entry
+# lives, and an off-mesh lookup never sees it
+_PLACED_PACKS: Dict[tuple, ShardedTablePack] = {}
 # one (sin, cos) closure pair per distinct rope_table configuration and
 # device — every layer's rotary shares it
 _ROPE_SIN_COS_CACHE: Dict[tuple, Callable] = {}
@@ -270,17 +277,46 @@ class ApproxConfig:
     def _sharded_key(self, dev: torch.device) -> tuple:
         return self._pack_key(dev) + (self.pack_shards,)
 
-    def sharded_pack(self, device: DeviceLike = None) -> ShardedTablePack:
+    def sharded_pack(self, device: DeviceLike = None, mesh=None) -> ShardedTablePack:
         """The shared pack with its values cut ``pack_shards`` ways, on
         ``device`` (cached per device).  Off the mesh: every shard lives on
-        ``device`` and the contributions are summed there."""
+        ``device`` and the contributions are summed there.  The pack
+        :meth:`place_packs` placed over ``mesh`` (default: the mesh
+        ``use_sharding`` binds) when there is one: this rank's one slice."""
         dev = resolve_device(device)
         key = self._sharded_key(dev)
+        if mesh is None:
+            mesh = current_mesh()
+        if mesh is not None and (key, id(mesh)) in _PLACED_PACKS:
+            return _PLACED_PACKS[key, id(mesh)]
         if key not in _SHARDED_PACK_CACHE:
             _SHARDED_PACK_CACHE[key] = build_sharded_pack(
                 key[0], self.e_a, self.pack_shards, algorithm=self.algorithm,
                 omega=self.omega, intervals=dict(key[4]), device=dev)
         return _SHARDED_PACK_CACHE[key]
+
+    def place_packs(self, mesh) -> None:
+        """Place this config's sharded pack over ``mesh`` (the reference's
+        ``place_packs``): this rank's ONE values slice
+        (``parallel.sharding.place_sharded_pack``), which every activation
+        closure built AFTER this call under ``use_sharding(mesh)`` holds, so
+        that it evaluates on the mesh.  Call it before constructing the model
+        (``build_model(cfg, mesh=...)`` does, and binds the mesh while it
+        builds).  Closures built off the binding keep the whole pack.  No-op
+        for non-sharded modes, ``mesh=None``, or a 'model' axis whose width
+        differs from ``pack_shards``; idempotent."""
+        if mesh is None or self.mode not in SHARDED_MODES:
+            return
+        from repro_torch.parallel.sharding import (axis_sizes, mesh_device,
+                                                   place_sharded_pack)
+
+        if axis_sizes(mesh).get("model") != self.pack_shards:
+            return
+        dev = mesh_device(mesh)
+        key = self._sharded_key(dev)
+        if (key, id(mesh)) not in _PLACED_PACKS:
+            _PLACED_PACKS[key, id(mesh)] = place_sharded_pack(
+                self.sharded_pack(dev, mesh), mesh)
 
     def _pack_for_mode(self, device: DeviceLike = None):
         if self.mode in _POLY_BACKED:

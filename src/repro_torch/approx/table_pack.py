@@ -33,7 +33,7 @@ backward multiplies the saved slope into the incoming gradient.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +46,7 @@ from repro_torch.core.packing import (PackLayout, PolyPackLayout, QuantPackLayou
 from repro_torch.core.quantize import plan_quant_member
 from repro_torch.core.table import TableSpec
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.parallel.sharding import axis_sizes, current_mesh
 
 from .torch_table import (EXACT_INT_LIMIT, clamp_cell, f32_tensor, lane_address,
                           lookup_rows, pair_address, select_interval,
@@ -986,9 +987,16 @@ class ShardedTablePack:
     # the staging image of the whole pack (sharded_image_layout) and where
     # its values slices start, built once with the pack: what a block of the
     # static and routed grad kernels stages where it fits
-    image: Tuple[torch.Tensor, int]
+    image: Optional[Tuple[torch.Tensor, int]]
     _extr_operands: Dict[bytes, torch.Tensor] = field(
         default_factory=dict, compare=False, repr=False)
+    # placed on a mesh (repro_torch.parallel.sharding.place_sharded_pack):
+    # the DeviceMesh, and the shard of ``values[0]``.  A placed pack holds
+    # ONE slice (``values`` (1, m), ``local_base`` / ``owned`` (1, F, n)),
+    # its ``owner`` plane says 0 where that slice owns a sub-interval and -1
+    # elsewhere, and it keeps no staging ``image``.
+    mesh: Any = field(default=None, compare=False, repr=False)
+    first_shard: int = 0
 
     @property
     def n_functions(self) -> int:
@@ -1002,6 +1010,28 @@ class ShardedTablePack:
     def footprint_per_shard(self) -> int:
         """Padded per-shard entry count (every shard's slice has it)."""
         return self.values.shape[1]
+
+    @property
+    def n_local(self) -> int:
+        """How many shards' slices this pack holds (``n_shards`` unless
+        placed on a mesh, then 1)."""
+        return self.values.shape[0]
+
+    def local_shard(self, shard: int) -> int:
+        """Index into the held slices of global shard ``shard``."""
+        s = shard - self.first_shard
+        if not 0 <= s < self.n_local:
+            held = (f"shard {self.first_shard}" if self.mesh is not None
+                    else f"{self.n_shards} shards")
+            raise IndexError(f"shard {shard} is not held here (the pack holds {held})")
+        return s
+
+    def check_whole(self) -> None:
+        """Raise unless this pack holds every shard (an off-mesh sum)."""
+        if self.n_local != self.n_shards:
+            raise ValueError(
+                "this sharded pack is placed on a mesh and holds one slice: "
+                "evaluate it with eval_sharded_mesh (its closure does)")
 
     @property
     def device(self) -> torch.device:
@@ -1160,7 +1190,9 @@ def shard_contrib_ref(values_s, lbase_row, own_row, brow, invd_row, segs_row,
 
 def shard_contrib(pack: ShardedTablePack, fid: int, s: int, xf: torch.Tensor, *,
                   extrapolate: bool, slope: bool = False) -> torch.Tensor:
-    """Shard ``s``'s contribution of member ``fid`` (f32)."""
+    """Shard ``s``'s contribution of member ``fid`` (f32); a placed pack
+    answers for its own shard only."""
+    s = pack.local_shard(s)
     return shard_contrib_ref(
         pack.values[s], pack.local_base[s, fid], pack.owned[s, fid],
         pack.boundaries[fid], pack.inv_delta[fid], pack.seg_count[fid],
@@ -1169,6 +1201,7 @@ def shard_contrib(pack: ShardedTablePack, fid: int, s: int, xf: torch.Tensor, *,
 
 def _sharded_sum_ref(pack: ShardedTablePack, fn, x: torch.Tensor,
                      extrapolate: bool, slope: bool) -> torch.Tensor:
+    pack.check_whole()
     fid = pack.member_id(fn)
     xf = x.to(torch.float32)
     out = None
@@ -1192,22 +1225,100 @@ def eval_sharded_slope(pack: ShardedTablePack, fn, x: torch.Tensor, *,
     return _sharded_sum_ref(pack, fn, x, extrapolate, slope=True)
 
 
+def _active_pack_mesh(pack: ShardedTablePack):
+    """The mesh the pack evaluates on, or None for the off-mesh sum: a
+    placed pack's own mesh always (the rank holds one slice), else the
+    mesh that ``use_sharding`` binds IF its 'model' axis is ``n_shards``
+    wide (each rank then answers for the shard at its 'model' coordinate
+    from the whole pack it holds)."""
+    if pack.mesh is not None:
+        return pack.mesh
+    mesh = current_mesh()
+    if mesh is not None and axis_sizes(mesh).get("model") == pack.n_shards:
+        return mesh
+    return None
+
+
+def eval_sharded_mesh(pack: ShardedTablePack, fn, x: torch.Tensor, mesh, *,
+                      extrapolate: bool = False, use_kernel: bool = False,
+                      slope: bool = False) -> torch.Tensor:
+    """Sharded evaluation distributed over ``mesh``'s 'model' axis (the
+    reference's shard_map body + psum).
+
+    x is cast to f32 and, as a DTensor, gathered to replicated (the
+    reference's replicated ``in_specs``); a plain tensor is taken as the
+    same on every rank of the 'model' group.  The rank takes its shard's
+    masked contribution (``sharded_shard_contrib``: one launch of
+    ``tp_spack_lookup`` over its one slice, the value or with ``slope`` the
+    segment slope; ``sharded_shard_contrib_plain`` with ``use_kernel``
+    False), the f32 contributions are all-reduced (SUM) over the 'model'
+    group and the sum is cast to x's dtype; a DTensor comes back with x's
+    placements.  The sum adds one owner value and S-1 zeros, so the result
+    is bitwise the off-mesh ``eval_sharded_ref`` / ``eval_sharded_slope``
+    and the replicated pack's (an owner's -0.0 comes out +0.0 when S > 1).
+    """
+    import torch.distributed as dist
+    from repro_torch.kernels import table_pack_lookup as K
+    from repro_torch.parallel.sharding import is_dtensor, local_rank
+
+    fid = pack.member_id(fn)
+    dtype = x.dtype
+    xf = x.to(torch.float32)
+    placements = None
+    if is_dtensor(xf):
+        placements = xf.placements
+        xf = xf.full_tensor()
+    contrib = K.sharded_shard_contrib if use_kernel else K.sharded_shard_contrib_plain
+    c = contrib(pack, fid, local_rank(mesh, "model"), xf,
+                extrapolate=extrapolate, slope=slope)
+    dist.all_reduce(c, op=dist.ReduceOp.SUM, group=mesh.get_group("model"))
+    out = c.to(dtype)
+    if placements is None:
+        return out
+    from torch.distributed.tensor import DTensor, Replicate
+
+    full = DTensor.from_local(out, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return full.redistribute(mesh, placements)  # this rank's chunk: no traffic
+
+
 def make_sharded_pack_fn(pack: ShardedTablePack, name: str, *,
                          use_kernel: bool = True, exact_d1=None,
                          extrapolate: bool = False):
-    """Differentiable unary ``f(x)`` served from the SHARDED pack, on one
-    device (the reference's off-mesh branch).
+    """Differentiable unary ``f(x)`` served from the SHARDED pack.
 
+    The execution is picked at each call: on the pack's mesh
+    (:func:`_active_pack_mesh`: always for a placed pack, whether or not
+    ``use_sharding`` is bound, since the rank lacks the other slices) by
+    :func:`eval_sharded_mesh`, the value and under a gradient the slope as
+    two mesh evaluations (the reference's jvp); off it on one device, where
     ``use_kernel=True`` (``sharded_pack``) runs ``sharded_pack_lookup``
     without a gradient and the fused value + slope ``sharded_pack_grad``
-    under one (each one launch a call over the S shards);
-    ``False`` (``sharded_pack_ref``) the plain versions.  Tangent: the table slope, or ``exact_d1(x)`` when given.
+    under one (each one launch a call over the S shards), ``False``
+    (``sharded_pack_ref``) the plain versions, over a DTensor's local
+    shards.  Tangent: the table slope, or ``exact_d1(x)`` when given.
     """
     from repro_torch.kernels import table_pack_lookup as K
+    from repro_torch.parallel.sharding import elementwise
 
     fns = ((K.sharded_pack_lookup, K.sharded_pack_grad) if use_kernel
            else (K.sharded_pack_lookup_plain, K.sharded_pack_grad_plain))
-    return _make_fn(pack, name, *fns, exact_d1, extrapolate)
+    off = _make_fn(pack, name, *fns, exact_d1, extrapolate)
+    fid = pack.fn_id(name)
+
+    def f(x):
+        mesh = _active_pack_mesh(pack)
+        if mesh is None:
+            return elementwise(off, x)
+        value = lambda v, s=False: eval_sharded_mesh(
+            pack, fid, v, mesh, extrapolate=extrapolate, use_kernel=use_kernel, slope=s)
+        if exact_d1 is not None:
+            fused = lambda v: (value(v), exact_d1(v))
+        else:
+            fused = lambda v: (value(v), value(v, True))
+        return slope_rule(value, fused)(x)
+
+    f.takes_dtensor = True  # gathers a DTensor itself (see parallel.sharding)
+    return f
 
 
 # --------------------------------------------------------------------------------------

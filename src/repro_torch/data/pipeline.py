@@ -63,6 +63,15 @@ class SyntheticLM:
                 0, 1, size=(B, c.n_vis_tokens, c.d_vis)).astype(np.float32)
         return batch
 
+    def host_shard(self, batch: Dict[str, np.ndarray], host_id: int,
+                   n_hosts: int) -> Dict[str, np.ndarray]:
+        """Host ``host_id``'s contiguous rows of a global batch (of
+        ``n_hosts``; the batch divides evenly)."""
+        B = batch["tokens"].shape[0]
+        per = B // n_hosts
+        sl = slice(host_id * per, (host_id + 1) * per)
+        return {k: v[sl] for k, v in batch.items()}
+
 
 def data_config_for(arch_cfg, shape) -> DataConfig:
     return DataConfig(

@@ -241,7 +241,9 @@ def _sharded_routed_args(pack: ShardedTablePack, fn_ids, x: torch.Tensor,
     """(planes, ints) of ``tp_sharded_routed_lookup`` / ``_grad``: the
     routing operands, the replicated planes, the owner-rebased-base and
     owner planes, every shard's padded values slice, the shard count and the
-    shard range ``[s_begin, s_end)`` that the launch sums."""
+    shard range ``[s_begin, s_end)`` that the launch sums.  The reference
+    has no mesh branch for routed dispatch: a placed pack is refused."""
+    pack.check_whole()
     rows = _rows(x)
     (n_arr,) = pack.routing_scalars()
     return ((_fn_id_operand(pack, fn_ids, rows).contiguous(), n_arr,

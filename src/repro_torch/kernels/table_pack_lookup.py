@@ -342,12 +342,13 @@ def _sharded_args(pack: ShardedTablePack, fid: int, s_begin: int, s_end: int,
                   *flags: int):
     """(planes, ints) of ``tp_spack_lookup`` / ``tp_spack_grad`` for member
     ``fid``: the replicated planes, the owner-rebased-base and owner planes,
-    every shard's padded values slice, the shard count and the shard range
-    ``[s_begin, s_end)`` that the launch sums."""
+    the padded values slices the pack holds, their count and the range
+    ``[s_begin, s_end)`` of them that the launch sums (a placed pack holds
+    one slice, and its owner plane names it 0)."""
     return ((pack.boundaries, pack.inv_delta, pack.owner_base, pack.seg_count,
              pack.owner, pack.values),
             (fid, pack.n_max, pack.n_intervals[fid], pack.footprint_per_shard,
-             pack.n_shards, s_begin, s_end, *flags))
+             pack.n_local, s_begin, s_end, *flags))
 
 
 def _sharded_grad_args(pack: ShardedTablePack, fid: int, extrapolate: bool):
@@ -355,6 +356,7 @@ def _sharded_grad_args(pack: ShardedTablePack, fid: int, extrapolate: bool):
     shards: :func:`_sharded_args` over ``[0, S)``, then the pack's staging
     image (``pack.image``, built with the pack), the member count and where
     the image's values start."""
+    pack.check_whole()
     image, v_at = pack.image
     planes, ints = _sharded_args(pack, fid, 0, pack.n_shards, int(extrapolate))
     return planes + (image,), ints + (pack.n_functions, v_at)
@@ -375,12 +377,13 @@ def sharded_shard_contrib(pack: ShardedTablePack, fn, shard: int, x: torch.Tenso
                           slope: bool = False) -> torch.Tensor:
     """Shard ``shard``'s masked contribution of member ``fn`` (its lerp, or
     with ``slope`` its segment slope), in x's dtype: one launch over the
-    shard range ``[shard, shard + 1)``."""
+    shard range ``[shard, shard + 1)`` (of a placed pack: its one slice)."""
     fid = pack.member_id(fn)
     if not 0 <= shard < pack.n_shards:
         raise IndexError(f"shard {shard} out of range for {pack.n_shards} shards")
+    s = pack.local_shard(shard)
     return run("tp_spack_lookup", "sharded_pack_lookup", x, pack.device, "pack",
-               _sharded_args(pack, fid, shard, shard + 1, int(extrapolate), int(slope)),
+               _sharded_args(pack, fid, s, s + 1, int(extrapolate), int(slope)),
                lambda: sharded_shard_contrib_plain(pack, fid, shard, x,
                                                    extrapolate=extrapolate,
                                                    slope=slope))
@@ -397,6 +400,7 @@ def sharded_pack_lookup(pack: ShardedTablePack, fn, x: torch.Tensor, *,
                         extrapolate: bool = False) -> torch.Tensor:
     """Evaluate member ``fn`` of the sharded pack: one launch over the S
     shards, summed in shard order on the card."""
+    pack.check_whole()
     fid = pack.member_id(fn)
     return run("tp_spack_lookup", "sharded_pack_lookup", x, pack.device, "pack",
                _sharded_args(pack, fid, 0, pack.n_shards, int(extrapolate), 0),
@@ -414,6 +418,7 @@ def sharded_pack_slope(pack: ShardedTablePack, fn, x: torch.Tensor, *,
                        extrapolate: bool = False) -> torch.Tensor:
     """The slope alone (no value pass): one launch of the value kernel in its
     slope mode over the S shards, summed."""
+    pack.check_whole()
     fid = pack.member_id(fn)
     return run("tp_spack_lookup", "sharded_pack_lookup", x, pack.device, "pack",
                _sharded_args(pack, fid, 0, pack.n_shards, int(extrapolate), 1),

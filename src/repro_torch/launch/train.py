@@ -5,9 +5,19 @@
       --approx-mode table_pack
 
 The flags are the JAX launcher's (``repro.launch.train``) for every approx
-mode (``--pack-budget``, ``--pack-shards`` and ``--rope-table`` included; the
-sharded modes off the mesh), plus ``--device``; ``--mesh`` waits for ROADMAP
-queue 1, item 12b.  ``--obs`` builds the model with the device telemetry on
+mode (``--pack-budget``, ``--pack-shards`` and ``--rope-table`` included),
+plus ``--device``.  ``--mesh debug|prod|multipod`` trains over a
+``DeviceMesh`` (weight-update sharding and ZeRO-1; ``train.loop``): start one
+process a rank with ``torchrun``, e.g. 4 ranks on the CPU,
+
+  PYTHONPATH=src torchrun --standalone --nproc_per_node 4 \
+      -m repro_torch.launch.train --arch stablelm-3b --reduced --device cpu \
+      --mesh debug --approx-mode sharded_pack --pack-shards 2 --steps 2
+
+where ``debug`` is the reference's (max(1, n//2), min(2, n)) ('data',
+'model') mesh over the n ranks; run alone it is a 1 x 1 mesh (NCCL on the
+card, gloo on the CPU), as the reference's launcher is on one device.
+``prod`` and ``multipod`` need 256 and 512 ranks.  ``--obs`` builds the model with the device telemetry on
 (out-of-domain clamps and quant saturation, counted on the device; a
 checkpointed layer's activations are counted again in its recompute, as
 the reference's remat counts them) and prints the metric summary as JSON;
@@ -88,6 +98,14 @@ def main(argv=None):
                          "print the metric summary")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; an error without a card) or cpu")
+    ap.add_argument("--mesh", choices=["none", "debug", "prod", "multipod"],
+                    default="none",
+                    help="train over a DeviceMesh of the torchrun ranks (one "
+                         "process a rank: torchrun --nproc_per_node N -m "
+                         "repro_torch.launch.train ...); debug = (max(1, n//2),"
+                         " min(2, n)) ('data', 'model'), a 1 x 1 mesh run "
+                         "alone; prod / multipod = the (16, 16) / (2, 16, 16) "
+                         "meshes")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -111,7 +129,22 @@ def main(argv=None):
         kw["attn_table"] = True
     if kw:
         cfg = cfg.replace(approx=dataclasses.replace(cfg.approx, **kw))
-    model = build_model(cfg, device)
+    mesh = None
+    if args.mesh == "debug":
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import init_process_group, make_debug_mesh
+
+        init_process_group(device)
+        n = dist.get_world_size()
+        mesh = make_debug_mesh(max(1, n // 2), min(2, n), device)
+    elif args.mesh in ("prod", "multipod"):
+        from repro_torch.launch.mesh import make_production_mesh
+
+        mesh = make_production_mesh(multi_pod=args.mesh == "multipod", device=device)
+    # mesh before model: build_model places a sharded pack over it, so the
+    # activation closures hold one values slice a rank
+    model = build_model(cfg, mesh=mesh) if mesh is not None else build_model(cfg, device)
 
     shape = ShapeSpec("cli", seq_len=args.seq, global_batch=args.batch, kind="train")
     tc = TrainConfig(
@@ -122,7 +155,7 @@ def main(argv=None):
     if args.ckpt_dir is not None:
         tc.ckpt_dir = args.ckpt_dir
     t0 = time.perf_counter()
-    out = run(model, shape, tc)
+    out = run(model, shape, tc, mesh=mesh)
     wall = time.perf_counter() - t0
     steps_done = len(out["losses"])
     if steps_done == 0:

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import einsum, is_dtensor, on_local_shards, replicate_like
+
 from .common import Params, apply_rope, init_linear, linear
 
 NEG_INF = -2.0e38
@@ -174,7 +176,20 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True, window: int =
     indices; negative k_pos marks empty cache slots.  Either positions operand
     may carry a leading batch axis ((B, S) / (B, T)) for per-slot clocks.
     ``exp_fn`` routes the softmax exponent through the exp_neg table
-    (TableFlash; see ``_flash_inner``)."""
+    (TableFlash; see ``_flash_inner``).  DTensor q/k/v (a mesh) run on their
+    local shards: attention is local to a batch row and a kv group, so k and
+    v are first laid out as q is (a local chunk when they are replicated)."""
+    if is_dtensor(q):
+        if q_pos.dim() > 1 or k_pos.dim() > 1:
+            raise NotImplementedError("per-slot positions on a mesh: ROADMAP "
+                                      "queue 1, item 12c")
+        mesh, pl = q.device_mesh, tuple(q.placements)
+        k, v = k.redistribute(mesh, pl), v.redistribute(mesh, pl)
+        return on_local_shards(
+            lambda a, b, c: flash_attention(a, b, c, q_pos, k_pos, causal=causal,
+                                            window=window, q_chunk=q_chunk,
+                                            kv_chunk=kv_chunk, exp_fn=exp_fn),
+            pl, q, k, v)
     B, S, G, Qg, D = q.shape
     scale = D ** -0.5
     q_chunk = min(q_chunk, S)
@@ -196,10 +211,11 @@ def attention_out(p: Params, attended: torch.Tensor, geom=None) -> torch.Tensor:
     """(B, S, G, Qg, D) -> (B, S, d_model) via the output projection.  Padded
     heads are masked here (the normalized model is exactly the logical one)."""
     if geom is not None and geom.is_padded:
-        mask = torch.as_tensor(head_mask(geom), device=attended.device)
+        mask = replicate_like(torch.as_tensor(head_mask(geom), device=attended.device),
+                              attended)
         attended = attended * mask[None, None, :, :, None].to(attended.dtype)
     wo = p["wo"]["w"].to(attended.dtype)  # (G, Qg, D, d_model)
-    return torch.einsum("bsgqd,gqdm->bsm", attended, wo)
+    return einsum("bsgqd,gqdm->bsm", attended, wo)
 
 
 def cache_insert(k_buf, v_buf, pos_buf, k_new, v_new, positions):

@@ -15,6 +15,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.parallel.sharding import einsum, elementwise, is_dtensor, vocab_lookup
+
 Params = Dict[str, Any]
 
 
@@ -33,7 +35,7 @@ def init_linear(gen: torch.Generator, d_in: int, d_out, *, scale: float = 1.0,
 
 
 def linear(p: Params, x: torch.Tensor, dims: str = "...d,df->...f") -> torch.Tensor:
-    return torch.einsum(dims, x, p["w"].to(x.dtype))
+    return einsum(dims, x, p["w"].to(x.dtype))
 
 
 def init_rmsnorm(d: int, device, dtype=torch.float32) -> Params:
@@ -73,13 +75,12 @@ def min0(x: torch.Tensor) -> torch.Tensor:
 
 
 def embed(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return p["table"][tokens].to(dtype)
+    return vocab_lookup(p["table"], tokens).to(dtype)
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Project to vocab logits in f32 (loss stability)."""
-    return torch.einsum("...d,vd->...v", x.to(torch.float32),
-                        p["table"].to(torch.float32))
+    return einsum("...d,vd->...v", x.to(torch.float32), p["table"].to(torch.float32))
 
 
 # ------------------------------- rotary ---------------------------------------
@@ -97,6 +98,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     ``sin_cos`` optionally replaces the exact trig with a table-served
     ``f(ang) -> (sin, cos)`` (``ApproxConfig.rope_sin_cos()``); ``None`` keeps
     exact rotations."""
+    if is_dtensor(x):  # local to a position and a head: on x's local shards
+        return elementwise(lambda xl: apply_rope(xl, positions, theta, sin_cos), x)
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)  # (D/2,)
     ang = positions[..., None].to(torch.float32) * freqs  # (..., S, D/2)

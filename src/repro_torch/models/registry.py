@@ -5,6 +5,7 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.device import DeviceLike
+from repro_torch.parallel.sharding import current_mesh, mesh_device, use_sharding
 
 from .config import (DENSE, ENCDEC, MOE, SSM_HYBRID, VLM as VLM_FAM, XLSTM, ArchConfig,
                      MoEConfig, SSMConfig)
@@ -55,9 +56,26 @@ def reduced(arch_id: str) -> ArchConfig:
     return cfg.replace(**kw)
 
 
-def build_model(cfg: ArchConfig, device: DeviceLike = None) -> BaseLM:
+def build_model(cfg: ArchConfig, device: DeviceLike = None, mesh=None) -> BaseLM:
     """Construct the family's model for ``cfg`` on ``device`` (default
-    ``cuda``)."""
+    ``cuda``; on a mesh, this rank's device of it).
+
+    ``mesh`` (default: the active ``use_sharding`` mesh, if any) places a
+    sharded-mode approx pack over the mesh and builds the activation closures
+    under ``use_sharding(mesh)``, so each 'model' rank's closures hold its one
+    values slice (``ApproxConfig.place_packs``)."""
+    if mesh is None:
+        mesh = current_mesh()
+    if mesh is None:
+        return _construct(cfg, device)
+    if device is None:
+        device = mesh_device(mesh)
+    cfg.approx.place_packs(mesh)
+    with use_sharding(mesh):
+        return _construct(cfg, device)
+
+
+def _construct(cfg: ArchConfig, device: DeviceLike) -> BaseLM:
     if cfg.family == SSM_HYBRID:
         return HybridLM(cfg, device)
     if cfg.family == XLSTM:

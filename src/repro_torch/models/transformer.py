@@ -42,6 +42,14 @@ prefill and decode drop.  The recurrent families' caches are flat dicts with
 one stacked tensor a state field, each with one batch axis (the engine's
 slot refill moves rows along it; see ``HybridLM`` and ``XLSTMLM``).  All
 nonlinearities route through ``cfg.approx`` (the paper's table backend).
+
+On a mesh (``repro_torch.parallel.sharding.use_sharding``; the dense family's
+training, ``train.loop.run(mesh=...)``) the parameters and the batch are
+DTensors: ``shard`` (``shard_activation``) lays the activations out by the
+reference's logical axes at the reference's places, the projections and the
+embedding run on local shards (``sharding.einsum``, ``vocab_lookup``), and so
+do rotary, flash attention and the pack closures, which are local to a
+position and a head; off a mesh every annotation is the identity.
 """
 
 from __future__ import annotations
@@ -52,6 +60,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.parallel.sharding import (is_dtensor, on_local_shards, replicate_like,
+                                           unary_on)
+from repro_torch.parallel.sharding import shard_activation as shard
 
 from .attention import (
     attention_out,
@@ -92,13 +103,39 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean CE over targets >= 0 (-1 = ignore).  logits f32 (B, S, V).
 
     The gold logit is taken by a masked reduction over the vocab axis (the
-    reference's one-hot form), not a gather."""
+    reference's one-hot form), not a gather.  DTensor logits (a mesh): the
+    row's terms on the local shards, summed over the mesh."""
+    if is_dtensor(logits):
+        return _mesh_cross_entropy(logits, targets)
+    terms, mask = _ce_terms(logits, targets)
+    return terms.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _ce_terms(logits: torch.Tensor, targets: torch.Tensor):
+    """Each position's masked loss and its mask (f32, the targets' shape)."""
     mask = (targets >= 0).to(torch.float32)
     tgt = torch.clamp(targets, min=0)
     logz = torch.logsumexp(logits, dim=-1)
     onehot = torch.arange(logits.shape[-1], device=logits.device) == tgt[..., None]
     gold = torch.where(onehot, logits, 0.0).sum(dim=-1)
-    return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (logz - gold) * mask, mask
+
+
+def _mesh_cross_entropy(logits, targets) -> torch.Tensor:
+    """:func:`cross_entropy` of DTensor logits and targets: a plain scalar,
+    the same on every rank."""
+    from torch.distributed.tensor import Replicate
+
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    # logsumexp and the one-hot gold read the whole vocab row: gather it
+    pl = [Replicate() if p.is_partial() or (p.is_shard() and p.dim == last) else p
+          for p in logits.placements]
+    logits = logits.redistribute(mesh, pl)
+    targets = targets.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                          for p in pl])
+    tp = tuple(targets.placements)
+    terms, mask = on_local_shards(_ce_terms, (tp, tp), logits, targets)
+    return terms.sum().full_tensor() / torch.clamp(mask.sum().full_tensor(), min=1.0)
 
 
 def _decode_positions(pos: torch.Tensor, pos_buf: torch.Tensor, W: int):
@@ -142,6 +179,23 @@ class BaseLM:
         if gen.device.type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on {self.device}")
 
+    def abstract_params(self) -> Params:
+        """The parameter tree as ``"meta"`` tensors, shapes and dtypes only
+        (the reference's ``abstract_params``): ``init`` traced under a fake
+        tensor mode, so nothing is drawn or allocated."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        from repro_torch.tree import tree_map
+
+        dev, self.device = self.device, torch.device("cpu")
+        try:
+            with FakeTensorMode():
+                params = self.init(torch.Generator())
+        finally:
+            self.device = dev
+        return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                        params)
+
     def loss(self, params, batch):
         logits, aux = self.train_logits(params, batch)
         return cross_entropy(logits, batch["targets"]) + AUX_WEIGHT * aux
@@ -149,11 +203,13 @@ class BaseLM:
     def _logits(self, params, x):
         x = rmsnorm(params["final_norm"], x)
         logits = unembed(params.get("unembed", params["embed"]), x)
-        logits = softcap(logits, self.cfg.attn.logit_softcap, self._cap_tanh)
+        cap_tanh = None if self._cap_tanh is None else unary_on(self._cap_tanh, logits)
+        logits = softcap(logits, self.cfg.attn.logit_softcap, cap_tanh)
         if self.cfg.vocab_pad != self.cfg.vocab:  # mask padded vocab rows
-            iota = torch.arange(logits.shape[-1], device=logits.device)
+            iota = replicate_like(torch.arange(logits.shape[-1], device=logits.device),
+                                  logits)
             logits = torch.where(iota < self.cfg.vocab, logits, -1e30)
-        return logits
+        return shard(logits, "batch", None, "vocab")
 
 
 class DecoderLM(BaseLM):
@@ -223,10 +279,10 @@ class DecoderLM(BaseLM):
                           capacity_factor=cfg.moe.capacity_factor,
                           device_groups=cfg.moe.device_groups,
                           max_groups=cfg.moe.max_groups)
-            return x + ff, aux
-        if cfg.mlp_kind == "glu":
-            return x + glu(lp["mlp"], hin, self.act), None
-        return x + mlp(lp["mlp"], hin, self.act), None
+            return x + shard(ff, "batch", None, None), aux
+        act = unary_on(self.act, hin)
+        ff = glu(lp["mlp"], hin, act) if cfg.mlp_kind == "glu" else mlp(lp["mlp"], hin, act)
+        return x + shard(ff, "batch", None, None), None
 
     def _qkv(self, lp, x, positions):
         cfg = self.cfg
@@ -240,7 +296,7 @@ class DecoderLM(BaseLM):
         q, k, v = self._qkv(lp, x, positions)
         o = flash_attention(q, k, v, positions, positions, causal=True,
                             window=window, exp_fn=self.attn_exp)
-        x = x + attention_out(lp["attn"], o, cfg.attn_geom)
+        x = x + shard(attention_out(lp["attn"], o, cfg.attn_geom), "batch", None, None)
         x, aux = self._ffn(lp, x)
         return x, (k, v), aux
 
@@ -251,7 +307,7 @@ class DecoderLM(BaseLM):
         kb, vb, _ = cache_insert(kb, vb, pb_new, k, v, positions)
         o = flash_attention(q, kb, vb, positions, pb_new, causal=True,
                             window=window, exp_fn=self.attn_exp)
-        x = x + attention_out(lp["attn"], o, cfg.attn_geom)
+        x = x + shard(attention_out(lp["attn"], o, cfg.attn_geom), "batch", None, None)
         return self._ffn(lp, x)[0], kb, vb
 
     def _window_of(self, idx_in_period):
@@ -281,7 +337,7 @@ class DecoderLM(BaseLM):
         logits and the aux loss: the layers' sum over ``n_layers`` (0 for a
         dense stack)."""
         tokens = batch["tokens"]
-        x = embed(params["embed"], tokens, self.dtype)
+        x = shard(embed(params["embed"], tokens, self.dtype), "batch", None, None)
         x, aux = self._train_stack(params, x)
         return self._logits(params, x), aux / self.cfg.n_layers
 
@@ -348,7 +404,7 @@ class DecoderLM(BaseLM):
     def prefill(self, params, batch, cache):
         """batch["tokens"]: (B, S) integer tensor.  Returns the last
         position's logits (B, V) and a new cache."""
-        x = embed(params["embed"], batch["tokens"], self.dtype)
+        x = shard(embed(params["embed"], batch["tokens"], self.dtype), "batch", None, None)
         x, cache = self._prefill_stack(params, x, cache)
         return self._logits(params, x[:, -1:])[:, 0], cache
 
@@ -399,7 +455,7 @@ class DecoderLM(BaseLM):
         return logits, cache
 
     def _prefill_chunk_step(self, params, tok_c, positions, cache):
-        x = embed(params["embed"], tok_c, self.dtype)
+        x = shard(embed(params["embed"], tok_c, self.dtype), "batch", None, None)
         pb = cache["pos"].clone()
         pb[:, positions % pb.shape[1]] = positions.to(torch.int32)
         x, new_cache = self._decode_stack(params, x, positions, {"pos": pb}, cache)
@@ -408,7 +464,7 @@ class DecoderLM(BaseLM):
     def decode_step(self, params, tok, pos, cache):
         """tok: (B, 1) integer tensor; pos: () shared absolute position, or
         (B,) per-slot positions (continuous batching)."""
-        x = embed(params["embed"], tok, self.dtype)
+        x = shard(embed(params["embed"], tok, self.dtype), "batch", None, None)
         pbs = {}
         for name in cache:
             if name.endswith("pos"):  # one clock, each buffer modulo its width
@@ -498,7 +554,7 @@ class HybridLM(BaseLM):
             lp["m"], rmsnorm(lp["ln"], x), expand=s.expand, head_dim=s.head_dim,
             state_dim=s.state_dim, conv_width=s.conv_width, chunk=s.chunk,
             act_silu=self.act, act_softplus=self.act_softplus, cache=cache)
-        return x + y, new_cache
+        return x + shard(y, "batch", None, None), new_cache
 
     def _shared(self, sp, x, positions, kb=None, vb=None, pb=None):
         """The shared block: attend within x (train/prefill, returning its
@@ -517,8 +573,9 @@ class HybridLM(BaseLM):
             o = flash_attention(q, kb, vb, positions, pb, causal=True,
                                 window=cfg.attn.window, exp_fn=self.attn_exp)
             new = (kb, vb)
-        x = x + attention_out(sp["attn"], o, cfg.attn_geom)
-        x = x + glu(sp["mlp"], rmsnorm(sp["ln2"], x), self.act)
+        x = x + shard(attention_out(sp["attn"], o, cfg.attn_geom), "batch", None, None)
+        x = x + shard(glu(sp["mlp"], rmsnorm(sp["ln2"], x), self.act),
+                      "batch", None, None)
         return x, new
 
     def _train_group(self, mps, sp, x, positions):
@@ -537,7 +594,7 @@ class HybridLM(BaseLM):
 
     def train_logits(self, params, batch):
         tokens = batch["tokens"]
-        x = embed(params["embed"], tokens, self.dtype)
+        x = shard(embed(params["embed"], tokens, self.dtype), "batch", None, None)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         remat = self.cfg.remat
         for mps in params["mamba"]:
@@ -615,7 +672,7 @@ class HybridLM(BaseLM):
         """batch["tokens"]: (B, S).  Returns the last position's logits (B, V)
         and a new cache."""
         tokens = batch["tokens"]
-        x = embed(params["embed"], tokens, self.dtype)
+        x = shard(embed(params["embed"], tokens, self.dtype), "batch", None, None)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x, cache = self._forward(params, x, positions, cache, decode=False)
         return self._logits(params, x[:, -1:])[:, 0], cache
@@ -624,7 +681,7 @@ class HybridLM(BaseLM):
         """tok: (B, 1); pos: () shared absolute position, or (B,) per-slot
         positions (continuous batching) — the shared block's clock; the
         Mamba2 states carry no position."""
-        x = embed(params["embed"], tok, self.dtype)
+        x = shard(embed(params["embed"], tok, self.dtype), "batch", None, None)
         positions, pb = _decode_positions(pos, cache["attn_pos"],
                                           cache["attn_pos"].shape[1])
         x, cache = self._forward(params, x, positions, {**cache, "attn_pos": pb},
@@ -680,17 +737,17 @@ class XLSTMLM(BaseLM):
         y, new_m = mlstm_block(mp["b"], rmsnorm(mp["ln"], x), n_heads=self.cfg.n_heads,
                                act_sigmoid=self.act_sigmoid, act_exp=self.act_exp,
                                cache=mcache)
-        x = x + y
+        x = x + shard(y, "batch", None, None)
         y, new_s = slstm_block(sp["b"], rmsnorm(sp["ln"], x),
                                act_sigmoid=self.act_sigmoid, act_tanh=self.act_tanh,
                                act_exp=self.act_exp, cache=scache)
-        return x + y, new_m, new_s
+        return x + shard(y, "batch", None, None), new_m, new_s
 
     def _train_pair(self, mp, sp, x):
         return self._pair(mp, sp, x)[0]
 
     def train_logits(self, params, batch):
-        x = embed(params["embed"], batch["tokens"], self.dtype)
+        x = shard(embed(params["embed"], batch["tokens"], self.dtype), "batch", None, None)
         for mp, sp in zip(params["mlstm"], params["slstm"]):
             x = (checkpoint(self._train_pair, mp, sp, x, use_reentrant=False)
                  if self.cfg.remat else self._train_pair(mp, sp, x))
@@ -723,13 +780,13 @@ class XLSTMLM(BaseLM):
     def prefill(self, params, batch, cache):
         """batch["tokens"]: (B, S).  Returns the last position's logits (B, V)
         and a new cache."""
-        x = embed(params["embed"], batch["tokens"], self.dtype)
+        x = shard(embed(params["embed"], batch["tokens"], self.dtype), "batch", None, None)
         x, cache = self._forward(params, x, cache)
         return self._logits(params, x[:, -1:])[:, 0], cache
 
     def decode_step(self, params, tok, pos, cache):
         """tok: (B, 1); ``pos`` is unused (the states carry no position)."""
-        x = embed(params["embed"], tok, self.dtype)
+        x = shard(embed(params["embed"], tok, self.dtype), "batch", None, None)
         x, cache = self._forward(params, x, cache)
         return self._logits(params, x)[:, 0], cache
 
@@ -797,8 +854,9 @@ class EncDecLM(BaseLM):
                               geom=cfg.attn_geom, rope_theta=0.0)
         o = flash_attention(q, k, v, positions, positions, causal=False,
                             exp_fn=self.attn_exp)
-        x = x + attention_out(lp["attn"], o, cfg.attn_geom)
-        return x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x), self.act)
+        x = x + shard(attention_out(lp["attn"], o, cfg.attn_geom), "batch", None, None)
+        return x + shard(mlp(lp["mlp"], rmsnorm(lp["ln2"], x), self.act),
+                         "batch", None, None)
 
     def encode(self, params, frames):
         """frames (B, T, d) -> the encoder memory (B, T, d) in the compute
@@ -832,15 +890,16 @@ class EncDecLM(BaseLM):
             o = flash_attention(q, kb, vb, positions, pb, causal=True,
                                 exp_fn=self.attn_exp)
             new = (kb, vb)
-        x = x + attention_out(lp["self"], o, cfg.attn_geom)
+        x = x + shard(attention_out(lp["self"], o, cfg.attn_geom), "batch", None, None)
         # cross-attention into the encoder memory: no rope, all of it visible
         qx, _, _ = project_qkv(lp["cross"], rmsnorm(lp["lnx"], x), None,
                                geom=cfg.attn_geom, rope_theta=0.0)
         km, vm = project_kv(lp["cross"], memory, geom=cfg.attn_geom)
         ox = flash_attention(qx, km, vm, positions, mem_pos, causal=False,
                              exp_fn=self.attn_exp)
-        x = x + attention_out(lp["cross"], ox, cfg.attn_geom)
-        x = x + mlp(lp["mlp"], rmsnorm(lp["ln2"], x), self.act)
+        x = x + shard(attention_out(lp["cross"], ox, cfg.attn_geom), "batch", None, None)
+        x = x + shard(mlp(lp["mlp"], rmsnorm(lp["ln2"], x), self.act),
+                      "batch", None, None)
         return x, new
 
     # ------------------------------- train -----------------------------------------
@@ -854,7 +913,7 @@ class EncDecLM(BaseLM):
         memory = self.encode(params, batch["frames"])
         mem_pos = torch.arange(memory.shape[1], device=memory.device)
         tokens = batch["tokens"]
-        x = embed(params["embed"], tokens, self.dtype)
+        x = shard(embed(params["embed"], tokens, self.dtype), "batch", None, None)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         for lp in params["dec_layers"]:
             if self.cfg.remat:
@@ -888,7 +947,7 @@ class EncDecLM(BaseLM):
         memory = self.encode(params, batch["frames"])
         mem_pos = torch.arange(memory.shape[1], device=memory.device)
         tokens = batch["tokens"]
-        x = embed(params["embed"], tokens, self.dtype)
+        x = shard(embed(params["embed"], tokens, self.dtype), "batch", None, None)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         W = cache["pos"].shape[1]
         ks, vs = [], []
@@ -906,7 +965,7 @@ class EncDecLM(BaseLM):
     def decode_step(self, params, tok, pos, cache):
         """tok: (B, 1); pos: () shared absolute position, or (B,) per-slot
         positions."""
-        x = embed(params["embed"], tok, self.dtype)
+        x = shard(embed(params["embed"], tok, self.dtype), "batch", None, None)
         memory = cache["memory"].to(self.dtype)
         mem_pos = torch.arange(memory.shape[1], device=memory.device)
         positions, pb = _decode_positions(pos, cache["pos"], cache["pos"].shape[1])
@@ -952,7 +1011,7 @@ class VLM(BaseLM):
     def _prefix(self, params, batch):
         """Projected patch embeddings, then the token embeddings."""
         vis = linear(params["vis_proj"], batch["patches"].to(self.dtype))
-        tok = embed(params["embed"], batch["tokens"], self.dtype)
+        tok = shard(embed(params["embed"], batch["tokens"], self.dtype), "batch", None, None)
         return torch.cat([vis, tok], dim=1)
 
     def train_logits(self, params, batch):

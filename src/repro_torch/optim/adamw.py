@@ -6,7 +6,9 @@ structure (nested dicts and lists of tensors) and a 0-d int32 step count.
 Every quantity is computed in f32 on the parameters' device, op for op as in
 the reference.  :func:`update` writes the new parameters and moments IN PLACE
 (no second copy of a 2.8 B-parameter model and its moments), and returns the
-same objects.
+same objects.  On a mesh the parameters, grads and moments are DTensors in
+one layout (the ZeRO-1 master layout): the global norm is taken over the
+mesh and the elementwise update runs on each rank's local shards.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.parallel.sharding import is_dtensor
 from repro_torch.tree import leaves, tree_map
 
 
@@ -63,6 +66,8 @@ def update(cfg: AdamWConfig, params, grads, state):
     as it was).  Weight decay applies to matrices (ndim >= 2) only."""
     count = state["count"] + 1
     gn = global_norm(grads)
+    if is_dtensor(gn):
+        gn = gn.full_tensor()
     scale = torch.clamp(cfg.clip_norm / (gn + 1e-9), max=1.0) \
         if cfg.clip_norm > 0 else 1.0
     lr = schedule(cfg, count)
@@ -71,6 +76,11 @@ def update(cfg: AdamWConfig, params, grads, state):
 
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
                           leaves(state["v"])):
+        if is_dtensor(p):  # one layout: the update is local to each shard
+            if not p.placements == g.placements == m.placements == v.placements:
+                raise ValueError("a parameter, its grad and moments must share "
+                                 "one layout")
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
         g = g.to(torch.float32) * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
@@ -80,3 +90,9 @@ def update(cfg: AdamWConfig, params, grads, state):
         p.copy_(p.to(torch.float32) - lr * step)
     state["count"] = count
     return params, state, {"grad_norm": gn, "lr": lr}
+
+
+def compress_grads_bf16(grads):
+    """Optional gradient compression before the cross-pod reduction: halves
+    the inter-pod collective bytes at ~1 ulp bf16 cost (the reference's)."""
+    return tree_map(lambda g: g.to(torch.bfloat16), grads)

@@ -151,6 +151,23 @@ def _phase_span(engine, tracer, name: str, cat: str = "serve", **args):
         tracer.end(name, cat, **end_args)
 
 
+def _place_engine_packs(model, mesh) -> None:
+    """Place the model's sharded approx pack over ``mesh`` (default: the
+    active ``use_sharding`` mesh) when an engine is built
+    (``ApproxConfig.place_packs``): idempotent when ``build_model(cfg,
+    mesh=...)`` placed it already.  Closures built after this call under
+    ``use_sharding(mesh)`` hold one slice; the engine's own model keeps the
+    closures it was built with (an unplaced pack still evaluates on a bound
+    mesh whose 'model' axis is ``pack_shards`` wide)."""
+    if mesh is None:
+        from repro_torch.parallel.sharding import current_mesh
+
+        mesh = current_mesh()
+    approx = getattr(getattr(model, "cfg", None), "approx", None)
+    if approx is not None:
+        approx.place_packs(mesh)
+
+
 def _check_engine_batch(engine, batch_size: int) -> None:
     if engine.B != batch_size:
         raise ValueError(f"engine batch size {engine.B} != requested "
@@ -162,7 +179,8 @@ class DecodeEngine(_EngineBase):
     """Fixed-batch prefill + decode (the static scheduler's inner engine)."""
 
     def __init__(self, model, params, batch_size: int, cache_len: int,
-                 temperature: float = 0.0, seed: int = 0):
+                 temperature: float = 0.0, seed: int = 0, mesh=None):
+        _place_engine_packs(model, mesh)
         self.model = model
         self.params = params
         self.B = batch_size
@@ -357,12 +375,13 @@ class ContinuousEngine(_EngineBase):
 
     def __init__(self, model, params, batch_size: int, cache_len: int,
                  temperature: float = 0.0, seed: int = 0,
-                 prefill_len: Optional[int] = None, pad_id: int = 0):
+                 prefill_len: Optional[int] = None, pad_id: int = 0, mesh=None):
         if model.extra_inputs:
             raise ValueError(
                 f"ContinuousEngine serves token-only prompts; {model.cfg.name}'s "
                 f"prefill also needs {list(model.extra_inputs)}: use "
                 "DecodeEngine.generate_batch(..., extra_inputs=...)")
+        _place_engine_packs(model, mesh)
         self.model = model
         self.params = params
         self.B = batch_size

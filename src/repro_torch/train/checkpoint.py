@@ -12,8 +12,13 @@ Layout per step:  <dir>/step_<N>/manifest.json + one .npy per leaf.
     casts every leaf to the dtype of the matching leaf of the tree it is
     given.  Restore checks every leaf's shape.
 Leaves are keyed by their path in the tree (dict keys, list indices), in the
-reference's ``jax.tree`` order.  One process writes (the port trains on one
-card; the multi-host guard comes with the mesh, ROADMAP queue 1, item 12b).
+reference's ``jax.tree`` order.
+
+  * Mesh-elastic: a DTensor leaf is gathered whole before it is written (on
+    every rank: the gather is a collective), so a checkpoint taken on one
+    mesh restores onto any other mesh's placements, or off the mesh.
+  * Multi-rank: only rank 0 of the default process group writes; every rank
+    restores.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_path, tree_map, unflatten
+from repro_torch.parallel.sharding import is_dtensor
+from repro_torch.tree import leaves_with_path, subtree, tree_map, unflatten
 
 _SAFE = re.compile(r"[^A-Za-z0-9_.-]")
 
@@ -37,8 +43,16 @@ def _leaf_name(path) -> str:
     return _SAFE.sub("_", ".".join(path)) or "leaf"
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
 def _to_host(t: torch.Tensor) -> np.ndarray:
     t = t.detach()
+    if is_dtensor(t):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.cpu().numpy()
@@ -54,11 +68,16 @@ class CheckpointManager:
     # ------------------------------- save ----------------------------------------
 
     def save(self, step: int, tree: Any, extra: Optional[dict] = None) -> None:
-        self._write(step, tree_map(_to_host, tree), extra or {})
+        host_tree = tree_map(_to_host, tree)  # every rank: DTensors gather
+        if _rank() != 0:
+            return
+        self._write(step, host_tree, extra or {})
 
     def save_async(self, step: int, tree: Any, extra: Optional[dict] = None) -> None:
         self.wait()
         host_tree = tree_map(_to_host, tree)
+        if _rank() != 0:
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, host_tree, extra or {}), daemon=True)
         self._thread.start()
@@ -113,9 +132,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any) -> Any:
+    def restore(self, step: int, like: Any, placements: Any = None,
+                mesh=None) -> Any:
         """Rebuild ``like``'s structure from disk: each leaf a new tensor on
-        the device and in the dtype of ``like``'s leaf (shapes must agree)."""
+        the device and in the dtype of ``like``'s leaf (shapes must agree).
+        ``placements`` (a tree of ``like``'s structure) with ``mesh`` lays
+        each leaf out as a DTensor with its placements (a None leaf stays a
+        plain tensor): the elastic path, onto any mesh."""
+        from repro_torch.parallel.sharding import distribute
+
         d = os.path.join(self.dir, f"step_{step:010d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -129,11 +154,14 @@ class CheckpointManager:
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{arr.shape} vs {tuple(leaf.shape)}")
-            out.append(torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype))
+            dev = leaf.to_local().device if is_dtensor(leaf) else leaf.device
+            t = torch.from_numpy(arr).to(device=dev, dtype=leaf.dtype)
+            pl = None if placements is None else subtree(placements, path)
+            out.append(t if pl is None else distribute(t, mesh, pl))
         return unflatten(like, out)
 
-    def restore_latest(self, like: Any):
+    def restore_latest(self, like: Any, placements: Any = None, mesh=None):
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, self.restore(step, like)
+        return step, self.restore(step, like, placements, mesh)

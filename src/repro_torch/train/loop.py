@@ -13,11 +13,31 @@ Fault-tolerance contract (the reference's):
   * straggler monitor: per-step wall times, warn on > straggler_factor x
     median.
 
+On a mesh a checkpoint gathers every DTensor (a collective), so the ranks
+save together or not at all: at each step boundary they agree (one
+all-reduce) on the stop flag and on whether a rank failed to make its
+batch; then every rank stops at the same step, or saves the emergency
+checkpoint and raises together.  An exception inside a step on one rank
+leaves the others in a collective of that step: that rank re-raises at
+once with no emergency checkpoint (the restart point is the last periodic
+one), and the others fail when its process exits (``torchrun`` ends the
+job) or at the process group's timeout.
+
 PyTorch runs eagerly: there is no jit, and the step updates the state in
 place (:func:`repro_torch.optim.adamw.update`).  An exception inside that
 update leaves the state partly updated, and the emergency checkpoint then
-holds it as it is.  The mesh, weight-update sharding and ZeRO-1 wait for the
-mesh path (ROADMAP queue 1, item 12b): ``run(mesh=...)`` raises.
+holds it as it is.
+
+``run(mesh=...)`` trains over a ``DeviceMesh`` (``launch.mesh``) with
+weight-update sharding (WUS) and ZeRO-1, as the reference does: the f32
+master and the AdamW moments are DTensors in the ZeRO-1 layout
+(``parallel.params.zero1_pspecs``, spread over the whole mesh); each step
+casts the master ONCE to a bf16 work copy in the tensor-parallel layout
+(``param_pspecs``), runs the model under ``use_sharding(mesh)`` against it,
+and reshards each micro-batch's bf16 grads into the master layout before the
+f32 cast.  This slice trains the dense family there in ``table_pack``,
+``sharded_pack`` and ``sharded_pack_ref``; the other modes and families on
+a mesh wait for ROADMAP queue 1, item 12c.
 """
 
 from __future__ import annotations
@@ -36,7 +56,10 @@ from repro_torch import obs
 from repro_torch.data.pipeline import SyntheticLM, data_config_for
 from repro_torch.kernels import _build
 from repro_torch.optim import adamw
-from repro_torch.tree import leaves, unflatten
+from repro_torch.parallel.params import (param_pspecs, shardings_from_specs,
+                                         zero1_pspecs)
+from repro_torch.parallel.sharding import P, distribute, use_sharding
+from repro_torch.tree import leaves, tree_map, unflatten
 
 from .checkpoint import CheckpointManager
 
@@ -49,6 +72,7 @@ class TrainConfig:
         tempfile.gettempdir(), "repro_torch_ckpt"))
     ckpt_keep: int = 3
     accum: int = 1  # gradient-accumulation microbatches
+    zero1: bool = True  # on a mesh: shard optimizer moments over the data axis too
     log_every: int = 10
     straggler_factor: float = 1.5
     opt: adamw.AdamWConfig = field(default_factory=adamw.AdamWConfig)
@@ -121,14 +145,53 @@ def accumulated_grads(model, params, batch, accum: int = 1):
     return loss, unflatten(params, acc)
 
 
-def make_train_step(model, opt_cfg: adamw.AdamWConfig, accum: int = 1):
+def make_train_step(model, opt_cfg: adamw.AdamWConfig, accum: int = 1,
+                    work_shardings=None, master_shardings=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``; state =
     ``{"params", "opt", "step"}``, updated in place and returned.  The grads
-    come from :func:`accumulated_grads`."""
+    come from :func:`accumulated_grads`.
+
+    Weight-update sharding (``work_shardings`` + ``master_shardings``, trees
+    of DTensor placements in the parameters' structure): ``state["params"]``
+    is the f32 master in the master layout; the step casts it ONCE to a
+    bf16 work copy redistributed to the work (tensor-parallel) layout, takes
+    each micro-batch's grads against the work copy, and reshards them into
+    the master layout FIRST (bf16 on the wire) and casts to f32 after, on
+    the small master shard; each is scaled by 1/accum and added there."""
+    wus = work_shardings is not None
+
+    @torch.no_grad()
+    def _work(params):
+        return tree_map(lambda p, pl: p.to(torch.bfloat16).redistribute(
+            p.device_mesh, pl), params, work_shardings)
+
+    def _to_master(grads):
+        return tree_map(lambda g, pl: g.redistribute(g.device_mesh, pl).to(torch.float32),
+                        grads, master_shardings)
+
+    def wus_grads(params, batch):
+        pw = _work(params)
+        if accum == 1:
+            loss, gw = value_and_grad(model, pw, batch)
+            return loss, _to_master(gw)
+        micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
+                 for k, v in batch.items()}
+        inv = 1.0 / accum
+        loss, acc = 0.0, None
+        for a in range(accum):
+            l, gw = value_and_grad(model, pw, {k: v[a] for k, v in micro.items()})
+            gm = [g * inv for g in leaves(_to_master(gw))]
+            del gw
+            loss = loss + l * inv
+            acc = gm if acc is None else [s + g for s, g in zip(acc, gm)]
+        return loss, unflatten(params, acc)
 
     def train_step(state, batch):
         params = state["params"]
-        loss, grads = accumulated_grads(model, params, batch, accum)
+        if wus:
+            loss, grads = wus_grads(params, batch)
+        else:
+            loss, grads = accumulated_grads(model, params, batch, accum)
         params, opt, metrics = adamw.update(opt_cfg, params, grads, state["opt"])
         metrics["loss"] = loss
         return {"params": params, "opt": opt, "step": state["step"] + 1}, metrics
@@ -145,19 +208,105 @@ def init_state(model) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=model.device)}
 
 
+# what this slice trains over a mesh (ROADMAP queue 1, item 12c: the rest)
+MESH_MODES = ("table_pack", "sharded_pack", "sharded_pack_ref")
+MESH_FAMILIES = ("dense",)
+
+
+def check_mesh_training(model) -> None:
+    """Raise unless ``model`` trains over a mesh in this slice."""
+    mode, family = model.cfg.approx.mode, model.cfg.family
+    if mode not in MESH_MODES or family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"training {family!r} in approx mode {mode!r} over a mesh is not "
+            f"ported (this slice: the {'/'.join(MESH_FAMILIES)} family in "
+            f"{', '.join(MESH_MODES)}): ROADMAP queue 1, item 12c")
+
+
+def state_pspecs(model, mesh, zero1: bool = True, wus: bool = True):
+    """Partition specs (the reference's layout) of the train state:
+    ``wus=True`` stores the params as the f32 master in the fully-2D ZeRO-1
+    layout, the same as the moments; the TP work layout exists only inside
+    the step."""
+    abstract = model.abstract_params()
+    pspec = param_pspecs(abstract, mesh)
+    mspec = zero1_pspecs(abstract, mesh) if zero1 else pspec
+    return {"params": mspec if wus else pspec,
+            "opt": {"m": mspec, "v": mspec, "count": P()},
+            "step": P()}
+
+
+def work_pspecs(model, mesh):
+    """The TP work layout used inside the step (see make_train_step WUS)."""
+    return param_pspecs(model.abstract_params(), mesh)
+
+
+def state_placements(model, mesh, zero1: bool = True):
+    """DTensor placements of the train state's tensors (the state's
+    structure).  The counters (``P()`` in the specs) stay plain tensors, the
+    same on every rank: None."""
+    like = model.abstract_params()
+    specs = state_pspecs(model, mesh, zero1)
+    master = shardings_from_specs(mesh, specs["params"], like)
+    return {"params": master, "opt": {"m": master, "v": master, "count": None},
+            "step": None}
+
+
+def distribute_state(state, placements, mesh):
+    """The whole train state (the same on every rank) laid out with
+    ``placements`` (:func:`state_placements`); the counters stay plain."""
+    lay = lambda tree, pl: tree_map(lambda t, p: distribute(t, mesh, p), tree, pl)
+    opt = state["opt"]
+    return {"params": lay(state["params"], placements["params"]),
+            "opt": {"m": lay(opt["m"], placements["opt"]["m"]),
+                    "v": lay(opt["v"], placements["opt"]["v"]), "count": opt["count"]},
+            "step": state["step"]}
+
+
+def _batch_on(batch, mesh):
+    """The whole batch as replicated DTensors (the reference's unsharded
+    batch input: the model's ``shard`` annotations lay it out)."""
+    from torch.distributed.tensor import Replicate
+
+    return {k: distribute(v, mesh, [Replicate()] * mesh.ndim) for k, v in batch.items()}
+
+
+def _agree(mesh, *flags: bool) -> list:
+    """Each flag OR-ed over every rank of ``mesh`` (an all-reduce MAX on each
+    mesh dim in turn), read on the host."""
+    import torch.distributed as dist
+
+    t = torch.tensor([int(f) for f in flags], dtype=torch.int32,
+                     device=mesh.device_type)
+    for d in range(mesh.ndim):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(d))
+    return [bool(v) for v in t.tolist()]
+
+
+class PeerFailed(RuntimeError):
+    """Another rank of the mesh failed before this step."""
+
+
 def run(model, shape, cfg: TrainConfig, mesh=None,
         log: Callable[[str], None] = print) -> Dict[str, Any]:
     """End-to-end training with restart.  Returns the final metrics summary;
     ``build_time_s`` is the wall time of the steps during which a CUDA kernel
     was built (nvcc), the port's counterpart of the reference's compile
-    time."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "training over a mesh (weight-update sharding, ZeRO-1) is not "
-            "ported yet: ROADMAP queue 1, item 12b (the mesh path)")
+    time.  ``mesh``: train over it (module docstring); every rank runs
+    ``run`` and rank 0 writes the checkpoints."""
     data = SyntheticLM(data_config_for(model.cfg, shape))
     ckpt = CheckpointManager(cfg.ckpt_dir, keep=cfg.ckpt_keep)
-    train_step = make_train_step(model, cfg.opt, cfg.accum)
+    placements = None
+    if mesh is not None:
+        check_mesh_training(model)
+        like = model.abstract_params()
+        placements = state_placements(model, mesh, cfg.zero1)
+        train_step = make_train_step(
+            model, cfg.opt, cfg.accum,
+            work_shardings=shardings_from_specs(mesh, work_pspecs(model, mesh), like),
+            master_shardings=placements["params"])
+    else:
+        train_step = make_train_step(model, cfg.opt, cfg.accum)
 
     stop = {"flag": False, "reason": ""}
 
@@ -173,7 +322,9 @@ def run(model, shape, cfg: TrainConfig, mesh=None,
             pass
 
     state = init_state(model)
-    step0, restored = ckpt.restore_latest(state)
+    if mesh is not None:
+        state = distribute_state(state, placements, mesh)
+    step0, restored = ckpt.restore_latest(state, placements, mesh)
     if restored is None:
         step0 = 0
         log("initialized fresh state")
@@ -188,14 +339,34 @@ def run(model, shape, cfg: TrainConfig, mesh=None,
     rec = obs.enabled()
     tracer = obs.get_tracer() if rec else None
     step_hist = obs.get_registry().histogram("train.step_s") if rec else None
+    agreed = False  # every rank knows of the fault: they save together
     try:
-        while step < cfg.steps and not stop["flag"]:
-            batch = batch_to(data.batch_at(step), model.device)
+        while step < cfg.steps:
+            fault = None
+            try:
+                batch = batch_to(data.batch_at(step), model.device)
+            except Exception as e:
+                fault = e
+            halt = stop["flag"]
+            if mesh is not None:
+                halt, fault_any = _agree(mesh, halt, fault is not None)
+                if fault_any:
+                    agreed = True
+                    raise fault or PeerFailed(f"another rank failed before step {step}")
+            elif fault is not None:
+                raise fault
+            if halt:
+                stop["flag"] = True
+                stop["reason"] = stop["reason"] or "another rank was signalled"
+                break
+            if mesh is not None:
+                batch = _batch_on(batch, mesh)
             if rec:
                 tracer.begin("train.step", "train", step=step)
             built_before = _build.build_seconds()
             t0 = time.perf_counter()
-            state, metrics = train_step(state, batch)
+            with use_sharding(mesh):
+                state, metrics = train_step(state, batch)
             loss = float(metrics["loss"])  # waits for the device
             dt = time.perf_counter() - t0
             built = _build.build_seconds() > built_before
@@ -219,6 +390,10 @@ def run(model, shape, cfg: TrainConfig, mesh=None,
                 with obs.span("train.ckpt", "train", step=step):
                     ckpt.save_async(step, state, extra={"loss": losses[-1]})
     except BaseException:
+        if mesh is not None and not agreed:
+            log("exception on one rank of the mesh — no emergency checkpoint "
+                "(its gather needs every rank)")
+            raise
         log("exception — attempting emergency checkpoint")
         ckpt.wait()
         ckpt.save(step, state, extra={"emergency": True})

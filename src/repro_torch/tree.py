@@ -51,3 +51,11 @@ def unflatten(like: Any, flat: List[Any]) -> Any:
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree holds")
     return out
+
+
+def subtree(tree: Any, path: Path) -> Any:
+    """The node of ``tree`` at ``path`` (a path of :func:`leaves_with_path`);
+    what lies there may itself be a list, such as a DTensor's placements."""
+    for k in path:
+        tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
+    return tree

@@ -42,7 +42,10 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.configs.qwen3_moe_235b_a22b", "repro_torch.models.ssm",
               "repro_torch.models.xlstm", "repro_torch.configs.zamba2_1_2b",
               "repro_torch.configs.xlstm_125m", "repro_torch.configs.whisper_small",
-              "repro_torch.configs.internvl2_1b", "repro_torch.obs.report"):
+              "repro_torch.configs.internvl2_1b", "repro_torch.obs.report",
+              "repro_torch.parallel", "repro_torch.parallel.sharding",
+              "repro_torch.parallel.params", "repro_torch.parallel.cache_specs",
+              "repro_torch.launch.mesh"):
         assert m in mods, m
     code = (
         "import importlib, json, sys\n"

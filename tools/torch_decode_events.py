@@ -2,7 +2,9 @@
 (32 layers, table_pack + TableFlash, seed-0 weights, batch 4, cache 256,
 telemetry off), its host operator events under torch.profiler (CPU
 activity), its kernel launches and its ms (mean of 10).  Prints one JSON
-line.  Compare two checkouts in one call, in turns:
+line.  An optional second argument names another approx mode (e.g.
+``sharded_pack``, at the config's ``pack_shards``).  Compare two checkouts
+in one call, in turns:
 
     for c in PARENT . . PARENT; do python3 tools/torch_decode_events.py $c; done
 
@@ -17,7 +19,7 @@ import sys
 import time
 
 
-def main(checkout: str) -> None:
+def main(checkout: str, mode: str = "table_pack") -> None:
     sys.path.insert(0, checkout + "/src")
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -28,7 +30,7 @@ def main(checkout: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     base = get_config("stablelm-3b")
-    cfg = base.replace(approx=dataclasses.replace(base.approx, mode="table_pack",
+    cfg = base.replace(approx=dataclasses.replace(base.approx, mode=mode,
                                                   attn_table=True))
     m = build_model(cfg, "cuda")
     params = m.init(torch.Generator(device="cuda").manual_seed(0))
@@ -61,9 +63,9 @@ def main(checkout: str) -> None:
             step()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / 10 * 1e3
-    print(json.dumps({"checkout": checkout, "events": events, "launches": launches,
+    print(json.dumps({"checkout": checkout, "mode": mode, "events": events, "launches": launches,
                       "ms": round(ms, 3)}))
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(*sys.argv[1:3])
