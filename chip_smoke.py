@@ -296,7 +296,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    full width and depth serving the 8 requests as phase 35 (no attention:
    ``table_pack_lookup`` only, 10 launches a pair a decode step: 5 exp_neg
    and the output gate's sigmoid of the mLSTM, tanh, 2 exp_neg and sigmoid
-   of the sLSTM step) and trained 2 steps as phase 36 at 3 of its 6 pairs
+   of the sLSTM step) and trained 2 steps as phase 36 at 2 of its 6 pairs
    (the sLSTM's 128-step loop over time in each layer);
 38. reference: reduced zamba2-1.2b and xlstm-125m in float32 on the card
    against the same models on the CPU, as phase 5 (at least 2 refills);
@@ -323,7 +323,7 @@ Phases, each fatal on failure (exit code 1, no result line):
 41. reference: reduced whisper-small and internvl2-1b in float32 on the
    card against the CPU: prefill logits within 1e-4 and greedy tokens of 3
    groups through generate_batch identical;
-42. device telemetry: stablelm-3b at full width cut to 8 of its 32 layers
+42. device telemetry: stablelm-3b at full width cut to 4 of its 32 layers
    (seed-0 weights) serving the 8 requests (+ TableFlash) in
    ``table_pack``, ``quant_pack`` and ``routed_pack`` with the telemetry on,
    and their ``_ref`` modes too: each mode's tokens equal its ``_ref``
@@ -362,6 +362,22 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``tp_spack_grad`` none); the losses finite, step 0 within 0.05 and step
    1 (after the first update) within 1e-3 of the unmeshed port's two steps
    (the same init, data, optimizer and accumulation).
+44. the static contracts (``repro_torch.analysis``): (a) every kernel mode's
+   value closure of the fast tier (gelu, tanh, log) and TableFlash's
+   ``attn_exp`` (a tanh + exp_neg pack) traced by ``make_fx`` over CUDA
+   tensors (the kernels run) and over ``meta`` tensors (PackLint's CPU
+   trace): one fingerprint, devices and constants' names masked, and the
+   same kernel nodes with the same int arguments, so the CPU lint sees
+   what the card runs; (b) ``torch.library.opcheck`` of each of the 21 ops
+   (``test_schema``, ``test_faketensor``) at the decode gate (4, 1, 6912) in
+   bf16 and at an f32 (8, 64, 33) x permuted from (33, 8, 64); (c) the SASS
+   scan of the built library (``cuobjdump -sass``): no ``__global__`` kernel
+   holds an f64 instruction, local-memory traffic (LDL / STL) or a call
+   beyond what ``SASS_ALLOWED`` freezes for it (poly_kernel's 16-byte
+   stack; a call to the compiler's 64-bit division or f32 division slow
+   path is counted apart), and each belongs to a row of
+   ``KERNEL_ALLOWED``.  The counts of
+   each part are printed.
 
 Each phase prints its wall seconds (``phase N: ...s``) and the run ends
 with all of them in one line.  The line before the last is one JSON object
@@ -458,9 +474,12 @@ MOE_TRAIN_LAYERS, QWEN_LAYERS, DEEPSEEK_SERVE_LAYERS = 4, 6, 7
 # a chunk (carry, intra-chunk, denominator, carry rescale, chunk-end weights)
 # and its output gate's sigmoid; an sLSTM step tanh, 2 exp_neg and sigmoid
 RECURRENT_FAMILY = ("zamba2-1.2b", "xlstm-125m")
-# phase 37 trains xlstm-125m at 3 of its 6 pairs: an sLSTM step is a loop over
-# time, ~13 s a step at all 6 on a slow host
-XLSTM_TRAIN_LAYERS = 6
+# phase 37 trains xlstm-125m at 2 of its 6 pairs: an sLSTM step is a loop over
+# time, ~13 s a step at all 6 on a slow host (3 pairs until phase 44 came)
+XLSTM_TRAIN_LAYERS = 4
+# phase 42 serves and trains stablelm-3b at 4 of its 32 layers (8 until phase
+# 44 came: the run passed 900 s on a slow host)
+OBS_LAYERS = 4
 MAMBA_GATES, MLSTM_CHUNK_GATES, MLSTM_GATES, SLSTM_STEP_GATES = 5, 5, 1, 4
 # phases 39-41: whisper-small (12 encoder layers over 1,500 stub frame
 # embeddings, 12 decoder layers that cross-attend to them) and internvl2-1b
@@ -3463,7 +3482,7 @@ def run_clis(tmp):
 
 
 def telemetry_phase(smi_line):
-    """Phase 42: full-width stablelm-3b at 8 of its 32 layers (seed-0
+    """Phase 42: full-width stablelm-3b at OBS_LAYERS of its 32 layers (seed-0
     weights) with the device telemetry on and off; see the module docstring.
     Returns the launches of the telemetry-on runs."""
     import shutil
@@ -3478,7 +3497,7 @@ def telemetry_phase(smi_line):
     from repro_torch.serving.engine import ContinuousEngine
     from repro_torch.train.loop import accumulated_grads, batch_to
 
-    base = get_config("stablelm-3b").replace(n_layers=NON_MAIN_TRAIN_LAYERS)
+    base = get_config("stablelm-3b").replace(n_layers=OBS_LAYERS)
     params = build_model(base, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
     reqs = make_requests(base.vocab, N_REQ, MAX_NEW)
     s0 = max(len(r.prompt) for r in reqs)
@@ -3525,7 +3544,7 @@ def telemetry_phase(smi_line):
                        if k.startswith("approx.quant_gathers.")}
             check(gathers == {cfg.act: 2 * want[cfg.act]}, f"quant gathers {gathers}")
         add(c)
-        log(f"obs: {mode} served {N_REQ} requests ({NON_MAIN_TRAIN_LAYERS} layers, "
+        log(f"obs: {mode} served {N_REQ} requests ({OBS_LAYERS} layers, "
             f"{engine.prefills} prefills, {engine.batch_steps - engine.prefills} ticks), "
             f"telemetry on: tokens equal to the off run's and {mode}_ref's, counters "
             f"equal to {mode}_ref's {counters}, lookups as derived; launches "
@@ -3859,6 +3878,79 @@ def mesh_phase(smi_line):
     return mesh_train_path(smi_line), ranks
 
 
+def contracts_phase():
+    """Phase 44: the meta traces against the card's, opcheck of the 21 ops
+    and the SASS scan."""
+    import torch
+
+    from repro_torch.analysis import contracts, graph_lint as gl
+    from repro_torch.approx import make_attn_exp_fn
+    from repro_torch.kernels import _lib, ops
+
+    kernel_modes = [m for m in contracts.ALL_MODES
+                    if not m.endswith("_ref") and m not in ("exact", "table_ref")]
+    dev = torch.device("cuda")
+
+    def closure(ctx, mode, name):
+        if mode == "attn_exp":
+            return make_attn_exp_fn(ctx.pack()), ctx.attn_x()
+        return ctx.value_closure(mode, name), ctx.x(name)
+
+    pairs = 0
+    for funcs, closures in (
+            (contracts.FAST_FUNCS, [(m, n) for m in kernel_modes
+                                    for n in contracts.FAST_FUNCS]),
+            (("tanh", "exp_neg"), [("attn_exp", "exp_neg")])):
+        ctxs = [contracts.LintContext(funcs=funcs, device=d) for d in (dev, "meta")]
+        for mode, name in closures:
+            got = []
+            for ctx in ctxs:
+                fn, x = closure(ctx, mode, name)
+                gl.trace(fn, x)  # the first call builds what the pack caches
+                gm = gl.trace(fn, x)
+                got.append((gl.graph_fingerprint(gm),
+                            [(k.entry, k.ints) for k in gl.kernel_nodes(gm)]))
+            check(got[0] == got[1], f"contracts: {mode}/{name}: the card's make_fx "
+                  f"graph differs from the meta trace's")
+            check(bool(got[1][1]), f"contracts: {mode}/{name}: no kernel node")
+            pairs += 1
+    log(f"contracts: {pairs} value closures traced on the card and on meta: "
+        f"{pairs} fingerprints and kernel nodes equal")
+    n_checked = 0
+    for dims, dtype, perm in (((4, 1, 6912), torch.bfloat16, None),
+                              ((33, 8, 64), torch.float32, (1, 2, 0))):
+        x = torch.randn(dims, device=dev).to(dtype)
+        if perm is not None:
+            x = x.permute(perm)
+        samples = contracts.op_samples(x)
+        check(set(samples) == set(_lib._ENTRIES) == set(ops.OPS),
+              "contracts: op_samples does not cover the 21 entries")
+        for entry, (planes, ints) in samples.items():
+            try:
+                torch.library.opcheck(ops.OPS[entry], (x, list(planes), list(ints)),
+                                      test_utils=("test_schema", "test_faketensor"))
+            except Exception as e:  # noqa: BLE001  (any opcheck failure fails the phase)
+                raise SmokeError(f"contracts: opcheck {entry} at {tuple(x.shape)} "
+                                 f"{x.dtype}: {e}") from e
+            n_checked += 1
+    log(f"contracts: opcheck (test_schema, test_faketensor) {n_checked}/"
+        f"{2 * len(ops.OPS)} passed ({len(ops.OPS)} ops x 2 shapes)")
+    sass = contracts.sass_findings()
+    bad = [f for f in sass if not f.ok]
+    kern = [f for f in sass if f.subject.startswith("sass:_")]
+    totals = {k: sum(f.data.get(k, 0) for f in kern)
+              for k in ("f64", "local", "call", "div64", "fdiv")}
+    local = sorted({f.data["kernel"] for f in kern if f.data["local"]})
+    log(f"contracts: SASS of {len(kern)} kernel functions "
+        f"({len({f.data['kernel'] for f in kern})} __global__ kernels), "
+        f"{sum(f.data['instructions'] for f in kern)} instructions: {totals['f64']} f64, "
+        f"{totals['local']} LDL/STL (in {local}; allowed: "
+        f"{contracts.SASS_ALLOWED}), {totals['call']} calls; calls to the compiler's "
+        f"64-bit division {totals['div64']}, f32 division slow path {totals['fdiv']}")
+    check(not bad, "contracts: SASS scan: " + "; ".join(
+        f"{f.subject}: {f.detail}" for f in bad[:6]))
+
+
 def main() -> int:
     try:
         import torch
@@ -4087,6 +4179,9 @@ def main() -> int:
         # 43: the mesh path; its launches too
         with phase("43"):
             mesh_counts, mesh_ranks = mesh_phase(smi_line)
+        # 44: the static contracts (PackLint's meta traces, the ops, the SASS)
+        with phase("44"):
+            contracts_phase()
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

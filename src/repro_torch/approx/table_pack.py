@@ -38,6 +38,9 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.bram import (POLY_IMAGE_SECTIONS, QUANT_IMAGE_SECTIONS,
+                                  member_image_layout, poly_image_layout,
+                                  quant_image_layout, sharded_image_layout)
 from repro_torch.core.flow import cached_table
 from repro_torch.core.packing import (PackLayout, PolyPackLayout, QuantPackLayout,
                                      ShardedPackLayout, pack_layout,
@@ -167,20 +170,6 @@ FOLDABLE = {
 }
 
 
-def member_image_layout(n_intervals: Sequence[int]) -> Tuple[Tuple[int, ...], int]:
-    """Where a member staging image over rows of ``n_intervals``
-    sub-intervals keeps them, in f32 words: the start of each member's row
-    (its ``n + 1`` boundaries, then its ``n`` inv_delta, base and
-    seg_count) and the start of the values behind the rows.  The kernels
-    that stage such images (``csrc/table_pack_lookup.cu``,
-    ``image_values_at``) lay it out the same."""
-    starts, at = [], 0
-    for n in n_intervals:
-        starts.append(at)
-        at += 4 * n + 1
-    return tuple(starts), at
-
-
 def _member_image(layout: PackLayout, members: Sequence[str], dev: torch.device):
     """The staging image of ``members`` (member_image_layout): what a kernel
     that reads only those members reads of the pack and nothing else.  Their
@@ -194,8 +183,7 @@ def _member_image(layout: PackLayout, members: Sequence[str], dev: torch.device)
     ns = [layout.n_intervals[f] for f in fids]
     base = np.asarray(layout.base, np.int64)
     segs = np.asarray(layout.seg_count, np.int64)
-    v0 = min(int(base[f, :n].min()) for f, n in zip(fids, ns))
-    v1 = max(int((base[f, :n] + segs[f, :n]).max()) for f, n in zip(fids, ns)) + 1
+    v0, v1 = layout.values_span(members)
     starts, v_at = member_image_layout(ns)
     img = np.zeros(-(-(v_at + v1 - v0) // 4) * 4, np.float32)
     for f, n, at in zip(fids, ns, starts):
@@ -378,15 +366,6 @@ def _check_exact(*groups: np.ndarray) -> None:
         raise ValueError("pack footprint exceeds f32 exact-integer range")
 
 
-def _image_starts(sections, words) -> Tuple[Dict[str, int], int]:
-    """Each section's start in 32-bit words, back to back, and the end."""
-    starts, at = {}, 0
-    for name, w in zip(sections, words):
-        starts[name] = at
-        at += w
-    return starts, at
-
-
 def _pack_image(layout, sections, starts, total, routing, codes,
                 dev: torch.device) -> torch.Tensor:
     """The int32 staging image of a quantized or polynomial pack, ``total``
@@ -494,26 +473,6 @@ class QuantTablePack(_RaggedPack):
         vectors on the pack's device (the reference's ragged offsets and
         width-group choice)."""
         return self.routing
-
-
-# the sections of a quantized pack's staging image, in order
-QUANT_IMAGE_SECTIONS = ("n_intervals", "bounds_offsets", "lane_offsets", "entry_bits",
-                        "boundaries", "inv_delta", "base", "seg_count", "scale",
-                        "zero", "ramp", "codes16", "codes8")
-
-
-def quant_image_layout(n_functions: int, n_sub: int, m8: int,
-                       m16: int) -> Tuple[Dict[str, int], int]:
-    """Where a quantized pack's staging image keeps each of
-    ``QUANT_IMAGE_SECTIONS``, in 32-bit words, and the image's length: the
-    four routing operands (``n_functions`` each), the ``n_sub +
-    n_functions`` boundaries, the ``n_sub`` inv_delta / base / seg_count /
-    scale / zero / ramp, then the ``m16`` int16 and ``m8`` int8 codes.  The
-    routed kernels (``csrc/table_pack_lookup.cu``, ``quant_image``) lay it
-    out the same."""
-    return _image_starts(QUANT_IMAGE_SECTIONS, (
-        (n_functions,) * 4 + (n_sub + n_functions,) + (n_sub,) * 6
-        + ((m16 + 1) // 2, (m8 + 3) // 4)))
 
 
 def _domains(layout) -> Tuple[Tuple[float, float], ...]:
@@ -749,27 +708,6 @@ class PolyTablePack(_RaggedPack):
 
     def _groups(self):
         return {8: self.codes8, 16: self.codes16, 32: self.codes32}
-
-
-# the sections of a polynomial pack's staging image, in order
-POLY_IMAGE_SECTIONS = ("n_intervals", "bounds_offsets", "lane_offsets", "entry_bits",
-                       "strides", "boundaries", "inv_delta", "base", "seg_count",
-                       "zero", "ramp", "scale", "codes32", "codes16", "codes8")
-
-
-def poly_image_layout(n_functions: int, n_sub: int, lanes: int, m8: int, m16: int,
-                      m32: int) -> Tuple[Dict[str, int], int]:
-    """Where a polynomial pack's staging image keeps each of
-    ``POLY_IMAGE_SECTIONS``, in 32-bit words, and the image's length: the
-    five routing operands
-    (``n_functions`` each), the ``n_sub + n_functions`` boundaries, the
-    ``n_sub`` inv_delta / base / seg_count, the ``n_sub * lanes`` zero /
-    ramp / scale, then the ``m32`` f32, ``m16`` int16 and ``m8`` int8
-    codes.  The routed kernels (``csrc/table_pack_lookup.cu``,
-    ``poly_image``) lay it out the same."""
-    return _image_starts(POLY_IMAGE_SECTIONS, (
-        (n_functions,) * 5 + (n_sub + n_functions, n_sub, n_sub, n_sub)
-        + (n_sub * lanes,) * 3 + (m32, (m16 + 1) // 2, (m8 + 3) // 4)))
 
 
 def from_poly_layout(layout: PolyPackLayout,
@@ -1047,28 +985,6 @@ class ShardedTablePack:
     def routing_scalars(self) -> Tuple[torch.Tensor, ...]:
         """``(n_arr,)``, as :meth:`TablePack.routing_scalars`."""
         return self.routing
-
-
-def sharded_image_layout(n_intervals: Sequence[int], n_shards: int,
-                         m: int) -> Tuple[Tuple[int, ...], int, int]:
-    """Where a sharded pack's staging image keeps its parts, in f32 words:
-    a header of each member's row start and sub-interval count (words 2f
-    and 2f + 1); each member's row from its start, over its real
-    sub-intervals: one quad (inv_delta, owner-rebased base, seg_count,
-    owner) for each sub-interval, then its ``n + 1`` boundaries; and the
-    ``n_shards`` padded values slices of ``m`` entries, back to back, from
-    the values start.  Every part starts at a multiple of 4 words, so that a
-    quad is one 16-byte shared-memory read.  Returns (row starts, values
-    start, the image's words).  The kernels that stage it
-    (``csrc/table_pack_lookup.cu``, ``spack_image_kernel``) read it so."""
-    def up4(w):
-        return -(-w // 4) * 4
-
-    starts, at = [], up4(2 * len(n_intervals))
-    for n in n_intervals:
-        starts.append(at)
-        at += up4(5 * n + 1)
-    return tuple(starts), at, up4(at + n_shards * m)
 
 
 def _sharded_image(slayout: ShardedPackLayout, values: np.ndarray,

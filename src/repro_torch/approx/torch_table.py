@@ -51,7 +51,7 @@ class TorchTable:
     # the table's staging image, built once with the table (the port's own,
     # for its kernels): the row (n + 1 boundaries, then the n inv_delta,
     # base and seg_count), then the M_F values, zero-padded to a 16-byte
-    # multiple; member_image_layout([n]) of approx/table_pack.py.  What a
+    # multiple; member_image_layout([n]) of core/bram.py.  What a
     # block of the table kernels stages where it fits
     image: torch.Tensor = field(init=False, compare=False, repr=False)
 

@@ -7,8 +7,9 @@ planner.
 The JAX package's ``repro.core`` imports no JAX either, but the port imports
 nothing of that package, so it keeps the modules it needs here.  The tests
 hold both copies to identical arrays.  The resource models are the paper's
-BRAM18 counts and, in place of the reference's TPU VMEM residency, the table
-kernels' shared-memory staging image (``smem_cost``)."""
+BRAM18 counts and, in place of the reference's TPU VMEM residency, the
+kernels' shared-memory staging images (``smem_cost`` for a table,
+``smem_cost_pack`` and the layouts' ``smem()`` for a pack)."""
 
 from .functions import FunctionSpec, get as get_function, names as function_names
 from .spacing import SecondDerivMax, delta_for, footprint, reference_spacing
@@ -22,7 +23,8 @@ from .splitting import (
 )
 from .table import TableSpec, build_table
 from .flow import FlowReport, cached_table, run_flow
-from .bram import SmemCost, bram_count, bram_count_packed, smem_cost
+from .bram import (SmemCost, SmemPackCost, bram_count, bram_count_packed, smem_cost,
+                   smem_cost_pack)
 from .packing import (
     PackLayout,
     PolyPackLayout,
@@ -75,6 +77,7 @@ __all__ = [
     "SecondDerivMax",
     "ShardedPackLayout",
     "SmemCost",
+    "SmemPackCost",
     "SplitResult",
     "TTestResult",
     "TableSpec",
@@ -109,6 +112,7 @@ __all__ = [
     "sequential_split",
     "shard_pack_layout",
     "smem_cost",
+    "smem_cost_pack",
     "split",
     "t_cdf",
     "ttest2",

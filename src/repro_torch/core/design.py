@@ -46,10 +46,10 @@ greedy-downgrade-from-preferred under ``budget_bytes`` (start every function at
 its lowest-degree/widest-width candidate, repeatedly switch the function with
 the largest byte saving to its cheapest candidate until the pack fits).
 
-The pack-level VMEM residency report (``PackPlan.vmem``) describes the TPU's
-memory and is not carried over: a pack's shared-memory residency report is
-ROADMAP queue 1, item 15.  For a single table, ``core.bram.smem_cost`` gives
-the table kernels' staging image.  tests/test_torch_quant_poly.py holds this copy to the reference's
+The pack-level residency report, the reference's ``PackPlan.vmem`` (TPU
+VMEM), is ``PackPlan.smem``: the planned pack's staging image in a block's
+shared memory on the card (``PolyPackLayout.smem``).  For a single table,
+``core.bram.smem_cost`` gives the table kernels' staging image.  tests/test_torch_quant_poly.py holds this copy to the reference's
 candidates and plans.
 """
 
@@ -65,7 +65,9 @@ import numpy as np
 
 from repro_torch import obs
 
+from .bram import SMEM_BYTES, SmemPackCost
 from .functions import FunctionSpec, get as get_function
+from .packing import poly_pack_layout
 from .quantize import DEFAULT_REFINE_CAP, DEFAULT_RHO, quant_rounding_limit
 from .spacing import SecondDerivMax
 from .splitting import split
@@ -626,6 +628,13 @@ class PackPlan:
     @property
     def total_bytes(self) -> int:
         return sum(c.total_bytes for c in self.chosen)
+
+    def smem(self, budget_bytes: int = SMEM_BYTES) -> SmemPackCost:
+        """Shared-memory residency of the planned pack's staging image: the
+        image ``approx.table_pack.build_poly_pack`` builds from this plan
+        (``PolyPackLayout.smem``), its dequant lanes padded to the widest
+        member's, as the device pack stores them."""
+        return poly_pack_layout(list(self.members)).smem(budget_bytes)
 
     def describe(self) -> str:
         rows = [f"  {c.name:<12} d={c.degree} {c.dtype:<5} "

@@ -9,9 +9,12 @@ whose entries are stored affinely quantized per sub-interval at the narrowest
 width of a menu (the BRAM18 widths, byte widths, or any width up to 36 bits)
 that keeps the total error within ``E_a``.
 
-The reference's pack-level ``vmem()`` reports (TPU VMEM residency) are not
-carried over (ROADMAP queue 1, item 15); for a single table the port reports
-the table kernels' shared-memory staging image (``core.bram.smem_cost``).
+Each layout's ``smem()`` (the reference's pack-level ``vmem()``, TPU VMEM
+residency) reports the card's counterpart: the bytes of the staging image
+that the flavor's kernels copy into a block's shared memory, in the word
+layouts of :mod:`repro_torch.core.bram`, against the 48 KB a block stages,
+and what a launch stages (``core.bram.smem_cost_pack``); for a single table,
+``core.bram.smem_cost``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import TYPE_CHECKING, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import bram
 from .functions import FunctionSpec, get as get_function
 from .quantize import QuantMember
 from .table import TableSpec, build_table
@@ -80,6 +84,36 @@ class PackLayout:
         except ValueError:
             raise KeyError(
                 f"function {name!r} not in pack {self.names}") from None
+
+    def values_span(self, members: Sequence[str]) -> Tuple[int, int]:
+        """``[v0, v1)``: the values that ``members`` read, from the first
+        entry of their first cell to the last of their last (a member
+        staging image holds them)."""
+        fids = [self.fn_id(n) for n in members]
+        ns = [self.n_intervals[f] for f in fids]
+        base = np.asarray(self.base, np.int64)
+        segs = np.asarray(self.seg_count, np.int64)
+        v0 = min(int(base[f, :n].min()) for f, n in zip(fids, ns))
+        v1 = max(int((base[f, :n] + segs[f, :n]).max()) for f, n in zip(fids, ns)) + 1
+        return v0, v1
+
+    def smem(self, members: Optional[Sequence[str]] = None,
+             budget_bytes: int = bram.SMEM_BYTES) -> bram.SmemPackCost:
+        """Shared-memory residency of the member staging image over
+        ``members`` (``bram.member_image_layout``): the whole pack's
+        (``TablePack.image``, which the static and routed f32 kernels stage)
+        by default, TableFlash's with ``("exp_neg",)`` (``flash_image``) or
+        a fold's with its core members (``fold_images``).  Past the budget a
+        launch stages the members' rows at ``n_max`` and the pack's values
+        as they fit."""
+        names = self.names if members is None else tuple(members)
+        v0, v1 = self.values_span(names)
+        _, v_at = bram.member_image_layout([self.n_intervals[self.fn_id(n)]
+                                            for n in names])
+        rows = 1 if members is None else len(names)
+        return bram.smem_cost_pack(
+            bram._up4(v_at + v1 - v0), 4 * (v1 - v0),
+            4 * rows * (4 * self.n_max + 1), 4 * self.footprint, budget_bytes)
 
 
 def pack_layout(specs: Sequence[TableSpec]) -> PackLayout:
@@ -184,6 +218,25 @@ class ShardedPackLayout:
         """Shard ``s``'s slice of the packed values (unpadded)."""
         o = int(self.shard_offsets[s])
         return self.layout.values[o: o + int(self.shard_sizes[s])]
+
+    def smem(self, shard: Optional[int] = None,
+             budget_bytes: int = bram.SMEM_BYTES) -> bram.SmemPackCost:
+        """Shared-memory residency of the sharded pack: its staging image
+        (``bram.sharded_image_layout``: every member's rows and the S padded
+        values slices, ``ShardedTablePack.image``), which the grads stage
+        over all the shards where it fits.  The value kernels take the
+        fallback: the member's five rows at ``n_max`` and the values slab of
+        their shard range, all S slices (``shard=None``) or one
+        (``shard=k``, one shard's contribution; every slice is padded to the
+        same length)."""
+        S, m = self.n_shards, self.max_shard_entries
+        if shard is not None and not 0 <= shard < S:
+            raise IndexError(f"shard {shard} out of range for {S} shards")
+        words = bram.sharded_image_layout(self.n_intervals, S, m)[2]
+        span = S if shard is None else 1
+        return bram.smem_cost_pack(words, 4 * S * m,
+                                   4 * bram._up4(5 * self.layout.n_max + 1),
+                                   4 * m * span, budget_bytes)
 
 
 def shard_pack_layout(layout: PackLayout, n_shards: int) -> ShardedPackLayout:
@@ -310,6 +363,22 @@ class QuantPackLayout:
         """(F,) int32 — per-member start into the selector/dequant lanes."""
         return np.asarray([self.lane_offset(f) for f in range(self.n_functions)],
                           dtype=np.int32)
+
+    def smem(self, budget_bytes: int = bram.SMEM_BYTES) -> bram.SmemPackCost:
+        """Shared-memory residency of the quantized pack's staging image
+        (``bram.quant_image_layout``: the routing operands, the seven
+        metadata lanes and both code groups, ``QuantTablePack.image``),
+        which the static and routed quant kernels stage where it fits.  Past
+        the budget a launch stages the widest member's seven lanes and the
+        larger code group as they fit.  An empty width group keeps its
+        1-entry dummy, as the pack stores it."""
+        m8, m16 = max(len(self.codes8), 1), max(len(self.codes16), 1)
+        _, words = bram.quant_image_layout(self.n_functions, len(self.inv_delta),
+                                           m8, m16)
+        max_n = max(self.n_intervals)
+        return bram.smem_cost_pack(
+            words, 4 * ((m16 + 1) // 2 + (m8 + 3) // 4), 4 * (7 * max_n + 1),
+            max(m8, 2 * m16), budget_bytes)
 
     def eval(self, fn, x: np.ndarray) -> np.ndarray:
         """f64 dequantize-on-read oracle for member ``fn`` (name or fn_id)."""
@@ -464,6 +533,24 @@ class PolyPackLayout:
         """(F,) int32 — per-member start into the selector lanes."""
         return np.asarray([self.lane_offset(f) for f in range(self.n_functions)],
                           dtype=np.int32)
+
+    def smem(self, budget_bytes: int = bram.SMEM_BYTES) -> bram.SmemPackCost:
+        """Shared-memory residency of the polynomial pack's staging image
+        (``bram.poly_image_layout``: the routing operands, the metadata
+        lanes, the lane-padded dequant lanes and the three code groups,
+        ``PolyTablePack.image``), which the static and routed poly kernels
+        stage where it fits.  Past the budget a launch stages the widest
+        member's lanes and the largest code group as they fit.  An empty
+        width group keeps its 1-entry dummy, as the pack stores it."""
+        m8, m16, m32 = (max(len(c), 1) for c in (self.codes8, self.codes16,
+                                                 self.codes32))
+        lanes, max_n = self.max_lanes, max(self.n_intervals)
+        _, words = bram.poly_image_layout(self.n_functions, len(self.inv_delta),
+                                          lanes, m8, m16, m32)
+        return bram.smem_cost_pack(
+            words, 4 * (m32 + (m16 + 1) // 2 + (m8 + 3) // 4),
+            4 * (4 * max_n + 1 + 3 * max_n * lanes), max(m8, 2 * m16, 4 * m32),
+            budget_bytes)
 
     def eval(self, fn, x: np.ndarray) -> np.ndarray:
         """f64 dequantize-on-read Horner oracle for member ``fn``."""

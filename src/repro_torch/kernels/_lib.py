@@ -34,11 +34,15 @@ slice (the routed ones after the three routing vectors), the shard count and
 a shard range ``[s_begin, s_end)`` that one launch sums; the grads also the
 pack's staging image (``ShardedTablePack.image``) and where its values
 start (the static one also the member count).
-:func:`launch` flattens x (a dense x in memory order, its outputs with x's
-strides, but for the routed entries), allocates the outputs, launches on the
-current stream and raises on an error; :data:`launches` counts the launches of each
-kernel, and only a launch adds to it.  :func:`run` is the one wrapper
-contract every kernel wrapper goes through.
+Each entry point is a ``torch.library`` op, ``torch.ops.repro_torch.<entry>``
+(:mod:`repro_torch.kernels.ops`), and the ctypes call lives only in the op's
+CUDA implementation.  :func:`launch` calls the op: it flattens x (a dense x
+in memory order, its outputs with x's strides, but for the routed entries),
+allocates the outputs, launches on the current stream and raises on an
+error; over ``meta`` tensors the op's fake implementation allocates the same
+outputs and nothing runs.  :data:`launches` counts the launches of each
+kernel, and only a launch on the card adds to it.  :func:`run` is the one
+wrapper contract every kernel wrapper goes through.
 """
 
 from __future__ import annotations
@@ -130,9 +134,11 @@ _ENTRIES = {
     "tp_sharded_routed_grad": (2, 10, 8),
 }
 _typed: Dict[int, ctypes.CDLL] = {}
+# the entries whose rows carry their member ids: x in logical order
+_ROUTED = ("tp_routed", "tp_sharded_routed")
 
 
-def _lib() -> ctypes.CDLL:
+def built() -> ctypes.CDLL:
     """The built library with every entry point's argtypes/restype declared
     (pointers and the stream as c_void_p, so ctypes never cuts them to 32
     bits)."""
@@ -167,6 +173,28 @@ def dense_order(x: torch.Tensor):
     return order if x.permute(order).is_contiguous() else None
 
 
+def _order(entry: str, x: torch.Tensor):
+    """The dims order an elementwise entry reads a dense x in (all but the
+    routed ones, whose rows carry their member ids); None for a routed entry
+    or an x with gaps."""
+    return None if entry.startswith(_ROUTED) else dense_order(x)
+
+
+def _outputs(x: torch.Tensor, n_out: int, order):
+    if order is None:
+        return [torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                for _ in range(n_out)]
+    return [torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
+            for _ in range(n_out)]
+
+
+def output_like(entry: str, x: torch.Tensor, n_out: int):
+    """The ``n_out`` outputs of a launch of ``entry`` over x, allocated as
+    :func:`operands` allocates them (what the ops' fake implementations
+    return)."""
+    return _outputs(x, n_out, _order(entry, x))
+
+
 def operands(entry: str, x: torch.Tensor, n_out: int):
     """``(flat, outs)`` of a launch of ``entry`` over x: the flat input the
     kernel reads and its ``n_out`` outputs, whose memory it writes in the
@@ -179,54 +207,51 @@ def operands(entry: str, x: torch.Tensor, n_out: int):
     layout, whose reductions downstream would sum in another order.  A
     routed entry, or an x with gaps or overlaps, reads x in its logical
     order and gets contiguous outputs."""
-    order = None if entry.startswith(("tp_routed", "tp_sharded_routed")) else dense_order(x)
+    order = _order(entry, x)
+    outs = _outputs(x, n_out, order)
     if order is None:
         flat = x.reshape(-1)
-        if not flat.is_contiguous():
-            flat = flat.contiguous()
-        return flat, [torch.empty(x.shape, dtype=x.dtype, device=x.device)
-                      for _ in range(n_out)]
-    return x.permute(order).reshape(-1), [
-        torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
-        for _ in range(n_out)]
+        return (flat if flat.is_contiguous() else flat.contiguous()), outs
+    return x.permute(order).reshape(-1), outs
 
 
 def launch(entry: str, x: torch.Tensor, planes: Sequence[torch.Tensor],
            ints: Sequence[int]) -> Tuple[torch.Tensor, ...]:
-    """Launch ``entry`` over x (its ``operands``) on the current stream over
-    the pack's ``planes`` (device tensors, in the entry's order) and raise on
-    a launch error.  Returns the outputs, in x's shape and dtype."""
+    """Call the op of ``entry`` over x (a CUDA or ``meta`` tensor) and the
+    pack's ``planes`` (tensors on x's device, in the entry's order): on the
+    card one launch on the current stream (its ``operands``), raising on a
+    launch error; on ``meta`` the outputs alone.  Returns the outputs, in
+    x's shape and dtype."""
     n_out, n_planes, n_int = _ENTRIES[entry]
     if len(planes) != n_planes or len(ints) != n_int:
         raise ValueError(f"{entry} takes {n_planes} planes and {n_int} int "
                          f"arguments, got {len(planes)} and {len(ints)}")
-    flat, outs = operands(entry, x, n_out)
-    if flat.numel():
-        lib = _lib()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = getattr(lib, entry)(
-                flat.data_ptr(), *(o.data_ptr() for o in outs), flat.numel(),
-                DTYPE_CODE[x.dtype], *(p.data_ptr() for p in planes), *ints,
-                stream)
-        if err != 0:
-            raise RuntimeError(f"{entry} launch failed: "
-                               f"{lib.tp_error_string(err).decode()} ({err})")
-    return tuple(outs)
+    outs = _ops.OPS[entry](x, list(planes), list(ints))
+    return (outs,) if n_out == 1 else outs
 
 
 def run(entry: str, count: str, x: torch.Tensor, device: torch.device, what: str,
         args: Tuple[Sequence[torch.Tensor], Sequence[int]], plain):
     """The wrapper contract of every kernel: x must be f32 or bf16 and lie on
-    ``device`` (its pack's or table's); a CPU tensor gets ``plain()``, the
-    plain version; a CUDA tensor gets one launch of ``entry`` over ``args =
-    (planes, ints)`` or an error, never the plain version.  A launch over a
-    non-empty x adds one to ``launches[count]``.  One output is returned
-    bare, two as a tuple."""
+    ``device`` (its pack's or table's).  A CPU tensor gets ``plain()``, the
+    plain version, and never reaches the op; a CUDA tensor gets one launch
+    of ``entry`` over ``args = (planes, ints)`` or an error, never the plain
+    version; a ``meta`` tensor (a trace, ``repro_torch.analysis``) gets the
+    op's outputs and nothing runs; any other device raises.  A launch on
+    the card over a non-empty x adds one to ``launches[count]``, and a
+    ``meta`` call adds nothing.  One output is returned bare, two as a
+    tuple."""
     check(x, device, what)
-    if x.device.type == "cpu":
+    kind = x.device.type
+    if kind == "cpu":
         return plain()
+    if kind not in ("cuda", "meta"):
+        raise ValueError(f"the table kernels run on the card (or trace on meta); "
+                         f"x lies on {x.device}")
     outs = launch(entry, x, *args)
-    if x.numel():
+    if kind == "cuda" and x.numel():
         launches[count] += 1
     return outs[0] if len(outs) == 1 else outs
+
+
+from . import ops as _ops  # noqa: E402  (the ops are defined over this module)

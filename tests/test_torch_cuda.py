@@ -1432,3 +1432,51 @@ def test_telemetry_counters_kernel_mode_equal_ref_mode(cuda, mode, kernel):
     assert counters[mode]["approx.lookups.attn_exp"] > 0
     for a, b in zip(served[mode], served[mode + "_ref"]):
         np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+# --------------------------------------------------------------------------------------
+# The kernel ops (torch.library) and PackLint's meta traces against the card
+# --------------------------------------------------------------------------------------
+
+OP_SHAPES = {"decode_gate_bf16": ((4, 1, 6912), torch.bfloat16, None),
+             "f32_permuted": ((33, 8, 64), torch.float32, (1, 2, 0))}
+
+
+@pytest.mark.parametrize("shape", list(OP_SHAPES))
+def test_ops_pass_opcheck(cuda, shape):
+    """Each of the 21 ops passes ``torch.library.opcheck``'s schema and fake
+    tensor tests on the card, at the decode gate's shape in bf16 and at an
+    f32 shape with a permuted x."""
+    from repro_torch.analysis.contracts import op_samples
+    from repro_torch.kernels import _lib, ops
+
+    dims, dtype, perm = OP_SHAPES[shape]
+    x = torch.randn(dims, device=cuda).to(dtype)
+    if perm is not None:
+        x = x.permute(perm)
+    samples = op_samples(x)
+    assert set(samples) == set(_lib._ENTRIES) == set(ops.OPS)
+    for entry, (planes, ints) in samples.items():
+        torch.library.opcheck(ops.OPS[entry], (x, list(planes), list(ints)),
+                              test_utils=("test_schema", "test_faketensor"))
+
+
+def test_gate_closure_card_trace_is_the_meta_trace(cuda):
+    """``table_pack``'s gate closure (silu), traced by make_fx over CUDA
+    tensors (the kernel runs) and over meta tensors (PackLint), has one
+    fingerprint and the same kernel nodes with the same int arguments."""
+    from repro_torch.analysis import contracts, graph_lint as gl
+
+    card = contracts.LintContext(funcs=("silu", "tanh"), device=cuda)
+    meta = contracts.LintContext(funcs=("silu", "tanh"))
+    for kind in ("value", "grad"):
+        fp = {}
+        nodes = {}
+        for ctx in (card, meta):
+            f = (ctx.value_closure if kind == "value" else ctx.grad_closure)(
+                "table_pack", "silu")
+            gm = gl.trace(f, ctx.x("silu"))
+            fp[ctx.device.type] = gl.graph_fingerprint(gm)
+            nodes[ctx.device.type] = [(n.entry, n.ints) for n in gl.kernel_nodes(gm)]
+        assert fp["cuda"] == fp["meta"], kind
+        assert nodes["cuda"] == nodes["meta"] and nodes["meta"], kind

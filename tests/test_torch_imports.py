@@ -1,9 +1,10 @@
 """The port stands alone: no module of ``repro_torch``, and not
 ``chip_smoke.py``, ``examples/quickstart_torch.py``,
-``examples/serve_decode_torch.py`` or ``tools/torch_obs_report.py``, imports
-JAX or anything of the JAX package ``repro`` (the quickstart's run is
-checked in tests/test_torch_paper.py, the serving example's and the report
-CLI's in tests/test_torch_obs.py).
+``examples/serve_decode_torch.py``, ``tools/torch_obs_report.py`` or
+``tools/torch_check_contracts.py``, imports JAX or anything of the JAX
+package ``repro`` (the quickstart's run is checked in
+tests/test_torch_paper.py, the serving example's and the report CLI's in
+tests/test_torch_obs.py, the lint CLI's in tests/test_torch_contracts.py).
 
 Checked twice: by importing every module in a fresh interpreter and looking
 at ``sys.modules``, and by an AST scan of the sources (which also catches an
@@ -45,7 +46,8 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.configs.internvl2_1b", "repro_torch.obs.report",
               "repro_torch.parallel", "repro_torch.parallel.sharding",
               "repro_torch.parallel.params", "repro_torch.parallel.cache_specs",
-              "repro_torch.launch.mesh"):
+              "repro_torch.launch.mesh", "repro_torch.kernels.ops",
+              "repro_torch.analysis.contracts", "repro_torch.analysis.graph_lint"):
         assert m in mods, m
     code = (
         "import importlib, json, sys\n"
@@ -76,7 +78,8 @@ def _imported_roots(path: Path):
     "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "examples" / "quickstart_torch.py",
                                          ROOT / "examples" / "serve_decode_torch.py",
-                                         ROOT / "tools" / "torch_obs_report.py"],
+                                         ROOT / "tools" / "torch_obs_report.py",
+                                         ROOT / "tools" / "torch_check_contracts.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_has_no_jax_or_repro_import(path):
     bad = [(m, ln) for m, ln in _imported_roots(path) if m in FORBIDDEN]

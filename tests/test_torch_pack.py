@@ -676,3 +676,70 @@ def test_softmax_table_matches_reference():
             got = tc.softmax(torch.from_numpy(x), where=None if w is None else
                              torch.from_numpy(w), device="cpu").numpy()
             np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+# --------------------------------------------------------------------------------------
+# The packs' shared-memory residency reports (``smem()``)
+# --------------------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def folded_layout():
+    from repro_torch.approx import FOLDED_CORE_MEMBERS
+    from repro_torch.core import pack_layout
+
+    names = NAMES + FOLDED_CORE_MEMBERS  # stablelm's pack with rope_table's cores
+    lay = pack_layout([cached_table(n, 1e-4, omega=0.2) for n in names])
+    return lay, table_pack.from_layout(lay, "cpu")
+
+
+@pytest.mark.parametrize("image", ["whole", "flash", "sin", "exp", "log"])
+def test_smem_report_is_the_built_image(image, folded_layout):
+    """``PackLayout.smem(members)`` prices, byte for byte, the staging image
+    the pack builds: the whole pack's (``TablePack.image``), TableFlash's
+    (``flash_image``) and each fold's (``fold_images``), at stablelm-3b's
+    settings (e_a 1e-4, omega 0.2), all staged whole (under 48 KB)."""
+    from repro_torch.approx import FOLDABLE
+
+    lay, tp = folded_layout
+    if image == "whole":
+        report, (built, m_img) = lay.smem(), tp.image
+    elif image == "flash":
+        report, (built, m_img) = lay.smem(("exp_neg",)), tp.flash_image
+    else:
+        report, (built, m_img) = lay.smem(FOLDABLE[image]), tp.fold_images[image]
+    assert report.image_bytes == built.numel() * built.element_size()
+    assert report.table_bytes == 4 * m_img and report.meta_bytes > 0
+    assert report.budget_bytes == 48 * 1024 and report.fits and report.staging == "image"
+
+
+def test_smem_report_past_the_budget():
+    """exp_neg at e_a 3e-9 (chip_smoke's phase 3 case) has an image past
+    48 KB: the report says the image is not staged, and what the launch
+    stages instead (the row alone: the values do not fit either)."""
+    from repro_torch.core import pack_layout
+
+    lay = pack_layout([cached_table("exp_neg", 3e-9)])
+    report = lay.smem(("exp_neg",))
+    built, _ = table_pack.from_layout(lay, "cpu").flash_image
+    assert report.image_bytes == built.numel() * 4 > 48 * 1024
+    assert not report.fits and report.staging == report.fallback == "meta"
+    assert report.fallback_bytes == 4 * (4 * lay.n_max + 1)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+def test_smem_report_is_the_sharded_image(n_shards, folded_layout):
+    """``ShardedPackLayout.smem()`` prices ``ShardedTablePack.image``; the
+    value kernels' fallback stages the member's rows and the range's slab,
+    all the shards (``shard=None``) or one."""
+    from repro_torch.core import shard_pack_layout
+
+    lay, _ = folded_layout
+    sl = shard_pack_layout(lay, n_shards)
+    sp = table_pack.from_sharded_layout(sl, "cpu")
+    report, one = sl.smem(), sl.smem(shard=n_shards - 1)
+    assert report.image_bytes == sp.image[0].numel() * 4 == one.image_bytes
+    assert report.table_bytes == sp.values.numel() * 4
+    assert one.fallback_bytes <= report.fallback_bytes
+    with pytest.raises(IndexError):
+        sl.smem(shard=n_shards)

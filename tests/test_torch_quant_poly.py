@@ -696,3 +696,40 @@ def test_exact_d1_is_the_registry_derivative():
         f = ApproxConfig(mode=mode, e_a=EA, omega=OMEGA, exact_grad=True).unary("silu", "cpu")
         _, g = _grad(f, x, torch.ones_like(x))
         assert torch.equal(g, d1(x))
+
+
+# --------------------------------------------------------------------------------------
+# The packs' shared-memory residency reports (``smem()``)
+# --------------------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def layouts():
+    """The quantized layout and the planner's plan of stablelm-3b's packs,
+    as build_quant_pack / build_poly_pack make them."""
+    quant = packing.quant_pack_layout(
+        [quantize.plan_quant_member(n, EA, omega=OMEGA) for n in NAMES])
+    plan = design.plan(list(NAMES), EA, None, dtypes=design.POLY_DTYPES,
+                       algorithm="hierarchical", omega=OMEGA, rho=0.9)
+    return quant, plan
+
+
+@pytest.mark.parametrize("kind", PACKS)
+def test_smem_report_is_the_built_image(kind, layouts, request):
+    """``QuantPackLayout.smem()`` / ``PolyPackLayout.smem()`` price, byte for
+    byte, the staging image the pack builds (``QuantTablePack.image``,
+    ``PolyTablePack.image``) at stablelm-3b's settings, staged whole; the
+    planner's ``PackPlan.smem()`` is the poly pack's."""
+    _, tp = request.getfixturevalue(kind)
+    if kind == "quant":
+        layout = layouts[0]
+    elif kind == "poly":
+        layout = packing.poly_pack_layout(list(layouts[1].members))
+        assert layouts[1].smem() == layout.smem()
+    else:
+        layout = packing.poly_pack_layout(
+            [design.poly_member(n, EA, degree=d, bits=b) for n, d, b in MIXED])
+    report = layout.smem()
+    assert report.image_bytes == tp.image.numel() * tp.image.element_size()
+    assert report.budget_bytes == 48 * 1024 and report.staging == "image"
+    assert 0 < report.table_bytes < report.image_bytes

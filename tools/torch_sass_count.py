@@ -29,26 +29,13 @@ import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "src"))
 from torch_sass_diff import library  # noqa: E402
 
-_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+from repro_torch.analysis.sass import functions, opcode  # noqa: E402
+
 _BRANCH = re.compile(r"\bBRA(?:\.\S+)?\s+(?:`\()?(0x[0-9a-f]+)")
-
-
-def functions(cuobjdump: str, lib: str) -> dict:
-    """{mangled kernel name: [(offset, instruction text)]}."""
-    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
-                          check=True).stdout
-    out, cur = {}, None
-    for line in sass.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            cur = out.setdefault(m.group(1), [])
-            continue
-        m = _INSTR.search(line)
-        if cur is not None and m:
-            cur.append((int(m.group(1), 16), m.group(2)))
-    return out
 
 
 def demangle(names):
@@ -57,15 +44,6 @@ def demangle(names):
         return {n: n for n in names}
     res = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True)
     return dict(zip(names, res.stdout.splitlines()))
-
-
-def opcode(text: str) -> str:
-    """The opcode of an instruction, its predicate dropped (``@!P0 BRA`` ->
-    ``BRA``), its modifiers kept (``LDS.128``)."""
-    parts = text.split()
-    if parts and parts[0].startswith("@"):
-        parts = parts[1:]
-    return parts[0] if parts else ""
 
 
 def loops(instrs):
@@ -103,7 +81,7 @@ def main(argv=None) -> int:
     if not os.path.exists(cuobjdump):
         print("torch_sass_count: cuobjdump not found", file=sys.stderr)
         return 2
-    funcs = functions(cuobjdump, library(args.checkout, args.source))
+    funcs = functions(library(args.checkout, args.source), cuobjdump)
     names = sorted(k for k in funcs if any(re.search(p, k) for p in args.patterns))
     pretty = demangle(names)
     for k in names:
