@@ -378,6 +378,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    path is counted apart), and each belongs to a row of
    ``KERNEL_ALLOWED``.  The counts of
    each part are printed.
+45. the dry run against the card (``repro_torch.launch.dryrun``):
+   full-width stablelm-3b in ``table_pack`` with TableFlash on a 1 x 1 NCCL
+   mesh, its cells placed by the dry run (bf16 params serving): decode at
+   (B 4, cache 256) and (B 1, cache 32,768), a (1, 4,096) prefill, and one
+   WUS training step at 8 of 32 layers (batch 8 x 128, accum 2, remat), each
+   run on the card in one process while one process a cell traces it over
+   fake CUDA tensors on a fake world of one (depths 2 and 3 serving, 1 and 2
+   training, carried to the cell's): the FLOPs must equal ``FlopCounterMode``'s over the card's
+   step, the predicted peak must be within 5% of
+   ``torch.cuda.max_memory_allocated()`` over it (reset just before, only
+   the step's arguments on the card), the meshed greedy decode (a prefill
+   of 16 tokens, 4 steps) must give the unmeshed port's tokens and logits
+   (within 1e-6), and each cell's step must launch the kernels its code
+   derives, counted over that step alone (``dryrun_launches_wanted``:
+   ``tp_pack_lookup`` once a layer and ``tp_tableflash_exp`` twice a layer
+   and chunk pair serving, ``tp_pack_grad`` as phase 6's count a layer and
+   the exponents forward and in recompute training); each cell's step ms
+   is printed beside its roofline bound
+   on one card (``analysis.cost_model``, the datasheet peaks), and the
+   card's ``total_memory``.
 
 Each phase prints its wall seconds (``phase N: ...s``) and the run ends
 with all of them in one line.  The line before the last is one JSON object
@@ -388,8 +408,9 @@ theirs in phases 29-30, ``table_pack_lookup``, ``tableflash_exp`` and
 ``encdec_vlm_launches``, theirs in phases 31-33, 35-37 and 39-40, and the
 kernels phase 42 runs ``obs_launches``, theirs with the telemetry on, and
 ``sharded_pack_lookup`` ``mesh_launches`` and ``mesh_rank_launches``,
-phase 43's training and ranks'); the last line is ``{"ok": true, "device":
-{...}}``.
+phase 43's training and ranks', and ``table_pack_lookup``,
+``tableflash_exp`` and ``table_pack_grad`` ``dryrun_launches``, phase
+45's card runs'); the last line is ``{"ok": true, "device": {...}}``.
 Without a card, or outside a checkout of the repository, the script exits
 non-zero and prints no result.
 """
@@ -501,6 +522,16 @@ OBS_ROUTING = ("gelu", "silu", "tanh", "gelu")  # phase 42's routed_fn rows
 # shard, so that the pack is placed and its gate runs the mesh branch
 MESH_RANKS = (2, 4)
 MESH_RANK_TIMEOUT = 240  # seconds a rank group may take
+# phase 45: the dry run against the card.  stablelm-3b in table_pack with
+# TableFlash (phase 4's mode) on a 1 x 1 mesh, bf16 params serving: decode at
+# the launcher's (B 4, cache 256), one row of decode_32k (B 1, cache 32,768:
+# 10.7 GB of bf16 cache at 32 layers), a prefill of (1, 4,096), and one WUS
+# training step at NON_MAIN_TRAIN_LAYERS layers (batch 8 x 128, accum 2,
+# remat): (kind, sequence or cache length, batch, accumulation)
+DRYRUN_CELLS = (("decode", CACHE_LEN, BATCH, None), ("decode", 32768, 1, None),
+                ("prefill", 4096, 1, None), ("train", TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM))
+DRYRUN_PEAK_RTOL = 0.05  # the predicted peak against max_memory_allocated
+DRYRUN_TIMEOUT = 240  # seconds the phase's processes may take
 
 
 class SmokeError(RuntimeError):
@@ -2311,7 +2342,9 @@ def sharded_serving_path(smi_line, gate_calls):
     with torch.inference_mode():
         _, cache = models["table_pack"].prefill(
             params, {"tokens": rows}, models["table_pack"].init_cache(BATCH, CACHE_LEN))
-        for rnd in range(4):
+        # two alternating rounds (four until phase 45 came: the run passed
+        # 800 s on a slow host)
+        for rnd in range(2):
             order = list(models.items()) if rnd % 2 == 0 else list(models.items())[::-1]
             for mode, m in order:
                 _mean_ms(lambda: m.decode_step(params, rows[:, -1:], pos, cache), 2)
@@ -3951,6 +3984,310 @@ def contracts_phase():
         f"{f.subject}: {f.detail}" for f in bad[:6]))
 
 
+def _dryrun_model(n_layers=None):
+    from repro_torch.models import build_model, get_config
+
+    cfg = _with_mode(get_config("stablelm-3b"), "table_pack", attn_table=True)
+    return build_model(cfg if n_layers is None else cfg.replace(n_layers=n_layers), "cuda")
+
+
+def _dryrun_shape(cell):
+    from repro_torch.models import ShapeSpec
+
+    kind, seq, batch, _ = cell
+    return ShapeSpec(f"{kind}_{batch}x{seq}", seq, batch, kind)
+
+
+def _dryrun_fake(cell):
+    """Phase 45, one process a cell: the dry run's prediction of the cell
+    (``launch.dryrun.trace_on_mesh``: fake CUDA tensors on a 1 x 1 mesh of a
+    fake world of one, the step traced at two cut depths and carried to the
+    cell's)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_fake_process_group
+
+    init_fake_process_group(1)
+    try:
+        mesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                          mesh_dim_names=("data", "model"))
+        model = _dryrun_model(NON_MAIN_TRAIN_LAYERS if cell[0] == "train" else None)
+        t0 = time.perf_counter()
+        rec = dryrun.trace_on_mesh(model, _dryrun_shape(cell), mesh, "base", "cuda", cell[3])
+        return {"fake": rec, "trace_s": time.perf_counter() - t0}
+    finally:
+        dist.destroy_process_group()
+
+
+def _dryrun_real():
+    """Phase 45's card half, on a 1 x 1 NCCL mesh: each cell placed by the
+    dry run (``launch.dryrun.place_cell``, random weights from seed 0) and
+    run for real, its FLOPs (``FlopCounterMode``),
+    ``torch.cuda.max_memory_allocated()`` and kernel launches over the step
+    (each reset just before it, only the step's arguments alive), then its
+    ms in a second run.  The launcher's decode cell first serves a prefill
+    and 4 greedy steps on the mesh against the same on plain tensors
+    (tokens equal, logits within 1e-6); their launches are not the cells'."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh(1, 1, "cuda")
+    rng = np.random.default_rng(45)
+    weights = lambda m: m.init(torch.Generator(device="cuda").manual_seed(0))
+    ints = lambda hi, *shape: torch.from_numpy(
+        rng.integers(0, hi, shape).astype(np.int32)).cuda()
+
+    def measure(cell):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        with dryrun.quiet_propagation(), FlopCounterMode(display=False) as fc:
+            res = cell.run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: v for k, v in _lib.launches.items() if v}
+        del res
+        t0 = time.perf_counter()
+        res = cell.run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        del res
+        return {"flops": int(fc.get_total_flops()), "peak": int(peak), "ms": ms,
+                "launches": launches}
+
+    t0 = time.perf_counter()
+    try:
+        model = _dryrun_model()
+        V = model.cfg.vocab
+        out = {"cells": [], "seconds": {"setup": time.perf_counter() - t0}}
+        for cell in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            kind, seq, B, accum = cell
+            shape = _dryrun_shape(cell)
+            if kind == "train":
+                del model
+                m8 = _dryrun_model(NON_MAIN_TRAIN_LAYERS)
+                c = dryrun.place_cell(m8, shape, mesh, "base", weights(m8),
+                                      {"tokens": ints(V, B, seq), "targets": ints(V, B, seq)},
+                                      accum=accum)
+                out["cells"].append(measure(c))
+                del c
+                out["seconds"][kind] = time.perf_counter() - t0
+                continue
+            batch = ({"tok": ints(V, B, 1), "pos": torch.tensor(16, dtype=torch.int32,
+                                                                 device="cuda")}
+                     if kind == "decode" else {"tokens": ints(V, B, seq)})
+            # each cell draws and places its own weights (the f32 draw freed
+            # as placing returns): only the cell's arguments are on the card
+            c = dryrun.place_cell(model, shape, mesh, "base", weights(model), batch,
+                                  model.init_cache(B, seq))
+            del batch
+            if cell is DRYRUN_CELLS[0]:
+                out["decode_check"] = _dryrun_decode_check(model, c, mesh, cell, ints)
+            out["cells"].append(measure(c))
+            del c
+            out["seconds"][_dryrun_shape(cell).name] = time.perf_counter() - t0
+        out["total_memory"] = torch.cuda.get_device_properties(0).total_memory
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _dryrun_decode_check(model, placed, mesh, cell, ints):
+    """Greedy decode of the launcher's cell on the mesh (the dry run's
+    placement, ``placed``) and on plain tensors (the same weights: the
+    placed params' local shards, whole on a 1 x 1 mesh): a prefill of 16
+    tokens, then 4 steps."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.sharding import use_sharding
+    from repro_torch.tree import tree_map
+
+    kind, seq, B, _ = cell
+    params = tree_map(lambda t: t.to_local(), placed.args[0])
+    prompts = ints(model.cfg.vocab, B, 16)
+    pos = lambda i: torch.tensor(16 + i, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        lg, c = model.prefill(params, {"tokens": prompts}, model.init_cache(B, seq))
+        plain, toks = [lg.float()], []
+        for i in range(4):
+            tok = torch.argmax(lg, dim=-1)[:, None].to(torch.int32)
+            toks.append(tok)
+            lg, c = model.decode_step(params, tok, pos(i), c)
+            plain.append(lg.float())
+        del c
+        work, cache = placed.args[0], model.init_cache(B, seq)
+        cache = dryrun.place_cell(model, _dryrun_shape(cell), mesh, "base", params,
+                                  {"tok": toks[0], "pos": pos(0)}, cache).args[3]
+        bax = dryrun.batch_axes(placed.rules, mesh, B)
+        with use_sharding(mesh, placed.rules):
+            lg, c = model.prefill(work, dryrun.place_batch({"tokens": prompts}, mesh, bax),
+                                  cache)
+            meshed, mtoks = [lg.full_tensor().float()], []
+            for i in range(4):
+                tok = torch.argmax(lg.full_tensor(), dim=-1)[:, None].to(torch.int32)
+                mtoks.append(tok)
+                lg, c = model.decode_step(
+                    work, dryrun.place_batch({"tok": tok}, mesh, bax)["tok"], pos(i), c)
+                meshed.append(lg.full_tensor().float())
+        del c, work, cache, params
+    err = max(float((a - b).abs().max()) for a, b in zip(meshed, plain))
+    same = all(torch.equal(a, b) for a, b in zip(mtoks, toks))
+    return {"max_abs_err": err, "tokens_equal": same,
+            "tokens": [t[:, 0].tolist() for t in toks]}
+
+
+def _dryrun_worker(rank, out):
+    """Phase 45, one spawned process: rank 0 runs the cells on the card,
+    rank i > 0 traces cell i - 1.  Writes ``out/dryrun<rank>.json``."""
+    import faulthandler
+    import traceback
+
+    res = {"rank": rank, "ok": False, "started": time.time()}
+    err = open(os.path.join(out, f"dryrun{rank}.err"), "w")
+    faulthandler.enable(err)
+    try:
+        import torch
+
+        sys.path.insert(0, str(REPO / "src"))
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        res.update(_dryrun_real() if rank == 0 else _dryrun_fake(DRYRUN_CELLS[rank - 1]))
+        res["ok"] = True
+    except BaseException:
+        res["error"] = traceback.format_exc()[-3000:]
+    res["wall_s"] = time.time() - res["started"]
+    with open(os.path.join(out, f"dryrun{rank}.json"), "w") as f:
+        json.dump(res, f)
+    faulthandler.disable()
+    err.close()
+
+
+def dryrun_launches_wanted(cell, per_layer):
+    """A phase-45 cell's launches over its step, from the code (stablelm-3b,
+    table_pack + TableFlash; ``per_layer`` is phase 6's table_pack_grad
+    launches a layer and micro-batch).  Serving: each layer's gate once, and
+    the two running-softmax exponents once a layer and (query chunk, kv
+    chunk) pair (decode: one query over the cache).  Training: the gate's
+    values and slopes and the exponents' slopes through table_pack_grad
+    (``grad_launches``), the exponents' values in the forward and in remat's
+    recompute, a micro-batch."""
+    import types
+
+    from repro_torch.models import get_config
+
+    kind, seq, _, accum = cell
+    cfg = get_config("stablelm-3b")
+    if kind != "train":
+        return {"table_pack_lookup": gate_calls(cfg) * cfg.n_layers,
+                "tableflash_exp": 2 * cfg.n_layers * attn_chunks(1 if kind == "decode"
+                                                                 else seq, seq)}
+    cfg = cfg.replace(n_layers=NON_MAIN_TRAIN_LAYERS)
+    return {"table_pack_grad": grad_launches(types.SimpleNamespace(cfg=cfg), per_layer) * accum,
+            "tableflash_exp": 2 * 2 * cfg.n_layers * attn_chunks(seq, seq) * accum}
+
+
+def dryrun_phase(smi_line, per_layer):
+    """Phase 45: the dry run's prediction of each cell (one process a cell)
+    against the card's run of it (one process, started together): the FLOPs
+    equal, the peak within DRYRUN_PEAK_RTOL of max_memory_allocated, the
+    meshed greedy decode equal to the plain one, and each cell's launches
+    the ones its step derives (``dryrun_launches_wanted``).  Prints each
+    cell's step ms beside its roofline bound on one card.  Returns the
+    cells' launches, summed."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    from repro_torch.analysis import cost_model, roofline
+    from repro_torch.models import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = len(DRYRUN_CELLS) + 1
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_dryrun_worker, args=(tmp,), nprocs=n, join=False,
+                                 start_method="spawn")
+        t0 = time.perf_counter()
+        try:
+            while not ctx.join(timeout=2):
+                if time.perf_counter() - t0 > DRYRUN_TIMEOUT:
+                    for p in ctx.processes:
+                        p.kill()
+                    raise SmokeError(f"the dry-run processes did not finish in "
+                                     f"{DRYRUN_TIMEOUT} s\n{_rank_faults(tmp, n)}")
+        except ProcessException as e:
+            raise SmokeError(f"dry-run processes: {e}") from None
+        res = []
+        for r in range(n):
+            path = os.path.join(tmp, f"dryrun{r}.json")
+            check(os.path.exists(path), f"dry-run process {r} wrote no result")
+            with open(path) as f:
+                res.append(json.load(f))
+    for r in res:
+        check(r["ok"], f"dry-run process {r['rank']} failed:\n{r.get('error')}")
+    real = res[0]
+    dc = real["decode_check"]
+    faults = []
+    if not (dc["tokens_equal"] and dc["max_abs_err"] <= 1e-6):
+        faults.append(f"meshed greedy decode vs plain: tokens equal {dc['tokens_equal']}, "
+                      f"logits off by {dc['max_abs_err']}")
+    c = dict.fromkeys(("table_pack_lookup", "tableflash_exp", "table_pack_grad"), 0)
+    base = get_config("stablelm-3b")
+    for cell, got, fk in zip(DRYRUN_CELLS, real["cells"], res[1:]):
+        pred = fk["fake"]
+        shape = _dryrun_shape(cell)
+        gap = pred["memory"]["peak_size_in_bytes"] / got["peak"] - 1
+        if pred["flops_per_device"] != got["flops"]:
+            faults.append(f"{shape.name}: the dry run's FLOPs {pred['flops_per_device']} != "
+                          f"the card run's {got['flops']}")
+        if abs(gap) > DRYRUN_PEAK_RTOL:
+            faults.append(f"{shape.name}: predicted peak {pred['memory']['peak_size_in_bytes']}"
+                          f" B vs max_memory_allocated {got['peak']} B ({gap:+.2%})")
+        want = dryrun_launches_wanted(cell, per_layer)
+        if got["launches"] != want:
+            faults.append(f"{shape.name}: the step launched {got['launches']}, not {want}")
+        for k, v in got["launches"].items():
+            c[k] = c.get(k, 0) + v
+        cfg = base.replace(n_layers=NON_MAIN_TRAIN_LAYERS) if cell[0] == "train" else base
+        cc = cost_model.cell_costs(cfg, shape, n_chips=1, data_shards=1, model_shards=1,
+                                   pods=1)
+        t_bound = max(cc.flops_dev / roofline.PEAK_FLOPS, cc.hbm_bytes_dev / roofline.HBM_BW)
+        log(f"dryrun: {shape.name} ({cell[0]}, {pred['trace']}): FLOPs {got['flops']} "
+            f"real, {pred['flops_per_device']} predicted; peak {pred['memory']['peak_size_in_bytes']} B predicted, "
+            f"{got['peak']} B max_memory_allocated ({gap:+.3%}); args "
+            f"{pred['memory']['argument_size_in_bytes']} B; traced in {fk['trace_s']:.1f} s; "
+            f"step {got['ms']:.2f} ms, roofline bound {t_bound * 1e3:.3f} ms "
+            f"(fraction {t_bound * 1e3 / got['ms']:.4f}); launches {got['launches']} "
+            f"[{smi_line}]")
+    log(f"dryrun: meshed greedy decode equal to plain (logits off by {dc['max_abs_err']}), "
+        f"tokens {dc['tokens']}; the cells' launches {c}; total_memory "
+        f"{real['total_memory']} B [{smi_line}]")
+    parts = ", ".join("%s %.1f" % kv for kv in real["seconds"].items())
+    traces = ", ".join("%.1f" % r["wall_s"] for r in res[1:])
+    log(f"dryrun: process seconds (from spawn): card {res[0]['wall_s']:.1f} ({parts}), "
+        f"traces {traces}")
+    check(not faults, "; ".join(faults))
+    return c
+
+
 def main() -> int:
     try:
         import torch
@@ -4182,6 +4519,9 @@ def main() -> int:
         # 44: the static contracts (PackLint's meta traces, the ops, the SASS)
         with phase("44"):
             contracts_phase()
+        # 45: the dry run against the card; its launches too
+        with phase("45"):
+            dryrun_launches = dryrun_phase(smi_line, per_layer)
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -4224,6 +4564,8 @@ def main() -> int:
             kernels[-1]["encdec_vlm_launches"] = encdec_vlm_launches[kname]
         if kname in obs_launches:  # and phase 42, with the telemetry on
             kernels[-1]["obs_launches"] = obs_launches[kname]
+        if kname in ("table_pack_lookup", "tableflash_exp", "table_pack_grad"):
+            kernels[-1]["dryrun_launches"] = dryrun_launches[kname]  # and phase 45
         if kname == "sharded_pack_lookup":  # and phase 43: the mesh path
             kernels[-1]["mesh_launches"] = mesh_counts[kname]
             kernels[-1]["mesh_rank_launches"] = {str(w): v for w, v in mesh_ranks.items()}

@@ -7,6 +7,11 @@ environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), or as
 a world of one on a free local port — with ``nccl`` on the card and ``gloo``
 on the CPU.  Ranks are laid out over the mesh row-major, so the last axis
 ('model') varies fastest.
+
+:func:`init_fake_process_group` joins a world of any size in ONE process:
+rank 0 of a ``"fake"`` backend whose collectives move nothing.  Under it
+:func:`make_production_mesh` builds the (16, 16) or (2, 16, 16) mesh, and
+the dry run (``launch.dryrun``) traces a rank's step over fake tensors.
 """
 
 from __future__ import annotations
@@ -46,10 +51,29 @@ def init_process_group(device: DeviceLike = None) -> str:
     return dev.type
 
 
+def init_fake_process_group(world: int) -> None:
+    """Make this process rank 0 of a ``world``-rank process group of the
+    ``"fake"`` backend (over a ``FakeStore``: no peers, no rendezvous).  A
+    fake world of another size is replaced; any other group is an error."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"a {dist.get_backend()!r} process group is up: the "
+                               "fake world needs the process to itself")
+        if dist.get_world_size() == world:
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+
+
 def make_mesh(shape, axes, device: DeviceLike = None) -> DeviceMesh:
     """A ``shape`` mesh named ``axes`` over the world's ranks, which must
     number exactly ``prod(shape)``."""
-    dev_type = init_process_group(device)
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        dev_type = resolve_device(device).type if device is not None else "cpu"
+    else:
+        dev_type = init_process_group(device)
     need = 1
     for s in shape:
         need *= s

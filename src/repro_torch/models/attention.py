@@ -18,7 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.sharding import einsum, is_dtensor, on_local_shards, replicate_like
+from repro_torch.parallel.sharding import (batch_like, einsum, is_dtensor, on_local_shards,
+                                          replicate_like)
 
 from .common import Params, apply_rope, init_linear, linear
 
@@ -178,18 +179,18 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True, window: int =
     ``exp_fn`` routes the softmax exponent through the exp_neg table
     (TableFlash; see ``_flash_inner``).  DTensor q/k/v (a mesh) run on their
     local shards: attention is local to a batch row and a kv group, so k and
-    v are first laid out as q is (a local chunk when they are replicated)."""
+    v are first laid out as q is (a local chunk when they are replicated),
+    and a per-slot positions operand along q's batch (``batch_like``), so each
+    rank's rows see their own rows' clocks."""
     if is_dtensor(q):
-        if q_pos.dim() > 1 or k_pos.dim() > 1:
-            raise NotImplementedError("per-slot positions on a mesh: ROADMAP "
-                                      "queue 1, item 12c")
         mesh, pl = q.device_mesh, tuple(q.placements)
         k, v = k.redistribute(mesh, pl), v.redistribute(mesh, pl)
+        qp, kp = (batch_like(p, q) if p.dim() > 1 else p for p in (q_pos, k_pos))
         return on_local_shards(
-            lambda a, b, c: flash_attention(a, b, c, q_pos, k_pos, causal=causal,
-                                            window=window, q_chunk=q_chunk,
-                                            kv_chunk=kv_chunk, exp_fn=exp_fn),
-            pl, q, k, v)
+            lambda a, b, c, d, e: flash_attention(a, b, c, d, e, causal=causal,
+                                                  window=window, q_chunk=q_chunk,
+                                                  kv_chunk=kv_chunk, exp_fn=exp_fn),
+            pl, q, k, v, qp, kp)
     B, S, G, Qg, D = q.shape
     scale = D ** -0.5
     q_chunk = min(q_chunk, S)
@@ -225,8 +226,16 @@ def cache_insert(k_buf, v_buf, pos_buf, k_new, v_new, positions):
 
     k_buf/v_buf: (B, W, G, D); pos_buf: (B, W) int32 per-slot validity rows
     (-1 = empty slot).  positions: (S,) absolute shared across the batch, or
-    (B, S) per-slot; slot = position % W.  Callers pass S <= W.
+    (B, S) per-slot; slot = position % W.  Callers pass S <= W.  DTensor
+    buffers (a mesh) insert on their local shards: the new entries laid out
+    as the buffers, per-slot positions along their batch.
     """
+    if is_dtensor(k_buf):
+        mesh, kpl, ppl = k_buf.device_mesh, tuple(k_buf.placements), tuple(pos_buf.placements)
+        lay = lambda t: t.redistribute(mesh, kpl)
+        pos = batch_like(positions, k_buf) if positions.dim() > 1 else positions
+        return on_local_shards(cache_insert, (kpl, kpl, ppl), k_buf, lay(v_buf), pos_buf,
+                               lay(k_new), lay(v_new), pos)
     B, W = k_buf.shape[:2]
     pos2 = torch.atleast_2d(positions).expand(B, positions.shape[-1])
     slots = (pos2 % W).to(torch.int64)

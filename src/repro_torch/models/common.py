@@ -99,6 +99,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     ``f(ang) -> (sin, cos)`` (``ApproxConfig.rope_sin_cos()``); ``None`` keeps
     exact rotations."""
     if is_dtensor(x):  # local to a position and a head: on x's local shards
+        if positions.dim() > 1 and positions.shape[0] > 1:  # per-slot rows
+            return elementwise(lambda xl, pl: apply_rope(xl, pl, theta, sin_cos), x,
+                               positions)
         return elementwise(lambda xl: apply_rope(xl, positions, theta, sin_cos), x)
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)  # (D/2,)

@@ -1,6 +1,6 @@
 """Architecture configuration, mirrored as data from the JAX package's
-``models/config.py``: ``ArchConfig`` and ``ShapeSpec`` (the dry-run shape
-cells built from it are not carried over).
+``models/config.py``: ``ArchConfig``, ``ShapeSpec`` and the dry run's shape
+registry (``ALL_SHAPES``, ``shapes_for``).
 
 ``ArchConfig`` is the single source of truth consumed by the model constructors
 and the launcher.  One instance per ported architecture lives in
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Tuple
 
 from repro_torch.approx.activations import ApproxConfig
 
@@ -232,3 +233,24 @@ class ShapeSpec:
     seq_len: int
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+# long_500k runs only for the sub-quadratic architectures: the linear-state
+# ones and gemma3 (5:1 local:global, so 8 of its 48 layers hold a 500k KV)
+LONG_CONTEXT_ARCHS = {"xlstm-125m", "zamba2-1.2b", "gemma3-12b"}
+
+
+def shapes_for(arch: ArchConfig) -> Tuple[ShapeSpec, ...]:
+    """The dry run's shape cells of ``arch``."""
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if arch.name in LONG_CONTEXT_ARCHS:
+        out.append(LONG_500K)
+    return tuple(out)

@@ -3,12 +3,15 @@
 from __future__ import annotations
 
 import importlib
+from typing import Any, Dict
+
+import torch
 
 from repro_torch.device import DeviceLike
 from repro_torch.parallel.sharding import current_mesh, mesh_device, use_sharding
 
 from .config import (DENSE, ENCDEC, MOE, SSM_HYBRID, VLM as VLM_FAM, XLSTM, ArchConfig,
-                     MoEConfig, SSMConfig)
+                     MoEConfig, ShapeSpec, SSMConfig)
 from .transformer import VLM, BaseLM, DecoderLM, EncDecLM, HybridLM, XLSTMLM
 
 # the JAX package's ten architectures, in its order
@@ -87,3 +90,26 @@ def _construct(cfg: ArchConfig, device: DeviceLike) -> BaseLM:
     if cfg.family in (DENSE, MOE):
         return DecoderLM(cfg, device)
     raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """``"meta"`` stand-ins for a step's data inputs (shapes and dtypes, no
+    allocation; the reference's ``input_specs``).
+
+    train/prefill: the token batch (+ the stub modality inputs);
+    decode: one new token a row and the shared position (the KV cache is
+    the carried state, ``BaseLM.abstract_cache``)."""
+    B, S = shape.global_batch, shape.seq_len
+    sd = lambda *s, dtype=torch.int32: torch.empty(s, dtype=dtype, device="meta")
+    if shape.kind in ("train", "prefill"):
+        batch: Dict[str, Any] = {"tokens": sd(B, S)}
+        if shape.kind == "train":
+            batch["targets"] = sd(B, S)
+        if cfg.family == ENCDEC:
+            batch["frames"] = sd(B, cfg.enc_len, cfg.d_model, dtype=torch.float32)
+        if cfg.family == VLM_FAM:
+            batch["patches"] = sd(B, cfg.n_vis_tokens, cfg.d_vis, dtype=torch.float32)
+        return batch
+    if shape.kind == "decode":
+        return {"tok": sd(B, 1), "pos": sd()}
+    raise ValueError(shape.kind)

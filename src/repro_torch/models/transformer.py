@@ -60,8 +60,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.parallel.sharding import (is_dtensor, on_local_shards, replicate_like,
-                                           unary_on)
+from repro_torch.parallel.sharding import (elementwise, is_dtensor, on_local_shards,
+                                           replicate_like, unary_on)
 from repro_torch.parallel.sharding import shard_activation as shard
 
 from .attention import (
@@ -143,14 +143,39 @@ def _decode_positions(pos: torch.Tensor, pos_buf: torch.Tensor, W: int):
 
     ``pos`` is a () scalar (shared clock) or a (B,) vector (per-slot clocks).
     Returns ``(positions, pos_buf)``: positions (1,) or (B, 1), and a NEW
-    pos_buf with this step's entries marked valid."""
+    pos_buf with this step's entries marked valid.  A DTensor pos_buf (a
+    mesh) is marked on its local rows, a (B,) ``pos`` laid out along them."""
     pos32 = pos.to(torch.int32)
     if pos.dim() == 0:
+        return pos32[None], elementwise(lambda pb: _mark_slots(pb, pos32, W), pos_buf)
+    return pos32[:, None], elementwise(lambda pb, p: _mark_slots(pb, p, W), pos_buf, pos32)
+
+
+def _put(buf: torch.Tensor, idx, t: torch.Tensor) -> None:
+    """``buf[idx] = t`` in place: layer ``idx`` (an int, or a (group, layer)
+    pair) of a stacked cache buffer.  A DTensor buffer (its stacking dims
+    replicated, as ``cache_pspecs`` lays them) is written on its local shard,
+    ``t`` laid out as the layer's slice of it."""
+    if not is_dtensor(buf):
+        buf[idx] = t
+        return
+    from torch.distributed.tensor import Shard
+
+    n = 1 if isinstance(idx, int) else len(idx)
+    pl = [Shard(p.dim - n) if p.is_shard() else p for p in buf.placements]
+    buf.to_local()[idx].copy_(t.redistribute(buf.device_mesh, pl).to_local())
+
+
+def _mark_slots(pos_buf: torch.Tensor, pos32: torch.Tensor, W: int) -> torch.Tensor:
+    """A new (B, W) buffer with slot ``pos32 % W`` of each row set to
+    ``pos32``: a () shared clock (its slot index a 1-element tensor, so no
+    host read) or a (B,) clock a row."""
+    if pos32.dim() == 0:
         pb = pos_buf.clone()
-        pb[:, pos32 % W] = pos32
-        return pos32[None], pb
-    b = torch.arange(pos.shape[0], device=pos.device)
-    return pos32[:, None], pos_buf.index_put((b, (pos32 % W).long()), pos32)
+        pb[:, (pos32 % W).reshape(1)] = pos32
+        return pb
+    b = torch.arange(pos32.shape[0], device=pos32.device)
+    return pos_buf.index_put((b, (pos32 % W).long()), pos32)
 
 
 class BaseLM:
@@ -195,6 +220,11 @@ class BaseLM:
             self.device = dev
         return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
                         params)
+
+    def abstract_cache(self, batch: int, cache_len: int) -> Cache:
+        """The decode cache as ``"meta"`` tensors (the reference's
+        ``abstract_cache``)."""
+        return self.init_cache(batch, cache_len, device="meta")
 
     def loss(self, params, batch):
         logits, aux = self.train_logits(params, batch)
@@ -394,10 +424,11 @@ class DecoderLM(BaseLM):
         return k_new, v_new, positions
 
     @staticmethod
-    def _stacked(cache, bufs):
-        """The per-layer buffers ``bufs`` (name -> list in layer order) stacked
-        into ``cache``'s layout."""
-        return {n: torch.stack(b).reshape(cache[n].shape) for n, b in bufs.items()}
+    def _new_buffers(cache):
+        """Empty k/v buffers in ``cache``'s layout, which each layer's new
+        buffers are written into as the layer finishes (:func:`_put`): the new
+        cache is held once, not as a list of layers and then their stack."""
+        return {n: torch.empty_like(t) for n, t in cache.items() if not n.endswith("pos")}
 
     # --------------------------- prefill / decode ------------------------------------
 
@@ -413,30 +444,29 @@ class DecoderLM(BaseLM):
         0..S-1, each layer's k/v inserted into the cache: x and the new
         cache."""
         positions = torch.arange(x.shape[1], device=x.device)
-        bufs = {n: [] for n in cache if not n.endswith("pos")}
-        pbs = {}
+        new, pbs = self._new_buffers(cache), {}
         for lp, window, pre, idx in self._stack(params):
             x, (k, v), _ = self._self_block(lp, x, positions, window)
             kn, vn, pn = self._ring_window(k, v, positions, cache[pre + "pos"].shape[1])
             kb, vb, pbs[pre + "pos"] = cache_insert(
                 cache[pre + "k"][idx], cache[pre + "v"][idx], cache[pre + "pos"],
                 kn, vn, pn)
-            bufs[pre + "k"].append(kb)
-            bufs[pre + "v"].append(vb)
-        return x, {**self._stacked(cache, bufs), **pbs}
+            _put(new[pre + "k"], idx, kb)
+            _put(new[pre + "v"], idx, vb)
+        return x, {**new, **pbs}
 
     def _decode_stack(self, params, x, positions, pbs, cache):
         """Every layer's decode block over x at ``positions``, with the
         position buffers ``pbs`` (name -> this step's buffer).  Returns x and
         the new cache."""
-        bufs = {n: [] for n in cache if not n.endswith("pos")}
+        new = self._new_buffers(cache)
         for lp, window, pre, idx in self._stack(params):
             x, kb, vb = self._decode_block(lp, x, positions, window,
                                            cache[pre + "k"][idx],
                                            cache[pre + "v"][idx], pbs[pre + "pos"])
-            bufs[pre + "k"].append(kb)
-            bufs[pre + "v"].append(vb)
-        return x, {**self._stacked(cache, bufs), **pbs}
+            _put(new[pre + "k"], idx, kb)
+            _put(new[pre + "v"], idx, vb)
+        return x, {**new, **pbs}
 
     def prefill_chunked(self, params, batch, cache, chunk: int = 4096):
         """Deployment prefill for long prompts: feed ``chunk`` tokens at a
@@ -456,8 +486,13 @@ class DecoderLM(BaseLM):
 
     def _prefill_chunk_step(self, params, tok_c, positions, cache):
         x = shard(embed(params["embed"], tok_c, self.dtype), "batch", None, None)
-        pb = cache["pos"].clone()
-        pb[:, positions % pb.shape[1]] = positions.to(torch.int32)
+
+        def mark(pb):
+            pb = pb.clone()
+            pb[:, positions % pb.shape[1]] = positions.to(torch.int32)
+            return pb
+
+        pb = elementwise(mark, cache["pos"])
         x, new_cache = self._decode_stack(params, x, positions, {"pos": pb}, cache)
         return self._logits(params, x[:, -1:])[:, 0], new_cache
 

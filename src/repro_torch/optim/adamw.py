@@ -6,9 +6,13 @@ structure (nested dicts and lists of tensors) and a 0-d int32 step count.
 Every quantity is computed in f32 on the parameters' device, op for op as in
 the reference.  :func:`update` writes the new parameters and moments IN PLACE
 (no second copy of a 2.8 B-parameter model and its moments), and returns the
-same objects.  On a mesh the parameters, grads and moments are DTensors in
-one layout (the ZeRO-1 master layout): the global norm is taken over the
-mesh and the elementwise update runs on each rank's local shards.
+same objects.  On a mesh the parameters, grads and moments are DTensors,
+usually in one layout (the ZeRO-1 master layout): the global norm is taken
+over the mesh and the elementwise update runs on each rank's local shards
+of the moments' layout.  The one other layout allowed: a replicated
+parameter, its grad replicated or a pending sum, over moments in the ZeRO-1
+layout (the dry run's ``ddp``).  The grad is reduce-scattered to the
+moments' layout, the shard updated there and gathered back.
 """
 
 from __future__ import annotations
@@ -76,11 +80,22 @@ def update(cfg: AdamWConfig, params, grads, state):
 
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
                           leaves(state["v"])):
-        if is_dtensor(p):  # one layout: the update is local to each shard
-            if not p.placements == g.placements == m.placements == v.placements:
-                raise ValueError("a parameter, its grad and moments must share "
-                                 "one layout")
-            p, g, m, v = (t.to_local() for t in (p, g, m, v))
+        whole = None
+        if is_dtensor(p):  # the update is local to each shard of the moments
+            same = p.placements == g.placements == m.placements == v.placements
+            zero1 = (m.placements == v.placements
+                     and all(q.is_replicate() for q in p.placements)
+                     and not any(q.is_shard() for q in g.placements))
+            if not (same or zero1):
+                raise ValueError("a parameter, its grad and moments must share one "
+                                 "layout, or a replicated parameter and its grad "
+                                 "meet moments in another")
+            if not same:  # ZeRO-1 over replicated params: update the shard
+                whole = p
+                p = p.redistribute(m.device_mesh, m.placements)
+                g = g.redistribute(m.device_mesh, m.placements)
+            shards, p = p, p.to_local()
+            g, m, v = (t.to_local() for t in (g, m, v))
         g = g.to(torch.float32) * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
@@ -88,6 +103,9 @@ def update(cfg: AdamWConfig, params, grads, state):
         if p.dim() >= 2:  # decoupled weight decay on matrices only
             step = step + cfg.weight_decay * p.to(torch.float32)
         p.copy_(p.to(torch.float32) - lr * step)
+        if whole is not None:  # the updated shards gathered into the parameter
+            whole.to_local().copy_(shards.redistribute(whole.device_mesh,
+                                                       whole.placements).to_local())
     state["count"] = count
     return params, state, {"grad_norm": gn, "lr": lr}
 

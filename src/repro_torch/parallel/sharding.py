@@ -20,6 +20,7 @@ shape), as the reference's do.
 
 from __future__ import annotations
 
+import math
 import sys
 import threading
 from contextlib import contextmanager
@@ -228,15 +229,35 @@ def unary_on(f, x):
     return lambda v: elementwise(f, v)
 
 
+def axes_size(ax, mesh) -> int:
+    """The product of the sizes of the mesh axes ``ax`` (a name, a tuple of
+    names, or None: 1)."""
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[a] for a in (ax if isinstance(ax, tuple) else (ax,))) if ax else 1
+
+
+def divisible_axes(ax, mesh, n: int):
+    """The mesh axes ``ax`` if their sizes' product divides ``n``, else None:
+    a batch they do not divide stays replicated, as the reference's
+    ``_batch_axes`` leaves ``long_500k``'s single sequence."""
+    return ax if n % axes_size(ax, mesh) == 0 else None
+
+
 def shard_activation(x, *logical):
     """Redistribute the DTensor ``x`` to the placements the logical axes name
     under the active binding (values never change); the identity off a
-    binding and on a plain tensor."""
+    binding and on a plain tensor.  A batch dim its axes do not divide stays
+    replicated (:func:`divisible_axes`)."""
     b = getattr(_ctx, "binding", None)
     if not b or b[0] is None or not is_dtensor(x):
         return x
     mesh, rules = b
-    spec = P(*(rules.get(l) if l is not None else None for l in logical))
+
+    def axes(dim, name):
+        ax = rules.get(name) if name is not None else None
+        return divisible_axes(ax, mesh, dim) if name == "batch" else ax
+
+    spec = P(*(axes(d, name) for d, name in zip(x.shape, logical)))
     return x.redistribute(mesh, to_placements(spec, mesh))
 
 
@@ -276,17 +297,35 @@ def on_local_shards(fn, out_placements, *args):
                      in_grad_placements=grad_pl)(*args)
 
 
-def elementwise(fn, x):
+def elementwise(fn, x, *rows):
     """An elementwise ``fn`` over the DTensor ``x``'s local shards (output
-    placed as x); ``fn(x)`` on a plain tensor."""
+    placed as x); ``fn(x, *rows)`` on a plain tensor.  ``rows`` are per-row
+    operands of x (dim 0 is x's dim 0, e.g. per-slot positions), each laid
+    out along x's dim 0 (:func:`batch_like`), so a rank's local rows meet
+    their own operand rows."""
     if not is_dtensor(x):
-        return fn(x)
+        return fn(x, *rows)
     if any(p.is_partial() for p in x.placements):  # a sum not yet taken
         from torch.distributed.tensor import Replicate
 
         x = x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
                                            for p in x.placements])
-    return on_local_shards(fn, tuple(x.placements), x)
+    return on_local_shards(fn, tuple(x.placements), x, *(batch_like(r, x) for r in rows))
+
+
+def batch_like(t, x):
+    """``t``, whose dim 0 runs along the DTensor ``x``'s dim 0 (a batch of
+    per-slot positions (B, S) against activations (B, S, ...)), as a DTensor
+    on x's mesh sharded on dim 0 where x's dim 0 is and replicated
+    elsewhere.  A plain ``t`` (the same on every rank) is cut without
+    traffic; a DTensor one is redistributed."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    pl = [Shard(0) if p.is_shard(0) else Replicate() for p in x.placements]
+    if is_dtensor(t):
+        return t.redistribute(mesh, pl)
+    return distribute(t, mesh, pl)
 
 
 # ---------------- ShardedTablePack operand rules -------------------------------

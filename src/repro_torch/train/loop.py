@@ -35,9 +35,9 @@ master and the AdamW moments are DTensors in the ZeRO-1 layout
 casts the master ONCE to a bf16 work copy in the tensor-parallel layout
 (``param_pspecs``), runs the model under ``use_sharding(mesh)`` against it,
 and reshards each micro-batch's bf16 grads into the master layout before the
-f32 cast.  This slice trains the dense family there in ``table_pack``,
-``sharded_pack`` and ``sharded_pack_ref``; the other modes and families on
-a mesh wait for ROADMAP queue 1, item 12c.
+f32 cast.  The dense family trains there in ``table_pack``, ``sharded_pack``,
+``sharded_pack_ref``, ``table_ref`` and ``exact`` (``MESH_MODES``); the
+other modes and families on a mesh wait for ROADMAP queue 1, item 12c.
 """
 
 from __future__ import annotations
@@ -58,7 +58,8 @@ from repro_torch.kernels import _build
 from repro_torch.optim import adamw
 from repro_torch.parallel.params import (param_pspecs, shardings_from_specs,
                                          zero1_pspecs)
-from repro_torch.parallel.sharding import P, distribute, use_sharding
+from repro_torch.parallel.sharding import (P, distribute, is_dtensor, on_local_shards,
+                                           use_sharding)
 from repro_torch.tree import leaves, tree_map, unflatten
 
 from .checkpoint import CheckpointManager
@@ -119,6 +120,20 @@ def value_and_grad(model, params, batch):
     return loss.detach(), unflatten(params, list(grads))
 
 
+def micro_batch(batch, accum: int, a: int):
+    """Micro-batch ``a`` of ``accum``: rows [a*b, (a+1)*b) of each tensor,
+    b = B / accum.  A DTensor split over its rows (the dry run's batch over
+    the batch axes) is cut on each rank's own rows, so no micro-batch
+    gathers: ``accum`` must divide the rows a rank holds."""
+    def cut(v):
+        if is_dtensor(v) and any(p.is_shard(0) for p in v.placements):
+            return on_local_shards(lambda t: t.reshape(accum, -1, *t.shape[1:])[a],
+                                   tuple(v.placements), v)
+        return v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[a]
+
+    return {k: cut(v) for k, v in batch.items()}
+
+
 def accumulated_grads(model, params, batch, accum: int = 1):
     """``(loss, grads)`` over ``batch`` split into ``accum`` microbatches
     along the batch axis.  Each microbatch's GRADS (not its loss) are scaled
@@ -127,13 +142,11 @@ def accumulated_grads(model, params, batch, accum: int = 1):
     activations and grads are alive at a time besides the accumulator."""
     if accum == 1:
         return value_and_grad(model, params, batch)
-    micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
-             for k, v in batch.items()}
     inv = 1.0 / accum
     loss = torch.zeros((), dtype=torch.float32, device=model.device)
     acc = None
     for a in range(accum):
-        l, g = value_and_grad(model, params, {k: v[a] for k, v in micro.items()})
+        l, g = value_and_grad(model, params, micro_batch(batch, accum, a))
         loss = loss + l * inv
         g = [t.mul_(inv) for t in leaves(g)]
         if acc is None:  # 0 + g * inv, without the zeros
@@ -174,16 +187,19 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, accum: int = 1,
         if accum == 1:
             loss, gw = value_and_grad(model, pw, batch)
             return loss, _to_master(gw)
-        micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
-                 for k, v in batch.items()}
         inv = 1.0 / accum
         loss, acc = 0.0, None
         for a in range(accum):
-            l, gw = value_and_grad(model, pw, {k: v[a] for k, v in micro.items()})
+            l, gw = value_and_grad(model, pw, micro_batch(batch, accum, a))
             gm = [g * inv for g in leaves(_to_master(gw))]
             del gw
             loss = loss + l * inv
-            acc = gm if acc is None else [s + g for s, g in zip(acc, gm)]
+            if acc is None:
+                acc = gm
+            else:  # in place: one accumulator lives, not two
+                for s, g in zip(acc, gm):
+                    s.add_(g)
+            del gm
         return loss, unflatten(params, acc)
 
     def train_step(state, batch):
@@ -208,8 +224,8 @@ def init_state(model) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=model.device)}
 
 
-# what this slice trains over a mesh (ROADMAP queue 1, item 12c: the rest)
-MESH_MODES = ("table_pack", "sharded_pack", "sharded_pack_ref")
+# what trains over a mesh so far (ROADMAP queue 1, item 12c: the rest)
+MESH_MODES = ("table_pack", "sharded_pack", "sharded_pack_ref", "table_ref", "exact")
 MESH_FAMILIES = ("dense",)
 
 
@@ -219,7 +235,7 @@ def check_mesh_training(model) -> None:
     if mode not in MESH_MODES or family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"training {family!r} in approx mode {mode!r} over a mesh is not "
-            f"ported (this slice: the {'/'.join(MESH_FAMILIES)} family in "
+            f"ported (so far: the {'/'.join(MESH_FAMILIES)} family in "
             f"{', '.join(MESH_MODES)}): ROADMAP queue 1, item 12c")
 
 

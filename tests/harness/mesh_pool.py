@@ -439,3 +439,162 @@ def fault_on_one_rank(root, how):
     dist.barrier()
     res["ckpts"] = sorted(os.listdir(root)) if os.path.isdir(root) else []
     return res
+
+
+@task
+def serve_dtensor(params, prompts, refill, slot, steps, cache_len, compute_dtype):
+    """Reduced stablelm (table_pack) serving with DTensor params and a
+    DTensor cache on a (2, 2) mesh (``param_pspecs``, ``cache_pspecs``; the
+    batch over 'data', the heads over 'model'): prefill ``prompts`` (B, S),
+    ``steps`` greedy decode steps with per-slot (B,) positions, refill
+    ``slot`` from a prefill of ``refill`` (its rows scattered into the cache
+    off the mesh, the way the engine scatters them), then ``steps`` more
+    steps, the refilled slot's clock restarted.  Returns the logits of every
+    prefill and step (whole, f32), the greedy tokens fed back, and the first
+    prefill's logits again from ``prefill_chunked`` (4 tokens a chunk)."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models import build_model
+    from repro_torch.parallel.cache_specs import cache_pspecs
+    from repro_torch.parallel.params import param_pspecs, shardings_from_specs
+    from repro_torch.parallel.sharding import distribute, to_placements, use_sharding
+    from repro_torch.serving.engine import cache_batch_axes, scatter_cache_slots
+    from repro_torch.tree import tree_map
+
+    mesh = _mesh((2, 2))
+    model = build_model(_reduced_cfg("table_pack", 2).replace(compute_dtype=compute_dtype),
+                        "cpu")
+    like = _tensors(params)
+    pl = shardings_from_specs(mesh, param_pspecs(like, mesh), like)
+    dp = tree_map(lambda t, p: distribute(t, mesh, p), like, pl)
+    B, S = prompts.shape
+    fresh = model.init_cache(B, cache_len)
+    cs = cache_pspecs(fresh, mesh)
+    put = lambda c: {k: distribute(v, mesh, to_placements(cs[k], mesh)) for k, v in c.items()}
+    rows = lambda t: distribute(torch.as_tensor(t), mesh, [Shard(0), Replicate()])
+    out = {"logits": [], "tokens": [], "placements": {}}
+
+    def prefill(toks):
+        with use_sharding(mesh):
+            logits, cache = model.prefill(dp, {"tokens": rows(toks)}, put(fresh))
+        out["logits"].append(logits.full_tensor().float().numpy())
+        return logits, cache
+
+    logits, cache = prefill(prompts)
+    out["placements"] = {k: _layout(v) for k, v in cache.items()}
+    with use_sharding(mesh):  # the same prompts fed 4 tokens at a time
+        chunked, _ = model.prefill_chunked(dp, {"tokens": rows(prompts)}, put(fresh), chunk=4)
+    out["chunked"] = chunked.full_tensor().float().numpy()
+    pos = np.full((B,), S, np.int32)
+
+    def decode(logits, cache, pos):
+        for _ in range(steps):
+            tok = torch.argmax(logits.full_tensor(), dim=-1)[:, None].to(torch.int32)
+            out["tokens"].append(tok.numpy()[:, 0].copy())
+            with use_sharding(mesh):
+                logits, cache = model.decode_step(dp, rows(tok), torch.as_tensor(pos), cache)
+            out["logits"].append(logits.full_tensor().float().numpy())
+            pos = pos + 1
+        return logits, cache, pos
+
+    logits, cache, pos = decode(logits, cache, pos)
+    rlogits, rcache = prefill(refill)
+    full = lambda c: {k: v.full_tensor() for k, v in c.items()}
+    cache = put(scatter_cache_slots(full(cache), full(rcache), [slot],
+                                    cache_batch_axes(model, cache_len)))
+    lw = logits.full_tensor().clone()
+    lw[slot] = rlogits.full_tensor()[slot]
+    pos[slot] = S
+    logits = distribute(lw, mesh, [Shard(0), Replicate()])
+    decode(logits, cache, pos)
+    return out
+
+
+@task
+def decode_collectives(params, batch, cache_len):
+    """One decode step of reduced stablelm (table_pack) placed by the dry
+    run (``launch.dryrun.place_cell``, bf16 params) on a (2, 2) mesh, with
+    its collectives counted (``CommDebugMode``) and their bytes."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models import ShapeSpec, build_model
+
+    mesh = _mesh((2, 2))
+    model = build_model(_reduced_cfg("table_pack", 2), "cpu")
+    B = batch["tok"].shape[0]
+    shape = ShapeSpec("decode", cache_len, B, "decode")
+    cell = dryrun.place_cell(model, shape, mesh, "base", _tensors(params),
+                             {k: torch.as_tensor(v) for k, v in batch.items()},
+                             model.init_cache(B, cache_len))
+    return dryrun.collective_bytes(cell.run)
+
+
+@task
+def ddp_step(params, batch, lr):
+    """One train step of reduced stablelm (table_pack, f32 compute) with its
+    state placed as the dry run's ``ddp`` variant places it
+    (``launch.dryrun.place_cell``: f32 params replicated, the AdamW moments
+    ZeRO-1 over the flat mesh, the batch over every axis) on a (2, 2) mesh;
+    AdamW off the mesh on the grads that step took; and the port's unmeshed
+    step on the same weights and batch.  Then AdamW fed a grad in another
+    layout than the one it allows for its parameter and moments."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models import ShapeSpec, build_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import use_sharding
+    from repro_torch.train import loop as L
+    from repro_torch.tree import leaves, unflatten
+
+    mesh = _mesh((2, 2))
+    model = build_model(_reduced_cfg("table_pack", 2).replace(compute_dtype="float32"),
+                        "cpu")
+    batch = L.batch_to(batch, "cpu")
+    B, S = batch["tokens"].shape
+    cell = dryrun.place_cell(model, ShapeSpec("train", S, B, "train"), mesh, "ddp",
+                             _tensors(params), batch, accum=1)
+    state, placed = cell.args
+    opt = adamw.AdamWConfig(lr=lr, warmup_steps=0, total_steps=10, clip_norm=0.0)
+    update, grads = adamw.update, []
+
+    def capture(opt_cfg, p, g, st):
+        grads.append([(t.full_tensor() if hasattr(t, "full_tensor") else t).numpy().copy()
+                      for t in leaves(g)])
+        return update(opt_cfg, p, g, st)
+
+    full = lambda tree: [(t.full_tensor() if hasattr(t, "full_tensor") else t)
+                         .detach().numpy().copy() for t in leaves(tree)]
+    out = {"layout": {k: _layout(leaves(state[k] if k == "params" else state["opt"][k])[0])
+                      for k in ("params", "m")}}
+    before = full(state["params"])
+    adamw.update = capture
+    try:
+        with use_sharding(mesh, cell.rules):
+            state, metrics = L.make_train_step(model, opt)(state, placed)
+        off = _tensors(params)
+        off = {"params": off, "opt": adamw.init(off), "step": torch.zeros((), dtype=torch.int32)}
+        off, off_metrics = L.make_train_step(model, opt)(off, batch)
+    finally:
+        adamw.update = update
+    own = _tensors(params)
+    update(opt, own, unflatten(own, [torch.from_numpy(g) for g in grads[0]]), adamw.init(own))
+    out.update(loss=float(metrics["loss"]), off_loss=float(off_metrics["loss"]),
+               grads=grads[0], off_grads=grads[1],
+               delta=[b - a for a, b in zip(before, full(state["params"]))],
+               own_delta=[b - a for a, b in zip(before, full(own))],
+               off_delta=[b - a for a, b in zip(before, full(off["params"]))])
+    # refused: a replicated parameter whose grad is sharded, and a ZeRO-1
+    # parameter whose grad is replicated
+    p, m = leaves(state["params"])[0], leaves(state["opt"]["m"])[0]
+    out["refused"] = []
+    for pp, g in ((p, m.clone()), (m.clone(), p.clone())):
+        try:
+            adamw.update(opt, [pp], [g], {"m": [m.clone()], "v": [m.clone()],
+                                          "count": torch.zeros((), dtype=torch.int32)})
+            out["refused"].append(None)
+        except ValueError as e:
+            out["refused"].append(str(e))
+    return out

@@ -47,7 +47,9 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.parallel", "repro_torch.parallel.sharding",
               "repro_torch.parallel.params", "repro_torch.parallel.cache_specs",
               "repro_torch.launch.mesh", "repro_torch.kernels.ops",
-              "repro_torch.analysis.contracts", "repro_torch.analysis.graph_lint"):
+              "repro_torch.analysis.contracts", "repro_torch.analysis.graph_lint",
+              "repro_torch.launch.dryrun", "repro_torch.analysis.cost_model",
+              "repro_torch.analysis.roofline"):
         assert m in mods, m
     code = (
         "import importlib, json, sys\n"

@@ -259,13 +259,36 @@ def test_pack_on_mesh_bitwise_reference(shape, layouts, pool):
 # --------------------------------------------------------------------------------------
 
 
+# the reference's mode a port mode trains against: the pack modes hold the
+# same pack values as ``table_pack_ref``
+REF_MODE = {"table_ref": "table_ref", "exact": "exact"}
+
+
 @pytest.fixture(scope="module")
-def reference_step():
+def reference_steps():
+    """The reference step of a port mode (:func:`_reference_step` in its
+    ``REF_MODE``), made once a module."""
+    made = {}
+
+    def get(mode):
+        ref_mode = REF_MODE.get(mode, "table_pack_ref")
+        if ref_mode not in made:
+            made[ref_mode] = _reference_step(ref_mode)
+        return made[ref_mode]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def reference_step(reference_steps):
+    return reference_steps("table_pack")
+
+
+def _reference_step(ref_mode):
     """The reference's reduced stablelm (its PREAMBLE's config, in
-    ``table_pack_ref``: the same pack values as the port's three mesh modes),
-    its loss and one unsharded step, eagerly."""
+    ``ref_mode``), its loss and one unsharded step, eagerly."""
     jcfg = j_reduced("stablelm-3b").replace(d_model=64, d_ff=128, n_heads=4, n_kv_heads=4)
-    jcfg = jcfg.replace(approx=dataclasses.replace(jcfg.approx, mode="table_pack_ref"))
+    jcfg = jcfg.replace(approx=dataclasses.replace(jcfg.approx, mode=ref_mode))
     jm = j_build_model(jcfg)
     batch = make_batch(jcfg, B=8, S=16)
     jparams = jm.init(jax.random.key(0))
@@ -280,15 +303,20 @@ def reference_step():
             "first": np.asarray(jax.tree.leaves(new_state["params"])[0]),
             "params": jax.tree.map(lambda t: t.numpy(), port_params,
                                    is_leaf=lambda t: isinstance(t, torch.Tensor)),
-            "batch": {k: np.asarray(v) for k, v in batch.items()}}
+            "batch": {k: np.asarray(v) for k, v in batch.items()},
+            "jm": jm, "jparams": jparams}
 
 
-MESH_MODES = ["sharded_pack", "table_pack", "sharded_pack_ref"]
+MESH_MODES = ["sharded_pack", "table_pack", "sharded_pack_ref", "table_ref", "exact"]
+
+
+def test_mesh_modes_are_the_trainers():
+    assert sorted(MESH_MODES) == sorted(loop.MESH_MODES)
 
 
 @pytest.mark.parametrize("mode", MESH_MODES)
-def test_training_on_mesh_matches_reference(mode, reference_step, pool):
-    ref = reference_step
+def test_training_on_mesh_matches_reference(mode, reference_steps, pool):
+    ref = reference_steps(mode)
     res = _train_on_mesh(mode, 1, ref, pool)
     for r in res:
         assert abs(r["step_loss"] - ref["step_loss"]) < 0.05  # bf16 work copy
@@ -296,10 +324,10 @@ def test_training_on_mesh_matches_reference(mode, reference_step, pool):
 
 
 @pytest.mark.parametrize("mode", MESH_MODES)
-def test_training_on_mesh_accumulates_as_unmeshed(mode, reference_step, pool):
+def test_training_on_mesh_accumulates_as_unmeshed(mode, reference_steps, pool):
     """Two micro-batches: each one's grads resharded into the master layout
     and added there, against the port's unmeshed accumulation."""
-    _train_on_mesh(mode, 2, reference_step, pool)
+    _train_on_mesh(mode, 2, reference_steps(mode), pool)
 
 
 def _train_on_mesh(mode, accum, ref, pool):
@@ -342,6 +370,32 @@ def _train_on_mesh(mode, accum, ref, pool):
     return res
 
 
+def test_ddp_step_on_mesh_matches_unmeshed(reference_step, pool):
+    """The dry run's ``ddp`` placement run on real values: replicated f32
+    params over ZeRO-1 moments, the batch over the whole (2, 2) mesh.  Its
+    grads come within 1e-5 of the unmeshed step's (f32; the batch's sum is
+    taken in another order), its update is bitwise AdamW applied off the mesh
+    to its own grads (each element's update on the moments' shard), and
+    within 1e-6 of the unmeshed step's update wherever the two grads agree in
+    sign and lie off 0; every rank sees one loss.  AdamW refuses a grad in a
+    layout other than the two it allows."""
+    res = pool.run("ddp_step", params=reference_step["params"],
+                   batch=reference_step["batch"], lr=1e-3)
+    for r in res:
+        assert r["layout"] == {"params": ("R", "R"), "m": ("S0", "S0")}  # the flat mesh
+        assert abs(r["loss"] - r["off_loss"]) < 1e-5
+        for g, og, d, own, od in zip(r["grads"], r["off_grads"], r["delta"], r["own_delta"],
+                                     r["off_delta"]):
+            assert g.shape == og.shape == d.shape == od.shape
+            assert np.linalg.norm(g - og) <= 1e-5 * np.linalg.norm(og)
+            assert_bitwise(d, own)
+            assert np.abs(d).max() > 0  # the step moved the parameter
+            free = (np.sign(g) != np.sign(og)) | (np.minimum(abs(g), abs(og)) < 1e-6)
+            np.testing.assert_allclose(d[~free], od[~free], rtol=0, atol=1e-6)
+        assert [e is not None and "one layout" in e for e in r["refused"]] == [True, True]
+    assert len({r["loss"] for r in res}) == 1
+
+
 def test_engine_serves_on_mesh_as_off(reference_step, pool):
     """The engines' ``mesh=`` places the pack; a model built over the mesh
     serves the same greedy tokens as off it, its gate on the mesh."""
@@ -349,6 +403,96 @@ def test_engine_serves_on_mesh_as_off(reference_step, pool):
     for rank, r in enumerate(res):
         assert r["placed"] and r["on"] == r["off"]
         assert r["calls"] == [rank % 2] and r["n_calls"] > 0
+
+
+def test_decode_and_prefill_over_dtensors_match_reference(reference_step, pool):
+    """Serving with DTensor params and a DTensor cache on (2, 2): prefill, 3
+    decode steps with per-slot (B,) clocks, slot 1 refilled from a second
+    prefill (its clock restarted, so the slots' clocks differ), 3 more
+    steps; and the first prompts again through ``prefill_chunked`` (4
+    tokens a chunk).  Every rank's greedy tokens equal the reference's
+    UNSHARDED ``prefill`` / ``decode_step`` on the same weights, and its
+    logits (the chunked prefill's against the reference's prefill) are
+    within the bf16 tolerance of tests/test_torch_model.py.  Both compute in
+    f32: the reduced model's random weights leave near ties (top-2 margins
+    of 0.002 at logits of 0.5) that bf16 rounding flips either way."""
+    from repro.serving.engine import cache_batch_axes as j_cache_batch_axes
+    from repro.serving.engine import scatter_cache_slots as j_scatter
+
+    ref = reference_step
+    jm = j_build_model(ref["jm"].cfg.replace(compute_dtype="float32"))
+    jp = ref["jparams"]
+    B, S, T, steps, slot = 4, 8, 32, 3, 1
+    V = jm.cfg.vocab
+    rng = np.random.default_rng(5)
+    prompts, refill = (rng.integers(0, V, (B, S)).astype(np.int32) for _ in range(2))
+    res = pool.run("serve_dtensor", params=ref["params"], prompts=prompts, refill=refill,
+                   slot=slot, steps=steps, cache_len=T, compute_dtype="float32")
+    prefill, dec = jax.jit(jm.prefill), jax.jit(jm.decode_step)
+    want_logits, want_tokens = [], []
+    pos = np.full((B,), S, np.int32)
+
+    def decode(lg, c, pos):
+        for _ in range(steps):
+            tok = np.asarray(jnp.argmax(lg, -1))[:, None].astype(np.int32)
+            want_tokens.append(tok[:, 0])
+            lg, c = dec(jp, jnp.asarray(tok), jnp.asarray(pos), c)
+            want_logits.append(np.asarray(lg))
+            pos = pos + 1
+        return lg, c, pos
+
+    lg, c = prefill(jp, {"tokens": jnp.asarray(prompts)}, jm.init_cache(B, T))
+    want_logits.append(np.asarray(lg))
+    lg, c, pos = decode(lg, c, pos)
+    rl, rc = prefill(jp, {"tokens": jnp.asarray(refill)}, jm.init_cache(B, T))
+    want_logits.append(np.asarray(rl))
+    c = j_scatter(c, rc, [slot], j_cache_batch_axes(jm, T))
+    lg = np.asarray(lg).copy()
+    lg[slot] = np.asarray(rl)[slot]
+    pos[slot] = S
+    decode(jnp.asarray(lg), c, pos)
+    for r in res:
+        # the cache over the mesh: the batch over 'data', the heads over 'model'
+        assert r["placements"]["k"] == ("S1", "S3") and r["placements"]["pos"] == ("S0", "R")
+        assert len(r["tokens"]) == len(want_tokens) == 2 * steps
+        for got, want in zip(r["tokens"], want_tokens):
+            np.testing.assert_array_equal(got, want)
+        assert len(r["logits"]) == len(want_logits)
+        for got, want in zip(r["logits"] + [r["chunked"]], want_logits + want_logits[:1]):
+            got, want = got[:, :V], want[:, :V]
+            assert np.isfinite(got).all()
+            assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
+def test_dryrun_collectives_equal_real_step(reference_step, pool):
+    """The dry run's collective counts and bytes of a decode step traced on
+    a fake (2, 2) world equal ``CommDebugMode``'s over the same step run on
+    the pool's four gloo ranks."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_fake_process_group
+    from repro_torch.models import ShapeSpec
+
+    B, T = 4, 16
+    rng = np.random.default_rng(7)
+    batch = {"tok": rng.integers(0, 128, (B, 1)).astype(np.int32), "pos": np.int32(5)}
+    real = pool.run("decode_collectives", params=reference_step["params"], batch=batch,
+                    cache_len=T)
+    cfg = reduced("stablelm-3b").replace(d_model=64, d_ff=128, n_heads=4, n_kv_heads=4)
+    model = build_model(cfg.replace(approx=dataclasses.replace(cfg.approx, mode="table_pack")),
+                        "cpu")
+    init_fake_process_group(4)
+    try:
+        mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                          mesh_dim_names=("data", "model"))
+        rec = dryrun.trace_on_mesh(model, ShapeSpec("decode", T, B, "decode"), mesh)
+    finally:
+        dist.destroy_process_group()
+    assert rec["collectives"]["counts"]["all-reduce"] > 0
+    for r in real:
+        assert r == rec["collectives"]
 
 
 # --------------------------------------------------------------------------------------

@@ -349,12 +349,14 @@ def test_run_restart_resumes_the_stream(tmp_path):
     assert len(second["losses"]) == 2  # only the new steps ran
     assert first["losses"] + second["losses"] == straight["losses"]
     assert not list((tmp_path / "b").glob("*.tmp"))
-    # over a mesh the port trains table_pack and the sharded modes (item 12b,
-    # tests/test_torch_mesh.py); another mode is refused before anything runs
-    table_ref = build_model(reduced("stablelm-3b"), device="cpu")
-    assert table_ref.cfg.approx.mode == "table_ref"
+    # over a mesh the port trains table_pack, the sharded modes, table_ref and
+    # exact (tests/test_torch_mesh.py); another mode is refused before
+    # anything runs
+    cfg = reduced("stablelm-3b")
+    quant = build_model(cfg.replace(approx=dataclasses.replace(cfg.approx, mode="quant_pack")),
+                        device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        run(table_ref, shape, TrainConfig(steps=1, ckpt_dir=str(tmp_path / "c")),
+        run(quant, shape, TrainConfig(steps=1, ckpt_dir=str(tmp_path / "c")),
             mesh=object(), log=quiet)
 
 
