@@ -382,19 +382,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    full-width stablelm-3b in ``table_pack`` with TableFlash on a 1 x 1 NCCL
    mesh, its cells placed by the dry run (bf16 params serving): decode at
    (B 4, cache 256) and (B 1, cache 32,768), a (1, 4,096) prefill, and one
-   WUS training step at 8 of 32 layers (batch 8 x 128, accum 2, remat), each
+   WUS training step at 8 of 32 layers (batch 8 x 128, accum 2, remat), and
+   deepseek-moe-16b's expert-parallel MoE block on the same mesh: decode at
+   (B 4, cache 256) at 7 of its 28 layers and one WUS training step at 4
+   (batch 8 x 128, accum 2, remat), each
    run on the card in one process while one process a cell traces it over
    fake CUDA tensors on a fake world of one (depths 2 and 3 serving, 1 and 2
    training, carried to the cell's): the FLOPs must equal ``FlopCounterMode``'s over the card's
    step, the predicted peak must be within 5% of
    ``torch.cuda.max_memory_allocated()`` over it (reset just before, only
-   the step's arguments on the card), the meshed greedy decode (a prefill
-   of 16 tokens, 4 steps) must give the unmeshed port's tokens and logits
-   (within 1e-6), and each cell's step must launch the kernels its code
-   derives, counted over that step alone (``dryrun_launches_wanted``:
-   ``tp_pack_lookup`` once a layer and ``tp_tableflash_exp`` twice a layer
-   and chunk pair serving, ``tp_pack_grad`` as phase 6's count a layer and
-   the exponents forward and in recompute training); each cell's step ms
+   the step's arguments on the card), the meshed greedy decode of both
+   architectures' (B 4, cache 256) cells (a prefill of 16 tokens, 4 steps)
+   must give the unmeshed port's tokens and logits (within 1e-6), and each
+   cell's step must launch the kernels its code derives, counted over that
+   step alone (``dryrun_launches_wanted``: ``tp_pack_lookup`` once a gate
+   call of a layer, two an MoE layer, and ``tp_tableflash_exp`` twice a
+   layer and chunk pair serving, ``tp_pack_grad`` as phase 6's count a
+   layer, 2 more an MoE layer, and the exponents forward and in recompute
+   training); each cell's step ms
    is printed beside its roofline bound
    on one card (``analysis.cost_model``, the datasheet peaks), and the
    card's ``total_memory``.
@@ -409,8 +414,8 @@ theirs in phases 29-30, ``table_pack_lookup``, ``tableflash_exp`` and
 kernels phase 42 runs ``obs_launches``, theirs with the telemetry on, and
 ``sharded_pack_lookup`` ``mesh_launches`` and ``mesh_rank_launches``,
 phase 43's training and ranks', and ``table_pack_lookup``,
-``tableflash_exp`` and ``table_pack_grad`` ``dryrun_launches``, phase
-45's card runs'); the last line is ``{"ok": true, "device": {...}}``.
+``tableflash_exp`` and ``table_pack_grad`` ``dryrun_launches`` and ``dryrun_moe_launches``, phase
+45's card runs' and its MoE cells'); the last line is ``{"ok": true, "device": {...}}``.
 Without a card, or outside a checkout of the repository, the script exits
 non-zero and prints no result.
 """
@@ -527,9 +532,21 @@ MESH_RANK_TIMEOUT = 240  # seconds a rank group may take
 # the launcher's (B 4, cache 256), one row of decode_32k (B 1, cache 32,768:
 # 10.7 GB of bf16 cache at 32 layers), a prefill of (1, 4,096), and one WUS
 # training step at NON_MAIN_TRAIN_LAYERS layers (batch 8 x 128, accum 2,
-# remat): (kind, sequence or cache length, batch, accumulation)
-DRYRUN_CELLS = (("decode", CACHE_LEN, BATCH, None), ("decode", 32768, 1, None),
-                ("prefill", 4096, 1, None), ("train", TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM))
+# remat); and the MoE family's expert-parallel path on the same mesh:
+# deepseek-moe-16b's decode at the launcher's (B 4, cache 256) at
+# DEEPSEEK_SERVE_LAYERS of its 28 layers and its WUS training step at
+# MOE_TRAIN_LAYERS (phases 31-32's depths): (architecture, kind, sequence or
+# cache length, batch, accumulation, layers; None: the architecture's depth,
+# NON_MAIN_TRAIN_LAYERS for stablelm-3b's training step)
+DRYRUN_CELLS = (("stablelm-3b", "decode", CACHE_LEN, BATCH, None, None),
+                ("stablelm-3b", "decode", 32768, 1, None, None),
+                ("stablelm-3b", "prefill", 4096, 1, None, None),
+                ("stablelm-3b", "train", TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM,
+                 NON_MAIN_TRAIN_LAYERS),
+                ("deepseek-moe-16b", "decode", CACHE_LEN, BATCH, None,
+                 DEEPSEEK_SERVE_LAYERS),
+                ("deepseek-moe-16b", "train", TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM,
+                 MOE_TRAIN_LAYERS))
 DRYRUN_PEAK_RTOL = 0.05  # the predicted peak against max_memory_allocated
 DRYRUN_TIMEOUT = 240  # seconds the phase's processes may take
 
@@ -3984,18 +4001,28 @@ def contracts_phase():
         f"{f.subject}: {f.detail}" for f in bad[:6]))
 
 
-def _dryrun_model(n_layers=None):
-    from repro_torch.models import build_model, get_config
+def _dryrun_cfg(cell):
+    """A phase-45 cell's configuration: table_pack with TableFlash, at the
+    cell's depth."""
+    from repro_torch.models import get_config
 
-    cfg = _with_mode(get_config("stablelm-3b"), "table_pack", attn_table=True)
-    return build_model(cfg if n_layers is None else cfg.replace(n_layers=n_layers), "cuda")
+    arch, _, _, _, _, layers = cell
+    cfg = _with_mode(get_config(arch), "table_pack", attn_table=True)
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+def _dryrun_model(cell):
+    from repro_torch.models import build_model
+
+    return build_model(_dryrun_cfg(cell), "cuda")
 
 
 def _dryrun_shape(cell):
     from repro_torch.models import ShapeSpec
 
-    kind, seq, batch, _ = cell
-    return ShapeSpec(f"{kind}_{batch}x{seq}", seq, batch, kind)
+    arch, kind, seq, batch, _, _ = cell
+    tag = "" if arch == "stablelm-3b" else f"{arch}:"
+    return ShapeSpec(f"{tag}{kind}_{batch}x{seq}", seq, batch, kind)
 
 
 def _dryrun_fake(cell):
@@ -4014,9 +4041,9 @@ def _dryrun_fake(cell):
     try:
         mesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
                           mesh_dim_names=("data", "model"))
-        model = _dryrun_model(NON_MAIN_TRAIN_LAYERS if cell[0] == "train" else None)
+        model = _dryrun_model(cell)
         t0 = time.perf_counter()
-        rec = dryrun.trace_on_mesh(model, _dryrun_shape(cell), mesh, "base", "cuda", cell[3])
+        rec = dryrun.trace_on_mesh(model, _dryrun_shape(cell), mesh, "base", "cuda", cell[4])
         return {"fake": rec, "trace_s": time.perf_counter() - t0}
     finally:
         dist.destroy_process_group()
@@ -4028,9 +4055,10 @@ def _dryrun_real():
     run for real, its FLOPs (``FlopCounterMode``),
     ``torch.cuda.max_memory_allocated()`` and kernel launches over the step
     (each reset just before it, only the step's arguments alive), then its
-    ms in a second run.  The launcher's decode cell first serves a prefill
-    and 4 greedy steps on the mesh against the same on plain tensors
-    (tokens equal, logits within 1e-6); their launches are not the cells'."""
+    ms in a second run.  The launcher's (B 4, cache 256) decode cells first
+    serve a prefill and 4 greedy steps on the mesh against the same on plain
+    tensors (tokens equal, logits within 1e-6); their launches are not the
+    cells'."""
     import gc
 
     import numpy as np
@@ -4069,22 +4097,25 @@ def _dryrun_real():
 
     t0 = time.perf_counter()
     try:
-        model = _dryrun_model()
-        V = model.cfg.vocab
-        out = {"cells": [], "seconds": {"setup": time.perf_counter() - t0}}
+        model, built = None, None
+        out = {"cells": [], "decode_checks": {}, "seconds": {}}
         for cell in DRYRUN_CELLS:
             t0 = time.perf_counter()
-            kind, seq, B, accum = cell
+            _, kind, seq, B, accum, _ = cell
             shape = _dryrun_shape(cell)
+            cfg = _dryrun_cfg(cell)
+            if repr(cfg) != built:  # one model a configuration, the last one freed
+                model = None
+                gc.collect()
+                model, built = _dryrun_model(cell), repr(cfg)
+            V = model.cfg.vocab
             if kind == "train":
-                del model
-                m8 = _dryrun_model(NON_MAIN_TRAIN_LAYERS)
-                c = dryrun.place_cell(m8, shape, mesh, "base", weights(m8),
+                c = dryrun.place_cell(model, shape, mesh, "base", weights(model),
                                       {"tokens": ints(V, B, seq), "targets": ints(V, B, seq)},
                                       accum=accum)
                 out["cells"].append(measure(c))
                 del c
-                out["seconds"][kind] = time.perf_counter() - t0
+                out["seconds"][shape.name] = time.perf_counter() - t0
                 continue
             batch = ({"tok": ints(V, B, 1), "pos": torch.tensor(16, dtype=torch.int32,
                                                                  device="cuda")}
@@ -4094,11 +4125,12 @@ def _dryrun_real():
             c = dryrun.place_cell(model, shape, mesh, "base", weights(model), batch,
                                   model.init_cache(B, seq))
             del batch
-            if cell is DRYRUN_CELLS[0]:
-                out["decode_check"] = _dryrun_decode_check(model, c, mesh, cell, ints)
+            if kind == "decode" and (seq, B) == (CACHE_LEN, BATCH):
+                out["decode_checks"][shape.name] = _dryrun_decode_check(model, c, mesh, cell,
+                                                                        ints)
             out["cells"].append(measure(c))
             del c
-            out["seconds"][_dryrun_shape(cell).name] = time.perf_counter() - t0
+            out["seconds"][shape.name] = time.perf_counter() - t0
         out["total_memory"] = torch.cuda.get_device_properties(0).total_memory
         return out
     finally:
@@ -4106,7 +4138,7 @@ def _dryrun_real():
 
 
 def _dryrun_decode_check(model, placed, mesh, cell, ints):
-    """Greedy decode of the launcher's cell on the mesh (the dry run's
+    """Greedy decode of a (B 4, cache 256) cell on the mesh (the dry run's
     placement, ``placed``) and on plain tensors (the same weights: the
     placed params' local shards, whole on a 1 x 1 mesh): a prefill of 16
     tokens, then 4 steps."""
@@ -4116,7 +4148,7 @@ def _dryrun_decode_check(model, placed, mesh, cell, ints):
     from repro_torch.parallel.sharding import use_sharding
     from repro_torch.tree import tree_map
 
-    kind, seq, B, _ = cell
+    _, kind, seq, B, _, _ = cell
     params = tree_map(lambda t: t.to_local(), placed.args[0])
     prompts = ints(model.cfg.vocab, B, 16)
     pos = lambda i: torch.tensor(16 + i, dtype=torch.int32, device="cuda")
@@ -4178,25 +4210,24 @@ def _dryrun_worker(rank, out):
 
 
 def dryrun_launches_wanted(cell, per_layer):
-    """A phase-45 cell's launches over its step, from the code (stablelm-3b,
-    table_pack + TableFlash; ``per_layer`` is phase 6's table_pack_grad
-    launches a layer and micro-batch).  Serving: each layer's gate once, and
-    the two running-softmax exponents once a layer and (query chunk, kv
-    chunk) pair (decode: one query over the cache).  Training: the gate's
-    values and slopes and the exponents' slopes through table_pack_grad
+    """A phase-45 cell's launches over its step, from the code (table_pack +
+    TableFlash at the cell's depth; ``per_layer`` is phase 6's
+    table_pack_grad launches a stablelm layer and micro-batch).  Serving:
+    each layer's gate calls once (``gate_calls``: an MoE layer's routed
+    experts over their buffer and its shared experts), and the two
+    running-softmax exponents once a layer and (query chunk, kv chunk) pair
+    (decode: one query over the cache).  Training: the gates' values and
+    slopes and the exponents' slopes through table_pack_grad
     (``grad_launches``), the exponents' values in the forward and in remat's
     recompute, a micro-batch."""
     import types
 
-    from repro_torch.models import get_config
-
-    kind, seq, _, accum = cell
-    cfg = get_config("stablelm-3b")
+    _, kind, seq, _, accum, _ = cell
+    cfg = _dryrun_cfg(cell)
     if kind != "train":
         return {"table_pack_lookup": gate_calls(cfg) * cfg.n_layers,
                 "tableflash_exp": 2 * cfg.n_layers * attn_chunks(1 if kind == "decode"
                                                                  else seq, seq)}
-    cfg = cfg.replace(n_layers=NON_MAIN_TRAIN_LAYERS)
     return {"table_pack_grad": grad_launches(types.SimpleNamespace(cfg=cfg), per_layer) * accum,
             "tableflash_exp": 2 * 2 * cfg.n_layers * attn_chunks(seq, seq) * accum}
 
@@ -4217,7 +4248,6 @@ def dryrun_phase(smi_line, per_layer):
     from torch.multiprocessing.spawn import ProcessException
 
     from repro_torch.analysis import cost_model, roofline
-    from repro_torch.models import get_config
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4244,13 +4274,13 @@ def dryrun_phase(smi_line, per_layer):
     for r in res:
         check(r["ok"], f"dry-run process {r['rank']} failed:\n{r.get('error')}")
     real = res[0]
-    dc = real["decode_check"]
     faults = []
-    if not (dc["tokens_equal"] and dc["max_abs_err"] <= 1e-6):
-        faults.append(f"meshed greedy decode vs plain: tokens equal {dc['tokens_equal']}, "
-                      f"logits off by {dc['max_abs_err']}")
+    for name, dc in real["decode_checks"].items():
+        if not (dc["tokens_equal"] and dc["max_abs_err"] <= 1e-6):
+            faults.append(f"{name}: meshed greedy decode vs plain: tokens equal "
+                          f"{dc['tokens_equal']}, logits off by {dc['max_abs_err']}")
     c = dict.fromkeys(("table_pack_lookup", "tableflash_exp", "table_pack_grad"), 0)
-    base = get_config("stablelm-3b")
+    moe = dict(c)
     for cell, got, fk in zip(DRYRUN_CELLS, real["cells"], res[1:]):
         pred = fk["fake"]
         shape = _dryrun_shape(cell)
@@ -4266,26 +4296,31 @@ def dryrun_phase(smi_line, per_layer):
             faults.append(f"{shape.name}: the step launched {got['launches']}, not {want}")
         for k, v in got["launches"].items():
             c[k] = c.get(k, 0) + v
-        cfg = base.replace(n_layers=NON_MAIN_TRAIN_LAYERS) if cell[0] == "train" else base
+            if cell[0] != "stablelm-3b":
+                moe[k] = moe.get(k, 0) + v
+        cfg = _dryrun_cfg(cell)
         cc = cost_model.cell_costs(cfg, shape, n_chips=1, data_shards=1, model_shards=1,
                                    pods=1)
         t_bound = max(cc.flops_dev / roofline.PEAK_FLOPS, cc.hbm_bytes_dev / roofline.HBM_BW)
-        log(f"dryrun: {shape.name} ({cell[0]}, {pred['trace']}): FLOPs {got['flops']} "
+        log(f"dryrun: {shape.name} ({cell[1]}, {cfg.n_layers} layers, {pred['trace']}): "
+            f"FLOPs {got['flops']} "
             f"real, {pred['flops_per_device']} predicted; peak {pred['memory']['peak_size_in_bytes']} B predicted, "
             f"{got['peak']} B max_memory_allocated ({gap:+.3%}); args "
             f"{pred['memory']['argument_size_in_bytes']} B; traced in {fk['trace_s']:.1f} s; "
             f"step {got['ms']:.2f} ms, roofline bound {t_bound * 1e3:.3f} ms "
             f"(fraction {t_bound * 1e3 / got['ms']:.4f}); launches {got['launches']} "
             f"[{smi_line}]")
-    log(f"dryrun: meshed greedy decode equal to plain (logits off by {dc['max_abs_err']}), "
-        f"tokens {dc['tokens']}; the cells' launches {c}; total_memory "
+    for name, dc in real["decode_checks"].items():
+        log(f"dryrun: {name}: meshed greedy decode equal to plain (logits off by "
+            f"{dc['max_abs_err']}), tokens {dc['tokens']}")
+    log(f"dryrun: the cells' launches {c} (the MoE cells' {moe}); total_memory "
         f"{real['total_memory']} B [{smi_line}]")
     parts = ", ".join("%s %.1f" % kv for kv in real["seconds"].items())
     traces = ", ".join("%.1f" % r["wall_s"] for r in res[1:])
     log(f"dryrun: process seconds (from spawn): card {res[0]['wall_s']:.1f} ({parts}), "
         f"traces {traces}")
     check(not faults, "; ".join(faults))
-    return c
+    return c, moe
 
 
 def main() -> int:
@@ -4521,7 +4556,7 @@ def main() -> int:
             contracts_phase()
         # 45: the dry run against the card; its launches too
         with phase("45"):
-            dryrun_launches = dryrun_phase(smi_line, per_layer)
+            dryrun_launches, dryrun_moe_launches = dryrun_phase(smi_line, per_layer)
     except SmokeError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -4566,6 +4601,7 @@ def main() -> int:
             kernels[-1]["obs_launches"] = obs_launches[kname]
         if kname in ("table_pack_lookup", "tableflash_exp", "table_pack_grad"):
             kernels[-1]["dryrun_launches"] = dryrun_launches[kname]  # and phase 45
+            kernels[-1]["dryrun_moe_launches"] = dryrun_moe_launches[kname]  # its MoE cells
         if kname == "sharded_pack_lookup":  # and phase 43: the mesh path
             kernels[-1]["mesh_launches"] = mesh_counts[kname]
             kernels[-1]["mesh_rank_launches"] = {str(w): v for w, v in mesh_ranks.items()}

@@ -189,6 +189,16 @@ def decode_attn_read_bytes(cfg: ArchConfig, B_dev: float, pos: int) -> float:
     return B_dev * (glob + loc)  # per device (batch-sharded)
 
 
+def moe_a2a_bytes(cfg: ArchConfig, B_dev: float, S: int, variant: str = "base") -> float:
+    """The reference's ``a2a_v``: one MoE layer's dispatch (or combine) bytes
+    a device and traversal, every slot of its B_dev x S tokens at the
+    capacity factor, bf16; ``limit4`` (device-limited routing with dedup
+    transport) one row a (token, destination), at most 4 destinations."""
+    if variant == "limit4":
+        return B_dev * S * 4 * cfg.d_model * BF16
+    return B_dev * S * cfg.moe.top_k * cfg.moe.capacity_factor * cfg.d_model * BF16
+
+
 def cell_costs(cfg: ArchConfig, shape: ShapeSpec, n_chips: int = 256,
                data_shards: int = 16, model_shards: int = 16,
                pods: int = 1, variant: str = "base") -> Costs:
@@ -258,12 +268,7 @@ def cell_costs(cfg: ArchConfig, shape: ShapeSpec, n_chips: int = 256,
             weight_ag = 3 * N * BF16 / model_shards if big_model else 0.0
             coll = psum + grad_ar + weight_ag
             if cfg.family == "moe":
-                a2a_v = (B_dev * S * cfg.moe.top_k * cfg.moe.capacity_factor
-                         * d * BF16)
-                if variant == "limit4":
-                    # device-limited routing (<=4 destination shards) with
-                    # dedup transport: one embedding per (token, destination)
-                    a2a_v = B_dev * S * 4 * d * BF16
+                a2a_v = moe_a2a_bytes(cfg, B_dev, S, variant)
                 coll += cfg.n_layers * 2 * 3 * a2a_v  # dispatch+combine x3 trav
         if pods > 1:
             coll *= 1.0 + 1.0 / 8  # hierarchical cross-pod reduction surcharge
@@ -284,8 +289,7 @@ def cell_costs(cfg: ArchConfig, shape: ShapeSpec, n_chips: int = 256,
         if big_model and not fsdp:
             coll += N * BF16 / model_shards
         if cfg.family == "moe":
-            coll += cfg.n_layers * 2 * (B_dev * S * cfg.moe.top_k
-                                        * cfg.moe.capacity_factor) * d * BF16
+            coll += cfg.n_layers * 2 * moe_a2a_bytes(cfg, B_dev, S)
         return Costs(flops_dev, hbm, coll, ideal_flops_dev, 0.0)
 
     # decode: one token against a cache of length S
@@ -298,8 +302,7 @@ def cell_costs(cfg: ArchConfig, shape: ShapeSpec, n_chips: int = 256,
     hbm = N_dev * F32 + attn_read + B_dev * 1 * d * BF16 * n_layers_eff * 4
     coll = n_layers_eff * 2 * (B_dev * 1 * d * BF16) * 2
     if cfg.family == "moe":
-        coll += cfg.n_layers * 2 * (B_dev * cfg.moe.top_k
-                                    * cfg.moe.capacity_factor) * d * BF16
+        coll += cfg.n_layers * 2 * moe_a2a_bytes(cfg, B_dev, 1)
     ideal_flops_dev = 2.0 * N_act * tok / n_chips
     ideal_bytes_dev = N_dev * BF16 + attn_read
     return Costs(flops_dev, hbm, coll, ideal_flops_dev, ideal_bytes_dev)

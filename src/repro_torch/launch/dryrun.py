@@ -39,9 +39,16 @@ Placement, as in the reference:
     ``cache_pspecs``, the batch over the batch axes; a batch they do not
     divide (``long_500k``'s single row) is replicated.
 
-Only the dense family runs on a mesh so far (``train.loop.MESH_FAMILIES``).
-The other families' cells, and the MoE variants ``cf10`` and ``limit4``, are
-recorded ``not_ported`` (ROADMAP queue 1, item 12c).
+The dense and MoE families run on a mesh so far (``train.loop.MESH_FAMILIES``;
+the MoE block with expert parallelism, ``models.mlp.moe_on_mesh``, and the
+MoE variants ``cf10`` and ``limit4``).  The other families' cells are
+recorded ``not_ported`` (ROADMAP queue 1, item 12c).  An MoE training cell
+that accumulates cuts each micro-batch from every rank's own rows, as the
+dense ones do, so its micro-batch ``a`` holds other tokens than the
+reference's global rows [a*b, (a+1)*b): the same step on the batch with its
+rows permuted.  The capacity, the buffer shapes, and so the FLOPs, memory
+and collectives, depend on the micro-batch's token count alone; which slots
+drop depends on its tokens.
 
 An eager trace of a whole step costs an hour or more for a train or
 prefill cell on the CPU, so each step is traced at two cut depths and
@@ -504,12 +511,40 @@ def trace_on_mesh(model, shape, mesh, variant: str = "base", device="cpu",
             "trace": {"depths": list(depths), "micro_batches": list(micros)}}
 
 
+def moe_exchange(cfg, shape, mesh, variant: str, accum: int) -> Dict[str, Any]:
+    """An MoE cell's dispatch exchange (``models.mlp.moe_on_mesh``), by the
+    layout's arithmetic: a micro-batch's global capacity C, C_pad, the rows
+    each rank computes of each of its E_loc experts, the E_col experts of
+    its column, and the bytes one layer's buffer moves a traversal (the
+    reduce-scatter's input, the all-gather's result: E_col x C_pad x d_model
+    bf16 a micro-batch, over the step's micro-batches) beside the cost
+    model's ``a2a_v`` (``cost_model.moe_a2a_bytes``), which it equals where
+    n_data = n_model."""
+    from repro_torch.analysis.cost_model import moe_a2a_bytes
+    from repro_torch.models.mlp import moe_capacity
+    from repro_torch.parallel.sharding import ExpertLayout
+
+    rules = variant_rules(mesh, variant)
+    bax = batch_axes(rules, mesh, shape.global_batch)
+    bax = () if bax is None else bax if isinstance(bax, tuple) else (bax,)
+    names = axis_names(mesh)
+    E = cfg.moe.n_experts
+    S = shape.seq_len if shape.kind != "decode" else 1
+    C = moe_capacity(shape.global_batch // accum * S, cfg.moe.top_k, E,
+                     cfg.moe.capacity_factor)
+    lay = ExpertLayout(mesh, (i for i, n in enumerate(names) if n in bax), E, C, rules)
+    b_dev = shape.global_batch / axes_size(bax or None, mesh)
+    return {"capacity": C, "c_pad": lay.c_pad, "rows": lay.c_pad // lay.n_rows,
+            "e_loc": lay.e_loc, "e_col": lay.e_col,
+            "exchange_bytes": lay.e_col * lay.c_pad * cfg.d_model * 2 * accum,
+            "a2a_v": moe_a2a_bytes(cfg, b_dev, S,
+                                   variant if shape.kind == "train" else "base")}
+
+
 def not_ported(cfg, variant: str) -> Optional[str]:
     """Why a cell cannot run on a mesh yet, or None."""
     if cfg.family not in MESH_FAMILIES:
         return f"the {cfg.family} family on a mesh is not ported: {NOT_PORTED}"
-    if variant in MOE_VARIANTS:
-        return f"{variant} is an MoE variant; MoE on a mesh is not ported: {NOT_PORTED}"
     return None
 
 
@@ -535,6 +570,8 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool, variant: str = "bas
         mesh = make_production_mesh(multi_pod=multi_pod, device=device)
         model = build_model(cfg, device)
         rec = trace_on_mesh(model, shape, mesh, variant, device)
+        if cfg.family == "moe":
+            rec["moe_exchange"] = moe_exchange(cfg, shape, mesh, variant, rec["accum"])
     finally:
         dist.destroy_process_group()
     return {"status": "ok", **rec, "compile_s": round(rec["compile_s"], 1),

@@ -16,7 +16,14 @@ process a rank with ``torchrun``, e.g. 4 ranks on the CPU,
 
 where ``debug`` is the reference's (max(1, n//2), min(2, n)) ('data',
 'model') mesh over the n ranks; run alone it is a 1 x 1 mesh (NCCL on the
-card, gloo on the CPU), as the reference's launcher is on one device.
+card, gloo on the CPU), as the reference's launcher is on one device.  The
+dense and MoE families train over a mesh (``train.loop.MESH_FAMILIES``; the
+MoE experts over the 'expert' axes, ``models.mlp.moe_on_mesh``), e.g.
+
+  PYTHONPATH=src torchrun --standalone --nproc_per_node 4 \
+      -m repro_torch.launch.train --arch deepseek-moe-16b --reduced \
+      --device cpu --mesh debug --steps 2 --batch 4 --seq 8
+
 ``prod`` and ``multipod`` need 256 and 512 ranks.  ``--obs`` builds the model with the device telemetry on
 (out-of-domain clamps and quant saturation, counted on the device; a
 checkpointed layer's activations are counted again in its recompute, as

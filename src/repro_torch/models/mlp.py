@@ -10,9 +10,12 @@ paper's table backend via ``act``.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+
+from repro_torch.parallel.sharding import (ExpertLayout, distribute, is_dtensor,
+                                           on_local_shards, unary_on)
 
 from .common import Params, init_linear, linear
 
@@ -103,17 +106,22 @@ def moe_capacity(n_tokens: int, top_k: int, n_experts: int,
     return int(capacity_factor * n_tokens * top_k / n_experts) + 1
 
 
-def moe_dispatch(eidx: torch.Tensor, n_experts: int, capacity: int):
+def moe_dispatch(eidx: torch.Tensor, n_experts: int, capacity: int,
+                 offset: Optional[torch.Tensor] = None):
     """Sort-based dispatch of the T*k (token, expert) slots of ``eidx`` (T, k):
     ``order`` (stable argsort of the slots by expert) and ``dest`` (each
     sorted slot's row of the (E*C) buffer; slots past an expert's
-    ``capacity`` are dropped to the scratch row E*C)."""
+    ``capacity`` are dropped to the scratch row E*C).  ``offset`` (E,): the
+    slots that earlier tokens hold of each expert, when ``eidx`` is one
+    chunk of a batch (a data rank's), so that ``dest`` is the whole batch's."""
     flat_e = eidx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     # rank of each sorted slot within its expert group
     ranks = (torch.arange(flat_e.numel(), device=eidx.device)
              - torch.searchsorted(sorted_e, sorted_e))
+    if offset is not None:
+        ranks = ranks + offset[sorted_e]
     dest = torch.where(ranks < capacity, sorted_e * capacity + ranks,
                        n_experts * capacity)
     return order, dest
@@ -160,7 +168,11 @@ def moe(
     hook, which none of its callers sets, is not carried over.
 
     The combine (``moe_combine``) adds each token's slots in the reference's
-    order, without atomics."""
+    order, without atomics.  A DTensor ``x`` (a mesh) runs
+    :func:`moe_on_mesh`."""
+    if is_dtensor(x):
+        return moe_on_mesh(p, x, act, top_k=top_k, capacity_factor=capacity_factor,
+                           device_groups=device_groups, max_groups=max_groups)
     B, S, d = x.shape
     we = p["experts"]
     E = we["wi"].shape[0]
@@ -195,3 +207,92 @@ def moe(
     if "shared" in p:
         y = y + glu(p["shared"], xt, act)
     return y.reshape(B, S, d), aux
+
+
+def moe_on_mesh(p: Params, x, act: Callable, *, top_k: int, capacity_factor: float,
+                device_groups: int, max_groups: int):
+    """:func:`moe` with expert parallelism over DTensors: x (B, S, d) over the
+    batch dims, each rank holding E_loc experts (``ExpertLayout``), never
+    gathered across the expert dims.  The reference runs ``moe`` under pjit
+    with a global view, and so does this: the capacity counts the whole
+    batch's tokens, a kept slot's rank within its expert is its rank in the
+    global stable sort (the per-expert counts of the lower batch chunks,
+    all-gathered, plus its local rank: ``moe_dispatch``'s ``offset``), and
+    the aux loss takes global means (sums over the batch dims).  So ``dest``
+    equals the unmeshed dispatch's slot for slot.
+
+    The exchange: each rank writes its own kept slots into its column's zero
+    buffer; a reduce-scatter over the batch dims leaves it C_pad / n_rows
+    rows of each of its experts, on which it runs the GLU (the gate through
+    ``unary_on``, on the buffer as a DTensor); an all-gather over the batch
+    dims returns the column's rows, and each rank combines its tokens' slots
+    of its column (``moe_combine``), a sum over the column dims that the
+    caller's ``shard(ff, "batch", None, None)`` all-reduces.  The shared
+    experts take the dense GLU path.  Returns (output, aux loss): the
+    output a DTensor, the aux a plain scalar, the same on every rank."""
+    B, S, d = x.shape
+    we = p["experts"]
+    E = we["wi"].shape[0]
+    T = B * S
+    C = moe_capacity(T, top_k, E, capacity_factor)
+    lay = ExpertLayout.of(x, E, C)
+    mesh = lay.mesh
+    x = x.redistribute(mesh, lay.tokens)
+    place = lambda w, pl: (w.redistribute(mesh, pl) if is_dtensor(w)
+                           else distribute(w, mesh, pl))
+    router = place(p["router"]["w"], lay.replicated)
+    wi, wu, wd = (place(we[k], lay.weights) for k in ("wi", "wu", "wd"))
+
+    def route(xl, w):
+        probs, gate, eidx = moe_route(w, xl.reshape(-1, d), top_k=top_k,
+                                      device_groups=device_groups, max_groups=max_groups)
+        flat_e = eidx.reshape(-1)
+        counts = torch.zeros(E, dtype=flat_e.dtype, device=flat_e.device).scatter_add_(
+            0, flat_e, torch.ones_like(flat_e))
+        return gate, eidx, counts[None], probs.sum(dim=0)
+
+    gate, eidx, counts, psum = on_local_shards(
+        route, (lay.tokens, lay.tokens, lay.tokens, lay.partial_sum), x, router)
+    every = counts.redistribute(mesh, lay.replicated).to_local()  # (chunks, E), in order
+    offset = every[:lay.chunk].sum(dim=0)
+    me = psum.redistribute(mesh, lay.replicated).to_local() / T
+    aux = E * torch.sum(me * (every.sum(dim=0).to(torch.float32) / (T * top_k)))
+
+    columns = lay.column_slots(E, every.device)
+    Cp, scratch = lay.c_pad, lay.e_col * lay.c_pad
+
+    def dispatch(xl, el):
+        order, dest = moe_dispatch(el, E, C, offset)
+        sorted_e = el.reshape(-1)[order]
+        col = columns[sorted_e]
+        row = torch.where((dest < E * C) & (col >= 0), col * Cp + dest - sorted_e * C,
+                          scratch)
+        slot_token = torch.div(order, top_k, rounding_mode="floor")
+        buf = torch.zeros((scratch + 1, d), dtype=xl.dtype, device=xl.device)
+        xe = buf.index_put((row,), xl.reshape(-1, d)[slot_token])[:-1]
+        return xe.reshape(lay.n_shared, lay.e_loc, Cp, d), order, row
+
+    xe, order, row = on_local_shards(dispatch, (lay.partial, lay.tokens, lay.tokens),
+                                     x, eidx)
+    xe = xe.redistribute(mesh, lay.rows)  # reduce-scatter over the batch dims
+
+    def up(xl, wil, wul):
+        return (torch.bmm(xl[0], wil.to(xl.dtype))[None],
+                torch.bmm(xl[0], wul.to(xl.dtype))[None])
+
+    g, u = on_local_shards(up, (lay.rows, lay.rows), xe, wi, wu)
+    h = unary_on(act, g)(g) * u
+    ye = on_local_shards(lambda hl, wdl: torch.bmm(hl[0], wdl.to(hl.dtype))[None],
+                         lay.rows, h, wd)
+    ye = ye.redistribute(mesh, lay.column)  # all-gather over the batch dims
+
+    def combine(yl, ol, rl, gl, el):
+        y = moe_combine(yl.reshape(lay.e_col, Cp, d), ol, rl, gl, el)
+        return y.reshape(-1, S, d)
+
+    y = on_local_shards(combine, lay.combined, ye, order, row, gate, eidx)
+    if "shared" in p:  # on the (T, d) rows, as off the mesh
+        xt = on_local_shards(lambda v: v.reshape(-1, d), lay.tokens, x)
+        sh = glu(p["shared"], xt, unary_on(act, xt))
+        y = y + on_local_shards(lambda v: v.reshape(-1, S, d), tuple(sh.placements), sh)
+    return y, aux

@@ -43,13 +43,15 @@ one stacked tensor a state field, each with one batch axis (the engine's
 slot refill moves rows along it; see ``HybridLM`` and ``XLSTMLM``).  All
 nonlinearities route through ``cfg.approx`` (the paper's table backend).
 
-On a mesh (``repro_torch.parallel.sharding.use_sharding``; the dense family's
-training, ``train.loop.run(mesh=...)``) the parameters and the batch are
+On a mesh (``repro_torch.parallel.sharding.use_sharding``; the dense and MoE
+families, ``train.loop.run(mesh=...)``) the parameters and the batch are
 DTensors: ``shard`` (``shard_activation``) lays the activations out by the
 reference's logical axes at the reference's places, the projections and the
 embedding run on local shards (``sharding.einsum``, ``vocab_lookup``), and so
 do rotary, flash attention and the pack closures, which are local to a
-position and a head; off a mesh every annotation is the identity.
+position and a head; the MoE block runs with expert parallelism
+(``mlp.moe_on_mesh``) and its aux loss comes back a plain scalar, the same on
+every rank; off a mesh every annotation is the identity.
 """
 
 from __future__ import annotations

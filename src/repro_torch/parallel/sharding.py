@@ -138,17 +138,17 @@ def vocab_lookup(table, tokens):
         tokens = replicate_like(tokens, table)
     tp = [Replicate() if p.is_partial() else p for p in tokens.placements]
     tokens = tokens.redistribute(mesh, tp)
-    out, chunk, n_chunks = [], 0, 1
+    rows_dims = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    chunk = chunk_index(mesh, rows_dims)
+    rows = table.shape[0] // math.prod(mesh.size(i) for i in rows_dims)
+    out = []
     for i, p in enumerate(table.placements):
-        if p.is_shard() and p.dim == 0:
-            chunk = chunk * mesh.size(i) + mesh.get_local_rank(i)
-            n_chunks *= mesh.size(i)
+        if i in rows_dims:
             out.append(Partial())
         elif p.is_shard():
             out.append(Shard(tokens.ndim))
         else:
             out.append(tp[i])
-    rows = table.shape[0] // n_chunks
 
     def local(t, ids):
         idx = ids - chunk * rows
@@ -270,11 +270,14 @@ def grad_placements(in_pl, out_pl) -> tuple:
     """Where a local function's input gradient lies: an input replicated
     over a mesh dim on which the output is sharded or partial was used
     differently on each rank of that dim, so its gradient there is the sum
-    of the ranks' (``Partial``); elsewhere the input's own placement."""
+    of the ranks' (``Partial``); an input that is a pending sum (``Partial``)
+    takes the whole gradient on every rank (``Replicate``); elsewhere the
+    input's own placement."""
     from torch.distributed.tensor import Partial, Replicate
 
     return tuple(Partial() if isinstance(i, Replicate) and not isinstance(o, Replicate)
-                 else i for i, o in zip(in_pl, out_pl))
+                 else Replicate() if isinstance(i, Partial) else i
+                 for i, o in zip(in_pl, out_pl))
 
 
 def on_local_shards(fn, out_placements, *args):
@@ -311,6 +314,110 @@ def elementwise(fn, x, *rows):
         x = x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
                                            for p in x.placements])
     return on_local_shards(fn, tuple(x.placements), x, *(batch_like(r, x) for r in rows))
+
+
+def chunk_index(mesh, dims) -> int:
+    """This rank's chunk of a tensor dim sharded over the mesh dims ``dims``
+    (indices in mesh order): its coordinates read as one mixed-radix
+    number, the first dim major, which is how DTensor orders the chunks
+    (the batch over ('pod', 'data') is pod-major)."""
+    c = 0
+    for i in dims:
+        c = c * mesh.size(i) + mesh.get_local_rank(i)
+    return c
+
+
+class ExpertLayout:
+    """Where the MoE block's tokens, experts and (E, C, d) dispatch buffer
+    lie on a mesh (expert parallelism; ``models.mlp.moe`` on DTensors).
+
+    The tokens lie over the *batch* dims (those that shard x's rows), the
+    experts over the *expert* dims (the 'expert' rule's axes, where they
+    divide E; E_loc experts a rank).  A dim in both (the 'pod' axis of
+    2x16x16) is *shared*; the expert dims outside the batch make a rank's
+    *column*, the batch dims outside the experts its *rows*.  The ranks of
+    one batch chunk hold the same tokens, and a rank takes the slots of
+    its column's E_col = E_loc x n_shared experts.  The buffer is handled
+    in a 4-D view (n_shared, n_column x E_loc, C_pad, d), C_pad being the
+    capacity rounded up to a multiple of the rows' ranks:
+
+      * ``partial``: each rank's own slots written into its column's zero
+        buffer, a sum over the batch dims (disjoint rows: x + 0 = x);
+      * ``rows``: after the reduce-scatter over the batch dims, the rank's
+        own experts (its shared block) and C_pad / n_rows of their rows;
+      * ``column``: after the all-gather over the batch dims, every row of
+        the column's experts, for the combine, whose output is a sum over
+        the column dims (``combined``).
+
+    Expert weights lie as ``weights``: the expert dims shard E, in mesh
+    order (``param_pspecs``' ('pod', 'model')).  Dims in neither set (a
+    batch that does not divide them) repeat the same work."""
+
+    def __init__(self, mesh, batch, n_experts: int, capacity: int,
+                 rules: Optional[Dict[str, Any]] = None):
+        """``batch``: the indices of the mesh dims that shard the tokens;
+        ``rules``: the logical rules (the active binding's by default)."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        self.mesh = mesh
+        names = axis_names(mesh)
+        if rules is None:
+            b = getattr(_ctx, "binding", None)
+            rules = b[1] if b and b[0] is not None else default_rules(mesh)
+        ex = divisible_axes(rules.get("expert"), mesh, n_experts)
+        ex = () if ex is None else ex if isinstance(ex, tuple) else (ex,)
+        batch = tuple(batch)
+        expert = tuple(i for i, n in enumerate(names) if n in ex)
+        self.batch, self.expert = batch, expert
+        shared = tuple(i for i in expert if i in batch)
+        column = tuple(i for i in expert if i not in batch)
+        rows = tuple(i for i in batch if i not in expert)
+        size = lambda dims: math.prod(mesh.size(i) for i in dims)
+        self.n_shared, self.n_rows = size(shared), size(rows)
+        self.e_loc = n_experts // size(expert)
+        self.e_col = self.e_loc * self.n_shared
+        self.c_pad = -(-capacity // self.n_rows) * self.n_rows
+        self.chunk = chunk_index(mesh, batch)
+        self._column = column
+        ndim = mesh.ndim
+        R = Replicate()
+        self.replicated = [R] * ndim
+        self.tokens = [Shard(0) if i in batch else R for i in range(ndim)]
+        self.weights = [Shard(0) if i in expert else R for i in range(ndim)]
+        self.partial_sum = [Partial() if i in batch else R for i in range(ndim)]
+        self.partial = [Partial() if i in batch else Shard(1) if i in column else R
+                        for i in range(ndim)]
+        self.rows = [Shard(0) if i in shared else Shard(2) if i in rows
+                     else Shard(1) if i in column else R for i in range(ndim)]
+        self.column = [Shard(1) if i in column else R for i in range(ndim)]
+        self.combined = [Shard(0) if i in batch else Partial() if i in column else R
+                         for i in range(ndim)]
+
+    @classmethod
+    def of(cls, x, n_experts: int, capacity: int) -> "ExpertLayout":
+        """The layout of the MoE block's input ``x`` (a DTensor: its rows
+        lie over the mesh dims that shard its dim 0)."""
+        return cls(x.device_mesh, (i for i, p in enumerate(x.placements) if p.is_shard(0)),
+                   n_experts, capacity)
+
+    def column_slots(self, n_experts: int, device) -> torch.Tensor:
+        """(E,) int64: each expert's slot among this rank's column's E_col
+        experts (shared block major, then the expert within its block), -1
+        for the experts of other columns."""
+        mesh = self.mesh
+        e = torch.arange(n_experts, device=device)
+        block = torch.div(e, self.e_loc, rounding_mode="floor")
+        mine = torch.ones_like(e, dtype=torch.bool)
+        shared = torch.zeros_like(e)
+        stride = math.prod(mesh.size(i) for i in self.expert)
+        for i in self.expert:  # the block's coordinate on each expert dim
+            stride //= mesh.size(i)
+            coord = torch.div(block, stride, rounding_mode="floor") % mesh.size(i)
+            if i in self._column:
+                mine &= coord == mesh.get_local_rank(i)
+            else:
+                shared = shared * mesh.size(i) + coord
+        return torch.where(mine, shared * self.e_loc + e % self.e_loc, -1)
 
 
 def batch_like(t, x):

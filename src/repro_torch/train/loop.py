@@ -124,7 +124,11 @@ def micro_batch(batch, accum: int, a: int):
     """Micro-batch ``a`` of ``accum``: rows [a*b, (a+1)*b) of each tensor,
     b = B / accum.  A DTensor split over its rows (the dry run's batch over
     the batch axes) is cut on each rank's own rows, so no micro-batch
-    gathers: ``accum`` must divide the rows a rank holds."""
+    gathers: ``accum`` must divide the rows a rank holds.  Such a
+    micro-batch holds other rows than [a*b, (a+1)*b): for an MoE stack,
+    whose capacity and drops are the micro-batch's as a whole, that is the
+    reference's step on the batch with its rows permuted (``run`` places
+    the batch replicated and cuts the reference's rows)."""
     def cut(v):
         if is_dtensor(v) and any(p.is_shard(0) for p in v.placements):
             return on_local_shards(lambda t: t.reshape(accum, -1, *t.shape[1:])[a],
@@ -226,7 +230,7 @@ def init_state(model) -> Dict[str, Any]:
 
 # what trains over a mesh so far (ROADMAP queue 1, item 12c: the rest)
 MESH_MODES = ("table_pack", "sharded_pack", "sharded_pack_ref", "table_ref", "exact")
-MESH_FAMILIES = ("dense",)
+MESH_FAMILIES = ("dense", "moe")
 
 
 def check_mesh_training(model) -> None:
@@ -235,7 +239,7 @@ def check_mesh_training(model) -> None:
     if mode not in MESH_MODES or family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"training {family!r} in approx mode {mode!r} over a mesh is not "
-            f"ported (so far: the {'/'.join(MESH_FAMILIES)} family in "
+            f"ported (so far: the {'/'.join(MESH_FAMILIES)} families in "
             f"{', '.join(MESH_MODES)}): ROADMAP queue 1, item 12c")
 
 

@@ -99,11 +99,14 @@ def _layout(t) -> tuple:
 
 
 def _mesh(shape):
+    """A CPU mesh of ``shape``: ('data', 'model'), or ('pod', 'data',
+    'model') for three dims."""
     import torch
     from torch.distributed.device_mesh import DeviceMesh
 
+    names = ("pod", "data", "model")[-len(shape):]
     return DeviceMesh("cpu", torch.arange(int(np.prod(shape))).reshape(shape),
-                      mesh_dim_names=("data", "model"))
+                      mesh_dim_names=names)
 
 
 @task
@@ -173,10 +176,15 @@ def pack_on_mesh(shape, e_a, omega, xs):
             "first_shard": pack.first_shard}
 
 
-def _reduced_cfg(mode, shards):
+def _reduced_cfg(mode, shards, arch=None):
+    """Reduced stablelm (d_model 64, d_ff 128, 4 heads), or ``arch``'s reduced
+    config (the MoE ones: E 4, k 2), in ``mode`` at ``shards`` pack shards."""
     from repro_torch.models import reduced
 
-    cfg = reduced("stablelm-3b").replace(d_model=64, d_ff=128, n_heads=4, n_kv_heads=4)
+    if arch is None:
+        cfg = reduced("stablelm-3b").replace(d_model=64, d_ff=128, n_heads=4, n_kv_heads=4)
+    else:
+        cfg = reduced(arch)
     return cfg.replace(approx=dataclasses.replace(cfg.approx, mode=mode,
                                                   pack_shards=shards))
 
@@ -192,8 +200,10 @@ def _tensors(tree):
 
 
 @task
-def train_on_mesh(shape, mode, shards, params, batch, lr, accum):
-    """Reduced stablelm on a ``shape`` mesh in ``mode`` with the given
+def train_on_mesh(shape, mode, shards, params, batch, lr, accum, arch=None,
+                  compute_dtype=None):
+    """Reduced stablelm (or ``arch``, computing in ``compute_dtype`` if
+    given) on a ``shape`` mesh in ``mode`` with the given
     weights (the port's tree, numpy): the sharded loss under
     ``use_sharding``, then one WUS step (f32 master and moments in the
     ZeRO-1 layout, bf16 TP work copy, ``accum`` micro-batches), with the
@@ -212,7 +222,9 @@ def train_on_mesh(shape, mode, shards, params, batch, lr, accum):
     from repro_torch.tree import leaves, tree_map, unflatten
 
     mesh = _mesh(shape)
-    cfg = _reduced_cfg(mode, shards)
+    cfg = _reduced_cfg(mode, shards, arch)
+    if compute_dtype is not None:
+        cfg = cfg.replace(compute_dtype=compute_dtype)
     model = build_model(cfg, "cpu", mesh=mesh)
     batch = L.batch_to(batch, "cpu")
     counts = {"mesh": 0, "off": 0}
@@ -442,8 +454,8 @@ def fault_on_one_rank(root, how):
 
 
 @task
-def serve_dtensor(params, prompts, refill, slot, steps, cache_len, compute_dtype):
-    """Reduced stablelm (table_pack) serving with DTensor params and a
+def serve_dtensor(params, prompts, refill, slot, steps, cache_len, compute_dtype, arch=None):
+    """Reduced stablelm (or ``arch``; table_pack) serving with DTensor params and a
     DTensor cache on a (2, 2) mesh (``param_pspecs``, ``cache_pspecs``; the
     batch over 'data', the heads over 'model'): prefill ``prompts`` (B, S),
     ``steps`` greedy decode steps with per-slot (B,) positions, refill
@@ -463,8 +475,8 @@ def serve_dtensor(params, prompts, refill, slot, steps, cache_len, compute_dtype
     from repro_torch.tree import tree_map
 
     mesh = _mesh((2, 2))
-    model = build_model(_reduced_cfg("table_pack", 2).replace(compute_dtype=compute_dtype),
-                        "cpu")
+    model = build_model(_reduced_cfg("table_pack", 2, arch)
+                        .replace(compute_dtype=compute_dtype), "cpu")
     like = _tensors(params)
     pl = shardings_from_specs(mesh, param_pspecs(like, mesh), like)
     dp = tree_map(lambda t, p: distribute(t, mesh, p), like, pl)
@@ -512,22 +524,29 @@ def serve_dtensor(params, prompts, refill, slot, steps, cache_len, compute_dtype
 
 
 @task
-def decode_collectives(params, batch, cache_len):
-    """One decode step of reduced stablelm (table_pack) placed by the dry
-    run (``launch.dryrun.place_cell``, bf16 params) on a (2, 2) mesh, with
-    its collectives counted (``CommDebugMode``) and their bytes."""
+def step_collectives(params, batch, cache_len, arch=None):
+    """One decode step of reduced stablelm (or ``arch``; table_pack) placed
+    by the dry run (``launch.dryrun.place_cell``, bf16 params) on a (2, 2)
+    mesh, with its collectives counted (``CommDebugMode``) and their bytes;
+    a batch with ``tokens`` and ``targets`` makes it one training step
+    instead (the dry run's WUS placement, one micro-batch)."""
     import torch
 
     from repro_torch.launch import dryrun
     from repro_torch.models import ShapeSpec, build_model
 
     mesh = _mesh((2, 2))
-    model = build_model(_reduced_cfg("table_pack", 2), "cpu")
-    B = batch["tok"].shape[0]
-    shape = ShapeSpec("decode", cache_len, B, "decode")
-    cell = dryrun.place_cell(model, shape, mesh, "base", _tensors(params),
-                             {k: torch.as_tensor(v) for k, v in batch.items()},
-                             model.init_cache(B, cache_len))
+    model = build_model(_reduced_cfg("table_pack", 2, arch), "cpu")
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    if "targets" in batch:
+        B, S = batch["tokens"].shape
+        cell = dryrun.place_cell(model, ShapeSpec("train", S, B, "train"), mesh, "base",
+                                 _tensors(params), batch, accum=1)
+    else:
+        B = batch["tok"].shape[0]
+        shape = ShapeSpec("decode", cache_len, B, "decode")
+        cell = dryrun.place_cell(model, shape, mesh, "base", _tensors(params), batch,
+                                 model.init_cache(B, cache_len))
     return dryrun.collective_bytes(cell.run)
 
 
@@ -598,3 +617,110 @@ def ddp_step(params, batch, lr):
         except ValueError as e:
             out["refused"].append(str(e))
     return out
+
+
+@task
+def moe_layer_on_mesh(shape, params, x, r, cases):
+    """One MoE block (``models.mlp.moe``) forward and backward on a ``shape``
+    mesh (('data', 'model'), or ('pod', 'data', 'model') for three dims),
+    its params placed by ``param_pspecs``' rules (experts over the 'expert'
+    axes, the shared experts' GLU over 'ff'), x (B, S, d) over the batch
+    axes; and the same block off the mesh on the same values.  ``cases``:
+    (dtype, capacity_factor, device_groups, max_groups) each.  The loss is
+    sum(y * r) + aux / 2.  Returns per case both outputs, aux losses and
+    grads (x first, then the params' leaves), every slot's ``dest`` both
+    ways (the mesh's through a spy on ``moe_dispatch`` with its chunk
+    ``offset``), the local shapes of the expert weights and of the gate's
+    buffer, and the shapes that every all-gather produced."""
+    import torch
+    from torch.distributed.tensor import Replicate
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import mlp
+    from repro_torch.parallel.sharding import (P, default_rules, distribute, to_placements,
+                                               use_sharding)
+    from repro_torch.tree import leaves, tree_map
+
+    mesh = _mesh(shape)
+    rules = default_rules(mesh)
+    ex = rules["expert"]
+    specs = {"router": {"w": P()},
+             "experts": {k: P(ex, None, None) for k in ("wi", "wu", "wd")},
+             "shared": {"wi": {"w": P(None, "model")}, "wu": {"w": P(None, "model")},
+                        "wd": {"w": P("model", None)}}}
+    top_k = 2
+    dispatch = mlp.moe_dispatch
+
+    class Gathers(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if "all_gather" in str(func):
+                self.shapes.append(tuple(out.shape))
+            return out
+
+    out = []
+    for dtype, cf, groups, best in cases:
+        dt = getattr(torch, dtype)
+        kw = dict(top_k=top_k, capacity_factor=cf, device_groups=groups, max_groups=best)
+        # off the mesh
+        tp = tree_map(lambda t: t.to(dt).requires_grad_(True), _tensors(params))
+        xt = torch.from_numpy(x).to(dt).requires_grad_(True)
+        rt = torch.from_numpy(r).to(dt)
+        seen = []
+        mlp.moe_dispatch = lambda e, n, c, offset=None: seen.append(
+            (e, offset, dispatch(e, n, c, offset))) or seen[-1][2]
+        acts = []
+
+        def act(v):
+            acts.append(tuple(v.shape))
+            return torch.nn.functional.silu(v)
+
+        try:
+            y0, a0 = mlp.moe(tp, xt, act, **kw)
+            g0 = torch.autograd.grad((y0.float() * rt.float()).sum() + a0 / 2,
+                                     [xt] + leaves(tp))
+            off_dest = _slot_dest(*seen[-1])
+            # on the mesh
+            sp = {k: v for k, v in specs.items() if k in params}
+            dp = tree_map(lambda t, s: distribute(t.to(dt), mesh, to_placements(s, mesh))
+                          .requires_grad_(True), _tensors(params), sp)
+            with use_sharding(mesh):
+                xd = distribute(torch.from_numpy(x).to(dt), mesh,
+                                to_placements(P(rules["batch"], None, None), mesh))
+                xd.requires_grad_(True)
+                seen.clear()
+                acts.clear()
+                gathers = Gathers()
+                with gathers:
+                    y, aux = mlp.moe(dp, xd, act, **kw)
+                    yf = y.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+                    g = torch.autograd.grad((yf.float() * rt.float()).sum() + aux / 2,
+                                            [xd] + leaves(dp))
+        finally:
+            mlp.moe_dispatch = dispatch
+        (el, offset, res), = [s_ for s_ in seen if s_[1] is not None]
+        full = lambda t: (t.full_tensor() if hasattr(t, "full_tensor") else t)
+        out.append({
+            "y": y0.detach().float().numpy(), "aux": float(a0),
+            "grads": [t.float().numpy() for t in g0],
+            "mesh_y": yf.detach().float().numpy(), "mesh_aux": float(aux),
+            "mesh_grads": [full(t).float().numpy() for t in g],
+            "dest": off_dest, "mesh_dest": _slot_dest(el, offset, res),
+            "capacity": mlp.moe_capacity(x.shape[0] * x.shape[1], top_k,
+                                         params["experts"]["wi"].shape[0], cf),
+            "experts_local": {k: tuple(dp["experts"][k].to_local().shape)
+                              for k in ("wi", "wu", "wd")},
+            "gate_local": acts[0], "gathered": gathers.shapes})
+    return out
+
+
+def _slot_dest(eidx, offset, res):
+    """Each (token, k) slot's ``dest`` (T, k) from a dispatch's sorted
+    ``order`` and ``dest``."""
+    order, dest = res
+    return dest.new_empty(dest.shape).scatter_(0, order, dest).reshape(
+        eidx.shape).numpy()

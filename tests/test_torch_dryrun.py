@@ -54,7 +54,10 @@ from repro_torch.models.registry import ARCH_IDS
 from repro_torch.parallel import cache_specs, params
 
 DENSE = [a for a in ARCH_IDS if get_config(a).family == "dense"]
+MOE = [a for a in ARCH_IDS if get_config(a).family == "moe"]
 VARIANTS = ("base", "fsdp", "ddp", "accum4", "no_remat", "exact")
+# the families whose cells the dry run records ``not_ported`` (item 12c)
+NOT_PORTED_FAMILIES = ("hybrid", "xlstm", "encdec", "vlm")
 MESHES = {"16x16": (("data", "model"), (16, 16)),
           "2x16x16": (("pod", "data", "model"), (2, 16, 16))}
 # the reference's committed record of stablelm-3b|decode_32k|16x16|base
@@ -184,7 +187,7 @@ def reckon_argument_bytes(jm, abstract, shape, mesh, variant):
 
 
 @pytest.mark.parametrize("mesh_name", list(MESHES))
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_argument_bytes_equal_reference(arch, mesh_name, fake_world):
     names, shape_ = MESHES[mesh_name]
     jm = j_build_model(j_get_config(arch))
@@ -192,7 +195,7 @@ def test_argument_bytes_equal_reference(arch, mesh_name, fake_world):
     fake_world(int(np.prod(shape_)))
     mesh = make_production_mesh(multi_pod=mesh_name == "2x16x16", device="cpu")
     models = {}
-    for variant in VARIANTS:
+    for variant in VARIANTS + (dryrun.MOE_VARIANTS if arch in MOE else ()):
         cfg = dryrun.apply_variant(get_config(arch), variant)
         if repr(cfg) not in models:  # base, fsdp, ddp and accum4 share one
             models[repr(cfg)] = build_model(cfg, "cpu")
@@ -366,9 +369,21 @@ def test_trace_equals_real_step(kind):
     real tensors (the same meters, ``trace_cell``), and so does the peak
     within 4 KiB: the real run keeps a few scalars alive a little longer
     (600 B seen), though it makes no allocation the trace lacks."""
+    _trace_against_real("stablelm-3b", kind)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_moe_trace_equals_real_step(kind):
+    """:func:`test_trace_equals_real_step` for reduced deepseek-moe-16b (E 4,
+    k 2, shared experts) at 4 layers: the MoE block on the mesh
+    (``models.mlp.moe_on_mesh``) traced and run for real."""
+    _trace_against_real("deepseek-moe-16b", kind)
+
+
+def _trace_against_real(arch, kind):
     from repro_torch.launch.mesh import make_debug_mesh
 
-    cfg = reduced("stablelm-3b").replace(n_layers=4, remat=True)
+    cfg = reduced(arch).replace(n_layers=4, remat=True)
     cfg = cfg.replace(approx=dataclasses.replace(cfg.approx, mode="exact"))
     model = build_model(cfg, "cpu")
     shape, accum = {"train": (ShapeSpec("t", 8, 4, "train"), 2),
@@ -405,21 +420,21 @@ def _listing(root):
 
 def test_cli_writes_its_out_file_only(tmp_path, capsys):
     """One full-width cell (stablelm-3b's decode_32k on (16, 16), its
-    arguments the reference's figure) and a cell of the MoE family
+    arguments the reference's figure) and a cell of the hybrid family
     (``not_ported``, citing item 12c) written to ``--out``, merged; nothing
     under ``benchmarks/``; the fake world taken down."""
     bench = os.path.join(os.path.dirname(__file__), "..", "benchmarks")
     before = _listing(bench)
     out = str(tmp_path / "dry.json")
     dryrun.main(["--arch", "stablelm-3b", "--shape", "decode_32k", "--out", out])
-    res = dryrun.main(["--arch", "deepseek-moe-16b", "--shape", "decode_32k", "--out", out])
+    res = dryrun.main(["--arch", "zamba2-1.2b", "--shape", "decode_32k", "--out", out])
     assert not dist.is_initialized()
     assert _listing(bench) == before
-    assert sorted(res) == ["deepseek-moe-16b|decode_32k|16x16|base",
-                           "stablelm-3b|decode_32k|16x16|base"]
+    assert sorted(res) == ["stablelm-3b|decode_32k|16x16|base",
+                           "zamba2-1.2b|decode_32k|16x16|base"]
     assert res == dryrun.load_results(out)
-    moe = res["deepseek-moe-16b|decode_32k|16x16|base"]
-    assert moe["status"] == "not_ported" and "item 12c" in moe["reason"]
+    hybrid = res["zamba2-1.2b|decode_32k|16x16|base"]
+    assert hybrid["status"] == "not_ported" and "item 12c" in hybrid["reason"]
     rec = res["stablelm-3b|decode_32k|16x16|base"]
     assert rec["status"] == "ok" and rec["n_chips"] == 256 and rec["kind"] == "decode"
     assert rec["memory"]["argument_size_in_bytes"] == STABLELM_DECODE_32K_ARGS
@@ -440,3 +455,19 @@ def test_cli_writes_its_out_file_only(tmp_path, capsys):
     assert "[run] stablelm-3b|decode_32k|16x16|base" in capsys.readouterr().out
     dryrun.main(["--arch", "stablelm-3b", "--shape", "decode_32k", "--out", out])
     assert "[cached]" in capsys.readouterr().out
+
+
+def test_not_ported_names_the_remaining_families():
+    """The dense and MoE families' cells trace, the MoE variants cf10 and
+    limit4 included; only the hybrid, xLSTM, encoder-decoder and VLM
+    families' cells are ``not_ported``."""
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for variant in ("base",) + dryrun.MOE_VARIANTS:
+            why = dryrun.not_ported(cfg, variant)
+            if cfg.family in NOT_PORTED_FAMILIES:
+                assert why and "item 12c" in why and cfg.family in why, (arch, variant)
+            else:
+                assert why is None, (arch, variant)
+    assert {get_config(a).family for a in ARCH_IDS} - set(NOT_PORTED_FAMILIES) == \
+        {"dense", "moe"}

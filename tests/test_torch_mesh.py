@@ -184,11 +184,18 @@ def test_sharded_pack_pspecs_match_reference():
 
 
 def test_mesh_training_scope_is_refused_beyond_this_slice():
-    for arch, mode in (("stablelm-3b", "quant_pack"), ("zamba2-1.2b", "table_pack")):
+    for arch, mode in (("stablelm-3b", "quant_pack"), ("zamba2-1.2b", "table_pack"),
+                       ("deepseek-moe-16b", "quant_pack")):
         cfg = reduced(arch)
         cfg = cfg.replace(approx=dataclasses.replace(cfg.approx, mode=mode))
         with pytest.raises(NotImplementedError, match="item 12c"):
             loop.check_mesh_training(build_model(cfg, "cpu"))
+    assert loop.MESH_FAMILIES == ("dense", "moe")
+    for arch in ("stablelm-3b", "deepseek-moe-16b", "qwen3-moe-235b-a22b"):
+        for mode in loop.MESH_MODES:  # the dense and MoE families train in every mode
+            cfg = reduced(arch)
+            loop.check_mesh_training(build_model(
+                cfg.replace(approx=dataclasses.replace(cfg.approx, mode=mode)), "cpu"))
 
 
 # --------------------------------------------------------------------------------------
@@ -284,19 +291,31 @@ def reference_step(reference_steps):
     return reference_steps("table_pack")
 
 
-def _reference_step(ref_mode):
+def _reference_step(ref_mode, arch=None, compute_dtype=None):
     """The reference's reduced stablelm (its PREAMBLE's config, in
-    ``ref_mode``), its loss and one unsharded step, eagerly."""
-    jcfg = j_reduced("stablelm-3b").replace(d_model=64, d_ff=128, n_heads=4, n_kv_heads=4)
+    ``ref_mode``), or ``arch``'s reduced config, its loss and one unsharded
+    step, eagerly.  ``compute_dtype`` (the MoE steps): computing in it, from
+    weights rounded to bf16 values, which the WUS work copy then holds
+    exactly."""
+    if arch is None:
+        jcfg = j_reduced("stablelm-3b").replace(d_model=64, d_ff=128, n_heads=4,
+                                                n_kv_heads=4)
+    else:
+        jcfg = j_reduced(arch)
     jcfg = jcfg.replace(approx=dataclasses.replace(jcfg.approx, mode=ref_mode))
+    if compute_dtype is not None:
+        jcfg = jcfg.replace(compute_dtype=compute_dtype)
     jm = j_build_model(jcfg)
     batch = make_batch(jcfg, B=8, S=16)
     jparams = jm.init(jax.random.key(0))
+    if compute_dtype is not None:
+        jparams = jax.tree.map(lambda t: t.astype(jnp.bfloat16).astype(t.dtype), jparams)
     opt = j_adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10, clip_norm=0.0)
     state = {"params": jparams, "opt": j_adamw.init(jparams),
              "step": jnp.zeros((), jnp.int32)}
     new_state, metrics = jax.jit(j_make_train_step(jm, opt))(state, batch)
-    tcfg = reduced("stablelm-3b").replace(d_model=64, d_ff=128, n_heads=4, n_kv_heads=4)
+    tcfg = (reduced("stablelm-3b").replace(d_model=64, d_ff=128, n_heads=4, n_kv_heads=4)
+            if arch is None else reduced(arch))
     port_params = params_from_jax(tcfg, jax.tree.map(np.asarray, jparams), "cpu")
     return {"loss": float(jax.jit(jm.loss)(jparams, batch)),
             "step_loss": float(metrics["loss"]),
@@ -304,7 +323,7 @@ def _reference_step(ref_mode):
             "params": jax.tree.map(lambda t: t.numpy(), port_params,
                                    is_leaf=lambda t: isinstance(t, torch.Tensor)),
             "batch": {k: np.asarray(v) for k, v in batch.items()},
-            "jm": jm, "jparams": jparams}
+            "jm": jm, "jparams": jparams, "compute_dtype": compute_dtype}
 
 
 MESH_MODES = ["sharded_pack", "table_pack", "sharded_pack_ref", "table_ref", "exact"]
@@ -330,11 +349,13 @@ def test_training_on_mesh_accumulates_as_unmeshed(mode, reference_steps, pool):
     _train_on_mesh(mode, 2, reference_steps(mode), pool)
 
 
-def _train_on_mesh(mode, accum, ref, pool):
+def _train_on_mesh(mode, accum, ref, pool, arch=None):
     """One WUS step on a (2, 2) mesh against the reference's loss and the
-    port's unmeshed step; every rank's result."""
+    port's unmeshed step (reduced stablelm, or ``arch``); every rank's
+    result."""
     res = pool.run("train_on_mesh", shape=(2, 2), mode=mode, shards=2,
-                   params=ref["params"], batch=ref["batch"], lr=1e-3, accum=accum)
+                   params=ref["params"], batch=ref["batch"], lr=1e-3, accum=accum,
+                   arch=arch, compute_dtype=ref["compute_dtype"])
     for r in res:
         assert abs(r["loss"] - ref["loss"]) < 1e-3  # sharded reductions reorder sums
         # the f32 master is spread over the whole mesh (ZeRO-1): embed/table
@@ -416,10 +437,15 @@ def test_decode_and_prefill_over_dtensors_match_reference(reference_step, pool):
     within the bf16 tolerance of tests/test_torch_model.py.  Both compute in
     f32: the reduced model's random weights leave near ties (top-2 margins
     of 0.002 at logits of 0.5) that bf16 rounding flips either way."""
+    _serve_against_reference(reference_step, pool)
+
+
+def _serve_against_reference(ref, pool, arch=None):
+    """The body of :func:`test_decode_and_prefill_over_dtensors_match_reference`
+    for reduced stablelm, or ``arch`` (``ref`` its reference step)."""
     from repro.serving.engine import cache_batch_axes as j_cache_batch_axes
     from repro.serving.engine import scatter_cache_slots as j_scatter
 
-    ref = reference_step
     jm = j_build_model(ref["jm"].cfg.replace(compute_dtype="float32"))
     jp = ref["jparams"]
     B, S, T, steps, slot = 4, 8, 32, 3, 1
@@ -427,7 +453,7 @@ def test_decode_and_prefill_over_dtensors_match_reference(reference_step, pool):
     rng = np.random.default_rng(5)
     prompts, refill = (rng.integers(0, V, (B, S)).astype(np.int32) for _ in range(2))
     res = pool.run("serve_dtensor", params=ref["params"], prompts=prompts, refill=refill,
-                   slot=slot, steps=steps, cache_len=T, compute_dtype="float32")
+                   slot=slot, steps=steps, cache_len=T, compute_dtype="float32", arch=arch)
     prefill, dec = jax.jit(jm.prefill), jax.jit(jm.decode_step)
     want_logits, want_tokens = [], []
     pos = np.full((B,), S, np.int32)
@@ -478,7 +504,7 @@ def test_dryrun_collectives_equal_real_step(reference_step, pool):
     B, T = 4, 16
     rng = np.random.default_rng(7)
     batch = {"tok": rng.integers(0, 128, (B, 1)).astype(np.int32), "pos": np.int32(5)}
-    real = pool.run("decode_collectives", params=reference_step["params"], batch=batch,
+    real = pool.run("step_collectives", params=reference_step["params"], batch=batch,
                     cache_len=T)
     cfg = reduced("stablelm-3b").replace(d_model=64, d_ff=128, n_heads=4, n_kv_heads=4)
     model = build_model(cfg.replace(approx=dataclasses.replace(cfg.approx, mode="table_pack")),
